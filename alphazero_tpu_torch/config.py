@@ -1,0 +1,38 @@
+"""Search configuration of the port.
+
+The same fields, defaults and meaning as ``alphazero_tpu.config.MCTSConfig``
+(see there for each knob's rationale), held here so that the port and
+anything that runs it import nothing of the JAX package;
+``tests/test_torch_imports.py`` pins the two dataclasses to each other.
+``MCTSConfig(**dataclasses.asdict(jax_cfg))`` converts a JAX config.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+# PUCT exploration epsilon (alphazero_tpu.config.PUCT_EPS)
+PUCT_EPS = 1e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class MCTSConfig:
+    num_sims: int = 100              # simulations per move
+    cpuct: float = 1.0               # PUCT exploration constant
+    max_depth: int = 64              # descent depth cutoff
+    max_nodes: Optional[int] = None  # tree capacity per game (num_sims + 1)
+    dirichlet_alpha: Optional[float] = None  # root noise; None = off
+    dirichlet_frac: float = 0.25
+    parallel_sims: int = 1           # K leaf-parallel descents per round
+    forced_playouts: Optional[float] = None  # opt-in (dense engine)
+    transposition: bool = False      # opt-in transposition-DAG engine
+    gumbel: bool = False             # opt-in Gumbel sequential halving
+    gumbel_top_m: int = 16
+    gumbel_c_visit: float = 50.0
+    gumbel_value_scale: float = 0.1
+    tree_reuse: bool = False         # opt-in subtree carry (dense engine)
+
+    @property
+    def nodes(self) -> int:
+        return self.max_nodes if self.max_nodes is not None else self.num_sims + 1

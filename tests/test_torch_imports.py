@@ -1,0 +1,83 @@
+"""The port stands alone: it imports with ``jax`` (and the JAX package)
+unavailable, reaches no compiler or library kernel in place of its own,
+and its search config is the JAX package's, field for field."""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+from alphazero_tpu import config as jax_config
+from alphazero_tpu_torch import config as port_config
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PORT = REPO / "alphazero_tpu_torch"
+
+_BLOCK = "import sys\nfor m in {mods!r}:\n    sys.modules[m] = None\n"
+
+
+def _port_sources():
+    """The port's Python files (``csrc/`` holds CUDA sources and builds)."""
+    return sorted(f for f in PORT.rglob("*.py") if "csrc" not in f.relative_to(PORT).parts)
+
+
+def _run(code: str) -> subprocess.CompletedProcess:
+    return subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120
+    )
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    modules = sorted(
+        "alphazero_tpu_torch" + "".join("." + p for p in f.relative_to(PORT).with_suffix("").parts)
+        for f in _port_sources()
+    )
+    modules = [m.removesuffix(".__init__") for m in modules]
+    code = _BLOCK.format(mods=["jax", "jaxlib", "flax", "optax", "alphazero_tpu"]) + (
+        "import importlib\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'alphazero_tpu') "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print(len([m for m in sys.modules if m.startswith('alphazero_tpu_torch')]))\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip()) >= 10
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """No CUDA device: non-zero exit and no result line (and the script
+    itself needs neither JAX nor the JAX package to get there)."""
+    code = _BLOCK.format(mods=["jax", "jaxlib", "flax", "alphazero_tpu"]) + (
+        "import runpy\nrunpy.run_path('chip_smoke.py', run_name='__main__')\n"
+    )
+    proc = _run(code)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
+
+
+def test_jax_package_config_is_jax_free():
+    """The JAX package's config imports only the standard library."""
+    proc = _run(_BLOCK.format(mods=["jax", "jaxlib", "flax"]) + "import alphazero_tpu.config\n")
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_config_mirrors_the_jax_package():
+    jf = {f.name: f.default for f in dataclasses.fields(jax_config.MCTSConfig)}
+    pf = {f.name: f.default for f in dataclasses.fields(port_config.MCTSConfig)}
+    assert jf == pf
+    assert port_config.PUCT_EPS == jax_config.PUCT_EPS
+    for kw in ({}, {"num_sims": 7}, {"num_sims": 7, "max_nodes": 3}):
+        assert port_config.MCTSConfig(**kw).nodes == jax_config.MCTSConfig(**kw).nodes
+
+
+@pytest.mark.parametrize("needle", ["torch.compile", "import triton", "cpp_extension"])
+def test_no_compiler_or_library_kernel_stands_in(needle):
+    """The hybrid kernels are hand-written CUDA built with nvcc; nothing in
+    the port routes them through torch.compile or cpp_extension."""
+    hits = [str(f) for f in _port_sources() if needle in f.read_text()]
+    assert not hits, hits

@@ -1,0 +1,100 @@
+"""The port's steady-state actor against JAX ``make_actor_step_fn``: the
+same carry and JAX's own draws (split exactly as the JAX actor splits its
+key) give the same play distributions, moves, recycled boards and move
+counts, step after step."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from alphazero_tpu.config import MCTSConfig as JaxMCTSConfig
+from alphazero_tpu.games import ConnectFour as JaxConnectFour
+from alphazero_tpu.models import make_uniform_model as jax_uniform
+from alphazero_tpu.selfplay import make_actor_step_fn as jax_actor_step_fn
+from alphazero_tpu_torch.config import MCTSConfig
+from alphazero_tpu_torch.games import ConnectFour
+from alphazero_tpu_torch.models import make_uniform_model
+from alphazero_tpu_torch.ops import Draws, sample_draws
+from alphazero_tpu_torch.selfplay import _make_root_counts_fn, make_actor_step_fn
+from tests.torch_parity import jax_state, random_boards, torch_state
+
+JG = JaxConnectFour()
+TG = ConnectFour()
+B = 8
+TEMP_THRESHOLD = 15
+
+
+def _jax_draws(key, alpha):
+    """The draws the JAX actor makes from ``key`` (selfplay.py actor_step:
+    split 3 ways; Dirichlet in root_prior, uniforms in action_probs,
+    Gumbel inside jax.random.categorical)."""
+    k_noise, k_tie, k_act = jax.random.split(key, 3)
+    dirichlet = jax.random.dirichlet(k_noise, jnp.full((7,), alpha), (B,))
+    tie = jax.random.uniform(k_tie, (B, 7))
+    gumbel = jax.random.gumbel(k_act, (B, 7))
+    return Draws(*(torch.as_tensor(np.array(x)) for x in (dirichlet, tie, gumbel)))
+
+
+def test_actor_steps_match_jax_with_injected_draws():
+    jcfg = JaxMCTSConfig(num_sims=8, max_depth=48, dirichlet_alpha=1.0)
+    cfg = MCTSConfig(**dataclasses.asdict(jcfg))
+    _, j_step = jax_actor_step_fn(JG, jax_uniform(JG).apply_fn, jcfg, B, TEMP_THRESHOLD)
+    j_step = jax.jit(j_step)
+    _, t_step = make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD)
+
+    # late positions (episodes end and recycle within the run), move
+    # counts on both sides of the temperature threshold
+    boards = random_boards(B, 30, seed=1)
+    counts0 = np.array([0, 5, 14, 15, 20, 30, 33, 35], np.int32)
+    j_carry = (jax_state(boards), jnp.asarray(counts0))
+    t_carry = (torch_state(boards), torch.as_tensor(counts0))
+    resets = 0
+    for t in range(10):
+        key = jax.random.key(1000 + t)
+        j_carry, j_pi = j_step({}, j_carry, key)
+        t_carry, t_pi = t_step(t_carry, _jax_draws(key, 1.0))
+        np.testing.assert_allclose(np.asarray(j_pi), t_pi.numpy(), rtol=1e-6, atol=0, err_msg=f"step {t}")
+        np.testing.assert_array_equal(np.asarray(j_carry[0].board), t_carry[0].numpy(), err_msg=f"step {t}")
+        np.testing.assert_array_equal(np.asarray(j_carry[1]), t_carry[1].numpy(), err_msg=f"step {t}")
+        resets += int((t_carry[1] == 0).sum())
+    assert resets > 0   # recycling was exercised
+
+
+def test_actor_with_generator_draws():
+    cfg = MCTSConfig(num_sims=6, max_depth=48, dirichlet_alpha=1.0)
+    init, step = make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD)
+    gen = torch.Generator().manual_seed(0)
+    carry = init()
+    assert carry[0].shape == (B, 6, 7) and carry[1].dtype == torch.int32
+    for t in range(3):
+        carry, pi = step(carry, sample_draws(gen, B, 7, cfg.dirichlet_alpha, "cpu"))
+        torch.testing.assert_close(pi.sum(1), torch.ones(B))
+        assert (carry[1] == t + 1).all()
+        assert ((carry[0] != 0).sum(dim=(1, 2)) == t + 1).all()
+
+
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        MCTSConfig(transposition=True),
+        MCTSConfig(gumbel=True),
+        MCTSConfig(forced_playouts=2.0, dirichlet_alpha=1.0),
+    ],
+    ids=["transposition", "gumbel", "forced_playouts"],
+)
+def test_unported_engines_raise(cfg):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD)
+
+
+def test_game_without_flat_ops_raises():
+    class NoFlatOps:
+        name = "no_flat_ops"
+        num_actions = 3
+
+    with pytest.raises(NotImplementedError, match="dense engine"):
+        _make_root_counts_fn(NoFlatOps(), make_uniform_model(TG).apply_fn, MCTSConfig())
