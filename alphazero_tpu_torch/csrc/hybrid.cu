@@ -2,7 +2,8 @@
 //
 // Replace the Pallas kernels of alphazero_tpu/mcts/hybrid.py:
 //   az_descend  <- descend_kernel (hybrid.py:242-356), Connect-Four step
-//                  (FlatOps.step, games/connect_four.py:201-217) inlined;
+//                  (FlatOps.step, games/connect_four.py:201-217) inlined
+//                  from c4.cuh, which also holds the PUCT refresh_node;
 //   az_merge    <- merge_kernel (hybrid.py:363-422) with the A<=8 PUCT
 //                  refresh (_refresh, hybrid.py:120-149);
 //   az_refresh  <- the same refresh alone, which seeds the first best-action
@@ -46,33 +47,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "c4.cuh"  // c4_load, c4_step, refresh_node and the constants
+
 namespace {
 
-constexpr int kMaxA = 8;          // the A<=8 refresh (Connect-Four: A=7)
-constexpr int kRows = 6;
-constexpr int kCols = 7;
-constexpr int kCells = kRows * kCols;
-constexpr float kPuctEps = 1e-6f;       // alphazero_tpu.config.PUCT_EPS
-constexpr float kIllegal = -1e30f * 0.5f;  // INVALID_P * 0.5
-constexpr float kNegInf = -1e30f;
 constexpr int kDescendThreads = 32;
 constexpr int kMergeThreads = 256;
-
-// Connect-Four FlatOps.step on bitboards: drop +1 in column a (clamped to
-// the top cell when the column is full, overwriting it), then sign-flip.
-__device__ __forceinline__ void c4_step(uint64_t& mine, uint64_t& theirs, int a) {
-  uint64_t col = 0;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) col |= 1ull << (r * kCols + a);
-  int h = __popcll((mine | theirs) & col);
-  int r = h < kRows - 1 ? h : kRows - 1;
-  uint64_t bit = 1ull << (r * kCols + a);
-  mine |= bit;
-  theirs &= ~bit;
-  uint64_t t = mine;  // sign flip: the opponent now moves
-  mine = theirs;
-  theirs = t;
-}
 
 __global__ void descend_kernel(const float* __restrict__ besta,
                                const float* __restrict__ bestc,
@@ -95,13 +75,8 @@ __global__ void descend_kernel(const float* __restrict__ besta,
   const int b = b0 + threadIdx.x;
   if (b >= B) return;
 
-  const float* board = boards + (size_t)b * kCells;
-  uint64_t mine = 0, theirs = 0;
-  for (int i = 0; i < kCells; ++i) {
-    float v = board[i];
-    if (v > 0.5f) mine |= 1ull << i;
-    if (v < -0.5f) theirs |= 1ull << i;
-  }
+  uint64_t mine, theirs;
+  c4_load(boards + (size_t)b * kCells, mine, theirs);
 
   const size_t row = (size_t)b * C;
   int node = 0, depth = 0, leaf = -1;
@@ -148,38 +123,6 @@ __global__ void descend_kernel(const float* __restrict__ besta,
   m[5] = exp_node;
   m[6] = exp_action;
   m[7] = 0.f;
-}
-
-// First-max PUCT argmax over the A edges of one node (values in registers).
-__device__ __forceinline__ void refresh_node(const float (&n)[kMaxA],
-                                             const float (&w)[kMaxA],
-                                             const float (&p)[kMaxA],
-                                             const float (&code)[kMaxA],
-                                             int A, float cpuct,
-                                             float* best_a, float* best_code) {
-  float total = 0.f;
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    if (a < A) total = __fadd_rn(total, n[a]);  // integers: exact in any order
-  }
-  const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
-  float best = 0.f, ba = 0.f, bc = 0.f;
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    if (a < A) {
-      const float q = __fdiv_rn(w[a], fmaxf(n[a], 1.f));
-      const float u = __fdiv_rn(__fmul_rn(__fmul_rn(cpuct, p[a]), sq),
-                                __fadd_rn(1.f, n[a]));
-      const float s = p[a] <= kIllegal ? kNegInf : __fadd_rn(q, u);
-      if (a == 0 || s > best) {
-        best = s;
-        ba = (float)a;
-        bc = code[a];
-      }
-    }
-  }
-  *best_a = ba;
-  *best_code = bc;
 }
 
 __global__ void merge_kernel(float* __restrict__ n, float* __restrict__ w,

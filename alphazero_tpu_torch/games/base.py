@@ -32,7 +32,7 @@ class Game(Protocol):
     max_moves: int                   # upper bound on game length
     num_symmetries: int              # S of symmetries()
 
-    def init(self, batch: int, device: torch.device | str = "cpu") -> State:
+    def init(self, batch: int, device: torch.device | str = "cuda") -> State:
         """``batch`` initial canonical states."""
         ...
 

@@ -59,7 +59,7 @@ class ConnectFour:
     num_symmetries = 2
     heuristic_is_zero = True
 
-    def init(self, batch: int, device: torch.device | str = "cpu") -> torch.Tensor:
+    def init(self, batch: int, device: torch.device | str = "cuda") -> torch.Tensor:
         return torch.zeros((batch, ROWS, COLS), dtype=torch.int8, device=device)
 
     def step(self, board: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
@@ -143,7 +143,7 @@ class FlatOps:
     num_actions = COLS
     aux_lanes = 128
 
-    def aux(self, device: torch.device | str = "cpu") -> torch.Tensor:
+    def aux(self, device: torch.device | str = "cuda") -> torch.Tensor:
         """The win-line matrix zero-padded to 128 columns, f32[42, 128]
         (padding columns sum to 0 < 4)."""
         m = _win_line_matrix()

@@ -1,14 +1,18 @@
 """Build, binding and launch wrappers of the hand-written CUDA kernels.
 
-The kernels live in ``csrc/hybrid.cu`` (see its header for what each one
-replaces and how it is designed). They are compiled at first use with
-``nvcc`` for ``sm_90a`` into a shared library with a plain C interface,
-under ``csrc/build/<hash of source and flags>/``, and loaded with
-``ctypes``; nothing is built when this module is imported.
+The kernels live in ``csrc/`` (see each source's header for what it
+replaces and how it is designed): ``hybrid.cu`` holds the hybrid engine's
+descend, merge and refresh, ``fused.cu`` the fused search kernel; both
+include the Connect-Four and PUCT helpers of ``c4.cuh``. At first use the
+sources are compiled with ``nvcc`` for ``sm_90a``, one process per source,
+all started together, and linked into one shared library with a plain C
+interface under ``csrc/build/<hash of sources, header and flags>/``, which
+is loaded with ``ctypes``; nothing is built when this module is imported.
 
 Each wrapper takes tensors on ONE device:
 
-* CPU tensors run the plain PyTorch version from ``mcts/hybrid.py``;
+* CPU tensors run the plain PyTorch version (``mcts/hybrid.py``,
+  ``mcts/fused.py``);
 * CUDA tensors launch the kernel on the current stream, or raise — a
   failed build, a bad shape/dtype/layout or a launch error never falls
   back to the plain version.
@@ -31,18 +35,32 @@ from typing import Optional
 
 import torch
 
+from alphazero_tpu_torch.config import MCTSConfig
+from alphazero_tpu_torch.mcts import fused as _plain_fused
 from alphazero_tpu_torch.mcts import hybrid as _plain
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = _CSRC / "hybrid.cu"
+SOURCES = (_CSRC / "hybrid.cu", _CSRC / "fused.cu")
+HEADERS = (_CSRC / "c4.cuh",)
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3",
     "--fmad=false",          # no a*b+c contraction: bit-exact PUCT scores
     "-Xptxas", "-v",         # registers / spills into the build log
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+
+_VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# exported C functions of the library: (argument types, result type)
+_SIGNATURES = {
+    "az_max_actions": ([], _I32),
+    "az_error_string": ([_I32], ctypes.c_char_p),
+    "az_descend": ([_VP] * 9 + [_I32] * 3 + [_VP], _I32),
+    "az_merge": ([_VP] * 12 + [_I32] * 4 + [_F32, _VP], _I32),
+    "az_refresh": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
+    "az_fused": ([_VP] * 5 + [_I32] * 4 + [_F32] * 2 + [_VP], _I32),
+}
 
 
 class _Library:
@@ -53,17 +71,9 @@ class _Library:
         self.path = path
         self.build_seconds = seconds
         self.build_log = log
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.az_max_actions.argtypes = []
-        lib.az_max_actions.restype = i32
-        lib.az_error_string.argtypes = [i32]
-        lib.az_error_string.restype = ctypes.c_char_p
-        lib.az_descend.argtypes = [vp] * 9 + [i32] * 3 + [vp]
-        lib.az_descend.restype = i32
-        lib.az_merge.argtypes = [vp] * 12 + [i32] * 4 + [f32, vp]
-        lib.az_merge.restype = i32
-        lib.az_refresh.argtypes = [vp] * 6 + [i32] * 3 + [f32, vp]
-        lib.az_refresh.restype = i32
+        for fn, (args, res) in _SIGNATURES.items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = res
         self.max_actions = int(lib.az_max_actions())
 
     def check(self, rc: int, name: str) -> None:
@@ -85,28 +95,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def _build(out_dir: Path, so_path: Path) -> str:
+    """Compile every source to an object, one nvcc process each, all
+    started together; link the objects into ``so_path``. Returns the log."""
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as work:
+        objs = [Path(work) / f"{src.stem}.o" for src in SOURCES]
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs = [proc.communicate()[0] for proc in procs]
+        log = "".join(f"[{src.name}]\n{text}" for src, text in zip(SOURCES, logs))
+        if any(proc.returncode != 0 for proc in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        tmp_so = Path(work) / so_path.name
+        proc = subprocess.run([nvcc, "-shared", "-o", str(tmp_so), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{log}")
+        os.replace(tmp_so, so_path)   # atomic: concurrent builds agree
+    return log
+
+
 def library() -> _Library:
-    """Build (once per source/flags hash) and load the kernel library."""
+    """Build (once per sources/header/flags hash) and load the kernel
+    library."""
     global _LIB
     if _LIB is not None:
         return _LIB
-    src = SOURCE.read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    blob = b"".join(p.read_bytes() for p in (*SOURCES, *HEADERS))
+    key = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out_dir = BUILD_DIR / key
-    so_path = out_dir / "libazhybrid.so"
+    so_path = out_dir / "libaz.so"
     log = ""
     t0 = time.perf_counter()
     if not so_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        with tempfile.NamedTemporaryFile(dir=out_dir, suffix=".so", delete=False) as tmp:
-            tmp_path = Path(tmp.name)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp_path), str(SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            tmp_path.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp_path, so_path)   # atomic: concurrent builds agree
+        log = _build(out_dir, so_path)
     seconds = time.perf_counter() - t0
     _LIB = _Library(ctypes.CDLL(str(so_path)), so_path, seconds, log)
     return _LIB
@@ -225,17 +253,48 @@ def refresh(n, w, p, code, cpuct: float):
     return besta, bestc
 
 
+def fused(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float, uval: float):
+    """``mcts.fused.fused_search``: a whole uniform-prior search of
+    Connect-Four boards f32[B, 42] from masked root priors f32[B, 7] in
+    one launch. Returns ``(counts, rootw) f32[B, 7]``."""
+    if _on_cpu(boards, priors):
+        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct)
+        return _plain_fused.fused_search(boards, priors, cfg, uval)
+    lib = library()
+    B = boards.shape[0]
+    A = 7   # Connect-Four's actions, the kernel's helpers' game
+    if B == 0:
+        raise ValueError("fused kernel needs B > 0")
+    if nodes < 1:
+        raise ValueError(f"fused kernel needs nodes >= 1, got {nodes}")
+    ptrs = [_check("boards", boards, (B, 42)), _check("priors", priors, (B, A))]
+    dev = boards.device
+    tree = torch.empty((B, nodes, 32), device=dev)   # the kernel's tree scratch
+    counts = torch.empty((B, A), device=dev)
+    rootw = torch.empty((B, A), device=dev)
+    rc = lib.lib.az_fused(
+        *ptrs, tree.data_ptr(), counts.data_ptr(), rootw.data_ptr(),
+        B, int(nodes), int(num_sims), int(max_depth), float(cpuct), float(uval),
+        _stream(dev),
+    )
+    lib.check(rc, "fused")
+    fused.launches += 1
+    return counts, rootw
+
+
 descend.launches = 0
 merge.launches = 0
 refresh.launches = 0
+fused.launches = 0
 
 KERNELS = _plain.SearchKernels(descend, merge, refresh)
+_ALL = (descend, merge, refresh, fused)
 
 
 def launch_counts() -> dict:
-    return {k.__name__: k.launches for k in KERNELS}
+    return {k.__name__: k.launches for k in _ALL}
 
 
 def reset_launch_counts() -> None:
-    for k in KERNELS:
+    for k in _ALL:
         k.launches = 0

@@ -171,6 +171,62 @@ class SearchKernels(NamedTuple):
 PLAIN = SearchKernels(descend, merge, refresh)
 
 
+def run_search(
+    ops, boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig,
+    evaluate: Callable, kernels: SearchKernels,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K=1 search loop over the flat boards f32[B, L] from the masked
+    root priors f32[B, A]; ``evaluate(bd, vm) -> (pm f32[B, A], v f32[B])``
+    gives the masked prior (INVALID_P on illegal edges) and the value of
+    the leaf boards. Returns the final stat planes ``(n, w) f32[B, A, C]``
+    (the root's visit counts are ``n[:, :, 0]``)."""
+    B, A = p_masked.shape
+    C = cfg.nodes
+    D = cfg.max_depth
+    cpuct = float(cfg.cpuct)
+    dev = boards.device
+    aux = ops.aux(dev)
+    rdone, rtval = ops.terminal(boards, aux)
+    n = torch.zeros((B, A, C), device=dev)
+    w = torch.zeros((B, A, C), device=dev)
+    p = torch.zeros((B, A, C), device=dev)
+    p[:, :, 0] = p_masked
+    code = torch.full((B, A, C), -1.0, device=dev)
+    done = torch.zeros((B, C), device=dev)
+    done[:, 0] = rdone[:, 0].float()
+    tval = torch.zeros((B, C), device=dev)
+    tval[:, 0] = rtval[:, 0]
+    besta, bestc = kernels.refresh(n, w, p, code, cpuct)
+    zeros = torch.zeros((B, 1), device=dev)
+    for i in range(cfg.num_sims):
+        bd, patha, psgn, meta = kernels.descend(besta, bestc, done, tval, boards, D)
+        vm = ops.valid(bd)
+        cdone_b, ctval = ops.terminal(bd, aux)
+        pm, v_nn = evaluate(bd, vm)
+
+        exp = meta[:, M_EXP : M_EXP + 1]
+        term = meta[:, M_TERM : M_TERM + 1]
+        psign = meta[:, M_PSIGN : M_PSIGN + 1]
+        vterm = meta[:, M_VTERM : M_VTERM + 1]
+        cdone = cdone_b.float()
+        v_expand = ctval + (1.0 - cdone) * (v_nn[:, None] - ctval)
+        v_leaf = exp * v_expand + (1.0 - exp) * term * vterm
+        mval = v_leaf * psign
+
+        s = i + 1
+        exp_ok = exp * float(s < C)
+        link_code = s + cdone * (-2.0 - 2.0 * s)     # -2-s if cdone
+        meta2 = torch.cat(
+            [mval, exp_ok, link_code, cdone, ctval,
+             meta[:, M_ENODE : M_EACT + 1], zeros],
+            dim=1,
+        )
+        besta, bestc = kernels.merge(
+            n, w, p, code, done, tval, pm, patha, psgn, meta2, s, cpuct
+        )
+    return n, w
+
+
 def make_hybrid_root_fn(
     game, apply_fn, cfg: MCTSConfig, kernels: Optional[SearchKernels] = None
 ) -> Callable[..., torch.Tensor]:
@@ -202,62 +258,19 @@ def make_hybrid_root_fn(
 
         kernels = KERNELS
     ops = flat_ops_factory()
-    A = game.num_actions
-    C = cfg.nodes
-    D = cfg.max_depth
-    cpuct = float(cfg.cpuct)
     needs_features = getattr(apply_fn, "needs_features", True)
-
-    def run_search(boards: torch.Tensor, p_masked: torch.Tensor) -> torch.Tensor:
-        B = boards.shape[0]
-        dev = boards.device
-        aux = ops.aux(dev)
-        rdone, rtval = ops.terminal(boards, aux)
-        n = torch.zeros((B, A, C), device=dev)
-        w = torch.zeros((B, A, C), device=dev)
-        p = torch.zeros((B, A, C), device=dev)
-        p[:, :, 0] = p_masked
-        code = torch.full((B, A, C), -1.0, device=dev)
-        done = torch.zeros((B, C), device=dev)
-        done[:, 0] = rdone[:, 0].float()
-        tval = torch.zeros((B, C), device=dev)
-        tval[:, 0] = rtval[:, 0]
-        besta, bestc = kernels.refresh(n, w, p, code, cpuct)
-        zeros = torch.zeros((B, 1), device=dev)
-        for i in range(cfg.num_sims):
-            bd, patha, psgn, meta = kernels.descend(besta, bestc, done, tval, boards, D)
-            vm = ops.valid(bd)
-            cdone_b, ctval = ops.terminal(bd, aux)
-            feats = ops.to_features(bd) if needs_features else zeros
-            logits, v_nn = apply_fn(feats)
-            pm = torch.where(vm, masked_policy(logits, vm), INVALID_P)
-
-            exp = meta[:, M_EXP : M_EXP + 1]
-            term = meta[:, M_TERM : M_TERM + 1]
-            psign = meta[:, M_PSIGN : M_PSIGN + 1]
-            vterm = meta[:, M_VTERM : M_VTERM + 1]
-            cdone = cdone_b.float()
-            v_expand = ctval + (1.0 - cdone) * (v_nn[:, None] - ctval)
-            v_leaf = exp * v_expand + (1.0 - exp) * term * vterm
-            mval = v_leaf * psign
-
-            s = i + 1
-            exp_ok = exp * float(s < C)
-            link_code = s + cdone * (-2.0 - 2.0 * s)     # -2-s if cdone
-            meta2 = torch.cat(
-                [mval, exp_ok, link_code, cdone, ctval,
-                 meta[:, M_ENODE : M_EACT + 1], zeros],
-                dim=1,
-            )
-            besta, bestc = kernels.merge(
-                n, w, p, code, done, tval, pm, patha, psgn, meta2, s, cpuct
-            )
-        return n[:, :, 0]
 
     def root_counts(root_state, dirichlet: Optional[torch.Tensor] = None) -> torch.Tensor:
         boards = ops.from_state(root_state)
         prior, root_valid = root_prior(game, apply_fn, cfg, root_state, dirichlet)
         p_masked = torch.where(root_valid, prior, INVALID_P)
-        return run_search(boards, p_masked)
+        zeros = torch.zeros((boards.shape[0], 1), device=boards.device)
+
+        def evaluate(bd, vm):
+            logits, v_nn = apply_fn(ops.to_features(bd) if needs_features else zeros)
+            return torch.where(vm, masked_policy(logits, vm), INVALID_P), v_nn
+
+        n, _ = run_search(ops, boards, p_masked, cfg, evaluate, kernels)
+        return n[:, :, 0]
 
     return root_counts

@@ -39,6 +39,9 @@ class UniformModel:
 
         # the search skips feature materialization for feature-free models
         apply_fn.needs_features = False
+        # constant prior/value: eligible for the fused search kernel
+        # (mcts/fused.py)
+        apply_fn.uniform_value = value
         self.apply_fn = apply_fn
 
 

@@ -16,6 +16,7 @@ from typing import Callable, Tuple
 import torch
 
 from alphazero_tpu_torch.config import MCTSConfig
+from alphazero_tpu_torch.mcts.fused import make_fused_root_fn
 from alphazero_tpu_torch.mcts.hybrid import make_hybrid_root_fn
 from alphazero_tpu_torch.ops import Draws, action_probs
 
@@ -23,12 +24,11 @@ from alphazero_tpu_torch.ops import Draws, action_probs
 def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., torch.Tensor]:
     """``(state, dirichlet) -> root visit counts f32[B, A]``.
 
-    The port's engine ladder: any model on a flat-ops game runs on the
-    hybrid engine. A model with an in-kernel evaluator (the uniform prior,
-    the MLP) would run on the fused kernel in the JAX package; until that
-    kernel is ported (ROADMAP queue 2, K1/K3) it runs on the hybrid too,
-    with bit-identical counts. Everything else raises — no engine stands
-    in silently for another."""
+    The port's engine ladder, as in the JAX package: the fused kernel for
+    a model it can evaluate inside the kernel (the uniform prior; the MLP
+    waits for K3, ROADMAP queue 2, and takes the hybrid until then), on any
+    device; then the hybrid engine for any model on a flat-ops game.
+    Everything else raises — no engine stands in silently for another."""
     if getattr(mcts_cfg, "transposition", False):
         raise NotImplementedError(
             "transposition search (mcts/tt.py) is not yet ported "
@@ -49,6 +49,9 @@ def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., 
             f"{game.name} has no flat ops: it needs the dense engine, not yet "
             "ported (ROADMAP queue 1, step 4: mcts/search.py + tree.py)"
         )
+    fused = make_fused_root_fn(game, apply_fn, mcts_cfg)
+    if fused is not None:
+        return fused
     return make_hybrid_root_fn(game, apply_fn, mcts_cfg)
 
 
@@ -58,7 +61,7 @@ def make_actor_step_fn(
     mcts_cfg: MCTSConfig,
     batch_size: int,
     temp_threshold: int,
-    device="cpu",
+    device="cuda",
 ):
     """Returns ``(init_carry, actor_step)``.
 

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``alphazero_tpu_torch``).
 
-Drives the port's main path — the steady-state Connect-Four self-play actor
-on the hybrid engine with an AZResNet-64x5 — on one CUDA card, in phases:
+Drives the port's two self-play paths — the steady-state Connect-Four actor
+on the hybrid engine with an AZResNet-64x5, and on the fused kernel with the
+uniform model — on one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
-2. build:  the hand-written kernels (``csrc/hybrid.cu``) built with nvcc for
-           sm_90a, with the build seconds and ptxas's register report;
+2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``)
+           compiled with nvcc for sm_90a, one process per source, and linked
+           into one library, with the build seconds and ptxas's register
+           report;
 3. kernels vs plain: each kernel against its plain PyTorch version at the
            main path's shapes (B=4096, C=101, A=7), on tree planes taken
            from a few simulations of the plain search on random positions;
@@ -18,7 +21,23 @@ on the hybrid engine with an AZResNet-64x5 — on one CUDA card, in phases:
            100 sims, Dirichlet 1.0): actor steps with the launch counters
            reset just before and read just after, visit counts summing to
            the simulation budget, pi rows summing to 1, and one search
-           through the plain versions giving identical counts.
+           through the plain versions giving identical counts;
+6. fused:  the fused kernel against its plain version on random roots
+           (B=4096, 100 sims, uval 0.5: bit-equal counts and root W, both
+           timed), the goldens through the fused engine in one launch, then
+           the uniform actor at the headline bench's size (B=65536, 100 sims,
+           max_depth 48): one fused launch per step and no hybrid launch,
+           ms/step, env-steps/s and peak memory; the kernel against its plain
+           version again on the actor's own roots at that size (bit-equal,
+           both timed: the numbers of the kernels line); a few steps of the
+           same actor through the hybrid route and one search through both
+           routes with identical counts.
+
+Each kernel's line in the JSON carries its bound: the larger of the bytes
+the function must move (each input read once, each output written once; a
+data-dependent walk counts the cells this run's data reaches) over
+3.35 TB/s, and its f32 operations over 67 TFLOP/s (the H100 SXM's data-sheet
+rates at 700 W).
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
@@ -46,12 +65,39 @@ WARMUP_STEPS = 2
 TIMED_STEPS = 10
 SEED = 0
 
-SOURCE = "alphazero_tpu_torch/csrc/hybrid.cu"
+UNIFORM_B = 65536      # the headline bench's uniform-model batch
+HYBRID_STEPS = 3       # uniform actor steps through the hybrid route
+FUSED_REPS = 5
+
+SOURCE = {
+    "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "merge": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "refresh": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "fused": "alphazero_tpu_torch/csrc/fused.cu",
+}
 REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
     "merge": "alphazero_tpu/mcts/hybrid.py:363",     # merge_kernel (+ _refresh)
     "refresh": "alphazero_tpu/mcts/hybrid.py:120",   # _refresh, seeding at :815
+    "fused": "alphazero_tpu/mcts/fused.py:156",      # kernel, K=1 sim_body :282
 }
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
+F32 = 4
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the f32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def puct_ops(nodes: float, A: int) -> float:
+    """f32 operations of the PUCT argmax of ``nodes`` nodes: per edge q, u,
+    the score and the compare (8), per node the visit sum, EPS and sqrt."""
+    return nodes * (8 * A + A + 2)
 
 
 def fail(msg: str) -> None:
@@ -86,6 +132,18 @@ def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
+def timed_once(fn):
+    """``fn()`` and its device time in ms (CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def time_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` launches (CUDA events)."""
     fn()
@@ -107,15 +165,17 @@ def main() -> int:
     from alphazero_tpu_torch.config import MCTSConfig
     from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.games import ConnectFour
-    from alphazero_tpu_torch.mcts import PLAIN, SearchKernels, hybrid
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts import PLAIN, SearchKernels, fused, hybrid
+    from alphazero_tpu_torch.mcts.tree import INVALID_P
     from alphazero_tpu_torch.models import (
         convert_az_resnet,
         make_apply_fn,
         make_uniform_model,
         random_az_resnet_variables,
     )
-    from alphazero_tpu_torch.ops import sample_draws
-    from alphazero_tpu_torch.selfplay import make_actor_step_fn
+    from alphazero_tpu_torch.ops import root_prior, sample_draws
+    from alphazero_tpu_torch.selfplay import _make_root_counts_fn, make_actor_step_fn
 
     # f32 matmuls/convs in full precision wherever f32 runs (the bf16
     # ResNet convs are unaffected)
@@ -132,11 +192,12 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
-    regs = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln or "spill" in ln]
     print(f"[build] nvcc {' '.join(kernels.NVCC_FLAGS[:2])} -> {os.path.relpath(lib.path)} "
-          f"in {lib.build_seconds:.3f} s", flush=True)
-    for ln in regs:
-        print(f"[build] {ln}", flush=True)
+          f"({len(kernels.SOURCES)} sources compiled in parallel, linked into one library; "
+          f"{lib.build_seconds:.3f} s)", flush=True)
+    for ln in lib.build_log.splitlines():
+        if ln.startswith("[") or "registers" in ln or "spill" in ln:
+            print(f"[build] {ln.strip()}", flush=True)
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
     variables = random_az_resnet_variables(A, channels=64, blocks=5, seed=SEED)
@@ -177,6 +238,13 @@ def main() -> int:
         if not bit_equal(k, p):
             fail(f"descend output {nm} differs from the plain version")
     results["descend"] = {"max_abs_err": err}
+    # reads: the board, each path node's besta/bestc, the root's done and a
+    # leaf's tval; writes: the leaf board, the patha/psgn rows and meta
+    edges = float((out_p[1] > 0).sum())
+    leaves = float((out_p[3][:, 1] + out_p[3][:, 4]).sum())
+    results["descend"].update(bound(
+        F32 * (B * 42 + 2 * edges + B + leaves + B * 42 + 2 * B * C + B * 8), 0.0
+    ))
 
     planes_k = [t.clone() for t in m_args[:6]]
     planes_p = [t.clone() for t in m_args[:6]]
@@ -189,6 +257,15 @@ def main() -> int:
         if not bit_equal(k, p):
             fail(f"merge output {nm} differs from the plain version")
     results["merge"] = {"max_abs_err": err}
+    # reads: the four stat planes, patha/psgn, pm, meta2; writes: the best
+    # planes and the cells that change (path n/w, install rows, links)
+    m_edges = float((m_args[7] > 0).sum())
+    installs = float(m_args[9][:, hybrid.M2_EXPOK].sum())
+    results["merge"].update(bound(
+        F32 * (4 * B * A * C + 2 * B * C + B * A + B * 8
+               + 2 * B * C + 2 * m_edges + installs * (4 * A + 3)),
+        puct_ops(B * C, A) + 3 * m_edges,
+    ))
 
     ref_k = kernels.refresh(*m_args[:4], m_args[-1])
     ref_p = hybrid.refresh(*m_args[:4], m_args[-1])
@@ -196,6 +273,7 @@ def main() -> int:
     if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
         fail("refresh differs from the plain version")
     results["refresh"] = {"max_abs_err": err}
+    results["refresh"].update(bound(F32 * (4 * B * A * C + 2 * B * C), puct_ops(B * C, A)))
     print(f"[kernels] B={B} C={C} A={A}: descend, merge, refresh bit-equal to plain "
           f"(mean path length {float((out_p[1] > 0).sum()) / B:.2f} edges/game)", flush=True)
 
@@ -269,8 +347,9 @@ def main() -> int:
         step_s.append(time.perf_counter() - t0)
         if not torch.allclose(pi.sum(dim=1), torch.ones(B, device=dev), atol=1e-5):
             fail("pi rows do not sum to 1")
-    launches = kernels.launch_counts()
-    want = {"descend": TIMED_STEPS * SIMS, "merge": TIMED_STEPS * SIMS, "refresh": TIMED_STEPS}
+    launches = dict(kernels.launch_counts())
+    want = {"descend": TIMED_STEPS * SIMS, "merge": TIMED_STEPS * SIMS, "refresh": TIMED_STEPS,
+            "fused": 0}
     if launches != want:
         fail(f"launch counts {launches} != {want}")
     ms_move = 1e3 * sum(step_s) / len(step_s)
@@ -298,19 +377,156 @@ def main() -> int:
     print(f"[slice] one search through the plain versions: identical counts on all {B} games",
           flush=True)
 
+    # ---- 6. the fused kernel and the uniform actor ----------------------
+    flat = FlatOps()
+    cfg_uni = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH)
+    uval = float(uniform.apply_fn.uniform_value)
+
+    def fused_inputs(state, value: float) -> tuple:
+        """The arguments of ``kernels.fused`` for a search of ``state``, as
+        the fused engine's ``root_counts`` makes them."""
+        prior, valid = root_prior(game, uniform.apply_fn, cfg_uni, state, None)
+        return (flat.from_state(state).contiguous(), torch.where(valid, prior, INVALID_P),
+                SIMS, cfg_uni.nodes, MAX_DEPTH, float(cfg_uni.cpuct), value)
+
+    def fused_vs_plain(f_args, label: str) -> dict:
+        """``az_fused`` against its plain version (``fused.fused_search``,
+        run here through its body so that the whole N plane is kept) on the
+        same inputs: counts and root W bit-equal; both timed, in turns."""
+        bds, pm, value = f_args[0], f_args[1], f_args[-1]
+        nb = bds.shape[0]
+
+        def plain():
+            return hybrid.run_search(flat, bds, pm, cfg_uni,
+                                     fused.uniform_evaluator(nb, value, dev), PLAIN)
+
+        (n_all, w_all), p1 = timed_once(plain)
+        ck, wk = kernels.fused(*f_args)
+        cp, wp = n_all[:, :, 0], w_all[:, :, 0]
+        if not (bit_equal(ck, cp) and bit_equal(wk, wp)):
+            diff = int(((ck != cp) | (wk != wp)).any(dim=1).sum())
+            fail(f"fused kernel differs from its plain version on {diff} of {nb} games ({label})")
+        k1 = time_ms(lambda: kernels.fused(*f_args), FUSED_REPS)
+        k2 = time_ms(lambda: kernels.fused(*f_args), FUSED_REPS)
+        _, p2 = timed_once(plain)
+        # the work depends on the data: every descent step is one PUCT
+        # argmax and one backup; a search's steps are the sum of N over
+        # every edge
+        steps = float(n_all.sum())
+        out = {"max_abs_err": max(float((ck - cp).abs().max()), float((wk - wp).abs().max())),
+               "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               **bound(F32 * nb * (42 + A + 2 * A), steps * (puct_ops(1, A) + 3))}
+        print(f"[fused] {label}: B={nb}, {SIMS} sims, max_depth {MAX_DEPTH}, uval {value}: "
+              f"az_fused bit-equal to fused_search (counts and root W; {steps / nb:.2f} descent "
+              f"steps per game); kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+              f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}) | {card}", flush=True)
+        return out
+
+    fused_vs_plain(fused_inputs(roots, 0.5), "random roots")
+
+    kernels.reset_launch_counts()
+    counts = fused.make_fused_root_fn(game, uniform.apply_fn, MCTSConfig(num_sims=50, max_depth=64))(
+        torch.cat(states)
+    )
+    if kernels.launch_counts() != {"descend": 0, "merge": 0, "refresh": 0, "fused": 1}:
+        fail(f"golden search did not run the fused kernel once: {kernels.launch_counts()}")
+    if counts.round().int().tolist() != golden["counts"]:
+        fail(f"fused golden counts differ: {counts.int().tolist()} != {golden['counts']}")
+    print("[fused] the fused engine reproduces tests/golden_counts.json connect_four in 1 launch",
+          flush=True)
+
+    # the uniform actor at the headline bench's size, through the ladder
+    torch.cuda.reset_peak_memory_stats()
+    init_u, step_u = make_actor_step_fn(game, uniform.apply_fn, cfg_uni, UNIFORM_B, TEMP_THRESHOLD,
+                                        device=dev)
+    carry_u = init_u()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for _ in range(WARMUP_STEPS):
+        carry_u, _ = step_u(carry_u, sample_draws(gen, UNIFORM_B, A, None, dev))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step_s = []
+    for _ in range(TIMED_STEPS):
+        draws = sample_draws(gen, UNIFORM_B, A, None, dev)
+        t0 = time.perf_counter()
+        carry_u, pi = step_u(carry_u, draws)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    uni_launches = dict(kernels.launch_counts())
+    if uni_launches != {"descend": 0, "merge": 0, "refresh": 0, "fused": TIMED_STEPS}:
+        fail(f"uniform actor launches {uni_launches}: want one fused launch per step, no hybrid")
+    if not torch.allclose(pi.sum(dim=1), torch.ones(UNIFORM_B, device=dev), atol=1e-5):
+        fail("uniform actor pi rows do not sum to 1")
+    peak = torch.cuda.max_memory_allocated()
+    ms_u = 1e3 * sum(step_s) / len(step_s)
+    print(f"[uniform] fused route, B={UNIFORM_B}, {SIMS} sims, max_depth {MAX_DEPTH}: "
+          f"{ms_u:.3f} ms/step mean, {1e3 * sorted(step_s)[len(step_s) // 2]:.3f} upper median "
+          f"({', '.join(f'{1e3 * t:.3f}' for t in step_s)}), {UNIFORM_B / (ms_u / 1e3):.1f} "
+          f"env-steps/s | launches {uni_launches} | peak memory {peak / 2**30:.3f} GiB | {card}",
+          flush=True)
+    state_u, _ = carry_u
+    # the main path's kernel, held against its plain version on the actor's
+    # own roots at the actor's shape and uniform value
+    results["fused"] = fused_vs_plain(fused_inputs(state_u, uval), "the uniform actor's roots")
+
+    # the same actor through the hybrid route: the uniform model's apply_fn
+    # without the uniform_value that makes the ladder pick the fused kernel
+    def no_fused(feats):
+        return uniform.apply_fn(feats)
+
+    no_fused.needs_features = False
+    init_h, step_h = make_actor_step_fn(game, no_fused, cfg_uni, UNIFORM_B, TEMP_THRESHOLD,
+                                        device=dev)
+    carry_h = (state_u, carry_u[1])
+    carry_h, _ = step_h(carry_h, sample_draws(gen, UNIFORM_B, A, None, dev))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    step_h_s = []
+    for _ in range(HYBRID_STEPS):
+        draws = sample_draws(gen, UNIFORM_B, A, None, dev)
+        t0 = time.perf_counter()
+        carry_h, _ = step_h(carry_h, draws)
+        torch.cuda.synchronize()
+        step_h_s.append(time.perf_counter() - t0)
+    hyb_launches = dict(kernels.launch_counts())
+    if hyb_launches["fused"] != 0 or hyb_launches["merge"] != HYBRID_STEPS * SIMS:
+        fail(f"hybrid-route actor launches {hyb_launches}")
+    ms_h = 1e3 * sum(step_h_s) / len(step_h_s)
+    print(f"[uniform] hybrid route, same actor: {ms_h:.3f} ms/step mean "
+          f"({', '.join(f'{1e3 * t:.3f}' for t in step_h_s)}), {UNIFORM_B / (ms_h / 1e3):.1f} "
+          f"env-steps/s | launches {hyb_launches} | fused is {ms_h / ms_u:.1f}x faster | {card}",
+          flush=True)
+
+    c_fused = _make_root_counts_fn(game, uniform.apply_fn, cfg_uni)(state_u)
+    c_hybrid = _make_root_counts_fn(game, no_fused, cfg_uni)(state_u)
+    if not torch.isfinite(c_fused).all() or c_fused.shape != (UNIFORM_B, A):
+        fail("fused-route counts are not finite [B, A]")
+    live_u = ~game.terminal(state_u)[0]
+    if not bool((c_fused.sum(dim=1)[live_u] == SIMS).all()):
+        fail("fused-route counts of live games do not sum to the simulation budget")
+    if not torch.equal(c_fused, c_hybrid):
+        diff = int((c_fused != c_hybrid).any(dim=1).sum())
+        fail(f"fused and hybrid routes differ on {diff} of {UNIFORM_B} games")
+    print(f"[uniform] one search through the fused and the hybrid routes: identical counts on "
+          f"all {UNIFORM_B} games", flush=True)
+    launches["fused"] = uni_launches["fused"]
+
     print(card)
     print(json.dumps({"kernels": [
         {
             "name": name,
             "route": "cuda",
-            "source": SOURCE,
+            "source": SOURCE[name],
             "replaces": REPLACES[name],
             "launches": launches[name],
             "max_abs_err": results[name]["max_abs_err"],
             "ms": results[name]["ms"],
             "plain_ms": results[name]["plain_ms"],
+            "bound_ms": results[name]["bound_ms"],
+            "bound_by": results[name]["bound_by"],
+            "library_ms": None,   # no single PyTorch call computes these functions
         }
-        for name in ("descend", "merge", "refresh")
+        for name in ("descend", "merge", "refresh", "fused")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -33,7 +33,7 @@ def test_protocol_and_static_fields():
     assert isinstance(TG, Game)
     for name in ("name", "num_actions", "feature_shape", "max_moves", "num_symmetries"):
         assert getattr(TG, name) == getattr(JG, name)
-    assert TG.init(3).shape == (3, 6, 7) and TG.init(3).dtype == torch.int8
+    assert TG.init(3, "cpu").shape == (3, 6, 7) and TG.init(3, "cpu").dtype == torch.int8
 
 
 def test_step_matches_every_action_including_full_columns():
@@ -71,7 +71,7 @@ def test_symmetries_match():
 def test_flat_ops_match():
     boards = _positions()
     jops, tops = JG.flat_ops(), TG.flat_ops()
-    np.testing.assert_array_equal(np.asarray(jops.aux()), tops.aux().numpy())
+    np.testing.assert_array_equal(np.asarray(jops.aux()), tops.aux("cpu").numpy())
     jb = jops.from_state(jax_state(boards))
     tb = tops.from_state(torch_state(boards))
     np.testing.assert_array_equal(np.asarray(jb), tb.numpy())
@@ -85,7 +85,7 @@ def test_flat_ops_match():
     np.testing.assert_array_equal(np.asarray(jops.valid(jb)), tops.valid(tb).numpy())
     np.testing.assert_array_equal(np.asarray(jops.to_features(jb)), tops.to_features(tb).numpy())
     jd, jv = jops.terminal(jb, jops.aux())
-    td, tv = tops.terminal(tb, tops.aux())
+    td, tv = tops.terminal(tb, tops.aux("cpu"))
     np.testing.assert_array_equal(np.asarray(jd), td.numpy())
     np.testing.assert_array_equal(np.asarray(jv), tv.numpy())
 
@@ -96,7 +96,7 @@ def test_flat_step_chain_matches_game_step(seed):
     ConnectFour.step (flat layout row-major, row 5 on top)."""
     rng = np.random.default_rng(seed)
     tops = TG.flat_ops()
-    state = TG.init(4)
+    state = TG.init(4, "cpu")
     flat = tops.from_state(state)
     for _ in range(20):
         acts = rng.integers(0, 7, 4)

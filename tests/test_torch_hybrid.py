@@ -203,9 +203,9 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
     kernels.reset_launch_counts()
     for got, want in zip(kernels.refresh(n, w, p, code, 1.0), PLAIN.refresh(n, w, p, code, 1.0)):
         assert torch.equal(got, want)
-    assert kernels.launch_counts() == {"descend": 0, "merge": 0, "refresh": 0}
+    assert kernels.launch_counts() == {"descend": 0, "merge": 0, "refresh": 0, "fused": 0}
     with pytest.raises(ValueError, match="no kernel for device"):
         kernels.refresh(*(t.to("meta") for t in (n, w, p, code)), 1.0)
     with pytest.raises(ValueError, match="several devices"):
         kernels.refresh(n, w, p, code.to("meta"), 1.0)
-    assert kernels.launch_counts() == {"descend": 0, "merge": 0, "refresh": 0}
+    assert kernels.launch_counts() == {"descend": 0, "merge": 0, "refresh": 0, "fused": 0}

@@ -44,7 +44,7 @@ def test_actor_steps_match_jax_with_injected_draws():
     cfg = MCTSConfig(**dataclasses.asdict(jcfg))
     _, j_step = jax_actor_step_fn(JG, jax_uniform(JG).apply_fn, jcfg, B, TEMP_THRESHOLD)
     j_step = jax.jit(j_step)
-    _, t_step = make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD)
+    _, t_step = make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD, device="cpu")
 
     # late positions (episodes end and recycle within the run), move
     # counts on both sides of the temperature threshold
@@ -66,7 +66,9 @@ def test_actor_steps_match_jax_with_injected_draws():
 
 def test_actor_with_generator_draws():
     cfg = MCTSConfig(num_sims=6, max_depth=48, dirichlet_alpha=1.0)
-    init, step = make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD)
+    init, step = make_actor_step_fn(
+        TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD, device="cpu"
+    )
     gen = torch.Generator().manual_seed(0)
     carry = init()
     assert carry[0].shape == (B, 6, 7) and carry[1].dtype == torch.int32
@@ -88,7 +90,7 @@ def test_actor_with_generator_draws():
 )
 def test_unported_engines_raise(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD)
+        make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD, device="cpu")
 
 
 def test_game_without_flat_ops_raises():

@@ -37,7 +37,7 @@ def random_boards(batch: int, moves: int, seed: int, freeze_done: bool = True) -
     legal moves (games that finish freeze unless ``freeze_done`` is
     False, which keeps playing past wins while moves are legal)."""
     rng = np.random.default_rng(seed)
-    state = _GAME.init(batch)
+    state = _GAME.init(batch, "cpu")
     for _ in range(moves):
         valid = _GAME.valid_moves(state).numpy()
         acts = np.array([rng.choice(np.flatnonzero(v)) if v.any() else 0 for v in valid])
@@ -62,7 +62,7 @@ def boards_from_seqs(seqs) -> np.ndarray:
     """int8[N, 6, 7] boards reached by the given move sequences."""
     out = []
     for seq in seqs:
-        s = _GAME.init(1)
+        s = _GAME.init(1, "cpu")
         for a in seq:
             s = _GAME.step(s, torch.tensor([a]))
         out.append(s)
