@@ -2,7 +2,8 @@
 
 The kernels live in ``csrc/`` (see each source's header for what it
 replaces and how it is designed): ``hybrid.cu`` holds the hybrid engine's
-descend, merge and refresh, ``fused.cu`` the fused search kernel; both
+descend, merge and refresh, ``fused.cu`` the fused search kernels (the
+uniform evaluator's, and the MLP's with the evaluator of ``mlp.cuh``); both
 include the Connect-Four and PUCT helpers of ``c4.cuh``. At first use the
 sources are compiled with ``nvcc`` for ``sm_90a``, one process per source,
 all started together, and linked into one shared library with a plain C
@@ -36,12 +37,13 @@ from typing import Optional
 import torch
 
 from alphazero_tpu_torch.config import MCTSConfig
+from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts import fused as _plain_fused
 from alphazero_tpu_torch.mcts import hybrid as _plain
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "hybrid.cu", _CSRC / "fused.cu")
-HEADERS = (_CSRC / "c4.cuh",)
+HEADERS = (_CSRC / "c4.cuh", _CSRC / "mlp.cuh")
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,6 +62,8 @@ _SIGNATURES = {
     "az_merge": ([_VP] * 12 + [_I32] * 4 + [_F32, _VP], _I32),
     "az_refresh": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
     "az_fused": ([_VP] * 5 + [_I32] * 4 + [_F32] * 2 + [_VP], _I32),
+    "az_fused_mlp": ([_VP] * 6 + [_I32] * 9 + [_F32, _VP], _I32),
+    "az_mlp_eval": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
 }
 
 
@@ -154,9 +158,9 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return False
 
 
-def _check(name: str, t: torch.Tensor, shape) -> int:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+def _check(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> int:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -282,13 +286,94 @@ def fused(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: floa
     return counts, rootw
 
 
+def _mlp_args(weights) -> list:
+    """The kernel's ``sections, n_hidden, h0..h3`` for ``MLPKernelWeights``
+    (``sections``: a host array of each section's device address), after
+    checking every section's dtype, shape and contiguity."""
+    hidden = tuple(weights.hidden)
+    _plain_fused.check_mlp_widths(hidden)
+    widths = (84, *hidden)   # the [+plane | -plane] input of a 42-cell board
+    shapes = [s for k, h in zip(widths, hidden) for s in ((k, h), (h,))]
+    dtypes = [torch.bfloat16] * len(shapes) + [torch.float32] * 2
+    shapes += [(hidden[-1], 8), (8,)]   # the head: 7 logits | the value
+    sections = weights.sections()
+    if len(sections) != len(shapes):
+        raise ValueError(f"expected {len(shapes)} weight sections, got {len(sections)}")
+    ptrs = [_check(f"weight section {i}", t, shape, dtype)
+            for i, (t, shape, dtype) in enumerate(zip(sections, shapes, dtypes))]
+    return [(_VP * len(ptrs))(*ptrs), len(hidden), *hidden,
+            *[0] * (_plain_fused.MLP_MAX_HIDDEN - len(hidden))]
+
+
+def fused_mlp(boards, priors, weights, num_sims: int, nodes: int, max_depth: int, cpuct: float):
+    """``mcts.fused.fused_mlp_search``: a whole search of Connect-Four
+    boards f32[B, 42] from masked root priors f32[B, 7] with the MLP of
+    ``weights`` (``MLPKernelWeights``) evaluated inside the kernel, in one
+    launch. Returns ``(counts, rootw) f32[B, 7]``."""
+    on_cpu = _on_cpu(boards, priors, *weights.sections())
+    mlp_args = _mlp_args(weights)
+    if on_cpu:
+        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct)
+        return _plain_fused.fused_mlp_search(boards, priors, cfg, weights)
+    lib = library()
+    B = boards.shape[0]
+    if B == 0:
+        raise ValueError("fused_mlp kernel needs B > 0")
+    if nodes < 1:
+        raise ValueError(f"fused_mlp kernel needs nodes >= 1, got {nodes}")
+    ptrs = [_check("boards", boards, (B, 42)), _check("priors", priors, (B, 7))]
+    dev = boards.device
+    tree = torch.empty((B, nodes, 32), device=dev)   # the kernel's tree scratch
+    counts = torch.empty((B, 7), device=dev)
+    rootw = torch.empty((B, 7), device=dev)
+    sections, *widths = mlp_args
+    rc = lib.lib.az_fused_mlp(
+        *ptrs, sections, tree.data_ptr(), counts.data_ptr(), rootw.data_ptr(),
+        B, int(nodes), int(num_sims), int(max_depth), *widths, float(cpuct), _stream(dev),
+    )
+    lib.check(rc, "fused_mlp")
+    fused_mlp.launches += 1
+    return counts, rootw
+
+
+def mlp_eval(boards, weights):
+    """The fused kernel's MLP evaluator alone, on Connect-Four boards
+    f32[B, 42]: ``(pm f32[B, 7], value f32[B], logits f32[B, 7])``, the
+    masked prior (INVALID_P on illegal moves), the value and the logits —
+    for checking the evaluator against its plain version
+    (``mcts.fused.mlp_forward`` and ``mlp_prior``)."""
+    on_cpu = _on_cpu(boards, *weights.sections())
+    mlp_args = _mlp_args(weights)
+    if on_cpu:
+        logits, value = _plain_fused.mlp_forward(boards, weights)
+        return _plain_fused.mlp_prior(logits, FlatOps().valid(boards)), value, logits
+    lib = library()
+    B = boards.shape[0]
+    if B == 0:
+        raise ValueError("mlp_eval kernel needs B > 0")
+    ptr = _check("boards", boards, (B, 42))
+    dev = boards.device
+    logits = torch.empty((B, 7), device=dev)
+    pm = torch.empty((B, 7), device=dev)
+    value = torch.empty((B,), device=dev)
+    sections, *widths = mlp_args
+    rc = lib.lib.az_mlp_eval(
+        ptr, sections, logits.data_ptr(), pm.data_ptr(), value.data_ptr(), B, *widths, _stream(dev),
+    )
+    lib.check(rc, "mlp_eval")
+    mlp_eval.launches += 1
+    return pm, value, logits
+
+
 descend.launches = 0
 merge.launches = 0
 refresh.launches = 0
 fused.launches = 0
+fused_mlp.launches = 0
+mlp_eval.launches = 0
 
 KERNELS = _plain.SearchKernels(descend, merge, refresh)
-_ALL = (descend, merge, refresh, fused)
+_ALL = (descend, merge, refresh, fused, fused_mlp, mlp_eval)
 
 
 def launch_counts() -> dict:

@@ -1,29 +1,38 @@
 """Fused search — every simulation of a search in one kernel launch.
 
-Counterpart of ``alphazero_tpu/mcts/fused.py`` on its K=1 path with the
-constant (uniform) evaluator: the model's prior is uniform over the legal
-moves and its value the constant ``apply_fn.uniform_value``, so the search
-needs no model call between simulations and the whole of it — descent,
-expansion, backup, PUCT argmax — runs in the CUDA kernel ``az_fused``
-(``csrc/fused.cu``, launched by ``alphazero_tpu_torch.kernels.fused``).
+Counterpart of ``alphazero_tpu/mcts/fused.py`` on its K=1 path. A model the
+kernel can evaluate itself needs no model call between simulations, so the
+whole search — descent, expansion, evaluation, backup, PUCT argmax — runs
+in one CUDA kernel (``csrc/fused.cu``):
+
+* the uniform model (``apply_fn.uniform_value``): the prior is uniform over
+  the legal moves and the value a constant — ``az_fused``, launched by
+  ``alphazero_tpu_torch.kernels.fused``;
+* ``MLPNet`` (``apply_fn.kernel_eval_factory``, the packed weights of
+  ``models.nets.pack_mlp_weights``): the network runs inside the kernel
+  (K3, ``csrc/mlp.cuh``) — ``az_fused_mlp``, launched by
+  ``kernels.fused_mlp``.
+
 The masked root prior (with optional injected Dirichlet noise) is computed
-outside the kernel, as the JAX package does.
+outside the kernel with the model's ``apply_fn``, as the JAX package does.
 
-The plain PyTorch version of the kernel is ``fused_search`` below: the
-hybrid engine's plain loop (``mcts.hybrid.run_search`` on the plain
-descend/merge/refresh) with the uniform evaluator. The kernel wrapper runs
-it for CPU tensors; root counts and root W are bit-identical either way.
+The plain PyTorch versions of the kernels are ``fused_search`` and
+``fused_mlp_search`` below: the hybrid engine's plain loop
+(``mcts.hybrid.run_search`` on the plain descend/merge/refresh) with the
+uniform evaluator or with ``mlp_eval``, whose arithmetic is the kernel's,
+op for op in the kernel's order. The kernel wrappers run them for CPU
+tensors; root counts and root W are bit-identical either way, up to the
+last bit of ``exp`` and ``tanh`` where two libraries compute them.
 
-Not ported (ROADMAP): the in-kernel MLP evaluator (K3, models with a
-``kernel_eval_factory`` take the hybrid engine until then), the K>1
-rounds (K2), depth-sorted blocking (``run_kernel_sorted``, whose
-8192-game threshold was measured on another device), ``mesh`` sharding,
-and games other than Connect-Four.
+Not ported (ROADMAP): the K>1 rounds (K2), depth-sorted blocking
+(``run_kernel_sorted``, whose 8192-game threshold was measured on another
+device), ``mesh`` sharding, MLPs beyond the kernel's widths, and games
+other than Connect-Four.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 
@@ -33,11 +42,14 @@ from alphazero_tpu_torch.mcts import hybrid
 from alphazero_tpu_torch.mcts.tree import INVALID_P
 from alphazero_tpu_torch.ops import root_prior
 
+MLP_MAX_HIDDEN = 4    # hidden layers the MLP kernel takes (csrc/mlp.cuh kMaxHidden)
+MLP_MAX_WIDTH = 256   # units per hidden layer it takes (kMaxWidth)
+
 
 def fused_search(
     boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, uval: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the fused kernel: the search of Connect-Four boards
+    """Plain version of ``az_fused``: the search of Connect-Four boards
     f32[B, 42] from masked root priors f32[B, 7] with the uniform prior
     ``vm / max(n_valid, 1)`` and the value ``uval`` at every expansion.
     Returns ``(counts, rootw) f32[B, 7]``, the root's N and W."""
@@ -62,22 +74,100 @@ def uniform_evaluator(batch: int, uval: float, device) -> Callable:
     return evaluate
 
 
+def _ordered_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x f32[B, K] . w f32[K, H]`` summed over k in order 0..K-1, each
+    product and each add rounded to f32: the kernel's loop (a matmul adds
+    in the library's order)."""
+    acc = torch.zeros((x.shape[0], w.shape[1]), device=x.device)
+    for k in range(w.shape[0]):
+        acc = acc + x[:, k: k + 1] * w[k]
+    return acc
+
+
+def mlp_forward(boards: torch.Tensor, weights) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's network (K3, the JAX ``eval_fn`` of
+    ``attach_mlp_kernel_eval``): ``(logits f32[B, 7], value f32[B])`` of
+    Connect-Four boards f32[B, 42] from the ``MLPKernelWeights``.
+
+    The input is the ``[+plane | -plane]`` 0/1 vector. Each hidden layer
+    sums ``x_k * W[k, j]`` over k in order (bf16 x bf16 products are exact
+    in f32, so only the order of the adds matters), rounds the sum to bf16,
+    adds the bias in bf16 and applies ReLU; the f32 head sums in order,
+    then adds its bias; the value goes through tanh."""
+    x = torch.cat([boards == 1, boards == -1], dim=1).float()
+    for w, b in zip(weights.w, weights.b):
+        h = _ordered_dot(x, w.float()).to(torch.bfloat16).float()
+        y = (h + b.float()).to(torch.bfloat16)
+        x = torch.where(y > 0, y, 0).float()
+    out = _ordered_dot(x, weights.wh) + weights.bh
+    A = weights.wh.shape[1] - 1
+    return out[:, :A], torch.tanh(out[:, A])
+
+
+def mlp_prior(logits: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
+    """Plain version of the kernel's prior: ``ops.masked_policy`` with its
+    sum over the actions taken in action order, and INVALID_P on illegal
+    edges (where ``masked_policy``'s uniform-over-all fallback for a board
+    with no legal move would land, so it is not computed)."""
+    masked = torch.where(vm, logits, -1e30)
+    z = masked - masked.amax(dim=1, keepdim=True)
+    e = torch.where(vm, torch.exp(z), 0.0)
+    total = torch.zeros_like(e[:, :1])
+    for a in range(e.shape[1]):
+        total = total + e[:, a: a + 1]
+    uniform_valid = vm.float() / vm.sum(dim=1, keepdim=True).clamp(min=1)
+    prior = torch.where(total > 0, e / total.clamp(min=1e-30), uniform_valid)
+    return torch.where(vm, prior, INVALID_P)
+
+
+def mlp_eval(boards: torch.Tensor, vm: torch.Tensor, weights) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``evaluate`` of ``hybrid.run_search`` for the MLP: the masked prior
+    f32[B, 7] (INVALID_P on illegal edges) and the value f32[B] of the
+    leaf boards, as the kernel computes them."""
+    logits, value = mlp_forward(boards, weights)
+    return mlp_prior(logits, vm), value
+
+
+def fused_mlp_search(
+    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, weights
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``az_fused_mlp``: the search of Connect-Four boards
+    f32[B, 42] from masked root priors f32[B, 7] with ``mlp_eval`` at every
+    expansion. Returns ``(counts, rootw) f32[B, 7]``, the root's N and W."""
+    n, w = hybrid.run_search(
+        FlatOps(), boards, p_masked, cfg, lambda bd, vm: mlp_eval(bd, vm, weights), hybrid.PLAIN
+    )
+    return n[:, :, 0], w[:, :, 0]
+
+
+def check_mlp_widths(hidden: Sequence[int]) -> None:
+    """Raise for an MLP the kernel does not take."""
+    if not 1 <= len(hidden) <= MLP_MAX_HIDDEN or not all(1 <= h <= MLP_MAX_WIDTH for h in hidden):
+        raise NotImplementedError(
+            f"the in-kernel MLP evaluator takes 1 to {MLP_MAX_HIDDEN} hidden layers of "
+            f"1 to {MLP_MAX_WIDTH} units, got {tuple(hidden)}: wider or deeper MLPs need "
+            "tiled activations (ROADMAP, GPU-native follow-ups)"
+        )
+
+
 def make_fused_root_fn(
     game, apply_fn, cfg: MCTSConfig, kernel: Optional[Callable] = None
 ) -> Optional[Callable[..., torch.Tensor]]:
     """Build ``root_counts(root_state, dirichlet=None) -> f32[B, A]`` on the
     fused kernel, or return None when the configuration needs the hybrid
-    engine: a model without ``uniform_value``, or with an in-kernel
-    evaluator still to be ported (K3), a nonzero cutoff heuristic, A > 16
-    or no flat ops (the JAX package's grounds).
+    engine: a model with neither ``uniform_value`` nor a
+    ``kernel_eval_factory``, a nonzero cutoff heuristic, A > 16 or no flat
+    ops (the JAX package's grounds). A model with both takes its in-kernel
+    evaluator, as in the JAX package.
 
-    ``kernel`` defaults to ``alphazero_tpu_torch.kernels.fused`` (the CUDA
-    kernel for CUDA tensors, ``fused_search`` for CPU tensors)."""
+    ``kernel`` defaults to ``alphazero_tpu_torch.kernels.fused_mlp`` for a
+    model with a ``kernel_eval_factory`` and to ``kernels.fused`` for the
+    uniform model (the CUDA kernels for CUDA tensors, ``fused_mlp_search``
+    and ``fused_search`` for CPU tensors)."""
     uval = getattr(apply_fn, "uniform_value", None)
-    if uval is None:
+    eval_factory = getattr(apply_fn, "kernel_eval_factory", None)
+    if uval is None and eval_factory is None:
         return None
-    if getattr(apply_fn, "kernel_eval_factory", None) is not None:
-        return None  # the in-kernel MLP evaluator (K3) is not yet ported
     if not getattr(game, "heuristic_is_zero", False):
         return None
     if game.num_actions > 16:
@@ -95,18 +185,28 @@ def make_fused_root_fn(
             f"the fused kernel's game helpers are Connect-Four's; {game.name} "
             "needs its own (ROADMAP queue 2, K4 per game)"
         )
-    if kernel is None:
-        from alphazero_tpu_torch.kernels import fused as kernel
     ops = flat_ops_factory()
-    uval = float(uval)
+    sims, nodes, depth, cpuct = cfg.num_sims, cfg.nodes, cfg.max_depth, float(cfg.cpuct)
+    if eval_factory is not None:
+        weights = eval_factory(ops)
+        check_mlp_widths(weights.hidden)
+        if kernel is None:
+            from alphazero_tpu_torch.kernels import fused_mlp as kernel
+
+        def search(boards, p_masked):
+            return kernel(boards, p_masked, weights, sims, nodes, depth, cpuct)
+    else:
+        if kernel is None:
+            from alphazero_tpu_torch.kernels import fused as kernel
+        uval = float(uval)
+
+        def search(boards, p_masked):
+            return kernel(boards, p_masked, sims, nodes, depth, cpuct, uval)
 
     def root_counts(root_state, dirichlet: Optional[torch.Tensor] = None) -> torch.Tensor:
         boards = ops.from_state(root_state)
         prior, root_valid = root_prior(game, apply_fn, cfg, root_state, dirichlet)
-        p_masked = torch.where(root_valid, prior, INVALID_P)
-        counts, _ = kernel(
-            boards, p_masked, cfg.num_sims, cfg.nodes, cfg.max_depth, float(cfg.cpuct), uval
-        )
+        counts, _ = search(boards, torch.where(root_valid, prior, INVALID_P))
         return counts
 
     return root_counts

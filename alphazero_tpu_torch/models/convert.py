@@ -2,8 +2,8 @@
 
 Takes a flax ``{'params', 'batch_stats'}`` tree whose leaves are numpy
 arrays (``jax.device_get`` of a JAX model's variables, or
-``random_az_resnet_variables``) and returns the port's ``AZResNet`` with
-the same weights:
+``random_az_resnet_variables`` / ``random_mlp_variables``) and returns the
+port's ``AZResNet`` or ``MLPNet`` with the same weights:
 
 * conv kernels HWIO -> OIHW; Dense kernels ``[in, out]`` -> ``[out, in]``;
 * BatchNorm ``scale/bias`` + ``mean/var`` -> the torch BN's
@@ -12,16 +12,18 @@ the same weights:
 * the policy head flattens a 2-channel NHWC map in H*W*C order in flax,
   but the torch module flattens NCHW (C*H*W order), so the ``policy``
   kernel's rows are permuted. The value head has one channel: no change.
+* ``MLPNet`` reads the NHWC-flat features in flax's order: its Dense
+  kernels are only transposed.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Sequence
 
 import numpy as np
 import torch
 
-from alphazero_tpu_torch.models.nets import AZResNet
+from alphazero_tpu_torch.models.nets import AZResNet, MLPNet
 
 
 def _t(a) -> torch.Tensor:
@@ -92,6 +94,53 @@ def convert_az_resnet(variables: Any, dtype: torch.dtype = torch.bfloat16) -> AZ
     )
     model.load_state_dict(az_resnet_state_dict(variables))
     return model.eval()
+
+
+def mlp_state_dict(variables: Any) -> Dict[str, torch.Tensor]:
+    """The ``MLPNet`` state dict for a flax ``MLPNet`` variable tree. The
+    torch module reads the NHWC-flat features in flax's order, so only the
+    Dense kernels are transposed."""
+    p = variables["params"]
+    sd: Dict[str, torch.Tensor] = {}
+    for name in (*_mlp_hidden_names(p), "policy", "value"):
+        _dense(sd, name, p[name])
+    return sd
+
+
+def _mlp_hidden_names(params) -> list:
+    return [f"Dense_{i}" for i in range(sum(1 for k in params if k.startswith("Dense_")))]
+
+
+def convert_mlp(variables: Any) -> MLPNet:
+    """A port ``MLPNet`` holding the weights of a flax ``MLPNet`` tree;
+    widths are read from the tree."""
+    p = variables["params"]
+    model = MLPNet(
+        num_actions=int(np.shape(p["policy"]["kernel"])[1]),
+        hidden=[int(np.shape(p[n]["kernel"])[1]) for n in _mlp_hidden_names(p)],
+        cells=int(np.shape(p["Dense_0"]["kernel"])[0]) // 2,
+    )
+    model.load_state_dict(mlp_state_dict(variables))
+    return model.eval()
+
+
+def random_mlp_variables(
+    num_actions: int, hidden: Sequence[int], cells: int = 42, seed: int = 0
+) -> Dict[str, Dict[str, Any]]:
+    """A flax-layout ``MLPNet`` variable tree of seeded numpy arrays
+    (He-scaled kernels, nonzero biases so that the bf16 bias add is
+    exercised), for runs that need real widths but no trained weights and
+    no JAX."""
+    rng = np.random.default_rng(seed)
+    widths = (2 * cells, *hidden)
+    params: Dict[str, Any] = {}
+    names = [f"Dense_{i}" for i in range(len(hidden))] + ["policy", "value"]
+    for name, cin, cout in zip(names, widths + (widths[-1],), (*hidden, num_actions, 1)):
+        params[name] = {
+            "kernel": (rng.standard_normal((cin, cout)) * np.sqrt(2.0 / cin)).astype(np.float32),
+            "bias": (rng.standard_normal(cout) * 0.1).astype(np.float32),
+        }
+    return {"params": params}
 
 
 def random_az_resnet_variables(

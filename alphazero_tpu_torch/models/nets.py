@@ -7,13 +7,16 @@ over its parameters here instead (``make_apply_fn``).
 
 Features keep the JAX NHWC layout ``[B, 6, 7, 2]`` at the public
 functions; the conv stack permutes them to an NCHW view with channels_last
-strides, the layout cuDNN runs fastest. The convs are library calls, as
-they are XLA ops outside any Pallas kernel in the JAX package.
+strides, the layout cuDNN runs fastest. The convs and the MLP's matmuls
+are library calls, as they are XLA ops outside any Pallas kernel in the
+JAX package; the fused search evaluates the MLP in its own kernel from the
+packed weights of ``pack_mlp_weights``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import math
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -189,12 +192,156 @@ class FoldedAZResNet(nn.Module):
         return logits, torch.tanh(v)[:, 0]
 
 
+def _mlp_forward(feats, hidden, heads) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The MLP on NHWC features: ``hidden`` is ``[(W bf16[out, in], b
+    bf16[out]), ...]``, ``heads`` the f32 ``(policy W, policy b, value W,
+    value b)``."""
+    x = feats.reshape(feats.shape[0], -1).to(torch.bfloat16)
+    for w, b in hidden:
+        # the product rounded to bf16, then the bias add rounded again: the
+        # rounding points of the flax Dense (F.linear(x, w, b) rounds once)
+        x = F.relu(F.linear(x, w).add_(b))
+    h = x.float()
+    wp, bp, wv, bv = heads
+    return F.linear(h, wp, bp), torch.tanh(F.linear(h, wv, bv))[:, 0]
+
+
+class MLPNet(nn.Module):
+    """Tiny MLP policy/value net (BASELINE config 2), the flax ``MLPNet``:
+    hidden layers ``Dense_0..n-1`` in bf16 with ReLU, then f32 ``policy``
+    and ``value`` heads, ``tanh`` on the value. The input is the NHWC-flat
+    feature vector ``[B, 2 * cells]``, as flax flattens it. Parameters are
+    f32; the forward casts the hidden layers' to bf16."""
+
+    def __init__(self, num_actions: int, hidden: Sequence[int] = (256, 256), cells: int = 42):
+        super().__init__()
+        self.num_actions = num_actions
+        self.hidden = tuple(int(h) for h in hidden)
+        self.cells = cells
+        widths = (2 * cells, *self.hidden)
+        for i in range(len(self.hidden)):
+            setattr(self, f"Dense_{i}", nn.Linear(widths[i], widths[i + 1]))
+        self.policy = nn.Linear(widths[-1], num_actions)
+        self.value = nn.Linear(widths[-1], 1)
+
+    def dense_layers(self) -> List[nn.Linear]:
+        return [getattr(self, f"Dense_{i}") for i in range(len(self.hidden))]
+
+    def forward_weights(self):
+        """``(hidden, heads)`` of ``_mlp_forward``: the hidden layers cast
+        to bf16, the f32 heads."""
+        hidden = [(d.weight.to(torch.bfloat16), d.bias.to(torch.bfloat16))
+                  for d in self.dense_layers()]
+        heads = (self.policy.weight, self.policy.bias, self.value.weight, self.value.bias)
+        return hidden, heads
+
+    def forward(self, feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return _mlp_forward(feats, *self.forward_weights())
+
+
+class MLPKernelWeights(NamedTuple):
+    """The in-kernel MLP evaluator's weights, sections of one packed device
+    buffer (``pack_mlp_weights``); the kernel takes each section's own
+    address (``sections()``)."""
+
+    hidden: Tuple[int, ...]            # hidden widths
+    w: Tuple[torch.Tensor, ...]        # bf16 [in, out]; W_0's rows [+plane | -plane]
+    b: Tuple[torch.Tensor, ...]        # bf16 [out]
+    wh: torch.Tensor                   # f32 [H_last, A + 1]: policy | value
+    bh: torch.Tensor                   # f32 [A + 1]
+
+    def sections(self) -> List[torch.Tensor]:
+        """``W_0, b_0, ..., W_n-1, b_n-1, Wh, bh``: the kernel's order."""
+        return [t for pair in zip(self.w, self.b) for t in pair] + [self.wh, self.bh]
+
+
+def _itemsize(dtype: torch.dtype) -> int:
+    return torch.finfo(dtype).bits // 8
+
+
+def mlp_sections(hidden: Sequence[int], num_actions: int, cells: int):
+    """``([(shape, dtype, byte offset), ...], nbytes)`` of the packed
+    buffer: W_l, b_l of each hidden layer, then Wh and bh, each section at
+    a 16-byte boundary."""
+    widths = (2 * cells, *hidden)
+    shapes = []
+    for i, h in enumerate(hidden):
+        shapes += [((widths[i], h), torch.bfloat16), ((h,), torch.bfloat16)]
+    shapes += [((widths[-1], num_actions + 1), torch.float32), ((num_actions + 1,), torch.float32)]
+    out, off = [], 0
+    for shape, dtype in shapes:
+        out.append((shape, dtype, off))
+        nbytes = math.prod(shape) * _itemsize(dtype)
+        off = (off + nbytes + 15) // 16 * 16
+    return out, off
+
+
+def mlp_feature_perm(cells: int) -> List[int]:
+    """Input ``j`` of the kernel's ``[+plane | -plane]`` order is NHWC-flat
+    feature ``2j`` (``j < cells``), else ``2(j - cells) + 1``."""
+    return [2 * j for j in range(cells)] + [2 * j + 1 for j in range(cells)]
+
+
+@torch.no_grad()
+def pack_mlp_weights(model: MLPNet) -> MLPKernelWeights:
+    """The kernel's weights of ``model`` on its device (the JAX
+    ``extract``): W_0's rows permuted from the NHWC-flat order to
+    ``[+plane | -plane]``, the hidden layers in bf16, the policy and value
+    heads fused into one f32 ``[H_last, A + 1]`` head."""
+    dev = model.policy.weight.device
+    tensors = []
+    for i, d in enumerate(model.dense_layers()):
+        w = d.weight.t()
+        if i == 0:
+            w = w[torch.as_tensor(mlp_feature_perm(model.cells), device=dev)]
+        tensors += [w.to(torch.bfloat16), d.bias.to(torch.bfloat16)]
+    tensors.append(torch.cat([model.policy.weight, model.value.weight]).t().float())
+    tensors.append(torch.cat([model.policy.bias, model.value.bias]).float())
+    sections, nbytes = mlp_sections(model.hidden, model.num_actions, model.cells)
+    packed = torch.zeros(nbytes, dtype=torch.uint8, device=dev)
+    views = []
+    for t, (shape, dtype, off) in zip(tensors, sections):
+        view = packed[off: off + t.numel() * _itemsize(dtype)].view(dtype).view(shape)
+        view.copy_(t)
+        views.append(view)
+    return MLPKernelWeights(
+        model.hidden, tuple(views[0:-2:2]), tuple(views[1:-2:2]), views[-2], views[-1]
+    )
+
+
+def _mlp_apply_fn(model: MLPNet) -> Callable:
+    # a snapshot of the weights, as the packed kernel weights are one
+    with torch.no_grad():
+        hidden, heads = model.forward_weights()
+        heads = tuple(t.clone() for t in heads)
+    weights = pack_mlp_weights(model)
+
+    def apply_fn(feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        with torch.no_grad():
+            return _mlp_forward(feats, hidden, heads)
+
+    def kernel_eval_factory(ops) -> MLPKernelWeights:
+        if ops.size != model.cells:
+            raise ValueError(f"the MLP takes {model.cells}-cell boards, the game has {ops.size}")
+        return weights
+
+    apply_fn.needs_features = True
+    # the in-kernel evaluator of the fused search (mcts/fused.py), under
+    # the JAX package's name
+    apply_fn.kernel_eval_factory = kernel_eval_factory
+    return apply_fn
+
+
 def make_apply_fn(model) -> Callable:
     """Search-side ``apply_fn(feats_nhwc) -> (logits f32[B, A], value
-    f32[B])``. An ``AZResNet`` is BN-folded once, here; a
-    ``UniformModel`` returns its own feature-free apply_fn."""
+    f32[B])``. An ``AZResNet`` is BN-folded once, here; an ``MLPNet``'s
+    bf16 weights and its packed in-kernel weights (``kernel_eval_factory``)
+    are built once, here; a ``UniformModel`` returns its own feature-free
+    apply_fn."""
     if isinstance(model, UniformModel):
         return model.apply_fn
+    if isinstance(model, MLPNet):
+        return _mlp_apply_fn(model)
     if not isinstance(model, AZResNet):
         raise TypeError(f"no search apply_fn for {type(model).__name__}")
     folded = model.fold().eval()

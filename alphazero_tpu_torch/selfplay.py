@@ -25,10 +25,10 @@ def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., 
     """``(state, dirichlet) -> root visit counts f32[B, A]``.
 
     The port's engine ladder, as in the JAX package: the fused kernel for
-    a model it can evaluate inside the kernel (the uniform prior; the MLP
-    waits for K3, ROADMAP queue 2, and takes the hybrid until then), on any
-    device; then the hybrid engine for any model on a flat-ops game.
-    Everything else raises — no engine stands in silently for another."""
+    a model it can evaluate inside the kernel (the uniform prior, or an
+    ``MLPNet`` through its ``kernel_eval_factory``), on any device; then
+    the hybrid engine for any model on a flat-ops game. Everything else
+    raises — no engine stands in silently for another."""
     if getattr(mcts_cfg, "transposition", False):
         raise NotImplementedError(
             "transposition search (mcts/tt.py) is not yet ported "

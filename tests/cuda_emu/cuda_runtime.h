@@ -2,13 +2,17 @@
 // csrc/*.cu kernels use, so their logic compiles with g++ and runs on the
 // host (tests/test_torch_kernels.py). Each launch runs its blocks one after
 // another, each block's threads as std::threads meeting at a std::barrier
-// for __syncthreads(). The round-to-nearest intrinsics are plain IEEE
-// float operations (build with -ffp-contract=off), as on the card.
+// for __syncthreads(); a __shared__ array is a static one, which the
+// block's threads share (blocks run one at a time). The round-to-nearest
+// intrinsics are plain IEEE float operations (build with
+// -ffp-contract=off), as on the card; expf and tanhf are glibc's, which
+// may differ from the card's in the last bit.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <math.h>
 #include <thread>
 #include <vector>
 
@@ -16,6 +20,7 @@
 #define __device__
 #define __forceinline__ inline
 #define __restrict__
+#define __shared__ static
 
 struct emu_dim3 { unsigned int x, y, z; };
 inline thread_local emu_dim3 threadIdx, blockIdx;
@@ -29,6 +34,7 @@ inline cudaError_t cudaGetLastError() { return 0; }
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
 inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
 inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }

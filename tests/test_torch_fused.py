@@ -2,7 +2,8 @@
 ``az_fused`` kernel on the CPU) gives root visit counts EQUAL to the JAX
 fused kernel, run in the Pallas interpreter as tests/test_fused.py runs it,
 and reproduces the frozen goldens; the self-play ladder picks it for the
-uniform model and the hybrid engine for the ResNet."""
+uniform model and the hybrid engine for the ResNet (the MLP's fused route
+is tests/test_torch_mlp.py's)."""
 
 import dataclasses
 import json
@@ -24,9 +25,11 @@ from alphazero_tpu_torch.games import ConnectFour
 from alphazero_tpu_torch.mcts import fused_search, make_fused_root_fn, make_hybrid_root_fn
 from alphazero_tpu_torch.models import (
     convert_az_resnet,
+    convert_mlp,
     make_apply_fn,
     make_uniform_model,
     random_az_resnet_variables,
+    random_mlp_variables,
 )
 from alphazero_tpu_torch.selfplay import _make_root_counts_fn
 from tests.torch_parity import DRAW_BOARD, boards_from_seqs, jax_state, random_boards, torch_state
@@ -130,12 +133,8 @@ def test_declines_and_raises_as_the_reference():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _make_root_counts_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=4))
 
-    def mlp_like(feats):
-        return uni(feats)
-
-    mlp_like.uniform_value = 0.0
-    mlp_like.kernel_eval_factory = object()
-    assert make_fused_root_fn(TG, mlp_like, MCTSConfig()) is None   # K3 not yet ported
+    mlp_apply = make_apply_fn(convert_mlp(random_mlp_variables(7, (16,), seed=0)))
+    assert make_fused_root_fn(TG, mlp_apply, MCTSConfig()) is not None   # K3, the in-kernel MLP
     nn_apply = make_apply_fn(convert_az_resnet(random_az_resnet_variables(7, 8, 1, seed=0),
                                                dtype=torch.float32))
     assert make_fused_root_fn(TG, nn_apply, MCTSConfig()) is None

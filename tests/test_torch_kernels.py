@@ -1,9 +1,12 @@
 """The CUDA sources of the kernels (alphazero_tpu_torch/csrc/hybrid.cu and
-fused.cu, with c4.cuh), compiled with g++ against a CPU stand-in for the
-CUDA built-ins (tests/cuda_emu/cuda_runtime.h) and run on host memory:
-every descend, merge and refresh call of whole hybrid searches, and every
-whole fused search, must be bit-equal to the plain PyTorch versions, and
-the searches must reproduce the goldens.
+fused.cu, with c4.cuh and mlp.cuh), compiled with g++ against a CPU
+stand-in for the CUDA built-ins (tests/cuda_emu/cuda_runtime.h,
+cuda_bf16.h) and run on host memory: every descend, merge and refresh call
+of whole hybrid searches, and every whole uniform fused search, must be
+bit-equal to the plain PyTorch versions, and the searches must reproduce
+the goldens. The MLP evaluator's logits must be bit-equal to its plain
+version's; its prior and value, and so the MLP searches, may differ where
+glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit.
 
 This checks the kernels' LOGIC (indexing, record format, install/link/
 backup, PUCT order of operations, first-max ties, the Connect-Four win
@@ -25,18 +28,23 @@ import torch
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.games import ConnectFour
+from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts import (
     SearchKernels,
+    fused_mlp_search,
     fused_search,
     hybrid,
     make_fused_root_fn,
     make_hybrid_root_fn,
 )
+from alphazero_tpu_torch.mcts.fused import mlp_forward, mlp_prior
 from alphazero_tpu_torch.models import (
     convert_az_resnet,
+    convert_mlp,
     make_apply_fn,
     make_uniform_model,
     random_az_resnet_variables,
+    random_mlp_variables,
 )
 from alphazero_tpu_torch.ops import sample_draws
 from tests.torch_parity import boards_from_seqs, random_boards, torch_state
@@ -44,7 +52,7 @@ from tests.torch_parity import boards_from_seqs, random_boards, torch_state
 HERE = os.path.dirname(os.path.abspath(__file__))
 TG = ConnectFour()
 _LAUNCH = re.compile(r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 3, "fused.cu": 1}   # kernel launches in each source
+_LAUNCHES = {"hybrid.cu": 3, "fused.cu": 3}   # kernel launches in each source
 
 
 @pytest.fixture(scope="module")
@@ -239,3 +247,107 @@ def test_emulated_bit_equal_plain_dirichlet(emulated):
         TG, make_uniform_model(TG, 0.5).apply_fn, cfg, kernel=_checked_fused(emulated, calls)
     )(torch_state(random_boards(32, 8, seed=4)), noise)
     assert calls == {"fused": 1}
+
+
+def _mlp_apply(hidden, seed):
+    return make_apply_fn(convert_mlp(random_mlp_variables(7, hidden, seed=seed)))
+
+
+def _mlp_args(weights):
+    """``(sections, [n_hidden, h0..h3])`` of the MLP entry points."""
+    sections, *widths = kernels._mlp_args(weights)
+    return sections, widths
+
+
+# prior and value tolerance of the emulated MLP evaluator: glibc's expf and
+# tanhf against torch's CPU exp and tanh, each within an ulp or two of the
+# exact value (< 1e-7 absolute for values of magnitude <= 1)
+MLP_EMU_ATOL = 1e-6
+MLP_EMU_W_ATOL = 24 * MLP_EMU_ATOL   # root W: a sum of up to 24 leaf values here
+
+
+@pytest.mark.parametrize(
+    "hidden", [(64,), (32, 32), (256, 256), (16, 24, 40, 8)],
+    ids=["smoke64", "32x32", "256x256", "four_layers"],
+)
+def test_emulated_mlp_eval_bit_equal_plain_logits(emulated, hidden):
+    """The kernel's evaluator on 40 boards (a full block and a ragged one
+    with padding games): logits bit-equal to ``mlp_forward``; prior and
+    value within MLP_EMU_ATOL of ``mlp_prior`` and the plain tanh."""
+    weights = _mlp_apply(hidden, seed=len(hidden)).kernel_eval_factory(FlatOps())
+    boards = FlatOps().from_state(torch_state(random_boards(40, 20, seed=3, freeze_done=False)))
+    logits, pm, value = torch.empty(40, 7), torch.empty(40, 7), torch.empty(40)
+    sections, widths = _mlp_args(weights)
+    rc = emulated.lib.az_mlp_eval(
+        boards.data_ptr(), sections, logits.data_ptr(), pm.data_ptr(), value.data_ptr(), 40,
+        *widths, None,
+    )
+    assert rc == 0
+    ref_logits, ref_value = mlp_forward(boards, weights)
+    assert torch.equal(_bits(logits), _bits(ref_logits)), "mlp logits"
+    vm = FlatOps().valid(boards)
+    assert (~vm).any() and torch.equal(pm[~vm], torch.full_like(pm[~vm], -1e30))
+    torch.testing.assert_close(pm, mlp_prior(ref_logits, vm), atol=MLP_EMU_ATOL, rtol=0)
+    torch.testing.assert_close(value, ref_value, atol=MLP_EMU_ATOL, rtol=0)
+
+
+def _checked_fused_mlp(lib, calls):
+    """A ``kernels.fused_mlp`` stand-in running the emulated
+    ``az_fused_mlp`` AND the plain ``fused_mlp_search`` on every call,
+    recording how many games give identical counts. Where they do, root W
+    must agree within MLP_EMU_W_ATOL: each backed-up value may differ in
+    its last bits (glibc's tanhf against torch's tanh), and W sums up to
+    num_sims of them."""
+
+    def fused_mlp(boards, priors, weights, num_sims, nodes, max_depth, cpuct):
+        B = boards.shape[0]
+        tree = torch.empty(B, nodes, 32)
+        counts, rootw = torch.empty(B, 7), torch.empty(B, 7)
+        sections, widths = _mlp_args(weights)
+        rc = lib.lib.az_fused_mlp(
+            boards.data_ptr(), priors.data_ptr(), sections,
+            *(t.data_ptr() for t in (tree, counts, rootw)),
+            B, nodes, num_sims, max_depth, *widths, cpuct, None,
+        )
+        assert rc == 0
+        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct)
+        ref_counts, ref_w = fused_mlp_search(boards, priors, cfg, weights)
+        same = (counts == ref_counts).all(1)
+        assert (rootw - ref_w)[same].abs().max() <= MLP_EMU_W_ATOL
+        calls["fused_mlp"] += 1
+        calls["same"] += int(same.sum())
+        calls["games"] += B
+        return counts, rootw
+
+    return fused_mlp
+
+
+@pytest.mark.parametrize(
+    "cfg,moves,freeze,dirichlet",
+    [
+        (MCTSConfig(num_sims=24, max_depth=48), 8, True, None),
+        (MCTSConfig(num_sims=20, max_depth=48), 30, False, None),             # endgames, past wins
+        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5), 6, True, None),     # depth cutoffs
+        (MCTSConfig(num_sims=20, max_depth=48, max_nodes=8), 12, True, None),  # slots run out
+        (MCTSConfig(num_sims=16, max_depth=48, dirichlet_alpha=0.7), 4, True, 0.7),
+    ],
+    ids=["early", "endgames", "max_depth3", "max_nodes8", "dirichlet"],
+)
+def test_emulated_mlp_search_matches_plain(emulated, cfg, moves, freeze, dirichlet):
+    """Whole emulated MLP searches (40 games: a full block of 32 and a
+    ragged one) through the fused engine: simulations conserved, and counts
+    identical to ``fused_mlp_search``'s on >= 95% of games (a last-bit
+    difference of exp/tanh can flip a PUCT argmax)."""
+    boards = torch_state(random_boards(40, moves, seed=moves, freeze_done=freeze))
+    noise = None
+    if dirichlet is not None:
+        noise = sample_draws(torch.Generator().manual_seed(2), 40, 7, dirichlet, "cpu").dirichlet
+    calls = {"fused_mlp": 0, "same": 0, "games": 0}
+    counts = make_fused_root_fn(
+        TG, _mlp_apply((32, 32), seed=moves), cfg, kernel=_checked_fused_mlp(emulated, calls)
+    )(boards, noise)
+    assert calls["fused_mlp"] == 1
+    live = ~TG.terminal(boards)[0]
+    assert live.any()
+    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
+    assert calls["same"] >= 0.95 * calls["games"], f"{calls['same']} of {calls['games']} games equal"
