@@ -4,10 +4,12 @@ The JAX package ``alphazero_tpu`` stays the reference; this package mirrors
 its module names so each counterpart is easy to find, and is tested against
 it on identical numpy inputs (``tests/test_torch_*.py``).
 
-Ported so far (the Connect-Four self-play slices: ResNet, uniform, MLP):
+Ported so far (the Connect-Four self-play slices: ResNet, uniform, MLP;
+Othello's self-play on the hybrid engine with any model):
 
   - :mod:`alphazero_tpu_torch.config`   — ``MCTSConfig``, ``PUCT_EPS``
-  - :mod:`alphazero_tpu_torch.games`    — ``Game`` protocol, ``ConnectFour`` + ``FlatOps``
+  - :mod:`alphazero_tpu_torch.games`    — ``Game`` protocol, ``ConnectFour`` + ``FlatOps``,
+    ``Othello`` + ``OthelloFlatOps``
   - :mod:`alphazero_tpu_torch.ops`      — masked policy, action probabilities, root prior
   - :mod:`alphazero_tpu_torch.models`   — ``UniformModel``, ``AZResNet`` (BN-folded eval),
     ``MLPNet`` (with its packed in-kernel weights), the flax -> torch parameter converter

@@ -190,3 +190,8 @@ class FlatOps:
         done = win | lose | full
         value = win.float() - (lose & ~win).float()
         return done, value
+
+    def valid_terminal(self, board: torch.Tensor, aux: torch.Tensor):
+        """``(valid bool[B, 7], done bool[B, 1], value f32[B, 1])``, what
+        the search needs of each leaf batch."""
+        return (self.valid(board), *self.terminal(board, aux))

@@ -2,9 +2,11 @@
 
 The kernels live in ``csrc/`` (see each source's header for what it
 replaces and how it is designed): ``hybrid.cu`` holds the hybrid engine's
-descend, merge and refresh, ``fused.cu`` the fused search kernels (the
-uniform evaluator's, and the MLP's with the evaluator of ``mlp.cuh``); both
-include the Connect-Four and PUCT helpers of ``c4.cuh``. At first use the
+descend (one instance per game: Connect-Four and Othello, whose step is in
+``othello.cuh``), merge and refresh (unrolled for A <= 8, dense above),
+``fused.cu`` the fused search kernels (the uniform evaluator's, and the
+MLP's with the evaluator of ``mlp.cuh``); both include the Connect-Four and
+PUCT helpers of ``c4.cuh``. At first use the
 sources are compiled with ``nvcc`` for ``sm_90a``, one process per source,
 all started together, and linked into one shared library with a plain C
 interface under ``csrc/build/<hash of sources, header and flags>/``, which
@@ -18,8 +20,13 @@ Each wrapper takes tensors on ONE device:
   failed build, a bad shape/dtype/layout or a launch error never falls
   back to the plain version.
 
-Each wrapper counts its kernel launches in a plain integer attribute,
-``descend.launches`` etc.; ``reset_launch_counts()`` zeroes them.
+``descend``, ``merge`` and ``refresh`` route a CUDA call to the kernel
+instance that takes it: ``descend`` by board width (42 Connect-Four, its
+own kernel; 64 ``descend_othello``), ``merge`` and ``refresh`` by action
+count (A <= 8 their own kernels; above, ``merge_dense`` and
+``refresh_dense``). Each wrapper counts the launches of its own kernel in
+a plain integer attribute, ``descend.launches`` etc.;
+``reset_launch_counts()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from alphazero_tpu_torch.mcts import hybrid as _plain
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "hybrid.cu", _CSRC / "fused.cu")
-HEADERS = (_CSRC / "c4.cuh", _CSRC / "mlp.cuh")
+HEADERS = (_CSRC / "c4.cuh", _CSRC / "mlp.cuh", _CSRC / "othello.cuh")
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -56,11 +63,13 @@ NVCC_FLAGS = (
 _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported C functions of the library: (argument types, result type)
 _SIGNATURES = {
-    "az_max_actions": ([], _I32),
     "az_error_string": ([_I32], ctypes.c_char_p),
     "az_descend": ([_VP] * 9 + [_I32] * 3 + [_VP], _I32),
+    "az_descend_othello": ([_VP] * 9 + [_I32] * 3 + [_VP], _I32),
     "az_merge": ([_VP] * 12 + [_I32] * 4 + [_F32, _VP], _I32),
+    "az_merge_dense": ([_VP] * 12 + [_I32] * 4 + [_F32, _VP], _I32),
     "az_refresh": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
+    "az_refresh_dense": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
     "az_fused": ([_VP] * 5 + [_I32] * 4 + [_F32] * 2 + [_VP], _I32),
     "az_fused_mlp": ([_VP] * 6 + [_I32] * 9 + [_F32, _VP], _I32),
     "az_mlp_eval": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
@@ -78,7 +87,6 @@ class _Library:
         for fn, (args, res) in _SIGNATURES.items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = res
-        self.max_actions = int(lib.az_max_actions())
 
     def check(self, rc: int, name: str) -> None:
         if rc != 0:
@@ -172,50 +180,66 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _check_actions(lib: _Library, A: int) -> None:
-    if A > lib.max_actions:
-        raise NotImplementedError(
-            f"A={A} > {lib.max_actions}: the dense A>8 refresh (ROADMAP queue 2, "
-            "K6 dense branch) is not yet ported"
-        )
-
-
-def descend(besta, bestc, done, tval, boards, max_depth: int):
-    """``mcts.hybrid.descend`` for Connect-Four boards f32[B, 42]."""
-    if _on_cpu(besta, bestc, done, tval, boards):
-        return _plain.descend(besta, bestc, done, tval, boards, max_depth)
+def _descend(entry: str, besta, bestc, done, tval, boards, max_depth: int):
+    """Launch the descend kernel ``entry`` on CUDA tensors."""
     B, C = besta.shape
-    if B == 0 or boards.shape != (B, 42):
-        raise ValueError(f"descend kernel takes Connect-Four boards [B>0, 42], got {tuple(boards.shape)}")
+    L = boards.shape[-1]
+    if B == 0:
+        raise ValueError("descend kernel needs B > 0")
     lib = library()
     ptrs = [
         _check("besta", besta, (B, C)), _check("bestc", bestc, (B, C)),
         _check("done", done, (B, C)), _check("tval", tval, (B, C)),
-        _check("boards", boards, (B, 42)),
+        _check("boards", boards, (B, L)),
     ]
-    bd = torch.empty((B, 42), device=boards.device)
+    bd = torch.empty((B, L), device=boards.device)
     patha = torch.empty((B, C), device=boards.device)
     psgn = torch.empty((B, C), device=boards.device)
     meta = torch.empty((B, 8), device=boards.device)
-    rc = lib.lib.az_descend(
+    rc = getattr(lib.lib, entry)(
         *ptrs, bd.data_ptr(), patha.data_ptr(), psgn.data_ptr(), meta.data_ptr(),
         B, C, int(max_depth), _stream(boards.device),
     )
-    lib.check(rc, "descend")
-    descend.launches += 1
+    lib.check(rc, entry)
     return bd, patha, psgn, meta
 
 
-def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: float):
-    """``mcts.hybrid.merge``: in place on ``n, w, p, code, done, tval``;
-    returns the refreshed ``(best_a, best_code)``."""
-    if _on_cpu(n, w, p, code, done, tval, pm, patha, psgn, meta2):
-        return _plain.merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot, cpuct)
+def descend(besta, bestc, done, tval, boards, max_depth: int, ops):
+    """``mcts.hybrid.descend``: on CUDA, Connect-Four boards f32[B, 42] run
+    this wrapper's kernel and Othello boards f32[B, 64] ``descend_othello``;
+    other widths raise (their step is not ported to the card)."""
+    if _on_cpu(besta, bestc, done, tval, boards):
+        return _plain.descend(besta, bestc, done, tval, boards, max_depth, ops)
+    L = boards.shape[-1]
+    if L == 64:
+        return descend_othello(besta, bestc, done, tval, boards, max_depth, ops)
+    if L != 42:
+        raise NotImplementedError(
+            f"no descend kernel for {L}-cell boards: only Connect-Four (42) and "
+            "Othello (64) are ported (ROADMAP queue 2, K4 per game)"
+        )
+    out = _descend("az_descend", besta, bestc, done, tval, boards, max_depth)
+    descend.launches += 1
+    return out
+
+
+def descend_othello(besta, bestc, done, tval, boards, max_depth: int, ops):
+    """``mcts.hybrid.descend`` for Othello boards f32[B, 64]."""
+    if _on_cpu(besta, bestc, done, tval, boards):
+        return _plain.descend(besta, bestc, done, tval, boards, max_depth, ops)
+    if boards.shape[-1] != 64:
+        raise ValueError(f"descend_othello takes Othello boards [B, 64], got {tuple(boards.shape)}")
+    out = _descend("az_descend_othello", besta, bestc, done, tval, boards, max_depth)
+    descend_othello.launches += 1
+    return out
+
+
+def _merge(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: float):
+    """Launch the merge kernel ``entry`` on CUDA tensors."""
     B, A, C = n.shape
-    lib = library()
-    _check_actions(lib, A)
     if B == 0:
         raise ValueError("merge kernel needs B > 0")
+    lib = library()
     ptrs = [
         _check("n", n, (B, A, C)), _check("w", w, (B, A, C)),
         _check("p", p, (B, A, C)), _check("code", code, (B, A, C)),
@@ -225,36 +249,79 @@ def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: f
     ]
     besta = torch.empty((B, C), device=n.device)
     bestc = torch.empty((B, C), device=n.device)
-    rc = lib.lib.az_merge(
+    rc = getattr(lib.lib, entry)(
         *ptrs, besta.data_ptr(), bestc.data_ptr(),
         B, A, C, int(slot), float(cpuct), _stream(n.device),
     )
-    lib.check(rc, "merge")
-    merge.launches += 1
+    lib.check(rc, entry)
     return besta, bestc
 
 
-def refresh(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh``: the PUCT argmax planes of every node."""
-    if _on_cpu(n, w, p, code):
-        return _plain.refresh(n, w, p, code, cpuct)
+def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: float):
+    """``mcts.hybrid.merge``: in place on ``n, w, p, code, done, tval``;
+    returns the refreshed ``(best_a, best_code)``. On CUDA, A <= 8 runs
+    this wrapper's kernel and larger A ``merge_dense``."""
+    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2)
+    if _on_cpu(*args):
+        return _plain.merge(*args, slot, cpuct)
+    if n.shape[1] > _plain.UNROLLED_MAX_A:
+        return merge_dense(*args, slot, cpuct)
+    out = _merge("az_merge", *args, slot, cpuct)
+    merge.launches += 1
+    return out
+
+
+def merge_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: float):
+    """``mcts.hybrid.merge`` with the dense refresh, for any A (the main
+    path sends it A > 8)."""
+    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2)
+    if _on_cpu(*args):
+        return _plain.merge(*args, slot, cpuct)
+    out = _merge("az_merge_dense", *args, slot, cpuct)
+    merge_dense.launches += 1
+    return out
+
+
+def _refresh(entry: str, n, w, p, code, cpuct: float):
+    """Launch the refresh kernel ``entry`` on CUDA tensors."""
     B, A, C = n.shape
-    lib = library()
-    _check_actions(lib, A)
     if B == 0:
         raise ValueError("refresh kernel needs B > 0")
+    lib = library()
     ptrs = [
         _check("n", n, (B, A, C)), _check("w", w, (B, A, C)),
         _check("p", p, (B, A, C)), _check("code", code, (B, A, C)),
     ]
     besta = torch.empty((B, C), device=n.device)
     bestc = torch.empty((B, C), device=n.device)
-    rc = lib.lib.az_refresh(
+    rc = getattr(lib.lib, entry)(
         *ptrs, besta.data_ptr(), bestc.data_ptr(), B, A, C, float(cpuct), _stream(n.device)
     )
-    lib.check(rc, "refresh")
-    refresh.launches += 1
+    lib.check(rc, entry)
     return besta, bestc
+
+
+def refresh(n, w, p, code, cpuct: float):
+    """``mcts.hybrid.refresh``: the PUCT argmax planes of every node. On
+    CUDA, A <= 8 runs this wrapper's kernel and larger A
+    ``refresh_dense``."""
+    if _on_cpu(n, w, p, code):
+        return _plain.refresh(n, w, p, code, cpuct)
+    if n.shape[1] > _plain.UNROLLED_MAX_A:
+        return refresh_dense(n, w, p, code, cpuct)
+    out = _refresh("az_refresh", n, w, p, code, cpuct)
+    refresh.launches += 1
+    return out
+
+
+def refresh_dense(n, w, p, code, cpuct: float):
+    """``mcts.hybrid.refresh``'s dense branch as a kernel, for any A (the
+    main path sends it A > 8)."""
+    if _on_cpu(n, w, p, code):
+        return _plain.refresh(n, w, p, code, cpuct)
+    out = _refresh("az_refresh_dense", n, w, p, code, cpuct)
+    refresh_dense.launches += 1
+    return out
 
 
 def fused(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float, uval: float):
@@ -365,15 +432,9 @@ def mlp_eval(boards, weights):
     return pm, value, logits
 
 
-descend.launches = 0
-merge.launches = 0
-refresh.launches = 0
-fused.launches = 0
-fused_mlp.launches = 0
-mlp_eval.launches = 0
-
 KERNELS = _plain.SearchKernels(descend, merge, refresh)
-_ALL = (descend, merge, refresh, fused, fused_mlp, mlp_eval)
+_ALL = (descend, descend_othello, merge, merge_dense, refresh, refresh_dense,
+        fused, fused_mlp, mlp_eval)
 
 
 def launch_counts() -> dict:
@@ -383,3 +444,6 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for k in _ALL:
         k.launches = 0
+
+
+reset_launch_counts()

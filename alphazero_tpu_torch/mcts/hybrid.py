@@ -3,15 +3,18 @@
 Counterpart of ``alphazero_tpu/mcts/hybrid.py`` on its exact K=1 path. The
 tree's stat planes live in device memory; each simulation is
 
-1. **descend** (CUDA kernel ``az_descend``): the whole descent along the
-   per-node PUCT argmax planes ``besta/bestc [B, C]``, carrying the board,
-   writing the path record and the leaf board;
+1. **descend** (CUDA kernel ``az_descend`` for Connect-Four,
+   ``az_descend_othello`` for Othello): the whole descent along the
+   per-node PUCT argmax planes ``besta/bestc [B, C]``, carrying the board
+   through the game's step, writing the path record and the leaf board;
 2. **plain torch**: legality/terminality of the leaf boards, the model
-   forward (any ``apply_fn``), the leaf value, the slot bookkeeping;
-3. **merge** (CUDA kernel ``az_merge``): one in-place read-modify-write of
-   the planes — install the new row at the lockstep slot, link parent ->
-   child, back up along the path — followed by the PUCT refresh that
-   leaves the next descent's argmax planes.
+   forward (any ``apply_fn``), the leaf value (with the game's depth-cutoff
+   heuristic where it has one), the slot bookkeeping;
+3. **merge** (CUDA kernel ``az_merge`` for A <= 8, ``az_merge_dense`` for
+   larger action spaces): one in-place read-modify-write of the planes —
+   install the new row at the lockstep slot, link parent -> child, back up
+   along the path — followed by the PUCT refresh that leaves the next
+   descent's argmax planes.
 
 The plain PyTorch versions of the three kernels are ``descend``, ``merge``
 and ``refresh`` below; ``alphazero_tpu_torch.kernels`` launches the CUDA
@@ -19,7 +22,8 @@ kernels for CUDA tensors and runs these for CPU tensors. Both follow the
 reference semantics bit for bit: lockstep slot cursor ``s = i + 1`` with
 no install when ``s >= C``; child codes -1 unexpanded, >= 0 a child slot,
 -2-s a terminal child; the depth cutoff ``depth + 1 >= max_depth`` (backs
-up 0 for a zero-heuristic game); ``psign`` flipping once per edge with
+up the flat ops' ``heuristic`` of the leaf board, or 0 for a game
+without one); ``psign`` flipping once per edge with
 ``mval = v_leaf * psign``; the PUCT score ``q + cpuct*p*sqrt(sum N + EPS)
 / (1 + n)`` with ``q = w / max(n, 1)``, illegal edges at -1e30 and
 first-max ties.
@@ -35,7 +39,8 @@ exp_action, 0).
 Not ported (ROADMAP queue 1 / queue 2): ``parallel_sims > 1`` (the K7
 round kernels), depth-sorted blocking (``run_search_sorted``, whose
 8192-game threshold was measured on another device), ``mesh`` sharding,
-nonzero depth-cutoff heuristics and the dense A > 8 refresh.
+and the descend kernels of games other than Connect-Four and Othello
+(their plain version runs; a CUDA board of another width raises).
 """
 
 from __future__ import annotations
@@ -45,7 +50,6 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from alphazero_tpu_torch.config import MCTSConfig, PUCT_EPS
-from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts.tree import INVALID_P
 from alphazero_tpu_torch.ops import masked_policy, root_prior
 
@@ -54,14 +58,16 @@ M_EXP, M_TERM, M_PSIGN, M_VTERM, M_CUT, M_ENODE, M_EACT = range(7)
 # meta2 lanes into merge
 M2_MVAL, M2_EXPOK, M2_LINK, M2_CDONE, M2_CTVAL, M2_ENODE, M2_EACT = range(7)
 
-_C4 = FlatOps()
+UNROLLED_MAX_A = 8   # the JAX ``_refresh`` unrolls A <= 8, larger A goes dense
 
 
 def refresh(n, w, p, code, cpuct: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """(best_a, best_code) f32[B, C]: the first-max PUCT argmax of every
-    node, from the stat planes f32[B, A, C] (the A<=8 per-action unroll of
-    the JAX ``_refresh``)."""
+    node, from the stat planes f32[B, A, C] — the JAX ``_refresh``: its
+    per-action unroll for A <= 8, its dense score plane above."""
     sqrt_npar = torch.sqrt(n.sum(dim=1) + PUCT_EPS)
+    if n.shape[1] > UNROLLED_MAX_A:
+        return _refresh_dense(n, w, p, code, cpuct, sqrt_npar)
     best = best_a = best_code = None
     for a in range(n.shape[1]):
         na, pa = n[:, a], p[:, a]
@@ -78,8 +84,22 @@ def refresh(n, w, p, code, cpuct: float) -> Tuple[torch.Tensor, torch.Tensor]:
     return best_a, best_code
 
 
-def descend(besta, bestc, done, tval, boards, max_depth: int):
-    """One simulation's descent for every Connect-Four game.
+def _refresh_dense(n, w, p, code, cpuct: float, sqrt_npar):
+    """The dense branch (JAX ``_refresh``, A > 8): the score plane [B, A, C]
+    in the same arithmetic, its max over the actions, the smallest action
+    that reaches it (first-max ties), and that action's child code."""
+    q = w / n.clamp(min=1.0)
+    u = cpuct * p * sqrt_npar[:, None, :] / (1.0 + n)
+    score = torch.where(p <= INVALID_P * 0.5, -1e30, q + u)
+    best = score.amax(dim=1, keepdim=True)
+    iota = torch.arange(n.shape[1], device=n.device, dtype=n.dtype)[None, :, None]
+    best_a = torch.where(score == best, iota, float(n.shape[1])).amin(dim=1)
+    return best_a, code.gather(1, best_a.long()[:, None, :])[:, 0]
+
+
+def descend(besta, bestc, done, tval, boards, max_depth: int, ops):
+    """One simulation's descent for every game, stepping the flat boards
+    f32[B, L] with ``ops.step``.
 
     Returns ``(bd f32[B, L], patha f32[B, C], psgn f32[B, C], meta
     f32[B, 8])``: the leaf board (empty cells +0), the path record and the
@@ -105,7 +125,7 @@ def descend(besta, bestc, done, tval, boards, max_depth: int):
         code = bestc[rows, node]
         patha[rows[act], node[act]] = a[act] + 1.0
         psgn[rows[act], node[act]] = psign[act]
-        bd = torch.where(act[:, None], _C4.step(bd, a[:, None]), bd)
+        bd = torch.where(act[:, None], ops.step(bd, a[:, None]), bd)
 
         cterm = code < -1.5
         unexp = (code < -0.5) & ~cterm
@@ -131,7 +151,7 @@ def descend(besta, bestc, done, tval, boards, max_depth: int):
          exp_node, exp_action, torch.zeros(B, device=dev)],
         dim=1,
     )
-    # FlatOps.step leaves -0.0 in empty cells; the kernel writes +0.0
+    # the flat ops' step leaves -0.0 in empty cells; the kernel writes +0.0
     return bd + 0.0, patha, psgn, meta
 
 
@@ -178,14 +198,16 @@ def run_search(
     """The K=1 search loop over the flat boards f32[B, L] from the masked
     root priors f32[B, A]; ``evaluate(bd, vm) -> (pm f32[B, A], v f32[B])``
     gives the masked prior (INVALID_P on illegal edges) and the value of
-    the leaf boards. Returns the final stat planes ``(n, w) f32[B, A, C]``
-    (the root's visit counts are ``n[:, :, 0]``)."""
+    the leaf boards. Flat ops with a ``heuristic`` back it up at depth
+    cutoffs. Returns the final stat planes ``(n, w) f32[B, A, C]`` (the
+    root's visit counts are ``n[:, :, 0]``)."""
     B, A = p_masked.shape
     C = cfg.nodes
     D = cfg.max_depth
     cpuct = float(cfg.cpuct)
     dev = boards.device
     aux = ops.aux(dev)
+    heuristic = getattr(ops, "heuristic", None)
     rdone, rtval = ops.terminal(boards, aux)
     n = torch.zeros((B, A, C), device=dev)
     w = torch.zeros((B, A, C), device=dev)
@@ -199,9 +221,8 @@ def run_search(
     besta, bestc = kernels.refresh(n, w, p, code, cpuct)
     zeros = torch.zeros((B, 1), device=dev)
     for i in range(cfg.num_sims):
-        bd, patha, psgn, meta = kernels.descend(besta, bestc, done, tval, boards, D)
-        vm = ops.valid(bd)
-        cdone_b, ctval = ops.terminal(bd, aux)
+        bd, patha, psgn, meta = kernels.descend(besta, bestc, done, tval, boards, D, ops)
+        vm, cdone_b, ctval = ops.valid_terminal(bd, aux)
         pm, v_nn = evaluate(bd, vm)
 
         exp = meta[:, M_EXP : M_EXP + 1]
@@ -211,6 +232,10 @@ def run_search(
         cdone = cdone_b.float()
         v_expand = ctval + (1.0 - cdone) * (v_nn[:, None] - ctval)
         v_leaf = exp * v_expand + (1.0 - exp) * term * vterm
+        if heuristic is not None:
+            # depth-cutoff leaves back up the heuristic of the leaf board
+            cut = meta[:, M_CUT : M_CUT + 1]
+            v_leaf = v_leaf + (1.0 - exp) * cut * heuristic(bd)
         mval = v_leaf * psign
 
         s = i + 1
@@ -248,16 +273,17 @@ def make_hybrid_root_fn(
             f"{game.name} has no flat ops: it needs the dense engine "
             "(ROADMAP queue 1, mcts/search.py + tree.py), not yet ported"
         )
-    if not getattr(game, "heuristic_is_zero", False):
+    ops = flat_ops_factory()
+    if not getattr(game, "heuristic_is_zero", False) and not hasattr(ops, "heuristic"):
         raise NotImplementedError(
-            "nonzero depth-cutoff heuristics (ROADMAP queue 1, other games) "
-            "are not yet ported"
+            f"{game.name} has a nonzero depth-cutoff heuristic but its flat ops "
+            "cannot evaluate it: it needs the dense engine (ROADMAP queue 1, "
+            "mcts/search.py + tree.py), not yet ported"
         )
     if kernels is None:
         from alphazero_tpu_torch.kernels import KERNELS
 
         kernels = KERNELS
-    ops = flat_ops_factory()
     needs_features = getattr(apply_fn, "needs_features", True)
 
     def root_counts(root_state, dirichlet: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -47,7 +47,27 @@ evaluated inside it — on one CUDA card, in phases:
            the fused route and through the hybrid route (the library
            forward): >= 75% of games identical and max |dpi| <= 0.25, the
            JAX package's bound between its Mosaic and XLA engines; (e) the
-           library forward of the MLP on B=4096 features, timed per call.
+           library forward of the MLP on B=4096 features, timed per call;
+8. othello: Othello on the hybrid engine, the ``full`` preset's search
+           (B=1024, 100 sims, max_depth 80, Dirichlet 0.3, temp_threshold
+           12): (a) the Othello descend, the dense merge and the dense
+           refresh against their plain versions at B=1024, C=101, A=65, on
+           planes taken from a few simulations of the plain search on
+           random positions (bit-equal, both timed); (b) the uniform model
+           reproduces ``tests/golden_counts.json`` for Othello with 50
+           Othello descends and 50 dense merges; (c) one ResNet search at
+           max_depth 4, where depth cutoffs back up the disc-differential
+           heuristic, identical through the kernels and the plain
+           versions; (d) the ``full`` preset's actor, AZResNet-128x5 in
+           bf16 (seeded random weights through the converter): exactly 100
+           Othello descends, 100 dense merges and 1 dense refresh per step,
+           pi rows summing to 1, ms/step, env-steps/s, peak memory, one
+           profiled step (device busy time and the kernels that take it),
+           then one search through the kernels and the plain versions with
+           identical counts that sum to 100 on live games; (e) the uniform
+           model's actor at B=4096, 100 sims, max_depth 80; (f) the ``mlp``
+           preset's actor, MLPNet (512, 512) at B=256, 50 sims, max_depth
+           64, Dirichlet 0.3, through the hybrid route.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -91,10 +111,26 @@ ROUTE_MAX_DPI = 0.25      # ... the JAX package's Mosaic-vs-XLA bound (tests/tes
 HYBRID_STEPS = 3       # uniform actor steps through the hybrid route
 FUSED_REPS = 5
 
+OTH_B = 1024              # Othello full preset (examples/train_othello.py): games per batch
+OTH_CHANNELS, OTH_BLOCKS = 128, 5   # ... its AZResNet
+OTH_MAX_DEPTH = 80
+OTH_DIRICHLET = 0.3
+OTH_TEMP_THRESHOLD = 12
+OTH_STEPS = 5             # timed steps after one warm-up
+OTH_CUT_DEPTH = 4         # phase 8c's max_depth
+OTH_UNIFORM_B = 4096      # the engine bench's oth_uniform_B4096_100sims
+OTH_UNIFORM_STEPS = 3
+OTH_MLP_HIDDEN = (512, 512)   # the Othello mlp preset: model, batch, sims, depth
+OTH_MLP_B, OTH_MLP_SIMS, OTH_MLP_DEPTH = 256, 50, 64
+OTH_MLP_STEPS = 3
+
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
     "merge": "alphazero_tpu_torch/csrc/hybrid.cu",
     "refresh": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "descend_othello": "alphazero_tpu_torch/csrc/hybrid.cu",   # with its step, csrc/othello.cuh
+    "merge_dense": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "refresh_dense": "alphazero_tpu_torch/csrc/hybrid.cu",
     "fused": "alphazero_tpu_torch/csrc/fused.cu",
     "fused_mlp": "alphazero_tpu_torch/csrc/fused.cu",   # with its evaluator, csrc/mlp.cuh
 }
@@ -102,6 +138,10 @@ REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
     "merge": "alphazero_tpu/mcts/hybrid.py:363",     # merge_kernel (+ _refresh)
     "refresh": "alphazero_tpu/mcts/hybrid.py:120",   # _refresh, seeding at :815
+    # descend_kernel with OthelloFlatOps.step (alphazero_tpu/games/othello.py:228) traced in
+    "descend_othello": "alphazero_tpu/mcts/hybrid.py:242 + alphazero_tpu/games/othello.py:228",
+    "merge_dense": "alphazero_tpu/mcts/hybrid.py:363",   # merge_kernel + _refresh's dense branch :150
+    "refresh_dense": "alphazero_tpu/mcts/hybrid.py:150",  # _refresh's dense branch, seeding at :815
     "fused": "alphazero_tpu/mcts/fused.py:156",      # kernel, K=1 sim_body :282
     # the same kernel with the in-kernel MLP (K3, eval_fn of attach_mlp_kernel_eval)
     "fused_mlp": "alphazero_tpu/mcts/fused.py:156 + alphazero_tpu/models/nets.py:129",
@@ -186,9 +226,274 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def in_turns(k_fn, p_fn, k_reps: int = 50, p_reps: int = 20) -> tuple:
+    """Mean device ms of a kernel and of its plain version, timed in turns
+    (plain, kernel, kernel, plain): ``(k1, k2, p1, p2)``."""
+    p1 = time_ms(p_fn, p_reps)
+    k1 = time_ms(k_fn, k_reps)
+    k2 = time_ms(k_fn, k_reps)
+    p2 = time_ms(p_fn, p_reps)
+    return k1, k2, p1, p2
+
+
 def launches_of(kernels, **nonzero) -> dict:
     """Every kernel's launch count: 0 but for those named."""
     return {k: nonzero.get(k, 0) for k in kernels.launch_counts()}
+
+
+def profile_step(step) -> tuple:
+    """One call of ``step`` under ``torch.profiler``: ``(wall ms, device
+    busy ms, [(kernel, device ms), ...] by time)``, the busy time being the
+    sum of the device kernels' own times (one stream: they do not
+    overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:   # the host ops that launched them
+            continue
+        dev_us = getattr(evt, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = evt.self_cuda_time_total
+        kernels.append((evt.key, dev_us / 1e3, evt.count))
+    kernels.sort(key=lambda k: -k[1])
+    return 1e3 * wall, sum(k[1] for k in kernels), kernels
+
+
+def othello_phase(card: str) -> tuple:
+    """Phase 8: Othello on the hybrid engine (see the module docstring).
+    Returns the kernels line's entries of its three kernels and their
+    launches on the main path, the ``full`` preset's actor."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import Othello
+    from alphazero_tpu_torch.mcts import PLAIN, SearchKernels, hybrid
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        convert_mlp,
+        make_apply_fn,
+        make_uniform_model,
+        random_az_resnet_variables,
+        random_mlp_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+    from alphazero_tpu_torch.selfplay import make_actor_step_fn
+
+    dev = torch.device("cuda", 0)
+    game = Othello()
+    ops = game.flat_ops()
+    A = game.num_actions
+    resnet = make_apply_fn(convert_az_resnet(
+        random_az_resnet_variables(A, OTH_CHANNELS, OTH_BLOCKS, cells=ops.size, seed=SEED),
+        dtype=torch.bfloat16).to(dev))
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=OTH_MAX_DEPTH, dirichlet_alpha=OTH_DIRICHLET)
+    C = cfg.nodes
+    roots = random_positions(game, OTH_B, 40, SEED, dev)
+    noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), OTH_B, A, OTH_DIRICHLET,
+                         dev).dirichlet
+
+    # (a) the three kernels against their plain versions, on planes taken
+    # from a few simulations of the plain search
+    captured = {}
+
+    def capture(name, fn):
+        def wrapped(*args):
+            captured[name] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            return fn(*args)
+        return wrapped
+
+    cap_cfg = MCTSConfig(num_sims=24, max_nodes=C, max_depth=OTH_MAX_DEPTH,
+                         dirichlet_alpha=OTH_DIRICHLET)
+    hybrid.make_hybrid_root_fn(game, resnet, cap_cfg, kernels=SearchKernels(
+        capture("descend", hybrid.descend), capture("merge", hybrid.merge), hybrid.refresh))(
+        roots, noise)
+    d_args, m_args = captured["descend"], captured["merge"]
+    if d_args[4].shape != (OTH_B, 64) or m_args[0].shape != (OTH_B, A, C):
+        fail(f"captured Othello planes have shapes {d_args[4].shape}, {m_args[0].shape}")
+    results = {}
+    kernels.reset_launch_counts()
+
+    out_k = kernels.descend_othello(*d_args)
+    out_p = hybrid.descend(*d_args)
+    for nm, k, p in zip(("bd", "patha", "psgn", "meta"), out_k, out_p):
+        if not bit_equal(k, p):
+            fail(f"descend_othello output {nm} differs from the plain version")
+    edges = float((out_p[1] > 0).sum())
+    leaves = float((out_p[3][:, 1] + out_p[3][:, 4]).sum())
+    cuts = float(out_p[3][:, hybrid.M_CUT].sum())
+    results["descend_othello"] = {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(out_k, out_p)),
+        # reads: the board, each path node's besta/bestc, the root's done
+        # and a leaf's tval; writes: the leaf board, the patha/psgn rows, meta
+        **bound(F32 * (OTH_B * 64 + 2 * edges + OTH_B + leaves
+                       + OTH_B * 64 + 2 * OTH_B * C + OTH_B * 8), 0.0),
+    }
+
+    planes_k = [t.clone() for t in m_args[:6]]
+    planes_p = [t.clone() for t in m_args[:6]]
+    outs_k = planes_k + list(kernels.merge_dense(*planes_k, *m_args[6:]))
+    outs_p = planes_p + list(hybrid.merge(*planes_p, *m_args[6:]))
+    for nm, k, p in zip(("n", "w", "p", "code", "done", "tval", "besta", "bestc"), outs_k, outs_p):
+        if not bit_equal(k, p):
+            fail(f"merge_dense output {nm} differs from the plain version")
+    m_edges = float((m_args[7] > 0).sum())
+    installs = float(m_args[9][:, hybrid.M2_EXPOK].sum())
+    planes_bytes = F32 * 4 * OTH_B * A * C
+    results["merge_dense"] = {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p)),
+        # reads: the four stat planes, patha/psgn, pm, meta2; writes: the
+        # best planes and the cells that change (path n/w, install rows, links)
+        **bound(planes_bytes + F32 * (2 * OTH_B * C + OTH_B * A + OTH_B * 8 + 2 * OTH_B * C
+                                      + 2 * m_edges + installs * (4 * A + 3)),
+                puct_ops(OTH_B * C, A) + 3 * m_edges),
+    }
+
+    ref_k = kernels.refresh_dense(*m_args[:4], m_args[-1])
+    ref_p = hybrid.refresh(*m_args[:4], m_args[-1])
+    if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
+        fail("refresh_dense differs from the plain version")
+    results["refresh_dense"] = {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
+        **bound(planes_bytes + F32 * 2 * OTH_B * C, puct_ops(OTH_B * C, A)),
+    }
+    print(f"[othello] B={OTH_B} C={C} A={A}: descend_othello, merge_dense, refresh_dense "
+          f"bit-equal to plain ({edges / OTH_B:.2f} path edges per game, {cuts:.0f} cut leaves; "
+          f"stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
+
+    scratch = [t.clone() for t in m_args[:6]]
+    fns = {
+        "descend_othello": (lambda: kernels.descend_othello(*d_args), lambda: hybrid.descend(*d_args)),
+        "merge_dense": (lambda: kernels.merge_dense(*scratch, *m_args[6:]),
+                        lambda: hybrid.merge(*scratch, *m_args[6:])),
+        "refresh_dense": (lambda: kernels.refresh_dense(*m_args[:4], m_args[-1]),
+                          lambda: hybrid.refresh(*m_args[:4], m_args[-1])),
+    }
+    for name, (k_fn, p_fn) in fns.items():
+        k1, k2, p1, p2 = in_turns(k_fn, p_fn)
+        results[name].update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None})
+        print(f"[othello] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
+              f"{results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}) | {card}", flush=True)
+    feats = game.to_features(roots).contiguous()
+    nn_ms = time_ms(lambda: resnet(feats), 20)
+    print(f"[othello] AZResNet-{OTH_CHANNELS}x{OTH_BLOCKS} bf16 folded forward, B={OTH_B}: "
+          f"{nn_ms:.4f} ms per sim | {card}", flush=True)
+
+    # (b) the goldens through the CUDA path
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "golden_counts.json")) as f:
+        golden = json.load(f)["othello"]
+    states = []
+    for seq in golden["seqs"]:
+        st = game.init(1, dev)
+        for a in seq:
+            st = game.step(st, torch.tensor([a], device=dev))
+        states.append(st)
+    kernels.reset_launch_counts()
+    counts = hybrid.make_hybrid_root_fn(
+        game, make_uniform_model(game).apply_fn, MCTSConfig(num_sims=50, max_depth=64)
+    )(torch.cat(states))
+    want = launches_of(kernels, descend_othello=50, merge_dense=50, refresh_dense=1)
+    if kernels.launch_counts() != want:
+        fail(f"Othello golden search launches {kernels.launch_counts()} != {want}")
+    if counts.round().int().tolist() != golden["counts"]:
+        fail(f"Othello golden counts differ: {counts.int().tolist()} != {golden['counts']}")
+    print(f"[othello] CUDA path reproduces tests/golden_counts.json othello ({len(states)} "
+          f"positions, 50 sims) | launches {want}", flush=True)
+
+    # (c) depth cutoffs on the card: the heuristic path, kernels vs plain
+    cut_cfg = MCTSConfig(num_sims=SIMS, max_depth=OTH_CUT_DEPTH, dirichlet_alpha=OTH_DIRICHLET)
+    cut_leaves = []
+
+    def counting_descend(*args):
+        out = kernels.descend(*args)
+        cut_leaves.append(float(out[3][:, hybrid.M_CUT].sum()))
+        return out
+
+    c_kernel = hybrid.make_hybrid_root_fn(game, resnet, cut_cfg, kernels=SearchKernels(
+        counting_descend, kernels.merge, kernels.refresh))(roots, noise)
+    c_plain = hybrid.make_hybrid_root_fn(game, resnet, cut_cfg, kernels=PLAIN)(roots, noise)
+    if sum(cut_leaves) == 0:
+        fail("the max_depth cutoff search cut no leaf")
+    if not torch.equal(c_kernel, c_plain):
+        fail(f"cutoff search: kernels and plain differ on "
+             f"{int((c_kernel != c_plain).any(dim=1).sum())} of {OTH_B} games")
+    print(f"[othello] max_depth {OTH_CUT_DEPTH}: {sum(cut_leaves):.0f} cut leaves backed up the "
+          f"heuristic; kernel and plain counts identical on all {OTH_B} games", flush=True)
+
+    # (d)-(f): the actors
+    def run_actor(apply_fn, run_cfg, batch, steps, label, want):
+        torch.cuda.reset_peak_memory_stats()
+        init, step = make_actor_step_fn(game, apply_fn, run_cfg, batch, OTH_TEMP_THRESHOLD, device=dev)
+        carry = init()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        alpha = run_cfg.dirichlet_alpha
+        carry, _ = step(carry, sample_draws(gen, batch, A, alpha, dev))   # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        times = []
+        for _ in range(steps):
+            draws = sample_draws(gen, batch, A, alpha, dev)
+            t0 = time.perf_counter()
+            carry, pi = step(carry, draws)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if not torch.allclose(pi.sum(dim=1), torch.ones(batch, device=dev), atol=1e-5):
+                fail(f"{label}: pi rows do not sum to 1")
+        got = dict(kernels.launch_counts())
+        expect = launches_of(kernels, **{k: v * steps for k, v in want.items()})
+        if got != expect:
+            fail(f"{label}: launches {got} != {expect}")
+        ms = 1e3 * sum(times) / len(times)
+        print(f"[othello] {label}: B={batch}, {run_cfg.num_sims} sims, max_depth "
+              f"{run_cfg.max_depth}: {ms:.3f} ms/step mean, "
+              f"{1e3 * sorted(times)[len(times) // 2]:.3f} upper median "
+              f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), {batch / (ms / 1e3):.1f} "
+              f"env-steps/s | launches {got} | peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
+        return carry, step, gen, got
+
+    per_step = {"descend_othello": SIMS, "merge_dense": SIMS, "refresh_dense": 1}
+    carry, step, gen, launches = run_actor(
+        resnet, cfg, OTH_B, OTH_STEPS, f"full preset actor, AZResNet-{OTH_CHANNELS}x{OTH_BLOCKS} bf16",
+        per_step)
+    wall, busy, top = profile_step(lambda: step(carry, sample_draws(gen, OTH_B, A, OTH_DIRICHLET, dev)))
+    print(f"[othello] one profiled full-preset step: {wall:.3f} ms wall (profiler on), device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
+          f"{sum(k[2] for k in top)} device kernels | {card}", flush=True)
+    for name, ms, count in top[:12]:
+        print(f"[othello]   {ms:9.3f} ms {count:6d}x {name[:100]}", flush=True)
+
+    state, _ = carry
+    dirichlet = sample_draws(gen, OTH_B, A, OTH_DIRICHLET, dev).dirichlet
+    c_kernel = hybrid.make_hybrid_root_fn(game, resnet, cfg)(state, dirichlet)
+    c_plain = hybrid.make_hybrid_root_fn(game, resnet, cfg, kernels=PLAIN)(state, dirichlet)
+    live = ~game.terminal(state)[0]
+    if not torch.isfinite(c_kernel).all() or c_kernel.shape != (OTH_B, A):
+        fail("Othello kernel-path counts are not finite [B, A]")
+    if not bool((c_kernel.sum(dim=1)[live] == SIMS).all()):
+        fail("Othello root counts of live games do not sum to the simulation budget")
+    if not torch.equal(c_kernel, c_plain):
+        fail(f"Othello kernel and plain searches differ on "
+             f"{int((c_kernel != c_plain).any(dim=1).sum())} of {OTH_B} games")
+    print(f"[othello] one search through the plain versions: identical counts on all {OTH_B} games "
+          f"({int(live.sum())} live, each summing to {SIMS})", flush=True)
+
+    run_actor(make_uniform_model(game).apply_fn, MCTSConfig(num_sims=SIMS, max_depth=OTH_MAX_DEPTH),
+              OTH_UNIFORM_B, OTH_UNIFORM_STEPS, "uniform actor", per_step)
+    mlp = make_apply_fn(convert_mlp(
+        random_mlp_variables(A, OTH_MLP_HIDDEN, cells=ops.size, seed=SEED)).to(dev))
+    run_actor(mlp, MCTSConfig(num_sims=OTH_MLP_SIMS, max_depth=OTH_MLP_DEPTH,
+                              dirichlet_alpha=OTH_DIRICHLET),
+              OTH_MLP_B, OTH_MLP_STEPS, f"mlp preset actor, MLPNet {OTH_MLP_HIDDEN}",
+              {"descend_othello": OTH_MLP_SIMS, "merge_dense": OTH_MLP_SIMS, "refresh_dense": 1})
+    return results, {k: launches[k] for k in results}
 
 
 def main() -> int:
@@ -326,10 +631,7 @@ def main() -> int:
         ),
     }
     for name, (k_fn, p_fn) in fns.items():
-        p1 = time_ms(p_fn, 20)
-        k1 = time_ms(k_fn, 50)
-        k2 = time_ms(k_fn, 50)
-        p2 = time_ms(p_fn, 20)
+        k1, k2, p1, p2 = in_turns(k_fn, p_fn)
         results[name]["ms"] = (k1 + k2) / 2
         results[name]["plain_ms"] = (p1 + p2) / 2
         print(f"[kernels] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
@@ -693,6 +995,11 @@ def main() -> int:
     print(f"[mlp] library forward (F.linear, bf16), B={B}: {mlp_fwd_ms:.4f} ms per call, "
           f"{mlp_fwd_ms * SIMS:.4f} ms for {SIMS} sims | {card}", flush=True)
 
+    # ---- 8. Othello on the hybrid engine -------------------------------
+    oth_results, oth_launches = othello_phase(card)
+    results.update(oth_results)
+    launches.update(oth_launches)
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -710,7 +1017,8 @@ def main() -> int:
             # the chain of library forwards a search's evaluations take
             "library_ms": results[name].get("library_ms"),
         }
-        for name in ("descend", "merge", "refresh", "fused", "fused_mlp")
+        for name in ("descend", "merge", "refresh", "fused", "fused_mlp",
+                     "descend_othello", "merge_dense", "refresh_dense")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -25,7 +25,7 @@ from alphazero_tpu.models import make_flax_apply_fn
 from alphazero_tpu.models import make_uniform_model as jax_uniform
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
-from alphazero_tpu_torch.games import ConnectFour
+from alphazero_tpu_torch.games import ConnectFour, FlatOps, Othello
 from alphazero_tpu_torch.mcts import PLAIN, make_hybrid_root_fn
 from alphazero_tpu_torch.mcts import hybrid
 from alphazero_tpu_torch.models import (
@@ -180,6 +180,22 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         make_hybrid_root_fn(NoFlatOps(), uni, MCTSConfig(num_sims=8))
 
+    class HeuristicFreeOps:
+        """Flat ops that cannot evaluate a depth-cutoff heuristic."""
+
+        size, num_actions = 64, 65
+
+    class NonzeroHeuristicGame(Othello):
+        name = "nonzero_heuristic_without_flat_heuristic"
+
+        def flat_ops(self):
+            return HeuristicFreeOps()
+
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_hybrid_root_fn(NonzeroHeuristicGame(), uni, MCTSConfig(num_sims=8))
+    # the same game with its own flat ops, which have the heuristic, is taken
+    assert callable(make_hybrid_root_fn(Othello(), uni, MCTSConfig(num_sims=8)))
+
 
 def test_terminal_root_is_not_descended():
     B, A, C = 3, 7, 5
@@ -188,12 +204,16 @@ def test_terminal_root_is_not_descended():
     besta = torch.zeros(B, C)
     bestc = torch.full((B, C), -1.0)
     boards = torch.zeros(B, 42)
-    bd, patha, psgn, meta = hybrid.descend(besta, bestc, done, torch.zeros(B, C), boards, 48)
+    bd, patha, psgn, meta = hybrid.descend(besta, bestc, done, torch.zeros(B, C), boards, 48, FlatOps())
     assert torch.equal(meta[1], torch.tensor([0, 0, 1, 0, 0, 0, 0, 0.0]))
     assert torch.equal(patha[1], torch.zeros(C)) and torch.equal(bd[1], boards[1])
     # the live roots expand action 0 at the root: one edge, sign +1
     assert torch.equal(patha[0], torch.tensor([1.0, 0, 0, 0, 0]))
     assert meta[0, hybrid.M_EXP] == 1 and meta[0, hybrid.M_PSIGN] == -1
+
+
+NO_LAUNCHES = {"descend": 0, "descend_othello": 0, "merge": 0, "merge_dense": 0, "refresh": 0,
+               "refresh_dense": 0, "fused": 0, "fused_mlp": 0, "mlp_eval": 0}
 
 
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
@@ -203,11 +223,9 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
     kernels.reset_launch_counts()
     for got, want in zip(kernels.refresh(n, w, p, code, 1.0), PLAIN.refresh(n, w, p, code, 1.0)):
         assert torch.equal(got, want)
-    assert kernels.launch_counts() == {"descend": 0, "merge": 0, "refresh": 0, "fused": 0,
-                                       "fused_mlp": 0, "mlp_eval": 0}
+    assert kernels.launch_counts() == NO_LAUNCHES
     with pytest.raises(ValueError, match="no kernel for device"):
         kernels.refresh(*(t.to("meta") for t in (n, w, p, code)), 1.0)
     with pytest.raises(ValueError, match="several devices"):
         kernels.refresh(n, w, p, code.to("meta"), 1.0)
-    assert kernels.launch_counts() == {"descend": 0, "merge": 0, "refresh": 0, "fused": 0,
-                                       "fused_mlp": 0, "mlp_eval": 0}
+    assert kernels.launch_counts() == NO_LAUNCHES

@@ -1,16 +1,17 @@
 """The CUDA sources of the kernels (alphazero_tpu_torch/csrc/hybrid.cu and
-fused.cu, with c4.cuh and mlp.cuh), compiled with g++ against a CPU
-stand-in for the CUDA built-ins (tests/cuda_emu/cuda_runtime.h,
+fused.cu, with c4.cuh, othello.cuh and mlp.cuh), compiled with g++ against
+a CPU stand-in for the CUDA built-ins (tests/cuda_emu/cuda_runtime.h,
 cuda_bf16.h) and run on host memory: every descend, merge and refresh call
-of whole hybrid searches, and every whole uniform fused search, must be
-bit-equal to the plain PyTorch versions, and the searches must reproduce
-the goldens. The MLP evaluator's logits must be bit-equal to its plain
+of whole hybrid searches (Connect-Four through the A<=8 kernels, Othello
+through its descend and the dense merge and refresh), and every whole
+uniform fused search, must be bit-equal to the plain PyTorch versions, and
+the searches must reproduce the goldens. The MLP evaluator's logits must be bit-equal to its plain
 version's; its prior and value, and so the MLP searches, may differ where
 glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit.
 
 This checks the kernels' LOGIC (indexing, record format, install/link/
 backup, PUCT order of operations, first-max ties, the Connect-Four win
-test) on the CPU. Whether the sources build with nvcc and run on the card
+test, the Othello flips) on the CPU. Whether the sources build with nvcc and run on the card
 is chip_smoke.py's job.
 """
 
@@ -27,7 +28,7 @@ import torch
 
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
-from alphazero_tpu_torch.games import ConnectFour
+from alphazero_tpu_torch.games import ConnectFour, Othello
 from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts import (
     SearchKernels,
@@ -47,12 +48,14 @@ from alphazero_tpu_torch.models import (
     random_mlp_variables,
 )
 from alphazero_tpu_torch.ops import sample_draws
-from tests.torch_parity import boards_from_seqs, random_boards, torch_state
+from tests.torch_parity import boards_from_seqs, random_boards, random_othello_boards, torch_state
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TG = ConnectFour()
-_LAUNCH = re.compile(r"(\w+)<<<(.*?),\s*(\w+),\s*0,\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 3, "fused.cu": 3}   # kernel launches in each source
+OTH = Othello()
+# kernel<<<grid, threads, 0, stream>>>(args), the kernel maybe a template instance
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*0,\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
+_LAUNCHES = {"hybrid.cu": 6, "fused.cu": 3}   # kernel launches in each source
 
 
 @pytest.fixture(scope="module")
@@ -87,27 +90,32 @@ def _bits(t):
 
 def _checked_kernels(lib, calls):
     """SearchKernels running the emulated kernels AND the plain versions
-    on every call, asserting bit-equal outputs."""
+    on every call, asserting bit-equal outputs. Each call goes to the
+    kernel instance ``kernels`` routes it to on the card: descend by board
+    width, merge and refresh by action count."""
 
-    def descend(besta, bestc, done, tval, boards, max_depth):
+    def descend(besta, bestc, done, tval, boards, max_depth, ops):
         B, C = besta.shape
-        outs = [torch.empty(B, 42), torch.empty(B, C), torch.empty(B, C), torch.empty(B, 8)]
-        rc = lib.lib.az_descend(
+        L = boards.shape[1]
+        entry = {42: "az_descend", 64: "az_descend_othello"}[L]
+        outs = [torch.empty(B, L), torch.empty(B, C), torch.empty(B, C), torch.empty(B, 8)]
+        rc = getattr(lib.lib, entry)(
             *(t.data_ptr() for t in (besta, bestc, done, tval, boards, *outs)),
             B, C, max_depth, None,
         )
         assert rc == 0
         for nm, got, want in zip(("bd", "patha", "psgn", "meta"), outs,
-                                 hybrid.descend(besta, bestc, done, tval, boards, max_depth)):
-            assert torch.equal(_bits(got), _bits(want)), f"descend {nm}"
-        calls["descend"] += 1
+                                 hybrid.descend(besta, bestc, done, tval, boards, max_depth, ops)):
+            assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm}"
+        calls[entry] = calls.get(entry, 0) + 1
         return tuple(outs)
 
     def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot, cpuct):
         B, A, C = n.shape
+        entry = "az_merge_dense" if A > hybrid.UNROLLED_MAX_A else "az_merge"
         ref_planes = [t.clone() for t in (n, w, p, code, done, tval)]
         best = [torch.empty(B, C), torch.empty(B, C)]
-        rc = lib.lib.az_merge(
+        rc = getattr(lib.lib, entry)(
             *(t.data_ptr() for t in (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best)),
             B, A, C, slot, cpuct, None,
         )
@@ -115,36 +123,42 @@ def _checked_kernels(lib, calls):
         ref_best = hybrid.merge(*ref_planes, pm, patha, psgn, meta2, slot, cpuct)
         names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc")
         for nm, got, want in zip(names, [n, w, p, code, done, tval, *best], [*ref_planes, *ref_best]):
-            assert torch.equal(_bits(got), _bits(want)), f"merge {nm} at slot {slot}"
-        calls["merge"] += 1
+            assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm} at slot {slot}"
+        calls[entry] = calls.get(entry, 0) + 1
         return tuple(best)
 
     def refresh(n, w, p, code, cpuct):
-        B, A, C = n.shape
-        best = [torch.empty(B, C), torch.empty(B, C)]
-        rc = lib.lib.az_refresh(
-            *(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None
-        )
-        assert rc == 0
-        for got, want in zip(best, hybrid.refresh(n, w, p, code, cpuct)):
-            assert torch.equal(_bits(got), _bits(want)), "refresh"
-        calls["refresh"] += 1
-        return tuple(best)
+        best, entry = _emulated_refresh(lib, n, w, p, code, cpuct)
+        calls[entry] = calls.get(entry, 0) + 1
+        return best
 
     return SearchKernels(descend, merge, refresh)
+
+
+def _emulated_refresh(lib, n, w, p, code, cpuct):
+    """The refresh kernel for A (``az_refresh`` or ``az_refresh_dense``),
+    asserted bit-equal to the plain version: ``(best planes, entry)``."""
+    B, A, C = n.shape
+    entry = "az_refresh_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh"
+    best = [torch.empty(B, C), torch.empty(B, C)]
+    rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
+    assert rc == 0
+    for nm, got, want in zip(("besta", "bestc"), best, hybrid.refresh(n, w, p, code, cpuct)):
+        assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm}"
+    return tuple(best), entry
 
 
 def test_emulated_kernels_reproduce_goldens(emulated):
     with open(os.path.join(HERE, "golden_counts.json")) as f:
         spec = json.load(f)["connect_four"]
-    calls = {"descend": 0, "merge": 0, "refresh": 0}
+    calls = {}
     root_counts = make_hybrid_root_fn(
         TG, make_uniform_model(TG).apply_fn, MCTSConfig(num_sims=50, max_depth=64),
         kernels=_checked_kernels(emulated, calls),
     )
     counts = root_counts(torch_state(boards_from_seqs(spec["seqs"])))
     np.testing.assert_array_equal(counts.numpy().astype(int), np.asarray(spec["counts"]))
-    assert calls == {"descend": 50, "merge": 50, "refresh": 1}
+    assert calls == {"az_descend": 50, "az_merge": 50, "az_refresh": 1}
 
 
 @pytest.mark.parametrize(
@@ -157,12 +171,12 @@ def test_emulated_kernels_reproduce_goldens(emulated):
     ids=["late_positions", "max_depth3", "max_nodes8"],
 )
 def test_emulated_kernels_bit_equal_plain_uniform(emulated, cfg, moves):
-    calls = {"descend": 0, "merge": 0, "refresh": 0}
+    calls = {}
     boards = torch_state(random_boards(40, moves, seed=moves))
     counts = make_hybrid_root_fn(
         TG, make_uniform_model(TG).apply_fn, cfg, kernels=_checked_kernels(emulated, calls)
     )(boards)
-    assert calls["merge"] == cfg.num_sims
+    assert calls["az_merge"] == cfg.num_sims
     live = ~TG.terminal(boards)[0]
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
 
@@ -173,11 +187,82 @@ def test_emulated_kernels_bit_equal_plain_resnet_dirichlet(emulated):
     cfg = MCTSConfig(num_sims=20, max_depth=48, dirichlet_alpha=1.0)
     apply_fn = make_apply_fn(convert_az_resnet(random_az_resnet_variables(7, 8, 1, seed=3), dtype=torch.float32))
     noise = sample_draws(torch.Generator().manual_seed(0), 32, 7, 1.0, "cpu").dirichlet
-    calls = {"descend": 0, "merge": 0, "refresh": 0}
+    calls = {}
     make_hybrid_root_fn(TG, apply_fn, cfg, kernels=_checked_kernels(emulated, calls))(
         torch_state(random_boards(32, 16, seed=9)), noise
     )
-    assert calls == {"descend": 20, "merge": 20, "refresh": 1}
+    assert calls == {"az_descend": 20, "az_merge": 20, "az_refresh": 1}
+
+
+def test_emulated_othello_kernels_reproduce_goldens(emulated):
+    with open(os.path.join(HERE, "golden_counts.json")) as f:
+        spec = json.load(f)["othello"]
+    states = []
+    for seq in spec["seqs"]:
+        s = OTH.init(1, "cpu")
+        for a in seq:
+            s = OTH.step(s, torch.tensor([a]))
+        states.append(s)
+    calls = {}
+    counts = make_hybrid_root_fn(
+        OTH, make_uniform_model(OTH).apply_fn, MCTSConfig(num_sims=50, max_depth=64),
+        kernels=_checked_kernels(emulated, calls),
+    )(torch.cat(states))
+    np.testing.assert_array_equal(counts.numpy().astype(int), np.asarray(spec["counts"]))
+    assert calls == {"az_descend_othello": 50, "az_merge_dense": 50, "az_refresh_dense": 1}
+
+
+@pytest.mark.parametrize(
+    "cfg,moves,dirichlet",
+    [
+        (MCTSConfig(num_sims=24, max_depth=80), 20, None),
+        (MCTSConfig(num_sims=24, max_depth=80), 56, None),                  # passes, endgames
+        (MCTSConfig(num_sims=20, max_depth=3, cpuct=2.5), 10, None),        # depth cutoffs
+        (MCTSConfig(num_sims=20, max_depth=80, max_nodes=8), 30, None),     # slots run out
+        (MCTSConfig(num_sims=16, max_depth=80, dirichlet_alpha=0.3), 6, 0.3),
+    ],
+    ids=["midgame", "endgames", "max_depth3", "max_nodes8", "dirichlet"],
+)
+def test_emulated_othello_kernels_bit_equal_plain(emulated, cfg, moves, dirichlet):
+    """Whole Othello searches (40 games: a full descend block of 32 and a
+    ragged one) with an f32 AZResNet-8x1 prior and value, so W backs up
+    values of both signs and the cutoff backs up the heuristic: every
+    Othello descend, dense merge and dense refresh call bit-equal to the
+    plain versions."""
+    apply_fn = make_apply_fn(convert_az_resnet(random_az_resnet_variables(65, 8, 1, cells=64, seed=moves),
+                                               dtype=torch.float32))
+    boards = torch_state(random_othello_boards(40, moves, seed=moves))
+    noise = None
+    if dirichlet is not None:
+        noise = sample_draws(torch.Generator().manual_seed(3), 40, 65, dirichlet, "cpu").dirichlet
+    calls = {}
+    counts = make_hybrid_root_fn(OTH, apply_fn, cfg, kernels=_checked_kernels(emulated, calls))(boards, noise)
+    assert calls == {"az_descend_othello": cfg.num_sims, "az_merge_dense": cfg.num_sims,
+                     "az_refresh_dense": 1}
+    live = ~OTH.terminal(boards)[0]
+    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
+
+
+@pytest.mark.parametrize("A", [65, 225])
+def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
+    """The dense refresh at Othello's A and at Gomoku-15's, on synthetic
+    planes with exact score ties (equal priors, equal W and N), illegal
+    edges and all-illegal nodes: bit-equal to the plain version, whose
+    first-max picks action 0 where every edge is illegal."""
+    rng = np.random.default_rng(A)
+    B, C = 5, 37
+    n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
+    w = torch.as_tensor((rng.integers(-2, 3, (B, A, C)) / 2).astype(np.float32)) * (n > 0)
+    p = torch.full((B, A, C), 1.0 / A)
+    p[:, 3::5] = -1e30
+    p[1, :, 4] = -1e30                                   # an all-illegal node
+    code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
+    (best_a, best_c), entry = _emulated_refresh(emulated, n, w, p, code, 1.0)
+    assert entry == "az_refresh_dense"
+    assert best_a[1, 4] == 0 and best_c[1, 4] == code[1, 0, 4]
+    sq = torch.sqrt(n.sum(dim=1) + 1e-6)[:, None]
+    score = torch.where(p <= -5e29, -1e30, w / n.clamp(min=1) + p * sq / (1 + n))
+    assert ((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).any()   # exact ties
 
 
 def _checked_fused(lib, calls):

@@ -13,14 +13,21 @@ import torch
 
 from alphazero_tpu.config import MCTSConfig as JaxMCTSConfig
 from alphazero_tpu.games import ConnectFour as JaxConnectFour
+from alphazero_tpu.games import Othello as JaxOthello
 from alphazero_tpu.models import make_uniform_model as jax_uniform
 from alphazero_tpu.selfplay import make_actor_step_fn as jax_actor_step_fn
 from alphazero_tpu_torch.config import MCTSConfig
-from alphazero_tpu_torch.games import ConnectFour
+from alphazero_tpu_torch.games import ConnectFour, Othello
 from alphazero_tpu_torch.models import make_uniform_model
 from alphazero_tpu_torch.ops import Draws, sample_draws
 from alphazero_tpu_torch.selfplay import _make_root_counts_fn, make_actor_step_fn
-from tests.torch_parity import jax_state, random_boards, torch_state
+from tests.torch_parity import (
+    jax_state,
+    othello_jax_state,
+    random_boards,
+    random_othello_boards,
+    torch_state,
+)
 
 JG = JaxConnectFour()
 TG = ConnectFour()
@@ -28,14 +35,14 @@ B = 8
 TEMP_THRESHOLD = 15
 
 
-def _jax_draws(key, alpha):
+def _jax_draws(key, alpha, actions=7):
     """The draws the JAX actor makes from ``key`` (selfplay.py actor_step:
     split 3 ways; Dirichlet in root_prior, uniforms in action_probs,
     Gumbel inside jax.random.categorical)."""
     k_noise, k_tie, k_act = jax.random.split(key, 3)
-    dirichlet = jax.random.dirichlet(k_noise, jnp.full((7,), alpha), (B,))
-    tie = jax.random.uniform(k_tie, (B, 7))
-    gumbel = jax.random.gumbel(k_act, (B, 7))
+    dirichlet = jax.random.dirichlet(k_noise, jnp.full((actions,), alpha), (B,))
+    tie = jax.random.uniform(k_tie, (B, actions))
+    gumbel = jax.random.gumbel(k_act, (B, actions))
     return Draws(*(torch.as_tensor(np.array(x)) for x in (dirichlet, tie, gumbel)))
 
 
@@ -62,6 +69,35 @@ def test_actor_steps_match_jax_with_injected_draws():
         np.testing.assert_array_equal(np.asarray(j_carry[1]), t_carry[1].numpy(), err_msg=f"step {t}")
         resets += int((t_carry[1] == 0).sum())
     assert resets > 0   # recycling was exercised
+
+
+def test_othello_actor_steps_match_jax_with_injected_draws():
+    """Othello through the hybrid engine: late positions (passes, games
+    that end by a double pass and recycle to the opening), move counts on
+    both sides of the preset's temperature threshold 12, Dirichlet 0.3."""
+    jg, tg = JaxOthello(), Othello()
+    jcfg = JaxMCTSConfig(num_sims=6, max_depth=80, dirichlet_alpha=0.3)
+    cfg = MCTSConfig(**dataclasses.asdict(jcfg))
+    _, j_step = jax_actor_step_fn(jg, jax_uniform(jg).apply_fn, jcfg, B, 12)
+    j_step = jax.jit(j_step)
+    _, t_step = make_actor_step_fn(tg, make_uniform_model(tg).apply_fn, cfg, B, 12, device="cpu")
+
+    boards = random_othello_boards(B, 54, seed=2)
+    counts0 = np.array([0, 5, 11, 12, 20, 40, 54, 60], np.int32)
+    j_carry = (othello_jax_state(boards), jnp.asarray(counts0))
+    t_carry = (torch_state(boards), torch.as_tensor(counts0))
+    resets = passes = 0
+    for t in range(10):
+        key = jax.random.key(2000 + t)
+        live = ~tg.terminal(t_carry[0])[0]
+        passes += int((tg.valid_moves(t_carry[0])[:, 64] & live).sum())
+        j_carry, j_pi = j_step({}, j_carry, key)
+        t_carry, t_pi = t_step(t_carry, _jax_draws(key, 0.3, actions=65))
+        np.testing.assert_allclose(np.asarray(j_pi), t_pi.numpy(), rtol=1e-6, atol=0, err_msg=f"step {t}")
+        np.testing.assert_array_equal(np.asarray(j_carry[0].board), t_carry[0].numpy(), err_msg=f"step {t}")
+        np.testing.assert_array_equal(np.asarray(j_carry[1]), t_carry[1].numpy(), err_msg=f"step {t}")
+        resets += int((t_carry[1] == 0).sum())
+    assert resets > 0 and passes > 0   # recycling and passes were exercised
 
 
 def test_actor_with_generator_draws():
