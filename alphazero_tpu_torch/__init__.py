@@ -5,11 +5,12 @@ its module names so each counterpart is easy to find, and is tested against
 it on identical numpy inputs (``tests/test_torch_*.py``).
 
 Ported so far (the Connect-Four self-play slices: ResNet, uniform, MLP;
-Othello's self-play on the hybrid engine with any model):
+Othello's, Gomoku's and Hex's self-play on the hybrid engine with any
+model):
 
   - :mod:`alphazero_tpu_torch.config`   — ``MCTSConfig``, ``PUCT_EPS``
   - :mod:`alphazero_tpu_torch.games`    — ``Game`` protocol, ``ConnectFour`` + ``FlatOps``,
-    ``Othello`` + ``OthelloFlatOps``
+    ``Othello`` + ``OthelloFlatOps``, ``Gomoku`` + ``GomokuFlatOps``, ``Hex`` + ``HexFlatOps``
   - :mod:`alphazero_tpu_torch.ops`      — masked policy, action probabilities, root prior
   - :mod:`alphazero_tpu_torch.models`   — ``UniformModel``, ``AZResNet`` (BN-folded eval),
     ``MLPNet`` (with its packed in-kernel weights), the flax -> torch parameter converter

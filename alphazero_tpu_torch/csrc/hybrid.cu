@@ -1,12 +1,16 @@
 // Hybrid-engine search kernels for Hopper (sm_90a): descend, merge, refresh.
 //
 // Replace the Pallas kernels of alphazero_tpu/mcts/hybrid.py:
-//   az_descend, az_descend_othello
+//   az_descend, az_descend_othello, az_descend_gomoku, az_descend_hex
 //               <- descend_kernel (hybrid.py:242-356), one instance per game
 //                  of descend_kernel<Game>: the Connect-Four step
 //                  (FlatOps.step, games/connect_four.py:201-217) from c4.cuh,
 //                  the Othello step (OthelloFlatOps.step, games/othello.py
-//                  :228-265) from othello.cuh;
+//                  :228-265) from othello.cuh, the Gomoku step of every edge
+//                  up to 16 (GomokuFlatOps.step, games/gomoku.py:191-200)
+//                  from gomoku.cuh, the canonical Hex step (HexFlatOps.step,
+//                  games/hex.py:214-232, without its parity lane) from
+//                  hex.cuh;
 //   az_merge    <- merge_kernel (hybrid.py:363-422) with the A<=8 PUCT
 //                  refresh (_refresh, hybrid.py:120-149);
 //   az_merge_dense
@@ -34,15 +38,22 @@
 // * descend is latency-bound pointer chasing: each step is one dependent
 //   load of besta/bestc at the current node. One thread per game walks its
 //   path with real indexing (the TPU kernel's one-hot lane reductions are
-//   layout, not semantics) and carries the board as two 64-bit bitboards in
-//   registers, so a Connect-Four step is a popcount and two bit ops and an
-//   Othello step a register-only walk of the 8 rays. Small blocks (32
-//   games) spread the games over the SMs: 4096 games fill all 132 SMs, the
-//   1024 of the Othello full preset only 32 of them (launch geometry is
-//   later work).
+//   layout, not semantics) and carries the board in registers as bitboards
+//   of Game::kWords 64-bit words a side (one for Connect-Four, Othello and
+//   Hex; four for Gomoku, up to 256 cells), so a Connect-Four step is a
+//   popcount and two bit ops, an Othello step a register-only walk of the 8
+//   rays, a Gomoku step two bit ops per word and a Hex step two 7x7
+//   transposes of 12 masked shifts each. Small blocks (32 games) spread the games
+//   over the SMs: 4096 games fill all 132 SMs, the 1024 of the Othello,
+//   Gomoku and Hex full presets only 32 of them (launch geometry is later
+//   work). Each thread reads and writes its own board row, cell by cell: a
+//   warp's accesses are L floats apart, uncoalesced, which costs little at
+//   42-64 cells and more at Gomoku 15's 225 (a shared-memory transpose of
+//   the block's rows is later work).
 // * merge is bandwidth-bound: it must read the four [B, A, C] planes
 //   (46 MB at B=4096, C=101, A=7; 108 MB at B=1024, C=101, A=65) to
-//   refresh every node's PUCT argmax. One thread per (game, node) reads its
+//   refresh every node's PUCT argmax; at A=81 and A=225 (Gomoku 9 and 15)
+//   they are 134 MB and 373 MB at B=1024. One thread per (game, node) reads its
 //   A-strided column with neighbouring threads on neighbouring nodes
 //   (coalesced) and writes back only the cells that change (install row,
 //   path edge, one link). For A <= 8 the column sits in registers and the
@@ -64,6 +75,8 @@
 #include <cuda_runtime.h>
 
 #include "c4.cuh"       // c4_step, refresh_node and the constants
+#include "gomoku.cuh"   // gomoku_step
+#include "hex.cuh"      // hex_step
 #include "othello.cuh"  // othello_step
 
 namespace {
@@ -71,18 +84,39 @@ namespace {
 constexpr int kDescendThreads = 32;
 constexpr int kMergeThreads = 256;
 
-// The games descend_kernel is instantiated for: board cells and step.
+// The games descend_kernel is instantiated for: the 64-bit words of a
+// side's bitboard, the board cells (0: the `cells` argument, at run time)
+// and the step.
 struct ConnectFourGame {
+  static constexpr int kWords = 1;
   static constexpr int kBoardCells = kCells;
-  static __device__ __forceinline__ void step(uint64_t& mine, uint64_t& theirs, int a) {
-    c4_step(mine, theirs, a);
+  static __device__ __forceinline__ void step(uint64_t (&mine)[1], uint64_t (&theirs)[1], int a) {
+    c4_step(mine[0], theirs[0], a);
   }
 };
 
 struct OthelloGame {
+  static constexpr int kWords = 1;
   static constexpr int kBoardCells = kOthCells;
-  static __device__ __forceinline__ void step(uint64_t& mine, uint64_t& theirs, int a) {
-    othello_step(mine, theirs, a);
+  static __device__ __forceinline__ void step(uint64_t (&mine)[1], uint64_t (&theirs)[1], int a) {
+    othello_step(mine[0], theirs[0], a);
+  }
+};
+
+struct GomokuGame {  // any edge up to 16: the cells come at run time
+  static constexpr int kWords = kGomokuWords;
+  static constexpr int kBoardCells = 0;
+  static __device__ __forceinline__ void step(uint64_t (&mine)[kWords], uint64_t (&theirs)[kWords],
+                                              int a) {
+    gomoku_step(mine, theirs, a);
+  }
+};
+
+struct HexGame {
+  static constexpr int kWords = 1;
+  static constexpr int kBoardCells = kHexCells;
+  static __device__ __forceinline__ void step(uint64_t (&mine)[1], uint64_t (&theirs)[1], int a) {
+    hex_step(mine[0], theirs[0], a);
   }
 };
 
@@ -96,8 +130,9 @@ __global__ void descend_kernel(const float* __restrict__ besta,
                                float* __restrict__ patha,
                                float* __restrict__ psgn,
                                float* __restrict__ meta,
-                               int B, int C, int max_depth) {
-  constexpr int L = Game::kBoardCells;
+                               int B, int C, int max_depth, int cells) {
+  constexpr int W = Game::kWords;
+  const int L = Game::kBoardCells > 0 ? Game::kBoardCells : cells;
   const int b0 = blockIdx.x * blockDim.x;
   const int games = min((int)blockDim.x, B - b0);
   // zero this block's rows of the path record, cooperatively (coalesced)
@@ -109,12 +144,20 @@ __global__ void descend_kernel(const float* __restrict__ besta,
   const int b = b0 + threadIdx.x;
   if (b >= B) return;
 
-  uint64_t mine = 0, theirs = 0;  // flat f32[L] board (+1 / -1 / 0) -> bitboards
+  // flat f32[L] board (+1 / -1 / 0) -> bitboards: cell 64k + j is bit j of
+  // word k (word indices are compile-time constants: registers, not stack)
+  uint64_t mine[W], theirs[W];
   const float* board = boards + (size_t)b * L;
-  for (int i = 0; i < L; ++i) {
-    const float v = board[i];
-    if (v > 0.5f) mine |= 1ull << i;
-    if (v < -0.5f) theirs |= 1ull << i;
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    uint64_t m = 0, t = 0;
+    for (int j = 0; j < 64 && 64 * k + j < L; ++j) {
+      const float v = board[64 * k + j];
+      if (v > 0.5f) m |= 1ull << j;
+      if (v < -0.5f) t |= 1ull << j;
+    }
+    mine[k] = m;
+    theirs[k] = t;
   }
 
   const size_t row = (size_t)b * C;
@@ -150,8 +193,11 @@ __global__ void descend_kernel(const float* __restrict__ besta,
   }
 
   float* out = bd + (size_t)b * L;
-  for (int i = 0; i < L; ++i) {
-    out[i] = ((mine >> i) & 1ull) ? 1.f : (((theirs >> i) & 1ull) ? -1.f : 0.f);
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    for (int j = 0; j < 64 && 64 * k + j < L; ++j) {
+      out[64 * k + j] = ((mine[k] >> j) & 1ull) ? 1.f : (((theirs[k] >> j) & 1ull) ? -1.f : 0.f);
+    }
   }
   float* m = meta + (size_t)b * 8;
   m[0] = exp;
@@ -350,6 +396,17 @@ unsigned int blocks_for(size_t items, int threads) {
   return (unsigned int)((items + threads - 1) / threads);
 }
 
+template <class Game>
+int launch_descend(const float* besta, const float* bestc, const float* done,
+                   const float* tval, const float* boards, float* bd, float* patha,
+                   float* psgn, float* meta, int B, int C, int max_depth, int cells,
+                   void* stream) {
+  descend_kernel<Game><<<blocks_for(B, kDescendThreads), kDescendThreads, 0,
+                         (cudaStream_t)stream>>>(
+      besta, bestc, done, tval, boards, bd, patha, psgn, meta, B, C, max_depth, cells);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -358,24 +415,38 @@ const char* az_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// The descend entries: boards f32[B, cells], cells being the game's own
+// (42, 64, 49) or, for Gomoku, its edge squared (at most 256).
 int az_descend(const float* besta, const float* bestc, const float* done,
                const float* tval, const float* boards, float* bd, float* patha,
-               float* psgn, float* meta, int B, int C, int max_depth,
+               float* psgn, float* meta, int B, int C, int max_depth, int cells,
                void* stream) {
-  descend_kernel<ConnectFourGame><<<blocks_for(B, kDescendThreads), kDescendThreads, 0,
-                                    (cudaStream_t)stream>>>(
-      besta, bestc, done, tval, boards, bd, patha, psgn, meta, B, C, max_depth);
-  return (int)cudaGetLastError();
+  return launch_descend<ConnectFourGame>(besta, bestc, done, tval, boards, bd, patha, psgn,
+                                         meta, B, C, max_depth, cells, stream);
 }
 
 int az_descend_othello(const float* besta, const float* bestc, const float* done,
                        const float* tval, const float* boards, float* bd,
                        float* patha, float* psgn, float* meta, int B, int C,
-                       int max_depth, void* stream) {
-  descend_kernel<OthelloGame><<<blocks_for(B, kDescendThreads), kDescendThreads, 0,
-                                (cudaStream_t)stream>>>(
-      besta, bestc, done, tval, boards, bd, patha, psgn, meta, B, C, max_depth);
-  return (int)cudaGetLastError();
+                       int max_depth, int cells, void* stream) {
+  return launch_descend<OthelloGame>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
+                                     B, C, max_depth, cells, stream);
+}
+
+int az_descend_gomoku(const float* besta, const float* bestc, const float* done,
+                      const float* tval, const float* boards, float* bd,
+                      float* patha, float* psgn, float* meta, int B, int C,
+                      int max_depth, int cells, void* stream) {
+  return launch_descend<GomokuGame>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
+                                    B, C, max_depth, cells, stream);
+}
+
+int az_descend_hex(const float* besta, const float* bestc, const float* done,
+                   const float* tval, const float* boards, float* bd, float* patha,
+                   float* psgn, float* meta, int B, int C, int max_depth, int cells,
+                   void* stream) {
+  return launch_descend<HexGame>(besta, bestc, done, tval, boards, bd, patha, psgn, meta, B, C,
+                                 max_depth, cells, stream);
 }
 
 int az_merge(float* n, float* w, float* p, float* code, float* done,

@@ -2,8 +2,9 @@
 
 The kernels live in ``csrc/`` (see each source's header for what it
 replaces and how it is designed): ``hybrid.cu`` holds the hybrid engine's
-descend (one instance per game: Connect-Four and Othello, whose step is in
-``othello.cuh``), merge and refresh (unrolled for A <= 8, dense above),
+descend (one instance per game: Connect-Four, and Othello, Gomoku and Hex,
+whose steps are in ``othello.cuh``, ``gomoku.cuh`` and ``hex.cuh``), merge
+and refresh (unrolled for A <= 8, dense above),
 ``fused.cu`` the fused search kernels (the uniform evaluator's, and the
 MLP's with the evaluator of ``mlp.cuh``); both include the Connect-Four and
 PUCT helpers of ``c4.cuh``. At first use the
@@ -21,10 +22,11 @@ Each wrapper takes tensors on ONE device:
   back to the plain version.
 
 ``descend``, ``merge`` and ``refresh`` route a CUDA call to the kernel
-instance that takes it: ``descend`` by board width (42 Connect-Four, its
-own kernel; 64 ``descend_othello``), ``merge`` and ``refresh`` by action
-count (A <= 8 their own kernels; above, ``merge_dense`` and
-``refresh_dense``). Each wrapper counts the launches of its own kernel in
+instance that takes it: ``descend`` by the type of the game's flat ops
+(``descend_entry``: Connect-Four's ``FlatOps`` its own kernel, then
+``descend_othello``, ``descend_gomoku`` and ``descend_hex``; any other
+type raises), ``merge`` and ``refresh`` by action count (A <= 8 their own
+kernels; above, ``merge_dense`` and ``refresh_dense``). Each wrapper counts the launches of its own kernel in
 a plain integer attribute, ``descend.launches`` etc.;
 ``reset_launch_counts()`` zeroes them.
 """
@@ -45,12 +47,16 @@ import torch
 
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.games.connect_four import FlatOps
+from alphazero_tpu_torch.games.gomoku import GomokuFlatOps
+from alphazero_tpu_torch.games.hex import HexFlatOps
+from alphazero_tpu_torch.games.othello import OthelloFlatOps
 from alphazero_tpu_torch.mcts import fused as _plain_fused
 from alphazero_tpu_torch.mcts import hybrid as _plain
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = (_CSRC / "hybrid.cu", _CSRC / "fused.cu")
-HEADERS = (_CSRC / "c4.cuh", _CSRC / "mlp.cuh", _CSRC / "othello.cuh")
+HEADERS = (_CSRC / "c4.cuh", _CSRC / "gomoku.cuh", _CSRC / "hex.cuh", _CSRC / "mlp.cuh",
+           _CSRC / "othello.cuh")
 BUILD_DIR = _CSRC / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -64,8 +70,10 @@ _VP, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # exported C functions of the library: (argument types, result type)
 _SIGNATURES = {
     "az_error_string": ([_I32], ctypes.c_char_p),
-    "az_descend": ([_VP] * 9 + [_I32] * 3 + [_VP], _I32),
-    "az_descend_othello": ([_VP] * 9 + [_I32] * 3 + [_VP], _I32),
+    "az_descend": ([_VP] * 9 + [_I32] * 4 + [_VP], _I32),
+    "az_descend_othello": ([_VP] * 9 + [_I32] * 4 + [_VP], _I32),
+    "az_descend_gomoku": ([_VP] * 9 + [_I32] * 4 + [_VP], _I32),
+    "az_descend_hex": ([_VP] * 9 + [_I32] * 4 + [_VP], _I32),
     "az_merge": ([_VP] * 12 + [_I32] * 4 + [_F32, _VP], _I32),
     "az_merge_dense": ([_VP] * 12 + [_I32] * 4 + [_F32, _VP], _I32),
     "az_refresh": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
@@ -180,10 +188,42 @@ def _stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def _descend(entry: str, besta, bestc, done, tval, boards, max_depth: int):
-    """Launch the descend kernel ``entry`` on CUDA tensors."""
+# the descend kernel instance of each game's flat ops: the game's step is
+# compiled into it (descend_kernel<Game> in csrc/hybrid.cu)
+_DESCEND_ENTRIES = {
+    FlatOps: "az_descend",
+    OthelloFlatOps: "az_descend_othello",
+    GomokuFlatOps: "az_descend_gomoku",
+    HexFlatOps: "az_descend_hex",
+}
+GOMOKU_MAX_CELLS = 256   # csrc/gomoku.cuh: kGomokuWords 64-bit words a side
+
+
+def descend_entry(ops) -> str:
+    """The entry of the descend kernel instance that steps boards as
+    ``ops.step`` does, by the exact type of the flat ops (a subclass may
+    step otherwise); raises for any other type."""
+    entry = _DESCEND_ENTRIES.get(type(ops))
+    if entry is None:
+        raise NotImplementedError(
+            f"no descend kernel steps {type(ops).__name__} boards: the ported games' flat "
+            f"ops are {', '.join(t.__name__ for t in _DESCEND_ENTRIES)}"
+        )
+    return entry
+
+
+def _descend(entry: str, besta, bestc, done, tval, boards, max_depth: int, ops):
+    """Launch the descend kernel ``entry`` on CUDA tensors, for boards of
+    the game whose flat ops it steps."""
+    if descend_entry(ops) != entry:
+        raise ValueError(f"{entry} does not step {type(ops).__name__} boards")
     B, C = besta.shape
-    L = boards.shape[-1]
+    L = ops.size
+    if entry == "az_descend_gomoku" and L > GOMOKU_MAX_CELLS:
+        raise NotImplementedError(
+            f"the Gomoku descend kernel takes boards of at most {GOMOKU_MAX_CELLS} cells "
+            f"(edge 16), got {L}: wider bitboards are later work (ROADMAP)"
+        )
     if B == 0:
         raise ValueError("descend kernel needs B > 0")
     lib = library()
@@ -198,39 +238,57 @@ def _descend(entry: str, besta, bestc, done, tval, boards, max_depth: int):
     meta = torch.empty((B, 8), device=boards.device)
     rc = getattr(lib.lib, entry)(
         *ptrs, bd.data_ptr(), patha.data_ptr(), psgn.data_ptr(), meta.data_ptr(),
-        B, C, int(max_depth), _stream(boards.device),
+        B, C, int(max_depth), L, _stream(boards.device),
     )
     lib.check(rc, entry)
     return bd, patha, psgn, meta
 
 
+def _descend_instance(name: str, entry: str, doc: str):
+    """The wrapper of one game's descend kernel instance: the plain
+    version on the CPU; on CUDA the kernel, for its own game's flat ops
+    only."""
+
+    def wrapper(besta, bestc, done, tval, boards, max_depth: int, ops):
+        if _on_cpu(besta, bestc, done, tval, boards):
+            return _plain.descend(besta, bestc, done, tval, boards, max_depth, ops)
+        out = _descend(entry, besta, bestc, done, tval, boards, max_depth, ops)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    return wrapper
+
+
+descend_othello = _descend_instance(
+    "descend_othello", "az_descend_othello",
+    "``mcts.hybrid.descend`` for Othello boards f32[B, 64].")
+descend_gomoku = _descend_instance(
+    "descend_gomoku", "az_descend_gomoku",
+    "``mcts.hybrid.descend`` for Gomoku boards f32[B, S*S], any edge S up to 16.")
+descend_hex = _descend_instance(
+    "descend_hex", "az_descend_hex",
+    "``mcts.hybrid.descend`` for canonical Hex boards f32[B, 49].")
+_DESCEND_WRAPPERS = {
+    "az_descend_othello": descend_othello,
+    "az_descend_gomoku": descend_gomoku,
+    "az_descend_hex": descend_hex,
+}
+
+
 def descend(besta, bestc, done, tval, boards, max_depth: int, ops):
-    """``mcts.hybrid.descend``: on CUDA, Connect-Four boards f32[B, 42] run
-    this wrapper's kernel and Othello boards f32[B, 64] ``descend_othello``;
-    other widths raise (their step is not ported to the card)."""
+    """``mcts.hybrid.descend``: on CUDA, the kernel instance of the game's
+    flat ops (``descend_entry``): Connect-Four boards f32[B, 42] run this
+    wrapper's own kernel, the other games ``descend_othello``,
+    ``descend_gomoku`` and ``descend_hex``; unknown flat ops raise."""
     if _on_cpu(besta, bestc, done, tval, boards):
         return _plain.descend(besta, bestc, done, tval, boards, max_depth, ops)
-    L = boards.shape[-1]
-    if L == 64:
-        return descend_othello(besta, bestc, done, tval, boards, max_depth, ops)
-    if L != 42:
-        raise NotImplementedError(
-            f"no descend kernel for {L}-cell boards: only Connect-Four (42) and "
-            "Othello (64) are ported (ROADMAP queue 2, K4 per game)"
-        )
-    out = _descend("az_descend", besta, bestc, done, tval, boards, max_depth)
+    entry = descend_entry(ops)
+    if entry != "az_descend":
+        return _DESCEND_WRAPPERS[entry](besta, bestc, done, tval, boards, max_depth, ops)
+    out = _descend("az_descend", besta, bestc, done, tval, boards, max_depth, ops)
     descend.launches += 1
-    return out
-
-
-def descend_othello(besta, bestc, done, tval, boards, max_depth: int, ops):
-    """``mcts.hybrid.descend`` for Othello boards f32[B, 64]."""
-    if _on_cpu(besta, bestc, done, tval, boards):
-        return _plain.descend(besta, bestc, done, tval, boards, max_depth, ops)
-    if boards.shape[-1] != 64:
-        raise ValueError(f"descend_othello takes Othello boards [B, 64], got {tuple(boards.shape)}")
-    out = _descend("az_descend_othello", besta, bestc, done, tval, boards, max_depth)
-    descend_othello.launches += 1
     return out
 
 
@@ -433,8 +491,8 @@ def mlp_eval(boards, weights):
 
 
 KERNELS = _plain.SearchKernels(descend, merge, refresh)
-_ALL = (descend, descend_othello, merge, merge_dense, refresh, refresh_dense,
-        fused, fused_mlp, mlp_eval)
+_ALL = (descend, descend_othello, descend_gomoku, descend_hex, merge, merge_dense, refresh,
+        refresh_dense, fused, fused_mlp, mlp_eval)
 
 
 def launch_counts() -> dict:

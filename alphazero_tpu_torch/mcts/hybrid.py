@@ -3,13 +3,15 @@
 Counterpart of ``alphazero_tpu/mcts/hybrid.py`` on its exact K=1 path. The
 tree's stat planes live in device memory; each simulation is
 
-1. **descend** (CUDA kernel ``az_descend`` for Connect-Four,
-   ``az_descend_othello`` for Othello): the whole descent along the
-   per-node PUCT argmax planes ``besta/bestc [B, C]``, carrying the board
-   through the game's step, writing the path record and the leaf board;
+1. **descend** (one instance of the CUDA kernel per game, routed by the
+   flat ops: ``az_descend`` for Connect-Four, ``az_descend_othello``,
+   ``az_descend_gomoku`` for every Gomoku edge up to 16x16,
+   ``az_descend_hex``): the whole descent along the per-node PUCT argmax
+   planes ``besta/bestc [B, C]``, carrying the board through the game's
+   step, writing the path record and the leaf board;
 2. **plain torch**: legality/terminality of the leaf boards, the model
    forward (any ``apply_fn``), the leaf value (with the game's depth-cutoff
-   heuristic where it has one), the slot bookkeeping;
+   heuristic where it is not zero), the slot bookkeeping;
 3. **merge** (CUDA kernel ``az_merge`` for A <= 8, ``az_merge_dense`` for
    larger action spaces): one in-place read-modify-write of the planes —
    install the new row at the lockstep slot, link parent -> child, back up
@@ -22,8 +24,9 @@ kernels for CUDA tensors and runs these for CPU tensors. Both follow the
 reference semantics bit for bit: lockstep slot cursor ``s = i + 1`` with
 no install when ``s >= C``; child codes -1 unexpanded, >= 0 a child slot,
 -2-s a terminal child; the depth cutoff ``depth + 1 >= max_depth`` (backs
-up the flat ops' ``heuristic`` of the leaf board, or 0 for a game
-without one); ``psign`` flipping once per edge with
+up the flat ops' ``heuristic`` of the leaf board when the game's
+``heuristic_is_zero`` is False, else 0, as the JAX engine gates it);
+``psign`` flipping once per edge with
 ``mval = v_leaf * psign``; the PUCT score ``q + cpuct*p*sqrt(sum N + EPS)
 / (1 + n)`` with ``q = w / max(n, 1)``, illegal edges at -1e30 and
 first-max ties.
@@ -39,8 +42,8 @@ exp_action, 0).
 Not ported (ROADMAP queue 1 / queue 2): ``parallel_sims > 1`` (the K7
 round kernels), depth-sorted blocking (``run_search_sorted``, whose
 8192-game threshold was measured on another device), ``mesh`` sharding,
-and the descend kernels of games other than Connect-Four and Othello
-(their plain version runs; a CUDA board of another width raises).
+and Gomoku boards above 256 cells on the card (their plain version runs;
+the CUDA descend raises).
 """
 
 from __future__ import annotations
@@ -193,13 +196,13 @@ PLAIN = SearchKernels(descend, merge, refresh)
 
 def run_search(
     ops, boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig,
-    evaluate: Callable, kernels: SearchKernels,
+    evaluate: Callable, kernels: SearchKernels, heuristic: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The K=1 search loop over the flat boards f32[B, L] from the masked
     root priors f32[B, A]; ``evaluate(bd, vm) -> (pm f32[B, A], v f32[B])``
     gives the masked prior (INVALID_P on illegal edges) and the value of
-    the leaf boards. Flat ops with a ``heuristic`` back it up at depth
-    cutoffs. Returns the final stat planes ``(n, w) f32[B, A, C]`` (the
+    the leaf boards. ``heuristic(bd) -> f32[B, 1]``, when given, is backed
+    up at depth cutoffs (None: they back up 0). Returns the final stat planes ``(n, w) f32[B, A, C]`` (the
     root's visit counts are ``n[:, :, 0]``)."""
     B, A = p_masked.shape
     C = cfg.nodes
@@ -207,7 +210,6 @@ def run_search(
     cpuct = float(cfg.cpuct)
     dev = boards.device
     aux = ops.aux(dev)
-    heuristic = getattr(ops, "heuristic", None)
     rdone, rtval = ops.terminal(boards, aux)
     n = torch.zeros((B, A, C), device=dev)
     w = torch.zeros((B, A, C), device=dev)
@@ -274,7 +276,8 @@ def make_hybrid_root_fn(
             "(ROADMAP queue 1, mcts/search.py + tree.py), not yet ported"
         )
     ops = flat_ops_factory()
-    if not getattr(game, "heuristic_is_zero", False) and not hasattr(ops, "heuristic"):
+    zero_heuristic = bool(getattr(game, "heuristic_is_zero", False))
+    if not zero_heuristic and not hasattr(ops, "heuristic"):
         raise NotImplementedError(
             f"{game.name} has a nonzero depth-cutoff heuristic but its flat ops "
             "cannot evaluate it: it needs the dense engine (ROADMAP queue 1, "
@@ -284,6 +287,9 @@ def make_hybrid_root_fn(
         from alphazero_tpu_torch.kernels import KERNELS
 
         kernels = KERNELS
+    # the JAX engine's gate: only a game whose heuristic is not zero backs
+    # its flat ops' heuristic up at depth cutoffs
+    heuristic = None if zero_heuristic else ops.heuristic
     needs_features = getattr(apply_fn, "needs_features", True)
 
     def root_counts(root_state, dirichlet: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -296,7 +302,7 @@ def make_hybrid_root_fn(
             logits, v_nn = apply_fn(ops.to_features(bd) if needs_features else zeros)
             return torch.where(vm, masked_policy(logits, vm), INVALID_P), v_nn
 
-        n, _ = run_search(ops, boards, p_masked, cfg, evaluate, kernels)
+        n, _ = run_search(ops, boards, p_masked, cfg, evaluate, kernels, heuristic)
         return n[:, :, 0]
 
     return root_counts

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (``alphazero_tpu_torch``).
 
-Drives the port's three self-play paths — the steady-state Connect-Four
-actor on the hybrid engine with an AZResNet-64x5, on the fused kernel with
-the uniform model, and on the fused kernel with an MLPNet (256, 256)
-evaluated inside it — on one CUDA card, in phases:
+Drives the port's self-play paths — the steady-state Connect-Four actor on
+the hybrid engine with an AZResNet-64x5, on the fused kernel with the
+uniform model, and on the fused kernel with an MLPNet (256, 256) evaluated
+inside it; then Othello, Gomoku and Hex on the hybrid engine — on one CUDA
+card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``)
@@ -67,7 +68,33 @@ evaluated inside it — on one CUDA card, in phases:
            identical counts that sum to 100 on live games; (e) the uniform
            model's actor at B=4096, 100 sims, max_depth 80; (f) the ``mlp``
            preset's actor, MLPNet (512, 512) at B=256, 50 sims, max_depth
-           64, Dirichlet 0.3, through the hybrid route.
+           64, Dirichlet 0.3, through the hybrid route;
+9. gomoku: Gomoku on the hybrid engine, the ``full`` preset's search on
+           the 9x9 board (B=1024, 100 sims, max_depth 48, Dirichlet 0.15,
+           temp_threshold 8): (a) the Gomoku descend at Gomoku 9 and 15, the
+           dense merge and refresh at A=81 and A=225, against their plain
+           versions at B=1024, C=101 on planes from a few plain simulations
+           (bit-equal, both timed); (b) ``tests/tpu_goldens.json``'s
+           ``hybrid_gomoku_uniform_counts_head`` (initial position, B=256,
+           16 sims, max_depth 32) and ``hybrid_gomoku15_uniform_counts_head``
+           (positions of tests/test_fused.py's generator, rebuilt with
+           numpy; max_depth 64), 16 Gomoku descends each; (c) the ``full``
+           preset's actor, AZResNet-64x5 in bf16: exactly 100 Gomoku
+           descends, 100 dense merges and 1 dense refresh per step, pi rows
+           summing to 1, ms/step, env-steps/s, peak memory, then one search
+           through the kernels and the plain versions with identical counts;
+           (d) the uniform actor of the engine bench's
+           ``gomoku15_uniform_B4096_100sims`` (max_depth 64); (e) one Gomoku
+           7 search (49 cells, as Hex's) through the kernels and the plain
+           versions, identical counts;
+10. hex:   Hex on the hybrid engine, the ``full`` preset's search (B=1024,
+           100 sims, max_depth 56, Dirichlet 0.2, temp_threshold 8): (a) the
+           Hex descend, the dense merge and refresh at A=49 against their
+           plain versions (bit-equal, both timed); (b)
+           ``hybrid_hex_uniform_counts_head`` (16 sims, max_depth 56); (c)
+           the ``full`` preset's actor, AZResNet-64x5 in bf16, with the
+           checks of 9(c) and one profiled step; (d) the ``mlp`` preset's
+           actor, MLPNet (256, 256) at B=256, 50 sims, max_depth 56.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -124,6 +151,17 @@ OTH_MLP_HIDDEN = (512, 512)   # the Othello mlp preset: model, batch, sims, dept
 OTH_MLP_B, OTH_MLP_SIMS, OTH_MLP_DEPTH = 256, 50, 64
 OTH_MLP_STEPS = 3
 
+GMK_B, GMK_MAX_DEPTH, GMK_DIRICHLET = 1024, 48, 0.15   # Gomoku full preset (examples/train_gomoku.py)
+GMK_CHANNELS, GMK_BLOCKS = 64, 5
+GMK_TEMP_THRESHOLD = 8
+GMK_STEPS = 5             # timed steps after one warm-up
+GMK15_B, GMK15_MAX_DEPTH, GMK15_STEPS = 4096, 64, 3   # gomoku15_uniform_B4096_100sims
+HEX_B, HEX_MAX_DEPTH, HEX_DIRICHLET = 1024, 56, 0.2   # Hex full preset (examples/train_hex.py)
+HEX_TEMP_THRESHOLD = 8
+HEX_STEPS = 5
+HEX_MLP_HIDDEN = (256, 256)   # the Hex mlp preset: model, batch, sims
+HEX_MLP_B, HEX_MLP_SIMS, HEX_MLP_STEPS = 256, 50, 3
+
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
     "merge": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -133,6 +171,8 @@ SOURCE = {
     "refresh_dense": "alphazero_tpu_torch/csrc/hybrid.cu",
     "fused": "alphazero_tpu_torch/csrc/fused.cu",
     "fused_mlp": "alphazero_tpu_torch/csrc/fused.cu",   # with its evaluator, csrc/mlp.cuh
+    "descend_gomoku": "alphazero_tpu_torch/csrc/hybrid.cu",   # with its step, csrc/gomoku.cuh
+    "descend_hex": "alphazero_tpu_torch/csrc/hybrid.cu",      # with its step, csrc/hex.cuh
 }
 REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
@@ -145,6 +185,9 @@ REPLACES = {
     "fused": "alphazero_tpu/mcts/fused.py:156",      # kernel, K=1 sim_body :282
     # the same kernel with the in-kernel MLP (K3, eval_fn of attach_mlp_kernel_eval)
     "fused_mlp": "alphazero_tpu/mcts/fused.py:156 + alphazero_tpu/models/nets.py:129",
+    # descend_kernel with GomokuFlatOps.step / HexFlatOps.step traced in
+    "descend_gomoku": "alphazero_tpu/mcts/hybrid.py:242 + alphazero_tpu/games/gomoku.py:191",
+    "descend_hex": "alphazero_tpu/mcts/hybrid.py:242 + alphazero_tpu/games/hex.py:214",
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
@@ -243,8 +286,8 @@ def launches_of(kernels, **nonzero) -> dict:
 
 def profile_step(step) -> tuple:
     """One call of ``step`` under ``torch.profiler``: ``(wall ms, device
-    busy ms, [(kernel, device ms), ...] by time)``, the busy time being the
-    sum of the device kernels' own times (one stream: they do not
+    busy ms, [(kernel, device ms, launches), ...] by time)``, the busy time
+    being the sum of the device kernels' own times (one stream: they do not
     overlap)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -267,6 +310,236 @@ def profile_step(step) -> tuple:
     return 1e3 * wall, sum(k[1] for k in kernels), kernels
 
 
+def device_ms(fn, reps: int = 20, sleep_cycles: int = 50_000_000) -> float:
+    """Mean device time per call of the kernels ``fn`` launches, without
+    the host work between launches: the calls queue up behind a kernel that
+    sleeps ``sleep_cycles`` clock cycles (~25 ms), so the events around
+    them time the device alone. Fails if the host took longer to queue them
+    than the sleep lasted. (No profiler: its sessions slow the host-paced
+    steps that follow.)"""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    queued_ms = 1e3 * (time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    if queued_ms >= 0.5 * sleep_cycles / 2.0e6:   # at most half the sleep at <= 2 GHz
+        fail(f"queuing {reps} calls took {queued_ms:.3f} ms: the device time is not measurable")
+    return start.elapsed_time(end) / reps
+
+
+def read_goldens(name: str) -> dict:
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", name)) as f:
+        return json.load(f)
+
+
+def fused_test_positions(game, batch: int, moves: int, seed: int, device) -> torch.Tensor:
+    """The boards of tests/test_fused.py's ``_random_positions``, which the
+    TPU goldens were frozen from, made with the port's game: one
+    ``rng.choice`` per game per move over its valid moves, and a game keeps
+    its state whenever its next state would be terminal."""
+    rng = np.random.default_rng(seed)
+    state = game.init(batch, device)
+    for _ in range(moves):
+        valid = game.valid_moves(state).cpu().numpy()
+        acts = np.array([rng.choice(np.nonzero(v)[0]) for v in valid])
+        nxt = game.step(state, torch.as_tensor(acts, device=device))
+        done, _ = game.terminal(nxt)
+        state = torch.where(done[:, None, None], state, nxt)
+    return state
+
+
+def capture_search_args(game, apply_fn, cfg, roots, noise, sims: int = 24) -> tuple:
+    """The arguments of the last descend and merge calls of a plain search
+    of ``sims`` simulations at ``cfg``'s tree capacity: planes as the main
+    path meets them."""
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.mcts import SearchKernels, hybrid
+
+    captured = {}
+
+    def capture(name, fn):
+        def wrapped(*args):
+            captured[name] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            return fn(*args)
+        return wrapped
+
+    cap_cfg = MCTSConfig(num_sims=sims, max_nodes=cfg.nodes, max_depth=cfg.max_depth,
+                         dirichlet_alpha=cfg.dirichlet_alpha)
+    hybrid.make_hybrid_root_fn(game, apply_fn, cap_cfg, kernels=SearchKernels(
+        capture("descend", hybrid.descend), capture("merge", hybrid.merge), hybrid.refresh))(
+        roots, noise)
+    d_args, m_args = captured["descend"], captured["merge"]
+    B, A = roots.shape[0], game.num_actions
+    if d_args[4].shape != (B, game.flat_ops().size) or m_args[0].shape != (B, A, cfg.nodes):
+        fail(f"captured {game.name} planes have shapes {d_args[4].shape}, {m_args[0].shape}")
+    return d_args, m_args
+
+
+def descend_vs_plain(name: str, kernel, d_args) -> tuple:
+    """A descend kernel wrapper against ``hybrid.descend`` on the same
+    arguments: bit-equal outputs. Returns ``(result entry, path edges, cut
+    leaves)``."""
+    from alphazero_tpu_torch.mcts import hybrid
+
+    out_k = kernel(*d_args)
+    out_p = hybrid.descend(*d_args)
+    for nm, k, p in zip(("bd", "patha", "psgn", "meta"), out_k, out_p):
+        if not bit_equal(k, p):
+            fail(f"{name} output {nm} differs from the plain version")
+    B, C = d_args[0].shape
+    L = d_args[4].shape[1]
+    edges = float((out_p[1] > 0).sum())
+    leaves = float((out_p[3][:, 1] + out_p[3][:, 4]).sum())
+    result = {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(out_k, out_p)),
+        # reads: the board, each path node's besta/bestc, the root's done
+        # and a leaf's tval; writes: the leaf board, the patha/psgn rows, meta
+        **bound(F32 * (B * L + 2 * edges + B + leaves + B * L + 2 * B * C + B * 8), 0.0),
+    }
+    return result, edges, float(out_p[3][:, hybrid.M_CUT].sum())
+
+
+def dense_vs_plain(kernels, m_args) -> tuple:
+    """``merge_dense`` and ``refresh_dense`` against the plain versions on
+    the same planes: bit-equal outputs. Returns ``(result entries, stat
+    plane bytes, timing pairs for in_turns)``."""
+    from alphazero_tpu_torch.mcts import hybrid
+
+    B, A, C = m_args[0].shape
+    planes_k = [t.clone() for t in m_args[:6]]
+    planes_p = [t.clone() for t in m_args[:6]]
+    outs_k = planes_k + list(kernels.merge_dense(*planes_k, *m_args[6:]))
+    outs_p = planes_p + list(hybrid.merge(*planes_p, *m_args[6:]))
+    for nm, k, p in zip(("n", "w", "p", "code", "done", "tval", "besta", "bestc"), outs_k, outs_p):
+        if not bit_equal(k, p):
+            fail(f"merge_dense output {nm} differs from the plain version at A={A}")
+    m_edges = float((m_args[7] > 0).sum())
+    installs = float(m_args[9][:, hybrid.M2_EXPOK].sum())
+    planes_bytes = F32 * 4 * B * A * C
+    results = {"merge_dense": {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p)),
+        # reads: the four stat planes, patha/psgn, pm, meta2; writes: the
+        # best planes and the cells that change (path n/w, install rows, links)
+        **bound(planes_bytes + F32 * (2 * B * C + B * A + B * 8 + 2 * B * C
+                                      + 2 * m_edges + installs * (4 * A + 3)),
+                puct_ops(B * C, A) + 3 * m_edges),
+    }}
+    ref_k = kernels.refresh_dense(*m_args[:4], m_args[-1])
+    ref_p = hybrid.refresh(*m_args[:4], m_args[-1])
+    if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
+        fail(f"refresh_dense differs from the plain version at A={A}")
+    results["refresh_dense"] = {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
+        **bound(planes_bytes + F32 * 2 * B * C, puct_ops(B * C, A)),
+    }
+    scratch = [t.clone() for t in m_args[:6]]
+    fns = {
+        "merge_dense": (lambda: kernels.merge_dense(*scratch, *m_args[6:]),
+                        lambda: hybrid.merge(*scratch, *m_args[6:])),
+        "refresh_dense": (lambda: kernels.refresh_dense(*m_args[:4], m_args[-1]),
+                          lambda: hybrid.refresh(*m_args[:4], m_args[-1])),
+    }
+    return results, planes_bytes, fns
+
+
+def time_in_turns(results: dict, fns: dict, tag: str, card: str, label: str = "") -> None:
+    """Each kernel and its plain version timed in turns; the means go into
+    the kernel's result entry."""
+    for name, (k_fn, p_fn) in fns.items():
+        k1, k2, p1, p2 = in_turns(k_fn, p_fn)
+        dev = device_ms(k_fn)
+        results[name].update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None})
+        print(f"[{tag}] {name}{label}: kernel {k1:.4f}/{k2:.4f} ms per call ({dev:.4f} ms of device "
+              f"time), plain {p1:.4f}/{p2:.4f} ms, bound {results[name]['bound_ms']:.4f} ms "
+              f"({results[name]['bound_by']}) | {card}", flush=True)
+
+
+def run_actor(tag: str, game, apply_fn, run_cfg, batch: int, steps: int, temp_threshold: int,
+              want: dict, card: str, label: str) -> tuple:
+    """Actor steps through the ladder: one warm-up step, then ``steps``
+    timed ones with the launch counters set to 0 just before and read just
+    after; pi rows must sum to 1 and the launches be ``want`` per step.
+    Returns ``(carry, step, generator, launches)``."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.ops import sample_draws
+    from alphazero_tpu_torch.selfplay import make_actor_step_fn
+
+    dev = torch.device("cuda", 0)
+    A = game.num_actions
+    torch.cuda.reset_peak_memory_stats()
+    init, step = make_actor_step_fn(game, apply_fn, run_cfg, batch, temp_threshold, device=dev)
+    carry = init()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    alpha = run_cfg.dirichlet_alpha
+    carry, _ = step(carry, sample_draws(gen, batch, A, alpha, dev))   # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    times = []
+    for _ in range(steps):
+        draws = sample_draws(gen, batch, A, alpha, dev)
+        t0 = time.perf_counter()
+        carry, pi = step(carry, draws)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        if not torch.allclose(pi.sum(dim=1), torch.ones(batch, device=dev), atol=1e-5):
+            fail(f"{tag} {label}: pi rows do not sum to 1")
+    got = dict(kernels.launch_counts())
+    expect = launches_of(kernels, **{k: v * steps for k, v in want.items()})
+    if got != expect:
+        fail(f"{tag} {label}: launches {got} != {expect}")
+    ms = 1e3 * sum(times) / len(times)
+    print(f"[{tag}] {label}: B={batch}, {run_cfg.num_sims} sims, max_depth "
+          f"{run_cfg.max_depth}: {ms:.3f} ms/step mean, "
+          f"{1e3 * sorted(times)[len(times) // 2]:.3f} upper median "
+          f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), {batch / (ms / 1e3):.1f} "
+          f"env-steps/s | launches {got} | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
+    return carry, step, gen, got
+
+
+def print_profiled_step(tag: str, step, card: str) -> None:
+    wall, busy, top = profile_step(step)
+    print(f"[{tag}] one profiled full-preset step: {wall:.3f} ms wall (profiler on), device "
+          f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
+          f"{sum(k[2] for k in top)} device kernels | {card}", flush=True)
+    for name, ms, count in top[:12]:
+        print(f"[{tag}]   {ms:9.3f} ms {count:6d}x {name[:100]}", flush=True)
+
+
+def same_counts_through_kernels_and_plain(tag: str, game, apply_fn, cfg, state, dirichlet,
+                                          want: dict) -> None:
+    """One search of ``state`` through the kernels (exactly ``want``
+    launches) and through the plain versions: identical, finite counts
+    that sum to the simulation budget on live games."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.mcts import PLAIN, hybrid
+
+    B, A = state.shape[0], game.num_actions
+    kernels.reset_launch_counts()
+    c_kernel = hybrid.make_hybrid_root_fn(game, apply_fn, cfg)(state, dirichlet)
+    got = kernels.launch_counts()
+    if got != launches_of(kernels, **want):
+        fail(f"{tag} kernel search launches {got} != {want}")
+    c_plain = hybrid.make_hybrid_root_fn(game, apply_fn, cfg, kernels=PLAIN)(state, dirichlet)
+    live = ~game.terminal(state)[0]
+    if not torch.isfinite(c_kernel).all() or c_kernel.shape != (B, A):
+        fail(f"{tag} kernel-path counts are not finite [B, A]")
+    if not bool((c_kernel.sum(dim=1)[live] == cfg.num_sims).all()):
+        fail(f"{tag} root counts of live games do not sum to the simulation budget")
+    if not torch.equal(c_kernel, c_plain):
+        fail(f"{tag} kernel and plain searches differ on "
+             f"{int((c_kernel != c_plain).any(dim=1).sum())} of {B} games")
+    print(f"[{tag}] one search through the kernels ({got}) and the plain versions: identical counts "
+          f"on all {B} games ({int(live.sum())} live, each summing to {cfg.num_sims})", flush=True)
+
+
 def othello_phase(card: str) -> tuple:
     """Phase 8: Othello on the hybrid engine (see the module docstring).
     Returns the kernels line's entries of its three kernels and their
@@ -284,7 +557,6 @@ def othello_phase(card: str) -> tuple:
         random_mlp_variables,
     )
     from alphazero_tpu_torch.ops import sample_draws
-    from alphazero_tpu_torch.selfplay import make_actor_step_fn
 
     dev = torch.device("cuda", 0)
     game = Othello()
@@ -301,94 +573,25 @@ def othello_phase(card: str) -> tuple:
 
     # (a) the three kernels against their plain versions, on planes taken
     # from a few simulations of the plain search
-    captured = {}
-
-    def capture(name, fn):
-        def wrapped(*args):
-            captured[name] = [a.clone() if torch.is_tensor(a) else a for a in args]
-            return fn(*args)
-        return wrapped
-
-    cap_cfg = MCTSConfig(num_sims=24, max_nodes=C, max_depth=OTH_MAX_DEPTH,
-                         dirichlet_alpha=OTH_DIRICHLET)
-    hybrid.make_hybrid_root_fn(game, resnet, cap_cfg, kernels=SearchKernels(
-        capture("descend", hybrid.descend), capture("merge", hybrid.merge), hybrid.refresh))(
-        roots, noise)
-    d_args, m_args = captured["descend"], captured["merge"]
-    if d_args[4].shape != (OTH_B, 64) or m_args[0].shape != (OTH_B, A, C):
-        fail(f"captured Othello planes have shapes {d_args[4].shape}, {m_args[0].shape}")
+    d_args, m_args = capture_search_args(game, resnet, cfg, roots, noise)
     results = {}
-    kernels.reset_launch_counts()
-
-    out_k = kernels.descend_othello(*d_args)
-    out_p = hybrid.descend(*d_args)
-    for nm, k, p in zip(("bd", "patha", "psgn", "meta"), out_k, out_p):
-        if not bit_equal(k, p):
-            fail(f"descend_othello output {nm} differs from the plain version")
-    edges = float((out_p[1] > 0).sum())
-    leaves = float((out_p[3][:, 1] + out_p[3][:, 4]).sum())
-    cuts = float(out_p[3][:, hybrid.M_CUT].sum())
-    results["descend_othello"] = {
-        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(out_k, out_p)),
-        # reads: the board, each path node's besta/bestc, the root's done
-        # and a leaf's tval; writes: the leaf board, the patha/psgn rows, meta
-        **bound(F32 * (OTH_B * 64 + 2 * edges + OTH_B + leaves
-                       + OTH_B * 64 + 2 * OTH_B * C + OTH_B * 8), 0.0),
-    }
-
-    planes_k = [t.clone() for t in m_args[:6]]
-    planes_p = [t.clone() for t in m_args[:6]]
-    outs_k = planes_k + list(kernels.merge_dense(*planes_k, *m_args[6:]))
-    outs_p = planes_p + list(hybrid.merge(*planes_p, *m_args[6:]))
-    for nm, k, p in zip(("n", "w", "p", "code", "done", "tval", "besta", "bestc"), outs_k, outs_p):
-        if not bit_equal(k, p):
-            fail(f"merge_dense output {nm} differs from the plain version")
-    m_edges = float((m_args[7] > 0).sum())
-    installs = float(m_args[9][:, hybrid.M2_EXPOK].sum())
-    planes_bytes = F32 * 4 * OTH_B * A * C
-    results["merge_dense"] = {
-        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p)),
-        # reads: the four stat planes, patha/psgn, pm, meta2; writes: the
-        # best planes and the cells that change (path n/w, install rows, links)
-        **bound(planes_bytes + F32 * (2 * OTH_B * C + OTH_B * A + OTH_B * 8 + 2 * OTH_B * C
-                                      + 2 * m_edges + installs * (4 * A + 3)),
-                puct_ops(OTH_B * C, A) + 3 * m_edges),
-    }
-
-    ref_k = kernels.refresh_dense(*m_args[:4], m_args[-1])
-    ref_p = hybrid.refresh(*m_args[:4], m_args[-1])
-    if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
-        fail("refresh_dense differs from the plain version")
-    results["refresh_dense"] = {
-        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
-        **bound(planes_bytes + F32 * 2 * OTH_B * C, puct_ops(OTH_B * C, A)),
-    }
+    results["descend_othello"], edges, cuts = descend_vs_plain(
+        "descend_othello", kernels.descend_othello, d_args)
+    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args)
+    results.update(dense)
     print(f"[othello] B={OTH_B} C={C} A={A}: descend_othello, merge_dense, refresh_dense "
           f"bit-equal to plain ({edges / OTH_B:.2f} path edges per game, {cuts:.0f} cut leaves; "
           f"stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
-
-    scratch = [t.clone() for t in m_args[:6]]
-    fns = {
-        "descend_othello": (lambda: kernels.descend_othello(*d_args), lambda: hybrid.descend(*d_args)),
-        "merge_dense": (lambda: kernels.merge_dense(*scratch, *m_args[6:]),
-                        lambda: hybrid.merge(*scratch, *m_args[6:])),
-        "refresh_dense": (lambda: kernels.refresh_dense(*m_args[:4], m_args[-1]),
-                          lambda: hybrid.refresh(*m_args[:4], m_args[-1])),
-    }
-    for name, (k_fn, p_fn) in fns.items():
-        k1, k2, p1, p2 = in_turns(k_fn, p_fn)
-        results[name].update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None})
-        print(f"[othello] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, bound "
-              f"{results[name]['bound_ms']:.4f} ms ({results[name]['bound_by']}) | {card}", flush=True)
+    time_in_turns(results, {"descend_othello": (lambda: kernels.descend_othello(*d_args),
+                                                lambda: hybrid.descend(*d_args)), **dense_fns},
+                  "othello", card)
     feats = game.to_features(roots).contiguous()
     nn_ms = time_ms(lambda: resnet(feats), 20)
     print(f"[othello] AZResNet-{OTH_CHANNELS}x{OTH_BLOCKS} bf16 folded forward, B={OTH_B}: "
           f"{nn_ms:.4f} ms per sim | {card}", flush=True)
 
     # (b) the goldens through the CUDA path
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                           "golden_counts.json")) as f:
-        golden = json.load(f)["othello"]
+    golden = read_goldens("golden_counts.json")["othello"]
     states = []
     for seq in golden["seqs"]:
         st = game.init(1, dev)
@@ -428,71 +631,212 @@ def othello_phase(card: str) -> tuple:
           f"heuristic; kernel and plain counts identical on all {OTH_B} games", flush=True)
 
     # (d)-(f): the actors
-    def run_actor(apply_fn, run_cfg, batch, steps, label, want):
-        torch.cuda.reset_peak_memory_stats()
-        init, step = make_actor_step_fn(game, apply_fn, run_cfg, batch, OTH_TEMP_THRESHOLD, device=dev)
-        carry = init()
-        gen = torch.Generator(device=dev).manual_seed(SEED)
-        alpha = run_cfg.dirichlet_alpha
-        carry, _ = step(carry, sample_draws(gen, batch, A, alpha, dev))   # warm-up
-        torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        times = []
-        for _ in range(steps):
-            draws = sample_draws(gen, batch, A, alpha, dev)
-            t0 = time.perf_counter()
-            carry, pi = step(carry, draws)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            if not torch.allclose(pi.sum(dim=1), torch.ones(batch, device=dev), atol=1e-5):
-                fail(f"{label}: pi rows do not sum to 1")
-        got = dict(kernels.launch_counts())
-        expect = launches_of(kernels, **{k: v * steps for k, v in want.items()})
-        if got != expect:
-            fail(f"{label}: launches {got} != {expect}")
-        ms = 1e3 * sum(times) / len(times)
-        print(f"[othello] {label}: B={batch}, {run_cfg.num_sims} sims, max_depth "
-              f"{run_cfg.max_depth}: {ms:.3f} ms/step mean, "
-              f"{1e3 * sorted(times)[len(times) // 2]:.3f} upper median "
-              f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), {batch / (ms / 1e3):.1f} "
-              f"env-steps/s | launches {got} | peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
-        return carry, step, gen, got
-
     per_step = {"descend_othello": SIMS, "merge_dense": SIMS, "refresh_dense": 1}
     carry, step, gen, launches = run_actor(
-        resnet, cfg, OTH_B, OTH_STEPS, f"full preset actor, AZResNet-{OTH_CHANNELS}x{OTH_BLOCKS} bf16",
-        per_step)
-    wall, busy, top = profile_step(lambda: step(carry, sample_draws(gen, OTH_B, A, OTH_DIRICHLET, dev)))
-    print(f"[othello] one profiled full-preset step: {wall:.3f} ms wall (profiler on), device "
-          f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
-          f"{sum(k[2] for k in top)} device kernels | {card}", flush=True)
-    for name, ms, count in top[:12]:
-        print(f"[othello]   {ms:9.3f} ms {count:6d}x {name[:100]}", flush=True)
-
+        "othello", game, resnet, cfg, OTH_B, OTH_STEPS, OTH_TEMP_THRESHOLD, per_step, card,
+        f"full preset actor, AZResNet-{OTH_CHANNELS}x{OTH_BLOCKS} bf16")
+    print_profiled_step(
+        "othello", lambda: step(carry, sample_draws(gen, OTH_B, A, OTH_DIRICHLET, dev)), card)
     state, _ = carry
-    dirichlet = sample_draws(gen, OTH_B, A, OTH_DIRICHLET, dev).dirichlet
-    c_kernel = hybrid.make_hybrid_root_fn(game, resnet, cfg)(state, dirichlet)
-    c_plain = hybrid.make_hybrid_root_fn(game, resnet, cfg, kernels=PLAIN)(state, dirichlet)
-    live = ~game.terminal(state)[0]
-    if not torch.isfinite(c_kernel).all() or c_kernel.shape != (OTH_B, A):
-        fail("Othello kernel-path counts are not finite [B, A]")
-    if not bool((c_kernel.sum(dim=1)[live] == SIMS).all()):
-        fail("Othello root counts of live games do not sum to the simulation budget")
-    if not torch.equal(c_kernel, c_plain):
-        fail(f"Othello kernel and plain searches differ on "
-             f"{int((c_kernel != c_plain).any(dim=1).sum())} of {OTH_B} games")
-    print(f"[othello] one search through the plain versions: identical counts on all {OTH_B} games "
-          f"({int(live.sum())} live, each summing to {SIMS})", flush=True)
+    same_counts_through_kernels_and_plain(
+        "othello", game, resnet, cfg, state,
+        sample_draws(gen, OTH_B, A, OTH_DIRICHLET, dev).dirichlet, per_step)
 
-    run_actor(make_uniform_model(game).apply_fn, MCTSConfig(num_sims=SIMS, max_depth=OTH_MAX_DEPTH),
-              OTH_UNIFORM_B, OTH_UNIFORM_STEPS, "uniform actor", per_step)
+    run_actor("othello", game, make_uniform_model(game).apply_fn,
+              MCTSConfig(num_sims=SIMS, max_depth=OTH_MAX_DEPTH), OTH_UNIFORM_B, OTH_UNIFORM_STEPS,
+              OTH_TEMP_THRESHOLD, per_step, card, "uniform actor")
     mlp = make_apply_fn(convert_mlp(
         random_mlp_variables(A, OTH_MLP_HIDDEN, cells=ops.size, seed=SEED)).to(dev))
-    run_actor(mlp, MCTSConfig(num_sims=OTH_MLP_SIMS, max_depth=OTH_MLP_DEPTH,
-                              dirichlet_alpha=OTH_DIRICHLET),
-              OTH_MLP_B, OTH_MLP_STEPS, f"mlp preset actor, MLPNet {OTH_MLP_HIDDEN}",
-              {"descend_othello": OTH_MLP_SIMS, "merge_dense": OTH_MLP_SIMS, "refresh_dense": 1})
+    run_actor("othello", game, mlp, MCTSConfig(num_sims=OTH_MLP_SIMS, max_depth=OTH_MLP_DEPTH,
+                                               dirichlet_alpha=OTH_DIRICHLET),
+              OTH_MLP_B, OTH_MLP_STEPS, OTH_TEMP_THRESHOLD,
+              {"descend_othello": OTH_MLP_SIMS, "merge_dense": OTH_MLP_SIMS, "refresh_dense": 1},
+              card, f"mlp preset actor, MLPNet {OTH_MLP_HIDDEN}")
+    return results, {k: launches[k] for k in results}
+
+
+def golden_search(tag: str, game, boards, sims: int, max_depth: int, key: str, want: dict) -> None:
+    """The uniform model's search of ``boards`` through the CUDA path gives
+    ``tests/tpu_goldens.json[key]`` (the first 4 games' counts) with
+    exactly the launches ``want``."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.models import make_uniform_model
+
+    kernels.reset_launch_counts()
+    counts = hybrid.make_hybrid_root_fn(
+        game, make_uniform_model(game).apply_fn, MCTSConfig(num_sims=sims, max_depth=max_depth)
+    )(boards)
+    if kernels.launch_counts() != launches_of(kernels, **want):
+        fail(f"{tag} golden search launches {kernels.launch_counts()} != {want}")
+    golden = read_goldens("tpu_goldens.json")[key]
+    if counts[:4].tolist() != golden:
+        fail(f"{tag} counts differ from tests/tpu_goldens.json {key}")
+    print(f"[{tag}] CUDA path reproduces tests/tpu_goldens.json {key} (B={boards.shape[0]}, "
+          f"{sims} sims, max_depth {max_depth}) | launches {want}", flush=True)
+
+
+def gomoku_phase(card: str) -> tuple:
+    """Phase 9: Gomoku on the hybrid engine (see the module docstring).
+    Returns the kernels line's entry of the Gomoku descend and its
+    launches on the main path, the ``full`` preset's actor."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import Gomoku
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        make_apply_fn,
+        make_uniform_model,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+
+    dev = torch.device("cuda", 0)
+    game = Gomoku(9)
+    A = game.num_actions
+    resnet = make_apply_fn(convert_az_resnet(
+        random_az_resnet_variables(A, GMK_CHANNELS, GMK_BLOCKS, cells=A, seed=SEED),
+        dtype=torch.bfloat16).to(dev))
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=GMK_MAX_DEPTH, dirichlet_alpha=GMK_DIRICHLET)
+    game15 = Gomoku(15)
+    cfg15 = MCTSConfig(num_sims=SIMS, max_depth=GMK15_MAX_DEPTH)
+
+    # (a) the Gomoku descend at 9x9 (the full preset's AZResNet and
+    # Dirichlet) and 15x15 (the uniform model), the dense merge and refresh
+    # at A=81 and A=225, against their plain versions
+    results = {}
+    for g, apply_fn, run_cfg in ((game, resnet, cfg),
+                                 (game15, make_uniform_model(game15).apply_fn, cfg15)):
+        roots = random_positions(g, GMK_B, g.num_actions // 2, SEED, dev)
+        noise = None
+        if run_cfg.dirichlet_alpha is not None:
+            noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), GMK_B,
+                                 g.num_actions, run_cfg.dirichlet_alpha, dev).dirichlet
+        d_args, m_args = capture_search_args(g, apply_fn, run_cfg, roots, noise)
+        entries = {}
+        entries["descend_gomoku"], edges, cuts = descend_vs_plain(
+            "descend_gomoku", kernels.descend_gomoku, d_args)
+        dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args)
+        entries.update(dense)
+        print(f"[gomoku] {g.name}, B={GMK_B} C={run_cfg.nodes} A={g.num_actions}: descend_gomoku, "
+              f"merge_dense, refresh_dense bit-equal to plain ({edges / GMK_B:.2f} path edges per "
+              f"game; stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
+        time_in_turns(entries, {"descend_gomoku": (lambda: kernels.descend_gomoku(*d_args),
+                                                   lambda: hybrid.descend(*d_args)), **dense_fns},
+                      "gomoku", card, f" at A={g.num_actions}")
+        if g is game:
+            results["descend_gomoku"] = entries["descend_gomoku"]
+            feats = g.to_features(roots).contiguous()
+    nn_ms = time_ms(lambda: resnet(feats), 20)
+    print(f"[gomoku] AZResNet-{GMK_CHANNELS}x{GMK_BLOCKS} bf16 folded forward at 81 cells, "
+          f"B={GMK_B}: {nn_ms:.4f} ms per sim | {card}", flush=True)
+
+    # (b) the TPU goldens through the CUDA path
+    golden_search("gomoku", game, game.init(256, dev), 16, 32, "hybrid_gomoku_uniform_counts_head",
+                  {"descend_gomoku": 16, "merge_dense": 16, "refresh_dense": 1})
+    golden_search("gomoku", game15, fused_test_positions(game15, 256, 9, 31, dev), 16, 64,
+                  "hybrid_gomoku15_uniform_counts_head",
+                  {"descend_gomoku": 16, "merge_dense": 16, "refresh_dense": 1})
+
+    # (c) the full preset's actor, then one search through both paths
+    per_step = {"descend_gomoku": SIMS, "merge_dense": SIMS, "refresh_dense": 1}
+    carry, step, gen, launches = run_actor(
+        "gomoku", game, resnet, cfg, GMK_B, GMK_STEPS, GMK_TEMP_THRESHOLD, per_step, card,
+        f"full preset actor, AZResNet-{GMK_CHANNELS}x{GMK_BLOCKS} bf16")
+    same_counts_through_kernels_and_plain(
+        "gomoku", game, resnet, cfg, carry[0],
+        sample_draws(gen, GMK_B, A, GMK_DIRICHLET, dev).dirichlet, per_step)
+
+    # (d) the 15x15 uniform actor of the engine bench
+    run_actor("gomoku", game15, make_uniform_model(game15).apply_fn, cfg15, GMK15_B, GMK15_STEPS,
+              GMK_TEMP_THRESHOLD, per_step, card, "gomoku15 uniform actor")
+
+    # (e) Gomoku 7 (49 cells, as Hex): kernels and plain agree
+    game7 = Gomoku(7)
+    same_counts_through_kernels_and_plain(
+        "gomoku", game7, make_uniform_model(game7).apply_fn,
+        MCTSConfig(num_sims=SIMS, max_depth=GMK_MAX_DEPTH),
+        random_positions(game7, GMK_B, 20, SEED, dev), None, per_step)
+    return results, {k: launches[k] for k in results}
+
+
+def hex_phase(card: str) -> tuple:
+    """Phase 10: Hex on the hybrid engine (see the module docstring).
+    Returns the kernels line's entry of the Hex descend and its launches
+    on the main path, the ``full`` preset's actor."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import Hex
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        convert_mlp,
+        make_apply_fn,
+        random_az_resnet_variables,
+        random_mlp_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+
+    dev = torch.device("cuda", 0)
+    game = Hex()
+    A = game.num_actions
+    resnet = make_apply_fn(convert_az_resnet(
+        random_az_resnet_variables(A, GMK_CHANNELS, GMK_BLOCKS, cells=A, seed=SEED),
+        dtype=torch.bfloat16).to(dev))
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=HEX_MAX_DEPTH, dirichlet_alpha=HEX_DIRICHLET)
+    roots = random_positions(game, HEX_B, 30, SEED, dev)
+    noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), HEX_B, A, HEX_DIRICHLET,
+                         dev).dirichlet
+
+    # (a) the Hex descend and the dense merge and refresh at A=49
+    d_args, m_args = capture_search_args(game, resnet, cfg, roots, noise)
+    entries = {}
+    entries["descend_hex"], edges, _ = descend_vs_plain("descend_hex", kernels.descend_hex, d_args)
+    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args)
+    entries.update(dense)
+    print(f"[hex] B={HEX_B} C={cfg.nodes} A={A}: descend_hex, merge_dense, refresh_dense bit-equal "
+          f"to plain ({edges / HEX_B:.2f} path edges per game; stat planes "
+          f"{planes_bytes / 1e6:.1f} MB)", flush=True)
+    time_in_turns(entries, {"descend_hex": (lambda: kernels.descend_hex(*d_args),
+                                            lambda: hybrid.descend(*d_args)), **dense_fns},
+                  "hex", card, f" at A={A}")
+    results = {"descend_hex": entries["descend_hex"]}
+    feats = game.to_features(roots).contiguous()
+    nn_ms = time_ms(lambda: resnet(feats), 20)
+    print(f"[hex] AZResNet-{GMK_CHANNELS}x{GMK_BLOCKS} bf16 folded forward at 49 cells, B={HEX_B}: "
+          f"{nn_ms:.4f} ms per sim | {card}", flush=True)
+    ops = game.flat_ops()
+    aux = ops.aux(dev)
+    flat = ops.from_state(roots)
+    term_ms = time_ms(lambda: ops.valid_terminal(flat, aux), 20)
+    print(f"[hex] valid_terminal (the connection test), B={HEX_B}: {term_ms:.4f} ms per sim | "
+          f"{card}", flush=True)
+
+    # (b) the TPU golden through the CUDA path
+    golden_search("hex", game, fused_test_positions(game, 256, 5, 15, dev), 16, HEX_MAX_DEPTH,
+                  "hybrid_hex_uniform_counts_head",
+                  {"descend_hex": 16, "merge_dense": 16, "refresh_dense": 1})
+
+    # (c) the full preset's actor, a profiled step, one search through both
+    per_step = {"descend_hex": SIMS, "merge_dense": SIMS, "refresh_dense": 1}
+    carry, step, gen, launches = run_actor(
+        "hex", game, resnet, cfg, HEX_B, HEX_STEPS, HEX_TEMP_THRESHOLD, per_step, card,
+        f"full preset actor, AZResNet-{GMK_CHANNELS}x{GMK_BLOCKS} bf16")
+    print_profiled_step(
+        "hex", lambda: step(carry, sample_draws(gen, HEX_B, A, HEX_DIRICHLET, dev)), card)
+    same_counts_through_kernels_and_plain(
+        "hex", game, resnet, cfg, carry[0],
+        sample_draws(gen, HEX_B, A, HEX_DIRICHLET, dev).dirichlet, per_step)
+
+    # (d) the mlp preset's actor
+    mlp = make_apply_fn(convert_mlp(random_mlp_variables(A, HEX_MLP_HIDDEN, cells=A, seed=SEED)).to(dev))
+    run_actor("hex", game, mlp, MCTSConfig(num_sims=HEX_MLP_SIMS, max_depth=HEX_MAX_DEPTH,
+                                           dirichlet_alpha=HEX_DIRICHLET),
+              HEX_MLP_B, HEX_MLP_STEPS, HEX_TEMP_THRESHOLD,
+              {"descend_hex": HEX_MLP_SIMS, "merge_dense": HEX_MLP_SIMS, "refresh_dense": 1},
+              card, f"mlp preset actor, MLPNet {HEX_MLP_HIDDEN}")
     return results, {k: launches[k] for k in results}
 
 
@@ -536,7 +880,7 @@ def main() -> int:
           f"({len(kernels.SOURCES)} sources compiled in parallel, linked into one library; "
           f"{lib.build_seconds:.3f} s)", flush=True)
     for ln in lib.build_log.splitlines():
-        if ln.startswith("[") or "registers" in ln or "spill" in ln:
+        if ln.startswith("[") or "entry function" in ln or "registers" in ln or "spill" in ln:
             print(f"[build] {ln.strip()}", flush=True)
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
@@ -569,22 +913,7 @@ def main() -> int:
         fail(f"captured planes have shapes {d_args[0].shape}, {m_args[0].shape}")
 
     results = {}
-    kernels.reset_launch_counts()
-    out_k = kernels.descend(*d_args)
-    out_p = hybrid.descend(*d_args)
-    names = ("bd", "patha", "psgn", "meta")
-    err = max(float((k - p).abs().max()) for k, p in zip(out_k, out_p))
-    for nm, k, p in zip(names, out_k, out_p):
-        if not bit_equal(k, p):
-            fail(f"descend output {nm} differs from the plain version")
-    results["descend"] = {"max_abs_err": err}
-    # reads: the board, each path node's besta/bestc, the root's done and a
-    # leaf's tval; writes: the leaf board, the patha/psgn rows and meta
-    edges = float((out_p[1] > 0).sum())
-    leaves = float((out_p[3][:, 1] + out_p[3][:, 4]).sum())
-    results["descend"].update(bound(
-        F32 * (B * 42 + 2 * edges + B + leaves + B * 42 + 2 * B * C + B * 8), 0.0
-    ))
+    results["descend"], edges, _ = descend_vs_plain("descend", kernels.descend, d_args)
 
     planes_k = [t.clone() for t in m_args[:6]]
     planes_p = [t.clone() for t in m_args[:6]]
@@ -615,7 +944,7 @@ def main() -> int:
     results["refresh"] = {"max_abs_err": err}
     results["refresh"].update(bound(F32 * (4 * B * A * C + 2 * B * C), puct_ops(B * C, A)))
     print(f"[kernels] B={B} C={C} A={A}: descend, merge, refresh bit-equal to plain "
-          f"(mean path length {float((out_p[1] > 0).sum()) / B:.2f} edges/game)", flush=True)
+          f"(mean path length {edges / B:.2f} edges/game)", flush=True)
 
     # timing, in turns: plain, kernel, kernel, plain
     scratch = [t.clone() for t in m_args[:6]]
@@ -630,12 +959,7 @@ def main() -> int:
             lambda: hybrid.refresh(*m_args[:4], m_args[-1]),
         ),
     }
-    for name, (k_fn, p_fn) in fns.items():
-        k1, k2, p1, p2 = in_turns(k_fn, p_fn)
-        results[name]["ms"] = (k1 + k2) / 2
-        results[name]["plain_ms"] = (p1 + p2) / 2
-        print(f"[kernels] {name}: kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms "
-              f"| {card}", flush=True)
+    time_in_turns(results, fns, "kernels", card)
 
     feats = game.to_features(roots).contiguous()
     nn_ms = time_ms(lambda: apply_fn(feats), 20)
@@ -643,9 +967,7 @@ def main() -> int:
           flush=True)
 
     # ---- 4. goldens ----------------------------------------------------
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
-                           "golden_counts.json")) as f:
-        golden = json.load(f)["connect_four"]
+    golden = read_goldens("golden_counts.json")["connect_four"]
     states = []
     for seq in golden["seqs"]:
         s = game.init(1, dev)
@@ -995,10 +1317,11 @@ def main() -> int:
     print(f"[mlp] library forward (F.linear, bf16), B={B}: {mlp_fwd_ms:.4f} ms per call, "
           f"{mlp_fwd_ms * SIMS:.4f} ms for {SIMS} sims | {card}", flush=True)
 
-    # ---- 8. Othello on the hybrid engine -------------------------------
-    oth_results, oth_launches = othello_phase(card)
-    results.update(oth_results)
-    launches.update(oth_launches)
+    # ---- 8-10. Othello, Gomoku and Hex on the hybrid engine ------------
+    for phase in (othello_phase, gomoku_phase, hex_phase):
+        phase_results, phase_launches = phase(card)
+        results.update(phase_results)
+        launches.update(phase_launches)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -1018,7 +1341,8 @@ def main() -> int:
             "library_ms": results[name].get("library_ms"),
         }
         for name in ("descend", "merge", "refresh", "fused", "fused_mlp",
-                     "descend_othello", "merge_dense", "refresh_dense")
+                     "descend_othello", "merge_dense", "refresh_dense", "descend_gomoku",
+                     "descend_hex")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -25,7 +25,14 @@ from alphazero_tpu.models import make_flax_apply_fn
 from alphazero_tpu.models import make_uniform_model as jax_uniform
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
-from alphazero_tpu_torch.games import ConnectFour, FlatOps, Othello
+from alphazero_tpu_torch.games import (
+    ConnectFour,
+    FlatOps,
+    GomokuFlatOps,
+    HexFlatOps,
+    Othello,
+    OthelloFlatOps,
+)
 from alphazero_tpu_torch.mcts import PLAIN, make_hybrid_root_fn
 from alphazero_tpu_torch.mcts import hybrid
 from alphazero_tpu_torch.models import (
@@ -212,8 +219,9 @@ def test_terminal_root_is_not_descended():
     assert meta[0, hybrid.M_EXP] == 1 and meta[0, hybrid.M_PSIGN] == -1
 
 
-NO_LAUNCHES = {"descend": 0, "descend_othello": 0, "merge": 0, "merge_dense": 0, "refresh": 0,
-               "refresh_dense": 0, "fused": 0, "fused_mlp": 0, "mlp_eval": 0}
+NO_LAUNCHES = {"descend": 0, "descend_othello": 0, "descend_gomoku": 0, "descend_hex": 0,
+               "merge": 0, "merge_dense": 0, "refresh": 0, "refresh_dense": 0, "fused": 0,
+               "fused_mlp": 0, "mlp_eval": 0}
 
 
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
@@ -229,3 +237,81 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
     with pytest.raises(ValueError, match="several devices"):
         kernels.refresh(n, w, p, code.to("meta"), 1.0)
     assert kernels.launch_counts() == NO_LAUNCHES
+
+
+@pytest.mark.parametrize(
+    "ops,entry",
+    [
+        (FlatOps(), "az_descend"),
+        (OthelloFlatOps(), "az_descend_othello"),
+        (GomokuFlatOps(7), "az_descend_gomoku"),      # 49 cells, as Hex
+        (GomokuFlatOps(8), "az_descend_gomoku"),      # 64 cells, as Othello
+        (GomokuFlatOps(9), "az_descend_gomoku"),
+        (GomokuFlatOps(15), "az_descend_gomoku"),
+        (HexFlatOps(), "az_descend_hex"),
+    ],
+    ids=["connect_four", "othello", "gomoku7", "gomoku8", "gomoku9", "gomoku15", "hex"],
+)
+def test_descend_routes_by_the_flat_ops_type(ops, entry):
+    """The CUDA descend is picked by the type of the game's flat ops, not by
+    the board width: a 49-cell Gomoku board never reaches the Hex kernel,
+    a 64-cell one never the Othello kernel; every other kernel instance
+    refuses the board before it launches."""
+    assert kernels.descend_entry(ops) == entry
+    B, C = 2, 3
+    planes = [torch.zeros(B, C) for _ in range(4)]
+    boards = torch.zeros(B, ops.size)
+    for other in {"az_descend", "az_descend_othello", "az_descend_gomoku", "az_descend_hex"} - {entry}:
+        with pytest.raises(ValueError, match="does not step"):
+            kernels._descend(other, *planes, boards, 8, ops)
+
+
+def test_descend_route_refuses_unknown_flat_ops():
+    class SubclassedFlatOps(FlatOps):
+        """Flat ops whose step may differ from the kernel's."""
+
+    class OtherOps:
+        size, num_actions = 42, 7
+
+    for ops in (SubclassedFlatOps(), OtherOps()):
+        with pytest.raises(NotImplementedError, match="no descend kernel"):
+            kernels.descend_entry(ops)
+    with pytest.raises(NotImplementedError, match="256 cells"):
+        kernels._descend("az_descend_gomoku", *[torch.zeros(2, 3)] * 4, torch.zeros(2, 289), 8,
+                         GomokuFlatOps(17))
+
+
+def test_zero_heuristic_game_backs_up_zero_at_cutoffs():
+    """A zero-heuristic game whose flat ops carry a ``heuristic`` attribute
+    backs up 0 at depth cutoffs, as the JAX engine gates it on
+    ``heuristic_is_zero``: counts equal the XLA engine's, while the same
+    search backing the heuristic up would differ."""
+
+    class FlatOpsWithHeuristic(FlatOps):
+        def heuristic(self, board):
+            weights = (torch.arange(42.0) * 7 % 11 - 5) / 8     # leaves differ by their stones
+            return (board @ weights)[:, None].clamp(-1.0, 1.0)
+
+    class ConnectFourWithFlatHeuristic(ConnectFour):
+        def flat_ops(self):
+            return FlatOpsWithHeuristic()
+
+    game = ConnectFourWithFlatHeuristic()
+    cfg = JaxMCTSConfig(num_sims=24, max_depth=1)        # every visit past the root's children is cut
+    boards = random_boards(8, 6, seed=12)
+    ref = np.asarray(make_search_fn(JG, jax_uniform(JG).apply_fn, cfg)({}, jax_state(boards)).root_counts())
+    uniform = make_uniform_model(TG).apply_fn
+    got = make_hybrid_root_fn(game, uniform, MCTSConfig(**dataclasses.asdict(cfg)))(torch_state(boards))
+    np.testing.assert_array_equal(ref, got.numpy())
+
+    ops = game.flat_ops()
+    flat = ops.from_state(torch_state(boards))
+    valid = TG.valid_moves(torch_state(boards))
+    p_masked = torch.where(valid, valid.float() / valid.sum(1, keepdim=True), -1e30)
+
+    def evaluate(bd, vm):
+        return torch.where(vm, vm.float() / vm.sum(1, keepdim=True).clamp(min=1), -1e30), torch.zeros(len(bd))
+
+    n, _ = hybrid.run_search(ops, flat, p_masked, MCTSConfig(**dataclasses.asdict(cfg)), evaluate, PLAIN,
+                             heuristic=ops.heuristic)
+    assert not np.array_equal(ref, n[:, :, 0].numpy())

@@ -5,13 +5,16 @@ cuda_bf16.h) and run on host memory: every descend, merge and refresh call
 of whole hybrid searches (Connect-Four through the A<=8 kernels, Othello
 through its descend and the dense merge and refresh), and every whole
 uniform fused search, must be bit-equal to the plain PyTorch versions, and
-the searches must reproduce the goldens. The MLP evaluator's logits must be bit-equal to its plain
+the searches must reproduce the goldens; so must whole Gomoku (edges 7, 8,
+9, 15) and Hex searches through their descend instances and the dense
+merge and refresh. The MLP evaluator's logits must be bit-equal to its plain
 version's; its prior and value, and so the MLP searches, may differ where
 glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit.
 
 This checks the kernels' LOGIC (indexing, record format, install/link/
 backup, PUCT order of operations, first-max ties, the Connect-Four win
-test, the Othello flips) on the CPU. Whether the sources build with nvcc and run on the card
+test, the Othello flips, the Gomoku overwrite, the Hex transpose) on the
+CPU. Whether the sources build with nvcc and run on the card
 is chip_smoke.py's job.
 """
 
@@ -28,7 +31,7 @@ import torch
 
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
-from alphazero_tpu_torch.games import ConnectFour, Othello
+from alphazero_tpu_torch.games import ConnectFour, Gomoku, Hex, Othello
 from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts import (
     SearchKernels,
@@ -48,14 +51,20 @@ from alphazero_tpu_torch.models import (
     random_mlp_variables,
 )
 from alphazero_tpu_torch.ops import sample_draws
-from tests.torch_parity import boards_from_seqs, random_boards, random_othello_boards, torch_state
+from tests.torch_parity import (
+    boards_from_seqs,
+    random_boards,
+    random_othello_boards,
+    random_play_boards,
+    torch_state,
+)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TG = ConnectFour()
 OTH = Othello()
 # kernel<<<grid, threads, 0, stream>>>(args), the kernel maybe a template instance
 _LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*0,\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 6, "fused.cu": 3}   # kernel launches in each source
+_LAUNCHES = {"hybrid.cu": 5, "fused.cu": 3}   # kernel launches in each source
 
 
 @pytest.fixture(scope="module")
@@ -91,17 +100,19 @@ def _bits(t):
 def _checked_kernels(lib, calls):
     """SearchKernels running the emulated kernels AND the plain versions
     on every call, asserting bit-equal outputs. Each call goes to the
-    kernel instance ``kernels`` routes it to on the card: descend by board
-    width, merge and refresh by action count."""
+    kernel instance ``kernels`` routes it to on the card: descend by the
+    flat ops' type (``kernels.descend_entry``), merge and refresh by action
+    count."""
 
     def descend(besta, bestc, done, tval, boards, max_depth, ops):
         B, C = besta.shape
         L = boards.shape[1]
-        entry = {42: "az_descend", 64: "az_descend_othello"}[L]
+        assert L == ops.size
+        entry = kernels.descend_entry(ops)
         outs = [torch.empty(B, L), torch.empty(B, C), torch.empty(B, C), torch.empty(B, 8)]
         rc = getattr(lib.lib, entry)(
             *(t.data_ptr() for t in (besta, bestc, done, tval, boards, *outs)),
-            B, C, max_depth, None,
+            B, C, max_depth, L, None,
         )
         assert rc == 0
         for nm, got, want in zip(("bd", "patha", "psgn", "meta"), outs,
@@ -243,9 +254,79 @@ def test_emulated_othello_kernels_bit_equal_plain(emulated, cfg, moves, dirichle
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
 
 
-@pytest.mark.parametrize("A", [65, 225])
+@pytest.mark.parametrize(
+    "game,moves,cfg,model",
+    [
+        (Gomoku(7), 10, MCTSConfig(num_sims=16, max_depth=48), "uniform"),
+        (Gomoku(7), 40, MCTSConfig(num_sims=16, max_depth=48), "uniform"),      # terminal children
+        (Gomoku(8), 12, MCTSConfig(num_sims=16, max_depth=48, max_nodes=8), "uniform"),
+        (Gomoku(9), 20, MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5), "resnet"),   # cutoffs
+        (Gomoku(15), 9, MCTSConfig(num_sims=12, max_depth=64), "uniform"),
+        (Hex(), 0, MCTSConfig(num_sims=16, max_depth=56), "uniform"),
+        (Hex(), 30, MCTSConfig(num_sims=16, max_depth=56), "resnet"),          # terminal children
+        (Hex(), 12, MCTSConfig(num_sims=16, max_depth=3, max_nodes=8), "uniform"),
+    ],
+    ids=["gomoku7", "gomoku7_endgames", "gomoku8_max_nodes8", "gomoku9_resnet_max_depth3",
+         "gomoku15", "hex_opening", "hex_resnet_endgames", "hex_max_depth3_max_nodes8"],
+)
+def test_emulated_gomoku_and_hex_kernels_bit_equal_plain(emulated, game, moves, cfg, model):
+    """Whole Gomoku and Hex searches (40 games: a full descend block of 32
+    and a ragged one; random positions played past the end, so some are
+    finished and some children terminal) with the uniform model or an f32
+    AZResNet-4x1 (W of both signs): every call of the game's descend
+    instance, the dense merge and the dense refresh bit-equal to the plain
+    versions, with exactly one launch of each per simulation and one
+    refresh."""
+    A = game.num_actions
+    apply_fn = make_uniform_model(game).apply_fn
+    if model == "resnet":
+        apply_fn = make_apply_fn(convert_az_resnet(
+            random_az_resnet_variables(A, 4, 1, cells=A, seed=moves), dtype=torch.float32))
+    boards = torch_state(random_play_boards(game, 40, moves, seed=moves, freeze_done=False))
+    calls = {}
+    counts = make_hybrid_root_fn(game, apply_fn, cfg, kernels=_checked_kernels(emulated, calls))(boards)
+    entry = kernels.descend_entry(game.flat_ops())
+    assert entry == ("az_descend_hex" if isinstance(game, Hex) else "az_descend_gomoku")
+    assert calls == {entry: cfg.num_sims, "az_merge_dense": cfg.num_sims, "az_refresh_dense": 1}
+    live = ~game.terminal(boards)[0]
+    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
+
+
+@pytest.mark.parametrize("game", [Gomoku(5), Gomoku(7), Gomoku(8), Gomoku(9), Gomoku(15), Gomoku(16), Hex()],
+                         ids=["gomoku5", "gomoku7", "gomoku8", "gomoku9", "gomoku15", "gomoku16", "hex"])
+def test_emulated_descend_steps_every_action(emulated, game):
+    """The game's descend instance on synthetic best planes whose path takes
+    EVERY action from each of two positions (occupied cells of both colours
+    included, which a search never picks), then a second edge to another
+    action: leaf boards and path records bit-equal to the plain descend,
+    whose step is the flat ops'."""
+    ops = game.flat_ops()
+    A = L = ops.size
+    boards = ops.from_state(torch_state(random_play_boards(game, 2, A // 3, seed=A, freeze_done=False)))
+    B, C = 2 * A, 3
+    roots = boards.repeat_interleave(A, dim=0)
+    acts = torch.arange(A, dtype=torch.float32).repeat(2)
+    besta = torch.stack([acts, (acts * 7 + 3) % A, torch.zeros(B)], dim=1)
+    calls = {}
+    descend = _checked_kernels(emulated, calls).descend
+    for second_edge in (False, True):          # one step; two steps (then unexpanded)
+        bestc = torch.full((B, C), -1.0)
+        if second_edge:
+            bestc[:, 0] = 1.0
+        bd, *_ = descend(besta, bestc, torch.zeros(B, C), torch.zeros(B, C), roots, 48, ops)
+        want = ops.step(roots, acts[:, None])
+        if second_edge:
+            want = ops.step(want, besta[:, 1:2])
+        assert torch.equal(bd, want + 0.0)
+    assert calls == {kernels.descend_entry(ops): 2}
+    occupied = roots[torch.arange(B), acts.long()]
+    assert (occupied == 1).any() and (occupied == -1).any()
+
+
+@pytest.mark.parametrize("A", [49, 65, 81, 225])
 def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
-    """The dense refresh at Othello's A and at Gomoku-15's, on synthetic
+    """The dense refresh at Hex's and Gomoku-7's A, Othello's, Gomoku-9's
+    and Gomoku-15's, on synthetic
     planes with exact score ties (equal priors, equal W and N), illegal
     edges and all-illegal nodes: bit-equal to the plain version, whose
     first-max picks action 0 where every edge is illegal."""

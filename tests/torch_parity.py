@@ -1,8 +1,10 @@
 """Shared inputs for the JAX <-> PyTorch parity tests (tests/test_torch_*.py).
 
 Inputs are made from a seed with numpy and handed to both packages as
-numpy arrays: random-play Connect-Four and Othello boards, and the
-conversions of a batch of boards into each package's state.
+numpy arrays: random-play Connect-Four, Othello, Gomoku and Hex boards,
+a numpy replica of the position generator of tests/test_fused.py (which the
+TPU goldens were frozen from), and the conversions of a batch of boards
+into each package's state.
 """
 
 import jax.numpy as jnp
@@ -10,6 +12,8 @@ import numpy as np
 import torch
 
 from alphazero_tpu.games.connect_four import ConnectFourState
+from alphazero_tpu.games.gomoku import GomokuState
+from alphazero_tpu.games.hex import HexState
 from alphazero_tpu.games.othello import OthelloState
 from alphazero_tpu_torch.games import ConnectFour as TorchConnectFour
 from alphazero_tpu_torch.games import Othello as TorchOthello
@@ -91,3 +95,45 @@ def random_othello_boards(batch: int, moves: int, seed: int, freeze_done: bool =
 
 def othello_jax_state(boards: np.ndarray) -> OthelloState:
     return OthelloState(board=jnp.asarray(boards, jnp.int8))
+
+
+def random_play_boards(game, batch: int, moves: int, seed: int, freeze_done: bool = True) -> np.ndarray:
+    """Canonical boards of a port ``game`` (Gomoku, Hex) after ``moves``
+    uniformly random legal moves; finished games freeze unless
+    ``freeze_done`` is False, which keeps playing past the end while empty
+    cells remain."""
+    rng = np.random.default_rng(seed)
+    state = game.init(batch, "cpu")
+    for _ in range(moves):
+        valid = game.valid_moves(state).numpy()
+        acts = np.array([rng.choice(np.flatnonzero(v)) if v.any() else 0 for v in valid])
+        nxt = game.step(state, torch.as_tensor(acts))
+        stop = ~torch.as_tensor(valid.any(axis=1))
+        if freeze_done:
+            stop |= game.terminal(state)[0]
+        state = torch.where(stop[:, None, None], state, nxt)
+    return state.numpy()
+
+
+def fused_test_positions(game, batch: int, moves: int, seed: int) -> np.ndarray:
+    """The boards of ``tests.test_fused._random_positions(jax_game, batch,
+    moves, seed)`` made with the port's ``game``: one ``rng.choice`` per
+    game per move over its valid moves, and a game keeps its state whenever
+    its next state would be terminal."""
+    rng = np.random.default_rng(seed)
+    state = game.init(batch, "cpu")
+    for _ in range(moves):
+        vm = game.valid_moves(state).numpy()
+        acts = np.array([rng.choice(np.nonzero(v)[0]) for v in vm])
+        nxt = game.step(state, torch.as_tensor(acts))
+        done, _ = game.terminal(nxt)
+        state = torch.where(done[:, None, None], state, nxt)
+    return state.numpy()
+
+
+def gomoku_jax_state(boards: np.ndarray) -> GomokuState:
+    return GomokuState(board=jnp.asarray(boards, jnp.int8))
+
+
+def hex_jax_state(boards: np.ndarray) -> HexState:
+    return HexState(board=jnp.asarray(boards, jnp.int8))
