@@ -94,6 +94,15 @@ __device__ __forceinline__ void c4_terminal(uint64_t mine, uint64_t theirs,
   *value = (win ? 1.f : 0.f) - ((lose && !win) ? 1.f : 0.f);
 }
 
+// The PUCT score of one edge, in the reference's operation order:
+// q + ((cpuct*p)*sq)/(1 + n) with q = w / max(n, 1) and sq = sqrt(sum n +
+// EPS); an illegal edge (p = INVALID_P) scores -1e30.
+__device__ __forceinline__ float puct_score(float n, float w, float p, float sq, float cpuct) {
+  const float q = __fdiv_rn(w, fmaxf(n, 1.f));
+  const float u = __fdiv_rn(__fmul_rn(__fmul_rn(cpuct, p), sq), __fadd_rn(1.f, n));
+  return p <= kIllegal ? kNegInf : __fadd_rn(q, u);
+}
+
 // First-max PUCT argmax over the A edges of one node (values in registers).
 __device__ __forceinline__ void refresh_node(const float (&n)[kMaxA],
                                              const float (&w)[kMaxA],
@@ -111,10 +120,7 @@ __device__ __forceinline__ void refresh_node(const float (&n)[kMaxA],
 #pragma unroll
   for (int a = 0; a < kMaxA; ++a) {
     if (a < A) {
-      const float q = __fdiv_rn(w[a], fmaxf(n[a], 1.f));
-      const float u = __fdiv_rn(__fmul_rn(__fmul_rn(cpuct, p[a]), sq),
-                                __fadd_rn(1.f, n[a]));
-      const float s = p[a] <= kIllegal ? kNegInf : __fadd_rn(q, u);
+      const float s = puct_score(n[a], w[a], p[a], sq, cpuct);
       if (a == 0 || s > best) {
         best = s;
         ba = (float)a;

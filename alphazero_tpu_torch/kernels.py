@@ -4,7 +4,9 @@ The kernels live in ``csrc/`` (see each source's header for what it
 replaces and how it is designed): ``hybrid.cu`` holds the hybrid engine's
 descend (one instance per game: Connect-Four, and Othello, Gomoku and Hex,
 whose steps are in ``othello.cuh``, ``gomoku.cuh`` and ``hex.cuh``), merge
-and refresh (unrolled for A <= 8, dense above),
+and refresh (unrolled for A <= 8, dense above), and the same three for
+K>1 leaf-parallel rounds (``descend_round`` per game, ``merge_round`` and
+the top-2 ``refresh2``),
 ``fused.cu`` the fused search kernels (the uniform evaluator's, and the
 MLP's with the evaluator of ``mlp.cuh``); both include the Connect-Four and
 PUCT helpers of ``c4.cuh``. At first use the
@@ -26,9 +28,13 @@ instance that takes it: ``descend`` by the type of the game's flat ops
 (``descend_entry``: Connect-Four's ``FlatOps`` its own kernel, then
 ``descend_othello``, ``descend_gomoku`` and ``descend_hex``; any other
 type raises), ``merge`` and ``refresh`` by action count (A <= 8 their own
-kernels; above, ``merge_dense`` and ``refresh_dense``). Each wrapper counts the launches of its own kernel in
-a plain integer attribute, ``descend.launches`` etc.;
-``reset_launch_counts()`` zeroes them.
+kernels; above, ``merge_dense`` and ``refresh_dense``). ``descend_round``,
+``merge_round`` and ``refresh2`` route the same way (to
+``descend_round_othello`` etc., ``merge_round_dense``,
+``refresh2_dense``); they take 1 <= K <= ``MAX_ROUND_K`` descents per
+round. Each wrapper counts the launches of its own kernel in a plain
+integer attribute, ``descend.launches`` etc.; ``reset_launch_counts()``
+zeroes them.
 """
 
 from __future__ import annotations
@@ -78,6 +84,14 @@ _SIGNATURES = {
     "az_merge_dense": ([_VP] * 12 + [_I32] * 4 + [_F32, _VP], _I32),
     "az_refresh": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
     "az_refresh_dense": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
+    "az_descend_round": ([_VP] * 11 + [_I32] * 5 + [_VP], _I32),
+    "az_descend_round_othello": ([_VP] * 11 + [_I32] * 5 + [_VP], _I32),
+    "az_descend_round_gomoku": ([_VP] * 11 + [_I32] * 5 + [_VP], _I32),
+    "az_descend_round_hex": ([_VP] * 11 + [_I32] * 5 + [_VP], _I32),
+    "az_merge_round": ([_VP] * 14 + [_I32] * 5 + [_F32, _VP], _I32),
+    "az_merge_round_dense": ([_VP] * 14 + [_I32] * 5 + [_F32, _VP], _I32),
+    "az_refresh2": ([_VP] * 8 + [_I32] * 3 + [_F32, _VP], _I32),
+    "az_refresh2_dense": ([_VP] * 8 + [_I32] * 3 + [_F32, _VP], _I32),
     "az_fused": ([_VP] * 5 + [_I32] * 4 + [_F32] * 2 + [_VP], _I32),
     "az_fused_mlp": ([_VP] * 6 + [_I32] * 9 + [_F32, _VP], _I32),
     "az_mlp_eval": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
@@ -382,6 +396,196 @@ def refresh_dense(n, w, p, code, cpuct: float):
     return out
 
 
+MAX_ROUND_K = 16          # csrc/hybrid.cu kMaxRoundK: descents per round the merge takes
+ROUND_MAX_NODES = 3632    # the round descend's 2 x C x 32 counter bytes in 227 KB of shared memory
+
+
+def _descend_round(entry: str, besta, bestc, seca, secc, done, tval, boards, max_depth: int, ops,
+                   K: int):
+    """Launch the round descend kernel ``entry`` on CUDA tensors, for
+    boards of the game whose flat ops it steps."""
+    if _DESCEND_ROUND_ENTRIES[descend_entry(ops)] != entry:
+        raise ValueError(f"{entry} does not step {type(ops).__name__} boards")
+    B, C = besta.shape
+    L = ops.size
+    if entry == "az_descend_round_gomoku" and L > GOMOKU_MAX_CELLS:
+        raise NotImplementedError(
+            f"the Gomoku descend kernel takes boards of at most {GOMOKU_MAX_CELLS} cells "
+            f"(edge 16), got {L}: wider bitboards are later work (ROADMAP)"
+        )
+    if B == 0:
+        raise ValueError("descend_round kernel needs B > 0")
+    if not 1 <= K <= MAX_ROUND_K:
+        raise ValueError(f"the round kernels take 1 <= K <= {MAX_ROUND_K} descents, got {K}")
+    if C > ROUND_MAX_NODES:
+        raise ValueError(f"the round descend kernel takes at most {ROUND_MAX_NODES} nodes, got {C}")
+    lib = library()
+    ptrs = [
+        _check("besta", besta, (B, C)), _check("bestc", bestc, (B, C)),
+        _check("seca", seca, (B, C)), _check("secc", secc, (B, C)),
+        _check("done", done, (B, C)), _check("tval", tval, (B, C)),
+        _check("boards", boards, (B, L)),
+    ]
+    dev = boards.device
+    bd = torch.empty((K, B, L), device=dev)
+    patha = torch.empty((K, B, C), device=dev)
+    psgn = torch.empty((K, B, C), device=dev)
+    meta = torch.empty((K, B, 8), device=dev)
+    rc = getattr(lib.lib, entry)(
+        *ptrs, bd.data_ptr(), patha.data_ptr(), psgn.data_ptr(), meta.data_ptr(),
+        B, C, int(K), int(max_depth), L, _stream(dev),
+    )
+    lib.check(rc, entry)
+    return bd, patha, psgn, meta
+
+
+def _descend_round_instance(name: str, entry: str, doc: str):
+    """The wrapper of one game's round descend instance: the plain
+    version on the CPU; on CUDA the kernel, for its own game's flat ops
+    only."""
+
+    def wrapper(besta, bestc, seca, secc, done, tval, boards, max_depth: int, ops, K: int):
+        args = (besta, bestc, seca, secc, done, tval, boards)
+        if _on_cpu(*args):
+            return _plain.descend_round(*args, max_depth, ops, K)
+        out = _descend_round(entry, *args, max_depth, ops, K)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__name__ = wrapper.__qualname__ = name
+    wrapper.__doc__ = doc
+    return wrapper
+
+
+# the round descend instance of each game, by its K=1 descend's entry
+_DESCEND_ROUND_ENTRIES = {entry: entry.replace("az_descend", "az_descend_round")
+                          for entry in _DESCEND_ENTRIES.values()}
+descend_round_othello = _descend_round_instance(
+    "descend_round_othello", "az_descend_round_othello",
+    "``mcts.hybrid.descend_round`` for Othello boards f32[B, 64].")
+descend_round_gomoku = _descend_round_instance(
+    "descend_round_gomoku", "az_descend_round_gomoku",
+    "``mcts.hybrid.descend_round`` for Gomoku boards f32[B, S*S], any edge S up to 16.")
+descend_round_hex = _descend_round_instance(
+    "descend_round_hex", "az_descend_round_hex",
+    "``mcts.hybrid.descend_round`` for canonical Hex boards f32[B, 49].")
+_DESCEND_ROUND_WRAPPERS = {
+    "az_descend_round_othello": descend_round_othello,
+    "az_descend_round_gomoku": descend_round_gomoku,
+    "az_descend_round_hex": descend_round_hex,
+}
+
+
+def descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth: int, ops, K: int):
+    """``mcts.hybrid.descend_round``, routed as ``descend`` is: on CUDA the
+    round instance of the game's flat ops — Connect-Four boards f32[B, 42]
+    run this wrapper's own kernel, the other games
+    ``descend_round_othello``, ``descend_round_gomoku`` and
+    ``descend_round_hex``; unknown flat ops raise."""
+    args = (besta, bestc, seca, secc, done, tval, boards)
+    if _on_cpu(*args):
+        return _plain.descend_round(*args, max_depth, ops, K)
+    entry = _DESCEND_ROUND_ENTRIES[descend_entry(ops)]
+    if entry != "az_descend_round":
+        return _DESCEND_ROUND_WRAPPERS[entry](*args, max_depth, ops, K)
+    out = _descend_round("az_descend_round", *args, max_depth, ops, K)
+    descend_round.launches += 1
+    return out
+
+
+def _merge_round(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int,
+                 cpuct: float):
+    """Launch the round merge kernel ``entry`` on CUDA tensors."""
+    B, A, C = n.shape
+    K = patha.shape[0]
+    if B == 0:
+        raise ValueError("merge_round kernel needs B > 0")
+    if not 1 <= K <= MAX_ROUND_K:
+        raise ValueError(f"the round kernels take 1 <= K <= {MAX_ROUND_K} descents, got {K}")
+    lib = library()
+    ptrs = [
+        _check("n", n, (B, A, C)), _check("w", w, (B, A, C)),
+        _check("p", p, (B, A, C)), _check("code", code, (B, A, C)),
+        _check("done", done, (B, C)), _check("tval", tval, (B, C)),
+        _check("pm", pm, (K, B, A)), _check("patha", patha, (K, B, C)),
+        _check("psgn", psgn, (K, B, C)), _check("meta2", meta2, (K, B, 8)),
+    ]
+    best = [torch.empty((B, C), device=n.device) for _ in range(4)]
+    rc = getattr(lib.lib, entry)(
+        *ptrs, *(t.data_ptr() for t in best),
+        B, A, C, K, int(slot0), float(cpuct), _stream(n.device),
+    )
+    lib.check(rc, entry)
+    return tuple(best)
+
+
+def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int, cpuct: float):
+    """``mcts.hybrid.merge_round``: in place on ``n, w, p, code, done,
+    tval``; returns the refreshed top-2 planes. On CUDA, A <= 8 runs this
+    wrapper's kernel and larger A ``merge_round_dense``."""
+    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2)
+    if _on_cpu(*args):
+        return _plain.merge_round(*args, slot0, cpuct)
+    if n.shape[1] > _plain.UNROLLED_MAX_A:
+        return merge_round_dense(*args, slot0, cpuct)
+    out = _merge_round("az_merge_round", *args, slot0, cpuct)
+    merge_round.launches += 1
+    return out
+
+
+def merge_round_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int,
+                      cpuct: float):
+    """``mcts.hybrid.merge_round`` with the dense top-2 refresh, for any A
+    (the main path sends it A > 8)."""
+    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2)
+    if _on_cpu(*args):
+        return _plain.merge_round(*args, slot0, cpuct)
+    out = _merge_round("az_merge_round_dense", *args, slot0, cpuct)
+    merge_round_dense.launches += 1
+    return out
+
+
+def _refresh2(entry: str, n, w, p, code, cpuct: float):
+    """Launch the top-2 refresh kernel ``entry`` on CUDA tensors."""
+    B, A, C = n.shape
+    if B == 0:
+        raise ValueError("refresh2 kernel needs B > 0")
+    lib = library()
+    ptrs = [
+        _check("n", n, (B, A, C)), _check("w", w, (B, A, C)),
+        _check("p", p, (B, A, C)), _check("code", code, (B, A, C)),
+    ]
+    best = [torch.empty((B, C), device=n.device) for _ in range(4)]
+    rc = getattr(lib.lib, entry)(
+        *ptrs, *(t.data_ptr() for t in best), B, A, C, float(cpuct), _stream(n.device)
+    )
+    lib.check(rc, entry)
+    return tuple(best)
+
+
+def refresh2(n, w, p, code, cpuct: float):
+    """``mcts.hybrid.refresh2``: the top-2 PUCT planes of every node. On
+    CUDA, A <= 8 runs this wrapper's kernel and larger A
+    ``refresh2_dense``."""
+    if _on_cpu(n, w, p, code):
+        return _plain.refresh2(n, w, p, code, cpuct)
+    if n.shape[1] > _plain.UNROLLED_MAX_A:
+        return refresh2_dense(n, w, p, code, cpuct)
+    out = _refresh2("az_refresh2", n, w, p, code, cpuct)
+    refresh2.launches += 1
+    return out
+
+
+def refresh2_dense(n, w, p, code, cpuct: float):
+    """``mcts.hybrid.refresh2``'s dense branch as a kernel, for any A (the
+    main path sends it A > 8)."""
+    if _on_cpu(n, w, p, code):
+        return _plain.refresh2(n, w, p, code, cpuct)
+    out = _refresh2("az_refresh2_dense", n, w, p, code, cpuct)
+    refresh2_dense.launches += 1
+    return out
+
+
 def fused(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float, uval: float):
     """``mcts.fused.fused_search``: a whole uniform-prior search of
     Connect-Four boards f32[B, 42] from masked root priors f32[B, 7] in
@@ -490,9 +694,11 @@ def mlp_eval(boards, weights):
     return pm, value, logits
 
 
-KERNELS = _plain.SearchKernels(descend, merge, refresh)
+KERNELS = _plain.SearchKernels(descend, merge, refresh, descend_round, merge_round, refresh2)
 _ALL = (descend, descend_othello, descend_gomoku, descend_hex, merge, merge_dense, refresh,
-        refresh_dense, fused, fused_mlp, mlp_eval)
+        refresh_dense, fused, fused_mlp, mlp_eval, descend_round, descend_round_othello,
+        descend_round_gomoku, descend_round_hex, merge_round, merge_round_dense, refresh2,
+        refresh2_dense)
 
 
 def launch_counts() -> dict:

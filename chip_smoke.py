@@ -4,8 +4,8 @@
 Drives the port's self-play paths — the steady-state Connect-Four actor on
 the hybrid engine with an AZResNet-64x5, on the fused kernel with the
 uniform model, and on the fused kernel with an MLPNet (256, 256) evaluated
-inside it; then Othello, Gomoku and Hex on the hybrid engine — on one CUDA
-card, in phases:
+inside it; then Othello, Gomoku and Hex on the hybrid engine, and the
+hybrid engine's K=4 leaf-parallel rounds — on one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``)
@@ -94,7 +94,23 @@ card, in phases:
            ``hybrid_hex_uniform_counts_head`` (16 sims, max_depth 56); (c)
            the ``full`` preset's actor, AZResNet-64x5 in bf16, with the
            checks of 9(c) and one profiled step; (d) the ``mlp`` preset's
-           actor, MLPNet (256, 256) at B=256, 50 sims, max_depth 56.
+           actor, MLPNet (256, 256) at B=256, 50 sims, max_depth 56;
+11. rounds: ``parallel_sims=4`` leaf-parallel rounds on the hybrid engine:
+           (a) each game's round descend, the round merge and the top-2
+           refresh against their plain versions (bit-equal, timed in
+           turns) at Connect-Four B=4096 A=7, Othello B=1024 A=65, Gomoku 15
+           B=1024 A=225 and Hex B=1024 A=49, C=101, on planes from 6 plain
+           rounds; (b) ``tests/torch_round_goldens.json`` reproduced through
+           the kernels; (c) the Othello ``full`` preset's actor at K=4
+           (phase 8d runs it at K=1): exactly 25 Othello round descends, 25
+           dense round merges and 1 dense top-2 refresh per step, pi rows
+           summing to 1, ms/step, env-steps/s, peak memory, one profiled
+           step, and one search through the kernels and the plain versions
+           with identical counts that sum to 100 on live games; (d) the
+           engine bench's ``oth_uniform_B4096_100sims_K4``; (e) one
+           Connect-Four AZResNet-64x5 search (B=4096) and (f) one Gomoku 15
+           and one Hex search (B=1024) at K=4 through the kernels and the
+           plain versions, identical counts.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -161,6 +177,8 @@ HEX_TEMP_THRESHOLD = 8
 HEX_STEPS = 5
 HEX_MLP_HIDDEN = (256, 256)   # the Hex mlp preset: model, batch, sims
 HEX_MLP_B, HEX_MLP_SIMS, HEX_MLP_STEPS = 256, 50, 3
+ROUND_K = 4               # phase 11: parallel_sims, leaf-parallel descents per round
+ROUND_WARM = 6            # plain rounds before the round kernels' planes are captured
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -173,6 +191,15 @@ SOURCE = {
     "fused_mlp": "alphazero_tpu_torch/csrc/fused.cu",   # with its evaluator, csrc/mlp.cuh
     "descend_gomoku": "alphazero_tpu_torch/csrc/hybrid.cu",   # with its step, csrc/gomoku.cuh
     "descend_hex": "alphazero_tpu_torch/csrc/hybrid.cu",      # with its step, csrc/hex.cuh
+    # the K>1 round kernels, descend_round_kernel<Game> with each game's step
+    "descend_round": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "descend_round_othello": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "descend_round_gomoku": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "descend_round_hex": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "merge_round": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "merge_round_dense": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "refresh2": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "refresh2_dense": "alphazero_tpu_torch/csrc/hybrid.cu",
 }
 REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
@@ -188,6 +215,14 @@ REPLACES = {
     # descend_kernel with GomokuFlatOps.step / HexFlatOps.step traced in
     "descend_gomoku": "alphazero_tpu/mcts/hybrid.py:242 + alphazero_tpu/games/gomoku.py:191",
     "descend_hex": "alphazero_tpu/mcts/hybrid.py:242 + alphazero_tpu/games/hex.py:214",
+    "descend_round": "alphazero_tpu/mcts/hybrid.py:437",   # descend_round_kernel
+    "descend_round_othello": "alphazero_tpu/mcts/hybrid.py:437 + alphazero_tpu/games/othello.py:228",
+    "descend_round_gomoku": "alphazero_tpu/mcts/hybrid.py:437 + alphazero_tpu/games/gomoku.py:191",
+    "descend_round_hex": "alphazero_tpu/mcts/hybrid.py:437 + alphazero_tpu/games/hex.py:214",
+    "merge_round": "alphazero_tpu/mcts/hybrid.py:579",   # merge_round_kernel + _refresh2 :170
+    "merge_round_dense": "alphazero_tpu/mcts/hybrid.py:579",   # + _refresh2's dense branch :210
+    "refresh2": "alphazero_tpu/mcts/hybrid.py:170",   # _refresh2, seeding at :874
+    "refresh2_dense": "alphazero_tpu/mcts/hybrid.py:210",   # its dense branch, seeding at :874
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
@@ -282,6 +317,11 @@ def in_turns(k_fn, p_fn, k_reps: int = 50, p_reps: int = 20) -> tuple:
 def launches_of(kernels, **nonzero) -> dict:
     """Every kernel's launch count: 0 but for those named."""
     return {k: nonzero.get(k, 0) for k in kernels.launch_counts()}
+
+
+def launched(counts: dict) -> dict:
+    """The kernels of ``counts`` that launched, for printing."""
+    return {k: v for k, v in counts.items() if v}
 
 
 def profile_step(step) -> tuple:
@@ -499,7 +539,7 @@ def run_actor(tag: str, game, apply_fn, run_cfg, batch: int, steps: int, temp_th
           f"{run_cfg.max_depth}: {ms:.3f} ms/step mean, "
           f"{1e3 * sorted(times)[len(times) // 2]:.3f} upper median "
           f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), {batch / (ms / 1e3):.1f} "
-          f"env-steps/s | launches {got} | peak memory "
+          f"env-steps/s | launches {launched(got)} | peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
     return carry, step, gen, got
 
@@ -514,10 +554,11 @@ def print_profiled_step(tag: str, step, card: str) -> None:
 
 
 def same_counts_through_kernels_and_plain(tag: str, game, apply_fn, cfg, state, dirichlet,
-                                          want: dict) -> None:
+                                          want: dict) -> dict:
     """One search of ``state`` through the kernels (exactly ``want``
     launches) and through the plain versions: identical, finite counts
-    that sum to the simulation budget on live games."""
+    that sum to the simulation budget on live games. Returns the
+    launches."""
     from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.mcts import PLAIN, hybrid
 
@@ -536,8 +577,10 @@ def same_counts_through_kernels_and_plain(tag: str, game, apply_fn, cfg, state, 
     if not torch.equal(c_kernel, c_plain):
         fail(f"{tag} kernel and plain searches differ on "
              f"{int((c_kernel != c_plain).any(dim=1).sum())} of {B} games")
-    print(f"[{tag}] one search through the kernels ({got}) and the plain versions: identical counts "
-          f"on all {B} games ({int(live.sum())} live, each summing to {cfg.num_sims})", flush=True)
+    print(f"[{tag}] one search through the kernels ({launched(got)}) and the plain versions: "
+          f"identical counts on all {B} games ({int(live.sum())} live, each summing to "
+          f"{cfg.num_sims})", flush=True)
+    return got
 
 
 def othello_phase(card: str) -> tuple:
@@ -840,6 +883,229 @@ def hex_phase(card: str) -> tuple:
     return results, {k: launches[k] for k in results}
 
 
+def capture_round_args(game, apply_fn, cfg, roots, noise, rounds: int = ROUND_WARM) -> tuple:
+    """The arguments of the last descend_round and merge_round calls of a
+    plain search of ``rounds`` rounds of ``cfg.parallel_sims`` descents at
+    ``cfg``'s tree capacity: planes as the main path meets them."""
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.mcts import PLAIN, hybrid
+
+    captured = {}
+
+    def capture(name, fn):
+        def wrapped(*args):
+            captured[name] = [a.clone() if torch.is_tensor(a) else a for a in args]
+            return fn(*args)
+        return wrapped
+
+    K = cfg.parallel_sims
+    cap_cfg = MCTSConfig(num_sims=rounds * K, max_nodes=cfg.nodes, max_depth=cfg.max_depth,
+                         dirichlet_alpha=cfg.dirichlet_alpha, parallel_sims=K)
+    hybrid.make_hybrid_root_fn(game, apply_fn, cap_cfg, kernels=PLAIN._replace(
+        descend_round=capture("descend_round", hybrid.descend_round),
+        merge_round=capture("merge_round", hybrid.merge_round)))(roots, noise)
+    return captured["descend_round"], captured["merge_round"]
+
+
+def rounds_vs_plain(game, d_args, m_args, card: str) -> dict:
+    """The game's round descend, the round merge and the top-2 refresh
+    against their plain versions on the same arguments: bit-equal outputs,
+    then each timed in turns. Returns their result entries."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.mcts import hybrid
+
+    ops, K = d_args[8], d_args[9]
+    B, C = d_args[0].shape
+    L = d_args[6].shape[1]
+    A = m_args[0].shape[1]
+    dense = "_dense" if A > hybrid.UNROLLED_MAX_A else ""
+    d_name = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(ops)][3:]
+    m_name, r_name = f"merge_round{dense}", f"refresh2{dense}"
+    d_kernel, m_kernel, r_kernel = (getattr(kernels, n) for n in (d_name, m_name, r_name))
+    results = {}
+
+    out_k = d_kernel(*d_args)
+    out_p = hybrid.descend_round(*d_args)
+    for nm, k, p in zip(("bd", "patha", "psgn", "meta"), out_k, out_p):
+        if not bit_equal(k, p):
+            fail(f"{d_name} output {nm} differs from the plain version")
+    patha, meta = out_p[1], out_p[3]
+    seca = d_args[2]
+    second = float(((patha - 1 == seca) & (patha > 0)).sum())
+    dups = float(meta[..., hybrid.M_DUP].sum())
+    # reads: the root board, the four best planes at every node a descent
+    # visits, the root's done and the leaves' tval; writes: K leaf boards,
+    # K patha/psgn rows and K meta rows per game
+    visited = float((patha > 0).any(dim=0).sum())
+    leaves = float((meta[..., hybrid.M_TERM] + meta[..., hybrid.M_CUT]).sum())
+    results[d_name] = {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(out_k, out_p)),
+        **bound(F32 * (B * L + 4 * visited + B + leaves + K * (B * L + 2 * B * C + 8 * B)), 0.0),
+    }
+
+    planes_k = [t.clone() for t in m_args[:6]]
+    planes_p = [t.clone() for t in m_args[:6]]
+    outs_k = planes_k + list(m_kernel(*planes_k, *m_args[6:]))
+    outs_p = planes_p + list(hybrid.merge_round(*planes_p, *m_args[6:]))
+    names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc", "seca", "secc")
+    for nm, k, p in zip(names, outs_k, outs_p):
+        if not bit_equal(k, p):
+            fail(f"{m_name} output {nm} differs from the plain version at A={A}")
+    m_patha = m_args[7]
+    edges = float((m_patha > 0).sum())
+    shared = edges - float(sum(((m_patha == a + 1).any(dim=0)).sum() for a in range(A)))
+    installs = float(m_args[9][..., hybrid.M2_EXPOK].sum())
+    planes_bytes = F32 * 4 * B * A * C
+    # reads: the four stat planes, done/tval, the K records (pm, patha,
+    # psgn, meta2); writes: the four top-2 planes and the cells that change
+    # (path n/w, install rows, links, done/tval at the slots)
+    results[m_name] = {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p)),
+        **bound(planes_bytes + F32 * (2 * B * C + K * B * (A + 2 * C + 8) + 4 * B * C
+                                      + 2 * (edges - shared) + installs * (4 * A + 3)),
+                puct_ops(B * C, A) + 9 * A * B * C + 3 * edges),
+    }
+    ref_k = r_kernel(*m_args[:4], m_args[-1])
+    ref_p = hybrid.refresh2(*m_args[:4], m_args[-1])
+    if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
+        fail(f"{r_name} differs from the plain version at A={A}")
+    results[r_name] = {
+        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
+        **bound(planes_bytes + F32 * 4 * B * C, puct_ops(B * C, A) + A * B * C),
+    }
+    print(f"[rounds] {game.name}, B={B} C={C} A={A} K={K}: {d_name}, {m_name}, {r_name} bit-equal "
+          f"to plain ({second:.0f} runner-up takes, {dups:.0f} duplicates, {shared:.0f} shared path "
+          f"edges, {installs:.0f} installs; stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
+    scratch = [t.clone() for t in m_args[:6]]
+    time_in_turns(results, {
+        d_name: (lambda: d_kernel(*d_args), lambda: hybrid.descend_round(*d_args)),
+        m_name: (lambda: m_kernel(*scratch, *m_args[6:]),
+                 lambda: hybrid.merge_round(*scratch, *m_args[6:])),
+        r_name: (lambda: r_kernel(*m_args[:4], m_args[-1]),
+                 lambda: hybrid.refresh2(*m_args[:4], m_args[-1])),
+    }, "rounds", card, f" at A={A}")
+    return results
+
+
+def rounds_phase(card: str) -> tuple:
+    """Phase 11: K=4 leaf-parallel rounds on the hybrid engine (see the
+    module docstring). Returns the kernels line's entries of the round
+    kernels and their launches on the paths that run them: the Othello
+    ``full`` preset's actor for descend_round_othello, merge_round_dense
+    and refresh2_dense, one search each of Connect-Four, Gomoku 15 and Hex
+    for the others."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour, Gomoku, Hex, Othello
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        make_apply_fn,
+        make_uniform_model,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+
+    dev = torch.device("cuda", 0)
+    K = ROUND_K
+
+    def resnet(game, channels, blocks):
+        A = game.num_actions
+        return make_apply_fn(convert_az_resnet(
+            random_az_resnet_variables(A, channels, blocks, cells=game.flat_ops().size, seed=SEED),
+            dtype=torch.bfloat16).to(dev))
+
+    def noise_of(batch, A, alpha):
+        if alpha is None:
+            return None
+        return sample_draws(torch.Generator(device=dev).manual_seed(SEED), batch, A, alpha, dev).dirichlet
+
+    c4, oth, gmk15, hx = ConnectFour(), Othello(), Gomoku(15), Hex()
+    c4_net, oth_net, hex_net = resnet(c4, 64, 5), resnet(oth, OTH_CHANNELS, OTH_BLOCKS), resnet(hx, 64, 5)
+    configs = [   # game, batch, model, search config, random moves of the roots
+        (c4, B, c4_net, MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0,
+                                   parallel_sims=K), 30),
+        (oth, OTH_B, oth_net, MCTSConfig(num_sims=SIMS, max_depth=OTH_MAX_DEPTH,
+                                         dirichlet_alpha=OTH_DIRICHLET, parallel_sims=K), 40),
+        (gmk15, GMK_B, make_uniform_model(gmk15).apply_fn,
+         MCTSConfig(num_sims=SIMS, max_depth=GMK15_MAX_DEPTH, parallel_sims=K), 112),
+        (hx, HEX_B, hex_net, MCTSConfig(num_sims=SIMS, max_depth=HEX_MAX_DEPTH,
+                                        dirichlet_alpha=HEX_DIRICHLET, parallel_sims=K), 30),
+    ]
+
+    # (a) every round kernel against its plain version at full width; the
+    # kernels line keeps the first game's entry of each (the dense kernels:
+    # Othello's, the main path)
+    results, roots = {}, {}
+    for game, batch, apply_fn, cfg, moves in configs:
+        roots[game.name] = random_positions(game, batch, moves, SEED, dev)
+        d_args, m_args = capture_round_args(game, apply_fn, cfg, roots[game.name],
+                                            noise_of(batch, game.num_actions, cfg.dirichlet_alpha))
+        for name, entry in rounds_vs_plain(game, d_args, m_args, card).items():
+            results.setdefault(name, entry)
+
+    # (b) the round goldens through the kernels
+    goldens = read_goldens("torch_round_goldens.json")
+    for game, names in ((c4, ("descend_round", "merge_round", "refresh2")),
+                        (oth, ("descend_round_othello", "merge_round_dense", "refresh2_dense"))):
+        spec = goldens[game.name]
+        states = []
+        for seq in spec["seqs"]:
+            st = game.init(1, dev)
+            for a in seq:
+                st = game.step(st, torch.tensor([a], device=dev))
+            states.append(st)
+        rounds = spec["num_sims"] // spec["parallel_sims"]
+        want = dict(zip(names, (rounds, rounds, 1)))
+        kernels.reset_launch_counts()
+        counts = hybrid.make_hybrid_root_fn(game, make_uniform_model(game).apply_fn, MCTSConfig(
+            num_sims=spec["num_sims"], max_depth=spec["max_depth"],
+            parallel_sims=spec["parallel_sims"]))(torch.cat(states))
+        if kernels.launch_counts() != launches_of(kernels, **want):
+            fail(f"{game.name} round golden launches {kernels.launch_counts()} != {want}")
+        if counts.round().int().tolist() != spec["counts"]:
+            fail(f"{game.name} round golden counts differ from tests/torch_round_goldens.json")
+        print(f"[rounds] CUDA path reproduces tests/torch_round_goldens.json {game.name} "
+              f"({len(states)} positions, {spec['num_sims']} sims, K={spec['parallel_sims']}) | "
+              f"launches {want}", flush=True)
+
+    # (c) the Othello full preset's actor at K=4 (phase 8d ran it at K=1)
+    oth_cfg = configs[1][3]
+    rounds = SIMS // K
+    per_step = {"descend_round_othello": rounds, "merge_round_dense": rounds, "refresh2_dense": 1}
+    carry, step, gen, launches = run_actor(
+        "rounds", oth, oth_net, oth_cfg, OTH_B, OTH_STEPS, OTH_TEMP_THRESHOLD, per_step, card,
+        f"Othello full preset actor at K={K}, AZResNet-{OTH_CHANNELS}x{OTH_BLOCKS} bf16")
+    print_profiled_step(
+        "rounds", lambda: step(carry, sample_draws(gen, OTH_B, oth.num_actions, OTH_DIRICHLET, dev)),
+        card)
+    same_counts_through_kernels_and_plain(
+        "rounds", oth, oth_net, oth_cfg, carry[0],
+        sample_draws(gen, OTH_B, oth.num_actions, OTH_DIRICHLET, dev).dirichlet, per_step)
+    launches = {k: launches[k] for k in per_step}
+
+    # (d) the engine bench's oth_uniform_B4096_100sims_K4
+    run_actor("rounds", oth, make_uniform_model(oth).apply_fn,
+              MCTSConfig(num_sims=SIMS, max_depth=OTH_MAX_DEPTH, parallel_sims=K), OTH_UNIFORM_B,
+              OTH_UNIFORM_STEPS, OTH_TEMP_THRESHOLD, per_step, card,
+              f"oth_uniform_B{OTH_UNIFORM_B}_100sims_K{K}")
+
+    # (e)-(f) one search each of Connect-Four (AZResNet-64x5, B=4096),
+    # Gomoku 15 and Hex at K=4 through the kernels and the plain versions
+    for (game, batch, apply_fn, cfg, _), names in zip(
+            [configs[0], configs[2], configs[3]],
+            [("descend_round", "merge_round", "refresh2"),
+             ("descend_round_gomoku", "merge_round_dense", "refresh2_dense"),
+             ("descend_round_hex", "merge_round_dense", "refresh2_dense")]):
+        got = same_counts_through_kernels_and_plain(
+            "rounds", game, apply_fn, cfg, roots[game.name],
+            noise_of(batch, game.num_actions, cfg.dirichlet_alpha),
+            dict(zip(names, (rounds, rounds, 1))))
+        for name in names:
+            launches.setdefault(name, got[name])
+    return results, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1016,7 +1282,7 @@ def main() -> int:
     print(f"[slice] AZResNet-64x5 bf16, B={B}, {SIMS} sims, dirichlet 1.0: "
           f"{ms_move:.3f} ms/move mean, {ms_median:.3f} upper median "
           f"({', '.join(f'{1e3 * s:.3f}' for s in step_s)}), "
-          f"{B / (ms_move / 1e3):.1f} env-steps/s | launches {launches} | {card}", flush=True)
+          f"{B / (ms_move / 1e3):.1f} env-steps/s | launches {launched(launches)} | {card}", flush=True)
 
     # identical counts through the kernels and through the plain versions
     state, _ = carry
@@ -1121,7 +1387,7 @@ def main() -> int:
     print(f"[uniform] fused route, B={UNIFORM_B}, {SIMS} sims, max_depth {MAX_DEPTH}: "
           f"{ms_u:.3f} ms/step mean, {1e3 * sorted(step_s)[len(step_s) // 2]:.3f} upper median "
           f"({', '.join(f'{1e3 * t:.3f}' for t in step_s)}), {UNIFORM_B / (ms_u / 1e3):.1f} "
-          f"env-steps/s | launches {uni_launches} | peak memory {peak / 2**30:.3f} GiB | {card}",
+          f"env-steps/s | launches {launched(uni_launches)} | peak memory {peak / 2**30:.3f} GiB | {card}",
           flush=True)
     state_u, _ = carry_u
     # the main path's kernel, held against its plain version on the actor's
@@ -1153,7 +1419,7 @@ def main() -> int:
     ms_h = 1e3 * sum(step_h_s) / len(step_h_s)
     print(f"[uniform] hybrid route, same actor: {ms_h:.3f} ms/step mean "
           f"({', '.join(f'{1e3 * t:.3f}' for t in step_h_s)}), {UNIFORM_B / (ms_h / 1e3):.1f} "
-          f"env-steps/s | launches {hyb_launches} | fused is {ms_h / ms_u:.1f}x faster | {card}",
+          f"env-steps/s | launches {launched(hyb_launches)} | fused is {ms_h / ms_u:.1f}x faster | {card}",
           flush=True)
 
     c_fused = _make_root_counts_fn(game, uniform.apply_fn, cfg_uni)(state_u)
@@ -1273,7 +1539,7 @@ def main() -> int:
         print(f"[mlp] actor, fused route, B={batch}, {cfg.num_sims} sims, max_depth "
               f"{cfg.max_depth}: {ms:.3f} ms/step mean, {1e3 * sorted(times)[len(times) // 2]:.3f} "
               f"upper median ({', '.join(f'{1e3 * t:.3f}' for t in times)}), "
-              f"{batch / (ms / 1e3):.1f} env-steps/s | launches {got} | peak memory "
+              f"{batch / (ms / 1e3):.1f} env-steps/s | launches {launched(got)} | peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
         return carry_m, got
 
@@ -1317,8 +1583,8 @@ def main() -> int:
     print(f"[mlp] library forward (F.linear, bf16), B={B}: {mlp_fwd_ms:.4f} ms per call, "
           f"{mlp_fwd_ms * SIMS:.4f} ms for {SIMS} sims | {card}", flush=True)
 
-    # ---- 8-10. Othello, Gomoku and Hex on the hybrid engine ------------
-    for phase in (othello_phase, gomoku_phase, hex_phase):
+    # ---- 8-11. Othello, Gomoku and Hex on the hybrid engine; rounds ----
+    for phase in (othello_phase, gomoku_phase, hex_phase, rounds_phase):
         phase_results, phase_launches = phase(card)
         results.update(phase_results)
         launches.update(phase_launches)
@@ -1342,7 +1608,9 @@ def main() -> int:
         }
         for name in ("descend", "merge", "refresh", "fused", "fused_mlp",
                      "descend_othello", "merge_dense", "refresh_dense", "descend_gomoku",
-                     "descend_hex")
+                     "descend_hex", "descend_round", "descend_round_othello",
+                     "descend_round_gomoku", "descend_round_hex", "merge_round",
+                     "merge_round_dense", "refresh2", "refresh2_dense")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -33,7 +33,7 @@ from alphazero_tpu_torch.games import (
     Othello,
     OthelloFlatOps,
 )
-from alphazero_tpu_torch.mcts import PLAIN, make_hybrid_root_fn
+from alphazero_tpu_torch.mcts import PLAIN, make_fused_root_fn, make_hybrid_root_fn
 from alphazero_tpu_torch.mcts import hybrid
 from alphazero_tpu_torch.models import (
     convert_az_resnet,
@@ -177,8 +177,12 @@ def test_tiny_resnet_bounded_divergence():
 
 def test_unported_paths_raise():
     uni = make_uniform_model(TG).apply_fn
+    # K>1 rounds run on the hybrid engine; the fused engine's (K2) raise
+    assert callable(make_hybrid_root_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=2)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_hybrid_root_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=2))
+        make_fused_root_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=2))
+    with pytest.raises(ValueError, match="divisible"):
+        make_hybrid_root_fn(TG, uni, MCTSConfig(num_sims=10, parallel_sims=4))
 
     class NoFlatOps:
         name = "no_flat_ops"
@@ -221,7 +225,9 @@ def test_terminal_root_is_not_descended():
 
 NO_LAUNCHES = {"descend": 0, "descend_othello": 0, "descend_gomoku": 0, "descend_hex": 0,
                "merge": 0, "merge_dense": 0, "refresh": 0, "refresh_dense": 0, "fused": 0,
-               "fused_mlp": 0, "mlp_eval": 0}
+               "fused_mlp": 0, "mlp_eval": 0, "descend_round": 0, "descend_round_othello": 0,
+               "descend_round_gomoku": 0, "descend_round_hex": 0, "merge_round": 0,
+               "merge_round_dense": 0, "refresh2": 0, "refresh2_dense": 0}
 
 
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():

@@ -34,6 +34,7 @@ from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.games import ConnectFour, Gomoku, Hex, Othello
 from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts import (
+    PLAIN,
     SearchKernels,
     fused_mlp_search,
     fused_search,
@@ -62,9 +63,11 @@ from tests.torch_parity import (
 HERE = os.path.dirname(os.path.abspath(__file__))
 TG = ConnectFour()
 OTH = Othello()
-# kernel<<<grid, threads, 0, stream>>>(args), the kernel maybe a template instance
-_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*0,\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 5, "fused.cu": 3}   # kernel launches in each source
+# kernel<<<grid, threads, smem, stream>>>(args), the kernel maybe a template instance
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
+_LAUNCHES = {"hybrid.cu": 10, "fused.cu": 3}   # kernel launches in each source
+# a kernel's dynamic shared memory: the emulated launch's buffer
+_DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +80,8 @@ def emulated(tmp_path_factory):
     build_dir = tmp_path_factory.mktemp("emu")
     cpps = []
     for src in kernels.SOURCES:
-        out = _LAUNCH.sub(r"emu_launch(\2, \3, [&] { \1(\4); });", src.read_text())
+        out = _LAUNCH.sub(r"emu_launch(\2, \3, \4, [&] { \1(\5); });", src.read_text())
+        out = _DYNAMIC_SMEM.sub(r"\1* \2 = (\1*)emu_dynamic_smem;", out)
         assert out.count("emu_launch(") == _LAUNCHES[src.name], "every kernel launch must be rewritten"
         cpp = build_dir / f"{src.stem}_emu.cpp"
         cpp.write_text(out)
@@ -517,3 +521,151 @@ def test_emulated_mlp_search_matches_plain(emulated, cfg, moves, freeze, dirichl
     assert live.any()
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
     assert calls["same"] >= 0.95 * calls["games"], f"{calls['same']} of {calls['games']} games equal"
+
+
+def _checked_round_kernels(lib, calls):
+    """SearchKernels whose round entry points run the emulated round
+    kernels AND the plain versions on every call, asserting bit-equal
+    outputs; each call goes to the kernel instance ``kernels`` routes it to
+    on the card. ``calls`` counts the launches by entry and what the
+    rounds exercised: runner-up takes, duplicate expansions, edges that
+    two descents of a round share, and rounds with slots past the
+    capacity."""
+
+    def descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K):
+        B, C = besta.shape
+        L = boards.shape[1]
+        entry = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(ops)]
+        outs = [torch.empty(K, B, L), torch.empty(K, B, C), torch.empty(K, B, C), torch.empty(K, B, 8)]
+        rc = getattr(lib.lib, entry)(
+            *(t.data_ptr() for t in (besta, bestc, seca, secc, done, tval, boards, *outs)),
+            B, C, K, max_depth, L, None,
+        )
+        assert rc == 0
+        want = hybrid.descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K)
+        for nm, got, ref in zip(("bd", "patha", "psgn", "meta"), outs, want):
+            assert torch.equal(_bits(got), _bits(ref)), f"{entry} {nm}"
+        patha, meta = outs[1], outs[3]
+        calls[entry] = calls.get(entry, 0) + 1
+        calls["second"] += int(((patha - 1 == seca) & (patha > 0)).sum())
+        calls["dup"] += int(meta[..., hybrid.M_DUP].sum())
+        on = patha > 0
+        calls["shared"] += int(((patha[:, None] == patha[None]) & on[:, None] & on[None]).sum() - on.sum())
+        return tuple(outs)
+
+    def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0, cpuct):
+        B, A, C = n.shape
+        K = patha.shape[0]
+        entry = "az_merge_round_dense" if A > hybrid.UNROLLED_MAX_A else "az_merge_round"
+        ref_planes = [t.clone() for t in (n, w, p, code, done, tval)]
+        best = [torch.empty(B, C) for _ in range(4)]
+        rc = getattr(lib.lib, entry)(
+            *(t.data_ptr() for t in (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best)),
+            B, A, C, K, slot0, cpuct, None,
+        )
+        assert rc == 0
+        ref_best = hybrid.merge_round(*ref_planes, pm, patha, psgn, meta2, slot0, cpuct)
+        names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc", "seca", "secc")
+        for nm, got, want in zip(names, [n, w, p, code, done, tval, *best], [*ref_planes, *ref_best]):
+            assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm} at slots {slot0}+"
+        calls[entry] = calls.get(entry, 0) + 1
+        calls["past_capacity"] += int(slot0 + K - 1 >= C)
+        return tuple(best)
+
+    def refresh2(n, w, p, code, cpuct):
+        best, entry = _emulated_refresh2(lib, n, w, p, code, cpuct)
+        calls[entry] = calls.get(entry, 0) + 1
+        return best
+
+    return SearchKernels(hybrid.descend, hybrid.merge, hybrid.refresh, descend_round, merge_round, refresh2)
+
+
+def _emulated_refresh2(lib, n, w, p, code, cpuct):
+    """The top-2 refresh kernel for A (``az_refresh2`` or
+    ``az_refresh2_dense``), asserted bit-equal to the plain version:
+    ``(top-2 planes, entry)``."""
+    B, A, C = n.shape
+    entry = "az_refresh2_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh2"
+    best = [torch.empty(B, C) for _ in range(4)]
+    rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
+    assert rc == 0
+    for nm, got, want in zip(("besta", "bestc", "seca", "secc"), best, hybrid.refresh2(n, w, p, code, cpuct)):
+        assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm}"
+    return tuple(best), entry
+
+
+@pytest.mark.parametrize(
+    "game,moves,cfg,model",
+    [
+        (ConnectFour(), 8, MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), "uniform"),
+        (ConnectFour(), 20, MCTSConfig(num_sims=16, max_depth=48, max_nodes=10, parallel_sims=2), "resnet"),
+        (Othello(), 20, MCTSConfig(num_sims=16, max_depth=80, parallel_sims=4), "resnet"),
+        (Othello(), 10, MCTSConfig(num_sims=12, max_depth=3, parallel_sims=2, cpuct=2.5), "resnet"),
+        (Gomoku(7), 10, MCTSConfig(num_sims=16, max_depth=48, parallel_sims=2), "uniform"),
+        (Gomoku(15), 9, MCTSConfig(num_sims=12, max_depth=64, parallel_sims=4), "uniform"),
+        (Hex(), 30, MCTSConfig(num_sims=16, max_depth=56, parallel_sims=4), "resnet"),
+        (Hex(), 12, MCTSConfig(num_sims=16, max_depth=56, max_nodes=10, parallel_sims=2), "uniform"),
+    ],
+    ids=["c4_K4", "c4_K2_resnet_max_nodes10", "othello_K4_resnet", "othello_K2_max_depth3",
+         "gomoku7_K2", "gomoku15_K4", "hex_K4_resnet", "hex_K2_max_nodes10"],
+)
+def test_emulated_round_kernels_bit_equal_plain(emulated, game, moves, cfg, model):
+    """Whole K>1 searches (40 games: a full descend block of 32 and a
+    ragged one) through the emulated round kernels, every call of the
+    game's round descend, the round merge and the top-2 refresh bit-equal to
+    the plain versions on the same planes, one launch of each per round
+    and one refresh; runner-up takes occur, and at K=4 duplicate
+    expansions and edges two descents of a round share; slots run past
+    the capacity with ``max_nodes``; the root counts equal the plain
+    rounds'."""
+    A = game.num_actions
+    apply_fn = make_uniform_model(game).apply_fn
+    if model == "resnet":
+        cells = 42 if isinstance(game, ConnectFour) else A - (1 if isinstance(game, Othello) else 0)
+        apply_fn = make_apply_fn(convert_az_resnet(
+            random_az_resnet_variables(A, 4, 1, cells=cells, seed=moves), dtype=torch.float32))
+    boards = torch_state(random_play_boards(game, 40, moves, seed=moves, freeze_done=False))
+    calls = {"second": 0, "dup": 0, "shared": 0, "past_capacity": 0}
+    counts = make_hybrid_root_fn(game, apply_fn, cfg, kernels=_checked_round_kernels(emulated, calls))(boards)
+    rounds = cfg.num_sims // cfg.parallel_sims
+    entry = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(game.flat_ops())]
+    dense = "_dense" if A > hybrid.UNROLLED_MAX_A else ""
+    assert {k: v for k, v in calls.items() if k.startswith("az_")} == {
+        entry: rounds, f"az_merge_round{dense}": rounds, f"az_refresh2{dense}": 1}
+    assert calls["second"] > 0
+    assert (calls["dup"] > 0 and calls["shared"] > 0) or cfg.parallel_sims < 3
+    assert (calls["past_capacity"] > 0) == (cfg.max_nodes is not None)
+    np.testing.assert_array_equal(counts, make_hybrid_root_fn(game, apply_fn, cfg, kernels=PLAIN)(boards))
+    live = ~game.terminal(boards)[0]
+    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
+
+
+@pytest.mark.parametrize("A", [7, 49, 65, 225])
+def test_emulated_refresh2_ties_illegal_and_lone_nodes(emulated, A):
+    """The top-2 refresh at Connect-Four's A (unrolled) and the dense A of
+    Hex, Othello and Gomoku 15, on synthetic planes with exact score ties,
+    illegal edges, an all-illegal node and a node with one legal edge:
+    bit-equal to the plain version, with no runner-up (-1) where no second
+    legal edge exists; there the dense branch's runner-up code is -1 and the
+    unrolled one keeps what its scan left."""
+    rng = np.random.default_rng(A)
+    B, C = 5, 37
+    n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
+    w = torch.as_tensor((rng.integers(-2, 3, (B, A, C)) / 2).astype(np.float32)) * (n > 0)
+    p = torch.full((B, A, C), 1.0 / A)
+    p[:, 3::5] = -1e30
+    p[1, :, 4] = -1e30                                   # an all-illegal node
+    p[2, :, 5] = -1e30
+    p[2, A - 1, 5] = 1.0                                 # a node with one legal edge, the last
+    code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
+    (best_a, best_c, sec_a, sec_c), entry = _emulated_refresh2(emulated, n, w, p, code, 1.0)
+    assert entry == ("az_refresh2_dense" if A > 8 else "az_refresh2")
+    assert best_a[1, 4] == 0 and sec_a[1, 4] == -1 and best_a[2, 5] == A - 1 and sec_a[2, 5] == -1
+    if A > 8:
+        assert sec_c[1, 4] == -1 and sec_c[2, 5] == -1
+    else:
+        assert sec_c[2, 5] == code[2, 0, 5]               # the scan's leftover: action 0's code
+    sq = torch.sqrt(n.sum(dim=1) + 1e-6)[:, None]
+    score = torch.where(p <= -5e29, -1e30, w / n.clamp(min=1) + p * sq / (1 + n))
+    assert ((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).any()   # exact ties
+    assert (sec_a >= 0).sum() > B * C - 4
