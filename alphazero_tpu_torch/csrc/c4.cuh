@@ -2,8 +2,9 @@
 // (hybrid.cu, fused.cu). They replace the Connect-Four FlatOps that the JAX
 // package traces into its Pallas kernels (alphazero_tpu/games/
 // connect_four.py FlatOps.step :201, valid :219, terminal :233) and the
-// per-node PUCT argmax of their refresh (mcts/hybrid.py _refresh :120,
-// mcts/fused.py refresh_best :220).
+// per-node PUCT argmax and top-2 of their refreshes (mcts/hybrid.py
+// _refresh :120 and _refresh2 :170, mcts/fused.py refresh_best :220 and its
+// K>1 branch :258).
 //
 // A board is two 64-bit bitboards: `mine` (+1, the player to move) and
 // `theirs` (-1), bit r*7 + c for row r (5 = top) and column c, row-major
@@ -130,6 +131,31 @@ __device__ __forceinline__ void refresh_node(const float (&n)[kMaxA],
   }
   *best_a = ba;
   *best_code = bc;
+}
+
+// The running top-2 of the PUCT scores of one node's edges, pushed in
+// action order with strict comparisons: best is the first maximum, second
+// the first maximum of the others (the dense branch's exclude-and-re-reduce
+// gives the same), -1e30 while there is none.
+struct Top2 {
+  float best, second, best_a, best_code, sec_a, sec_code;
+};
+
+__device__ __forceinline__ void top2_push(Top2& t, int a, float s, float code) {
+  if (a == 0) {
+    t = Top2{s, kNegInf, 0.f, code, -1.f, -1.f};
+  } else if (s > t.best) {
+    t.second = t.best;
+    t.sec_a = t.best_a;
+    t.sec_code = t.best_code;
+    t.best = s;
+    t.best_a = (float)a;
+    t.best_code = code;
+  } else if (s > t.second) {
+    t.second = s;
+    t.sec_a = (float)a;
+    t.sec_code = code;
+  }
 }
 
 }  // namespace

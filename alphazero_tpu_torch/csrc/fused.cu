@@ -1,17 +1,21 @@
 // Fused search kernels for Hopper (sm_90a): every simulation of a search in
 // one launch. One copy of the search (the device functions below) serves
-// two evaluators:
-// * az_fused: a constant (uniform) prior and value;
-// * az_fused_mlp: MLPNet, evaluated inside the kernel by mlp.cuh.
+// two evaluators, each at K=1 and in K>1 leaf-parallel rounds:
+// * az_fused, az_fused_rounds: a constant (uniform) prior and value;
+// * az_fused_mlp, az_fused_mlp_rounds: MLPNet, evaluated inside the kernel
+//   by mlp.cuh.
 //
 // Replaces the Pallas `kernel` of make_fused_root_fn
-// (alphazero_tpu/mcts/fused.py:156) on its K=1 path: sim_body (:282-426)
-// and refresh_best (:220-256), pallas_call at :670, with the uniform
-// evaluator (:380-383) or the in-kernel MLP (:384-388, the K3 eval_fn of
-// alphazero_tpu/models/nets.py:129), and the Connect-Four FlatOps traced
-// into it (here the helpers of c4.cuh). The plain PyTorch versions are
-// fused_search and fused_mlp_search in alphazero_tpu_torch/mcts/fused.py;
-// each kernel must agree with its plain version bit for bit.
+// (alphazero_tpu/mcts/fused.py:156), pallas_call at :670: on its K=1 path
+// sim_body (:282-426) and refresh_best (:220-256); on its K>1 path (K2)
+// round_body (:428-639) and refresh_best's top-2 branch (:258-277); with
+// the uniform evaluator (:380-383, :553-556) or the in-kernel MLP (:384-388,
+// :557-561, the K3 eval_fn of alphazero_tpu/models/nets.py:129), and the
+// Connect-Four FlatOps traced into it (here the helpers of c4.cuh). The
+// plain PyTorch versions are fused_search, fused_mlp_search,
+// fused_rounds_search and fused_mlp_rounds_search in
+// alphazero_tpu_torch/mcts/fused.py; each kernel must agree with its plain
+// version bit for bit.
 //
 // Semantics kept from the reference: root in slot 0 with the masked prior
 // and a terminal root never descended; the lockstep slot cursor s = i + 1
@@ -61,6 +65,42 @@
 // games at 989 TFLOP/s) plus its f32 head; its design does them on the
 // CUDA cores in a fixed order (see mlp.cuh), bound by instruction throughput.
 //
+// K>1 rounds (parallel_sims = K, round_body): round r's K descents run one
+// after another in the game's thread, each from the root, all on the tree as
+// it stood at the start of the round; then the K leaves are finished in k
+// order (descent k installs at slot r*K + 1 + k while that is < C, unless it
+// is a duplicate) and backed up. What differs from K=1:
+// * The top-2 is computed on arrival from the node's record, as the argmax
+//   is (c4.cuh's Top2: strict >, first max, no runner-up when the second
+//   score is <= -1e29). A descent takes the runner-up when one exists and
+//   the round has taken it fewer times than the best action; an expansion
+//   of an edge the round already took is a duplicate: it is evaluated and
+//   backs up its value, but installs nothing. (Here an install would write
+//   an identical fresh child into its own, otherwise burned, slot; the rule
+//   is the reference's, whose additive merge needs it.)
+// * The round's takes of each edge are exact small counts in a round
+//   record of 16 floats per node in a second scratch, f32[B, C, 16], that
+//   the wrapper allocates: lanes 0..6 the round's W sum of each edge,
+//   lanes 8..14 its takes. (The reference packs the takes base-(K+1) into
+//   one f32 lane, a layout trick; only its limit (K+1)^A < 2^24, K <= 9 at
+//   A = 7, is kept.) A node's round record is zeroed when it is made and
+//   along each path after each round.
+// * Rounding order: the JAX merge adds w + w_add once per edge, with w_add
+//   the round's terms mval_k * (-1)^d summed in k order from 0. Backing up
+//   each descent in turn would round otherwise wherever two paths share an
+//   edge (the root edges nearly always). So the backup walks path k up the
+//   parent links adding n += 1 (exact in any order) and its term to the
+//   edge's W sum in the round record; a second walk of every path adds each
+//   sum to W and zeroes it, so a later path through the same edge adds +0,
+//   which leaves W as it is (W is never -0).
+// * az_fused_rounds runs one thread per game, blocks of 128 games, as
+//   az_fused; az_fused_mlp_rounds runs K block evaluations per round, one
+//   per descent k in k order, every thread reaching every __syncthreads().
+//   Each owner thread keeps its K leaves (40 bytes each) in a local array,
+//   which ptxas places in the stack frame.
+// Their bound is as K1's: the same bytes in and out, and operations per
+// descent step (a top-2 scan instead of an argmax) times the steps.
+//
 // Arithmetic is bit-exact with the reference as in hybrid.cu: built with
 // --fmad=false, the PUCT score and the backup with explicit round-to-nearest
 // intrinsics, the uniform prior as __fdiv_rn(1, n_valid).
@@ -79,6 +119,9 @@ constexpr int kA = kCols;        // Connect-Four's 7 actions
 constexpr int kRec = 32;         // floats per node record
 constexpr int kN = 0, kW = 8, kP = 16, kCode = 24;  // row offsets
 constexpr int kDone = kN + 7, kTval = kW + 7, kLink = kP + 7;
+constexpr int kMaxRoundK = 9;    // descents per round: (K+1)^7 < 2^24 (kernels.FUSED_MAX_K)
+constexpr int kRnd = 16;         // floats per node of the round record
+constexpr int kSum = 0, kTaken = 8;  // its lanes: each edge's W sum, its takes
 
 // Where a simulation's descent ended.
 struct Leaf {
@@ -87,6 +130,7 @@ struct Leaf {
   int depth;              // edges walked
   int leaf;               // the terminal child's slot (term)
   bool exp, term;         // ended at an unexpanded edge / a terminal child
+  bool dup;               // exp at an edge this round already took (rounds)
 };
 
 // The root in slot 0 with the masked prior, no visits and no children.
@@ -107,22 +151,27 @@ __device__ __forceinline__ void init_root(float* T, const float* board, const fl
   T[kCode + 7] = 0.f;
 }
 
+// A node's edges from its record, into registers.
+__device__ __forceinline__ void load_edges(const float* R, float (&nv)[kMaxA], float (&wv)[kMaxA],
+                                           float (&pv)[kMaxA], float (&cv)[kMaxA]) {
+#pragma unroll
+  for (int a = 0; a < kMaxA; ++a) {
+    const bool edge = a < kA;
+    nv[a] = edge ? R[kN + a] : 0.f;
+    wv[a] = edge ? R[kW + a] : 0.f;
+    pv[a] = edge ? R[kP + a] : 0.f;
+    cv[a] = edge ? R[kCode + a] : 0.f;
+  }
+}
+
 // One descent from the root along the PUCT argmax.
 __device__ __forceinline__ Leaf descend(const float* T, uint64_t root_mine, uint64_t root_theirs,
                                         int max_depth, float cpuct) {
   Leaf L{root_mine, root_theirs, 0, 0, 0, -1, false, false};
   int node = 0;
   for (;;) {
-    const float* R = T + (size_t)node * kRec;
     float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
-#pragma unroll
-    for (int a = 0; a < kMaxA; ++a) {
-      const bool edge = a < kA;
-      nv[a] = edge ? R[kN + a] : 0.f;
-      wv[a] = edge ? R[kW + a] : 0.f;
-      pv[a] = edge ? R[kP + a] : 0.f;
-      cv[a] = edge ? R[kCode + a] : 0.f;
-    }
+    load_edges(T + (size_t)node * kRec, nv, wv, pv, cv);
     float af, code;
     refresh_node(nv, wv, pv, cv, kA, cpuct, &af, &code);
     const int a = (int)af;
@@ -200,6 +249,107 @@ __device__ __forceinline__ void backup(float* T, const Leaf& L, float v_leaf) {
   }
 }
 
+// One descent of a round from the root. At each node it takes the top-2
+// PUCT actions of the node's record, which no descent of the round has
+// changed, and the runner-up when one exists and the round has taken it
+// fewer times than the best action (round_body's use2 = has2 * (v2 < v1),
+// fused.py:494-495); it counts its take in the node's round record V.
+__device__ __forceinline__ Leaf descend_round(const float* T, float* V, uint64_t root_mine,
+                                              uint64_t root_theirs, int max_depth, float cpuct) {
+  Leaf L{root_mine, root_theirs, 0, 0, 0, -1, false, false, false};
+  int node = 0;
+  for (;;) {
+    float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
+    load_edges(T + (size_t)node * kRec, nv, wv, pv, cv);
+    float total = 0.f;
+#pragma unroll
+    for (int a = 0; a < kA; ++a) total = __fadd_rn(total, nv[a]);  // integers: exact
+    const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
+    Top2 t{};
+#pragma unroll
+    for (int a = 0; a < kA; ++a) top2_push(t, a, puct_score(nv[a], wv[a], pv[a], sq, cpuct), cv[a]);
+    float* taken = V + (size_t)node * kRnd + kTaken;
+    const bool use2 = t.second > -1e29f && taken[(int)t.sec_a] < taken[(int)t.best_a];
+    const int a = (int)(use2 ? t.sec_a : t.best_a);
+    const float code = use2 ? t.sec_code : t.best_code;
+    const float before = taken[a];
+    taken[a] = __fadd_rn(before, 1.f);
+    c4_step(L.mine, L.theirs, a);
+    L.last = node;
+    L.last_a = a;
+    L.depth += 1;
+    if (code < -1.5f) {  // terminal child: back up its value
+      L.term = true;
+      L.leaf = (int)(-2.f - code);
+      break;
+    }
+    if (code < -0.5f) {  // unexpanded edge: expand, unless the round took it before
+      L.exp = true;
+      L.dup = before > 0.5f;
+      break;
+    }
+    if (L.depth >= max_depth) break;  // cutoff: back up 0
+    node = (int)code;
+  }
+  return L;
+}
+
+__device__ __forceinline__ void zero_round_record(float* Vn) {
+  for (int a = 0; a < kA; ++a) {
+    Vn[kSum + a] = 0.f;
+    Vn[kTaken + a] = 0.f;
+  }
+}
+
+// finish_leaf for descent k of round r, at slot s = r*K + 1 + k; an install
+// also zeroes the new node's round record. A duplicate is finished as an
+// expansion past the last slot: its value without an install.
+__device__ __forceinline__ float finish_round_leaf(float* T, float* V, const Leaf& L, int s, int C,
+                                                   const float (&pm)[kA], float v_nn) {
+  if (L.dup) s = C;
+  if (L.exp && s < C) zero_round_record(V + (size_t)s * kRnd);
+  return finish_leaf(T, L, s, C, pm, v_nn);
+}
+
+// A round's backup of one descent, walking its path as backup does: n += 1
+// on each edge, and the descent's term mval * (-1)^d added to the edge's W
+// sum in the round record, so each sum is taken in k order from 0.
+__device__ __forceinline__ void round_backup(float* T, float* V, const Leaf& L, float v_leaf) {
+  const float psign = (L.depth & 1) ? -1.f : 1.f;
+  const float mval = __fmul_rn(v_leaf, psign);
+  float sign = -psign;
+  int nd = L.last, a = L.last_a;
+  for (;;) {
+    float* R = T + (size_t)nd * kRec;
+    float* sum = V + (size_t)nd * kRnd + kSum;
+    R[kN + a] = __fadd_rn(R[kN + a], 1.f);
+    sum[a] = __fadd_rn(sum[a], __fmul_rn(mval, sign));
+    if (nd == 0) break;
+    const int link = (int)R[kLink];
+    nd = link >> 3;
+    a = link & 7;
+    sign = -sign;
+  }
+}
+
+// The end of a round along one descent's path: each edge's W sum added to
+// its W and zeroed with the edge's takes. A later path through the same
+// edge adds the zeroed sum, +0, which leaves W as it is.
+__device__ __forceinline__ void round_apply(float* T, float* V, const Leaf& L) {
+  int nd = L.last, a = L.last_a;
+  for (;;) {
+    float* R = T + (size_t)nd * kRec;
+    float* Vn = V + (size_t)nd * kRnd;
+    R[kW + a] = __fadd_rn(R[kW + a], Vn[kSum + a]);
+    Vn[kSum + a] = 0.f;
+    Vn[kTaken + a] = 0.f;
+    if (nd == 0) break;
+    const int link = (int)R[kLink];
+    nd = link >> 3;
+    a = link & 7;
+  }
+}
+
 __device__ __forceinline__ void write_root(const float* T, float* counts, float* rootw) {
   for (int a = 0; a < kA; ++a) {
     counts[a] = T[kN + a];
@@ -263,6 +413,84 @@ __global__ void fused_mlp_kernel(const float* __restrict__ boards,
   if (owner) write_root(T, counts + (size_t)b * kA, rootw + (size_t)b * kA);
 }
 
+__global__ void fused_rounds_kernel(const float* __restrict__ boards,
+                                    const float* __restrict__ priors,
+                                    float* __restrict__ tree,
+                                    float* __restrict__ rnd,
+                                    float* __restrict__ counts,
+                                    float* __restrict__ rootw,
+                                    int B, int C, int K, int rounds, int max_depth,
+                                    float cpuct, float uval) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;  // this kernel has no barrier
+  float* T = tree + (size_t)b * C * kRec;
+  float* V = rnd + (size_t)b * C * kRnd;
+  uint64_t root_mine, root_theirs;
+  bool rdone;
+  init_root(T, boards + (size_t)b * kCells, priors + (size_t)b * kA, root_mine, root_theirs, rdone);
+  zero_round_record(V);
+  for (int r = 0; r < rounds && !rdone; ++r) {
+    Leaf L[kMaxRoundK];
+    for (int k = 0; k < K; ++k) L[k] = descend_round(T, V, root_mine, root_theirs, max_depth, cpuct);
+    for (int k = 0; k < K; ++k) {
+      float pm[kA];
+      if (L[k].exp) uniform_prior(L[k], pm);
+      round_backup(T, V, L[k], finish_round_leaf(T, V, L[k], r * K + 1 + k, C, pm, uval));
+    }
+    for (int k = 0; k < K; ++k) round_apply(T, V, L[k]);
+  }
+  write_root(T, counts + (size_t)b * kA, rootw + (size_t)b * kA);
+}
+
+__global__ void fused_mlp_rounds_kernel(const float* __restrict__ boards,
+                                        const float* __restrict__ priors,
+                                        MlpWeights m,
+                                        float* __restrict__ tree,
+                                        float* __restrict__ rnd,
+                                        float* __restrict__ counts,
+                                        float* __restrict__ rootw,
+                                        int B, int C, int K, int rounds, int max_depth,
+                                        float cpuct) {
+  __shared__ __nv_bfloat16 act[2][kG][kMaxWidth];
+  __shared__ float out[kG][kHead];
+  const int t = threadIdx.x;
+  const int b = blockIdx.x * kG + t;
+  const bool owner = t < kG && b < B;  // the thread that walks game b
+  float* T = owner ? tree + (size_t)b * C * kRec : nullptr;
+  float* V = owner ? rnd + (size_t)b * C * kRnd : nullptr;
+  uint64_t root_mine = 0, root_theirs = 0;
+  bool rdone = true;
+  if (owner) {
+    init_root(T, boards + (size_t)b * kCells, priors + (size_t)b * kA, root_mine, root_theirs,
+              rdone);
+    zero_round_record(V);
+  }
+  const bool live = owner && !rdone;
+  for (int r = 0; r < rounds; ++r) {
+    Leaf L[kMaxRoundK];
+    if (t < kG) {
+      for (int k = 0; k < K; ++k) {
+        L[k] = Leaf{root_mine, root_theirs, 0, 0, 0, -1, false, false, false};
+        if (live) L[k] = descend_round(T, V, root_mine, root_theirs, max_depth, cpuct);
+      }
+    }
+    for (int k = 0; k < K; ++k) {  // descent k's 32 leaves, evaluated together
+      if (t < kG) mlp_input(act[0][t], L[k].mine, L[k].theirs);
+      __syncthreads();
+      mlp_block_eval(m, act, out);
+      if (live) {
+        float pm[kA], v_nn = 0.f;
+        if (L[k].exp) mlp_prior(out[t], L[k].mine, L[k].theirs, pm, &v_nn);
+        round_backup(T, V, L[k], finish_round_leaf(T, V, L[k], r * K + 1 + k, C, pm, v_nn));
+      }
+    }
+    if (live) {
+      for (int k = 0; k < K; ++k) round_apply(T, V, L[k]);
+    }
+  }
+  if (owner) write_root(T, counts + (size_t)b * kA, rootw + (size_t)b * kA);
+}
+
 // The evaluator alone on a batch of boards (for checking it against its
 // plain version): logits, masked prior and value of each board.
 __global__ void mlp_eval_kernel(const float* __restrict__ boards, MlpWeights m,
@@ -321,6 +549,31 @@ int az_fused_mlp(const float* boards, const float* priors, const void* const* se
                      (cudaStream_t)stream>>>(boards, priors, m, tree, counts,
                                              rootw, B, C, num_sims, max_depth,
                                              cpuct);
+  return (int)cudaGetLastError();
+}
+
+// K > 1 leaf-parallel rounds: `rnd` is the round-record scratch, f32[B, C, 16].
+int az_fused_rounds(const float* boards, const float* priors, float* tree, float* rnd,
+                    float* counts, float* rootw, int B, int C, int K, int num_sims,
+                    int max_depth, float cpuct, float uval, void* stream) {
+  if (K < 1 || K > kMaxRoundK || num_sims % K != 0) return (int)cudaErrorInvalidValue;
+  fused_rounds_kernel<<<blocks_for(B, kThreads), kThreads, 0,
+                        (cudaStream_t)stream>>>(boards, priors, tree, rnd, counts, rootw, B,
+                                                C, K, num_sims / K, max_depth, cpuct, uval);
+  return (int)cudaGetLastError();
+}
+
+int az_fused_mlp_rounds(const float* boards, const float* priors, const void* const* sections,
+                        float* tree, float* rnd, float* counts, float* rootw, int B, int C,
+                        int K, int num_sims, int max_depth, int n_hidden, int h0, int h1,
+                        int h2, int h3, float cpuct, void* stream) {
+  if (K < 1 || K > kMaxRoundK || num_sims % K != 0) return (int)cudaErrorInvalidValue;
+  const int hidden[kMaxHidden] = {h0, h1, h2, h3};
+  const MlpWeights m = mlp_weights(sections, n_hidden, hidden);
+  fused_mlp_rounds_kernel<<<blocks_for(B, kG), kMlpThreads, 0,
+                            (cudaStream_t)stream>>>(boards, priors, m, tree, rnd, counts,
+                                                    rootw, B, C, K, num_sims / K, max_depth,
+                                                    cpuct);
   return (int)cudaGetLastError();
 }
 

@@ -105,7 +105,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "c4.cuh"       // c4_step, refresh_node and the constants
+#include "c4.cuh"       // c4_step, refresh_node, Top2 and the constants
 #include "gomoku.cuh"   // gomoku_step
 #include "hex.cuh"      // hex_step
 #include "othello.cuh"  // othello_step
@@ -542,31 +542,6 @@ __global__ void descend_round_kernel(const float* __restrict__ besta,
     m[5] = exp_node;
     m[6] = exp_action;
     m[7] = dup;
-  }
-}
-
-// The running top-2 of the PUCT scores of one node's edges, pushed in
-// action order with strict comparisons: best is the first maximum, second
-// the first maximum of the others (the dense branch's exclude-and-re-reduce
-// gives the same), -1e30 while there is none.
-struct Top2 {
-  float best, second, best_a, best_code, sec_a, sec_code;
-};
-
-__device__ __forceinline__ void top2_push(Top2& t, int a, float s, float code) {
-  if (a == 0) {
-    t = Top2{s, kNegInf, 0.f, code, -1.f, -1.f};
-  } else if (s > t.best) {
-    t.second = t.best;
-    t.sec_a = t.best_a;
-    t.sec_code = t.best_code;
-    t.best = s;
-    t.best_a = (float)a;
-    t.best_code = code;
-  } else if (s > t.second) {
-    t.second = s;
-    t.sec_a = (float)a;
-    t.sec_code = code;
   }
 }
 

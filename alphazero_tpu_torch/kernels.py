@@ -8,7 +8,8 @@ and refresh (unrolled for A <= 8, dense above), and the same three for
 K>1 leaf-parallel rounds (``descend_round`` per game, ``merge_round`` and
 the top-2 ``refresh2``),
 ``fused.cu`` the fused search kernels (the uniform evaluator's, and the
-MLP's with the evaluator of ``mlp.cuh``); both include the Connect-Four and
+MLP's with the evaluator of ``mlp.cuh``, each at K=1 and in K>1
+leaf-parallel rounds); both include the Connect-Four and
 PUCT helpers of ``c4.cuh``. At first use the
 sources are compiled with ``nvcc`` for ``sm_90a``, one process per source,
 all started together, and linked into one shared library with a plain C
@@ -32,7 +33,9 @@ kernels; above, ``merge_dense`` and ``refresh_dense``). ``descend_round``,
 ``merge_round`` and ``refresh2`` route the same way (to
 ``descend_round_othello`` etc., ``merge_round_dense``,
 ``refresh2_dense``); they take 1 <= K <= ``MAX_ROUND_K`` descents per
-round. Each wrapper counts the launches of its own kernel in a plain
+round. ``fused`` and ``fused_mlp`` run a whole Connect-Four search in one
+launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the same in rounds
+of 1 <= K <= ``FUSED_MAX_K`` descents. Each wrapper counts the launches of its own kernel in a plain
 integer attribute, ``descend.launches`` etc.; ``reset_launch_counts()``
 zeroes them.
 """
@@ -94,6 +97,8 @@ _SIGNATURES = {
     "az_refresh2_dense": ([_VP] * 8 + [_I32] * 3 + [_F32, _VP], _I32),
     "az_fused": ([_VP] * 5 + [_I32] * 4 + [_F32] * 2 + [_VP], _I32),
     "az_fused_mlp": ([_VP] * 6 + [_I32] * 9 + [_F32, _VP], _I32),
+    "az_fused_rounds": ([_VP] * 6 + [_I32] * 5 + [_F32] * 2 + [_VP], _I32),
+    "az_fused_mlp_rounds": ([_VP] * 7 + [_I32] * 10 + [_F32, _VP], _I32),
     "az_mlp_eval": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
 }
 
@@ -586,32 +591,77 @@ def refresh2_dense(n, w, p, code, cpuct: float):
     return out
 
 
+FUSED_MAX_K = 9   # csrc/fused.cu kMaxRoundK: (K+1)^7 < 2^24, the JAX package's limit at A=7
+
+
+def _fused_buffers(name: str, boards, priors, nodes: int, rounds: bool) -> tuple:
+    """The checked addresses of Connect-Four boards f32[B, 42] and masked
+    root priors f32[B, 7], and a fused launch's fresh scratch and outputs:
+    ``(B, ptrs, scratch, counts, rootw)``, ``scratch`` the tree f32[B, C,
+    32] and, for rounds, the round records f32[B, C, 16]."""
+    B = boards.shape[0]
+    A = 7   # Connect-Four's actions, the kernels' helpers' game
+    if B == 0:
+        raise ValueError(f"{name} kernel needs B > 0")
+    if nodes < 1:
+        raise ValueError(f"{name} kernel needs nodes >= 1, got {nodes}")
+    ptrs = [_check("boards", boards, (B, 42)), _check("priors", priors, (B, A))]
+    dev = boards.device
+    scratch = [torch.empty((B, nodes, 32), device=dev)]
+    if rounds:
+        scratch.append(torch.empty((B, nodes, 16), device=dev))
+    return B, ptrs, scratch, torch.empty((B, A), device=dev), torch.empty((B, A), device=dev)
+
+
+def _check_rounds(name: str, num_sims: int, K: int) -> None:
+    if not 1 <= K <= FUSED_MAX_K:
+        raise ValueError(f"{name} takes 1 <= K <= {FUSED_MAX_K} descents per round, got {K}")
+    if num_sims % K != 0:
+        raise ValueError(f"{name}: num_sims={num_sims} must be divisible by K={K}")
+
+
+def _search_cfg(num_sims: int, nodes: int, max_depth: int, cpuct: float, K: int = 1) -> MCTSConfig:
+    return MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct,
+                      parallel_sims=K)
+
+
 def fused(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float, uval: float):
     """``mcts.fused.fused_search``: a whole uniform-prior search of
     Connect-Four boards f32[B, 42] from masked root priors f32[B, 7] in
     one launch. Returns ``(counts, rootw) f32[B, 7]``."""
     if _on_cpu(boards, priors):
-        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct)
-        return _plain_fused.fused_search(boards, priors, cfg, uval)
+        return _plain_fused.fused_search(boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct),
+                                         uval)
     lib = library()
-    B = boards.shape[0]
-    A = 7   # Connect-Four's actions, the kernel's helpers' game
-    if B == 0:
-        raise ValueError("fused kernel needs B > 0")
-    if nodes < 1:
-        raise ValueError(f"fused kernel needs nodes >= 1, got {nodes}")
-    ptrs = [_check("boards", boards, (B, 42)), _check("priors", priors, (B, A))]
-    dev = boards.device
-    tree = torch.empty((B, nodes, 32), device=dev)   # the kernel's tree scratch
-    counts = torch.empty((B, A), device=dev)
-    rootw = torch.empty((B, A), device=dev)
+    B, ptrs, scratch, counts, rootw = _fused_buffers("fused", boards, priors, nodes, False)
     rc = lib.lib.az_fused(
-        *ptrs, tree.data_ptr(), counts.data_ptr(), rootw.data_ptr(),
+        *ptrs, *(t.data_ptr() for t in (*scratch, counts, rootw)),
         B, int(nodes), int(num_sims), int(max_depth), float(cpuct), float(uval),
-        _stream(dev),
+        _stream(boards.device),
     )
     lib.check(rc, "fused")
     fused.launches += 1
+    return counts, rootw
+
+
+def fused_rounds(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float,
+                 uval: float, K: int):
+    """``mcts.fused.fused_rounds_search``: ``fused`` in ``num_sims // K``
+    rounds of K leaf-parallel descents, 1 <= K <= ``FUSED_MAX_K``, in one
+    launch. Returns ``(counts, rootw) f32[B, 7]``."""
+    _check_rounds("fused_rounds", num_sims, K)
+    if _on_cpu(boards, priors):
+        return _plain_fused.fused_rounds_search(
+            boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct, K), uval)
+    lib = library()
+    B, ptrs, scratch, counts, rootw = _fused_buffers("fused_rounds", boards, priors, nodes, True)
+    rc = lib.lib.az_fused_rounds(
+        *ptrs, *(t.data_ptr() for t in (*scratch, counts, rootw)),
+        B, int(nodes), int(K), int(num_sims), int(max_depth), float(cpuct), float(uval),
+        _stream(boards.device),
+    )
+    lib.check(rc, "fused_rounds")
+    fused_rounds.launches += 1
     return counts, rootw
 
 
@@ -640,28 +690,42 @@ def fused_mlp(boards, priors, weights, num_sims: int, nodes: int, max_depth: int
     ``weights`` (``MLPKernelWeights``) evaluated inside the kernel, in one
     launch. Returns ``(counts, rootw) f32[B, 7]``."""
     on_cpu = _on_cpu(boards, priors, *weights.sections())
-    mlp_args = _mlp_args(weights)
+    sections, *widths = _mlp_args(weights)
     if on_cpu:
-        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct)
-        return _plain_fused.fused_mlp_search(boards, priors, cfg, weights)
+        return _plain_fused.fused_mlp_search(
+            boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct), weights)
     lib = library()
-    B = boards.shape[0]
-    if B == 0:
-        raise ValueError("fused_mlp kernel needs B > 0")
-    if nodes < 1:
-        raise ValueError(f"fused_mlp kernel needs nodes >= 1, got {nodes}")
-    ptrs = [_check("boards", boards, (B, 42)), _check("priors", priors, (B, 7))]
-    dev = boards.device
-    tree = torch.empty((B, nodes, 32), device=dev)   # the kernel's tree scratch
-    counts = torch.empty((B, 7), device=dev)
-    rootw = torch.empty((B, 7), device=dev)
-    sections, *widths = mlp_args
+    B, ptrs, scratch, counts, rootw = _fused_buffers("fused_mlp", boards, priors, nodes, False)
     rc = lib.lib.az_fused_mlp(
-        *ptrs, sections, tree.data_ptr(), counts.data_ptr(), rootw.data_ptr(),
-        B, int(nodes), int(num_sims), int(max_depth), *widths, float(cpuct), _stream(dev),
+        *ptrs, sections, *(t.data_ptr() for t in (*scratch, counts, rootw)),
+        B, int(nodes), int(num_sims), int(max_depth), *widths, float(cpuct),
+        _stream(boards.device),
     )
     lib.check(rc, "fused_mlp")
     fused_mlp.launches += 1
+    return counts, rootw
+
+
+def fused_mlp_rounds(boards, priors, weights, num_sims: int, nodes: int, max_depth: int,
+                     cpuct: float, K: int):
+    """``mcts.fused.fused_mlp_rounds_search``: ``fused_mlp`` in
+    ``num_sims // K`` rounds of K leaf-parallel descents, 1 <= K <=
+    ``FUSED_MAX_K``, in one launch. Returns ``(counts, rootw) f32[B, 7]``."""
+    _check_rounds("fused_mlp_rounds", num_sims, K)
+    on_cpu = _on_cpu(boards, priors, *weights.sections())
+    sections, *widths = _mlp_args(weights)
+    if on_cpu:
+        return _plain_fused.fused_mlp_rounds_search(
+            boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct, K), weights)
+    lib = library()
+    B, ptrs, scratch, counts, rootw = _fused_buffers("fused_mlp_rounds", boards, priors, nodes, True)
+    rc = lib.lib.az_fused_mlp_rounds(
+        *ptrs, sections, *(t.data_ptr() for t in (*scratch, counts, rootw)),
+        B, int(nodes), int(K), int(num_sims), int(max_depth), *widths, float(cpuct),
+        _stream(boards.device),
+    )
+    lib.check(rc, "fused_mlp_rounds")
+    fused_mlp_rounds.launches += 1
     return counts, rootw
 
 
@@ -698,7 +762,7 @@ KERNELS = _plain.SearchKernels(descend, merge, refresh, descend_round, merge_rou
 _ALL = (descend, descend_othello, descend_gomoku, descend_hex, merge, merge_dense, refresh,
         refresh_dense, fused, fused_mlp, mlp_eval, descend_round, descend_round_othello,
         descend_round_gomoku, descend_round_hex, merge_round, merge_round_dense, refresh2,
-        refresh2_dense)
+        refresh2_dense, fused_rounds, fused_mlp_rounds)
 
 
 def launch_counts() -> dict:

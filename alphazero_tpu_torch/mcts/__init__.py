@@ -1,5 +1,7 @@
 from alphazero_tpu_torch.mcts.fused import (
+    fused_mlp_rounds_search,
     fused_mlp_search,
+    fused_rounds_search,
     fused_search,
     make_fused_root_fn,
     mlp_eval,
@@ -10,6 +12,8 @@ __all__ = [
     "make_fused_root_fn",
     "fused_search",
     "fused_mlp_search",
+    "fused_rounds_search",
+    "fused_mlp_rounds_search",
     "mlp_eval",
     "make_hybrid_root_fn",
     "SearchKernels",

@@ -1,9 +1,9 @@
 """Fused search — every simulation of a search in one kernel launch.
 
-Counterpart of ``alphazero_tpu/mcts/fused.py`` on its K=1 path. A model the
-kernel can evaluate itself needs no model call between simulations, so the
-whole search — descent, expansion, evaluation, backup, PUCT argmax — runs
-in one CUDA kernel (``csrc/fused.cu``):
+Counterpart of ``alphazero_tpu/mcts/fused.py``. A model the kernel can
+evaluate itself needs no model call between simulations, so the whole
+search — descent, expansion, evaluation, backup, PUCT argmax — runs in one
+CUDA kernel (``csrc/fused.cu``):
 
 * the uniform model (``apply_fn.uniform_value``): the prior is uniform over
   the legal moves and the value a constant — ``az_fused``, launched by
@@ -13,21 +13,28 @@ in one CUDA kernel (``csrc/fused.cu``):
   (K3, ``csrc/mlp.cuh``) — ``az_fused_mlp``, launched by
   ``kernels.fused_mlp``.
 
+With ``parallel_sims = K > 1`` the search runs ``num_sims // K`` rounds of
+K leaf-parallel descents (K2, the JAX kernel's ``round_body``):
+``az_fused_rounds`` and ``az_fused_mlp_rounds``, launched by
+``kernels.fused_rounds`` and ``kernels.fused_mlp_rounds``. The JAX
+package's limits hold: ``num_sims`` divisible by K, and ``(K+1)**A <
+2**24`` (K <= 9 at Connect-Four's 7 actions).
+
 The masked root prior (with optional injected Dirichlet noise) is computed
 outside the kernel with the model's ``apply_fn``, as the JAX package does.
 
-The plain PyTorch versions of the kernels are ``fused_search`` and
-``fused_mlp_search`` below: the hybrid engine's plain loop
-(``mcts.hybrid.run_search`` on the plain descend/merge/refresh) with the
-uniform evaluator or with ``mlp_eval``, whose arithmetic is the kernel's,
-op for op in the kernel's order. The kernel wrappers run them for CPU
-tensors; root counts and root W are bit-identical either way, up to the
-last bit of ``exp`` and ``tanh`` where two libraries compute them.
+The plain PyTorch versions of the kernels are ``fused_search``,
+``fused_mlp_search``, ``fused_rounds_search`` and
+``fused_mlp_rounds_search`` below: the hybrid engine's plain loops
+(``mcts.hybrid.run_search`` and ``run_rounds`` on the plain kernels) with
+the uniform evaluator or with ``mlp_eval``, whose arithmetic is the
+kernel's, op for op in the kernel's order. The kernel wrappers run them
+for CPU tensors; root counts and root W are bit-identical either way, up
+to the last bit of ``exp`` and ``tanh`` where two libraries compute them.
 
-Not ported (ROADMAP): the K>1 rounds (K2), depth-sorted blocking
-(``run_kernel_sorted``, whose 8192-game threshold was measured on another
-device), ``mesh`` sharding, MLPs beyond the kernel's widths, and games
-other than Connect-Four.
+Not ported (ROADMAP): depth-sorted blocking (``run_kernel_sorted``, whose
+8192-game threshold was measured on another device), ``mesh`` sharding,
+MLPs beyond the kernel's widths, and games other than Connect-Four.
 """
 
 from __future__ import annotations
@@ -56,6 +63,19 @@ def fused_search(
     n, w = hybrid.run_search(
         FlatOps(), boards, p_masked, cfg, uniform_evaluator(boards.shape[0], uval, boards.device),
         hybrid.PLAIN,
+    )
+    return n[:, :, 0], w[:, :, 0]
+
+
+def fused_rounds_search(
+    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, uval: float
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``az_fused_rounds``: ``fused_search`` in
+    ``cfg.parallel_sims = K`` leaf-parallel rounds (``hybrid.run_rounds``,
+    which evaluates the K leaf boards of every game at once)."""
+    batch = cfg.parallel_sims * boards.shape[0]
+    n, w = hybrid.run_rounds(
+        FlatOps(), boards, p_masked, cfg, uniform_evaluator(batch, uval, boards.device), hybrid.PLAIN
     )
     return n[:, :, 0], w[:, :, 0]
 
@@ -140,6 +160,17 @@ def fused_mlp_search(
     return n[:, :, 0], w[:, :, 0]
 
 
+def fused_mlp_rounds_search(
+    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, weights
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of ``az_fused_mlp_rounds``: ``fused_mlp_search`` in
+    ``cfg.parallel_sims`` leaf-parallel rounds (``hybrid.run_rounds``)."""
+    n, w = hybrid.run_rounds(
+        FlatOps(), boards, p_masked, cfg, lambda bd, vm: mlp_eval(bd, vm, weights), hybrid.PLAIN
+    )
+    return n[:, :, 0], w[:, :, 0]
+
+
 def check_mlp_widths(hidden: Sequence[int]) -> None:
     """Raise for an MLP the kernel does not take."""
     if not 1 <= len(hidden) <= MLP_MAX_HIDDEN or not all(1 <= h <= MLP_MAX_WIDTH for h in hidden):
@@ -158,12 +189,15 @@ def make_fused_root_fn(
     engine: a model with neither ``uniform_value`` nor a
     ``kernel_eval_factory``, a nonzero cutoff heuristic, A > 16 or no flat
     ops (the JAX package's grounds). A model with both takes its in-kernel
-    evaluator, as in the JAX package.
+    evaluator, as in the JAX package. ``parallel_sims = K > 1`` raises
+    ``ValueError`` where the JAX package does: ``num_sims`` not divisible
+    by K, or ``(K+1)**A >= 2**24``.
 
     ``kernel`` defaults to ``alphazero_tpu_torch.kernels.fused_mlp`` for a
     model with a ``kernel_eval_factory`` and to ``kernels.fused`` for the
-    uniform model (the CUDA kernels for CUDA tensors, ``fused_mlp_search``
-    and ``fused_search`` for CPU tensors)."""
+    uniform model, and at K > 1 to ``kernels.fused_mlp_rounds`` and
+    ``kernels.fused_rounds``, which take K as their last argument (the
+    CUDA kernels for CUDA tensors, the plain versions for CPU tensors)."""
     uval = getattr(apply_fn, "uniform_value", None)
     eval_factory = getattr(apply_fn, "kernel_eval_factory", None)
     if uval is None and eval_factory is None:
@@ -175,11 +209,15 @@ def make_fused_root_fn(
     flat_ops_factory = getattr(game, "flat_ops", None)
     if flat_ops_factory is None:
         return None
-    if int(getattr(cfg, "parallel_sims", 1) or 1) > 1:
-        raise NotImplementedError(
-            "parallel_sims > 1 needs the fused K>1 rounds "
-            "(ROADMAP queue 2, K2), not yet ported"
-        )
+    K = int(getattr(cfg, "parallel_sims", 1) or 1)
+    if K > 1:
+        if cfg.num_sims % K != 0:
+            raise ValueError(f"num_sims={cfg.num_sims} must be divisible by parallel_sims={K}")
+        if (K + 1) ** game.num_actions >= 1 << 24:
+            raise ValueError(
+                f"parallel_sims={K} too large for {game.num_actions} actions "
+                "(needs (K+1)^A < 2^24)"
+            )
     if game.name != "connect_four":
         raise NotImplementedError(
             f"the fused kernel's game helpers are Connect-Four's; {game.name} "
@@ -187,21 +225,26 @@ def make_fused_root_fn(
         )
     ops = flat_ops_factory()
     sims, nodes, depth, cpuct = cfg.num_sims, cfg.nodes, cfg.max_depth, float(cfg.cpuct)
+    rounds = (K,) if K > 1 else ()
     if eval_factory is not None:
         weights = eval_factory(ops)
         check_mlp_widths(weights.hidden)
         if kernel is None:
-            from alphazero_tpu_torch.kernels import fused_mlp as kernel
+            from alphazero_tpu_torch import kernels
+
+            kernel = kernels.fused_mlp_rounds if rounds else kernels.fused_mlp
 
         def search(boards, p_masked):
-            return kernel(boards, p_masked, weights, sims, nodes, depth, cpuct)
+            return kernel(boards, p_masked, weights, sims, nodes, depth, cpuct, *rounds)
     else:
         if kernel is None:
-            from alphazero_tpu_torch.kernels import fused as kernel
+            from alphazero_tpu_torch import kernels
+
+            kernel = kernels.fused_rounds if rounds else kernels.fused
         uval = float(uval)
 
         def search(boards, p_masked):
-            return kernel(boards, p_masked, sims, nodes, depth, cpuct, uval)
+            return kernel(boards, p_masked, sims, nodes, depth, cpuct, uval, *rounds)
 
     def root_counts(root_state, dirichlet: Optional[torch.Tensor] = None) -> torch.Tensor:
         boards = ops.from_state(root_state)

@@ -4,8 +4,9 @@
 Drives the port's self-play paths — the steady-state Connect-Four actor on
 the hybrid engine with an AZResNet-64x5, on the fused kernel with the
 uniform model, and on the fused kernel with an MLPNet (256, 256) evaluated
-inside it; then Othello, Gomoku and Hex on the hybrid engine, and the
-hybrid engine's K=4 leaf-parallel rounds — on one CUDA card, in phases:
+inside it; then Othello, Gomoku and Hex on the hybrid engine, the hybrid
+engine's K=4 leaf-parallel rounds, and the fused engine's K>1 rounds for
+the uniform model and the MLP — on one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``)
@@ -110,7 +111,27 @@ hybrid engine's K=4 leaf-parallel rounds — on one CUDA card, in phases:
            engine bench's ``oth_uniform_B4096_100sims_K4``; (e) one
            Connect-Four AZResNet-64x5 search (B=4096) and (f) one Gomoku 15
            and one Hex search (B=1024) at K=4 through the kernels and the
-           plain versions, identical counts.
+           plain versions, identical counts;
+12. fused rounds: the fused engine's ``parallel_sims=K`` rounds (K2):
+           (a) ``fused_rounds`` against ``fused_rounds_search`` on random
+           roots (B=4096, 100 sims; 99 at K=9) at K = 2, 4, 9 and uniform
+           values 0 and 0.3, and on the K=4 uniform actor's own roots at
+           B=65536 (timed in turns: the numbers of the kernels line): counts
+           and root W bit-equal; (b) ``fused_mlp_rounds`` against
+           ``fused_mlp_rounds_search``, MLPNet (256, 256), B=4096, K=4, 100
+           sims, bit-equal and timed, with the library forward of a round's
+           K*B leaves once per round; (c) the Connect-Four entry of
+           ``tests/torch_round_goldens.json`` through ``fused_rounds`` in one
+           launch; (d) the K=4 fused and hybrid routes on the actors' roots:
+           uniform counts equal, MLP counts within the bound of 7(d); (e) the
+           headline bench's uniform actor (B=65536, 100 sims, max_depth 48,
+           temp_threshold 15) and the MLP actor (B=4096) at K=4, exactly one
+           fused launch per step, ms/step beside phases 6's and 7's K=1
+           actors, env-steps/s, peak memory and one profiled step each; (f)
+           ``bench_k.head_to_head`` at ``bench_k.py``'s defaults (1024 games,
+           100 sims, 2 seeds, temp_moves 8) for K=2 and K=4 against K=1: every
+           game ends and is counted once; W/L/D and the Elo difference with
+           its 95% interval are printed, not gated.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -179,6 +200,10 @@ HEX_MLP_HIDDEN = (256, 256)   # the Hex mlp preset: model, batch, sims
 HEX_MLP_B, HEX_MLP_SIMS, HEX_MLP_STEPS = 256, 50, 3
 ROUND_K = 4               # phase 11: parallel_sims, leaf-parallel descents per round
 ROUND_WARM = 6            # plain rounds before the round kernels' planes are captured
+FUSED_ROUND_KS = (2, 4, 9)    # phase 12(a): K of the fused rounds held against plain ...
+FUSED_ROUND_VALUES = (0.0, 0.3)   # ... at the uniform value 0 (integer W) and 0.3
+BENCH_K_GAMES, BENCH_K_SIMS, BENCH_K_SEEDS, BENCH_K_TEMP_MOVES = 1024, 100, 2, 8   # bench_k.py defaults
+BENCH_K_KS = (2, 4)
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -200,6 +225,8 @@ SOURCE = {
     "merge_round_dense": "alphazero_tpu_torch/csrc/hybrid.cu",
     "refresh2": "alphazero_tpu_torch/csrc/hybrid.cu",
     "refresh2_dense": "alphazero_tpu_torch/csrc/hybrid.cu",
+    "fused_rounds": "alphazero_tpu_torch/csrc/fused.cu",
+    "fused_mlp_rounds": "alphazero_tpu_torch/csrc/fused.cu",   # with its evaluator, csrc/mlp.cuh
 }
 REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
@@ -223,6 +250,8 @@ REPLACES = {
     "merge_round_dense": "alphazero_tpu/mcts/hybrid.py:579",   # + _refresh2's dense branch :210
     "refresh2": "alphazero_tpu/mcts/hybrid.py:170",   # _refresh2, seeding at :874
     "refresh2_dense": "alphazero_tpu/mcts/hybrid.py:210",   # its dense branch, seeding at :874
+    "fused_rounds": "alphazero_tpu/mcts/fused.py:428",   # kernel, K>1 round_body (+ top-2 :258)
+    "fused_mlp_rounds": "alphazero_tpu/mcts/fused.py:428 + alphazero_tpu/models/nets.py:129",
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
@@ -506,7 +535,7 @@ def run_actor(tag: str, game, apply_fn, run_cfg, batch: int, steps: int, temp_th
     """Actor steps through the ladder: one warm-up step, then ``steps``
     timed ones with the launch counters set to 0 just before and read just
     after; pi rows must sum to 1 and the launches be ``want`` per step.
-    Returns ``(carry, step, generator, launches)``."""
+    Returns ``(carry, step, generator, launches, mean ms per step)``."""
     from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.ops import sample_draws
     from alphazero_tpu_torch.selfplay import make_actor_step_fn
@@ -541,12 +570,12 @@ def run_actor(tag: str, game, apply_fn, run_cfg, batch: int, steps: int, temp_th
           f"({', '.join(f'{1e3 * t:.3f}' for t in times)}), {batch / (ms / 1e3):.1f} "
           f"env-steps/s | launches {launched(got)} | peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
-    return carry, step, gen, got
+    return carry, step, gen, got, ms
 
 
-def print_profiled_step(tag: str, step, card: str) -> None:
+def print_profiled_step(tag: str, step, card: str, label: str = "full-preset") -> None:
     wall, busy, top = profile_step(step)
-    print(f"[{tag}] one profiled full-preset step: {wall:.3f} ms wall (profiler on), device "
+    print(f"[{tag}] one profiled {label} step: {wall:.3f} ms wall (profiler on), device "
           f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
           f"{sum(k[2] for k in top)} device kernels | {card}", flush=True)
     for name, ms, count in top[:12]:
@@ -675,7 +704,7 @@ def othello_phase(card: str) -> tuple:
 
     # (d)-(f): the actors
     per_step = {"descend_othello": SIMS, "merge_dense": SIMS, "refresh_dense": 1}
-    carry, step, gen, launches = run_actor(
+    carry, step, gen, launches, _ = run_actor(
         "othello", game, resnet, cfg, OTH_B, OTH_STEPS, OTH_TEMP_THRESHOLD, per_step, card,
         f"full preset actor, AZResNet-{OTH_CHANNELS}x{OTH_BLOCKS} bf16")
     print_profiled_step(
@@ -785,7 +814,7 @@ def gomoku_phase(card: str) -> tuple:
 
     # (c) the full preset's actor, then one search through both paths
     per_step = {"descend_gomoku": SIMS, "merge_dense": SIMS, "refresh_dense": 1}
-    carry, step, gen, launches = run_actor(
+    carry, step, gen, launches, _ = run_actor(
         "gomoku", game, resnet, cfg, GMK_B, GMK_STEPS, GMK_TEMP_THRESHOLD, per_step, card,
         f"full preset actor, AZResNet-{GMK_CHANNELS}x{GMK_BLOCKS} bf16")
     same_counts_through_kernels_and_plain(
@@ -864,7 +893,7 @@ def hex_phase(card: str) -> tuple:
 
     # (c) the full preset's actor, a profiled step, one search through both
     per_step = {"descend_hex": SIMS, "merge_dense": SIMS, "refresh_dense": 1}
-    carry, step, gen, launches = run_actor(
+    carry, step, gen, launches, _ = run_actor(
         "hex", game, resnet, cfg, HEX_B, HEX_STEPS, HEX_TEMP_THRESHOLD, per_step, card,
         f"full preset actor, AZResNet-{GMK_CHANNELS}x{GMK_BLOCKS} bf16")
     print_profiled_step(
@@ -1073,7 +1102,7 @@ def rounds_phase(card: str) -> tuple:
     oth_cfg = configs[1][3]
     rounds = SIMS // K
     per_step = {"descend_round_othello": rounds, "merge_round_dense": rounds, "refresh2_dense": 1}
-    carry, step, gen, launches = run_actor(
+    carry, step, gen, launches, _ = run_actor(
         "rounds", oth, oth_net, oth_cfg, OTH_B, OTH_STEPS, OTH_TEMP_THRESHOLD, per_step, card,
         f"Othello full preset actor at K={K}, AZResNet-{OTH_CHANNELS}x{OTH_BLOCKS} bf16")
     print_profiled_step(
@@ -1104,6 +1133,226 @@ def rounds_phase(card: str) -> tuple:
         for name in names:
             launches.setdefault(name, got[name])
     return results, launches
+
+
+def fused_rounds_phase(card: str, k1_ms: dict) -> tuple:
+    """Phase 12: the fused engine's K>1 rounds (K2) for the uniform model
+    and MLPNet (see the module docstring). ``k1_ms`` holds the K=1 actors'
+    ms per step from phases 6 and 7 of this call, printed beside K=4's.
+    Returns the kernels line's entries of ``fused_rounds`` and
+    ``fused_mlp_rounds`` and their launches on the K=4 actors' steps."""
+    from alphazero_tpu_torch import bench_k, kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts import PLAIN, fused, hybrid
+    from alphazero_tpu_torch.mcts.tree import INVALID_P
+    from alphazero_tpu_torch.models import (
+        convert_mlp,
+        make_apply_fn,
+        make_uniform_model,
+        random_mlp_variables,
+    )
+    from alphazero_tpu_torch.ops import root_prior, sample_draws
+
+    dev = torch.device("cuda", 0)
+    game, flat, K = ConnectFour(), FlatOps(), ROUND_K
+    A = game.num_actions
+    uniform = make_uniform_model(game)
+    mlp_apply = make_apply_fn(convert_mlp(random_mlp_variables(A, MLP_HIDDEN, seed=SEED)).to(dev))
+    mlp_w = mlp_apply.kernel_eval_factory(flat)
+
+    def cfg_of(k: int, sims: int = SIMS) -> MCTSConfig:
+        return MCTSConfig(num_sims=sims, max_depth=MAX_DEPTH, parallel_sims=k)
+
+    def search_inputs(state, apply_fn, cfg) -> tuple:
+        """Flat root boards and masked root priors, as ``root_counts`` makes them."""
+        prior, valid = root_prior(game, apply_fn, cfg, state, None)
+        return flat.from_state(state).contiguous(), torch.where(valid, prior, INVALID_P)
+
+    def plain_rounds(bds, pm, cfg, evaluate):
+        """The plain version through its body (``fused_rounds_search`` and
+        ``fused_mlp_rounds_search`` return only the root's N and W):
+        ``(N, W, done)`` planes of every node."""
+        kept = {}
+
+        def merge_round_keeping_done(*args):
+            kept["done"] = args[4]   # the done plane, which merge_round updates in place
+            return hybrid.merge_round(*args)
+
+        n, w = hybrid.run_rounds(flat, bds, pm, cfg, evaluate,
+                                 PLAIN._replace(merge_round=merge_round_keeping_done))
+        return n, w, kept["done"]
+
+    def against_plain(name: str, k_fn, p_fn, label: str, timed: bool) -> tuple:
+        """The kernel against its plain version on the same inputs: counts
+        and root W bit-equal. With ``timed``, both are timed in turns and
+        the kernel's device time per launch measured. Returns ``(entry,
+        N plane, done plane)``."""
+        (n_all, w_all, done), p1 = timed_once(p_fn)
+        (ck, wk), k0 = timed_once(k_fn)
+        cp, wp = n_all[:, :, 0], w_all[:, :, 0]
+        if not (bit_equal(ck, cp) and bit_equal(wk, wp)):
+            diff = int(((ck != cp) | (wk != wp)).any(dim=1).sum())
+            fail(f"{name} differs from its plain version on {diff} of {ck.shape[0]} games ({label})")
+        entry = {"max_abs_err": max(float((ck - cp).abs().max()), float((wk - wp).abs().max()))}
+        if timed:
+            k1 = time_ms(k_fn, FUSED_REPS)
+            k2 = time_ms(k_fn, FUSED_REPS)
+            _, p2 = timed_once(p_fn)
+            dev_ms = device_ms(k_fn, reps=FUSED_REPS)
+            entry.update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2})
+            times = (f"kernel {k1:.4f}/{k2:.4f} ms ({dev_ms:.4f} ms of device time), plain "
+                     f"{p1:.4f}/{p2:.4f} ms")
+        else:
+            times = f"kernel {k0:.4f} ms (first call), plain {p1:.4f} ms"
+        print(f"[fused_rounds] {label}: {name} bit-equal to its plain version (counts and root W; "
+              f"{float(n_all.sum()) / ck.shape[0]:.2f} descent steps per game); {times} | {card}",
+              flush=True)
+        return entry, n_all, done
+
+    def uniform_against_plain(state, k: int, value: float, label: str, timed: bool) -> tuple:
+        cfg = cfg_of(k, SIMS - SIMS % k)   # K=9 runs 99 simulations
+        bds, pm = search_inputs(state, uniform.apply_fn, cfg)
+        nb = bds.shape[0]
+        entry, n_all, _ = against_plain(
+            "fused_rounds",
+            lambda: kernels.fused_rounds(bds, pm, cfg.num_sims, cfg.nodes, MAX_DEPTH,
+                                         float(cfg.cpuct), value, k),
+            lambda: plain_rounds(bds, pm, cfg, fused.uniform_evaluator(k * nb, value, dev)),
+            f"{label}, B={nb}, K={k}, {cfg.num_sims} sims, uval {value}", timed)
+        # the work depends on the data: every descent step is one top-2 PUCT
+        # scan, one take count and one backup; a search's steps are the sum
+        # of N over every edge
+        steps = float(n_all.sum())
+        entry.update(bound(F32 * nb * (42 + A + 2 * A), steps * (puct_ops(1, A) + A + 4)))
+        return entry
+
+    # (a) fused_rounds against fused_rounds_search on random roots
+    roots = random_positions(game, B, 30, SEED, dev)
+    for k in FUSED_ROUND_KS:
+        for value in FUSED_ROUND_VALUES:
+            uniform_against_plain(roots, k, value, "random roots", timed=False)
+
+    # (c) the round golden through fused_rounds, in one launch
+    spec = read_goldens("torch_round_goldens.json")["connect_four"]
+    states = []
+    for seq in spec["seqs"]:
+        st = game.init(1, dev)
+        for a in seq:
+            st = game.step(st, torch.tensor([a], device=dev))
+        states.append(st)
+    kernels.reset_launch_counts()
+    counts = fused.make_fused_root_fn(game, uniform.apply_fn, MCTSConfig(
+        num_sims=spec["num_sims"], max_depth=spec["max_depth"],
+        parallel_sims=spec["parallel_sims"]))(torch.cat(states))
+    if kernels.launch_counts() != launches_of(kernels, fused_rounds=1):
+        fail(f"fused round golden launches {kernels.launch_counts()}: want one fused_rounds")
+    if counts.round().int().tolist() != spec["counts"]:
+        fail("fused round golden counts differ from tests/torch_round_goldens.json")
+    print(f"[fused_rounds] the fused engine reproduces tests/torch_round_goldens.json connect_four "
+          f"({len(states)} positions, {spec['num_sims']} sims, K={spec['parallel_sims']}) in 1 "
+          f"launch", flush=True)
+
+    # (e) the uniform actor at the headline bench's size at K=4, then (a)
+    # on its own roots (the numbers of the kernels line) and (d) its roots
+    # through the fused and the hybrid routes
+    cfg_u = cfg_of(K)
+    carry_u, step_u, gen_u, launches_u, ms_u = run_actor(
+        "fused_rounds", game, uniform.apply_fn, cfg_u, UNIFORM_B, TIMED_STEPS, TEMP_THRESHOLD,
+        {"fused_rounds": 1}, card, f"uniform actor at K={K}")
+    print(f"[fused_rounds] uniform actor, B={UNIFORM_B}: K={K} {ms_u:.3f} ms/step, K=1 (phase 6) "
+          f"{k1_ms['uniform']:.3f} ms/step | {card}", flush=True)
+    print_profiled_step(
+        "fused_rounds", lambda: step_u(carry_u, sample_draws(gen_u, UNIFORM_B, A, None, dev)), card,
+        f"uniform K={K}")
+    state_u, _ = carry_u
+    results = {"fused_rounds": uniform_against_plain(
+        state_u, K, float(uniform.apply_fn.uniform_value), "the K=4 uniform actor's roots", True)}
+    c_fused = fused.make_fused_root_fn(game, uniform.apply_fn, cfg_u)(state_u)
+    c_hybrid = hybrid.make_hybrid_root_fn(game, uniform.apply_fn, cfg_u)(state_u)
+    live = ~game.terminal(state_u)[0]
+    if not torch.isfinite(c_fused).all() or c_fused.shape != (UNIFORM_B, A):
+        fail("fused-route K=4 counts are not finite [B, A]")
+    if not bool((c_fused.sum(dim=1)[live] == SIMS).all()):
+        fail("fused-route K=4 counts of live games do not sum to the simulation budget")
+    if not torch.equal(c_fused, c_hybrid):
+        fail(f"K=4 fused and hybrid routes differ on {int((c_fused != c_hybrid).any(dim=1).sum())} "
+             f"of {UNIFORM_B} games")
+    print(f"[fused_rounds] one K={K} search of the actor's roots through the fused and the hybrid "
+          f"routes: identical counts on all {UNIFORM_B} games", flush=True)
+
+    # (b) fused_mlp_rounds against fused_mlp_rounds_search on random roots,
+    # timed in turns (the numbers of the kernels line)
+    cfg_m = cfg_of(K)
+    bds, pm = search_inputs(roots, mlp_apply, cfg_m)
+    entry, n_all, done = against_plain(
+        "fused_mlp_rounds",
+        lambda: kernels.fused_mlp_rounds(bds, pm, mlp_w, SIMS, cfg_m.nodes, MAX_DEPTH,
+                                         float(cfg_m.cpuct), K),
+        lambda: plain_rounds(bds, pm, cfg_m, lambda bd, vm: fused.mlp_eval(bd, vm, mlp_w)),
+        f"MLPNet {MLP_HIDDEN}, random roots, B={B}, K={K}, {SIMS} sims", True)
+    # the work this run's data needs, as phase 7(b) counts it: every descent
+    # step, and one evaluation per install of a child that is not terminal
+    # (a duplicate's leaf is the claimed one: it needs none)
+    steps, installs = float(n_all.sum()), float((n_all > 0).sum())
+    expansions = installs - float(done[:, 1:].sum())
+    widths = (84, *MLP_HIDDEN)
+    entry.update(bound(
+        sum(t.numel() * t.element_size() for t in mlp_w.sections()) + F32 * B * (42 + A + 2 * A),
+        steps * (puct_ops(1, A) + A + 4)
+        + expansions * (2 * sum(MLP_HIDDEN) + 2 * MLP_HIDDEN[-1] * (A + 1) + (A + 1) + 5 * A + 1),
+        expansions * 2 * sum(a * b for a, b in zip(widths, widths[1:]))))
+    # the library's forward of the K*B leaves of a round, once per round
+    feats = game.to_features(roots.repeat(K, 1, 1)).contiguous()
+    entry["library_ms"] = time_ms(lambda: mlp_apply(feats), 20) * (SIMS // K)
+    results["fused_mlp_rounds"] = entry
+    print(f"[fused_rounds] MLP: {expansions / B:.2f} evaluations needed per game, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}); library forward of {K * B} boards x "
+          f"{SIMS // K} rounds {entry['library_ms']:.4f} ms | {card}", flush=True)
+
+    # (e) the MLP actor at K=4, then (d) its roots through both routes
+    carry_m, step_m, gen_m, launches_m, ms_m = run_actor(
+        "fused_rounds", game, mlp_apply, cfg_m, B, TIMED_STEPS, TEMP_THRESHOLD,
+        {"fused_mlp_rounds": 1}, card, f"MLP actor at K={K}, MLPNet {MLP_HIDDEN}")
+    print(f"[fused_rounds] MLP actor, B={B}: K={K} {ms_m:.3f} ms/step, K=1 (phase 7) "
+          f"{k1_ms['mlp']:.3f} ms/step | {card}", flush=True)
+    print_profiled_step("fused_rounds", lambda: step_m(carry_m, sample_draws(gen_m, B, A, None, dev)),
+                        card, f"MLP K={K}")
+    state_m, _ = carry_m
+    c_fused = fused.make_fused_root_fn(game, mlp_apply, cfg_m)(state_m)
+    c_hybrid = hybrid.make_hybrid_root_fn(game, mlp_apply, cfg_m)(state_m)
+    live_m = ~game.terminal(state_m)[0]
+    for label, c in (("fused", c_fused), ("hybrid", c_hybrid)):
+        if not torch.isfinite(c).all() or not bool((c.sum(dim=1)[live_m] == SIMS).all()):
+            fail(f"MLP K={K} {label}-route counts are not finite or do not sum to the budget")
+    same = float((c_fused == c_hybrid).all(dim=1).float().mean())
+    p_f = c_fused / c_fused.sum(dim=1, keepdim=True).clamp(min=1)
+    p_h = c_hybrid / c_hybrid.sum(dim=1, keepdim=True).clamp(min=1)
+    dpi = float((p_f - p_h).abs().max())
+    if same < ROUTE_SAME_GAMES or dpi > ROUTE_MAX_DPI:
+        fail(f"MLP K={K} fused and hybrid routes: {same:.4f} of games identical, max |dpi| {dpi}")
+    print(f"[fused_rounds] one MLP K={K} search of the actor's roots through the fused and the hybrid "
+          f"routes: {same:.4f} of {B} games identical, max |dpi| {dpi:.4f}", flush=True)
+
+    # (f) bench_k.py's head-to-head at its defaults: fused K against fused K=1
+    for k in BENCH_K_KS:
+        kw = ew = dr = 0
+        t0 = time.perf_counter()
+        for seed in range(BENCH_K_SEEDS):
+            a, b, c = bench_k.head_to_head(
+                game, k, BENCH_K_SIMS, BENCH_K_GAMES, MAX_DEPTH,
+                torch.Generator(device=dev).manual_seed(51 + seed), BENCH_K_TEMP_MOVES, dev)
+            if a + b + c != BENCH_K_GAMES:
+                fail(f"head_to_head K={k} seed {51 + seed}: {a} + {b} + {c} != {BENCH_K_GAMES}")
+            kw, ew, dr = kw + a, ew + b, dr + c
+        summary = bench_k.elo_summary(kw, ew, dr)
+        print(f"[fused_rounds] bench_k head-to-head, K={k} vs K=1, {BENCH_K_SIMS} sims, "
+              f"{BENCH_K_SEEDS} seeds x {BENCH_K_GAMES} games, temp_moves {BENCH_K_TEMP_MOVES}: "
+              f"W/L/D {kw}/{ew}/{dr}, {json.dumps(summary)} ({time.perf_counter() - t0:.1f} s) | "
+              f"{card}", flush=True)
+    return results, {"fused_rounds": launches_u["fused_rounds"],
+                     "fused_mlp_rounds": launches_m["fused_mlp_rounds"]}
 
 
 def main() -> int:
@@ -1541,9 +1790,9 @@ def main() -> int:
               f"upper median ({', '.join(f'{1e3 * t:.3f}' for t in times)}), "
               f"{batch / (ms / 1e3):.1f} env-steps/s | launches {launched(got)} | peak memory "
               f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
-        return carry_m, got
+        return carry_m, got, ms
 
-    carry_m, mlp_launches = mlp_actor(B, cfg_mlp, TIMED_STEPS)
+    carry_m, mlp_launches, ms_mlp = mlp_actor(B, cfg_mlp, TIMED_STEPS)
     launches["fused_mlp"] = mlp_launches["fused_mlp"]
     mlp_actor(MLP_PRESET_B, MCTSConfig(num_sims=MLP_PRESET_SIMS, max_depth=MAX_DEPTH),
               MLP_PRESET_STEPS)
@@ -1589,6 +1838,11 @@ def main() -> int:
         results.update(phase_results)
         launches.update(phase_launches)
 
+    # ---- 12. the fused engine's K>1 rounds ------------------------------
+    phase_results, phase_launches = fused_rounds_phase(card, {"uniform": ms_u, "mlp": ms_mlp})
+    results.update(phase_results)
+    launches.update(phase_launches)
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -1610,7 +1864,8 @@ def main() -> int:
                      "descend_othello", "merge_dense", "refresh_dense", "descend_gomoku",
                      "descend_hex", "descend_round", "descend_round_othello",
                      "descend_round_gomoku", "descend_round_hex", "merge_round",
-                     "merge_round_dense", "refresh2", "refresh2_dense")
+                     "merge_round_dense", "refresh2", "refresh2_dense", "fused_rounds",
+                     "fused_mlp_rounds")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

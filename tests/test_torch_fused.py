@@ -128,10 +128,12 @@ def test_ladder_picks_fused_for_uniform_and_hybrid_for_resnet():
 
 def test_declines_and_raises_as_the_reference():
     uni = make_uniform_model(TG).apply_fn
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_root_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _make_root_counts_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=4))
+    # K>1 rounds (K2) build up to the reference's (K+1)^A < 2^24: K=9 at A=7
+    assert make_fused_root_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=4)) is not None
+    assert _make_root_counts_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=4)).__qualname__.startswith(
+        "make_fused_root_fn.")
+    with pytest.raises(ValueError, match="too large"):
+        make_fused_root_fn(TG, uni, MCTSConfig(num_sims=20, parallel_sims=10))
 
     mlp_apply = make_apply_fn(convert_mlp(random_mlp_variables(7, (16,), seed=0)))
     assert make_fused_root_fn(TG, mlp_apply, MCTSConfig()) is not None   # K3, the in-kernel MLP

@@ -177,10 +177,9 @@ def test_tiny_resnet_bounded_divergence():
 
 def test_unported_paths_raise():
     uni = make_uniform_model(TG).apply_fn
-    # K>1 rounds run on the hybrid engine; the fused engine's (K2) raise
+    # K>1 rounds run on both engines (the fused engine's: K2)
     assert callable(make_hybrid_root_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=2)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_root_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=2))
+    assert callable(make_fused_root_fn(TG, uni, MCTSConfig(num_sims=8, parallel_sims=2)))
     with pytest.raises(ValueError, match="divisible"):
         make_hybrid_root_fn(TG, uni, MCTSConfig(num_sims=10, parallel_sims=4))
 
@@ -227,7 +226,8 @@ NO_LAUNCHES = {"descend": 0, "descend_othello": 0, "descend_gomoku": 0, "descend
                "merge": 0, "merge_dense": 0, "refresh": 0, "refresh_dense": 0, "fused": 0,
                "fused_mlp": 0, "mlp_eval": 0, "descend_round": 0, "descend_round_othello": 0,
                "descend_round_gomoku": 0, "descend_round_hex": 0, "merge_round": 0,
-               "merge_round_dense": 0, "refresh2": 0, "refresh2_dense": 0}
+               "merge_round_dense": 0, "refresh2": 0, "refresh2_dense": 0, "fused_rounds": 0,
+               "fused_mlp_rounds": 0}
 
 
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():

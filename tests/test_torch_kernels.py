@@ -7,7 +7,8 @@ through its descend and the dense merge and refresh), and every whole
 uniform fused search, must be bit-equal to the plain PyTorch versions, and
 the searches must reproduce the goldens; so must whole Gomoku (edges 7, 8,
 9, 15) and Hex searches through their descend instances and the dense
-merge and refresh. The MLP evaluator's logits must be bit-equal to its plain
+merge and refresh, every call of the K>1 round kernels, and whole uniform
+fused searches in K>1 rounds. The MLP evaluator's logits must be bit-equal to its plain
 version's; its prior and value, and so the MLP searches, may differ where
 glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit.
 
@@ -36,7 +37,9 @@ from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts import (
     PLAIN,
     SearchKernels,
+    fused_mlp_rounds_search,
     fused_mlp_search,
+    fused_rounds_search,
     fused_search,
     hybrid,
     make_fused_root_fn,
@@ -65,7 +68,7 @@ TG = ConnectFour()
 OTH = Othello()
 # kernel<<<grid, threads, smem, stream>>>(args), the kernel maybe a template instance
 _LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 10, "fused.cu": 3}   # kernel launches in each source
+_LAUNCHES = {"hybrid.cu": 10, "fused.cu": 5}   # kernel launches in each source
 # a kernel's dynamic shared memory: the emulated launch's buffer
 _DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
@@ -669,3 +672,122 @@ def test_emulated_refresh2_ties_illegal_and_lone_nodes(emulated, A):
     score = torch.where(p <= -5e29, -1e30, w / n.clamp(min=1) + p * sq / (1 + n))
     assert ((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).any()   # exact ties
     assert (sec_a >= 0).sum() > B * C - 4
+
+
+def _checked_fused_rounds(lib, calls):
+    """A ``kernels.fused_rounds`` stand-in running the emulated
+    ``az_fused_rounds`` AND the plain ``fused_rounds_search`` on every call,
+    asserting bit-equal counts and root W."""
+
+    def fused_rounds(boards, priors, num_sims, nodes, max_depth, cpuct, uval, K):
+        B = boards.shape[0]
+        tree, rnd = torch.empty(B, nodes, 32), torch.empty(B, nodes, 16)
+        counts, rootw = torch.empty(B, 7), torch.empty(B, 7)
+        rc = lib.lib.az_fused_rounds(
+            *(t.data_ptr() for t in (boards, priors, tree, rnd, counts, rootw)),
+            B, nodes, K, num_sims, max_depth, cpuct, uval, None,
+        )
+        assert rc == 0
+        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct,
+                         parallel_sims=K)
+        ref_counts, ref_w = fused_rounds_search(boards, priors, cfg, uval)
+        assert torch.equal(_bits(counts), _bits(ref_counts)), "fused_rounds counts"
+        assert torch.equal(_bits(rootw), _bits(ref_w)), "fused_rounds root W"
+        calls["fused_rounds"] += 1
+        return counts, rootw
+
+    return fused_rounds
+
+
+@pytest.mark.parametrize(
+    "cfg,moves,value,freeze,dirichlet",
+    [
+        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=2), 10, 0.0, True, None),
+        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=2), 14, 0.3, True, None),
+        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), 8, 0.0, True, None),
+        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), 12, 0.3, True, None),
+        (MCTSConfig(num_sims=27, max_depth=48, parallel_sims=9), 6, 0.0, True, None),
+        (MCTSConfig(num_sims=27, max_depth=48, parallel_sims=9), 16, 0.3, True, None),
+        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5, parallel_sims=4), 6, 0.3, True, None),
+        (MCTSConfig(num_sims=24, max_depth=48, max_nodes=10, parallel_sims=4), 20, 0.3, True, None),
+        (MCTSConfig(num_sims=18, max_depth=48, parallel_sims=9), 36, 0.3, False, None),
+        (MCTSConfig(num_sims=16, max_depth=48, dirichlet_alpha=0.7, parallel_sims=4), 4, 0.3, True, 0.7),
+    ],
+    ids=["K2", "K2_uval0.3", "K4", "K4_uval0.3", "K9", "K9_uval0.3", "K4_max_depth3",
+         "K4_max_nodes10", "K9_terminal_roots", "K4_dirichlet"],
+)
+def test_emulated_fused_rounds_bit_equal_plain(emulated, cfg, moves, value, freeze, dirichlet):
+    """Whole K>1 uniform fused searches (40 games) through the emulated
+    ``az_fused_rounds``: counts and root W bit-equal to
+    ``fused_rounds_search`` in one launch, at K = 2, 4 and 9, with the value
+    0 (integer W) and 0.3 (where the order of the round's W additions shows
+    in the bits), a depth cutoff, slots running out inside a round, finished
+    roots and Dirichlet roots; the simulations are conserved."""
+    boards = torch_state(random_boards(40, moves, seed=moves, freeze_done=freeze))
+    noise = None
+    if dirichlet is not None:
+        noise = sample_draws(torch.Generator().manual_seed(5), 40, 7, dirichlet, "cpu").dirichlet
+    calls = {"fused_rounds": 0}
+    counts = make_fused_root_fn(
+        TG, make_uniform_model(TG, value).apply_fn, cfg, kernel=_checked_fused_rounds(emulated, calls)
+    )(boards, noise)
+    assert calls == {"fused_rounds": 1}
+    live = ~TG.terminal(boards)[0]
+    assert live.any() and (freeze or (~live).any())
+    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
+
+
+def _checked_fused_mlp_rounds(lib, calls):
+    """A ``kernels.fused_mlp_rounds`` stand-in running the emulated
+    ``az_fused_mlp_rounds`` AND the plain ``fused_mlp_rounds_search``, with
+    the bookkeeping and W bound of ``_checked_fused_mlp``."""
+
+    def fused_mlp_rounds(boards, priors, weights, num_sims, nodes, max_depth, cpuct, K):
+        B = boards.shape[0]
+        tree, rnd = torch.empty(B, nodes, 32), torch.empty(B, nodes, 16)
+        counts, rootw = torch.empty(B, 7), torch.empty(B, 7)
+        sections, widths = _mlp_args(weights)
+        rc = lib.lib.az_fused_mlp_rounds(
+            boards.data_ptr(), priors.data_ptr(), sections,
+            *(t.data_ptr() for t in (tree, rnd, counts, rootw)),
+            B, nodes, K, num_sims, max_depth, *widths, cpuct, None,
+        )
+        assert rc == 0
+        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct,
+                         parallel_sims=K)
+        ref_counts, ref_w = fused_mlp_rounds_search(boards, priors, cfg, weights)
+        same = (counts == ref_counts).all(1)
+        assert (rootw - ref_w)[same].abs().max() <= MLP_EMU_W_ATOL
+        calls["fused_mlp_rounds"] += 1
+        calls["same"] += int(same.sum())
+        calls["games"] += B
+        return counts, rootw
+
+    return fused_mlp_rounds
+
+
+@pytest.mark.parametrize(
+    "cfg,moves,freeze",
+    [
+        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), 8, True),
+        (MCTSConfig(num_sims=18, max_depth=48, parallel_sims=9), 30, False),            # endgames
+        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5, parallel_sims=2), 6, True),    # cutoffs
+        (MCTSConfig(num_sims=24, max_depth=48, max_nodes=10, parallel_sims=4), 12, True),
+    ],
+    ids=["K4", "K9_endgames", "K2_max_depth3", "K4_max_nodes10"],
+)
+def test_emulated_mlp_rounds_match_plain(emulated, cfg, moves, freeze):
+    """Whole emulated K>1 MLP searches (40 games: a full block of 32 and a
+    ragged one; K block evaluations per round): simulations conserved and
+    counts identical to ``fused_mlp_rounds_search``'s on >= 95% of games,
+    as for K=1."""
+    boards = torch_state(random_boards(40, moves, seed=moves, freeze_done=freeze))
+    calls = {"fused_mlp_rounds": 0, "same": 0, "games": 0}
+    counts = make_fused_root_fn(
+        TG, _mlp_apply((32, 32), seed=moves), cfg, kernel=_checked_fused_mlp_rounds(emulated, calls)
+    )(boards)
+    assert calls["fused_mlp_rounds"] == 1
+    live = ~TG.terminal(boards)[0]
+    assert live.any()
+    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
+    assert calls["same"] >= 0.95 * calls["games"], f"{calls['same']} of {calls['games']} games equal"

@@ -1,11 +1,13 @@
-"""The port's K>1 leaf-parallel rounds (``MCTSConfig.parallel_sims``; the
-plain versions of the round kernels on the CPU) against the JAX package's
-own rounds on Connect-Four: the JAX hybrid engine's (its round kernels in
-the Pallas interpreter, which any ``block_size`` selects off the TPU) and
-the JAX fused kernel's K2 rounds, which the JAX package cross-validates
-against each other bit for bit (tests/test_hybrid.py). Root counts must be
-equal. The wrappers' routing and the self-play actor at
-``parallel_sims=4`` are here too.
+"""The port's K>1 leaf-parallel rounds (``MCTSConfig.parallel_sims``) on
+both engines (on the CPU the plain versions of the round kernels: the
+hybrid engine's ``run_rounds`` and the fused engine's
+``fused_rounds_search``) against the JAX package's own rounds on
+Connect-Four: the JAX hybrid engine's (its round kernels in the Pallas
+interpreter, which any ``block_size`` selects off the TPU) and the JAX
+fused kernel's K2 rounds, which the JAX package cross-validates against
+each other bit for bit (tests/test_hybrid.py). Root counts must be equal.
+The wrappers' routing and the self-play actor at ``parallel_sims=4`` are
+here too.
 
 Each JAX reference compiles for 5-10 s in the interpreter, so the
 positions of ``tests/torch_round_goldens.json`` serve both configurations
@@ -33,7 +35,7 @@ from alphazero_tpu.models import make_uniform_model as jax_uniform
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.games import ConnectFour, FlatOps, GomokuFlatOps, HexFlatOps, OthelloFlatOps
-from alphazero_tpu_torch.mcts import PLAIN, hybrid, make_hybrid_root_fn
+from alphazero_tpu_torch.mcts import PLAIN, hybrid, make_fused_root_fn, make_hybrid_root_fn
 from alphazero_tpu_torch.models import (
     convert_az_resnet,
     make_apply_fn,
@@ -55,8 +57,9 @@ C4_CFG = JaxMCTSConfig(num_sims=C4_GOLDEN["num_sims"], max_depth=C4_GOLDEN["max_
 C4_BOARDS = boards_from_seqs(C4_GOLDEN["seqs"])
 
 
-def _port_counts(apply_fn, cfg, boards, game=TG, noise=None):
-    fn = make_hybrid_root_fn(game, apply_fn, MCTSConfig(**dataclasses.asdict(cfg)))
+def _port_counts(apply_fn, cfg, boards, game=TG, noise=None, engine="hybrid"):
+    make = make_hybrid_root_fn if engine == "hybrid" else make_fused_root_fn
+    fn = make(game, apply_fn, MCTSConfig(**dataclasses.asdict(cfg)))
     return fn(torch_state(boards), noise).numpy()
 
 
@@ -80,10 +83,13 @@ def _jax_golden_positions(engine, cfg):
     ids=["K4_24sims", "K4_24sims_max_nodes10"],
 )
 def test_connect_four_rounds_match_jax_hybrid_and_fused_rounds(cfg):
-    got = _port_counts(make_uniform_model(TG).apply_fn, cfg, C4_BOARDS)
-    np.testing.assert_array_equal(got, _jax_golden_positions("hybrid", cfg))
-    np.testing.assert_array_equal(got, _jax_golden_positions("fused", cfg))
-    assert (got.sum(1) == cfg.num_sims).all()
+    """Both of the port's engines against both JAX engines."""
+    uni = make_uniform_model(TG).apply_fn
+    for engine in ("hybrid", "fused"):
+        got = _port_counts(uni, cfg, C4_BOARDS, engine=engine)
+        np.testing.assert_array_equal(got, _jax_golden_positions("hybrid", cfg), err_msg=engine)
+        np.testing.assert_array_equal(got, _jax_golden_positions("fused", cfg), err_msg=engine)
+        assert (got.sum(1) == cfg.num_sims).all()
 
 
 def _fuzz_configs(trials=4):
@@ -111,12 +117,14 @@ FUZZ = _fuzz_configs()
 @pytest.mark.parametrize("trial,cfg,moves", FUZZ,
                          ids=[f"trial{t}_K{cfg.parallel_sims}" for t, cfg, _ in FUZZ])
 def test_fuzz_rounds_match_jax_fused_rounds(trial, cfg, moves):
+    """Both of the port's engines against the JAX fused kernel's rounds."""
     boards = random_boards(8, moves, seed=trial)
-    np.testing.assert_array_equal(
-        _port_counts(make_uniform_model(TG).apply_fn, cfg, boards),
-        _jax_counts("fused", jax_uniform(JG).apply_fn, cfg, boards),
-        err_msg=f"trial {trial}: {cfg}",
-    )
+    want = _jax_counts("fused", jax_uniform(JG).apply_fn, cfg, boards)
+    for engine in ("hybrid", "fused"):
+        np.testing.assert_array_equal(
+            _port_counts(make_uniform_model(TG).apply_fn, cfg, boards, engine=engine), want,
+            err_msg=f"{engine}, trial {trial}: {cfg}",
+        )
 
 
 def test_round_wrappers_route_cpu_to_plain_and_refuse_other_devices():
@@ -180,9 +188,9 @@ def test_rounds_need_round_kernels_and_divisible_sims():
 
 def test_actor_steps_at_parallel_sims():
     """The self-play actor with ``parallel_sims=4`` and an AZResNet takes
-    the hybrid engine's rounds (the uniform model's fused K2 rounds raise,
-    tests/test_torch_fused.py): every step's search conserves the
-    simulations and its pi rows sum to 1."""
+    the hybrid engine's rounds (the uniform model and MLPNet take the fused
+    engine's, tests/test_torch_fused_rounds.py): every step's search
+    conserves the simulations and its pi rows sum to 1."""
     resnet = make_apply_fn(convert_az_resnet(random_az_resnet_variables(7, 8, 1, seed=4),
                                              dtype=torch.float32))
     cfg = MCTSConfig(num_sims=8, max_depth=48, parallel_sims=4, dirichlet_alpha=1.0)
