@@ -10,16 +10,18 @@ the top-2 ``refresh2``),
 ``fused.cu`` the fused search kernels (the uniform evaluator's, and the
 MLP's with the evaluator of ``mlp.cuh``, each at K=1 and in K>1
 leaf-parallel rounds); both include the Connect-Four and
-PUCT helpers of ``c4.cuh``. At first use the
-sources are compiled with ``nvcc`` for ``sm_90a``, one process per source,
-all started together, and linked into one shared library with a plain C
+PUCT helpers of ``c4.cuh``; ``int8_tower.cu`` the fused int8 ResNet
+tower of ``models/int8_tower.py`` (timed by
+``experiments/int8_fused_tower.py``). At first use the sources are
+compiled with ``nvcc`` for ``sm_90a``, one process per source, all
+started together, and linked into one shared library with a plain C
 interface under ``csrc/build/<hash of sources, header and flags>/``, which
 is loaded with ``ctypes``; nothing is built when this module is imported.
 
 Each wrapper takes tensors on ONE device:
 
 * CPU tensors run the plain PyTorch version (``mcts/hybrid.py``,
-  ``mcts/fused.py``);
+  ``mcts/fused.py``, ``models/int8_tower.py``);
 * CUDA tensors launch the kernel on the current stream, or raise — a
   failed build, a bad shape/dtype/layout or a launch error never falls
   back to the plain version.
@@ -35,7 +37,8 @@ kernels; above, ``merge_dense`` and ``refresh_dense``). ``descend_round``,
 ``refresh2_dense``); they take 1 <= K <= ``MAX_ROUND_K`` descents per
 round. ``fused`` and ``fused_mlp`` run a whole Connect-Four search in one
 launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the same in rounds
-of 1 <= K <= ``FUSED_MAX_K`` descents. Each wrapper counts the launches of its own kernel in a plain
+of 1 <= K <= ``FUSED_MAX_K`` descents. ``int8_tower`` runs the whole
+11-conv int8 tower of any B >= 1 games in one launch. Each wrapper counts the launches of its own kernel in a plain
 integer attribute, ``descend.launches`` etc.; ``reset_launch_counts()``
 zeroes them.
 """
@@ -61,9 +64,10 @@ from alphazero_tpu_torch.games.hex import HexFlatOps
 from alphazero_tpu_torch.games.othello import OthelloFlatOps
 from alphazero_tpu_torch.mcts import fused as _plain_fused
 from alphazero_tpu_torch.mcts import hybrid as _plain
+from alphazero_tpu_torch.models import int8_tower as _plain_tower
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = (_CSRC / "hybrid.cu", _CSRC / "fused.cu")
+SOURCES = (_CSRC / "hybrid.cu", _CSRC / "fused.cu", _CSRC / "int8_tower.cu")
 HEADERS = (_CSRC / "c4.cuh", _CSRC / "gomoku.cuh", _CSRC / "hex.cuh", _CSRC / "mlp.cuh",
            _CSRC / "othello.cuh")
 BUILD_DIR = _CSRC / "build"
@@ -100,6 +104,7 @@ _SIGNATURES = {
     "az_fused_rounds": ([_VP] * 6 + [_I32] * 5 + [_F32] * 2 + [_VP], _I32),
     "az_fused_mlp_rounds": ([_VP] * 7 + [_I32] * 10 + [_F32, _VP], _I32),
     "az_mlp_eval": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
+    "az_int8_tower": ([_VP] * 3 + [_I32, _VP], _I32),
 }
 
 
@@ -758,11 +763,34 @@ def mlp_eval(boards, weights):
     return pm, value, logits
 
 
+def int8_tower(x, w):
+    """``models.int8_tower.tower_plain``: the fused int8 ResNet
+    tower of B >= 1 Connect-Four games in one launch. x f32[B*42, 64] (rows
+    b*42 + r*7 + c), w int8[11, 64, 576] (``tower_weights_from_jax``) ->
+    the last block's f f32[B*42, 64]."""
+    if _on_cpu(x, w):
+        return _plain_tower.tower_plain(x, w)
+    rows = x.shape[0] if x.dim() == 2 else 0
+    cells, ch, taps = _plain_tower.CELLS, _plain_tower.CH, _plain_tower.TAPS
+    if rows == 0 or rows % cells:
+        raise ValueError(f"int8_tower: x must be f32[B*{cells}, {ch}] with B >= 1, got {list(x.shape)}")
+    ptrs = [_check("x", x, (rows, ch)),
+            _check("w", w, (_plain_tower.N_LAYERS, ch, taps * ch), torch.int8)]
+    if any(p % 16 for p in ptrs):
+        raise ValueError("int8_tower: x and w must be 16-byte aligned")
+    lib = library()
+    out = torch.empty((rows, ch), device=x.device)
+    rc = lib.lib.az_int8_tower(*ptrs, out.data_ptr(), rows // cells, _stream(x.device))
+    lib.check(rc, "int8_tower")
+    int8_tower.launches += 1
+    return out
+
+
 KERNELS = _plain.SearchKernels(descend, merge, refresh, descend_round, merge_round, refresh2)
 _ALL = (descend, descend_othello, descend_gomoku, descend_hex, merge, merge_dense, refresh,
         refresh_dense, fused, fused_mlp, mlp_eval, descend_round, descend_round_othello,
         descend_round_gomoku, descend_round_hex, merge_round, merge_round_dense, refresh2,
-        refresh2_dense, fused_rounds, fused_mlp_rounds)
+        refresh2_dense, fused_rounds, fused_mlp_rounds, int8_tower)
 
 
 def launch_counts() -> dict:

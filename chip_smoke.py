@@ -6,10 +6,12 @@ the hybrid engine with an AZResNet-64x5, on the fused kernel with the
 uniform model, and on the fused kernel with an MLPNet (256, 256) evaluated
 inside it; then Othello, Gomoku and Hex on the hybrid engine, the hybrid
 engine's K=4 leaf-parallel rounds, and the fused engine's K>1 rounds for
-the uniform model and the MLP — on one CUDA card, in phases:
+the uniform model and the MLP; then the fused int8 ResNet tower of the
+experiment ``int8_fused_tower`` — on one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
-2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``)
+2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``,
+           ``csrc/int8_tower.cu``)
            compiled with nvcc for sm_90a, one process per source, and linked
            into one library, with the build seconds and ptxas's register
            report;
@@ -131,13 +133,27 @@ the uniform model and the MLP — on one CUDA card, in phases:
            ``bench_k.head_to_head`` at ``bench_k.py``'s defaults (1024 games,
            100 sims, 2 seeds, temp_moves 8) for K=2 and K=4 against K=1: every
            game ends and is counted once; W/L/D and the Elo difference with
-           its 95% interval are printed, not gated.
+           its 95% interval are printed, not gated;
+13. int8 tower: the experiment's main (``python -m
+           alphazero_tpu_torch.experiments.int8_fused_tower``: the reference
+           main's inputs at B=4096, seed 0, one tower, a warm-up and the best
+           of 3 runs of 30 towers, and its two yardsticks) with the launch
+           counters reset just before and read just after; (a) the kernel
+           against ``tower_plain`` on the main's inputs and at a ragged
+           B=4093 with full-range weights (clip and half ties reached),
+           bit-equal, timed in turns; (b) the library's int8 tower (the
+           ``torch._int_mm`` chain) bit-equal to the kernel; (c) the bf16
+           cuDNN conv tower of ``FoldedAZResNet._conv`` on the same input,
+           finite; both yardsticks timed by the main; (d) TOPS of each.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
 data-dependent walk counts the cells this run's data reaches) over
 3.35 TB/s, and its operations: f32 ones over 67 TFLOP/s plus bf16 matrix
-ones over 989 TFLOP/s (the H100 SXM's data-sheet rates at 700 W).
+ones over 989 TFLOP/s plus int8 matrix ones over 1979 TOP/s (the H100
+SXM's data-sheet rates at 700 W; the int8 tower's f32 epilogue runs on the
+CUDA cores beside its tensor-core products and is not added, and its
+products count only the taps whose neighbour is on the board).
 
 The second-to-last line is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
@@ -204,6 +220,7 @@ FUSED_ROUND_KS = (2, 4, 9)    # phase 12(a): K of the fused rounds held against 
 FUSED_ROUND_VALUES = (0.0, 0.3)   # ... at the uniform value 0 (integer W) and 0.3
 BENCH_K_GAMES, BENCH_K_SIMS, BENCH_K_SEEDS, BENCH_K_TEMP_MOVES = 1024, 100, 2, 8   # bench_k.py defaults
 BENCH_K_KS = (2, 4)
+TOWER_RAGGED_B = 4093     # phase 13(a): a tail tile of 5 games (the kernel's tiles hold 8)
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -227,6 +244,7 @@ SOURCE = {
     "refresh2_dense": "alphazero_tpu_torch/csrc/hybrid.cu",
     "fused_rounds": "alphazero_tpu_torch/csrc/fused.cu",
     "fused_mlp_rounds": "alphazero_tpu_torch/csrc/fused.cu",   # with its evaluator, csrc/mlp.cuh
+    "int8_tower": "alphazero_tpu_torch/csrc/int8_tower.cu",
 }
 REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
@@ -252,19 +270,21 @@ REPLACES = {
     "refresh2_dense": "alphazero_tpu/mcts/hybrid.py:210",   # its dense branch, seeding at :874
     "fused_rounds": "alphazero_tpu/mcts/fused.py:428",   # kernel, K>1 round_body (+ top-2 :258)
     "fused_mlp_rounds": "alphazero_tpu/mcts/fused.py:428 + alphazero_tpu/models/nets.py:129",
+    "int8_tower": "experiments/int8_fused_tower.py:46",   # tower_kernel, pallas_call :112
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 on the tensor cores
+INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense int8 on the tensor cores
 F32 = 4
 
 
-def bound(nbytes: float, ops: float, bf16_ops: float = 0.0) -> dict:
+def bound(nbytes: float, ops: float, bf16_ops: float = 0.0, int8_ops: float = 0.0) -> dict:
     """The least time the card could take: bytes over the memory rate or
-    operations over their rates (f32 ones over the f32 rate plus bf16
-    matrix ones over the tensor cores' rate), whichever is larger."""
+    operations over their rates (f32 ones over the f32 rate plus bf16 and
+    int8 matrix ones over the tensor cores' rates), whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S
+    t_ops = ops / F32_OPS_PER_S + bf16_ops / BF16_OPS_PER_S + int8_ops / INT8_OPS_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -1355,6 +1375,84 @@ def fused_rounds_phase(card: str, k1_ms: dict) -> tuple:
                      "fused_mlp_rounds": launches_m["fused_mlp_rounds"]}
 
 
+def int8_tower_phase(card: str) -> tuple:
+    """Phase 13: the fused int8 tower (see the module docstring). Returns
+    the kernels line's ``int8_tower`` entry and its launches in the
+    experiment's main."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.experiments import int8_fused_tower as exp
+    from alphazero_tpu_torch.models import int8_tower as tower
+
+    dev = torch.device("cuda", 0)
+    kernels.reset_launch_counts()
+    run = exp.main()
+    got = dict(kernels.launch_counts())
+    if got != launches_of(kernels, int8_tower=exp.MAIN_LAUNCHES):
+        fail(f"the tower experiment's launches {launched(got)}: want {exp.MAIN_LAUNCHES} "
+             f"int8_tower launches and no other")
+    x, w, out = run["x"], run["w"], run["out"]
+    B = exp.MAIN_B
+    rows = B * tower.CELLS
+    if out.shape != (rows, tower.CH) or not torch.isfinite(out).all():
+        fail(f"int8_tower output is not finite f32[{rows}, {tower.CH}]")
+
+    # (a) the kernel against its plain version: the main's inputs, then a
+    # ragged B with full-range weights
+    def held(label, xs, ws, k_out):
+        p_out = tower.tower_plain(xs, ws)
+        if not bit_equal(k_out, p_out):
+            fail(f"int8_tower differs from tower_plain ({label}) on "
+                 f"{int((k_out != p_out).sum())} of {k_out.numel()} outputs "
+                 f"(max {float((k_out - p_out).abs().max())})")
+        return p_out
+
+    plain = held(f"B={B}, main weights", x, w, out)
+    k1, k2, p1, p2 = in_turns(lambda: kernels.int8_tower(x, w), lambda: tower.tower_plain(x, w),
+                              k_reps=30, p_reps=5)
+    dev_ms = device_ms(lambda: kernels.int8_tower(x, w))
+    xr_np, wsr = exp.random_tower_inputs(SEED + 1, TOWER_RAGGED_B, -127, 128)
+    xr, wr = torch.from_numpy(xr_np).to(dev), tower.tower_weights_from_jax(wsr).to(dev)
+    kr = kernels.int8_tower(xr, wr)
+    pr = held(f"B={TOWER_RAGGED_B}, full-range weights", xr, wr, kr)
+    scaled = pr * tower.ASCALE
+    clipped, ties = int((scaled > 127).sum()), int((scaled - scaled.floor() == 0.5).sum())
+    if clipped == 0 or ties == 0:
+        fail(f"the ragged check reached {clipped} clipped outputs and {ties} half ties")
+    rk1, rk2, rp1, rp2 = in_turns(lambda: kernels.int8_tower(xr, wr),
+                                  lambda: tower.tower_plain(xr, wr), k_reps=30, p_reps=5)
+    print(f"[int8] int8_tower bit-equal to tower_plain at B={B} (the main's inputs, seed "
+          f"{exp.MAIN_SEED}; {got['int8_tower']} launches in main) and at B={TOWER_RAGGED_B} with weights in "
+          f"-127..127 ({clipped} clipped and {ties} half-tie outputs in the last layer); "
+          f"kernel {k1:.4f}/{k2:.4f} ms [device {dev_ms:.4f}], plain {p1:.4f}/{p2:.4f} ms; "
+          f"ragged kernel {rk1:.4f}/{rk2:.4f} ms, plain {rp1:.4f}/{rp2:.4f} ms | {card}", flush=True)
+
+    # (b) the library's int8 tower, the kernels line's library call, and (c)
+    # the bf16 cuDNN tower on the same input, both timed by the main
+    lib_out = exp.int_mm_tower(x, w)
+    if not bit_equal(lib_out, out):
+        fail(f"the torch._int_mm tower differs from int8_tower on {int((lib_out != out).sum())} outputs")
+    h = exp.cudnn_tower(exp.cudnn_input(x), exp.cudnn_weights(w))
+    if h.shape != (B, tower.CH, tower.ROWS, tower.COLS) or not torch.isfinite(h).all():
+        fail("the bf16 cuDNN tower's output is not finite")
+    lib_ms, cudnn_ms = run["int_mm_ms"], run["cudnn_ms"]
+
+    # (d) TOPS at the reference's operation count; the bound at the
+    # operations the function needs (on-board taps only)
+    k_ms, ops = (k1 + k2) / 2, tower.tower_ops(B)
+    res = {
+        "max_abs_err": max(float((out - plain).abs().max()), float((kr - pr).abs().max())),
+        "ms": k_ms, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
+        # reads x and the weights once, writes f once
+        **bound(2 * F32 * rows * tower.CH + w.numel(), 0.0, int8_ops=tower.board_ops(B)),
+    }
+    print(f"[int8] library int8 tower (torch._int_mm chain) bit-equal to the kernel; main's best "
+          f"of {exp.MAIN_TRIALS}x{exp.MAIN_REPS}: kernel {run['ms']:.4f}, _int_mm {lib_ms:.4f}, "
+          f"bf16 cuDNN conv tower {cudnn_ms:.4f} ms; TOPS (reference count) kernel "
+          f"{ops / k_ms / 1e9:.1f}, _int_mm {ops / lib_ms / 1e9:.1f}, cuDNN {ops / cudnn_ms / 1e9:.1f}; "
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) | {card}", flush=True)
+    return {"int8_tower": res}, {"int8_tower": got["int8_tower"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1843,6 +1941,11 @@ def main() -> int:
     results.update(phase_results)
     launches.update(phase_launches)
 
+    # ---- 13. the fused int8 tower --------------------------------------
+    phase_results, phase_launches = int8_tower_phase(card)
+    results.update(phase_results)
+    launches.update(phase_launches)
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -1857,7 +1960,8 @@ def main() -> int:
             "bound_ms": results[name]["bound_ms"],
             "bound_by": results[name]["bound_by"],
             # no single PyTorch call computes these functions; for fused_mlp
-            # the chain of library forwards a search's evaluations take
+            # the chain of library forwards a search's evaluations take, for
+            # int8_tower the torch._int_mm chain
             "library_ms": results[name].get("library_ms"),
         }
         for name in ("descend", "merge", "refresh", "fused", "fused_mlp",
@@ -1865,7 +1969,7 @@ def main() -> int:
                      "descend_hex", "descend_round", "descend_round_othello",
                      "descend_round_gomoku", "descend_round_hex", "merge_round",
                      "merge_round_dense", "refresh2", "refresh2_dense", "fused_rounds",
-                     "fused_mlp_rounds")
+                     "fused_mlp_rounds", "int8_tower")
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,12 +8,15 @@
 // `extern __shared__ T name[];` into a pointer to it). The round-to-nearest
 // intrinsics are plain IEEE float operations (build with
 // -ffp-contract=off), as on the card; expf and tanhf are glibc's, which
-// may differ from the card's in the last bit.
+// may differ from the card's in the last bit. Inline PTX has no stand-in:
+// a source keeps it under `#ifndef CUDA_EMU` and calls the emulated
+// instruction below (emu_mma_m16n8k32_s8) otherwise.
 #pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
 #include <cstdint>
+#include <cstdlib>
 #include <cstring>
 #include <math.h>
 #include <thread>
@@ -25,6 +28,8 @@
 #define __forceinline__ inline
 #define __restrict__
 #define __shared__ static
+#define __launch_bounds__(...)
+#define CUDA_EMU 1
 
 struct emu_dim3 { unsigned int x, y, z; };
 inline thread_local emu_dim3 threadIdx, blockIdx;
@@ -53,8 +58,55 @@ inline unsigned int __float_as_uint(float x) {
   std::memcpy(&u, &x, sizeof u);
   return u;
 }
+inline float __int2float_rn(int x) { return static_cast<float>(x); }
 using std::fmaxf;
 using std::min;
+
+struct uint4 { unsigned int x, y, z, w; };
+struct float4 { float x, y, z, w; };
+struct float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return {x, y}; }
+
+// m_tiles x n_tiles instructions mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
+// of the calling thread's warp: d[i][j][0..3] += A_i B_j, with the PTX ISA's
+// fragments: lane l = 4 * gid + tq holds of A_i (16x32, row-major) a[i][0]
+// = row gid, k 4tq..4tq+3; a[i][1] = row gid + 8, the same k; a[i][2], a[i][3]
+// the same rows at k 16 + 4tq..; of B_j (32x8) b[j][0] = k 4tq..4tq+3 of
+// column gid, b[j][1] = k 16 + 4tq..; of D rows gid (d 0, 1) and gid + 8
+// (d 2, 3), columns 2tq and 2tq + 1; 4 int8 a register, the lowest k in
+// the lowest byte. Block-collective: every thread of the block stages its
+// fragments, meets the others at a barrier, computes its own accumulators
+// from its warp's 32 lanes and meets them again, so the kernel must issue
+// its MMAs block-uniformly (as the card needs them warp-uniform).
+inline constexpr int emu_mma_max_words = 32;
+inline uint32_t emu_mma_stage[1024][emu_mma_max_words];
+inline void emu_mma_m16n8k32_s8(int32_t* d, const uint32_t* a, const uint32_t* b, int m_tiles,
+                                int n_tiles) {
+  const int na = 4 * m_tiles, nb = 2 * n_tiles;
+  if (na + nb > emu_mma_max_words) std::abort();
+  const unsigned t = threadIdx.x, lane = t % 32, warp0 = t - lane;
+  std::memcpy(emu_mma_stage[t], a, na * sizeof(uint32_t));
+  std::memcpy(emu_mma_stage[t] + na, b, nb * sizeof(uint32_t));
+  __syncthreads();
+  auto byte = [](uint32_t word, int k) { return (int)(int8_t)(word >> (8 * (k % 4)) & 0xff); };
+  const int gid = lane / 4, tq = lane % 4;
+  for (int i = 0; i < m_tiles; ++i) {
+    for (int j = 0; j < n_tiles; ++j) {
+      for (int e = 0; e < 4; ++e) {
+        const int row = gid + 8 * (e / 2), col = 2 * tq + e % 2;
+        int32_t sum = 0;
+        for (int k = 0; k < 32; ++k) {
+          const unsigned src = k % 16 / 4;   // the thread in group holding k
+          const uint32_t* la = emu_mma_stage[warp0 + 4 * (row % 8) + src];
+          const uint32_t* lb = emu_mma_stage[warp0 + 4 * col + src];
+          sum += byte(la[4 * i + row / 8 + 2 * (k / 16)], k) * byte(lb[na + 2 * j + k / 16], k);
+        }
+        d[(i * n_tiles + j) * 4 + e] += sum;
+      }
+    }
+  }
+  __syncthreads();
+}
 
 // kernel<<<grid, threads, smem, stream>>>(args) is rewritten by the test to
 // emu_launch(grid, threads, smem, [&] { kernel(args); });

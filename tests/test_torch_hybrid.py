@@ -227,7 +227,7 @@ NO_LAUNCHES = {"descend": 0, "descend_othello": 0, "descend_gomoku": 0, "descend
                "fused_mlp": 0, "mlp_eval": 0, "descend_round": 0, "descend_round_othello": 0,
                "descend_round_gomoku": 0, "descend_round_hex": 0, "merge_round": 0,
                "merge_round_dense": 0, "refresh2": 0, "refresh2_dense": 0, "fused_rounds": 0,
-               "fused_mlp_rounds": 0}
+               "fused_mlp_rounds": 0, "int8_tower": 0}
 
 
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():

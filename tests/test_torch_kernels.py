@@ -1,5 +1,5 @@
-"""The CUDA sources of the kernels (alphazero_tpu_torch/csrc/hybrid.cu and
-fused.cu, with c4.cuh, othello.cuh and mlp.cuh), compiled with g++ against
+"""The CUDA sources of the kernels (alphazero_tpu_torch/csrc/hybrid.cu,
+fused.cu and int8_tower.cu, with c4.cuh, othello.cuh and mlp.cuh), compiled with g++ against
 a CPU stand-in for the CUDA built-ins (tests/cuda_emu/cuda_runtime.h,
 cuda_bf16.h) and run on host memory: every descend, merge and refresh call
 of whole hybrid searches (Connect-Four through the A<=8 kernels, Othello
@@ -10,7 +10,9 @@ the searches must reproduce the goldens; so must whole Gomoku (edges 7, 8,
 merge and refresh, every call of the K>1 round kernels, and whole uniform
 fused searches in K>1 rounds. The MLP evaluator's logits must be bit-equal to its plain
 version's; its prior and value, and so the MLP searches, may differ where
-glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit.
+glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit. The
+fused int8 tower must be bit-equal to its plain version, ragged tiles
+included (its int8 tensor-core products through the emulator's mma.sync).
 
 This checks the kernels' LOGIC (indexing, record format, install/link/
 backup, PUCT order of operations, first-max ties, the Connect-Four win
@@ -32,6 +34,8 @@ import torch
 
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
+from alphazero_tpu_torch.experiments import int8_fused_tower
+from alphazero_tpu_torch.models import int8_tower
 from alphazero_tpu_torch.games import ConnectFour, Gomoku, Hex, Othello
 from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts import (
@@ -68,7 +72,7 @@ TG = ConnectFour()
 OTH = Othello()
 # kernel<<<grid, threads, smem, stream>>>(args), the kernel maybe a template instance
 _LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 10, "fused.cu": 5}   # kernel launches in each source
+_LAUNCHES = {"hybrid.cu": 10, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
 # a kernel's dynamic shared memory: the emulated launch's buffer
 _DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
@@ -791,3 +795,28 @@ def test_emulated_mlp_rounds_match_plain(emulated, cfg, moves, freeze):
     assert live.any()
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
     assert calls["same"] >= 0.95 * calls["games"], f"{calls['same']} of {calls['games']} games equal"
+
+
+@pytest.mark.parametrize(
+    "B,low,high",
+    [(1, -127, 128), (13, -16, 16), (19, -127, 128)],
+    ids=["B1_full_range", "B13_main_weights", "B19_full_range"],
+)
+def test_emulated_int8_tower_bit_equal_plain(emulated, B, low, high):
+    """``az_int8_tower`` (blocks of 8 games; B=13 and B=19 = 2*8+3 end in a
+    ragged tile) against ``tower_plain``, bit-equal: the tensor-core
+    fragments, the in-place im2col with its board edges, the requantizing
+    epilogue (full-range weights reach the clip), the residual carried in
+    registers, and no store for the missing games of the last tile (the
+    output buffer runs on for a tile of NaN rows, which must stay NaN)."""
+    x, ws = int8_fused_tower.random_tower_inputs(B, B, low, high)
+    x = torch.from_numpy(x).clone()
+    w = int8_tower.tower_weights_from_jax(ws).clone()
+    buf = torch.full(((B + 8) * 42, 64), float("nan"))
+    rc = emulated.lib.az_int8_tower(x.data_ptr(), w.data_ptr(), buf.data_ptr(), B, None)
+    assert rc == 0
+    want = int8_tower.tower_plain(x, w)
+    assert torch.equal(_bits(buf[:B * 42]), _bits(want))
+    assert buf[B * 42:].isnan().all()
+    if high == 128:
+        assert (want * int8_tower.ASCALE > 127).any()
