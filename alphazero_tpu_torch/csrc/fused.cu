@@ -15,7 +15,8 @@
 // plain PyTorch versions are fused_search, fused_mlp_search,
 // fused_rounds_search and fused_mlp_rounds_search in
 // alphazero_tpu_torch/mcts/fused.py; each kernel must agree with its plain
-// version bit for bit.
+// version bit for bit (the MLP kernels for weights whose sums are exact in
+// any order: their evaluator adds on the tensor cores, see mlp.cuh).
 //
 // Semantics kept from the reference: root in slot 0 with the masked prior
 // and a terminal root never descended; the lockstep slot cursor s = i + 1
@@ -46,10 +47,12 @@
 //   transpositions), so no depth limit is needed beyond max_depth itself.
 // * az_fused runs one thread per game, blocks of 128 games.
 // * az_fused_mlp runs blocks of 32 games and 256 threads in lockstep, as
-//   the JAX kernel's block does: in each simulation threads 0..31 walk
-//   their games' descents and write the leaf boards' input rows to shared
-//   memory; the whole block evaluates the 32 leaves (mlp.cuh); threads
-//   0..31 then install and back up. A game that does not expand (a
+//   the JAX kernel's block does: at kernel start the block copies the MLP's
+//   biases, and its weights when they fit, into dynamic shared memory
+//   (mlp_preload); in each simulation threads 0..31 walk their games'
+//   descents and write the leaf boards' input rows to shared memory; the
+//   whole block evaluates the 32 leaves on the tensor cores (mlp.cuh);
+//   threads 0..31 then install and back up. A game that does not expand (a
 //   terminal child, the cutoff, a done root, a padding game b >= B) still
 //   passes through the evaluation and its result is discarded. No thread
 //   returns early: every thread reaches every __syncthreads().
@@ -62,8 +65,11 @@
 // memory (12.9 KB per game at C=101) is the redesign for a later change.
 // az_fused_mlp's bound is the MLP's bf16 operations (174,080 per
 // expansion at (256, 256), ~72 us for a 100-simulation search of 4096
-// games at 989 TFLOP/s) plus its f32 head; its design does them on the
-// CUDA cores in a fixed order (see mlp.cuh), bound by instruction throughput.
+// games at 989 TFLOP/s) plus its f32 head. The evaluator does them with
+// mma.sync on the tensor cores from weights that stay in shared memory for
+// the launch (mlp.cuh), a few microseconds a simulation, so what holds the
+// MLP kernels is again the owner threads' dependent tree loads, 32 walkers
+// a block, one block per SM (its 222,720 bytes of shared memory).
 //
 // K>1 rounds (parallel_sims = K, round_body): round r's K descents run one
 // after another in the game's thread, each from the root, all on the tree as
@@ -386,8 +392,8 @@ __global__ void fused_mlp_kernel(const float* __restrict__ boards,
                                  float* __restrict__ counts,
                                  float* __restrict__ rootw,
                                  int B, int C, int num_sims, int max_depth, float cpuct) {
-  __shared__ __nv_bfloat16 act[2][kG][kMaxWidth];
-  __shared__ float out[kG][kHead];
+  extern __shared__ uint4 mlp_smem[];
+  const MlpShared s = mlp_shared(mlp_smem);
   const int t = threadIdx.x;
   const int b = blockIdx.x * kG + t;
   const bool owner = t < kG && b < B;  // the thread that walks game b
@@ -397,16 +403,17 @@ __global__ void fused_mlp_kernel(const float* __restrict__ boards,
   if (owner)
     init_root(T, boards + (size_t)b * kCells, priors + (size_t)b * kA, root_mine, root_theirs,
               rdone);
+  mlp_preload(m, s);
   const bool live = owner && !rdone;
   for (int i = 0; i < num_sims; ++i) {
     Leaf L{root_mine, root_theirs, 0, 0, 0, -1, false, false};
     if (live) L = descend(T, root_mine, root_theirs, max_depth, cpuct);
-    if (t < kG) mlp_input(act[0][t], L.mine, L.theirs);
+    if (t < kG) mlp_input(s.act[0][t], L.mine, L.theirs);
     __syncthreads();
-    mlp_block_eval(m, act, out);
+    mlp_block_eval(m, s);
     if (live) {
       float pm[kA], v_nn = 0.f;
-      if (L.exp) mlp_prior(out[t], L.mine, L.theirs, pm, &v_nn);
+      if (L.exp) mlp_prior(s.out[t], L.mine, L.theirs, pm, &v_nn);
       backup(T, L, finish_leaf(T, L, i + 1, C, pm, v_nn));
     }
   }
@@ -451,8 +458,8 @@ __global__ void fused_mlp_rounds_kernel(const float* __restrict__ boards,
                                         float* __restrict__ rootw,
                                         int B, int C, int K, int rounds, int max_depth,
                                         float cpuct) {
-  __shared__ __nv_bfloat16 act[2][kG][kMaxWidth];
-  __shared__ float out[kG][kHead];
+  extern __shared__ uint4 mlp_smem[];
+  const MlpShared s = mlp_shared(mlp_smem);
   const int t = threadIdx.x;
   const int b = blockIdx.x * kG + t;
   const bool owner = t < kG && b < B;  // the thread that walks game b
@@ -465,6 +472,7 @@ __global__ void fused_mlp_rounds_kernel(const float* __restrict__ boards,
               rdone);
     zero_round_record(V);
   }
+  mlp_preload(m, s);
   const bool live = owner && !rdone;
   for (int r = 0; r < rounds; ++r) {
     Leaf L[kMaxRoundK];
@@ -475,12 +483,12 @@ __global__ void fused_mlp_rounds_kernel(const float* __restrict__ boards,
       }
     }
     for (int k = 0; k < K; ++k) {  // descent k's 32 leaves, evaluated together
-      if (t < kG) mlp_input(act[0][t], L[k].mine, L[k].theirs);
+      if (t < kG) mlp_input(s.act[0][t], L[k].mine, L[k].theirs);
       __syncthreads();
-      mlp_block_eval(m, act, out);
+      mlp_block_eval(m, s);
       if (live) {
         float pm[kA], v_nn = 0.f;
-        if (L[k].exp) mlp_prior(out[t], L[k].mine, L[k].theirs, pm, &v_nn);
+        if (L[k].exp) mlp_prior(s.out[t], L[k].mine, L[k].theirs, pm, &v_nn);
         round_backup(T, V, L[k], finish_round_leaf(T, V, L[k], r * K + 1 + k, C, pm, v_nn));
       }
     }
@@ -496,21 +504,22 @@ __global__ void fused_mlp_rounds_kernel(const float* __restrict__ boards,
 __global__ void mlp_eval_kernel(const float* __restrict__ boards, MlpWeights m,
                                 float* __restrict__ logits, float* __restrict__ pm,
                                 float* __restrict__ value, int B) {
-  __shared__ __nv_bfloat16 act[2][kG][kMaxWidth];
-  __shared__ float out[kG][kHead];
+  extern __shared__ uint4 mlp_smem[];
+  const MlpShared s = mlp_shared(mlp_smem);
   const int t = threadIdx.x;
   const int b = blockIdx.x * kG + t;
   const bool owner = t < kG && b < B;
   uint64_t mine = 0, theirs = 0;
   if (owner) c4_load(boards + (size_t)b * kCells, mine, theirs);
-  if (t < kG) mlp_input(act[0][t], mine, theirs);
+  mlp_preload(m, s);
+  if (t < kG) mlp_input(s.act[0][t], mine, theirs);
   __syncthreads();
-  mlp_block_eval(m, act, out);
+  mlp_block_eval(m, s);
   if (owner) {
     float p[kA], v;
-    mlp_prior(out[t], mine, theirs, p, &v);
+    mlp_prior(s.out[t], mine, theirs, p, &v);
     for (int a = 0; a < kA; ++a) {
-      logits[(size_t)b * kA + a] = out[t][a];
+      logits[(size_t)b * kA + a] = s.out[t][a];
       pm[(size_t)b * kA + a] = p[a];
     }
     value[b] = v;
@@ -538,14 +547,19 @@ int az_fused(const float* boards, const float* priors, float* tree,
 
 // `sections`: the addresses of the weights of n_hidden hidden layers of
 // widths h0..h3 (mlp_weights; the wrapper checks their shapes and that
-// 1 <= n_hidden <= 4, every width <= 256).
+// 1 <= n_hidden <= 4, every width <= 256). The launch takes the dynamic
+// shared memory of mlp_weights' plan (az_mlp_plan).
 int az_fused_mlp(const float* boards, const float* priors, const void* const* sections,
                  float* tree, float* counts, float* rootw, int B, int C,
                  int num_sims, int max_depth, int n_hidden, int h0, int h1,
                  int h2, int h3, float cpuct, void* stream) {
   const int hidden[kMaxHidden] = {h0, h1, h2, h3};
   const MlpWeights m = mlp_weights(sections, n_hidden, hidden);
-  fused_mlp_kernel<<<blocks_for(B, kG), kMlpThreads, 0,
+  const int smem = m.smem_bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_mlp_kernel<<<blocks_for(B, kG), kMlpThreads, smem,
                      (cudaStream_t)stream>>>(boards, priors, m, tree, counts,
                                              rootw, B, C, num_sims, max_depth,
                                              cpuct);
@@ -570,7 +584,11 @@ int az_fused_mlp_rounds(const float* boards, const float* priors, const void* co
   if (K < 1 || K > kMaxRoundK || num_sims % K != 0) return (int)cudaErrorInvalidValue;
   const int hidden[kMaxHidden] = {h0, h1, h2, h3};
   const MlpWeights m = mlp_weights(sections, n_hidden, hidden);
-  fused_mlp_rounds_kernel<<<blocks_for(B, kG), kMlpThreads, 0,
+  const int smem = m.smem_bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      fused_mlp_rounds_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  fused_mlp_rounds_kernel<<<blocks_for(B, kG), kMlpThreads, smem,
                             (cudaStream_t)stream>>>(boards, priors, m, tree, rnd, counts,
                                                     rootw, B, C, K, num_sims / K, max_depth,
                                                     cpuct);
@@ -582,9 +600,24 @@ int az_mlp_eval(const float* boards, const void* const* sections, float* logits,
                 int h2, int h3, void* stream) {
   const int hidden[kMaxHidden] = {h0, h1, h2, h3};
   const MlpWeights m = mlp_weights(sections, n_hidden, hidden);
-  mlp_eval_kernel<<<blocks_for(B, kG), kMlpThreads, 0,
+  const int smem = m.smem_bytes;
+  const cudaError_t err = cudaFuncSetAttribute(
+      mlp_eval_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  mlp_eval_kernel<<<blocks_for(B, kG), kMlpThreads, smem,
                     (cudaStream_t)stream>>>(boards, m, logits, pm, value, B);
   return (int)cudaGetLastError();
+}
+
+// The evaluator's shared-memory plan for n_hidden layers of widths
+// h0..h3: the dynamic bytes of a launch, and in *resident whether every
+// layer's weights stay in shared memory for it (1) or are staged (0).
+int az_mlp_plan(int n_hidden, int h0, int h1, int h2, int h3, int* resident) {
+  const int hidden[kMaxHidden] = {h0, h1, h2, h3};
+  const void* sections[2 * kMaxHidden + 2] = {};
+  const MlpWeights m = mlp_weights(sections, n_hidden, hidden);
+  *resident = m.resident ? 1 : 0;
+  return m.smem_bytes;
 }
 
 }  // extern "C"

@@ -37,7 +37,12 @@ kernels; above, ``merge_dense`` and ``refresh_dense``). ``descend_round``,
 ``refresh2_dense``); they take 1 <= K <= ``MAX_ROUND_K`` descents per
 round. ``fused`` and ``fused_mlp`` run a whole Connect-Four search in one
 launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the same in rounds
-of 1 <= K <= ``FUSED_MAX_K`` descents. ``int8_tower`` runs the whole
+of 1 <= K <= ``FUSED_MAX_K`` descents; their MLP evaluator runs on the
+bf16 tensor cores from weights in shared memory (``mlp_plan`` says whether
+they stay there for the launch or are staged a layer at a time), so its
+sums add in another order than the plain version's k loop: bit-equal for
+weights whose sums are exact (``models.order_free_mlp_variables``), within
+a bf16 rounding step of a hidden unit otherwise. ``int8_tower`` runs the whole
 11-conv int8 tower of any B >= 1 games in one launch. Each wrapper counts the launches of its own kernel in a plain
 integer attribute, ``descend.launches`` etc.; ``reset_launch_counts()``
 zeroes them.
@@ -53,7 +58,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -104,6 +109,7 @@ _SIGNATURES = {
     "az_fused_rounds": ([_VP] * 6 + [_I32] * 5 + [_F32] * 2 + [_VP], _I32),
     "az_fused_mlp_rounds": ([_VP] * 7 + [_I32] * 10 + [_F32, _VP], _I32),
     "az_mlp_eval": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
+    "az_mlp_plan": ([_I32] * 5 + [ctypes.POINTER(ctypes.c_int)], _I32),
     "az_int8_tower": ([_VP] * 3 + [_I32, _VP], _I32),
 }
 
@@ -687,6 +693,23 @@ def _mlp_args(weights) -> list:
             for i, (t, shape, dtype) in enumerate(zip(sections, shapes, dtypes))]
     return [(_VP * len(ptrs))(*ptrs), len(hidden), *hidden,
             *[0] * (_plain_fused.MLP_MAX_HIDDEN - len(hidden))]
+
+
+def mlp_plan(hidden, lib: Optional[_Library] = None) -> Tuple[int, bool]:
+    """The in-kernel evaluator's shared-memory plan for an MLP of hidden
+    widths ``hidden`` (``csrc/mlp.cuh`` ``mlp_weights``): ``(dynamic
+    shared bytes of a launch, resident)``, resident when every layer's
+    weights stay in shared memory for the launch; otherwise each layer is
+    staged through one buffer at every evaluation. ``lib``: the kernel
+    library to ask (default ``library()``)."""
+    hidden = tuple(hidden)
+    _plain_fused.check_mlp_widths(hidden)
+    lib = lib or library()
+    resident = ctypes.c_int()
+    nbytes = lib.lib.az_mlp_plan(len(hidden), *hidden,
+                                 *[0] * (_plain_fused.MLP_MAX_HIDDEN - len(hidden)),
+                                 ctypes.byref(resident))
+    return nbytes, bool(resident.value)
 
 
 def fused_mlp(boards, priors, weights, num_sims: int, nodes: int, max_depth: int, cpuct: float):

@@ -28,9 +28,16 @@ The plain PyTorch versions of the kernels are ``fused_search``,
 ``fused_mlp_rounds_search`` below: the hybrid engine's plain loops
 (``mcts.hybrid.run_search`` and ``run_rounds`` on the plain kernels) with
 the uniform evaluator or with ``mlp_eval``, whose arithmetic is the
-kernel's, op for op in the kernel's order. The kernel wrappers run them
-for CPU tensors; root counts and root W are bit-identical either way, up
-to the last bit of ``exp`` and ``tanh`` where two libraries compute them.
+reference's at the reference's rounding points. The kernel wrappers run
+them for CPU tensors. For the uniform model root counts and root W are
+bit-identical either way. The MLP kernels sum each hidden layer's dot
+products on the tensor cores, in another order than ``mlp_forward``'s k
+loop: with weights whose partial sums are exact
+(``models.order_free_mlp_variables``) they are bit-identical too, up to
+the last bit of ``exp`` and ``tanh`` where two libraries compute them;
+with other weights a hidden unit can round to the other bf16 neighbour,
+and the searches agree within the JAX package's own bound between its
+Mosaic and XLA engines.
 
 Not ported (ROADMAP): depth-sorted blocking (``run_kernel_sorted``, whose
 8192-game threshold was measured on another device), ``mesh`` sharding,
@@ -96,8 +103,9 @@ def uniform_evaluator(batch: int, uval: float, device) -> Callable:
 
 def _ordered_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x f32[B, K] . w f32[K, H]`` summed over k in order 0..K-1, each
-    product and each add rounded to f32: the kernel's loop (a matmul adds
-    in the library's order)."""
+    product and each add rounded to f32: a fixed order, the same on every
+    device (a matmul adds in the library's order; the kernel's tensor
+    cores in theirs, see ``mlp_forward``)."""
     acc = torch.zeros((x.shape[0], w.shape[1]), device=x.device)
     for k in range(w.shape[0]):
         acc = acc + x[:, k: k + 1] * w[k]
@@ -111,9 +119,10 @@ def mlp_forward(boards: torch.Tensor, weights) -> Tuple[torch.Tensor, torch.Tens
 
     The input is the ``[+plane | -plane]`` 0/1 vector. Each hidden layer
     sums ``x_k * W[k, j]`` over k in order (bf16 x bf16 products are exact
-    in f32, so only the order of the adds matters), rounds the sum to bf16,
-    adds the bias in bf16 and applies ReLU; the f32 head sums in order,
-    then adds its bias; the value goes through tanh."""
+    in f32, so only the order of the adds matters: the kernel's tensor
+    cores add in their own), rounds the sum to bf16, adds the bias in bf16
+    and applies ReLU; the f32 head sums in order, then adds its bias; the
+    value goes through tanh."""
     x = torch.cat([boards == 1, boards == -1], dim=1).float()
     for w, b in zip(weights.w, weights.b):
         h = _ordered_dot(x, w.float()).to(torch.bfloat16).float()

@@ -2,6 +2,7 @@ from alphazero_tpu_torch.models.convert import (
     convert_az_resnet,
     convert_mlp,
     mlp_state_dict,
+    order_free_mlp_variables,
     random_az_resnet_variables,
     random_mlp_variables,
 )
@@ -29,5 +30,6 @@ __all__ = [
     "random_az_resnet_variables",
     "convert_mlp",
     "mlp_state_dict",
+    "order_free_mlp_variables",
     "random_mlp_variables",
 ]

@@ -2,7 +2,8 @@
 
 Takes a flax ``{'params', 'batch_stats'}`` tree whose leaves are numpy
 arrays (``jax.device_get`` of a JAX model's variables, or
-``random_az_resnet_variables`` / ``random_mlp_variables``) and returns the
+``random_az_resnet_variables`` / ``random_mlp_variables`` /
+``order_free_mlp_variables``) and returns the
 port's ``AZResNet`` or ``MLPNet`` with the same weights:
 
 * conv kernels HWIO -> OIHW; Dense kernels ``[in, out]`` -> ``[out, in]``;
@@ -139,6 +140,29 @@ def random_mlp_variables(
         params[name] = {
             "kernel": (rng.standard_normal((cin, cout)) * np.sqrt(2.0 / cin)).astype(np.float32),
             "bias": (rng.standard_normal(cout) * 0.1).astype(np.float32),
+        }
+    return {"params": params}
+
+
+def order_free_mlp_variables(
+    num_actions: int, hidden: Sequence[int], cells: int = 42, seed: int = 0
+) -> Dict[str, Dict[str, Any]]:
+    """A flax-layout ``MLPNet`` variable tree on a small dyadic grid, for
+    holding the in-kernel evaluator bit for bit against its plain version:
+    hidden kernels and biases k/16 with |k| <= 2, head kernels and biases
+    k/64 with |k| <= 4. On 0/1 board inputs every partial sum of every dot
+    product is then a multiple of a power of two far inside f32's 24 bits,
+    so it is exact, and every order of the adds (the plain evaluator's k
+    order, a tensor-core tile's) gives the same bits."""
+    rng = np.random.default_rng(seed)
+    widths = (2 * cells, *hidden)
+    params: Dict[str, Any] = {}
+    names = [f"Dense_{i}" for i in range(len(hidden))] + ["policy", "value"]
+    for name, cin, cout in zip(names, widths + (widths[-1],), (*hidden, num_actions, 1)):
+        k, scale = (4, 64.0) if name in ("policy", "value") else (2, 16.0)
+        params[name] = {
+            "kernel": (rng.integers(-k, k + 1, (cin, cout)) / scale).astype(np.float32),
+            "bias": (rng.integers(-k, k + 1, cout) / scale).astype(np.float32),
         }
     return {"params": params}
 

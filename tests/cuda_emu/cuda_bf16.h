@@ -24,3 +24,5 @@ inline float __bfloat162float(__nv_bfloat16 h) {
   std::memcpy(&f, &u, sizeof f);
   return f;
 }
+
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 h) { return h.x; }

@@ -10,7 +10,10 @@
 // -ffp-contract=off), as on the card; expf and tanhf are glibc's, which
 // may differ from the card's in the last bit. Inline PTX has no stand-in:
 // a source keeps it under `#ifndef CUDA_EMU` and calls the emulated
-// instruction below (emu_mma_m16n8k32_s8) otherwise.
+// instruction below (emu_mma_m16n8k32_s8, emu_mma_m16n8k16_bf16,
+// emu_cp_async16 and emu_cp_async_wait_all) otherwise. Each block starts
+// with its dynamic shared memory filled with 0xff bytes (a bf16 or f32 NaN),
+// so that a kernel that reads what it never wrote shows it.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -108,6 +111,66 @@ inline void emu_mma_m16n8k32_s8(int32_t* d, const uint32_t* a, const uint32_t* b
   __syncthreads();
 }
 
+// m_tiles x n_tiles instructions mma.sync.aligned.m16n8k16.row.col.f32.bf16
+// .bf16.f32 of the calling thread's warp: d[i][j][0..3] += A_i B_j, with the
+// PTX ISA's fragments: lane l = 4 * gid + tq holds of A_i (16x16, row-major)
+// a[i][0] = row gid, k 2tq, 2tq+1; a[i][1] = row gid + 8, the same k;
+// a[i][2], a[i][3] the same rows at k 8 + 2tq, 8 + 2tq + 1; of B_j (16x8)
+// b[j][0] = k 2tq, 2tq+1 of column gid, b[j][1] = k 8 + 2tq, 8 + 2tq + 1;
+// of D rows gid (d 0, 1) and gid + 8 (d 2, 3), columns 2tq and 2tq + 1; two
+// bf16 a register, the lower k in the lower half. Each product is exact; an
+// instruction's 16 products and its accumulator are summed in float64 and
+// rounded once to f32. Block-collective, as emu_mma_m16n8k32_s8.
+inline float emu_bf16_half(uint32_t word, int k) {
+  const uint32_t u = (k % 2 ? word >> 16 : word & 0xffffu) << 16;
+  float f;
+  std::memcpy(&f, &u, sizeof f);
+  return f;
+}
+inline void emu_mma_m16n8k16_bf16(float* d, const uint32_t* a, const uint32_t* b, int m_tiles,
+                                  int n_tiles) {
+  const int na = 4 * m_tiles, nb = 2 * n_tiles;
+  if (na + nb > emu_mma_max_words) std::abort();
+  const unsigned t = threadIdx.x, lane = t % 32, warp0 = t - lane;
+  std::memcpy(emu_mma_stage[t], a, na * sizeof(uint32_t));
+  std::memcpy(emu_mma_stage[t] + na, b, nb * sizeof(uint32_t));
+  __syncthreads();
+  const int gid = lane / 4, tq = lane % 4;
+  for (int i = 0; i < m_tiles; ++i) {
+    for (int j = 0; j < n_tiles; ++j) {
+      for (int e = 0; e < 4; ++e) {
+        const int row = gid + 8 * (e / 2), col = 2 * tq + e % 2;
+        float& out = d[(i * n_tiles + j) * 4 + e];
+        double sum = out;
+        for (int k = 0; k < 16; ++k) {
+          const unsigned src = k % 8 / 2;   // the thread in group holding k
+          const uint32_t* la = emu_mma_stage[warp0 + 4 * (row % 8) + src];
+          const uint32_t* lb = emu_mma_stage[warp0 + 4 * col + src];
+          sum += (double)emu_bf16_half(la[4 * i + row / 8 + 2 * (k / 8)], k) *
+                 (double)emu_bf16_half(lb[na + 2 * j + k / 8], k);
+        }
+        out = (float)sum;
+      }
+    }
+  }
+  __syncthreads();
+}
+
+// cp.async of 16 bytes from device to shared memory: the copy lands only
+// when the issuing thread waits (emu_cp_async_wait_all, the stand-in of
+// cp.async.wait_all), so a read before the wait sees the old bytes. A
+// thread that ends with copies it never waited for aborts the launch.
+struct emu_cp_async_copy { void* dst; const void* src; };
+inline thread_local std::vector<emu_cp_async_copy> emu_cp_async_pending;
+inline void emu_cp_async16(void* dst, const void* src) {
+  if (reinterpret_cast<uintptr_t>(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16) std::abort();
+  emu_cp_async_pending.push_back({dst, src});
+}
+inline void emu_cp_async_wait_all() {
+  for (const auto& c : emu_cp_async_pending) std::memcpy(c.dst, c.src, 16);
+  emu_cp_async_pending.clear();
+}
+
 // kernel<<<grid, threads, smem, stream>>>(args) is rewritten by the test to
 // emu_launch(grid, threads, smem, [&] { kernel(args); });
 template <class F>
@@ -116,6 +179,7 @@ void emu_launch(unsigned int grid, unsigned int threads, size_t smem, F body) {
   std::vector<unsigned char> dynamic_smem(smem);
   emu_dynamic_smem = dynamic_smem.data();
   for (unsigned int bx = 0; bx < grid; ++bx) {
+    std::fill(dynamic_smem.begin(), dynamic_smem.end(), (unsigned char)0xff);
     std::barrier<> bar(threads);
     emu_block_barrier = &bar;
     std::vector<std::thread> team;
@@ -124,6 +188,7 @@ void emu_launch(unsigned int grid, unsigned int threads, size_t smem, F body) {
         blockIdx = {bx, 0, 0};
         threadIdx = {t, 0, 0};
         body();
+        if (!emu_cp_async_pending.empty()) std::abort();
       });
     }
     for (auto& th : team) th.join();

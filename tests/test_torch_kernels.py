@@ -8,11 +8,17 @@ uniform fused search, must be bit-equal to the plain PyTorch versions, and
 the searches must reproduce the goldens; so must whole Gomoku (edges 7, 8,
 9, 15) and Hex searches through their descend instances and the dense
 merge and refresh, every call of the K>1 round kernels, and whole uniform
-fused searches in K>1 rounds. The MLP evaluator's logits must be bit-equal to its plain
-version's; its prior and value, and so the MLP searches, may differ where
-glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit. The
-fused int8 tower must be bit-equal to its plain version, ragged tiles
-included (its int8 tensor-core products through the emulator's mma.sync).
+fused searches in K>1 rounds. The MLP evaluator runs its hidden layers on
+the emulator's bf16 mma.sync, which adds in another order than the plain
+version's k loop: with order-free (dyadic) weights its logits must be
+bit-equal to the plain version's, and its searches identical on every game;
+with random weights its logits stay within a stated tolerance and its
+searches identical on >= 95% of games. Prior and value may also differ
+where glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit.
+The emulated bf16 instruction itself is held against a float64 product of
+random fragments. The fused int8 tower must be bit-equal to its plain
+version, ragged tiles included (its int8 tensor-core products through the
+emulator's mma.sync).
 
 This checks the kernels' LOGIC (indexing, record format, install/link/
 backup, PUCT order of operations, first-max ties, the Connect-Four win
@@ -60,7 +66,9 @@ from alphazero_tpu_torch.models import (
 )
 from alphazero_tpu_torch.ops import sample_draws
 from tests.torch_parity import (
+    assert_order_free,
     boards_from_seqs,
+    order_free_mlp_apply,
     random_boards,
     random_othello_boards,
     random_play_boards,
@@ -93,6 +101,7 @@ def emulated(tmp_path_factory):
         cpp = build_dir / f"{src.stem}_emu.cpp"
         cpp.write_text(out)
         cpps.append(str(cpp))
+    cpps.append(os.path.join(HERE, "cuda_emu", "mma_tile.cpp"))   # the bf16 tile probe
     so = build_dir / "libaz_emu.so"
     subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
@@ -441,31 +450,130 @@ def _mlp_args(weights):
 # exact value (< 1e-7 absolute for values of magnitude <= 1)
 MLP_EMU_ATOL = 1e-6
 MLP_EMU_W_ATOL = 24 * MLP_EMU_ATOL   # root W: a sum of up to 24 leaf values here
+# the evaluator's tolerance with random (He-scaled) weights, where its
+# tensor-core sums add in another order than the plain k loop: a hidden unit
+# of |h| < 2 may round to the other bf16 neighbour (a step <= 2^-7), which a
+# head weight |w| < 0.5 carries into a logit as < 4e-3, into the prior as
+# about half that (chip_smoke.py's gate; on an H100 at B=4096 the largest
+# differences were 1.26e-3, 2.6e-4 and 4.5e-4; the emulator's are smaller)
+MLP_LOGIT_ATOL = 4e-3
+MLP_PRIOR_ATOL = 2e-3
 
 
+@pytest.mark.parametrize("m_tiles,n_tiles", [(1, 1), (2, 4)], ids=["one_tile", "two_by_four"])
+def test_emulated_bf16_mma_tile_matches_float64(emulated, m_tiles, n_tiles):
+    """``emu_mma_m16n8k16_bf16`` of one warp against a float64 matmul:
+    random bf16 A (16 m_tiles x 16) and B (16 x 8 n_tiles) and f32
+    accumulators C, put into each lane's registers by the PTX ISA's
+    fragment layout (built here, independently of the emulator), and D read
+    back the same way. Each instruction rounds its exact sum once to f32,
+    so D is within an f32 ulp of the float64 A B + C: a layout mistake
+    would show as an O(1) error."""
+    rng = np.random.default_rng(7)
+    M, N = 16 * m_tiles, 8 * n_tiles
+    A = torch.from_numpy(rng.standard_normal((M, 16)).astype(np.float32)).to(torch.bfloat16)
+    Bm = torch.from_numpy(rng.standard_normal((16, N)).astype(np.float32)).to(torch.bfloat16)
+    C = rng.standard_normal((M, N)).astype(np.float32)
+    a_bits = A.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+    b_bits = Bm.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+    a = np.zeros((32, 4 * m_tiles), np.uint32)
+    b = np.zeros((32, 2 * n_tiles), np.uint32)
+    d = np.zeros((32, 4 * m_tiles * n_tiles), np.float32)
+    for lane in range(32):
+        gid, tq = lane // 4, lane % 4
+        for i in range(m_tiles):
+            for r in range(4):   # a0..a3: rows gid, gid+8, gid, gid+8; k 2tq (+8 for a2, a3)
+                row, k = 16 * i + gid + 8 * (r % 2), 2 * tq + 8 * (r // 2)
+                a[lane, 4 * i + r] = a_bits[row, k] | a_bits[row, k + 1] << 16
+        for j in range(n_tiles):
+            for r in range(2):   # b0, b1: k 2tq, 2tq+8 of column gid
+                k, col = 2 * tq + 8 * r, 8 * j + gid
+                b[lane, 2 * j + r] = b_bits[k, col] | b_bits[k + 1, col] << 16
+        for i in range(m_tiles):
+            for j in range(n_tiles):
+                for e in range(4):   # d0, d1: row gid; d2, d3: row gid+8; columns 2tq, 2tq+1
+                    d[lane, (i * n_tiles + j) * 4 + e] = C[16 * i + gid + 8 * (e // 2),
+                                                           8 * j + 2 * tq + e % 2]
+    rc = emulated.lib.emu_mma_bf16_tiles(
+        ctypes.c_void_p(a.ctypes.data), ctypes.c_void_p(b.ctypes.data),
+        ctypes.c_void_p(d.ctypes.data), m_tiles, n_tiles)
+    assert rc == 0
+    D = np.zeros((M, N), np.float32)
+    for lane in range(32):
+        gid, tq = lane // 4, lane % 4
+        for i in range(m_tiles):
+            for j in range(n_tiles):
+                for e in range(4):
+                    D[16 * i + gid + 8 * (e // 2), 8 * j + 2 * tq + e % 2] = \
+                        d[lane, (i * n_tiles + j) * 4 + e]
+    want = A.double().numpy() @ Bm.double().numpy() + C.astype(np.float64)
+    np.testing.assert_allclose(D, want, rtol=2.0 ** -23, atol=1e-30)
+
+
+# hidden widths, the weights' kind and the boards: order-free (dyadic)
+# weights must give the plain version's bits; random ones stay within
+# MLP_LOGIT_ATOL / MLP_PRIOR_ATOL
 @pytest.mark.parametrize(
-    "hidden", [(64,), (32, 32), (256, 256), (16, 24, 40, 8)],
-    ids=["smoke64", "32x32", "256x256", "four_layers"],
+    "hidden,kind,batch",
+    [
+        ((64,), "order_free", 40),
+        ((32, 32), "order_free", 40),
+        ((256, 256), "order_free", 40),
+        ((16, 24, 40, 8), "order_free", 40),
+        ((20, 9), "order_free", 40),              # rows not 16-byte aligned: 2-byte copies
+        ((256, 256, 256, 256), "order_free", 8),  # too large to stay resident: staged
+        ((256, 256), "random", 40),
+        ((16, 24, 40, 8), "random", 40),
+    ],
+    ids=["smoke64", "32x32", "256x256", "four_layers", "odd_widths", "staged_256x4",
+         "256x256_random", "four_layers_random"],
 )
-def test_emulated_mlp_eval_bit_equal_plain_logits(emulated, hidden):
-    """The kernel's evaluator on 40 boards (a full block and a ragged one
-    with padding games): logits bit-equal to ``mlp_forward``; prior and
-    value within MLP_EMU_ATOL of ``mlp_prior`` and the plain tanh."""
-    weights = _mlp_apply(hidden, seed=len(hidden)).kernel_eval_factory(FlatOps())
-    boards = FlatOps().from_state(torch_state(random_boards(40, 20, seed=3, freeze_done=False)))
-    logits, pm, value = torch.empty(40, 7), torch.empty(40, 7), torch.empty(40)
+def test_emulated_mlp_eval_bit_equal_plain_logits(emulated, hidden, kind, batch):
+    """The kernel's evaluator on ``batch`` boards (40: a full block and a
+    ragged one with padding games): with order-free weights, logits
+    bit-equal to ``mlp_forward``; with random He-scaled weights within
+    MLP_LOGIT_ATOL. Prior and value within MLP_EMU_ATOL of ``mlp_prior`` and
+    the plain tanh (order-free), or within MLP_PRIOR_ATOL and
+    MLP_LOGIT_ATOL (random)."""
+    if kind == "order_free":
+        apply_fn = order_free_mlp_apply(hidden, seed=len(hidden))
+    else:
+        apply_fn = _mlp_apply(hidden, seed=len(hidden))
+    weights = apply_fn.kernel_eval_factory(FlatOps())
+    boards = FlatOps().from_state(torch_state(random_boards(batch, 20, seed=3, freeze_done=False)))
+    if kind == "order_free":
+        assert_order_free(boards, weights)
+    logits, pm, value = torch.empty(batch, 7), torch.empty(batch, 7), torch.empty(batch)
     sections, widths = _mlp_args(weights)
     rc = emulated.lib.az_mlp_eval(
-        boards.data_ptr(), sections, logits.data_ptr(), pm.data_ptr(), value.data_ptr(), 40,
+        boards.data_ptr(), sections, logits.data_ptr(), pm.data_ptr(), value.data_ptr(), batch,
         *widths, None,
     )
     assert rc == 0
     ref_logits, ref_value = mlp_forward(boards, weights)
-    assert torch.equal(_bits(logits), _bits(ref_logits)), "mlp logits"
     vm = FlatOps().valid(boards)
     assert (~vm).any() and torch.equal(pm[~vm], torch.full_like(pm[~vm], -1e30))
-    torch.testing.assert_close(pm, mlp_prior(ref_logits, vm), atol=MLP_EMU_ATOL, rtol=0)
-    torch.testing.assert_close(value, ref_value, atol=MLP_EMU_ATOL, rtol=0)
+    if kind == "order_free":
+        assert torch.equal(_bits(logits), _bits(ref_logits)), "mlp logits"
+        torch.testing.assert_close(pm, mlp_prior(ref_logits, vm), atol=MLP_EMU_ATOL, rtol=0)
+        torch.testing.assert_close(value, ref_value, atol=MLP_EMU_ATOL, rtol=0)
+    else:
+        torch.testing.assert_close(logits, ref_logits, atol=MLP_LOGIT_ATOL, rtol=0)
+        torch.testing.assert_close(pm, mlp_prior(ref_logits, vm), atol=MLP_PRIOR_ATOL, rtol=0)
+        torch.testing.assert_close(value, ref_value, atol=MLP_LOGIT_ATOL, rtol=0)
+
+
+def test_emulated_mlp_plan_resident_or_staged(emulated):
+    """The evaluator's shared-memory plan: the mlp preset's (256, 256)
+    stays resident in 222,720 bytes; 3 and 4 layers of 256 are staged; and
+    every stack ``check_mlp_widths`` takes fits a block's 232,448 bytes."""
+    assert kernels.mlp_plan((256, 256), emulated) == (222_720, True)
+    assert kernels.mlp_plan((256, 256, 256), emulated)[1] is False
+    assert kernels.mlp_plan((256, 256, 256, 256), emulated)[1] is False
+    for n in range(1, 5):
+        for width in (1, 8, 100, 255, 256):
+            nbytes, _ = kernels.mlp_plan((width,) * n, emulated)
+            assert nbytes <= 232_448, ((width,) * n, nbytes)
 
 
 def _checked_fused_mlp(lib, calls):
@@ -499,35 +607,52 @@ def _checked_fused_mlp(lib, calls):
     return fused_mlp
 
 
+def _mlp_search_apply(weights: str, seed: int):
+    """The searches' MLPNet (32, 32): random (He-scaled) or order-free
+    weights, whose tensor-core sums are the plain version's bit for bit."""
+    if weights == "order_free":
+        return order_free_mlp_apply((32, 32), seed=seed)
+    return _mlp_apply((32, 32), seed=seed)
+
+
 @pytest.mark.parametrize(
-    "cfg,moves,freeze,dirichlet",
+    "cfg,moves,freeze,dirichlet,weights",
     [
-        (MCTSConfig(num_sims=24, max_depth=48), 8, True, None),
-        (MCTSConfig(num_sims=20, max_depth=48), 30, False, None),             # endgames, past wins
-        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5), 6, True, None),     # depth cutoffs
-        (MCTSConfig(num_sims=20, max_depth=48, max_nodes=8), 12, True, None),  # slots run out
-        (MCTSConfig(num_sims=16, max_depth=48, dirichlet_alpha=0.7), 4, True, 0.7),
+        (MCTSConfig(num_sims=24, max_depth=48), 8, True, None, "random"),
+        (MCTSConfig(num_sims=20, max_depth=48), 30, False, None, "random"),             # endgames, past wins
+        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5), 6, True, None, "random"),     # depth cutoffs
+        (MCTSConfig(num_sims=20, max_depth=48, max_nodes=8), 12, True, None, "random"),  # slots run out
+        (MCTSConfig(num_sims=16, max_depth=48, dirichlet_alpha=0.7), 4, True, 0.7, "random"),
+        (MCTSConfig(num_sims=24, max_depth=48), 8, True, None, "order_free"),
+        (MCTSConfig(num_sims=20, max_depth=48), 30, False, None, "order_free"),
     ],
-    ids=["early", "endgames", "max_depth3", "max_nodes8", "dirichlet"],
+    ids=["early", "endgames", "max_depth3", "max_nodes8", "dirichlet", "early_order_free",
+         "endgames_order_free"],
 )
-def test_emulated_mlp_search_matches_plain(emulated, cfg, moves, freeze, dirichlet):
+def test_emulated_mlp_search_matches_plain(emulated, cfg, moves, freeze, dirichlet, weights):
     """Whole emulated MLP searches (40 games: a full block of 32 and a
     ragged one) through the fused engine: simulations conserved, and counts
-    identical to ``fused_mlp_search``'s on >= 95% of games (a last-bit
-    difference of exp/tanh can flip a PUCT argmax)."""
+    identical to ``fused_mlp_search``'s on >= 95% of games with random
+    weights (the tensor-core sums' order, or a last-bit difference of
+    exp/tanh, can flip a PUCT argmax), on every game with order-free
+    weights."""
     boards = torch_state(random_boards(40, moves, seed=moves, freeze_done=freeze))
     noise = None
     if dirichlet is not None:
         noise = sample_draws(torch.Generator().manual_seed(2), 40, 7, dirichlet, "cpu").dirichlet
+    apply_fn = _mlp_search_apply(weights, seed=moves)
+    if weights == "order_free":
+        assert_order_free(FlatOps().from_state(boards), apply_fn.kernel_eval_factory(FlatOps()))
     calls = {"fused_mlp": 0, "same": 0, "games": 0}
     counts = make_fused_root_fn(
-        TG, _mlp_apply((32, 32), seed=moves), cfg, kernel=_checked_fused_mlp(emulated, calls)
+        TG, apply_fn, cfg, kernel=_checked_fused_mlp(emulated, calls)
     )(boards, noise)
     assert calls["fused_mlp"] == 1
     live = ~TG.terminal(boards)[0]
     assert live.any()
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
-    assert calls["same"] >= 0.95 * calls["games"], f"{calls['same']} of {calls['games']} games equal"
+    need = calls["games"] if weights == "order_free" else 0.95 * calls["games"]
+    assert calls["same"] >= need, f"{calls['same']} of {calls['games']} games equal"
 
 
 def _checked_round_kernels(lib, calls):
@@ -771,30 +896,37 @@ def _checked_fused_mlp_rounds(lib, calls):
 
 
 @pytest.mark.parametrize(
-    "cfg,moves,freeze",
+    "cfg,moves,freeze,weights",
     [
-        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), 8, True),
-        (MCTSConfig(num_sims=18, max_depth=48, parallel_sims=9), 30, False),            # endgames
-        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5, parallel_sims=2), 6, True),    # cutoffs
-        (MCTSConfig(num_sims=24, max_depth=48, max_nodes=10, parallel_sims=4), 12, True),
+        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), 8, True, "random"),
+        (MCTSConfig(num_sims=18, max_depth=48, parallel_sims=9), 30, False, "random"),          # endgames
+        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5, parallel_sims=2), 6, True, "random"),  # cutoffs
+        (MCTSConfig(num_sims=24, max_depth=48, max_nodes=10, parallel_sims=4), 12, True, "random"),
+        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), 8, True, "order_free"),
+        (MCTSConfig(num_sims=18, max_depth=48, parallel_sims=9), 30, False, "order_free"),
     ],
-    ids=["K4", "K9_endgames", "K2_max_depth3", "K4_max_nodes10"],
+    ids=["K4", "K9_endgames", "K2_max_depth3", "K4_max_nodes10", "K4_order_free",
+         "K9_endgames_order_free"],
 )
-def test_emulated_mlp_rounds_match_plain(emulated, cfg, moves, freeze):
+def test_emulated_mlp_rounds_match_plain(emulated, cfg, moves, freeze, weights):
     """Whole emulated K>1 MLP searches (40 games: a full block of 32 and a
     ragged one; K block evaluations per round): simulations conserved and
-    counts identical to ``fused_mlp_rounds_search``'s on >= 95% of games,
-    as for K=1."""
+    counts identical to ``fused_mlp_rounds_search``'s on >= 95% of games
+    with random weights, on every game with order-free ones, as for K=1."""
     boards = torch_state(random_boards(40, moves, seed=moves, freeze_done=freeze))
+    apply_fn = _mlp_search_apply(weights, seed=moves)
+    if weights == "order_free":
+        assert_order_free(FlatOps().from_state(boards), apply_fn.kernel_eval_factory(FlatOps()))
     calls = {"fused_mlp_rounds": 0, "same": 0, "games": 0}
     counts = make_fused_root_fn(
-        TG, _mlp_apply((32, 32), seed=moves), cfg, kernel=_checked_fused_mlp_rounds(emulated, calls)
+        TG, apply_fn, cfg, kernel=_checked_fused_mlp_rounds(emulated, calls)
     )(boards)
     assert calls["fused_mlp_rounds"] == 1
     live = ~TG.terminal(boards)[0]
     assert live.any()
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
-    assert calls["same"] >= 0.95 * calls["games"], f"{calls['same']} of {calls['games']} games equal"
+    need = calls["games"] if weights == "order_free" else 0.95 * calls["games"]
+    assert calls["same"] >= need, f"{calls['same']} of {calls['games']} games equal"
 
 
 @pytest.mark.parametrize(

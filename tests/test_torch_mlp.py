@@ -46,12 +46,19 @@ from alphazero_tpu_torch.models import (
     convert_mlp,
     make_apply_fn,
     make_uniform_model,
+    order_free_mlp_variables,
     random_az_resnet_variables,
     random_mlp_variables,
 )
 from alphazero_tpu_torch.models.nets import mlp_feature_perm, mlp_sections
 from alphazero_tpu_torch.selfplay import _make_root_counts_fn
-from tests.torch_parity import jax_state, random_boards, torch_state
+from tests.torch_parity import (
+    assert_order_free,
+    jax_state,
+    order_free_mlp_apply,
+    random_boards,
+    torch_state,
+)
 
 FWD_ATOL = 1e-3
 PRIOR_ATOL = 1e-4
@@ -148,6 +155,31 @@ def test_plain_evaluator_matches_jax_eval_fn(hidden):
     np.testing.assert_allclose(np.asarray(jv)[:, 0], tv.numpy(), atol=FWD_ATOL, rtol=0)
     np.testing.assert_allclose(jp[vm], tp.numpy()[vm], atol=PRIOR_ATOL, rtol=0)
     assert (tp.numpy()[~vm] == -1e30).all()
+
+
+@pytest.mark.parametrize(
+    "hidden", [(32, 32), (64,), (16, 24, 40, 8), (256, 256), (256, 256, 256, 256)],
+    ids=["32x32", "smoke64", "four_layers", "256x256", "256x4"],
+)
+def test_order_free_weights_are_exact_in_every_order(hidden):
+    """``order_free_mlp_variables`` (the dyadic weights that hold the
+    in-kernel evaluator bit for bit against its plain version, whose
+    tensor-core sums add in another order): on boards of every depth the
+    plain f32 forward equals its float64 evaluation layer by layer, and the
+    JAX ``eval_fn``, which sums in XLA's order, gives the same bits."""
+    apply_fn = order_free_mlp_apply(hidden, seed=len(hidden))
+    weights = apply_fn.kernel_eval_factory(FLAT)
+    boards = np.concatenate([random_boards(64, m, seed=m, freeze_done=False) for m in (0, 9, 21, 42)])
+    flat = _flat(boards)
+    assert_order_free(flat, weights)
+    variables = order_free_mlp_variables(7, hidden, seed=len(hidden))
+    jax_apply = make_flax_apply_fn(JaxMLPNet(num_actions=7, hidden=hidden))
+    extract, eval_fn = jax_apply.kernel_eval_factory(JG.flat_ops())
+    vm = np.asarray(flat)[:, 35:] == 0
+    jl, jv = eval_fn(jnp.asarray(np.asarray(flat)), jnp.asarray(vm), *extract(variables))
+    tl, tv = mlp_forward(flat, weights)
+    assert np.array_equal(np.asarray(jl), tl.numpy())
+    assert len(set(np.asarray(tl).ravel().tolist())) > 50   # the logits are not degenerate
 
 
 def _assert_close_searches(a: np.ndarray, b: np.ndarray) -> None:

@@ -3,8 +3,9 @@
 Inputs are made from a seed with numpy and handed to both packages as
 numpy arrays: random-play Connect-Four, Othello, Gomoku and Hex boards,
 a numpy replica of the position generator of tests/test_fused.py (which the
-TPU goldens were frozen from), and the conversions of a batch of boards
-into each package's state.
+TPU goldens were frozen from), the conversions of a batch of boards
+into each package's state, and MLPNet weights on a dyadic grid whose
+forward is the same in every order of the adds.
 """
 
 import jax.numpy as jnp
@@ -17,6 +18,8 @@ from alphazero_tpu.games.hex import HexState
 from alphazero_tpu.games.othello import OthelloState
 from alphazero_tpu_torch.games import ConnectFour as TorchConnectFour
 from alphazero_tpu_torch.games import Othello as TorchOthello
+from alphazero_tpu_torch.mcts.fused import _ordered_dot
+from alphazero_tpu_torch.models import convert_mlp, make_apply_fn, order_free_mlp_variables
 
 # Tier-1 runs several pytest workers side by side; keep each one's
 # intra-op pool small.
@@ -137,3 +140,28 @@ def gomoku_jax_state(boards: np.ndarray) -> GomokuState:
 
 def hex_jax_state(boards: np.ndarray) -> HexState:
     return HexState(board=jnp.asarray(boards, jnp.int8))
+
+
+def order_free_mlp_apply(hidden, seed: int = 0):
+    """The ``apply_fn`` of an ``MLPNet`` of the given hidden widths with
+    ``order_free_mlp_variables`` weights (Connect-Four, 7 actions): its
+    forward on 0/1 boards has exact partial sums, so a tensor-core tile's
+    order of the adds gives the plain version's bits
+    (``assert_order_free`` checks it on a batch of boards)."""
+    return make_apply_fn(convert_mlp(order_free_mlp_variables(7, hidden, seed=seed)))
+
+
+def assert_order_free(boards: torch.Tensor, weights) -> None:
+    """The plain f32 forward of ``weights`` (``MLPKernelWeights``) on flat
+    Connect-Four boards f32[B, 42] equals its float64 evaluation: every
+    layer's ordered f32 sums, and the head's, are exact. Then every order
+    of the adds gives the same bits."""
+    x = torch.cat([boards == 1, boards == -1], dim=1).float()
+    for i, (w, b) in enumerate(zip(weights.w, weights.b)):
+        s32 = _ordered_dot(x, w.float())
+        assert torch.equal(s32.double(), x.double() @ w.double()), f"layer {i} sums are not exact"
+        y = (s32.to(torch.bfloat16).float() + b.float()).to(torch.bfloat16)
+        x = torch.where(y > 0, y, 0).float()
+    head32 = _ordered_dot(x, weights.wh)
+    assert torch.equal(head32.double(), x.double() @ weights.wh.double()), "head sums are not exact"
+    assert torch.equal((head32 + weights.bh).double(), head32.double() + weights.bh.double())
