@@ -4,22 +4,21 @@
 // :191-200); the plain PyTorch version is GomokuFlatOps.step in
 // alphazero_tpu_torch/games/gomoku.py, and the two agree exactly.
 //
-// A board of up to kGomokuWords * 64 = 256 cells (every edge from 5 to 16)
-// is kGomokuWords 64-bit words a side, `mine` (+1, the player to move) and
-// `theirs` (-1): bit i % 64 of word i / 64 is flat cell i (row-major,
-// r * size + c). The step needs no geometry, so one instance serves every
-// edge: it sets the move's bit in `mine` (an occupied cell is overwritten,
-// as in the reference), clears it in `theirs` and swaps the sides. The
-// words are indexed only by compile-time constants (unrolled loops), so
-// they stay in registers: 8 64-bit registers for the board.
+// A board of up to W * 64 cells is W 64-bit words a side, `mine` (+1, the
+// player to move) and `theirs` (-1): bit i % 64 of word i / 64 is flat cell
+// i (row-major, r * size + c). The descend kernels instantiate W = 8 (up to
+// 512 cells: edges up to 22).
+// The step needs no geometry, so one instance serves every edge it holds:
+// it sets the move's bit in `mine` (an occupied cell is overwritten, as in
+// the reference), clears it in `theirs` and swaps the sides. The words are
+// indexed only by compile-time constants (unrolled loops), so they stay in
+// registers: 2 * W 64-bit registers for the board.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kGomokuWords = 4;
 
 // GomokuFlatOps.step on W-word bitboards: +1 at cell a (< 64 * W), then
 // sign-flip.

@@ -7,7 +7,7 @@
 //                  (FlatOps.step, games/connect_four.py:201-217) from c4.cuh,
 //                  the Othello step (OthelloFlatOps.step, games/othello.py
 //                  :228-265) from othello.cuh, the Gomoku step of every edge
-//                  up to 16 (GomokuFlatOps.step, games/gomoku.py:191-200)
+//                  up to 22 (GomokuFlatOps.step, games/gomoku.py:191-200)
 //                  from gomoku.cuh, the canonical Hex step (HexFlatOps.step,
 //                  games/hex.py:214-232, without its parity lane) from
 //                  hex.cuh;
@@ -15,7 +15,8 @@
 //                  refresh (_refresh, hybrid.py:120-149);
 //   az_merge_dense
 //               <- the same merge with _refresh's dense branch for larger
-//                  action spaces (hybrid.py:150-168; Othello A=65);
+//                  action spaces (hybrid.py:150-168; Othello A=65), which
+//                  refreshes only the columns the merge writes;
 //   az_refresh, az_refresh_dense
 //               <- the same two refreshes alone, which seed the first
 //                  best-action planes of a search (hybrid.py:815);
@@ -35,9 +36,9 @@
 //
 // Tree layout (per game b): stat planes n/w/p/code f32[B, A, C] (node c of
 // action a at b*A*C + a*C + c), node planes done/tval f32[B, C], the best-
-// action planes besta/bestc f32[B, C] that the refresh leaves for the next
-// descent. Child codes: -1 unexpanded, >= 0 a child slot, -2-s a terminal
-// child at slot s.
+// action planes besta/bestc f32[B, C] that the refresh keeps current for the
+// next descent, in place. Child codes: -1 unexpanded, >= 0 a child slot,
+// -2-s a terminal child at slot s.
 //
 // Path record between the kernels: patha[b, c] = action+1 where node c lies
 // on the descent path (0 elsewhere), psgn[b, c] = its root-parity sign, and
@@ -51,30 +52,49 @@
 //   path with real indexing (the TPU kernel's one-hot lane reductions are
 //   layout, not semantics) and carries the board in registers as bitboards
 //   of Game::kWords 64-bit words a side (one for Connect-Four, Othello and
-//   Hex; four for Gomoku, up to 256 cells), so a Connect-Four step is a
-//   popcount and two bit ops, an Othello step a register-only walk of the 8
-//   rays, a Gomoku step two bit ops per word and a Hex step two 7x7
-//   transposes of 12 masked shifts each. Small blocks (32 games) spread the games
-//   over the SMs: 4096 games fill all 132 SMs, the 1024 of the Othello,
-//   Gomoku and Hex full presets only 32 of them (launch geometry is later
-//   work). Each thread reads and writes its own board row, cell by cell: a
-//   warp's accesses are L floats apart, uncoalesced, which costs little at
-//   42-64 cells and more at Gomoku 15's 225 (a shared-memory transpose of
-//   the block's rows is later work).
-// * merge is bandwidth-bound: it must read the four [B, A, C] planes
-//   (46 MB at B=4096, C=101, A=7; 108 MB at B=1024, C=101, A=65) to
-//   refresh every node's PUCT argmax; at A=81 and A=225 (Gomoku 9 and 15)
-//   they are 134 MB and 373 MB at B=1024. One thread per (game, node) reads its
-//   A-strided column with neighbouring threads on neighbouring nodes
-//   (coalesced) and writes back only the cells that change (install row,
-//   path edge, one link). For A <= 8 the column sits in registers and the
-//   first-max argmax runs from there. Larger A would not fit (4 x 65
-//   floats a thread spill past the 255-register limit), so the dense
-//   variant streams the column twice: the first pass sums n, the second
-//   re-reads n, w, p, code (the block's columns are still in L1/L2) and
-//   keeps a running first-max. Refreshing only the path nodes and the new
-//   slot would cut the traffic to a few KB; that is a later change.
-//
+//   Hex; eight for Gomoku, up to 512 cells), so a
+//   Connect-Four step is a popcount and two bit ops, an Othello step a
+//   register-only walk of the 8 rays, a Gomoku step two bit ops per word
+//   and a Hex step two 7x7 transposes of 12 masked shifts each. Small
+//   blocks (32 games) spread the games over the SMs: 4096 games fill all
+//   132 SMs, the 1024 of the Othello, Gomoku and Hex full presets only 32
+//   of them (launch geometry is later work). Each thread reads and writes
+//   its own board row, cell by cell: a warp's accesses are L floats apart,
+//   uncoalesced, which costs little at 42-64 cells and more at Gomoku 15's
+//   225 (a shared-memory transpose of the block's rows is later work).
+// * merge (A <= 8) reads the four [B, A, C] planes (46 MB at B=4096, C=101,
+//   A=7) to refresh every node's PUCT argmax: one thread per (game, node)
+//   reads its A-strided column with neighbouring threads on neighbouring
+//   nodes (coalesced), keeps it in registers for the first-max argmax and
+//   writes back only the cells that change (install row, path edge, one
+//   link).
+// * merge_dense (A > 8; replaces the same merge_kernel with _refresh's
+//   dense branch) works only on the columns the merge writes: a node's
+//   argmax is a function of its own column, so every other node's
+//   besta/bestc, left by the search's seed refresh or an earlier merge, is
+//   already right. That is the kernel's precondition: on entry the best
+//   planes are the refresh of the entry planes. The JAX kernel rewrites
+//   whole planes because a TPU block works on whole [Bb, A, C] tiles; that
+//   is layout, not semantics. One warp per game scans its patha row 32
+//   nodes at a time (the next chunk's loads in flight) and finds with a
+//   ballot the path nodes, the install slot and the expanded parent; for
+//   each, lane l takes actions l, l + 32, ...: it loads its cells of the
+//   four planes together (one trip to memory), applies the install, backup
+//   and link terms of merge_kernel, and keeps them in registers (J = 4, 8
+//   or 16 a lane by A, so A <= 512: the entries refuse more, which no
+//   ported game has; Gomoku stops at 484). The visit sum is a
+//   butterfly of shuffles (integer counts below 2^24: exact in any order),
+//   the argmax a butterfly on (score descending, action ascending), the
+//   sequential strict-> scan's order, and the winning lane hands over the
+//   child code. No other column is read: about 2-5 columns a game instead
+//   of C. What bounds it now is the layout: a column is A-strided by C
+//   floats, so each lane's load is its own 32-byte sector for 4 useful
+//   bytes (~8x the useful bytes), and those scattered sectors, not their
+//   latency, set its time (it grows with A at a fixed number of columns);
+//   a node-major [B, C, A] layout would make a column contiguous.
+// * The untouched cells need no write because a search's planes never hold
+//   -0: counts, backups and priors start at +0 and x + y is -0 only when
+//   both are, so the reference's x * 1 + 0 on an untouched cell is x.
 // K>1 rounds (parallel_sims = K): the refresh leaves the runner-up too,
 // seca/secc [B, C] (-1 where no legal runner-up exists). A round's K
 // descents run one after another in ONE thread per game, each from a copy
@@ -85,15 +105,26 @@
 // launch opts in, up to C=3632), zeroed once per launch. The records are
 // K-major: bd[K, B, L], patha/psgn[K, B, C], meta[K, B, 8] with dup in lane
 // 7. Its bound is the same dependent-load chain as the K=1 descend, K times
-// as long, for K times the path bytes. The round merge keeps one thread per
-// (game, node) column: it gathers, once, what the K records add to the
-// column (at most K path edges, one install, K links), then rewrites every
-// cell as x * keep + (the additions summed in k order), the JAX kernel's
-// arithmetic term by term, storing only cells whose bits change. Its top-2
-// scan pushes the edges in action order with strict comparisons, which
-// gives the dense branch's exclude-and-re-reduce result. Bytes: the four
-// planes once (plus, for A > 8, a second read of the column from L1/L2 for
-// the scan) and K small records.
+// as long, for K times the path bytes. The A <= 8 round merge keeps one
+// thread per (game, node) column: it gathers, once, what each of the K
+// records does to the column (a path edge, an install, a link), then
+// rewrites every cell as x * keep + (the additions summed in k order), the
+// JAX kernel's arithmetic term by term, storing only cells whose bits
+// change. Its top-2 scan pushes the edges in action order with strict
+// comparisons, which gives the dense branch's exclude-and-re-reduce
+// result. The dense round merge is merge_dense's design for K records: one
+// warp per game stages the K meta2 records in shared memory, merges every
+// node's done/tval cells (two coalesced rows: the reference rewrites them
+// all) and finds the columns any record writes; for each, lanes 0..K-1
+// gather the K descents' terms into shared memory and the warp merges the
+// column cell by cell as above, then reduces a top-2: each lane pushes its
+// own actions in order, the lanes' pairs merge in a butterfly under the
+// same order, and the owners of the two winners hand over their codes.
+// Its precondition is the same, for the four top-2 planes.
+//
+// Warp intrinsics run on the CPU emulator of tests/cuda_emu (a barrier and
+// an exchange slot per lane of each warp), so the reductions are held bit
+// for bit against the plain full refresh there too.
 //
 // Arithmetic is bit-exact with the reference: build with --fmad=false (no
 // a*b+c contraction), default -prec-div/-prec-sqrt, never --use_fast_math;
@@ -136,11 +167,15 @@ struct OthelloGame {
   }
 };
 
-struct GomokuGame {  // any edge up to 16: the cells come at run time
-  static constexpr int kWords = kGomokuWords;
+// Gomoku boards of up to 64 * W cells, any edge: the cells come at run time.
+// Instantiated for W = 8 (up to 512 cells, edges up to 22): on the H100 a
+// 4-word instance descends Gomoku 15 in the same time, the path's loads
+// and not the words' bit operations setting it.
+template <int W>
+struct GomokuGame {
+  static constexpr int kWords = W;
   static constexpr int kBoardCells = 0;
-  static __device__ __forceinline__ void step(uint64_t (&mine)[kWords], uint64_t (&theirs)[kWords],
-                                              int a) {
+  static __device__ __forceinline__ void step(uint64_t (&mine)[W], uint64_t (&theirs)[W], int a) {
     gomoku_step(mine, theirs, a);
   }
 };
@@ -375,8 +410,202 @@ __device__ __forceinline__ void dense_refresh_node(const float* n, const float* 
   *best_code = bc;
 }
 
-// merge_kernel for any A: the same install, backup and link, written to the
-// column in place, then the dense refresh of the column.
+// ---------------------------------------------------------------------------
+// The dense merges (A > 8): one warp per game, one touched column at a time
+// ---------------------------------------------------------------------------
+
+constexpr int kMergeWarps = 4;              // games (warps) per block of a dense merge
+constexpr int kMergeWarpThreads = 32 * kMergeWarps;
+constexpr int kMaxDenseA = 32 * 16;         // a dense merge's actions: 16 a lane in registers
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr float kNoEdge = -3.0e38f;         // a lane's empty slot: below every score, -1e30 too
+constexpr float kNoAction = 1.0e9f;
+
+// The visit sum of a column over the warp's lanes: the counts are integers
+// below 2^24, so the butterfly's sum is exact, as any order's.
+__device__ __forceinline__ float warp_visit_sum(float total) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) total = __fadd_rn(total, __shfl_xor_sync(kFullMask, total, o));
+  return total;
+}
+
+// Two floats of another lane in one 64-bit shuffle: (x, y) of lane
+// `lane ^ o` (xor) or of lane `src`.
+__device__ __forceinline__ unsigned long long pack2(float x, float y) {
+  return (unsigned long long)__float_as_uint(x) << 32 | __float_as_uint(y);
+}
+__device__ __forceinline__ void unpack2(unsigned long long v, float& x, float& y) {
+  x = __uint_as_float((unsigned)(v >> 32));
+  y = __uint_as_float((unsigned)v);
+}
+__device__ __forceinline__ void shfl_xor2(float& x, float& y, int o) {
+  unpack2(__shfl_xor_sync(kFullMask, pack2(x, y), o), x, y);
+}
+__device__ __forceinline__ void shfl2(float& x, float& y, int src) {
+  unpack2(__shfl_sync(kFullMask, pack2(x, y), src), x, y);
+}
+
+// The first-max order of the edges: a higher score first, on equal scores
+// the smaller action. The sequential scan with strict > keeps the first of
+// this order, so a reduction in it, in any grouping, gives the scan's edge.
+__device__ __forceinline__ bool precedes(float s1, float a1, float s2, float a2) {
+  return s1 > s2 || (s1 == s2 && a1 < a2);
+}
+
+// The first edge of the warp's column in that order, from each lane's own
+// first (score s, action a; kNoEdge where the lane holds no action), by a
+// butterfly: every lane ends with the column's (s, a).
+__device__ __forceinline__ void warp_first_max(float& s, float& a) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    float os = s, oa = a;
+    shfl_xor2(os, oa, o);
+    if (precedes(os, oa, s, a)) {
+      s = os;
+      a = oa;
+    }
+  }
+}
+
+// The first two edges of the warp's column in that order, from each lane's
+// own two (t.best/best_a, t.second/sec_a), by a butterfly merging two
+// ordered pairs at each level: every lane ends with the column's two. Codes
+// are not carried; see warp_code.
+__device__ __forceinline__ void warp_top2(Top2& t) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    float b = t.best, ba = t.best_a, s2 = t.second, sa = t.sec_a;
+    shfl_xor2(b, ba, o);
+    shfl_xor2(s2, sa, o);
+    if (precedes(b, ba, t.best, t.best_a)) {   // the other pair's first leads
+      if (precedes(t.best, t.best_a, s2, sa)) {
+        t.second = t.best;
+        t.sec_a = t.best_a;
+      } else {
+        t.second = s2;
+        t.sec_a = sa;
+      }
+      t.best = b;
+      t.best_a = ba;
+    } else if (precedes(b, ba, t.second, t.sec_a)) {
+      t.second = b;
+      t.sec_a = ba;
+    }
+  }
+}
+
+// The child code of action `a` (the same on every lane), from the lane that
+// holds it: lane a % 32, whose own first or second edge it is (`mine` is
+// that lane's code of `a` when a is its first, else of its second).
+__device__ __forceinline__ float warp_code(float mine, float a) {
+  return __shfl_sync(kFullMask, mine, (int)a & 31);
+}
+
+// A lane's running top-2 of its own actions, pushed in increasing order with
+// strict comparisons, from kNoEdge: its first two in the first-max order.
+__device__ __forceinline__ void lane_top2_push(Top2& t, float a, float s, float code) {
+  if (s > t.best) {
+    t.second = t.best;
+    t.sec_a = t.best_a;
+    t.sec_code = t.best_code;
+    t.best = s;
+    t.best_a = a;
+    t.best_code = code;
+  } else if (s > t.second) {
+    t.second = s;
+    t.sec_a = a;
+    t.sec_code = code;
+  }
+}
+
+// What the K=1 merge does to one column: the fresh row at the lockstep slot,
+// the path edge's backup, the parent -> child link.
+struct ColumnEdits {
+  bool install;
+  int path_a;     // the path's edge here, or -1
+  float path_v;   // mval * psgn
+  int link_a;     // the expanded edge here, or -1
+  float link_code;
+};
+
+// The merge of one column of game b and its refresh, by the calling warp:
+// lane l owns actions l, l + 32, ...; the first J of them are loaded
+// together (all in flight at once: one trip to memory, not J) and stay in
+// registers between the write and the scan (A <= 32 J). The arithmetic is
+// merge_kernel's, cell by cell.
+template <int J>
+__device__ __forceinline__ void merge_column_warp(float* n, float* w, float* p, float* code,
+                                                  const float* pm_row, size_t base, int A, int C,
+                                                  const ColumnEdits& e, float cpuct, int lane,
+                                                  float* best_a, float* best_code) {
+  // the column's cells as the merge leaves them: a fresh row at the
+  // lockstep slot (no read), else the stored cells
+  auto load = [&](int a, float& n_, float& w_, float& p_, float& c_) {
+    const size_t off = base + (size_t)a * C;
+    n_ = e.install ? 0.f : n[off];
+    w_ = e.install ? 0.f : w[off];
+    p_ = e.install ? pm_row[a] : p[off];
+    c_ = e.install ? -1.f : code[off];
+  };
+  float total = 0.f;
+  auto edit = [&](int a, float& n_, float& w_, float& p_, float& c_) {
+    const size_t off = base + (size_t)a * C;
+    if (e.install) {
+      n[off] = n_;
+      w[off] = w_;
+      p[off] = p_;
+      code[off] = c_;
+    }
+    if (a == e.path_a) {  // backup along the path
+      n_ = __fadd_rn(n_, 1.f);
+      w_ = __fadd_rn(w_, e.path_v);
+      n[off] = n_;
+      w[off] = w_;
+    }
+    if (a == e.link_a) {  // parent -> new child
+      c_ = e.link_code;
+      code[off] = c_;
+    }
+    total = __fadd_rn(total, n_);
+  };
+  float nv[J], wv[J], pv[J], cv[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (lane + 32 * j < A) load(lane + 32 * j, nv[j], wv[j], pv[j], cv[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (lane + 32 * j < A) edit(lane + 32 * j, nv[j], wv[j], pv[j], cv[j]);
+  }
+  const float sq = __fsqrt_rn(__fadd_rn(warp_visit_sum(total), kPuctEps));
+  float best = kNoEdge, ba = kNoAction, bc = 0.f;
+  auto scan = [&](int a, float n_, float w_, float p_, float c_) {
+    const float sc = puct_score(n_, w_, p_, sq, cpuct);
+    if (sc > best) {
+      best = sc;
+      ba = (float)a;
+      bc = c_;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (lane + 32 * j < A) scan(lane + 32 * j, nv[j], wv[j], pv[j], cv[j]);
+  }
+  warp_first_max(best, ba);
+  const float c_best = warp_code(bc, ba);
+  if (lane == 0) {
+    *best_a = ba;
+    *best_code = c_best;
+  }
+}
+
+// The dense K=1 merge: one warp per game. The warp finds, 32 nodes at a
+// time, the columns the merge writes (the path nodes, the install slot, the
+// expanded parent) with a ballot and merges and refreshes each of them; no
+// other column is read. Every other node's besta/bestc is left as it is:
+// the precondition is that on entry they are the refresh of the entry
+// planes (the search's seed refresh makes it so, every merge keeps it).
+template <int J>
 __global__ void merge_dense_kernel(float* __restrict__ n, float* __restrict__ w,
                                    float* __restrict__ p, float* __restrict__ code,
                                    float* __restrict__ done, float* __restrict__ tval,
@@ -387,35 +616,47 @@ __global__ void merge_dense_kernel(float* __restrict__ n, float* __restrict__ w,
                                    float* __restrict__ besta,
                                    float* __restrict__ bestc,
                                    int B, int A, int C, int slot, float cpuct) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * C) return;
-  const int b = (int)(idx / C);
-  const int c = (int)(idx - (size_t)b * C);
-
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kMergeWarps + (int)(threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
   const float* m2 = meta2 + (size_t)b * 8;
   const bool exp_ok = m2[1] > 0.5f;
-  const size_t base = (size_t)b * A * C + c;
-  if (exp_ok && c == slot) {  // fresh row at the lockstep slot
-    for (int a = 0; a < A; ++a) {
-      const size_t off = base + (size_t)a * C;
-      n[off] = 0.f;
-      w[off] = 0.f;
-      p[off] = pm[(size_t)b * A + a];
-      code[off] = -1.f;
+  const int link_node = exp_ok ? (int)m2[5] : -1;
+  const int install_node = exp_ok ? slot : -1;
+  const size_t row = (size_t)b * C;
+  if (lane == 0 && install_node >= 0 && install_node < C) {
+    done[row + install_node] = m2[3];
+    tval[row + install_node] = m2[4];
+  }
+  const float mval = m2[0], link_code = m2[2];
+  const int link_a = (int)m2[6];
+  // the path record 32 nodes at a time, the next chunk's loads in flight
+  // while this chunk's columns are merged
+  float next_pa = lane < C ? patha[row + lane] : 0.f;
+  float next_ps = lane < C ? psgn[row + lane] : 0.f;
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    const int c = c0 + lane;
+    const float on_path = next_pa, sign = next_ps;  // action+1 (0 off the path), its sign
+    next_pa = c + 32 < C ? patha[row + c + 32] : 0.f;
+    next_ps = c + 32 < C ? psgn[row + c + 32] : 0.f;
+    unsigned touched = __ballot_sync(
+        kFullMask, c < C && (on_path > 0.5f || c == install_node || c == link_node));
+    while (touched) {
+      const int j = __ffs(touched) - 1;
+      touched &= touched - 1;
+      const int col = c0 + j;
+      float pa = on_path, sg = sign;
+      shfl2(pa, sg, j);
+      ColumnEdits e;
+      e.install = col == install_node;
+      e.path_a = pa > 0.5f ? (int)pa - 1 : -1;
+      e.path_v = __fmul_rn(mval, sg);
+      e.link_a = col == link_node ? link_a : -1;
+      e.link_code = link_code;
+      merge_column_warp<J>(n, w, p, code, pm + (size_t)b * A, (size_t)b * A * C + col, A, C, e,
+                           cpuct, lane, besta + row + col, bestc + row + col);
     }
-    done[idx] = m2[3];
-    tval[idx] = m2[4];
   }
-  const float on_path = patha[idx];  // action+1, or 0 off the path
-  if (on_path > 0.5f) {  // backup along the path
-    const size_t off = base + (size_t)((int)on_path - 1) * C;
-    n[off] = __fadd_rn(n[off], 1.f);
-    w[off] = __fadd_rn(w[off], __fmul_rn(m2[0], psgn[idx]));
-  }
-  if (exp_ok && c == (int)m2[5]) {  // parent -> new child
-    code[base + (size_t)((int)m2[6]) * C] = m2[2];
-  }
-  dense_refresh_node(n, w, p, code, base, A, C, cpuct, besta + idx, bestc + idx);
 }
 
 __global__ void refresh_dense_kernel(const float* __restrict__ n,
@@ -580,140 +821,92 @@ __device__ __forceinline__ void store_if_changed(float* at, float old, float v) 
   if (__float_as_uint(old) != __float_as_uint(v)) *at = v;
 }
 
-// What one round's K path records do to the column of node c of game b,
-// gathered once per column in k order: the JAX merge_round_kernel's
-// per-descent terms, of which only these are not zero.
-struct RoundColumn {
-  float keep;                // prod_k (1 - installed_k): 0 where a descent installs
-  int inst;                  // that descent, or -1
-  int npath, nlink;
-  int path_a[kMaxRoundK];    // the edge each path through this node took ...
-  float path_v[kMaxRoundK];  // ... and what it backs up, mval * psgn
-  int link_a[kMaxRoundK];    // the edges of this node a descent expanded ...
-  float link_v[kMaxRoundK];  // ... and link_code + 1
+// What descent k of a round does to the column of node c of game b: the
+// JAX merge_round_kernel's per-descent terms, of which only these are not
+// zero.
+struct RoundTerm {
+  float nm;       // installed here: inst_k * [c == slot0 + k]
+  int path_a;     // the edge its path took at this node, or -1 ...
+  float path_v;   // ... and what it backs up there, mval * psgn
+  int link_a;     // the edge of this node it expanded, or -1 ...
+  float link_v;   // ... and (link_code + 1) * inst_k
 };
 
-// Gather the column's terms and merge its done/tval cells:
+// meta2_b: game b's record of descent 0, descent k's at meta2_b + k * kstride.
+__device__ __forceinline__ RoundTerm round_term(const float* patha, const float* psgn,
+                                                const float* meta2_b, size_t kstride, int b,
+                                                int c, int k, int B, int C, int slot0) {
+  const float* m2 = meta2_b + k * kstride;
+  const float inst = m2[1];  // exp * (1 - dup) * (slot < C)
+  const size_t kidx = ((size_t)k * B + b) * C + c;
+  const float pa = patha[kidx];  // action+1, or 0 off the path
+  RoundTerm t;
+  t.nm = __fmul_rn(inst, c == slot0 + k ? 1.f : 0.f);
+  t.path_a = pa > 0.5f ? (int)pa - 1 : -1;
+  t.path_v = __fmul_rn(m2[0], __fmul_rn(psgn[kidx], 1.f));
+  t.link_a = inst != 0.f && (int)m2[5] == c ? (int)m2[6] : -1;  // parent -> new child
+  t.link_v = __fmul_rn(__fadd_rn(m2[2], 1.f), inst);
+  return t;
+}
+
+// The done/tval cells of node c of game b:
 // done = done * (1 - sum_k installed_k) + sum_k installed_k * cdone_k.
-__device__ __forceinline__ RoundColumn round_column(float* done, float* tval, const float* patha,
-                                                    const float* psgn, const float* meta2, int b,
-                                                    int c, int B, int C, int K, int slot0) {
-  RoundColumn col;
-  col.keep = 1.f;
-  col.inst = -1;
-  col.npath = col.nlink = 0;
+__device__ __forceinline__ void round_node_cells(float* done, float* tval, const float* meta2_b,
+                                                 size_t kstride, int b, int c, int C, int K,
+                                                 int slot0) {
   float nm_all = 0.f, dn = 0.f, dt = 0.f;
-  const size_t idx = (size_t)b * C + c;
   for (int k = 0; k < K; ++k) {
-    const float* m2 = meta2 + ((size_t)k * B + b) * 8;
-    const float inst = m2[1];  // exp * (1 - dup) * (slot < C)
-    const float nm = __fmul_rn(inst, c == slot0 + k ? 1.f : 0.f);
-    col.keep = __fmul_rn(col.keep, __fsub_rn(1.f, nm));
+    const float* m2 = meta2_b + k * kstride;
+    const float nm = __fmul_rn(m2[1], c == slot0 + k ? 1.f : 0.f);
     dn = __fadd_rn(dn, __fmul_rn(nm, m2[3]));
     dt = __fadd_rn(dt, __fmul_rn(nm, m2[4]));
     nm_all = __fadd_rn(nm_all, nm);
-    if (nm != 0.f) col.inst = k;
-    const size_t kidx = (size_t)k * B * C + idx;
-    const float pa = patha[kidx];  // action+1, or 0 off the path
-    if (pa > 0.5f) {
-      col.path_a[col.npath] = (int)pa - 1;
-      col.path_v[col.npath] = __fmul_rn(m2[0], __fmul_rn(psgn[kidx], 1.f));
-      ++col.npath;
-    }
-    if (inst != 0.f && (int)m2[5] == c) {  // parent -> new child
-      col.link_a[col.nlink] = (int)m2[6];
-      col.link_v[col.nlink] = __fmul_rn(__fadd_rn(m2[2], 1.f), inst);
-      ++col.nlink;
-    }
   }
+  const size_t idx = (size_t)b * C + c;
   const float old_done = done[idx], old_tval = tval[idx];
   const float not_new = __fsub_rn(1.f, nm_all);
   store_if_changed(done + idx, old_done, __fadd_rn(__fmul_rn(old_done, not_new), dn));
   store_if_changed(tval + idx, old_tval, __fadd_rn(__fmul_rn(old_tval, not_new), dt));
-  return col;
 }
 
-// One cell (action a) of the column: x * keep + (the terms' sum in k order).
-__device__ __forceinline__ void round_cell(const RoundColumn& col, int a, const float* pm_row,
-                                           float& n, float& w, float& p, float& code) {
+// keep = prod_k (1 - installed_k), 0 where a descent installs at this node,
+// and that descent (or -1).
+__device__ __forceinline__ float round_keep(const RoundTerm* terms, int K, int& inst) {
+  float keep = 1.f;
+  inst = -1;
+  for (int k = 0; k < K; ++k) {
+    keep = __fmul_rn(keep, __fsub_rn(1.f, terms[k].nm));
+    if (terms[k].nm != 0.f) inst = k;
+  }
+  return keep;
+}
+
+// One cell (action a) of the column: x * keep + (the terms' sum in k order);
+// pm_a is the installing descent's prior of a (unread without one).
+__device__ __forceinline__ void round_cell(const RoundTerm* terms, int K, float keep, bool inst,
+                                           float pm_a, int a, float& n, float& w, float& p,
+                                           float& code) {
   float n_add = 0.f, w_add = 0.f;
-  for (int j = 0; j < col.npath; ++j) {
-    if (col.path_a[j] == a) {
+  float code_delta = inst ? -1.f : 0.f;
+  for (int k = 0; k < K; ++k) {
+    if (terms[k].path_a == a) {
       n_add = __fadd_rn(n_add, 1.f);
-      w_add = __fadd_rn(w_add, col.path_v[j]);
+      w_add = __fadd_rn(w_add, terms[k].path_v);
     }
   }
-  const float p_inst = col.inst >= 0 ? __fadd_rn(0.f, pm_row[a]) : 0.f;
-  float code_delta = col.inst >= 0 ? -1.f : 0.f;
-  for (int j = 0; j < col.nlink; ++j) {
-    if (col.link_a[j] == a) code_delta = __fadd_rn(code_delta, col.link_v[j]);
+  for (int k = 0; k < K; ++k) {
+    if (terms[k].link_a == a) code_delta = __fadd_rn(code_delta, terms[k].link_v);
   }
-  n = __fadd_rn(__fmul_rn(n, col.keep), n_add);
-  w = __fadd_rn(__fmul_rn(w, col.keep), w_add);
-  p = __fadd_rn(__fmul_rn(p, col.keep), p_inst);
-  code = __fadd_rn(__fmul_rn(code, col.keep), code_delta);
+  const float p_inst = inst ? __fadd_rn(0.f, pm_a) : 0.f;
+  n = __fadd_rn(__fmul_rn(n, keep), n_add);
+  w = __fadd_rn(__fmul_rn(w, keep), w_add);
+  p = __fadd_rn(__fmul_rn(p, keep), p_inst);
+  code = __fadd_rn(__fmul_rn(code, keep), code_delta);
 }
 
-// Merge and refresh one column, in place: one thread per (game, node).
-// Reads every cell of the column, writes those whose bits change. A <= 8
-// keeps the column in registers; larger A (dense) re-reads it for the
-// top-2 scan.
-template <bool kDense>
-__device__ __forceinline__ void merge_round_column(float* n, float* w, float* p, float* code,
-                                                   float* done, float* tval, const float* pm,
-                                                   const float* patha, const float* psgn,
-                                                   const float* meta2, float* besta, float* bestc,
-                                                   float* seca, float* secc, int B, int A, int C,
-                                                   int K, int slot0, float cpuct) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * C) return;
-  const int b = (int)(idx / C);
-  const int c = (int)(idx - (size_t)b * C);
-  const RoundColumn col = round_column(done, tval, patha, psgn, meta2, b, c, B, C, K, slot0);
-  const float* pm_row = col.inst >= 0 ? pm + ((size_t)col.inst * B + b) * A : nullptr;
-  const size_t base = (size_t)b * A * C + c;
-  Top2 t{};
-  if (kDense) {
-    for (int a = 0; a < A; ++a) {
-      const size_t off = base + (size_t)a * C;
-      const float n0 = n[off], w0 = w[off], p0 = p[off], c0 = code[off];
-      float n_ = n0, w_ = w0, p_ = p0, c_ = c0;
-      round_cell(col, a, pm_row, n_, w_, p_, c_);
-      store_if_changed(n + off, n0, n_);
-      store_if_changed(w + off, w0, w_);
-      store_if_changed(p + off, p0, p_);
-      store_if_changed(code + off, c0, c_);
-    }
-    t = dense_top2(n, w, p, code, base, A, C, cpuct);
-  } else {
-    float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
-    float total = 0.f;
-#pragma unroll
-    for (int a = 0; a < kMaxA; ++a) {
-      if (a < A) {
-        const size_t off = base + (size_t)a * C;
-        const float n0 = n[off], w0 = w[off], p0 = p[off], c0 = code[off];
-        nv[a] = n0;
-        wv[a] = w0;
-        pv[a] = p0;
-        cv[a] = c0;
-        round_cell(col, a, pm_row, nv[a], wv[a], pv[a], cv[a]);
-        store_if_changed(n + off, n0, nv[a]);
-        store_if_changed(w + off, w0, wv[a]);
-        store_if_changed(p + off, p0, pv[a]);
-        store_if_changed(code + off, c0, cv[a]);
-        total = __fadd_rn(total, nv[a]);  // integers: exact in any order
-      }
-    }
-    const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
-#pragma unroll
-    for (int a = 0; a < kMaxA; ++a) {
-      if (a < A) top2_push(t, a, puct_score(nv[a], wv[a], pv[a], sq, cpuct), cv[a]);
-    }
-  }
-  top2_store(t, kDense, idx, besta, bestc, seca, secc);
-}
-
+// The A <= 8 round merge: one thread per (game, node) column, in place.
+// Reads every cell of the column, writes those whose bits change; the
+// column stays in registers for the top-2 scan.
 __global__ void merge_round_kernel(float* __restrict__ n, float* __restrict__ w,
                                    float* __restrict__ p, float* __restrict__ code,
                                    float* __restrict__ done, float* __restrict__ tval,
@@ -723,10 +916,114 @@ __global__ void merge_round_kernel(float* __restrict__ n, float* __restrict__ w,
                                    float* __restrict__ bestc, float* __restrict__ seca,
                                    float* __restrict__ secc, int B, int A, int C, int K,
                                    int slot0, float cpuct) {
-  merge_round_column<false>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca,
-                            secc, B, A, C, K, slot0, cpuct);
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (size_t)B * C) return;
+  const int b = (int)(idx / C);
+  const int c = (int)(idx - (size_t)b * C);
+  const float* meta2_b = meta2 + (size_t)b * 8;
+  const size_t kstride = (size_t)B * 8;
+  round_node_cells(done, tval, meta2_b, kstride, b, c, C, K, slot0);
+  RoundTerm terms[kMaxRoundK];
+  for (int k = 0; k < K; ++k) {
+    terms[k] = round_term(patha, psgn, meta2_b, kstride, b, c, k, B, C, slot0);
+  }
+  int inst;
+  const float keep = round_keep(terms, K, inst);
+  const float* pm_row = pm + ((size_t)(inst >= 0 ? inst : 0) * B + b) * A;
+  const size_t base = (size_t)b * A * C + c;
+  float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
+  float total = 0.f;
+#pragma unroll
+  for (int a = 0; a < kMaxA; ++a) {
+    if (a < A) {
+      const size_t off = base + (size_t)a * C;
+      const float n0 = n[off], w0 = w[off], p0 = p[off], c0 = code[off];
+      nv[a] = n0;
+      wv[a] = w0;
+      pv[a] = p0;
+      cv[a] = c0;
+      round_cell(terms, K, keep, inst >= 0, inst >= 0 ? pm_row[a] : 0.f, a, nv[a], wv[a], pv[a],
+                 cv[a]);
+      store_if_changed(n + off, n0, nv[a]);
+      store_if_changed(w + off, w0, wv[a]);
+      store_if_changed(p + off, p0, pv[a]);
+      store_if_changed(code + off, c0, cv[a]);
+      total = __fadd_rn(total, nv[a]);  // integers: exact in any order
+    }
+  }
+  const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
+  Top2 t{};
+#pragma unroll
+  for (int a = 0; a < kMaxA; ++a) {
+    if (a < A) top2_push(t, a, puct_score(nv[a], wv[a], pv[a], sq, cpuct), cv[a]);
+  }
+  top2_store(t, false, idx, besta, bestc, seca, secc);
 }
 
+// The merge of one touched column of game b and its top-2 refresh, by the
+// calling warp, from the round's terms at this column (`terms`, shared by
+// the warp): lane l owns actions l, l + 32, ...; the first J of them are
+// loaded together (one trip to memory) and stay in registers between the
+// write and the scan (A <= 32 J). The arithmetic
+// is merge_round_kernel's, cell by cell; the top-2 is each lane's own two,
+// pushed in action order, then the warp's.
+template <int J>
+__device__ __forceinline__ void merge_round_column_warp(float* n, float* w, float* p, float* code,
+                                                        const float* pm_row,
+                                                        const RoundTerm* terms, int K, float keep,
+                                                        bool inst, size_t base, int A, int C,
+                                                        float cpuct, int lane, Top2& t) {
+  auto load = [&](int a, float& n_, float& w_, float& p_, float& c_, float& pm_) {
+    const size_t off = base + (size_t)a * C;
+    n_ = n[off];
+    w_ = w[off];
+    p_ = p[off];
+    c_ = code[off];
+    pm_ = inst ? pm_row[a] : 0.f;
+  };
+  float total = 0.f;
+  auto edit = [&](int a, float& n_, float& w_, float& p_, float& c_, float pm_) {
+    const size_t off = base + (size_t)a * C;
+    const float n0 = n_, w0 = w_, p0 = p_, c0 = c_;
+    round_cell(terms, K, keep, inst, pm_, a, n_, w_, p_, c_);
+    store_if_changed(n + off, n0, n_);
+    store_if_changed(w + off, w0, w_);
+    store_if_changed(p + off, p0, p_);
+    store_if_changed(code + off, c0, c_);
+    total = __fadd_rn(total, n_);
+  };
+  float nv[J], wv[J], pv[J], cv[J], pmv[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (lane + 32 * j < A) load(lane + 32 * j, nv[j], wv[j], pv[j], cv[j], pmv[j]);
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    if (lane + 32 * j < A) edit(lane + 32 * j, nv[j], wv[j], pv[j], cv[j], pmv[j]);
+  }
+  const float sq = __fsqrt_rn(__fadd_rn(warp_visit_sum(total), kPuctEps));
+  t = Top2{kNoEdge, kNoEdge, kNoAction, 0.f, kNoAction, 0.f};
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int a = lane + 32 * j;
+    if (a < A) lane_top2_push(t, (float)a, puct_score(nv[j], wv[j], pv[j], sq, cpuct), cv[j]);
+  }
+  const Top2 own = t;
+  warp_top2(t);
+  t.best_code = warp_code(own.best_a == t.best_a ? own.best_code : own.sec_code, t.best_a);
+  t.sec_code = warp_code(own.best_a == t.sec_a ? own.best_code : own.sec_code, t.sec_a);
+}
+
+// The dense round merge: one warp per game. The warp walks its game's nodes
+// 32 at a time: it merges every node's done/tval cells (two coalesced rows)
+// and finds with a ballot the columns the K records write (the path nodes
+// of every descent, the install slots, the expanded parents); for each of
+// them lanes 0..K-1 gather the K descents' terms into shared memory, then
+// the warp merges and refreshes the column. No other stat column is read,
+// and every other node's top-2 planes are left as they are: the
+// precondition is that on entry they are the refresh2 of the entry planes
+// (the search's seed refresh makes it so, every merge keeps it).
+template <int J>
 __global__ void merge_round_dense_kernel(float* __restrict__ n, float* __restrict__ w,
                                          float* __restrict__ p, float* __restrict__ code,
                                          float* __restrict__ done, float* __restrict__ tval,
@@ -737,8 +1034,46 @@ __global__ void merge_round_dense_kernel(float* __restrict__ n, float* __restric
                                          float* __restrict__ besta, float* __restrict__ bestc,
                                          float* __restrict__ seca, float* __restrict__ secc,
                                          int B, int A, int C, int K, int slot0, float cpuct) {
-  merge_round_column<true>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca,
-                           secc, B, A, C, K, slot0, cpuct);
+  __shared__ RoundTerm block_terms[kMergeWarps][kMaxRoundK];
+  __shared__ float block_meta2[kMergeWarps][kMaxRoundK * 8];
+  const int lane = threadIdx.x & 31;
+  const int warp = (int)(threadIdx.x >> 5);
+  const int b = blockIdx.x * kMergeWarps + warp;
+  if (b >= B) return;  // the whole warp
+  RoundTerm* terms = block_terms[warp];
+  // the game's K meta2 records, read by every lane at every node: staged
+  // once in shared memory
+  float* m2s = block_meta2[warp];
+  for (int i = lane; i < K * 8; i += 32) m2s[i] = meta2[((size_t)(i / 8) * B + b) * 8 + i % 8];
+  __syncwarp();
+  const size_t row = (size_t)b * C;
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    const int c = c0 + lane;
+    bool writes = false;
+    if (c < C) {
+      round_node_cells(done, tval, m2s, 8, b, c, C, K, slot0);
+      for (int k = 0; k < K; ++k) {
+        const float* m2 = m2s + k * 8;
+        const bool on_path = patha[(size_t)k * B * C + row + c] > 0.5f;
+        writes |= on_path | (m2[1] != 0.f & (c == slot0 + k | (int)m2[5] == c));
+      }
+    }
+    unsigned touched = __ballot_sync(kFullMask, writes);
+    while (touched) {
+      const int col = c0 + __ffs(touched) - 1;
+      touched &= touched - 1;
+      if (lane < K) terms[lane] = round_term(patha, psgn, m2s, 8, b, col, lane, B, C, slot0);
+      __syncwarp();
+      int inst;
+      const float keep = round_keep(terms, K, inst);
+      const float* pm_row = pm + ((size_t)(inst >= 0 ? inst : 0) * B + b) * A;
+      Top2 t;
+      merge_round_column_warp<J>(n, w, p, code, pm_row, terms, K, keep, inst >= 0,
+                                 (size_t)b * A * C + col, A, C, cpuct, lane, t);
+      if (lane == 0) top2_store(t, true, row + col, besta, bestc, seca, secc);
+      __syncwarp();  // every lane has read the terms before the next column's
+    }
+  }
 }
 
 // The top-2 refresh alone, which seeds a round search's first planes
@@ -812,6 +1147,33 @@ int launch_descend_round(const float* besta, const float* bestc, const float* se
   return (int)cudaGetLastError();
 }
 
+// The dense merges: kMergeWarps games (warps) a block, in the kernel
+// instance whose lanes keep J actions each in registers: J = 4 up to A =
+// 128, 8 up to 256, 16 up to kMaxDenseA = 512.
+template <int J>
+int launch_merge_dense(float* n, float* w, float* p, float* code, float* done, float* tval,
+                       const float* pm, const float* patha, const float* psgn, const float* meta2,
+                       float* besta, float* bestc, int B, int A, int C, int slot, float cpuct,
+                       void* stream) {
+  merge_dense_kernel<J><<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
+                          (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha, psgn,
+                                                  meta2, besta, bestc, B, A, C, slot, cpuct);
+  return (int)cudaGetLastError();
+}
+
+template <int J>
+int launch_merge_round_dense(float* n, float* w, float* p, float* code, float* done, float* tval,
+                             const float* pm, const float* patha, const float* psgn,
+                             const float* meta2, float* besta, float* bestc, float* seca,
+                             float* secc, int B, int A, int C, int K, int slot0, float cpuct,
+                             void* stream) {
+  merge_round_dense_kernel<J><<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
+                                (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha,
+                                                        psgn, meta2, besta, bestc, seca, secc, B,
+                                                        A, C, K, slot0, cpuct);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -821,7 +1183,7 @@ const char* az_error_string(int code) {
 }
 
 // The descend entries: boards f32[B, cells], cells being the game's own
-// (42, 64, 49) or, for Gomoku, its edge squared (at most 256).
+// (42, 64, 49) or, for Gomoku, its edge squared (at most 512).
 int az_descend(const float* besta, const float* bestc, const float* done,
                const float* tval, const float* boards, float* bd, float* patha,
                float* psgn, float* meta, int B, int C, int max_depth, int cells,
@@ -842,8 +1204,9 @@ int az_descend_gomoku(const float* besta, const float* bestc, const float* done,
                       const float* tval, const float* boards, float* bd,
                       float* patha, float* psgn, float* meta, int B, int C,
                       int max_depth, int cells, void* stream) {
-  return launch_descend<GomokuGame>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
-                                    B, C, max_depth, cells, stream);
+  if (cells > 64 * 8) return (int)cudaErrorInvalidValue;
+  return launch_descend<GomokuGame<8>>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
+                                       B, C, max_depth, cells, stream);
 }
 
 int az_descend_hex(const float* besta, const float* bestc, const float* done,
@@ -866,16 +1229,25 @@ int az_merge(float* n, float* w, float* p, float* code, float* done,
   return (int)cudaGetLastError();
 }
 
+// The dense K=1 merge (A <= 512): updates besta/bestc in place at the
+// columns it writes, and relies on them being the refresh of the entry
+// planes.
 int az_merge_dense(float* n, float* w, float* p, float* code, float* done,
                    float* tval, const float* pm, const float* patha,
                    const float* psgn, const float* meta2, float* besta,
                    float* bestc, int B, int A, int C, int slot, float cpuct,
                    void* stream) {
-  merge_dense_kernel<<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
-                       (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm,
-                                               patha, psgn, meta2, besta, bestc,
-                                               B, A, C, slot, cpuct);
-  return (int)cudaGetLastError();
+  if (A > kMaxDenseA) return (int)cudaErrorInvalidValue;
+  if (A <= 32 * 4) {
+    return launch_merge_dense<4>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
+                                 B, A, C, slot, cpuct, stream);
+  }
+  if (A <= 32 * 8) {
+    return launch_merge_dense<8>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
+                                 B, A, C, slot, cpuct, stream);
+  }
+  return launch_merge_dense<16>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
+                                B, A, C, slot, cpuct, stream);
 }
 
 int az_refresh(const float* n, const float* w, const float* p,
@@ -921,8 +1293,9 @@ int az_descend_round_gomoku(const float* besta, const float* bestc, const float*
                             const float* boards, float* bd, float* patha, float* psgn,
                             float* meta, int B, int C, int K, int max_depth, int cells,
                             void* stream) {
-  return launch_descend_round<GomokuGame>(besta, bestc, seca, secc, done, tval, boards, bd,
-                                          patha, psgn, meta, B, C, K, max_depth, cells, stream);
+  if (cells > 64 * 8) return (int)cudaErrorInvalidValue;
+  return launch_descend_round<GomokuGame<8>>(besta, bestc, seca, secc, done, tval, boards, bd,
+                                             patha, psgn, meta, B, C, K, max_depth, cells, stream);
 }
 
 int az_descend_round_hex(const float* besta, const float* bestc, const float* seca,
@@ -947,17 +1320,25 @@ int az_merge_round(float* n, float* w, float* p, float* code, float* done, float
   return (int)cudaGetLastError();
 }
 
+// The dense round merge (A <= 512): updates the four top-2 planes in place
+// at the columns it writes, and relies on them being the refresh2 of the
+// entry planes.
 int az_merge_round_dense(float* n, float* w, float* p, float* code, float* done, float* tval,
                          const float* pm, const float* patha, const float* psgn,
                          const float* meta2, float* besta, float* bestc, float* seca,
                          float* secc, int B, int A, int C, int K, int slot0, float cpuct,
                          void* stream) {
-  if (K < 1 || K > kMaxRoundK) return (int)cudaErrorInvalidValue;
-  merge_round_dense_kernel<<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
-                             (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha, psgn,
-                                                     meta2, besta, bestc, seca, secc, B, A, C,
-                                                     K, slot0, cpuct);
-  return (int)cudaGetLastError();
+  if (K < 1 || K > kMaxRoundK || A > kMaxDenseA) return (int)cudaErrorInvalidValue;
+  if (A <= 32 * 4) {
+    return launch_merge_round_dense<4>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
+                                       bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
+  }
+  if (A <= 32 * 8) {
+    return launch_merge_round_dense<8>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
+                                       bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
+  }
+  return launch_merge_round_dense<16>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
+                                      bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
 }
 
 int az_refresh2(const float* n, const float* w, const float* p, const float* code, float* besta,

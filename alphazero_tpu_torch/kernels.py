@@ -29,23 +29,29 @@ Each wrapper takes tensors on ONE device:
 ``descend``, ``merge`` and ``refresh`` route a CUDA call to the kernel
 instance that takes it: ``descend`` by the type of the game's flat ops
 (``descend_entry``: Connect-Four's ``FlatOps`` its own kernel, then
-``descend_othello``, ``descend_gomoku`` and ``descend_hex``; any other
-type raises), ``merge`` and ``refresh`` by action count (A <= 8 their own
-kernels; above, ``merge_dense`` and ``refresh_dense``). ``descend_round``,
+``descend_othello``, ``descend_gomoku`` (boards of up to 512 cells; above,
+it raises) and ``descend_hex``; any other type raises), ``merge`` and
+``refresh`` by action count (A <= 8 their own kernels; above,
+``merge_dense`` and ``refresh_dense``). ``descend_round``,
 ``merge_round`` and ``refresh2`` route the same way (to
 ``descend_round_othello`` etc., ``merge_round_dense``,
 ``refresh2_dense``); they take 1 <= K <= ``MAX_ROUND_K`` descents per
-round. ``fused`` and ``fused_mlp`` run a whole Connect-Four search in one
-launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the same in rounds
-of 1 <= K <= ``FUSED_MAX_K`` descents; their MLP evaluator runs on the
-bf16 tensor cores from weights in shared memory (``mlp_plan`` says whether
-they stay there for the launch or are staged a layer at a time), so its
-sums add in another order than the plain version's k loop: bit-equal for
-weights whose sums are exact (``models.order_free_mlp_variables``), within
-a bf16 rounding step of a hidden unit otherwise. ``int8_tower`` runs the whole
-11-conv int8 tower of any B >= 1 games in one launch. Each wrapper counts the launches of its own kernel in a plain
-integer attribute, ``descend.launches`` etc.; ``reset_launch_counts()``
-zeroes them.
+round. The merges update the search's best planes (``besta, bestc``, and
+``seca, secc`` in rounds) in place; the dense ones rewrite only the
+columns the merge touched, so they need those planes to be the refresh of
+the planes they are given, as the seed ``refresh``/``refresh2`` and every
+merge leave them. ``fused`` and ``fused_mlp`` run a whole Connect-Four
+search in one launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the
+same in rounds of 1 <= K <= ``FUSED_MAX_K`` descents; their MLP
+evaluator runs on the bf16 tensor cores from weights in shared memory
+(``mlp_plan`` says whether they stay there for the launch or are staged a
+layer at a time), so its sums add in another order than the plain
+version's k loop: bit-equal for weights whose sums are exact
+(``models.order_free_mlp_variables``), within a bf16 rounding step of a
+hidden unit otherwise. ``int8_tower`` runs the whole 11-conv int8 tower of
+any B >= 1 games in one launch. Each wrapper counts the launches of its
+own kernel in a plain integer attribute, ``descend.launches`` etc.;
+``reset_launch_counts()`` zeroes them.
 """
 
 from __future__ import annotations
@@ -226,18 +232,26 @@ _DESCEND_ENTRIES = {
     GomokuFlatOps: "az_descend_gomoku",
     HexFlatOps: "az_descend_hex",
 }
-GOMOKU_MAX_CELLS = 256   # csrc/gomoku.cuh: kGomokuWords 64-bit words a side
+GOMOKU_MAX_CELLS = 512      # az_descend_gomoku: 8-word bitboards, edges up to 22
+DENSE_MERGE_MAX_A = 512     # the dense merges: 16 actions a lane of a warp in registers
 
 
 def descend_entry(ops) -> str:
     """The entry of the descend kernel instance that steps boards as
     ``ops.step`` does, by the exact type of the flat ops (a subclass may
-    step otherwise); raises for any other type."""
+    step otherwise). Raises for any other type and for a Gomoku board
+    above 512 cells."""
     entry = _DESCEND_ENTRIES.get(type(ops))
     if entry is None:
         raise NotImplementedError(
             f"no descend kernel steps {type(ops).__name__} boards: the ported games' flat "
             f"ops are {', '.join(t.__name__ for t in _DESCEND_ENTRIES)}"
+        )
+    if entry == "az_descend_gomoku" and ops.size > GOMOKU_MAX_CELLS:
+        raise NotImplementedError(
+            f"the Gomoku descend kernels take boards of at most {GOMOKU_MAX_CELLS} cells "
+            f"(edge 22), got {ops.size}: wider bitboards are later work (ROADMAP queue 2, "
+            "\"Gomoku boards above 512 cells\")"
         )
     return entry
 
@@ -249,11 +263,6 @@ def _descend(entry: str, besta, bestc, done, tval, boards, max_depth: int, ops):
         raise ValueError(f"{entry} does not step {type(ops).__name__} boards")
     B, C = besta.shape
     L = ops.size
-    if entry == "az_descend_gomoku" and L > GOMOKU_MAX_CELLS:
-        raise NotImplementedError(
-            f"the Gomoku descend kernel takes boards of at most {GOMOKU_MAX_CELLS} cells "
-            f"(edge 16), got {L}: wider bitboards are later work (ROADMAP)"
-        )
     if B == 0:
         raise ValueError("descend kernel needs B > 0")
     lib = library()
@@ -296,7 +305,7 @@ descend_othello = _descend_instance(
     "``mcts.hybrid.descend`` for Othello boards f32[B, 64].")
 descend_gomoku = _descend_instance(
     "descend_gomoku", "az_descend_gomoku",
-    "``mcts.hybrid.descend`` for Gomoku boards f32[B, S*S], any edge S up to 16.")
+    "``mcts.hybrid.descend`` for Gomoku boards f32[B, S*S], any edge S up to 22.")
 descend_hex = _descend_instance(
     "descend_hex", "az_descend_hex",
     "``mcts.hybrid.descend`` for canonical Hex boards f32[B, 49].")
@@ -322,7 +331,8 @@ def descend(besta, bestc, done, tval, boards, max_depth: int, ops):
     return out
 
 
-def _merge(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: float):
+def _merge(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int,
+           cpuct: float):
     """Launch the merge kernel ``entry`` on CUDA tensors."""
     B, A, C = n.shape
     if B == 0:
@@ -334,22 +344,24 @@ def _merge(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: 
         _check("done", done, (B, C)), _check("tval", tval, (B, C)),
         _check("pm", pm, (B, A)), _check("patha", patha, (B, C)),
         _check("psgn", psgn, (B, C)), _check("meta2", meta2, (B, 8)),
+        _check("besta", besta, (B, C)), _check("bestc", bestc, (B, C)),
     ]
-    besta = torch.empty((B, C), device=n.device)
-    bestc = torch.empty((B, C), device=n.device)
-    rc = getattr(lib.lib, entry)(
-        *ptrs, besta.data_ptr(), bestc.data_ptr(),
-        B, A, C, int(slot), float(cpuct), _stream(n.device),
-    )
+    rc = getattr(lib.lib, entry)(*ptrs, B, A, C, int(slot), float(cpuct), _stream(n.device))
     lib.check(rc, entry)
     return besta, bestc
 
 
-def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: float):
-    """``mcts.hybrid.merge``: in place on ``n, w, p, code, done, tval``;
-    returns the refreshed ``(best_a, best_code)``. On CUDA, A <= 8 runs
-    this wrapper's kernel and larger A ``merge_dense``."""
-    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2)
+def _check_dense_actions(name: str, A: int) -> None:
+    if A > DENSE_MERGE_MAX_A:
+        raise ValueError(f"{name} takes at most {DENSE_MERGE_MAX_A} actions, got {A}")
+
+
+def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int, cpuct: float):
+    """``mcts.hybrid.merge``: in place on ``n, w, p, code, done, tval`` and
+    the best planes ``besta, bestc``, which it returns. On CUDA, A <= 8 runs
+    this wrapper's kernel (it rewrites every node's best planes) and larger
+    A ``merge_dense``."""
+    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc)
     if _on_cpu(*args):
         return _plain.merge(*args, slot, cpuct)
     if n.shape[1] > _plain.UNROLLED_MAX_A:
@@ -359,12 +371,19 @@ def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: f
     return out
 
 
-def merge_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: float):
-    """``mcts.hybrid.merge`` with the dense refresh, for any A (the main
-    path sends it A > 8)."""
-    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2)
+def merge_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int,
+                cpuct: float):
+    """``mcts.hybrid.merge`` with the dense refresh, for A up to 512 (the
+    main path sends it A > 8; no ported game has more than Gomoku 22's 484
+    actions). The kernel reads and refreshes only the columns
+    the merge writes (path nodes, the install slot, the expanded parent)
+    and leaves every other node's best planes as they are: on entry
+    ``besta, bestc`` must be the refresh of the entry planes, as the
+    search's seed refresh and every merge leave them."""
+    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc)
     if _on_cpu(*args):
         return _plain.merge(*args, slot, cpuct)
+    _check_dense_actions("merge_dense", n.shape[1])
     out = _merge("az_merge_dense", *args, slot, cpuct)
     merge_dense.launches += 1
     return out
@@ -424,11 +443,6 @@ def _descend_round(entry: str, besta, bestc, seca, secc, done, tval, boards, max
         raise ValueError(f"{entry} does not step {type(ops).__name__} boards")
     B, C = besta.shape
     L = ops.size
-    if entry == "az_descend_round_gomoku" and L > GOMOKU_MAX_CELLS:
-        raise NotImplementedError(
-            f"the Gomoku descend kernel takes boards of at most {GOMOKU_MAX_CELLS} cells "
-            f"(edge 16), got {L}: wider bitboards are later work (ROADMAP)"
-        )
     if B == 0:
         raise ValueError("descend_round kernel needs B > 0")
     if not 1 <= K <= MAX_ROUND_K:
@@ -481,7 +495,7 @@ descend_round_othello = _descend_round_instance(
     "``mcts.hybrid.descend_round`` for Othello boards f32[B, 64].")
 descend_round_gomoku = _descend_round_instance(
     "descend_round_gomoku", "az_descend_round_gomoku",
-    "``mcts.hybrid.descend_round`` for Gomoku boards f32[B, S*S], any edge S up to 16.")
+    "``mcts.hybrid.descend_round`` for Gomoku boards f32[B, S*S], any edge S up to 22.")
 descend_round_hex = _descend_round_instance(
     "descend_round_hex", "az_descend_round_hex",
     "``mcts.hybrid.descend_round`` for canonical Hex boards f32[B, 49].")
@@ -509,8 +523,8 @@ def descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth: int, 
     return out
 
 
-def _merge_round(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int,
-                 cpuct: float):
+def _merge_round(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
+                 seca, secc, slot0: int, cpuct: float):
     """Launch the round merge kernel ``entry`` on CUDA tensors."""
     B, A, C = n.shape
     K = patha.shape[0]
@@ -525,21 +539,21 @@ def _merge_round(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, 
         _check("done", done, (B, C)), _check("tval", tval, (B, C)),
         _check("pm", pm, (K, B, A)), _check("patha", patha, (K, B, C)),
         _check("psgn", psgn, (K, B, C)), _check("meta2", meta2, (K, B, 8)),
+        _check("besta", besta, (B, C)), _check("bestc", bestc, (B, C)),
+        _check("seca", seca, (B, C)), _check("secc", secc, (B, C)),
     ]
-    best = [torch.empty((B, C), device=n.device) for _ in range(4)]
-    rc = getattr(lib.lib, entry)(
-        *ptrs, *(t.data_ptr() for t in best),
-        B, A, C, K, int(slot0), float(cpuct), _stream(n.device),
-    )
+    rc = getattr(lib.lib, entry)(*ptrs, B, A, C, K, int(slot0), float(cpuct), _stream(n.device))
     lib.check(rc, entry)
-    return tuple(best)
+    return besta, bestc, seca, secc
 
 
-def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int, cpuct: float):
+def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc,
+                slot0: int, cpuct: float):
     """``mcts.hybrid.merge_round``: in place on ``n, w, p, code, done,
-    tval``; returns the refreshed top-2 planes. On CUDA, A <= 8 runs this
-    wrapper's kernel and larger A ``merge_round_dense``."""
-    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2)
+    tval`` and the top-2 planes ``besta, bestc, seca, secc``, which it
+    returns. On CUDA, A <= 8 runs this wrapper's kernel (it rewrites every
+    node's top-2 planes) and larger A ``merge_round_dense``."""
+    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc)
     if _on_cpu(*args):
         return _plain.merge_round(*args, slot0, cpuct)
     if n.shape[1] > _plain.UNROLLED_MAX_A:
@@ -549,13 +563,16 @@ def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int, c
     return out
 
 
-def merge_round_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int,
-                      cpuct: float):
-    """``mcts.hybrid.merge_round`` with the dense top-2 refresh, for any A
-    (the main path sends it A > 8)."""
-    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2)
+def merge_round_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc,
+                      slot0: int, cpuct: float):
+    """``mcts.hybrid.merge_round`` with the dense top-2 refresh, for A up
+    to 512 (the main path sends it A > 8). Like ``merge_dense`` it reads and
+    refreshes only the columns the K records write: on entry the top-2
+    planes must be the ``refresh2`` of the entry planes."""
+    args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc)
     if _on_cpu(*args):
         return _plain.merge_round(*args, slot0, cpuct)
+    _check_dense_actions("merge_round_dense", n.shape[1])
     out = _merge_round("az_merge_round_dense", *args, slot0, cpuct)
     merge_round_dense.launches += 1
     return out

@@ -41,7 +41,10 @@ Mosaic and XLA engines.
 
 Not ported (ROADMAP): depth-sorted blocking (``run_kernel_sorted``, whose
 8192-game threshold was measured on another device), ``mesh`` sharding,
-MLPs beyond the kernel's widths, and games other than Connect-Four.
+MLPs beyond the kernel's widths, and games other than Connect-Four; for
+the last two ``make_fused_root_fn`` returns None and the self-play ladder
+runs the hybrid engine, as the JAX ladder does where its fused kernel
+declines.
 """
 
 from __future__ import annotations
@@ -180,13 +183,19 @@ def fused_mlp_rounds_search(
     return n[:, :, 0], w[:, :, 0]
 
 
+def mlp_widths_fit(hidden: Sequence[int]) -> bool:
+    """Whether the in-kernel MLP evaluator takes these hidden widths."""
+    return 1 <= len(hidden) <= MLP_MAX_HIDDEN and all(1 <= h <= MLP_MAX_WIDTH for h in hidden)
+
+
 def check_mlp_widths(hidden: Sequence[int]) -> None:
     """Raise for an MLP the kernel does not take."""
-    if not 1 <= len(hidden) <= MLP_MAX_HIDDEN or not all(1 <= h <= MLP_MAX_WIDTH for h in hidden):
+    if not mlp_widths_fit(hidden):
         raise NotImplementedError(
             f"the in-kernel MLP evaluator takes 1 to {MLP_MAX_HIDDEN} hidden layers of "
             f"1 to {MLP_MAX_WIDTH} units, got {tuple(hidden)}: wider or deeper MLPs need "
-            "tiled activations (ROADMAP, GPU-native follow-ups)"
+            "tiled activations (ROADMAP queue 2, \"K3 for MLPs wider than 256 units\"); "
+            "the self-play ladder runs them on the hybrid engine"
         )
 
 
@@ -197,8 +206,11 @@ def make_fused_root_fn(
     fused kernel, or return None when the configuration needs the hybrid
     engine: a model with neither ``uniform_value`` nor a
     ``kernel_eval_factory``, a nonzero cutoff heuristic, A > 16 or no flat
-    ops (the JAX package's grounds). A model with both takes its in-kernel
-    evaluator, as in the JAX package. ``parallel_sims = K > 1`` raises
+    ops (the JAX package's grounds); and where the port's kernels lack
+    what the JAX one has: a game other than Connect-Four (the kernels step
+    only its boards) or an MLP wider than ``MLP_MAX_WIDTH`` or deeper than
+    ``MLP_MAX_HIDDEN`` (``mlp_widths_fit``). A model with both takes its
+    in-kernel evaluator, as in the JAX package. ``parallel_sims = K > 1`` raises
     ``ValueError`` where the JAX package does: ``num_sims`` not divisible
     by K, or ``(K+1)**A >= 2**24``.
 
@@ -228,16 +240,14 @@ def make_fused_root_fn(
                 "(needs (K+1)^A < 2^24)"
             )
     if game.name != "connect_four":
-        raise NotImplementedError(
-            f"the fused kernel's game helpers are Connect-Four's; {game.name} "
-            "needs its own (ROADMAP queue 2, K4 per game)"
-        )
+        return None   # the kernels step Connect-Four boards only
     ops = flat_ops_factory()
     sims, nodes, depth, cpuct = cfg.num_sims, cfg.nodes, cfg.max_depth, float(cfg.cpuct)
     rounds = (K,) if K > 1 else ()
     if eval_factory is not None:
         weights = eval_factory(ops)
-        check_mlp_widths(weights.hidden)
+        if not mlp_widths_fit(weights.hidden):
+            return None
         if kernel is None:
             from alphazero_tpu_torch import kernels
 

@@ -6,7 +6,7 @@ memory; each simulation is
 
 1. **descend** (one instance of the CUDA kernel per game, routed by the
    flat ops: ``az_descend`` for Connect-Four, ``az_descend_othello``,
-   ``az_descend_gomoku`` for every Gomoku edge up to 16x16,
+   ``az_descend_gomoku`` for every Gomoku edge up to 22x22,
    ``az_descend_hex``): the whole descent along the per-node PUCT argmax
    planes ``besta/bestc [B, C]``, carrying the board through the game's
    step, writing the path record and the leaf board;
@@ -16,8 +16,11 @@ memory; each simulation is
 3. **merge** (CUDA kernel ``az_merge`` for A <= 8, ``az_merge_dense`` for
    larger action spaces): one in-place read-modify-write of the planes —
    install the new row at the lockstep slot, link parent -> child, back up
-   along the path — followed by the PUCT refresh that leaves the next
-   descent's argmax planes.
+   along the path — followed by the PUCT refresh that keeps the argmax
+   planes ``besta/bestc`` current for the next descent, in place. The
+   search seeds them once with ``refresh``; ``az_merge_dense`` then
+   refreshes only the columns the merge wrote, which is exact because
+   every other node's argmax is a function of its own unchanged column.
 
 The plain PyTorch versions of the three kernels are ``descend``, ``merge``
 and ``refresh`` below; ``alphazero_tpu_torch.kernels`` launches the CUDA
@@ -42,7 +45,8 @@ is a duplicate, which installs nothing but still backs up its value. The
 K leaf boards go through ONE forward of K*B boards (stacked K-major), then
 ``merge_round`` merges the K path records in one read-modify-write at the
 slots ``r*K + 1 + k`` and refreshes the top two PUCT actions of every node
-(``refresh2``). Its arithmetic is the JAX kernel's term by term: the K
+(``refresh2``) into the top-2 planes, in place (``az_merge_round_dense``:
+the columns it wrote). Its arithmetic is the JAX kernel's term by term: the K
 records' additions are summed in k order first and then added to the
 planes once, which rounds otherwise than adding them one at a time.
 
@@ -57,7 +61,7 @@ the same with a leading K axis.
 
 Not ported (ROADMAP queue 1 / queue 2): depth-sorted blocking
 (``run_search_sorted``, whose 8192-game threshold was measured on another
-device), ``mesh`` sharding, and Gomoku boards above 256 cells on the card
+device), ``mesh`` sharding, and Gomoku boards above 512 cells on the card
 (their plain version runs; the CUDA descends raise).
 """
 
@@ -174,11 +178,12 @@ def descend(besta, bestc, done, tval, boards, max_depth: int, ops):
     return tuple(t[0] for t in out)
 
 
-def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: float):
+def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int,
+          cpuct: float):
     """Install the new row at ``slot``, link parent -> child, back up
     ``mval * psgn`` along the path — all IN PLACE on the planes ``n, w, p,
-    code [B, A, C]`` and ``done, tval [B, C]`` — then refresh. Returns
-    ``(best_a, best_code) f32[B, C]``."""
+    code [B, A, C]`` and ``done, tval [B, C]`` — then refresh every node
+    into the best planes ``besta, bestc f32[B, C]``, which it returns."""
     B, A, C = n.shape
     exp_ok = meta2[:, M2_EXPOK] > 0.5
     if 0 <= slot < C and bool(exp_ok.any()):
@@ -196,7 +201,9 @@ def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot: int, cpuct: f
     if bool(exp_ok.any()):
         g = exp_ok.nonzero()[:, 0]
         code[g, meta2[g, M2_EACT].long(), meta2[g, M2_ENODE].long()] = meta2[g, M2_LINK]
-    return refresh(n, w, p, code, cpuct)
+    for plane, fresh in zip((besta, bestc), refresh(n, w, p, code, cpuct)):
+        plane.copy_(fresh)
+    return besta, bestc
 
 
 def descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth: int, ops, K: int):
@@ -270,12 +277,14 @@ def descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth: int, 
     return tuple(torch.stack(t) for t in zip(*out))
 
 
-def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int, cpuct: float):
+def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc,
+                slot0: int, cpuct: float):
     """Merge one round's K path records (``pm f32[K, B, A]``, ``patha,
     psgn f32[K, B, C]``, ``meta2 f32[K, B, 8]``) IN PLACE into the planes
     ``n, w, p, code [B, A, C]`` and ``done, tval [B, C]`` — descent k
     installs at slot ``slot0 + k`` where its ``meta2`` lane M2_EXPOK is 1
-    — then refresh the top two actions. Returns ``refresh2``'s planes.
+    — then refresh the top two actions of every node into ``besta, bestc,
+    seca, secc f32[B, C]`` (``refresh2``'s planes), which it returns.
 
     The JAX ``merge_round_kernel`` term by term: the additions of the K
     records are summed per cell in k order from 0, then applied once
@@ -310,7 +319,10 @@ def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0: int, c
     code.copy_(code * keep + code_delta)
     done.copy_(done * (1.0 - nm_all) + dn_new)
     tval.copy_(tval * (1.0 - nm_all) + dt_new)
-    return refresh2(n, w, p, code, cpuct)
+    best4 = (besta, bestc, seca, secc)
+    for plane, fresh in zip(best4, refresh2(n, w, p, code, cpuct)):
+        plane.copy_(fresh)
+    return best4
 
 
 class SearchKernels(NamedTuple):
@@ -397,9 +409,7 @@ def run_search(
              meta[:, M_ENODE : M_EACT + 1], zeros],
             dim=1,
         )
-        besta, bestc = kernels.merge(
-            n, w, p, code, done, tval, pm, patha, psgn, meta2, s, cpuct
-        )
+        kernels.merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, s, cpuct)
     return n, w
 
 
@@ -443,9 +453,8 @@ def run_rounds(
             [mval, inst, link_code, cdone, ctval, meta[..., M_ENODE : M_EACT + 1], zeros],
             dim=2,
         )
-        best4 = kernels.merge_round(
-            n, w, p, code, done, tval, pm.reshape(K, B, -1), patha, psgn, meta2, r * K + 1, cpuct
-        )
+        kernels.merge_round(n, w, p, code, done, tval, pm.reshape(K, B, -1), patha, psgn, meta2,
+                            *best4, r * K + 1, cpuct)
     return n, w
 
 
@@ -465,8 +474,8 @@ def make_hybrid_root_fn(
     flat_ops_factory = getattr(game, "flat_ops", None)
     if flat_ops_factory is None:
         raise NotImplementedError(
-            f"{game.name} has no flat ops: it needs the dense engine "
-            "(ROADMAP queue 1, mcts/search.py + tree.py), not yet ported"
+            f"{game.name} has no flat ops: it needs the dense engine (ROADMAP "
+            "queue 1, \"The dense engine: mcts/tree.py + mcts/search.py\"), not yet ported"
         )
     ops = flat_ops_factory()
     zero_heuristic = bool(getattr(game, "heuristic_is_zero", False))
@@ -474,7 +483,7 @@ def make_hybrid_root_fn(
         raise NotImplementedError(
             f"{game.name} has a nonzero depth-cutoff heuristic but its flat ops "
             "cannot evaluate it: it needs the dense engine (ROADMAP queue 1, "
-            "mcts/search.py + tree.py), not yet ported"
+            "\"The dense engine: mcts/tree.py + mcts/search.py\"), not yet ported"
         )
     if kernels is None:
         from alphazero_tpu_torch.kernels import KERNELS

@@ -26,28 +26,30 @@ def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., 
 
     The port's engine ladder, as in the JAX package: the fused kernel for
     a model it can evaluate inside the kernel (the uniform prior, or an
-    ``MLPNet`` through its ``kernel_eval_factory``), on any device; then
-    the hybrid engine for any model on a flat-ops game. Everything else
-    raises — no engine stands in silently for another."""
+    ``MLPNet`` of the widths its evaluator takes, through its
+    ``kernel_eval_factory``) on Connect-Four, on any device; then the
+    hybrid engine for any model on a flat-ops game, which also takes what
+    the fused kernel declines. The engines the port lacks raise — no
+    engine stands in silently for another."""
     if getattr(mcts_cfg, "transposition", False):
         raise NotImplementedError(
             "transposition search (mcts/tt.py) is not yet ported "
-            "(ROADMAP queue 1, step 12: opt-in engines)"
+            "(ROADMAP queue 1, \"The opt-in engines\")"
         )
     if getattr(mcts_cfg, "gumbel", False):
         raise NotImplementedError(
             "Gumbel search (mcts/gumbel.py) is not yet ported "
-            "(ROADMAP queue 1, step 12: opt-in engines)"
+            "(ROADMAP queue 1, \"The opt-in engines\")"
         )
     if getattr(mcts_cfg, "forced_playouts", None) is not None:
         raise NotImplementedError(
             "forced playouts live in the dense engine, not yet ported "
-            "(ROADMAP queue 1, step 4: mcts/search.py + tree.py)"
+            "(ROADMAP queue 1, \"The dense engine: mcts/tree.py + mcts/search.py\")"
         )
     if getattr(game, "flat_ops", None) is None:
         raise NotImplementedError(
             f"{game.name} has no flat ops: it needs the dense engine, not yet "
-            "ported (ROADMAP queue 1, step 4: mcts/search.py + tree.py)"
+            "ported (ROADMAP queue 1, \"The dense engine: mcts/tree.py + mcts/search.py\")"
         )
     fused = make_fused_root_fn(game, apply_fn, mcts_cfg)
     if fused is not None:

@@ -7,7 +7,10 @@ uniform model, and on the fused kernel with an MLPNet (256, 256) evaluated
 inside it; then Othello, Gomoku and Hex on the hybrid engine, the hybrid
 engine's K=4 leaf-parallel rounds, and the fused engine's K>1 rounds for
 the uniform model and the MLP; then the fused int8 ResNet tower of the
-experiment ``int8_fused_tower`` — on one CUDA card, in phases:
+experiment ``int8_fused_tower``; then what the fused engine declines
+(an MLPNet wider than its evaluator, ``Gomoku(4, 4)``) through the ladder
+on the hybrid engine, and Gomoku 19 — on one CUDA
+card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``,
@@ -157,11 +160,28 @@ experiment ``int8_fused_tower`` — on one CUDA card, in phases:
            bit-equal, timed in turns; (b) the library's int8 tower (the
            ``torch._int_mm`` chain) bit-equal to the kernel; (c) the bf16
            cuDNN conv tower of ``FoldedAZResNet._conv`` on the same input,
-           finite; both yardsticks timed by the main; (d) TOPS of each.
+           finite; both yardsticks timed by the main; (d) TOPS of each;
+14. fall-through: MLPNet (512, 512) on Connect-Four (wider than the
+           in-kernel evaluator; seeded random weights) and the uniform
+           ``Gomoku(4, 4)`` (a step the fused kernels lack): the fused
+           engine declines both, and actor steps (B=512, 50 sims, 3 timed)
+           through the ladder launch exactly the hybrid kernels and no
+           fused one;
+15. gomoku19: Gomoku 19 (361 cells) on the hybrid engine, uniform model,
+           B=1024, 100 sims, max_depth 64: (a) ``descend_gomoku`` (6 of its
+           8 board words) and the dense merge and refresh at A=361 against
+           their plain versions on planes from a plain search (bit-equal,
+           timed in turns); (b) ``descend_round_gomoku``, the dense round
+           merge and the top-2 refresh at K=4 (the same); (c) one timed
+           actor step, its launches and peak memory; (d) one K=1 and one K=4
+           search through the kernels and the plain versions, identical
+           counts.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
-data-dependent walk counts the cells this run's data reaches) over
+data-dependent walk counts the cells this run's data reaches, a merge the
+stat columns it writes: ``merge_bounds``, whose whole-plane figure, the
+four planes read once, rides beside it as ``whole_plane_bound_ms``) over
 3.35 TB/s, and its operations: f32 ones over 67 TFLOP/s plus bf16 matrix
 ones over 989 TFLOP/s plus int8 matrix ones over 1979 TOP/s (the H100
 SXM's data-sheet rates at 700 W; the int8 tower's f32 epilogue runs on the
@@ -173,6 +193,14 @@ line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line. Run from the repository root:
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --actors`` runs only the two actors whose steps
+the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
+Othello ``full`` actor at K=4 (phase 11c): each is timed, one step
+profiled, then timed again after ``torch.cuda.empty_cache()``. It calls
+only entry points the package has had since its K=4 rounds, so two trees
+are compared in one call by copying this file into the other tree's root
+and running both in turns (the other, this, this, the other).
 """
 
 from __future__ import annotations
@@ -243,6 +271,7 @@ FUSED_ROUND_KS = (2, 4, 9)    # phase 12(a): K of the fused rounds held against 
 FUSED_ROUND_VALUES = (0.0, 0.3)   # ... at the uniform value 0 (integer W) and 0.3
 BENCH_K_GAMES, BENCH_K_SIMS, BENCH_K_SEEDS, BENCH_K_TEMP_MOVES = 1024, 100, 2, 8   # bench_k.py defaults
 BENCH_K_KS = (2, 4)
+WIDE_MLP_HIDDEN = (512, 512)   # phase 14: wider than the in-kernel evaluator takes
 TOWER_RAGGED_B = 4093     # phase 13(a): a tail tile of 5 games (the kernel's tiles hold 8)
 
 SOURCE = {
@@ -518,6 +547,84 @@ def descend_vs_plain(name: str, kernel, d_args) -> tuple:
     return result, edges, float(out_p[3][:, hybrid.M_CUT].sum())
 
 
+def merge_bounds(m_args) -> dict:
+    """The bound of a merge call (K=1 or a round's, by ``m_args``' record
+    shapes) for what its data needs: the stat columns whose cells it keeps
+    (the path nodes and the expanded parents) read once, the best cells of
+    every column it writes written (those and the install slots), the path
+    records, ``meta2``, the installed prior rows, and the cells that change
+    (path n/w, install rows with their done/tval, links). An install slot's
+    column is not read: the merge writes it anew from its prior row (the
+    round merge's x * keep is 0 there). Beside it, labelled, the
+    whole-plane bound of a kernel that refreshes every node (the four stat
+    planes read once), and the touched columns."""
+    from alphazero_tpu_torch.mcts import hybrid
+
+    n, patha, meta2, slot = m_args[0], m_args[7], m_args[9], m_args[-2]
+    B, A, C = n.shape
+    rounds = meta2.dim() == 3
+    if not rounds:   # K=1: one record a game
+        patha, meta2 = patha[None], meta2[None]
+    K = patha.shape[0]
+    cols = torch.arange(C, device=n.device)
+    slots = slot + torch.arange(K, device=n.device)[:, None, None]                # [K, 1, 1]
+    inst = meta2[..., hybrid.M2_EXPOK, None] > 0.5                               # [K, B, 1]
+    installed = inst & (cols == slots)                                           # [K, B, C]
+    linked = inst & (cols == meta2[..., hybrid.M2_ENODE, None].long())
+    kept = ((patha > 0) | linked).any(dim=0)                                     # [B, C]
+    touched = float((kept | installed.any(dim=0)).sum())
+    installs = float(installed.sum())
+    links = float(inst.sum())
+    path_cells = float(sum(((patha == a + 1).any(dim=0)).sum() for a in range(A)))
+    edges = float((patha > 0).sum())
+    n_best = 4 if rounds else 2
+    records = K * B * (2 * C + 8)
+    writes = 2 * path_cells + installs * (4 * A + 2) + links + n_best * touched
+    ops = puct_ops(touched, A) + 3 * edges
+    if rounds:   # the top-2 scan, and x * keep + the k-ordered terms in every cell it rewrites
+        ops += (1 + 9) * A * touched
+    needed = bound(F32 * (4 * A * float(kept.sum()) + records + A * installs + writes), ops)
+    # the whole-plane figure as the kernel table's earlier rows count it:
+    # every pm row, the best planes of every node, done/tval read by the
+    # round merge
+    changed = 2 * path_cells + installs * (4 * A + 3)
+    if rounds:
+        whole = bound(F32 * (4 * B * A * C + 2 * B * C + K * B * (A + 2 * C + 8) + 4 * B * C
+                             + changed), puct_ops(B * C, A) + 9 * A * B * C + 3 * edges)
+    else:
+        whole = bound(F32 * (4 * B * A * C + 2 * B * C + B * A + B * 8 + 2 * B * C + changed),
+                      puct_ops(B * C, A) + 3 * edges)
+    return {**needed, "whole_plane_bound_ms": whole["bound_ms"], "touched_per_game": touched / B}
+
+
+def merge_vs_plain(name: str, k_fn, p_fn, m_args) -> tuple:
+    """A merge kernel wrapper (K=1 or a round's) against its plain version
+    on copies of the same planes, best planes included (the precondition:
+    captured from a plain search, they are the refresh of the captured
+    planes): bit-equal outputs. Returns ``(result entry, (kernel fn, plain
+    fn) for in_turns)``."""
+    best = 2 if m_args[9].dim() == 2 else 4
+    head, tail = 10 + best, m_args[10 + best:]
+
+    def planes():
+        return [t.clone() for t in (*m_args[:6], *m_args[10:head])]
+
+    def call(fn, ps):
+        return fn(*ps[:6], *m_args[6:10], *ps[6:], *tail)
+
+    outs_k, outs_p = planes(), planes()
+    call(k_fn, outs_k)
+    call(p_fn, outs_p)
+    names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc", "seca", "secc")[:6 + best]
+    for nm, k, p in zip(names, outs_k, outs_p):
+        if not bit_equal(k, p):
+            fail(f"{name} output {nm} differs from the plain version at A={m_args[0].shape[1]}")
+    result = {"max_abs_err": max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p)),
+              **merge_bounds(m_args)}
+    scratch = planes()
+    return result, (lambda: call(k_fn, scratch), lambda: call(p_fn, scratch))
+
+
 def dense_vs_plain(kernels, m_args) -> tuple:
     """``merge_dense`` and ``refresh_dense`` against the plain versions on
     the same planes: bit-equal outputs. Returns ``(result entries, stat
@@ -525,24 +632,10 @@ def dense_vs_plain(kernels, m_args) -> tuple:
     from alphazero_tpu_torch.mcts import hybrid
 
     B, A, C = m_args[0].shape
-    planes_k = [t.clone() for t in m_args[:6]]
-    planes_p = [t.clone() for t in m_args[:6]]
-    outs_k = planes_k + list(kernels.merge_dense(*planes_k, *m_args[6:]))
-    outs_p = planes_p + list(hybrid.merge(*planes_p, *m_args[6:]))
-    for nm, k, p in zip(("n", "w", "p", "code", "done", "tval", "besta", "bestc"), outs_k, outs_p):
-        if not bit_equal(k, p):
-            fail(f"merge_dense output {nm} differs from the plain version at A={A}")
-    m_edges = float((m_args[7] > 0).sum())
-    installs = float(m_args[9][:, hybrid.M2_EXPOK].sum())
     planes_bytes = F32 * 4 * B * A * C
-    results = {"merge_dense": {
-        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p)),
-        # reads: the four stat planes, patha/psgn, pm, meta2; writes: the
-        # best planes and the cells that change (path n/w, install rows, links)
-        **bound(planes_bytes + F32 * (2 * B * C + B * A + B * 8 + 2 * B * C
-                                      + 2 * m_edges + installs * (4 * A + 3)),
-                puct_ops(B * C, A) + 3 * m_edges),
-    }}
+    results, fns = {}, {}
+    results["merge_dense"], fns["merge_dense"] = merge_vs_plain(
+        "merge_dense", kernels.merge_dense, hybrid.merge, m_args)
     ref_k = kernels.refresh_dense(*m_args[:4], m_args[-1])
     ref_p = hybrid.refresh(*m_args[:4], m_args[-1])
     if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
@@ -551,13 +644,8 @@ def dense_vs_plain(kernels, m_args) -> tuple:
         "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
         **bound(planes_bytes + F32 * 2 * B * C, puct_ops(B * C, A)),
     }
-    scratch = [t.clone() for t in m_args[:6]]
-    fns = {
-        "merge_dense": (lambda: kernels.merge_dense(*scratch, *m_args[6:]),
-                        lambda: hybrid.merge(*scratch, *m_args[6:])),
-        "refresh_dense": (lambda: kernels.refresh_dense(*m_args[:4], m_args[-1]),
-                          lambda: hybrid.refresh(*m_args[:4], m_args[-1])),
-    }
+    fns["refresh_dense"] = (lambda: kernels.refresh_dense(*m_args[:4], m_args[-1]),
+                            lambda: hybrid.refresh(*m_args[:4], m_args[-1]))
     return results, planes_bytes, fns
 
 
@@ -568,9 +656,13 @@ def time_in_turns(results: dict, fns: dict, tag: str, card: str, label: str = ""
         k1, k2, p1, p2 = in_turns(k_fn, p_fn)
         dev = device_ms(k_fn)
         results[name].update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None})
+        whole = results[name].get("whole_plane_bound_ms")
+        extra = "" if whole is None else (
+            f"; {results[name]['touched_per_game']:.2f} touched columns a game, whole-plane "
+            f"bound {whole:.4f} ms")
         print(f"[{tag}] {name}{label}: kernel {k1:.4f}/{k2:.4f} ms per call ({dev:.4f} ms of device "
               f"time), plain {p1:.4f}/{p2:.4f} ms, bound {results[name]['bound_ms']:.4f} ms "
-              f"({results[name]['bound_by']}) | {card}", flush=True)
+              f"({results[name]['bound_by']}{extra}) | {card}", flush=True)
 
 
 def run_actor(tag: str, game, apply_fn, run_cfg, batch: int, steps: int, temp_threshold: int,
@@ -955,6 +1047,83 @@ def hex_phase(card: str) -> tuple:
     return results, {k: launches[k] for k in results}
 
 
+def fallthrough_phase(card: str) -> None:
+    """Phase 14: configurations the fused kernel declines run on the hybrid
+    engine through the ladder (see the module docstring)."""
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour, Gomoku
+    from alphazero_tpu_torch.mcts import make_fused_root_fn
+    from alphazero_tpu_torch.models import (
+        convert_mlp,
+        make_apply_fn,
+        make_uniform_model,
+        random_mlp_variables,
+    )
+
+    dev = torch.device("cuda", 0)
+    c4 = ConnectFour()
+    wide = make_apply_fn(convert_mlp(random_mlp_variables(
+        c4.num_actions, WIDE_MLP_HIDDEN, seed=SEED)).to(dev))
+    cfg = MCTSConfig(num_sims=MLP_PRESET_SIMS, max_depth=MAX_DEPTH)
+    if make_fused_root_fn(c4, wide, cfg) is not None:
+        fail(f"the fused engine took MLPNet {WIDE_MLP_HIDDEN}, wider than its evaluator")
+    run_actor("fallthrough", c4, wide, cfg, MLP_PRESET_B, 3, TEMP_THRESHOLD,
+              {"descend": MLP_PRESET_SIMS, "merge": MLP_PRESET_SIMS, "refresh": 1}, card,
+              f"Connect-Four MLPNet {WIDE_MLP_HIDDEN} through the ladder (hybrid route)")
+    g4 = Gomoku(4, 4)
+    uni = make_uniform_model(g4).apply_fn
+    if make_fused_root_fn(g4, uni, cfg) is not None:
+        fail("the fused engine took Gomoku(4, 4), whose step it lacks")
+    run_actor("fallthrough", g4, uni, cfg, MLP_PRESET_B, 3, 4,
+              {"descend_gomoku": MLP_PRESET_SIMS, "merge_dense": MLP_PRESET_SIMS,
+               "refresh_dense": 1}, card, "Gomoku(4, 4) uniform through the ladder (hybrid route)")
+
+
+def gomoku19_phase(card: str) -> None:
+    """Phase 15: Gomoku 19 (361 cells, 6 of the descends' 8 board words)
+    on the hybrid engine (see the module docstring). The kernels line's
+    entries of the Gomoku descends are phases 9 and 11's."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import Gomoku
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.models import make_uniform_model
+
+    dev = torch.device("cuda", 0)
+    game = Gomoku(19)
+    A = game.num_actions
+    uni = make_uniform_model(game).apply_fn
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=GMK15_MAX_DEPTH)
+    roots = random_positions(game, GMK_B, A // 3, SEED, dev)
+
+    # (a) the descend and the dense merge and refresh at A=361
+    d_args, m_args = capture_search_args(game, uni, cfg, roots, None)
+    entry, edges, _ = descend_vs_plain("descend_gomoku", kernels.descend_gomoku, d_args)
+    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args)
+    print(f"[gomoku19] B={GMK_B} C={cfg.nodes} A={A}: descend_gomoku, merge_dense, "
+          f"refresh_dense bit-equal to plain ({edges / GMK_B:.2f} path edges per game; stat planes "
+          f"{planes_bytes / 1e6:.1f} MB)", flush=True)
+    time_in_turns({"descend_gomoku": entry, **dense}, {
+        "descend_gomoku": (lambda: kernels.descend_gomoku(*d_args),
+                           lambda: hybrid.descend(*d_args)), **dense_fns},
+        "gomoku19", card, f" at A={A}")
+
+    # (b) the round kernels at K=4
+    cfg4 = MCTSConfig(num_sims=SIMS, max_depth=GMK15_MAX_DEPTH, parallel_sims=ROUND_K)
+    d4, m4 = capture_round_args(game, uni, cfg4, roots, None)
+    rounds_vs_plain(game, d4, m4, card)
+
+    # (c) one timed step of the uniform actor, its peak memory; (d) a K=1
+    # and a K=4 search through the kernels and the plain versions
+    per_step = {"descend_gomoku": SIMS, "merge_dense": SIMS, "refresh_dense": 1}
+    carry, _, _, _, _ = run_actor("gomoku19", game, uni, cfg, GMK_B, 1, GMK_TEMP_THRESHOLD,
+                                  per_step, card, "gomoku19 uniform actor")
+    same_counts_through_kernels_and_plain("gomoku19", game, uni, cfg, carry[0], None, per_step)
+    want4 = {"descend_round_gomoku": SIMS // ROUND_K, "merge_round_dense": SIMS // ROUND_K,
+             "refresh2_dense": 1}
+    same_counts_through_kernels_and_plain("gomoku19", game, uni, cfg4, carry[0], None, want4)
+
+
 def capture_round_args(game, apply_fn, cfg, roots, noise, rounds: int = ROUND_WARM) -> tuple:
     """The arguments of the last descend_round and merge_round calls of a
     plain search of ``rounds`` rounds of ``cfg.parallel_sims`` descents at
@@ -1015,28 +1184,12 @@ def rounds_vs_plain(game, d_args, m_args, card: str) -> dict:
         **bound(F32 * (B * L + 4 * visited + B + leaves + K * (B * L + 2 * B * C + 8 * B)), 0.0),
     }
 
-    planes_k = [t.clone() for t in m_args[:6]]
-    planes_p = [t.clone() for t in m_args[:6]]
-    outs_k = planes_k + list(m_kernel(*planes_k, *m_args[6:]))
-    outs_p = planes_p + list(hybrid.merge_round(*planes_p, *m_args[6:]))
-    names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc", "seca", "secc")
-    for nm, k, p in zip(names, outs_k, outs_p):
-        if not bit_equal(k, p):
-            fail(f"{m_name} output {nm} differs from the plain version at A={A}")
+    results[m_name], merge_fns = merge_vs_plain(m_name, m_kernel, hybrid.merge_round, m_args)
     m_patha = m_args[7]
     edges = float((m_patha > 0).sum())
     shared = edges - float(sum(((m_patha == a + 1).any(dim=0)).sum() for a in range(A)))
     installs = float(m_args[9][..., hybrid.M2_EXPOK].sum())
     planes_bytes = F32 * 4 * B * A * C
-    # reads: the four stat planes, done/tval, the K records (pm, patha,
-    # psgn, meta2); writes: the four top-2 planes and the cells that change
-    # (path n/w, install rows, links, done/tval at the slots)
-    results[m_name] = {
-        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p)),
-        **bound(planes_bytes + F32 * (2 * B * C + K * B * (A + 2 * C + 8) + 4 * B * C
-                                      + 2 * (edges - shared) + installs * (4 * A + 3)),
-                puct_ops(B * C, A) + 9 * A * B * C + 3 * edges),
-    }
     ref_k = r_kernel(*m_args[:4], m_args[-1])
     ref_p = hybrid.refresh2(*m_args[:4], m_args[-1])
     if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
@@ -1048,11 +1201,9 @@ def rounds_vs_plain(game, d_args, m_args, card: str) -> dict:
     print(f"[rounds] {game.name}, B={B} C={C} A={A} K={K}: {d_name}, {m_name}, {r_name} bit-equal "
           f"to plain ({second:.0f} runner-up takes, {dups:.0f} duplicates, {shared:.0f} shared path "
           f"edges, {installs:.0f} installs; stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
-    scratch = [t.clone() for t in m_args[:6]]
     time_in_turns(results, {
         d_name: (lambda: d_kernel(*d_args), lambda: hybrid.descend_round(*d_args)),
-        m_name: (lambda: m_kernel(*scratch, *m_args[6:]),
-                 lambda: hybrid.merge_round(*scratch, *m_args[6:])),
+        m_name: merge_fns,
         r_name: (lambda: r_kernel(*m_args[:4], m_args[-1]),
                  lambda: hybrid.refresh2(*m_args[:4], m_args[-1])),
     }, "rounds", card, f" at A={A}")
@@ -1778,6 +1929,46 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
     return {"fused_mlp": entry}, {"fused_mlp": mlp_launches["fused_mlp"]}, ms_mlp
 
 
+def actors(card: str) -> None:
+    """``--actors`` (see the module docstring)."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import Gomoku, Othello
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        make_apply_fn,
+        make_uniform_model,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+
+    dev = torch.device("cuda", 0)
+    kernels.library()
+    g15, oth = Gomoku(15), Othello()
+    oth_net = make_apply_fn(convert_az_resnet(
+        random_az_resnet_variables(oth.num_actions, OTH_CHANNELS, OTH_BLOCKS, cells=64, seed=SEED),
+        dtype=torch.bfloat16).to(dev))
+    rounds = SIMS // ROUND_K
+    cells = (
+        ("gomoku15 uniform actor", g15, make_uniform_model(g15).apply_fn,
+         MCTSConfig(num_sims=SIMS, max_depth=GMK15_MAX_DEPTH), GMK15_B, GMK_TEMP_THRESHOLD,
+         {"descend_gomoku": SIMS, "merge_dense": SIMS, "refresh_dense": 1}),
+        (f"Othello full preset actor at K={ROUND_K}", oth, oth_net,
+         MCTSConfig(num_sims=SIMS, max_depth=OTH_MAX_DEPTH, dirichlet_alpha=OTH_DIRICHLET,
+                    parallel_sims=ROUND_K), OTH_B, OTH_TEMP_THRESHOLD,
+         {"descend_round_othello": rounds, "merge_round_dense": rounds, "refresh2_dense": 1}),
+    )
+    for label, game, apply_fn, cfg, batch, temp, want in cells:
+        for after in ("", ", after empty_cache"):
+            if after:
+                torch.cuda.empty_cache()
+            carry, step, gen, _, _ = run_actor("actors", game, apply_fn, cfg, batch, OTH_STEPS,
+                                               temp, want, card, label + after)
+            print_profiled_step("actors", lambda: step(carry, sample_draws(
+                gen, batch, game.num_actions, cfg.dirichlet_alpha, dev)), card, label + after)
+            del carry, step
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1809,6 +2000,9 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} "
           f"| {torch.cuda.get_device_name(0)}", flush=True)
+    if sys.argv[1:] == ["--actors"]:
+        actors(card)
+        return 0
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
@@ -1819,9 +2013,16 @@ def main() -> int:
         if ln.startswith("[") or "entry function" in ln or "registers" in ln or "spill" in ln:
             print(f"[build] {ln.strip()}", flush=True)
     mlp_kernels = ("fused_mlp_kernel", "fused_mlp_rounds_kernel", "mlp_eval_kernel")
-    report = ptxas_report(lib.build_log, mlp_kernels)
-    for name in mlp_kernels:
-        print(f"[build] ptxas -v {name}: {report.get(name, 'not in the build log (a cached build)')}",
+    # the dense merges' instances (J actions a lane) and the Gomoku
+    # descends (8 board words), by a piece of their mangled names
+    instances = {f"merge{r}_dense_kernel<{j}>": f"merge{r}_dense_kernelILi{j}E"
+                 for r in ("", "_round") for j in (4, 8, 16)}
+    instances.update({f"{d}_kernel<GomokuGame<8>>": f"{d}_kernelINS_10GomokuGameILi8E"
+                      for d in ("descend", "descend_round")})
+    report = ptxas_report(lib.build_log, (*mlp_kernels, *instances.values()))
+    for name in (*mlp_kernels, *instances):
+        print(f"[build] ptxas -v {name}: "
+              f"{report.get(instances.get(name, name), 'not in the build log (a cached build)')}",
               flush=True)
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
@@ -1856,26 +2057,9 @@ def main() -> int:
     results = {}
     results["descend"], edges, _ = descend_vs_plain("descend", kernels.descend, d_args)
 
-    planes_k = [t.clone() for t in m_args[:6]]
-    planes_p = [t.clone() for t in m_args[:6]]
-    best_k = kernels.merge(*planes_k, *m_args[6:])
-    best_p = hybrid.merge(*planes_p, *m_args[6:])
-    outs_k, outs_p = planes_k + list(best_k), planes_p + list(best_p)
-    names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc")
-    err = max(float((k - p).abs().max()) for k, p in zip(outs_k, outs_p))
-    for nm, k, p in zip(names, outs_k, outs_p):
-        if not bit_equal(k, p):
-            fail(f"merge output {nm} differs from the plain version")
-    results["merge"] = {"max_abs_err": err}
-    # reads: the four stat planes, patha/psgn, pm, meta2; writes: the best
-    # planes and the cells that change (path n/w, install rows, links)
-    m_edges = float((m_args[7] > 0).sum())
-    installs = float(m_args[9][:, hybrid.M2_EXPOK].sum())
-    results["merge"].update(bound(
-        F32 * (4 * B * A * C + 2 * B * C + B * A + B * 8
-               + 2 * B * C + 2 * m_edges + installs * (4 * A + 3)),
-        puct_ops(B * C, A) + 3 * m_edges,
-    ))
+    # the A <= 8 merge still rewrites every node: its path-column bound and,
+    # labelled beside it, the whole-plane one
+    results["merge"], merge_fns = merge_vs_plain("merge", kernels.merge, hybrid.merge, m_args)
 
     ref_k = kernels.refresh(*m_args[:4], m_args[-1])
     ref_p = hybrid.refresh(*m_args[:4], m_args[-1])
@@ -1888,13 +2072,9 @@ def main() -> int:
           f"(mean path length {edges / B:.2f} edges/game)", flush=True)
 
     # timing, in turns: plain, kernel, kernel, plain
-    scratch = [t.clone() for t in m_args[:6]]
     fns = {
         "descend": (lambda: kernels.descend(*d_args), lambda: hybrid.descend(*d_args)),
-        "merge": (
-            lambda: kernels.merge(*scratch, *m_args[6:]),
-            lambda: hybrid.merge(*scratch, *m_args[6:]),
-        ),
+        "merge": merge_fns,
         "refresh": (
             lambda: kernels.refresh(*m_args[:4], m_args[-1]),
             lambda: hybrid.refresh(*m_args[:4], m_args[-1]),
@@ -2132,6 +2312,12 @@ def main() -> int:
     results.update(phase_results)
     launches.update(phase_launches)
 
+    # ---- 14. what the fused engine declines runs on the hybrid one -------
+    fallthrough_phase(card)
+
+    # ---- 15. Gomoku 19 --------------------------------------------------
+    gomoku19_phase(card)
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -2149,6 +2335,10 @@ def main() -> int:
             # the chain of library forwards a search's evaluations take, for
             # int8_tower the torch._int_mm chain
             "library_ms": results[name].get("library_ms"),
+            # the merges: beside the bound of what the data needs, the bound
+            # of a kernel that refreshes every node
+            **({"whole_plane_bound_ms": results[name]["whole_plane_bound_ms"]}
+               if "whole_plane_bound_ms" in results[name] else {}),
         }
         for name in ("descend", "merge", "refresh", "fused", "fused_mlp",
                      "descend_othello", "merge_dense", "refresh_dense", "descend_gomoku",

@@ -13,7 +13,12 @@
 // instruction below (emu_mma_m16n8k32_s8, emu_mma_m16n8k16_bf16,
 // emu_cp_async16 and emu_cp_async_wait_all) otherwise. Each block starts
 // with its dynamic shared memory filled with 0xff bytes (a bf16 or f32 NaN),
-// so that a kernel that reads what it never wrote shows it.
+// so that a kernel that reads what it never wrote shows it. The warp
+// intrinsics (__shfl_sync, __shfl_xor_sync, __ballot_sync, __syncwarp)
+// meet the warp's threads at a barrier of their own, beside an exchange
+// slot per lane: every lane of the warp must call them in the same order
+// (the full mask, as the kernels use them), and a block's threads come in
+// whole warps.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -22,6 +27,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <math.h>
+#include <memory>
 #include <thread>
 #include <vector>
 
@@ -50,6 +56,55 @@ template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline unsigned char* emu_dynamic_smem = nullptr;
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
+
+// The warps of the running block: a barrier each and a double-buffered
+// exchange slot per lane. A collective writes its lane's slot of the
+// buffer this call uses, meets the warp at the barrier and reads; the
+// next call uses the other buffer, so a lane that runs ahead never
+// overwrites a slot another lane has still to read (it cannot pass the
+// next barrier before that lane has read).
+struct emu_warp {
+  std::barrier<>* bar;
+  uint64_t slot[2][32];
+};
+inline std::vector<emu_warp> emu_warps;
+inline thread_local int emu_warp_phase = 0;
+// Post this lane's value, meet the warp, return the slots of every lane.
+inline const uint64_t* emu_warp_post(uint64_t v) {
+  emu_warp& warp = emu_warps[threadIdx.x / 32];
+  const int ph = emu_warp_phase;
+  emu_warp_phase ^= 1;
+  warp.slot[ph][threadIdx.x % 32] = v;
+  warp.bar->arrive_and_wait();
+  return warp.slot[ph];
+}
+template <class T>
+T emu_shfl_from(T v, unsigned src) {
+  static_assert(sizeof(T) <= sizeof(uint64_t), "a warp shuffle moves at most 8 bytes");
+  uint64_t bits = 0;
+  std::memcpy(&bits, &v, sizeof(T));
+  const uint64_t got = emu_warp_post(bits)[src % 32];
+  T r;
+  std::memcpy(&r, &got, sizeof(T));
+  return r;
+}
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int lane_mask) {
+  return emu_shfl_from(v, (threadIdx.x % 32) ^ (unsigned)lane_mask);
+}
+template <class T>
+T __shfl_sync(unsigned, T v, int src_lane) {
+  return emu_shfl_from(v, (unsigned)src_lane);
+}
+inline unsigned __ballot_sync(unsigned, bool pred) {
+  const uint64_t* slots = emu_warp_post(pred ? 1u : 0u);
+  const unsigned lanes = std::min(32u, blockDim.x - threadIdx.x / 32 * 32);
+  unsigned bits = 0;
+  for (unsigned l = 0; l < lanes; ++l) bits |= (unsigned)(slots[l] & 1u) << l;
+  return bits;
+}
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warps[threadIdx.x / 32].bar->arrive_and_wait(); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
@@ -60,6 +115,11 @@ inline unsigned int __float_as_uint(float x) {
   unsigned int u;
   std::memcpy(&u, &x, sizeof u);
   return u;
+}
+inline float __uint_as_float(unsigned int u) {
+  float x;
+  std::memcpy(&x, &u, sizeof x);
+  return x;
 }
 inline float __int2float_rn(int x) { return static_cast<float>(x); }
 using std::fmaxf;
@@ -182,6 +242,12 @@ void emu_launch(unsigned int grid, unsigned int threads, size_t smem, F body) {
     std::fill(dynamic_smem.begin(), dynamic_smem.end(), (unsigned char)0xff);
     std::barrier<> bar(threads);
     emu_block_barrier = &bar;
+    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    emu_warps.assign((threads + 31) / 32, emu_warp{});
+    for (unsigned int w = 0; w < emu_warps.size(); ++w) {
+      warp_bars.push_back(std::make_unique<std::barrier<>>(std::min(32u, threads - 32 * w)));
+      emu_warps[w].bar = warp_bars.back().get();
+    }
     std::vector<std::thread> team;
     for (unsigned int t = 0; t < threads; ++t) {
       team.emplace_back([&, bx, t] {

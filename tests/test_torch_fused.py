@@ -156,8 +156,12 @@ def test_declines_and_raises_as_the_reference():
     class Other(ConnectFour):
         name = "other"
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_fused_root_fn(Other(), uni, MCTSConfig())
+    # a game whose step the port's fused kernels lack: declined, so the
+    # ladder runs the hybrid engine, as the JAX ladder does past its fused
+    # kernel
+    assert make_fused_root_fn(Other(), uni, MCTSConfig()) is None
+    assert _make_root_counts_fn(Other(), uni, MCTSConfig()).__qualname__.startswith(
+        "make_hybrid_root_fn.")
 
 
 def test_wrapper_routes_cpu_to_plain_and_refuses_other_devices():

@@ -223,11 +223,10 @@ def test_terminal_root_is_not_descended():
 
 
 NO_LAUNCHES = {"descend": 0, "descend_othello": 0, "descend_gomoku": 0, "descend_hex": 0,
-               "merge": 0, "merge_dense": 0, "refresh": 0, "refresh_dense": 0, "fused": 0,
-               "fused_mlp": 0, "mlp_eval": 0, "descend_round": 0, "descend_round_othello": 0,
-               "descend_round_gomoku": 0, "descend_round_hex": 0, "merge_round": 0,
-               "merge_round_dense": 0, "refresh2": 0, "refresh2_dense": 0, "fused_rounds": 0,
-               "fused_mlp_rounds": 0, "int8_tower": 0}
+               "merge": 0, "merge_dense": 0, "refresh": 0, "refresh_dense": 0,
+               "fused": 0, "fused_mlp": 0, "mlp_eval": 0, "descend_round": 0,
+               "descend_round_othello": 0, "descend_round_gomoku": 0, "descend_round_hex": 0, "merge_round": 0, "merge_round_dense": 0, "refresh2": 0,
+               "refresh2_dense": 0, "fused_rounds": 0, "fused_mlp_rounds": 0, "int8_tower": 0}
 
 
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
@@ -254,20 +253,26 @@ def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():
         (GomokuFlatOps(8), "az_descend_gomoku"),      # 64 cells, as Othello
         (GomokuFlatOps(9), "az_descend_gomoku"),
         (GomokuFlatOps(15), "az_descend_gomoku"),
+        (GomokuFlatOps(16), "az_descend_gomoku"),     # 256 cells: 4 words a side
+        (GomokuFlatOps(17), "az_descend_gomoku"),     # 289 cells: 5 words
+        (GomokuFlatOps(19), "az_descend_gomoku"),
+        (GomokuFlatOps(22), "az_descend_gomoku"),     # 484 cells: the 8 words' last edge
         (HexFlatOps(), "az_descend_hex"),
     ],
-    ids=["connect_four", "othello", "gomoku7", "gomoku8", "gomoku9", "gomoku15", "hex"],
+    ids=["connect_four", "othello", "gomoku7", "gomoku8", "gomoku9", "gomoku15", "gomoku16",
+         "gomoku17", "gomoku19", "gomoku22", "hex"],
 )
 def test_descend_routes_by_the_flat_ops_type(ops, entry):
     """The CUDA descend is picked by the type of the game's flat ops, not by
     the board width: a 49-cell Gomoku board never reaches the Hex kernel,
-    a 64-cell one never the Othello kernel; every other kernel instance
-    refuses the board before it launches."""
+    a 64-cell one never the Othello kernel; every Gomoku edge up to 22
+    takes the one Gomoku instance; every other kernel instance refuses the
+    board before it launches."""
     assert kernels.descend_entry(ops) == entry
     B, C = 2, 3
     planes = [torch.zeros(B, C) for _ in range(4)]
     boards = torch.zeros(B, ops.size)
-    for other in {"az_descend", "az_descend_othello", "az_descend_gomoku", "az_descend_hex"} - {entry}:
+    for other in set(kernels._DESCEND_ROUND_ENTRIES) - {entry}:
         with pytest.raises(ValueError, match="does not step"):
             kernels._descend(other, *planes, boards, 8, ops)
 
@@ -282,9 +287,11 @@ def test_descend_route_refuses_unknown_flat_ops():
     for ops in (SubclassedFlatOps(), OtherOps()):
         with pytest.raises(NotImplementedError, match="no descend kernel"):
             kernels.descend_entry(ops)
-    with pytest.raises(NotImplementedError, match="256 cells"):
-        kernels._descend("az_descend_gomoku", *[torch.zeros(2, 3)] * 4, torch.zeros(2, 289), 8,
-                         GomokuFlatOps(17))
+    with pytest.raises(NotImplementedError, match="512 cells"):
+        kernels._descend("az_descend_gomoku", *[torch.zeros(2, 3)] * 4, torch.zeros(2, 529), 8,
+                         GomokuFlatOps(23))
+    with pytest.raises(NotImplementedError, match="512 cells"):
+        kernels.descend_entry(GomokuFlatOps(23))
 
 
 def test_zero_heuristic_game_backs_up_zero_at_cutoffs():

@@ -5,10 +5,15 @@ cuda_bf16.h) and run on host memory: every descend, merge and refresh call
 of whole hybrid searches (Connect-Four through the A<=8 kernels, Othello
 through its descend and the dense merge and refresh), and every whole
 uniform fused search, must be bit-equal to the plain PyTorch versions, and
-the searches must reproduce the goldens; so must whole Gomoku (edges 7, 8,
-9, 15) and Hex searches through their descend instances and the dense
-merge and refresh, every call of the K>1 round kernels, and whole uniform
-fused searches in K>1 rounds. The MLP evaluator runs its hidden layers on
+the searches must reproduce the goldens; so must whole Gomoku (edges 4, 7,
+8, 9, 15, 19, on the descends' 8-word boards) and Hex searches
+through their descend instances and the dense merge and refresh, every
+call of the K>1 round kernels, and whole uniform fused searches in K>1
+rounds. The dense merges work on the columns a merge writes, one warp per
+game, with shuffle reductions: they are also held bit for bit against the
+plain full refresh on synthetic records (slots past the capacity,
+terminal-child links, root-only paths, cross-lane ties and illegal edges,
+a parent off the path, a round's duplicate). The MLP evaluator runs its hidden layers on
 the emulator's bf16 mma.sync, which adds in another order than the plain
 version's k loop: with order-free (dyadic) weights its logits must be
 bit-equal to the plain version's, and its searches identical on every game;
@@ -21,9 +26,9 @@ version, ragged tiles included (its int8 tensor-core products through the
 emulator's mma.sync).
 
 This checks the kernels' LOGIC (indexing, record format, install/link/
-backup, PUCT order of operations, first-max ties, the Connect-Four win
-test, the Othello flips, the Gomoku overwrite, the Hex transpose) on the
-CPU. Whether the sources build with nvcc and run on the card
+backup, PUCT order of operations, first-max ties across a warp's lanes,
+the Connect-Four win test, the Othello flips, the Gomoku overwrite, the
+Hex transpose) on the CPU. Whether the sources build with nvcc and run on the card
 is chip_smoke.py's job.
 """
 
@@ -141,22 +146,19 @@ def _checked_kernels(lib, calls):
         calls[entry] = calls.get(entry, 0) + 1
         return tuple(outs)
 
-    def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot, cpuct):
+    def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot, cpuct):
         B, A, C = n.shape
         entry = "az_merge_dense" if A > hybrid.UNROLLED_MAX_A else "az_merge"
-        ref_planes = [t.clone() for t in (n, w, p, code, done, tval)]
-        best = [torch.empty(B, C), torch.empty(B, C)]
-        rc = getattr(lib.lib, entry)(
-            *(t.data_ptr() for t in (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best)),
-            B, A, C, slot, cpuct, None,
-        )
+        ref = [t.clone() for t in (n, w, p, code, done, tval, besta, bestc)]
+        planes = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc)
+        rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in planes), B, A, C, slot, cpuct, None)
         assert rc == 0
-        ref_best = hybrid.merge(*ref_planes, pm, patha, psgn, meta2, slot, cpuct)
+        hybrid.merge(*ref[:6], pm, patha, psgn, meta2, *ref[6:], slot, cpuct)
         names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc")
-        for nm, got, want in zip(names, [n, w, p, code, done, tval, *best], [*ref_planes, *ref_best]):
+        for nm, got, want in zip(names, (n, w, p, code, done, tval, besta, bestc), ref):
             assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm} at slot {slot}"
         calls[entry] = calls.get(entry, 0) + 1
-        return tuple(best)
+        return besta, bestc
 
     def refresh(n, w, p, code, cpuct):
         best, entry = _emulated_refresh(lib, n, w, p, code, cpuct)
@@ -282,12 +284,15 @@ def test_emulated_othello_kernels_bit_equal_plain(emulated, cfg, moves, dirichle
         (Gomoku(8), 12, MCTSConfig(num_sims=16, max_depth=48, max_nodes=8), "uniform"),
         (Gomoku(9), 20, MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5), "resnet"),   # cutoffs
         (Gomoku(15), 9, MCTSConfig(num_sims=12, max_depth=64), "uniform"),
+        (Gomoku(4, 4), 5, MCTSConfig(num_sims=16, max_depth=48), "uniform"),   # A=16: lanes 16-31 idle
+        (Gomoku(19), 40, MCTSConfig(num_sims=12, max_depth=64), "uniform"),    # 8-word boards, A=361
         (Hex(), 0, MCTSConfig(num_sims=16, max_depth=56), "uniform"),
         (Hex(), 30, MCTSConfig(num_sims=16, max_depth=56), "resnet"),          # terminal children
         (Hex(), 12, MCTSConfig(num_sims=16, max_depth=3, max_nodes=8), "uniform"),
     ],
     ids=["gomoku7", "gomoku7_endgames", "gomoku8_max_nodes8", "gomoku9_resnet_max_depth3",
-         "gomoku15", "hex_opening", "hex_resnet_endgames", "hex_max_depth3_max_nodes8"],
+         "gomoku15", "gomoku4", "gomoku19", "hex_opening", "hex_resnet_endgames",
+         "hex_max_depth3_max_nodes8"],
 )
 def test_emulated_gomoku_and_hex_kernels_bit_equal_plain(emulated, game, moves, cfg, model):
     """Whole Gomoku and Hex searches (40 games: a full descend block of 32
@@ -306,14 +311,19 @@ def test_emulated_gomoku_and_hex_kernels_bit_equal_plain(emulated, game, moves, 
     calls = {}
     counts = make_hybrid_root_fn(game, apply_fn, cfg, kernels=_checked_kernels(emulated, calls))(boards)
     entry = kernels.descend_entry(game.flat_ops())
-    assert entry == ("az_descend_hex" if isinstance(game, Hex) else "az_descend_gomoku")
+    if isinstance(game, Hex):
+        assert entry == "az_descend_hex"
+    else:
+        assert entry == "az_descend_gomoku"
     assert calls == {entry: cfg.num_sims, "az_merge_dense": cfg.num_sims, "az_refresh_dense": 1}
     live = ~game.terminal(boards)[0]
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
 
 
-@pytest.mark.parametrize("game", [Gomoku(5), Gomoku(7), Gomoku(8), Gomoku(9), Gomoku(15), Gomoku(16), Hex()],
-                         ids=["gomoku5", "gomoku7", "gomoku8", "gomoku9", "gomoku15", "gomoku16", "hex"])
+@pytest.mark.parametrize("game", [Gomoku(5), Gomoku(7), Gomoku(8), Gomoku(9), Gomoku(15), Gomoku(16),
+                                  Gomoku(17), Gomoku(19), Gomoku(22), Hex()],
+                         ids=["gomoku5", "gomoku7", "gomoku8", "gomoku9", "gomoku15", "gomoku16",
+                              "gomoku17", "gomoku19", "gomoku22", "hex"])
 def test_emulated_descend_steps_every_action(emulated, game):
     """The game's descend instance on synthetic best planes whose path takes
     EVERY action from each of two positions (occupied cells of both colours
@@ -364,6 +374,134 @@ def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
     sq = torch.sqrt(n.sum(dim=1) + 1e-6)[:, None]
     score = torch.where(p <= -5e29, -1e30, w / n.clamp(min=1) + p * sq / (1 + n))
     assert ((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).any()   # exact ties
+
+
+MERGE_CASES = ("past_capacity", "terminal_link", "root_only", "ties_illegal", "detached_link",
+               "duplicate")
+
+
+def _merge_case(A: int, K: int, case: str, seed: int):
+    """Synthetic planes, their own refresh (K=1) or refresh2 (K > 1) as the
+    best planes (the dense merges' precondition), and a merge's records of
+    ``case``, as ``run_search``/``run_rounds`` would make them: B=6 games,
+    C=37 nodes, paths of 1-4 edges from the root through distinct nodes.
+
+    * past_capacity: install slots at or past C install nothing
+      (``run_search``'s exp_ok, ``run_rounds``' inst are 0 there), the
+      paths still back up;
+    * terminal_link: expansions into finished children, whose link code
+      is -2-s and whose done/tval are 1 and +-1;
+    * root_only: every path is the root's edge alone;
+    * ties_illegal: all-zero n and w, so every legal edge of a column ties
+      on its prior, with exact ties between actions of different lanes
+      (the larger prior on action 33 and on action 40, or 5 and 12 at
+      A=16), illegal edges (-1e30) and an all-illegal node on the path;
+    * detached_link: the expanded parent is a node off every path (a
+      descent always expands at a node of its own path; the merges still
+      take any record, as their plain versions do);
+    * duplicate (rounds): descent 1 expands the edge descent 0 expanded,
+      installs nothing and still backs up its value."""
+    rng = np.random.default_rng(seed)
+    B, C = 6, 37
+    n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
+    # +0 where unvisited: a search's planes never hold -0 (see hybrid.cu)
+    w = torch.where(n > 0, torch.as_tensor((rng.integers(-2, 3, (B, A, C)) / 2).astype(np.float32)), 0.0)
+    p = torch.full((B, A, C), 1.0 / A)
+    p[:, 3::5] = -1e30
+    code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
+    if case == "ties_illegal":
+        n.zero_()
+        w.zero_()
+        lo, hi = (5, 12) if A < 32 else (33, 40)
+        p[:, lo] = p[:, hi] = 2.0 / A
+        p[1, :, 0] = -1e30                     # an all-illegal root on every path of game 1
+    done, tval = torch.zeros(B, C), torch.zeros(B, C)
+    best = list((hybrid.refresh2 if K > 1 else hybrid.refresh)(n, w, p, code, 1.25))
+    # slots slot0 .. slot0 + K - 1; past the capacity: K=1 at C, a round's
+    # first at C - 1 and the rest past it
+    slot0 = (C if K == 1 else C - 1) if case == "past_capacity" else 20
+    patha, psgn = torch.zeros(K, B, C), torch.zeros(K, B, C)
+    meta2 = torch.zeros(K, B, 8)
+    for b in range(B):
+        for k in range(K):
+            edges = 1 if case == "root_only" else int(rng.integers(1, 5))
+            nodes = [0, *rng.choice(np.arange(1, slot0 - K), edges - 1, replace=False)]
+            acts = rng.choice(np.flatnonzero(p[b, :, 0] > 0) if p[b, :, 0].max() > 0 else np.arange(A),
+                              edges)
+            if case == "duplicate" and k == 1:
+                nodes, acts = [int(c) for c in np.flatnonzero(patha[0, b])], None
+                acts = [int(patha[0, b, c]) - 1 for c in nodes]
+            for i, (c, a) in enumerate(zip(nodes, acts)):
+                patha[k, b, int(c)] = a + 1.0
+                psgn[k, b, int(c)] = 1.0 if i % 2 == 0 else -1.0
+            s = slot0 + k
+            inst = float(s < C and not (case == "duplicate" and k == 1))
+            cdone = float(case == "terminal_link")
+            parent = slot0 - 1 if case == "detached_link" else nodes[-1]   # paths use nodes < slot0 - K
+            meta2[k, b] = torch.tensor([
+                float(rng.integers(-4, 5)) / 4, inst, s + cdone * (-2.0 - 2.0 * s), cdone,
+                cdone * float(rng.choice([-1, 1])), float(parent), float(acts[-1]), 0.0])
+    pm = torch.full((K, B, A), 1.0 / A)
+    pm[..., 1::4] = -1e30
+    if K == 1:
+        return (n, w, p, code, done, tval, pm[0], patha[0], psgn[0], meta2[0], *best, slot0, 1.25)
+    return (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best, slot0, 1.25)
+
+
+@pytest.mark.parametrize("A", [16, 65, 225, 361])
+@pytest.mark.parametrize("case", MERGE_CASES[:-1])
+def test_emulated_merge_dense_cases(emulated, case, A):
+    """``az_merge_dense`` on synthetic planes and records of each case
+    (``_merge_case``): planes, done/tval and best planes bit-equal to the
+    plain merge's full refresh."""
+    args = _merge_case(A, 1, case, seed=A)
+    calls = {}
+    merge = _checked_kernels(emulated, calls).merge
+    n, patha, meta2 = args[0], args[7], args[9]
+    before = n.clone()
+    merge(*args)
+    assert calls == {"az_merge_dense": 1}
+    assert (n != before).any()
+    installs = int(meta2[:, hybrid.M2_EXPOK].sum())
+    assert installs == (0 if case == "past_capacity" else n.shape[0])
+    if case == "root_only":
+        assert ((patha > 0).sum(dim=1) == 1).all() and (patha[:, 0] > 0).all()
+    if case == "terminal_link":
+        assert (args[3][torch.arange(6), meta2[:, 6].long(), meta2[:, 5].long()] == -2.0 - args[-2]).all()
+
+
+@pytest.mark.parametrize("A", [16, 65, 225, 361])
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_emulated_merge_round_dense_cases(emulated, case, A):
+    """``az_merge_round_dense`` at K=4 on synthetic planes and records of
+    each case (``_merge_case``): planes, done/tval and the four top-2 planes
+    bit-equal to the plain round merge's full refresh2."""
+    args = _merge_case(A, 4, case, seed=A + 1)
+    calls = {"past_capacity": 0}
+    merge_round = _checked_round_kernels(emulated, calls).merge_round
+    merge_round(*args)
+    assert calls["az_merge_round_dense"] == 1
+    inst = args[9][..., hybrid.M2_EXPOK]
+    if case == "duplicate":
+        assert (inst[1] == 0).all() and (args[7][1] > 0).any()
+    if case == "past_capacity":
+        assert calls["past_capacity"] == 1 and (inst[1:] == 0).all()
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_emulated_dense_merges_refuse_above_512_actions(emulated, K):
+    """The dense merges keep 16 actions a lane in registers: at A=513 the
+    entry returns an error and writes nothing."""
+    args = _merge_case(513, K, "root_only", seed=K)
+    planes = [t.clone() for t in args[:-2]]
+    entry = "az_merge_dense" if K == 1 else "az_merge_round_dense"
+    B, A, C = args[0].shape
+    dims = (B, A, C) if K == 1 else (B, A, C, K)
+    rc = getattr(emulated.lib, entry)(*(t.data_ptr() for t in args[:-2]), *dims, args[-2],
+                                      args[-1], None)
+    assert rc != 0
+    assert all(torch.equal(_bits(t), _bits(u)) for t, u in zip(args[:-2], planes))
+    assert kernels.DENSE_MERGE_MAX_A == 512
 
 
 def _checked_fused(lib, calls):
@@ -685,24 +823,23 @@ def _checked_round_kernels(lib, calls):
         calls["shared"] += int(((patha[:, None] == patha[None]) & on[:, None] & on[None]).sum() - on.sum())
         return tuple(outs)
 
-    def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, slot0, cpuct):
+    def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc,
+                    slot0, cpuct):
         B, A, C = n.shape
         K = patha.shape[0]
         entry = "az_merge_round_dense" if A > hybrid.UNROLLED_MAX_A else "az_merge_round"
-        ref_planes = [t.clone() for t in (n, w, p, code, done, tval)]
-        best = [torch.empty(B, C) for _ in range(4)]
-        rc = getattr(lib.lib, entry)(
-            *(t.data_ptr() for t in (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best)),
-            B, A, C, K, slot0, cpuct, None,
-        )
+        best4 = (besta, bestc, seca, secc)
+        ref = [t.clone() for t in (n, w, p, code, done, tval, *best4)]
+        planes = (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best4)
+        rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in planes), B, A, C, K, slot0, cpuct, None)
         assert rc == 0
-        ref_best = hybrid.merge_round(*ref_planes, pm, patha, psgn, meta2, slot0, cpuct)
+        hybrid.merge_round(*ref[:6], pm, patha, psgn, meta2, *ref[6:], slot0, cpuct)
         names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc", "seca", "secc")
-        for nm, got, want in zip(names, [n, w, p, code, done, tval, *best], [*ref_planes, *ref_best]):
+        for nm, got, want in zip(names, (n, w, p, code, done, tval, *best4), ref):
             assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm} at slots {slot0}+"
         calls[entry] = calls.get(entry, 0) + 1
         calls["past_capacity"] += int(slot0 + K - 1 >= C)
-        return tuple(best)
+        return best4
 
     def refresh2(n, w, p, code, cpuct):
         best, entry = _emulated_refresh2(lib, n, w, p, code, cpuct)
@@ -735,11 +872,15 @@ def _emulated_refresh2(lib, n, w, p, code, cpuct):
         (Othello(), 10, MCTSConfig(num_sims=12, max_depth=3, parallel_sims=2, cpuct=2.5), "resnet"),
         (Gomoku(7), 10, MCTSConfig(num_sims=16, max_depth=48, parallel_sims=2), "uniform"),
         (Gomoku(15), 9, MCTSConfig(num_sims=12, max_depth=64, parallel_sims=4), "uniform"),
+        (Gomoku(9), 20, MCTSConfig(num_sims=16, max_depth=48, parallel_sims=4), "resnet"),
+        (Gomoku(4, 4), 5, MCTSConfig(num_sims=16, max_depth=48, parallel_sims=4), "uniform"),
+        (Gomoku(19), 40, MCTSConfig(num_sims=12, max_depth=64, parallel_sims=4), "uniform"),
         (Hex(), 30, MCTSConfig(num_sims=16, max_depth=56, parallel_sims=4), "resnet"),
         (Hex(), 12, MCTSConfig(num_sims=16, max_depth=56, max_nodes=10, parallel_sims=2), "uniform"),
     ],
     ids=["c4_K4", "c4_K2_resnet_max_nodes10", "othello_K4_resnet", "othello_K2_max_depth3",
-         "gomoku7_K2", "gomoku15_K4", "hex_K4_resnet", "hex_K2_max_nodes10"],
+         "gomoku7_K2", "gomoku15_K4", "gomoku9_K4_resnet", "gomoku4_K4", "gomoku19_K4",
+         "hex_K4_resnet", "hex_K2_max_nodes10"],
 )
 def test_emulated_round_kernels_bit_equal_plain(emulated, game, moves, cfg, model):
     """Whole K>1 searches (40 games: a full descend block of 32 and a

@@ -240,9 +240,22 @@ def test_ladder_routes_each_model():
 
 @pytest.mark.parametrize("hidden", [(300,), (32,) * 5], ids=["wide", "deep"])
 def test_widths_the_kernel_does_not_take_raise(hidden):
+    """The in-kernel evaluator's wrappers raise for widths it does not
+    take; the engine ladder declines the fused kernel for them and runs
+    the hybrid engine instead."""
     _, apply_fn = _port(hidden, seed=0)
+    weights = apply_fn.kernel_eval_factory(FLAT)
+    boards = _flat(random_boards(4, 6, seed=1))
+    p = torch.where(FLAT.valid(boards), 1.0 / 7, -1e30)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _make_root_counts_fn(TG, apply_fn, MCTSConfig(num_sims=8))
+        kernels.fused_mlp(boards, p, weights, 8, 9, 48, 1.0)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        kernels.mlp_eval(boards, weights)
+    assert make_fused_root_fn(TG, apply_fn, MCTSConfig(num_sims=8)) is None
+    root_counts = _make_root_counts_fn(TG, apply_fn, MCTSConfig(num_sims=8))
+    assert root_counts.__qualname__.startswith("make_hybrid_root_fn.")
+    counts = root_counts(torch_state(random_boards(4, 6, seed=1)))
+    assert (counts.sum(dim=1) == 8).all()
 
 
 def test_wrappers_route_cpu_to_plain_and_check_the_weights():

@@ -146,7 +146,7 @@ def test_round_wrappers_route_cpu_to_plain_and_refuse_other_devices():
         kernels.refresh2(*(t.to("meta") for t in (n, w, p, code)), 1.0)
     with pytest.raises(ValueError, match="several devices"):
         kernels.merge_round(n, w, p, code, done, tval, torch.zeros(K, B, A), rec[1], rec[2],
-                            torch.zeros(K, B, 8).to("meta"), 1, 1.0)
+                            torch.zeros(K, B, 8).to("meta"), *best4, 1, 1.0)
     assert all(v == 0 for v in kernels.launch_counts().values())
 
 
@@ -157,9 +157,10 @@ def test_round_wrappers_route_cpu_to_plain_and_refuse_other_devices():
         (OthelloFlatOps(), "az_descend_round_othello"),
         (GomokuFlatOps(7), "az_descend_round_gomoku"),     # 49 cells, as Hex
         (GomokuFlatOps(8), "az_descend_round_gomoku"),     # 64 cells, as Othello
+        (GomokuFlatOps(19), "az_descend_round_gomoku"),    # 361 cells: 6 words a side
         (HexFlatOps(), "az_descend_round_hex"),
     ],
-    ids=["connect_four", "othello", "gomoku7", "gomoku8", "hex"],
+    ids=["connect_four", "othello", "gomoku7", "gomoku8", "gomoku19", "hex"],
 )
 def test_descend_round_routes_by_the_flat_ops_type(ops, entry):
     """The round descend instance is the K=1 descend's game, picked by the
