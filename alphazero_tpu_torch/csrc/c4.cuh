@@ -34,6 +34,7 @@ constexpr uint64_t c4_columns(int lo, int hi) {
 }
 constexpr uint64_t kStartLeft = c4_columns(0, kCols - 4);   // a window can run right
 constexpr uint64_t kStartRight = c4_columns(3, kCols - 1);  // ... or down-left
+constexpr uint64_t kColumn0 = c4_columns(0, 0);
 
 // Flat f32[42] board (+1 / -1 / 0) -> bitboards.
 __device__ __forceinline__ void c4_load(const float* board, uint64_t& mine, uint64_t& theirs) {
@@ -49,9 +50,7 @@ __device__ __forceinline__ void c4_load(const float* board, uint64_t& mine, uint
 // Connect-Four FlatOps.step on bitboards: drop +1 in column a (clamped to
 // the top cell when the column is full, overwriting it), then sign-flip.
 __device__ __forceinline__ void c4_step(uint64_t& mine, uint64_t& theirs, int a) {
-  uint64_t col = 0;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) col |= 1ull << (r * kCols + a);
+  const uint64_t col = kColumn0 << a;
   int h = __popcll((mine | theirs) & col);
   int r = h < kRows - 1 ? h : kRows - 1;
   uint64_t bit = 1ull << (r * kCols + a);
@@ -67,19 +66,26 @@ __device__ __forceinline__ bool c4_valid(uint64_t mine, uint64_t theirs, int a) 
   return (((mine | theirs) >> ((kRows - 1) * kCols + a)) & 1ull) == 0;
 }
 
-// Four in a row anywhere in x: the 69 windows of the win-line matrix as
-// shifted ANDs. Bit i + 1 of a row-major board with no guard column is the
-// next row's first cell when i is in the last column, so the horizontal
-// and the down-right diagonal windows may only start in columns 0..3, the
-// down-left diagonal only in columns 3..6; vertical windows cannot wrap.
+// The starts of x's windows of four cells along `step` (1 horizontal,
+// kCols vertical, kCols + 1 and kCols - 1 the diagonals) that lie inside
+// `start`, as shifted ANDs.
+__device__ __forceinline__ uint64_t c4_windows(uint64_t x, int step, uint64_t start) {
+  return x & (x >> step) & (x >> (2 * step)) & (x >> (3 * step)) & start;
+}
+
+// Four in a row anywhere in x: the 69 windows of the win-line matrix. Bit
+// i + 1 of a row-major board with no guard column is the next row's first
+// cell when i is in the last column, so the horizontal and the down-right
+// diagonal windows may only start in columns 0..3, the down-left diagonal
+// only in columns 3..6; vertical windows cannot wrap.
 __device__ __forceinline__ bool c4_four(uint64_t x) {
-  const uint64_t h = x & (x >> 1) & (x >> 2) & (x >> 3) & kStartLeft;
-  const uint64_t v = x & (x >> kCols) & (x >> (2 * kCols)) & (x >> (3 * kCols));
-  const uint64_t d = x & (x >> (kCols + 1)) & (x >> (2 * kCols + 2)) &
-                     (x >> (3 * kCols + 3)) & kStartLeft;
-  const uint64_t e = x & (x >> (kCols - 1)) & (x >> (2 * kCols - 2)) &
-                     (x >> (3 * kCols - 3)) & kStartRight;
-  return (h | v | d | e) != 0;
+  return (c4_windows(x, 1, kStartLeft) | c4_windows(x, kCols, ~0ull) |
+          c4_windows(x, kCols + 1, kStartLeft) | c4_windows(x, kCols - 1, kStartRight)) != 0;
+}
+
+// The board's full columns, a bit each.
+__device__ __forceinline__ uint64_t c4_full_columns(uint64_t mine, uint64_t theirs) {
+  return ((mine | theirs) >> ((kRows - 1) * kCols)) & ((1ull << kCols) - 1);
 }
 
 // FlatOps.terminal: done = win | lose | full, value = win - (lose & !win),
@@ -89,8 +95,7 @@ __device__ __forceinline__ void c4_terminal(uint64_t mine, uint64_t theirs,
                                             bool* done, float* value) {
   const bool win = c4_four(mine);
   const bool lose = c4_four(theirs);
-  const uint64_t top = ((mine | theirs) >> ((kRows - 1) * kCols)) & ((1ull << kCols) - 1);
-  const bool full = top == (1ull << kCols) - 1;
+  const bool full = c4_full_columns(mine, theirs) == (1ull << kCols) - 1;
   *done = win || lose || full;
   *value = (win ? 1.f : 0.f) - ((lose && !win) ? 1.f : 0.f);
 }

@@ -18,7 +18,8 @@ card, in phases:
            compiled with nvcc for sm_90a, one process per source, and linked
            into one library, with the build seconds and ptxas's register
            report, and the registers, stack and static shared bytes of the
-           three MLP kernels;
+           three MLP kernels and of the two uniform fused kernels (which
+           must have no stack frame and no spill);
 3. kernels vs plain: each kernel against its plain PyTorch version at the
            main path's shapes (B=4096, C=101, A=7), on tree planes taken
            from a few simulations of the plain search on random positions;
@@ -36,11 +37,15 @@ card, in phases:
            timed), the goldens through the fused engine in one launch, then
            the uniform actor at the headline bench's size (B=65536, 100 sims,
            max_depth 48): one fused launch per step and no hybrid launch,
-           ms/step, env-steps/s and peak memory; the kernel against its plain
+           ms/step, env-steps/s, peak memory and one profiled step (device
+           busy time and the kernels that take it); the kernel against its plain
            version again on the actor's own roots at that size (bit-equal,
-           both timed: the numbers of the kernels line); a few steps of the
-           same actor through the hybrid route and one search through both
-           routes with identical counts;
+           both timed, and its device time per launch: the numbers of the
+           kernels line); the batch sweep (``fused_sweep``: the device time
+           of ``az_fused`` and of ``az_fused_rounds`` at K=4 on the first B
+           of the actor's roots, B = 8192 to 65536, a line each); a few
+           steps of the same actor through the hybrid route and one search
+           through both routes with identical counts;
 7. mlp:    MLPNet (256, 256), the ``mlp`` preset's model, with seeded
            random weights through the flax->torch converter and with
            order-free ones (``order_free_mlp_variables``: dyadic, so that
@@ -201,6 +206,11 @@ profiled, then timed again after ``torch.cuda.empty_cache()``. It calls
 only entry points the package has had since its K=4 rounds, so two trees
 are compared in one call by copying this file into the other tree's root
 and running both in turns (the other, this, this, the other).
+
+``python3 chip_smoke.py --sweep`` runs only the build's report of the two
+uniform fused kernels (not gated) and phase 6's batch sweep, on the
+uniform actor's roots after 1 + 10 steps at B=65536; it too runs against
+older trees.
 """
 
 from __future__ import annotations
@@ -241,6 +251,8 @@ ROUTE_SAME_GAMES = 0.75   # fused vs hybrid route (bf16 forwards that round diff
 ROUTE_MAX_DPI = 0.25      # ... the JAX package's Mosaic-vs-XLA bound (tests/test_fused.py)
 HYBRID_STEPS = 3       # uniform actor steps through the hybrid route
 FUSED_REPS = 5
+SWEEP_BS = (8192, 16384, 32768, 65536)   # the uniform fused kernels' batch sweep (phase 6)
+FUSED_KERNELS = ("fused_kernel", "fused_rounds_kernel")   # the uniform fused kernels' ptxas names
 
 OTH_B = 1024              # Othello full preset (examples/train_othello.py): games per batch
 OTH_CHANNELS, OTH_BLOCKS = 128, 5   # ... its AZResNet
@@ -1929,6 +1941,67 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
     return {"fused_mlp": entry}, {"fused_mlp": mlp_launches["fused_mlp"]}, ms_mlp
 
 
+def fused_sweep(card: str, roots: torch.Tensor) -> None:
+    """``az_fused`` and ``az_fused_rounds`` (K=ROUND_K) at each B of
+    SWEEP_BS on the first B of ``roots`` (the uniform actor's; 100 sims,
+    C=101, max_depth 48, the uniform model's value): the device time per
+    launch, a line each. Time linear in B at the top end is a throughput
+    limit; time flat in B is latency."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts.tree import INVALID_P
+    from alphazero_tpu_torch.models import make_uniform_model
+    from alphazero_tpu_torch.ops import root_prior
+
+    game, flat = ConnectFour(), FlatOps()
+    uniform = make_uniform_model(game)
+    uval = float(uniform.apply_fn.uniform_value)
+    for K in (1, ROUND_K):
+        cfg = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, parallel_sims=K)
+        for nb in SWEEP_BS:
+            state = roots[:nb]
+            prior, valid = root_prior(game, uniform.apply_fn, cfg, state, None)
+            args = (flat.from_state(state).contiguous(), torch.where(valid, prior, INVALID_P),
+                    SIMS, cfg.nodes, MAX_DEPTH, float(cfg.cpuct), uval)
+            if K == 1:
+                name, kernel = "az_fused", kernels.fused
+            else:
+                name, kernel, args = f"az_fused_rounds K={K}", kernels.fused_rounds, (*args, K)
+            ms = device_ms(lambda: kernel(*args), reps=FUSED_REPS)
+            print(f"[sweep] {name} B={nb}: {ms:.4f} ms of device time per launch, "
+                  f"{1e6 * ms / nb:.3f} ns a game | {card}", flush=True)
+
+
+def fused_ptxas(lib, gate: bool = True) -> None:
+    """ptxas's report of the two uniform fused kernels: registers, stack,
+    spills and static shared bytes. With ``gate``, fails on a stack frame
+    or a spill."""
+    report = ptxas_report(lib.build_log, FUSED_KERNELS)
+    for name in FUSED_KERNELS:
+        got = report.get(name)
+        print(f"[build] ptxas -v {name}: {got or 'not in the build log (a cached build)'}",
+              flush=True)
+        if gate and got and (got.get("stack") or got.get("spill_st") or got.get("spill_ld")):
+            fail(f"{name} has a stack frame or spills: {got}")
+
+
+def sweep(card: str) -> None:
+    """``--sweep`` (see the module docstring)."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.models import make_uniform_model
+
+    fused_ptxas(kernels.library(), gate=False)   # also for an older tree's kernels
+    game = ConnectFour()
+    carry, *_ = run_actor("sweep", game, make_uniform_model(game).apply_fn,
+                          MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH), UNIFORM_B, TIMED_STEPS,
+                          TEMP_THRESHOLD, {"fused": 1}, card, "uniform actor")
+    fused_sweep(card, carry[0])
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -2003,6 +2076,9 @@ def main() -> int:
     if sys.argv[1:] == ["--actors"]:
         actors(card)
         return 0
+    if sys.argv[1:] == ["--sweep"]:
+        sweep(card)
+        return 0
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
@@ -2024,6 +2100,7 @@ def main() -> int:
         print(f"[build] ptxas -v {name}: "
               f"{report.get(instances.get(name, name), 'not in the build log (a cached build)')}",
               flush=True)
+    fused_ptxas(lib)
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
     variables = random_az_resnet_variables(A, channels=64, blocks=5, seed=SEED)
@@ -2189,6 +2266,7 @@ def main() -> int:
         k1 = time_ms(lambda: kernels.fused(*f_args), FUSED_REPS)
         k2 = time_ms(lambda: kernels.fused(*f_args), FUSED_REPS)
         _, p2 = timed_once(plain)
+        dev_ms = device_ms(lambda: kernels.fused(*f_args), reps=FUSED_REPS)
         # the work depends on the data: every descent step is one PUCT
         # argmax and one backup; a search's steps are the sum of N over
         # every edge
@@ -2198,7 +2276,8 @@ def main() -> int:
                **bound(F32 * nb * (42 + A + 2 * A), steps * (puct_ops(1, A) + 3))}
         print(f"[fused] {label}: B={nb}, {SIMS} sims, max_depth {MAX_DEPTH}, uval {value}: "
               f"az_fused bit-equal to fused_search (counts and root W; {steps / nb:.2f} descent "
-              f"steps per game); kernel {k1:.4f}/{k2:.4f} ms, plain {p1:.4f}/{p2:.4f} ms, "
+              f"steps per game); kernel {k1:.4f}/{k2:.4f} ms ({dev_ms:.4f} ms of device time), "
+              f"plain {p1:.4f}/{p2:.4f} ms, "
               f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}) | {card}", flush=True)
         return out
 
@@ -2244,10 +2323,13 @@ def main() -> int:
           f"({', '.join(f'{1e3 * t:.3f}' for t in step_s)}), {UNIFORM_B / (ms_u / 1e3):.1f} "
           f"env-steps/s | launches {launched(uni_launches)} | peak memory {peak / 2**30:.3f} GiB | {card}",
           flush=True)
+    print_profiled_step("uniform", lambda: step_u(carry_u, sample_draws(gen, UNIFORM_B, A, None, dev)),
+                        card, "uniform K=1")
     state_u, _ = carry_u
     # the main path's kernel, held against its plain version on the actor's
     # own roots at the actor's shape and uniform value
     results["fused"] = fused_vs_plain(fused_inputs(state_u, uval), "the uniform actor's roots")
+    fused_sweep(card, state_u)
 
     # the same actor through the hybrid route: the uniform model's apply_fn
     # without the uniform_value that makes the ladder pick the fused kernel

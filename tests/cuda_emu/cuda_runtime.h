@@ -129,6 +129,7 @@ struct uint4 { unsigned int x, y, z, w; };
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 
 // m_tiles x n_tiles instructions mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
 // of the calling thread's warp: d[i][j][0..3] += A_i B_j, with the PTX ISA's

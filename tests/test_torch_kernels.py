@@ -3,13 +3,14 @@ fused.cu and int8_tower.cu, with c4.cuh, othello.cuh and mlp.cuh), compiled with
 a CPU stand-in for the CUDA built-ins (tests/cuda_emu/cuda_runtime.h,
 cuda_bf16.h) and run on host memory: every descend, merge and refresh call
 of whole hybrid searches (Connect-Four through the A<=8 kernels, Othello
-through its descend and the dense merge and refresh), and every whole
-uniform fused search, must be bit-equal to the plain PyTorch versions, and
-the searches must reproduce the goldens; so must whole Gomoku (edges 4, 7,
-8, 9, 15, 19, on the descends' 8-word boards) and Hex searches
-through their descend instances and the dense merge and refresh, every
-call of the K>1 round kernels, and whole uniform fused searches in K>1
-rounds. The dense merges work on the columns a merge writes, one warp per
+through its descend and the dense merge and refresh) must be bit-equal
+to the plain PyTorch versions, and the searches must reproduce the
+goldens; so must whole Gomoku (edges 4, 7, 8, 9, 15, 19, on the descends'
+8-word boards) and Hex searches through their descend instances and the
+dense merge and refresh, and every call of the K>1 round kernels (the
+uniform fused kernels' whole searches are tests/test_torch_fused_emu.py's,
+on the same emulated library: tests/torch_parity.py ``emulated``). The
+dense merges work on the columns a merge writes, one warp per
 game, with shuffle reductions: they are also held bit for bit against the
 plain full refresh on synthetic records (slots past the capacity,
 terminal-child links, root-only paths, cross-lane ties and illegal edges,
@@ -35,9 +36,6 @@ is chip_smoke.py's job.
 import ctypes
 import json
 import os
-import re
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
@@ -54,8 +52,6 @@ from alphazero_tpu_torch.mcts import (
     SearchKernels,
     fused_mlp_rounds_search,
     fused_mlp_search,
-    fused_rounds_search,
-    fused_search,
     hybrid,
     make_fused_root_fn,
     make_hybrid_root_fn,
@@ -70,9 +66,11 @@ from alphazero_tpu_torch.models import (
     random_mlp_variables,
 )
 from alphazero_tpu_torch.ops import sample_draws
-from tests.torch_parity import (
+from tests.torch_parity import (  # noqa: F401  (emulated: a fixture)
     assert_order_free,
+    bits,
     boards_from_seqs,
+    emulated,
     order_free_mlp_apply,
     random_boards,
     random_othello_boards,
@@ -83,43 +81,6 @@ from tests.torch_parity import (
 HERE = os.path.dirname(os.path.abspath(__file__))
 TG = ConnectFour()
 OTH = Othello()
-# kernel<<<grid, threads, smem, stream>>>(args), the kernel maybe a template instance
-_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 10, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
-# a kernel's dynamic shared memory: the emulated launch's buffer
-_DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
-
-
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The kernel library built for the host from every source, as
-    ``kernels.library`` links it for the card (skips without g++)."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++ to build the emulated kernels")
-    build_dir = tmp_path_factory.mktemp("emu")
-    cpps = []
-    for src in kernels.SOURCES:
-        out = _LAUNCH.sub(r"emu_launch(\2, \3, \4, [&] { \1(\5); });", src.read_text())
-        out = _DYNAMIC_SMEM.sub(r"\1* \2 = (\1*)emu_dynamic_smem;", out)
-        assert out.count("emu_launch(") == _LAUNCHES[src.name], "every kernel launch must be rewritten"
-        cpp = build_dir / f"{src.stem}_emu.cpp"
-        cpp.write_text(out)
-        cpps.append(str(cpp))
-    cpps.append(os.path.join(HERE, "cuda_emu", "mma_tile.cpp"))   # the bf16 tile probe
-    so = build_dir / "libaz_emu.so"
-    subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-Wno-unknown-pragmas", "-I", os.path.join(HERE, "cuda_emu"),
-         "-I", str(kernels.SOURCES[0].parent),
-         "-o", str(so), *cpps, "-lpthread"],
-        check=True, capture_output=True,
-    )
-    return kernels._Library(ctypes.CDLL(str(so)), so, 0.0, "")
-
-
-def _bits(t):
-    return t.contiguous().view(torch.int32)
 
 
 def _checked_kernels(lib, calls):
@@ -142,7 +103,7 @@ def _checked_kernels(lib, calls):
         assert rc == 0
         for nm, got, want in zip(("bd", "patha", "psgn", "meta"), outs,
                                  hybrid.descend(besta, bestc, done, tval, boards, max_depth, ops)):
-            assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm}"
+            assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
         calls[entry] = calls.get(entry, 0) + 1
         return tuple(outs)
 
@@ -156,7 +117,7 @@ def _checked_kernels(lib, calls):
         hybrid.merge(*ref[:6], pm, patha, psgn, meta2, *ref[6:], slot, cpuct)
         names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc")
         for nm, got, want in zip(names, (n, w, p, code, done, tval, besta, bestc), ref):
-            assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm} at slot {slot}"
+            assert torch.equal(bits(got), bits(want)), f"{entry} {nm} at slot {slot}"
         calls[entry] = calls.get(entry, 0) + 1
         return besta, bestc
 
@@ -177,7 +138,7 @@ def _emulated_refresh(lib, n, w, p, code, cpuct):
     rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
     assert rc == 0
     for nm, got, want in zip(("besta", "bestc"), best, hybrid.refresh(n, w, p, code, cpuct)):
-        assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm}"
+        assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
     return tuple(best), entry
 
 
@@ -500,77 +461,8 @@ def test_emulated_dense_merges_refuse_above_512_actions(emulated, K):
     rc = getattr(emulated.lib, entry)(*(t.data_ptr() for t in args[:-2]), *dims, args[-2],
                                       args[-1], None)
     assert rc != 0
-    assert all(torch.equal(_bits(t), _bits(u)) for t, u in zip(args[:-2], planes))
+    assert all(torch.equal(bits(t), bits(u)) for t, u in zip(args[:-2], planes))
     assert kernels.DENSE_MERGE_MAX_A == 512
-
-
-def _checked_fused(lib, calls):
-    """A ``kernels.fused`` stand-in running the emulated ``az_fused`` AND
-    the plain ``fused_search`` on every call, asserting bit-equal counts
-    and root W."""
-
-    def fused(boards, priors, num_sims, nodes, max_depth, cpuct, uval):
-        B = boards.shape[0]
-        tree = torch.empty(B, nodes, 32)
-        counts, rootw = torch.empty(B, 7), torch.empty(B, 7)
-        rc = lib.lib.az_fused(
-            *(t.data_ptr() for t in (boards, priors, tree, counts, rootw)),
-            B, nodes, num_sims, max_depth, cpuct, uval, None,
-        )
-        assert rc == 0
-        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct)
-        ref_counts, ref_w = fused_search(boards, priors, cfg, uval)
-        assert torch.equal(_bits(counts), _bits(ref_counts)), "fused counts"
-        assert torch.equal(_bits(rootw), _bits(ref_w)), "fused root W"
-        calls["fused"] += 1
-        return counts, rootw
-
-    return fused
-
-
-def test_emulated_reproduces_goldens(emulated):
-    with open(os.path.join(HERE, "golden_counts.json")) as f:
-        spec = json.load(f)["connect_four"]
-    calls = {"fused": 0}
-    root_counts = make_fused_root_fn(
-        TG, make_uniform_model(TG).apply_fn, MCTSConfig(num_sims=50, max_depth=64),
-        kernel=_checked_fused(emulated, calls),
-    )
-    counts = root_counts(torch_state(boards_from_seqs(spec["seqs"])))
-    np.testing.assert_array_equal(counts.numpy().astype(int), np.asarray(spec["counts"]))
-    assert calls == {"fused": 1}
-
-
-@pytest.mark.parametrize(
-    "cfg,moves,value,freeze",
-    [
-        (MCTSConfig(num_sims=24, max_depth=48), 12, 0.0, True),
-        (MCTSConfig(num_sims=24, max_depth=48), 30, 0.5, True),         # W signs, endgames
-        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5), 6, 0.0, True),  # depth cutoffs
-        (MCTSConfig(num_sims=20, max_depth=48, max_nodes=8), 28, 0.0, True),  # slots run out
-        (MCTSConfig(num_sims=12, max_depth=48), 36, -0.25, False),      # played past wins
-    ],
-    ids=["late_positions", "uval0.5_endgames", "max_depth3", "max_nodes8", "past_wins"],
-)
-def test_emulated_bit_equal_plain(emulated, cfg, moves, value, freeze):
-    calls = {"fused": 0}
-    boards = torch_state(random_boards(40, moves, seed=moves, freeze_done=freeze))
-    counts = make_fused_root_fn(
-        TG, make_uniform_model(TG, value).apply_fn, cfg, kernel=_checked_fused(emulated, calls)
-    )(boards)
-    assert calls == {"fused": 1}
-    live = ~TG.terminal(boards)[0]
-    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
-
-
-def test_emulated_bit_equal_plain_dirichlet(emulated):
-    cfg = MCTSConfig(num_sims=20, max_depth=48, dirichlet_alpha=0.7)
-    noise = sample_draws(torch.Generator().manual_seed(1), 32, 7, 0.7, "cpu").dirichlet
-    calls = {"fused": 0}
-    make_fused_root_fn(
-        TG, make_uniform_model(TG, 0.5).apply_fn, cfg, kernel=_checked_fused(emulated, calls)
-    )(torch_state(random_boards(32, 8, seed=4)), noise)
-    assert calls == {"fused": 1}
 
 
 def _mlp_apply(hidden, seed):
@@ -692,7 +584,7 @@ def test_emulated_mlp_eval_bit_equal_plain_logits(emulated, hidden, kind, batch)
     vm = FlatOps().valid(boards)
     assert (~vm).any() and torch.equal(pm[~vm], torch.full_like(pm[~vm], -1e30))
     if kind == "order_free":
-        assert torch.equal(_bits(logits), _bits(ref_logits)), "mlp logits"
+        assert torch.equal(bits(logits), bits(ref_logits)), "mlp logits"
         torch.testing.assert_close(pm, mlp_prior(ref_logits, vm), atol=MLP_EMU_ATOL, rtol=0)
         torch.testing.assert_close(value, ref_value, atol=MLP_EMU_ATOL, rtol=0)
     else:
@@ -814,7 +706,7 @@ def _checked_round_kernels(lib, calls):
         assert rc == 0
         want = hybrid.descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K)
         for nm, got, ref in zip(("bd", "patha", "psgn", "meta"), outs, want):
-            assert torch.equal(_bits(got), _bits(ref)), f"{entry} {nm}"
+            assert torch.equal(bits(got), bits(ref)), f"{entry} {nm}"
         patha, meta = outs[1], outs[3]
         calls[entry] = calls.get(entry, 0) + 1
         calls["second"] += int(((patha - 1 == seca) & (patha > 0)).sum())
@@ -836,7 +728,7 @@ def _checked_round_kernels(lib, calls):
         hybrid.merge_round(*ref[:6], pm, patha, psgn, meta2, *ref[6:], slot0, cpuct)
         names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc", "seca", "secc")
         for nm, got, want in zip(names, (n, w, p, code, done, tval, *best4), ref):
-            assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm} at slots {slot0}+"
+            assert torch.equal(bits(got), bits(want)), f"{entry} {nm} at slots {slot0}+"
         calls[entry] = calls.get(entry, 0) + 1
         calls["past_capacity"] += int(slot0 + K - 1 >= C)
         return best4
@@ -859,7 +751,7 @@ def _emulated_refresh2(lib, n, w, p, code, cpuct):
     rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
     assert rc == 0
     for nm, got, want in zip(("besta", "bestc", "seca", "secc"), best, hybrid.refresh2(n, w, p, code, cpuct)):
-        assert torch.equal(_bits(got), _bits(want)), f"{entry} {nm}"
+        assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
     return tuple(best), entry
 
 
@@ -944,69 +836,6 @@ def test_emulated_refresh2_ties_illegal_and_lone_nodes(emulated, A):
     assert (sec_a >= 0).sum() > B * C - 4
 
 
-def _checked_fused_rounds(lib, calls):
-    """A ``kernels.fused_rounds`` stand-in running the emulated
-    ``az_fused_rounds`` AND the plain ``fused_rounds_search`` on every call,
-    asserting bit-equal counts and root W."""
-
-    def fused_rounds(boards, priors, num_sims, nodes, max_depth, cpuct, uval, K):
-        B = boards.shape[0]
-        tree, rnd = torch.empty(B, nodes, 32), torch.empty(B, nodes, 16)
-        counts, rootw = torch.empty(B, 7), torch.empty(B, 7)
-        rc = lib.lib.az_fused_rounds(
-            *(t.data_ptr() for t in (boards, priors, tree, rnd, counts, rootw)),
-            B, nodes, K, num_sims, max_depth, cpuct, uval, None,
-        )
-        assert rc == 0
-        cfg = MCTSConfig(num_sims=num_sims, max_nodes=nodes, max_depth=max_depth, cpuct=cpuct,
-                         parallel_sims=K)
-        ref_counts, ref_w = fused_rounds_search(boards, priors, cfg, uval)
-        assert torch.equal(_bits(counts), _bits(ref_counts)), "fused_rounds counts"
-        assert torch.equal(_bits(rootw), _bits(ref_w)), "fused_rounds root W"
-        calls["fused_rounds"] += 1
-        return counts, rootw
-
-    return fused_rounds
-
-
-@pytest.mark.parametrize(
-    "cfg,moves,value,freeze,dirichlet",
-    [
-        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=2), 10, 0.0, True, None),
-        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=2), 14, 0.3, True, None),
-        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), 8, 0.0, True, None),
-        (MCTSConfig(num_sims=24, max_depth=48, parallel_sims=4), 12, 0.3, True, None),
-        (MCTSConfig(num_sims=27, max_depth=48, parallel_sims=9), 6, 0.0, True, None),
-        (MCTSConfig(num_sims=27, max_depth=48, parallel_sims=9), 16, 0.3, True, None),
-        (MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5, parallel_sims=4), 6, 0.3, True, None),
-        (MCTSConfig(num_sims=24, max_depth=48, max_nodes=10, parallel_sims=4), 20, 0.3, True, None),
-        (MCTSConfig(num_sims=18, max_depth=48, parallel_sims=9), 36, 0.3, False, None),
-        (MCTSConfig(num_sims=16, max_depth=48, dirichlet_alpha=0.7, parallel_sims=4), 4, 0.3, True, 0.7),
-    ],
-    ids=["K2", "K2_uval0.3", "K4", "K4_uval0.3", "K9", "K9_uval0.3", "K4_max_depth3",
-         "K4_max_nodes10", "K9_terminal_roots", "K4_dirichlet"],
-)
-def test_emulated_fused_rounds_bit_equal_plain(emulated, cfg, moves, value, freeze, dirichlet):
-    """Whole K>1 uniform fused searches (40 games) through the emulated
-    ``az_fused_rounds``: counts and root W bit-equal to
-    ``fused_rounds_search`` in one launch, at K = 2, 4 and 9, with the value
-    0 (integer W) and 0.3 (where the order of the round's W additions shows
-    in the bits), a depth cutoff, slots running out inside a round, finished
-    roots and Dirichlet roots; the simulations are conserved."""
-    boards = torch_state(random_boards(40, moves, seed=moves, freeze_done=freeze))
-    noise = None
-    if dirichlet is not None:
-        noise = sample_draws(torch.Generator().manual_seed(5), 40, 7, dirichlet, "cpu").dirichlet
-    calls = {"fused_rounds": 0}
-    counts = make_fused_root_fn(
-        TG, make_uniform_model(TG, value).apply_fn, cfg, kernel=_checked_fused_rounds(emulated, calls)
-    )(boards, noise)
-    assert calls == {"fused_rounds": 1}
-    live = ~TG.terminal(boards)[0]
-    assert live.any() and (freeze or (~live).any())
-    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
-
-
 def _checked_fused_mlp_rounds(lib, calls):
     """A ``kernels.fused_mlp_rounds`` stand-in running the emulated
     ``az_fused_mlp_rounds`` AND the plain ``fused_mlp_rounds_search``, with
@@ -1089,7 +918,7 @@ def test_emulated_int8_tower_bit_equal_plain(emulated, B, low, high):
     rc = emulated.lib.az_int8_tower(x.data_ptr(), w.data_ptr(), buf.data_ptr(), B, None)
     assert rc == 0
     want = int8_tower.tower_plain(x, w)
-    assert torch.equal(_bits(buf[:B * 42]), _bits(want))
+    assert torch.equal(bits(buf[:B * 42]), bits(want))
     assert buf[B * 42:].isnan().all()
     if high == 128:
         assert (want * int8_tower.ASCALE > 127).any()

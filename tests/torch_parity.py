@@ -5,17 +5,28 @@ numpy arrays: random-play Connect-Four, Othello, Gomoku and Hex boards,
 a numpy replica of the position generator of tests/test_fused.py (which the
 TPU goldens were frozen from), the conversions of a batch of boards
 into each package's state, and MLPNet weights on a dyadic grid whose
-forward is the same in every order of the adds.
+forward is the same in every order of the adds. Also the ``emulated``
+fixture: the CUDA kernel library built with g++ against the CPU stand-in
+of tests/cuda_emu/, which tests/test_torch_kernels.py and
+tests/test_torch_fused_emu.py share.
 """
+
+import ctypes
+import os
+import re
+import shutil
+import subprocess
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from alphazero_tpu.games.connect_four import ConnectFourState
 from alphazero_tpu.games.gomoku import GomokuState
 from alphazero_tpu.games.hex import HexState
 from alphazero_tpu.games.othello import OthelloState
+from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.games import ConnectFour as TorchConnectFour
 from alphazero_tpu_torch.games import Othello as TorchOthello
 from alphazero_tpu_torch.mcts.fused import _ordered_dot
@@ -165,3 +176,44 @@ def assert_order_free(boards: torch.Tensor, weights) -> None:
     head32 = _ordered_dot(x, weights.wh)
     assert torch.equal(head32.double(), x.double() @ weights.wh.double()), "head sums are not exact"
     assert torch.equal((head32 + weights.bh).double(), head32.double() + weights.bh.double())
+
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+# kernel<<<grid, threads, smem, stream>>>(args), the kernel maybe a template instance
+_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
+_LAUNCHES = {"hybrid.cu": 10, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
+# a kernel's dynamic shared memory: the emulated launch's buffer
+_DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernel library built for the host from every source, as
+    ``kernels.library`` links it for the card (skips without g++)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to build the emulated kernels")
+    build_dir = tmp_path_factory.mktemp("emu")
+    cpps = []
+    for src in kernels.SOURCES:
+        out = _LAUNCH.sub(r"emu_launch(\2, \3, \4, [&] { \1(\5); });", src.read_text())
+        out = _DYNAMIC_SMEM.sub(r"\1* \2 = (\1*)emu_dynamic_smem;", out)
+        assert out.count("emu_launch(") == _LAUNCHES[src.name], "every kernel launch must be rewritten"
+        cpp = build_dir / f"{src.stem}_emu.cpp"
+        cpp.write_text(out)
+        cpps.append(str(cpp))
+    cpps.append(os.path.join(_HERE, "cuda_emu", "mma_tile.cpp"))   # the bf16 tile probe
+    so = build_dir / "libaz_emu.so"
+    subprocess.run(
+        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+         "-Wno-unknown-pragmas", "-I", os.path.join(_HERE, "cuda_emu"),
+         "-I", str(kernels.SOURCES[0].parent),
+         "-o", str(so), *cpps, "-lpthread"],
+        check=True, capture_output=True,
+    )
+    return kernels._Library(ctypes.CDLL(str(so)), so, 0.0, "")
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s float32 bits as int32, for bit-equality checks."""
+    return t.contiguous().view(torch.int32)
