@@ -12,7 +12,8 @@
 //                  games/hex.py:214-232, without its parity lane) from
 //                  hex.cuh;
 //   az_merge    <- merge_kernel (hybrid.py:363-422) with the A<=8 PUCT
-//                  refresh (_refresh, hybrid.py:120-149);
+//                  refresh (_refresh, hybrid.py:120-149), which refreshes
+//                  only the columns the merge writes;
 //   az_merge_dense
 //               <- the same merge with _refresh's dense branch for larger
 //                  action spaces (hybrid.py:150-168; Othello A=65), which
@@ -27,7 +28,8 @@
 //   az_merge_round, az_merge_round_dense
 //               <- merge_round_kernel (hybrid.py:579-657) with _refresh2's
 //                  unrolled and dense top-2 branches (hybrid.py:170-235),
-//                  K7b;
+//                  K7b, each refreshing only the columns the K records
+//                  write;
 //   az_refresh2, az_refresh2_dense
 //               <- _refresh2 alone, which seeds a round search's first
 //                  top-2 planes (hybrid.py:874).
@@ -62,20 +64,24 @@
 //   its own board row, cell by cell: a warp's accesses are L floats apart,
 //   uncoalesced, which costs little at 42-64 cells and more at Gomoku 15's
 //   225 (a shared-memory transpose of the block's rows is later work).
-// * merge (A <= 8) reads the four [B, A, C] planes (46 MB at B=4096, C=101,
-//   A=7) to refresh every node's PUCT argmax: one thread per (game, node)
-//   reads its A-strided column with neighbouring threads on neighbouring
-//   nodes (coalesced), keeps it in registers for the first-max argmax and
-//   writes back only the cells that change (install row, path edge, one
-//   link).
-// * merge_dense (A > 8; replaces the same merge_kernel with _refresh's
-//   dense branch) works only on the columns the merge writes: a node's
-//   argmax is a function of its own column, so every other node's
+// * merge (A <= 8) works only on the columns the merge writes (the path
+//   nodes, the install slot, the expanded parent: ~2.6 of C=101 a game on
+//   the Connect-Four ResNet path), where the JAX kernel refreshes every
+//   node of the four [B, A, C] planes (46 MB at B=4096, C=101, A=7): a
+//   node's argmax is a function of its own column, so every other node's
 //   besta/bestc, left by the search's seed refresh or an earlier merge, is
-//   already right. That is the kernel's precondition: on entry the best
-//   planes are the refresh of the entry planes. The JAX kernel rewrites
-//   whole planes because a TPU block works on whole [Bb, A, C] tiles; that
-//   is layout, not semantics. One warp per game scans its patha row 32
+//   already right. That is its precondition: on entry the best planes are
+//   the refresh of the entry planes. One warp per game finds the touched
+//   columns with ballots over its patha row and lane l merges the l-th of
+//   them alone, as the earlier thread per (game, node) did: the column's
+//   28 cells loaded together (an install slot's not at all: it is written
+//   anew), the first-max argmax from registers, only the cells that change
+//   written (install row, path edge, one link).
+// * merge_dense (A > 8; replaces the same merge_kernel with _refresh's
+//   dense branch) works only on the columns the merge writes, under
+//   merge's precondition. The JAX kernel rewrites whole planes because a
+//   TPU block works on whole [Bb, A, C] tiles; that is layout, not
+//   semantics. One warp per game scans its patha row 32
 //   nodes at a time (the next chunk's loads in flight) and finds with a
 //   ballot the path nodes, the install slot and the expanded parent; for
 //   each, lane l takes actions l, l + 32, ...: it loads its cells of the
@@ -105,14 +111,19 @@
 // launch opts in, up to C=3632), zeroed once per launch. The records are
 // K-major: bd[K, B, L], patha/psgn[K, B, C], meta[K, B, 8] with dup in lane
 // 7. Its bound is the same dependent-load chain as the K=1 descend, K times
-// as long, for K times the path bytes. The A <= 8 round merge keeps one
-// thread per (game, node) column: it gathers, once, what each of the K
-// records does to the column (a path edge, an install, a link), then
-// rewrites every cell as x * keep + (the additions summed in k order), the
-// JAX kernel's arithmetic term by term, storing only cells whose bits
-// change. Its top-2 scan pushes the edges in action order with strict
-// comparisons, which gives the dense branch's exclude-and-re-reduce
-// result. The dense round merge is merge_dense's design for K records: one
+// as long, for K times the path bytes. The A <= 8 round merge is merge's
+// design for K records: one warp per game stages the K meta2 records in
+// shared memory, merges every node's done/tval cells (two coalesced rows:
+// the reference rewrites them all) and finds the columns any record writes;
+// lane l merges the l-th of them alone: it sums what each of the K records
+// does to each cell (a path edge, an install, a link) in k order, then
+// rewrites the cell as x * keep + (that sum), the JAX kernel's arithmetic
+// term by term, storing only cells whose bits change. Its top-2 scan
+// pushes the edges in action order with strict comparisons, which gives
+// the dense branch's exclude-and-re-reduce result (all but the runner-up
+// code where there is no legal runner-up, see top2_store). Its
+// precondition is merge's, for the four top-2 planes. The dense round
+// merge is merge_dense's design for K records: one
 // warp per game stages the K meta2 records in shared memory, merges every
 // node's done/tval cells (two coalesced rows: the reference rewrites them
 // all) and finds the columns any record writes; for each, lanes 0..K-1
@@ -287,73 +298,6 @@ __global__ void descend_kernel(const float* __restrict__ besta,
   m[5] = exp_node;
   m[6] = exp_action;
   m[7] = 0.f;
-}
-
-__global__ void merge_kernel(float* __restrict__ n, float* __restrict__ w,
-                             float* __restrict__ p, float* __restrict__ code,
-                             float* __restrict__ done, float* __restrict__ tval,
-                             const float* __restrict__ pm,
-                             const float* __restrict__ patha,
-                             const float* __restrict__ psgn,
-                             const float* __restrict__ meta2,
-                             float* __restrict__ besta,
-                             float* __restrict__ bestc,
-                             int B, int A, int C, int slot, float cpuct) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * C) return;
-  const int b = (int)(idx / C);
-  const int c = (int)(idx - (size_t)b * C);
-
-  const float* m2 = meta2 + (size_t)b * 8;
-  const float mval = m2[0];
-  const bool exp_ok = m2[1] > 0.5f;
-  const float link_code = m2[2];
-  const bool install = exp_ok && c == slot;
-  const bool link_here = exp_ok && c == (int)m2[5];
-  const int link_a = (int)m2[6];
-  const float on_path = patha[idx];  // action+1, or 0 off the path
-  const float sign = psgn[idx];
-
-  float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
-  const size_t base = (size_t)b * A * C + c;
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    if (a < A) {
-      const size_t off = base + (size_t)a * C;
-      float n_ = n[off], w_ = w[off], p_ = p[off], c_ = code[off];
-      if (install) {  // fresh row at the lockstep slot
-        n_ = 0.f;
-        w_ = 0.f;
-        p_ = pm[(size_t)b * A + a];
-        c_ = -1.f;
-        n[off] = n_;
-        w[off] = w_;
-        p[off] = p_;
-        code[off] = c_;
-      }
-      if (on_path == (float)(a + 1)) {  // backup along the path
-        n_ = __fadd_rn(n_, 1.f);
-        w_ = __fadd_rn(w_, __fmul_rn(mval, sign));
-        n[off] = n_;
-        w[off] = w_;
-      }
-      if (link_here && a == link_a) {  // parent -> new child
-        c_ = link_code;
-        code[off] = c_;
-      }
-      nv[a] = n_;
-      wv[a] = w_;
-      pv[a] = p_;
-      cv[a] = c_;
-    } else {
-      nv[a] = wv[a] = pv[a] = cv[a] = 0.f;
-    }
-  }
-  if (install) {
-    done[idx] = m2[3];
-    tval[idx] = m2[4];
-  }
-  refresh_node(nv, wv, pv, cv, A, cpuct, besta + idx, bestc + idx);
 }
 
 __global__ void refresh_kernel(const float* __restrict__ n,
@@ -675,6 +619,136 @@ __global__ void refresh_dense_kernel(const float* __restrict__ n,
 }
 
 // ---------------------------------------------------------------------------
+// The A <= 8 merges: one warp per game, one lane per touched column
+// ---------------------------------------------------------------------------
+
+constexpr int kScanChunks = 4;  // chunks of 32 nodes whose loads a merge's scan issues together
+
+// The columns of one game that a merge touches, gathered by the game's warp
+// in node order, 32 nodes a ballot: `load(c)` reads what the merge's test
+// of node c needs (lane c % 32), for kScanChunks chunks at once (C <= 128,
+// the main path's 101, in one trip to memory), then `visit(c, loaded)`
+// says whether the merge writes the node's column; lane l of the warp then
+// runs `merge(col)` on the l-th touched column, all of them at once, their
+// loads in flight together. `cols` is the warp's list in shared memory;
+// when it would overflow (more than 32 touched columns: long paths, or a
+// round's K), the columns gathered so far are merged first.
+template <class Load, class Visit, class Merge>
+__device__ __forceinline__ void merge_touched_columns(int C, int lane, int* cols, Load load,
+                                                      Visit visit, Merge merge) {
+  int count = 0;
+  auto flush = [&] {
+    __syncwarp();  // the list is written
+    if (lane < count) merge(cols[lane]);
+    __syncwarp();  // every lane has read its column before the list is refilled
+    count = 0;
+  };
+  for (int c0 = 0; c0 < C; c0 += 32 * kScanChunks) {
+    decltype(load(0)) loaded[kScanChunks] = {};
+#pragma unroll
+    for (int j = 0; j < kScanChunks; ++j) {
+      if (c0 + 32 * j + lane < C) loaded[j] = load(c0 + 32 * j + lane);
+    }
+#pragma unroll
+    for (int j = 0; j < kScanChunks; ++j) {
+      const int c = c0 + 32 * j + lane;
+      const bool touched = c < C && visit(c, loaded[j]);
+      const unsigned mask = __ballot_sync(kFullMask, touched);
+      if (count + __popc(mask) > 32) flush();
+      if (touched) cols[count + __popc(mask & ((1u << lane) - 1u))] = c;
+      count += __popc(mask);
+    }
+  }
+  flush();
+}
+
+// The A <= 8 K=1 merge: one warp per game. The warp finds the columns the
+// merge writes (the path nodes, the install slot, the expanded parent) and
+// lane l merges and refreshes the l-th of them alone: its A cells of the
+// four planes loaded together (28 loads in flight at A=7; none at the
+// install slot, which is written anew from its prior row), the install,
+// the backup and the link applied in that order with the reference's
+// round-to-nearest operations, the first-max argmax (refresh_node) from
+// registers. No other column is read, and every other node's besta/bestc
+// is left as it is: the precondition is that on entry they are the
+// refresh of the entry planes (the search's seed refresh makes it so, every
+// merge keeps it).
+__global__ void merge_kernel(float* __restrict__ n, float* __restrict__ w,
+                             float* __restrict__ p, float* __restrict__ code,
+                             float* __restrict__ done, float* __restrict__ tval,
+                             const float* __restrict__ pm,
+                             const float* __restrict__ patha,
+                             const float* __restrict__ psgn,
+                             const float* __restrict__ meta2,
+                             float* __restrict__ besta,
+                             float* __restrict__ bestc,
+                             int B, int A, int C, int slot, float cpuct) {
+  __shared__ int block_cols[kMergeWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = (int)(threadIdx.x >> 5);
+  const int b = blockIdx.x * kMergeWarps + warp;
+  if (b >= B) return;  // the whole warp
+  const float* m2 = meta2 + (size_t)b * 8;
+  const bool exp_ok = m2[1] > 0.5f;
+  const int link_node = exp_ok ? (int)m2[5] : -1;
+  const int install_node = exp_ok ? slot : -1;
+  const size_t row = (size_t)b * C;
+  if (lane == 0 && install_node >= 0 && install_node < C) {
+    done[row + install_node] = m2[3];
+    tval[row + install_node] = m2[4];
+  }
+  const float mval = m2[0], link_code = m2[2];
+  const int link_a = (int)m2[6];
+  const float* pm_row = pm + (size_t)b * A;
+  auto load = [&](int c) { return patha[row + c]; };  // action+1, or 0 off the path
+  auto visit = [&](int c, float on_path) {
+    return on_path > 0.5f || c == install_node || c == link_node;
+  };
+  auto merge = [&](int col) {
+    const float pa = patha[row + col];  // action+1, or 0 off the path
+    const int path_a = pa > 0.5f ? (int)pa - 1 : -1;
+    const float path_v = __fmul_rn(mval, psgn[row + col]);
+    const bool install = col == install_node;
+    const int col_link_a = col == link_node ? link_a : -1;
+    const size_t base = (size_t)b * A * C + col;
+    float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
+#pragma unroll
+    for (int a = 0; a < kMaxA; ++a) {
+      const size_t off = base + (size_t)a * C;
+      const bool live = a < A;
+      nv[a] = live && !install ? n[off] : 0.f;
+      wv[a] = live && !install ? w[off] : 0.f;
+      pv[a] = live ? (install ? pm_row[a] : p[off]) : 0.f;
+      cv[a] = live && !install ? code[off] : (live ? -1.f : 0.f);
+    }
+#pragma unroll
+    for (int a = 0; a < kMaxA; ++a) {
+      if (a < A) {
+        const size_t off = base + (size_t)a * C;
+        if (install) {  // fresh row at the lockstep slot
+          n[off] = nv[a];
+          w[off] = wv[a];
+          p[off] = pv[a];
+          code[off] = cv[a];
+        }
+        if (a == path_a) {  // backup along the path
+          nv[a] = __fadd_rn(nv[a], 1.f);
+          wv[a] = __fadd_rn(wv[a], path_v);
+          n[off] = nv[a];
+          w[off] = wv[a];
+        }
+        if (a == col_link_a) {  // parent -> new child
+          cv[a] = link_code;
+          code[off] = cv[a];
+        }
+      }
+    }
+    refresh_node(nv, wv, pv, cv, A, cpuct, besta + row + col, bestc + row + col);
+  };
+  merge_touched_columns(C, lane, block_cols[warp], load, visit, merge);
+}
+
+// ---------------------------------------------------------------------------
 // K>1 leaf-parallel rounds (descend_round_kernel, merge_round_kernel and
 // _refresh2 of alphazero_tpu/mcts/hybrid.py)
 // ---------------------------------------------------------------------------
@@ -849,11 +923,12 @@ __device__ __forceinline__ RoundTerm round_term(const float* patha, const float*
   return t;
 }
 
-// The done/tval cells of node c of game b:
+// The done/tval cells of node c of game b, from their entry values:
 // done = done * (1 - sum_k installed_k) + sum_k installed_k * cdone_k.
-__device__ __forceinline__ void round_node_cells(float* done, float* tval, const float* meta2_b,
-                                                 size_t kstride, int b, int c, int C, int K,
-                                                 int slot0) {
+__device__ __forceinline__ void round_node_update(float* done, float* tval, float old_done,
+                                                  float old_tval, const float* meta2_b,
+                                                  size_t kstride, int b, int c, int C, int K,
+                                                  int slot0) {
   float nm_all = 0.f, dn = 0.f, dt = 0.f;
   for (int k = 0; k < K; ++k) {
     const float* m2 = meta2_b + k * kstride;
@@ -863,11 +938,24 @@ __device__ __forceinline__ void round_node_cells(float* done, float* tval, const
     nm_all = __fadd_rn(nm_all, nm);
   }
   const size_t idx = (size_t)b * C + c;
-  const float old_done = done[idx], old_tval = tval[idx];
   const float not_new = __fsub_rn(1.f, nm_all);
   store_if_changed(done + idx, old_done, __fadd_rn(__fmul_rn(old_done, not_new), dn));
   store_if_changed(tval + idx, old_tval, __fadd_rn(__fmul_rn(old_tval, not_new), dt));
 }
+
+__device__ __forceinline__ void round_node_cells(float* done, float* tval, const float* meta2_b,
+                                                 size_t kstride, int b, int c, int C, int K,
+                                                 int slot0) {
+  const size_t idx = (size_t)b * C + c;
+  round_node_update(done, tval, done[idx], tval[idx], meta2_b, kstride, b, c, C, K, slot0);
+}
+
+// What the round merge's scan reads of a node: its done/tval cells, and
+// bit k set where descent k's path passes through it.
+struct RoundNodeScan {
+  float done, tval;
+  unsigned on_path;
+};
 
 // keep = prod_k (1 - installed_k), 0 where a descent installs at this node,
 // and that descent (or -1).
@@ -904,9 +992,22 @@ __device__ __forceinline__ void round_cell(const RoundTerm* terms, int K, float 
   code = __fadd_rn(__fmul_rn(code, keep), code_delta);
 }
 
-// The A <= 8 round merge: one thread per (game, node) column, in place.
-// Reads every cell of the column, writes those whose bits change; the
-// column stays in registers for the top-2 scan.
+// The A <= 8 round merge: one warp per game. The warp stages the game's K
+// meta2 records in shared memory, merges every node's done/tval cells (two
+// coalesced rows: the reference rewrites them all) and finds the columns
+// the K records write (the path nodes of every descent, the install slots,
+// the expanded parents); lane l then merges the l-th of them alone and
+// refreshes its top-2 from registers (top2_push in action order, as the
+// unrolled _refresh2): the K descents' additions to each cell are summed
+// in k order first (n_add, w_add, code_delta, a register per action, read
+// from the staged records and the column's path cells: no per-thread array
+// of the K terms), then applied once as x * keep + add, storing only the
+// cells whose bits change. An install column (keep = 0 there) is not read:
+// x * 0 + add is +0 + add for the finite x of a search's planes, since add
+// is never -0. No other column is read, and every other node's top-2
+// planes are left as they are: the precondition is that on entry they are
+// the refresh2 of the entry planes (the search's seed refresh makes it so,
+// every merge keeps it).
 __global__ void merge_round_kernel(float* __restrict__ n, float* __restrict__ w,
                                    float* __restrict__ p, float* __restrict__ code,
                                    float* __restrict__ done, float* __restrict__ tval,
@@ -916,48 +1017,108 @@ __global__ void merge_round_kernel(float* __restrict__ n, float* __restrict__ w,
                                    float* __restrict__ bestc, float* __restrict__ seca,
                                    float* __restrict__ secc, int B, int A, int C, int K,
                                    int slot0, float cpuct) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * C) return;
-  const int b = (int)(idx / C);
-  const int c = (int)(idx - (size_t)b * C);
-  const float* meta2_b = meta2 + (size_t)b * 8;
-  const size_t kstride = (size_t)B * 8;
-  round_node_cells(done, tval, meta2_b, kstride, b, c, C, K, slot0);
-  RoundTerm terms[kMaxRoundK];
-  for (int k = 0; k < K; ++k) {
-    terms[k] = round_term(patha, psgn, meta2_b, kstride, b, c, k, B, C, slot0);
-  }
-  int inst;
-  const float keep = round_keep(terms, K, inst);
-  const float* pm_row = pm + ((size_t)(inst >= 0 ? inst : 0) * B + b) * A;
-  const size_t base = (size_t)b * A * C + c;
-  float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
-  float total = 0.f;
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    if (a < A) {
-      const size_t off = base + (size_t)a * C;
-      const float n0 = n[off], w0 = w[off], p0 = p[off], c0 = code[off];
-      nv[a] = n0;
-      wv[a] = w0;
-      pv[a] = p0;
-      cv[a] = c0;
-      round_cell(terms, K, keep, inst >= 0, inst >= 0 ? pm_row[a] : 0.f, a, nv[a], wv[a], pv[a],
-                 cv[a]);
-      store_if_changed(n + off, n0, nv[a]);
-      store_if_changed(w + off, w0, wv[a]);
-      store_if_changed(p + off, p0, pv[a]);
-      store_if_changed(code + off, c0, cv[a]);
-      total = __fadd_rn(total, nv[a]);  // integers: exact in any order
+  __shared__ float block_meta2[kMergeWarps][kMaxRoundK * 8];
+  __shared__ int block_cols[kMergeWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = (int)(threadIdx.x >> 5);
+  const int b = blockIdx.x * kMergeWarps + warp;
+  if (b >= B) return;  // the whole warp
+  float* m2s = block_meta2[warp];
+  for (int i = lane; i < K * 8; i += 32) m2s[i] = meta2[((size_t)(i / 8) * B + b) * 8 + i % 8];
+  __syncwarp();
+  const size_t row = (size_t)b * C;
+  const size_t kstride = (size_t)B * C;  // descent k's path record at + k * kstride
+  auto load = [&](int c) {
+    RoundNodeScan v{done[row + c], tval[row + c], 0u};
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) v.on_path |= (patha[k * kstride + row + c] > 0.5f ? 1u : 0u) << k;
+    return v;
+  };
+  auto visit = [&](int c, const RoundNodeScan& v) {
+    round_node_update(done, tval, v.done, v.tval, m2s, 8, b, c, C, K, slot0);
+    bool writes = v.on_path != 0u;
+    for (int k = 0; k < K; ++k) {
+      const float* m2 = m2s + k * 8;
+      writes |= m2[1] != 0.f & (c == slot0 + k | (int)m2[5] == c);
     }
-  }
-  const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
-  Top2 t{};
+    return writes;
+  };
+  auto merge = [&](int col) {
+    // keep = prod_k (1 - installed_k) and the installing descent (or -1)
+    float keep = 1.f;
+    int inst = -1;
+    for (int k = 0; k < K; ++k) {
+      const float nm = __fmul_rn(m2s[k * 8 + 1], col == slot0 + k ? 1.f : 0.f);
+      keep = __fmul_rn(keep, __fsub_rn(1.f, nm));
+      if (nm != 0.f) inst = k;
+    }
+    float n_add[kMaxA], w_add[kMaxA], code_delta[kMaxA];
 #pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    if (a < A) top2_push(t, a, puct_score(nv[a], wv[a], pv[a], sq, cpuct), cv[a]);
-  }
-  top2_store(t, false, idx, besta, bestc, seca, secc);
+    for (int a = 0; a < kMaxA; ++a) {
+      n_add[a] = 0.f;
+      w_add[a] = 0.f;
+      code_delta[a] = inst >= 0 ? -1.f : 0.f;
+    }
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {  // descent k's terms at this column (round_term)
+      const float* m2 = m2s + k * 8;
+      const size_t kidx = k * kstride + row + col;
+      const float pa = patha[kidx];  // action+1, or 0 off the path
+      const int path_a = pa > 0.5f ? (int)pa - 1 : -1;
+      const float path_v = __fmul_rn(m2[0], __fmul_rn(psgn[kidx], 1.f));
+      const float inst_k = m2[1];
+      const int link_a = inst_k != 0.f && (int)m2[5] == col ? (int)m2[6] : -1;
+      const float link_v = __fmul_rn(__fadd_rn(m2[2], 1.f), inst_k);
+#pragma unroll
+      for (int a = 0; a < kMaxA; ++a) {
+        if (a == path_a) {
+          n_add[a] = __fadd_rn(n_add[a], 1.f);
+          w_add[a] = __fadd_rn(w_add[a], path_v);
+        }
+        if (a == link_a) code_delta[a] = __fadd_rn(code_delta[a], link_v);
+      }
+    }
+    const float* pm_row = pm + ((size_t)(inst >= 0 ? inst : 0) * B + b) * A;
+    const bool read = keep != 0.f;  // not an install column
+    const size_t base = (size_t)b * A * C + col;
+    float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
+    float total = 0.f;
+#pragma unroll
+    for (int a = 0; a < kMaxA; ++a) {
+      if (a < A) {
+        const size_t off = base + (size_t)a * C;
+        const float n0 = read ? n[off] : 0.f, w0 = read ? w[off] : 0.f;
+        const float p0 = read ? p[off] : 0.f, c0 = read ? code[off] : 0.f;
+        const float p_inst = inst >= 0 ? __fadd_rn(0.f, pm_row[a]) : 0.f;
+        nv[a] = __fadd_rn(__fmul_rn(n0, keep), n_add[a]);
+        wv[a] = __fadd_rn(__fmul_rn(w0, keep), w_add[a]);
+        pv[a] = __fadd_rn(__fmul_rn(p0, keep), p_inst);
+        cv[a] = __fadd_rn(__fmul_rn(c0, keep), code_delta[a]);
+        if (read) {
+          store_if_changed(n + off, n0, nv[a]);
+          store_if_changed(w + off, w0, wv[a]);
+          store_if_changed(p + off, p0, pv[a]);
+          store_if_changed(code + off, c0, cv[a]);
+        } else {
+          n[off] = nv[a];
+          w[off] = wv[a];
+          p[off] = pv[a];
+          code[off] = cv[a];
+        }
+        total = __fadd_rn(total, nv[a]);  // integers: exact in any order
+      } else {
+        nv[a] = wv[a] = pv[a] = cv[a] = 0.f;
+      }
+    }
+    const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
+    Top2 t{};
+#pragma unroll
+    for (int a = 0; a < kMaxA; ++a) {
+      if (a < A) top2_push(t, a, puct_score(nv[a], wv[a], pv[a], sq, cpuct), cv[a]);
+    }
+    top2_store(t, false, row + col, besta, bestc, seca, secc);
+  };
+  merge_touched_columns(C, lane, block_cols[warp], load, visit, merge);
 }
 
 // The merge of one touched column of game b and its top-2 refresh, by the
@@ -1217,12 +1378,15 @@ int az_descend_hex(const float* besta, const float* bestc, const float* done,
                                  max_depth, cells, stream);
 }
 
+// The A <= 8 K=1 merge: updates besta/bestc in place at the columns it
+// writes, and relies on them being the refresh of the entry planes.
 int az_merge(float* n, float* w, float* p, float* code, float* done,
              float* tval, const float* pm, const float* patha,
              const float* psgn, const float* meta2, float* besta,
              float* bestc, int B, int A, int C, int slot, float cpuct,
              void* stream) {
-  merge_kernel<<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
+  if (A > kMaxA) return (int)cudaErrorInvalidValue;
+  merge_kernel<<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
                  (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha,
                                          psgn, meta2, besta, bestc, B, A, C,
                                          slot, cpuct);
@@ -1307,13 +1471,15 @@ int az_descend_round_hex(const float* besta, const float* bestc, const float* se
 }
 
 // The round merges: pm f32[K, B, A], patha/psgn f32[K, B, C], meta2
-// f32[K, B, 8]; descent k installs at slot slot0 + k. 1 <= K <= 16.
+// f32[K, B, 8]; descent k installs at slot slot0 + k. 1 <= K <= 16. The
+// A <= 8 one updates the four top-2 planes in place at the columns it
+// writes, and relies on them being the refresh2 of the entry planes.
 int az_merge_round(float* n, float* w, float* p, float* code, float* done, float* tval,
                    const float* pm, const float* patha, const float* psgn, const float* meta2,
                    float* besta, float* bestc, float* seca, float* secc, int B, int A, int C,
                    int K, int slot0, float cpuct, void* stream) {
   if (K < 1 || K > kMaxRoundK || A > kMaxA) return (int)cudaErrorInvalidValue;
-  merge_round_kernel<<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
+  merge_round_kernel<<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
                        (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha, psgn,
                                                meta2, besta, bestc, seca, secc, B, A, C, K,
                                                slot0, cpuct);

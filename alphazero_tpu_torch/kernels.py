@@ -37,10 +37,10 @@ it raises) and ``descend_hex``; any other type raises), ``merge`` and
 ``descend_round_othello`` etc., ``merge_round_dense``,
 ``refresh2_dense``); they take 1 <= K <= ``MAX_ROUND_K`` descents per
 round. The merges update the search's best planes (``besta, bestc``, and
-``seca, secc`` in rounds) in place; the dense ones rewrite only the
-columns the merge touched, so they need those planes to be the refresh of
-the planes they are given, as the seed ``refresh``/``refresh2`` and every
-merge leave them. ``fused`` and ``fused_mlp`` run a whole Connect-Four
+``seca, secc`` in rounds) in place and rewrite only the columns the merge
+touched, so they need those planes to be the refresh of the planes they
+are given, as the seed ``refresh``/``refresh2`` and every merge leave
+them. ``fused`` and ``fused_mlp`` run a whole Connect-Four
 search in one launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the
 same in rounds of 1 <= K <= ``FUSED_MAX_K`` descents; their MLP
 evaluator runs on the bf16 tensor cores from weights in shared memory
@@ -359,8 +359,10 @@ def _check_dense_actions(name: str, A: int) -> None:
 def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int, cpuct: float):
     """``mcts.hybrid.merge``: in place on ``n, w, p, code, done, tval`` and
     the best planes ``besta, bestc``, which it returns. On CUDA, A <= 8 runs
-    this wrapper's kernel (it rewrites every node's best planes) and larger
-    A ``merge_dense``."""
+    this wrapper's kernel and larger A ``merge_dense``; both read and
+    refresh only the columns the merge writes, so on entry ``besta, bestc``
+    must be the refresh of the planes given (the plain version refreshes
+    every node)."""
     args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc)
     if _on_cpu(*args):
         return _plain.merge(*args, slot, cpuct)
@@ -551,8 +553,10 @@ def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
                 slot0: int, cpuct: float):
     """``mcts.hybrid.merge_round``: in place on ``n, w, p, code, done,
     tval`` and the top-2 planes ``besta, bestc, seca, secc``, which it
-    returns. On CUDA, A <= 8 runs this wrapper's kernel (it rewrites every
-    node's top-2 planes) and larger A ``merge_round_dense``."""
+    returns. On CUDA, A <= 8 runs this wrapper's kernel and larger A
+    ``merge_round_dense``; both read and refresh only the columns the K
+    records write, so on entry the top-2 planes must be the refresh2 of the
+    planes given (the plain version refreshes every node)."""
     args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc)
     if _on_cpu(*args):
         return _plain.merge_round(*args, slot0, cpuct)

@@ -18,9 +18,10 @@ memory; each simulation is
    install the new row at the lockstep slot, link parent -> child, back up
    along the path — followed by the PUCT refresh that keeps the argmax
    planes ``besta/bestc`` current for the next descent, in place. The
-   search seeds them once with ``refresh``; ``az_merge_dense`` then
-   refreshes only the columns the merge wrote, which is exact because
-   every other node's argmax is a function of its own unchanged column.
+   search seeds them once with ``refresh``; both kernels then refresh only
+   the columns the merge wrote, which is exact because every other node's
+   argmax is a function of its own unchanged column (the plain ``merge``
+   refreshes every node).
 
 The plain PyTorch versions of the three kernels are ``descend``, ``merge``
 and ``refresh`` below; ``alphazero_tpu_torch.kernels`` launches the CUDA
@@ -45,8 +46,8 @@ is a duplicate, which installs nothing but still backs up its value. The
 K leaf boards go through ONE forward of K*B boards (stacked K-major), then
 ``merge_round`` merges the K path records in one read-modify-write at the
 slots ``r*K + 1 + k`` and refreshes the top two PUCT actions of every node
-(``refresh2``) into the top-2 planes, in place (``az_merge_round_dense``:
-the columns it wrote). Its arithmetic is the JAX kernel's term by term: the K
+(``refresh2``) into the top-2 planes, in place (the kernels: only the
+columns it wrote). Its arithmetic is the JAX kernel's term by term: the K
 records' additions are summed in k order first and then added to the
 planes once, which rounds otherwise than adding them one at a time.
 

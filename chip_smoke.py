@@ -18,11 +18,14 @@ card, in phases:
            compiled with nvcc for sm_90a, one process per source, and linked
            into one library, with the build seconds and ptxas's register
            report, and the registers, stack and static shared bytes of the
-           three MLP kernels and of the two uniform fused kernels (which
-           must have no stack frame and no spill);
+           three MLP kernels, of the two uniform fused kernels and of the
+           two A <= 8 merges (these four must have no stack frame and no
+           spill);
 3. kernels vs plain: each kernel against its plain PyTorch version at the
            main path's shapes (B=4096, C=101, A=7), on tree planes taken
-           from a few simulations of the plain search on random positions;
+           from a few simulations of the plain search on random positions
+           (the merge, which refreshes only the columns it writes, on best
+           planes that are the refresh of those planes, as in a search);
            outputs must be bit-equal; both timed with CUDA events;
 4. goldens: the uniform model through the CUDA path reproduces
            ``tests/golden_counts.json`` for Connect-Four exactly;
@@ -30,7 +33,8 @@ card, in phases:
            converter) in bf16 with the ``full`` preset's search (B=4096,
            100 sims, Dirichlet 1.0): actor steps with the launch counters
            reset just before and read just after, visit counts summing to
-           the simulation budget, pi rows summing to 1, and one search
+           the simulation budget, pi rows summing to 1, one profiled step
+           (device busy time and the kernels that take it), and one search
            through the plain versions giving identical counts;
 6. fused:  the fused kernel against its plain version on random roots
            (B=4096, 100 sims, uval 0.5: bit-equal counts and root W, both
@@ -130,9 +134,10 @@ card, in phases:
            step, and one search through the kernels and the plain versions
            with identical counts that sum to 100 on live games; (d) the
            engine bench's ``oth_uniform_B4096_100sims_K4``; (e) one
-           Connect-Four AZResNet-64x5 search (B=4096) and (f) one Gomoku 15
-           and one Hex search (B=1024) at K=4 through the kernels and the
-           plain versions, identical counts;
+           Connect-Four AZResNet-64x5 search (B=4096; timed three times
+           after a warm-up) and (f) one Gomoku 15 and one Hex search
+           (B=1024) at K=4 through the kernels and the plain versions,
+           identical counts;
 12. fused rounds: the fused engine's ``parallel_sims=K`` rounds (K2):
            (a) ``fused_rounds`` against ``fused_rounds_search`` on random
            roots (B=4096, 100 sims; 99 at K=9) at K = 2, 4, 9 and uniform
@@ -211,6 +216,16 @@ and running both in turns (the other, this, this, the other).
 uniform fused kernels (not gated) and phase 6's batch sweep, on the
 uniform actor's roots after 1 + 10 steps at B=65536; it too runs against
 older trees.
+
+``python3 chip_smoke.py --merges`` runs only what the A <= 8 merges set:
+the build's report of ``merge_kernel`` and ``merge_round_kernel`` (not
+gated), the two merges held bit-equal to plain on phase 3's and phase
+11's Connect-Four planes (B=4096, K=1 and K=4) with MERGE_REPS readings of
+their device time each, the AZResNet-64x5 actor (phase 5's search, one
+warm-up and C4_STEPS timed steps, one profiled step) and one K=4 search
+of phase 11's Connect-Four roots, timed. It too runs against older trees
+(since the K=4 rounds), so the merges of two trees are compared in one
+call, in turns.
 """
 
 from __future__ import annotations
@@ -253,6 +268,9 @@ HYBRID_STEPS = 3       # uniform actor steps through the hybrid route
 FUSED_REPS = 5
 SWEEP_BS = (8192, 16384, 32768, 65536)   # the uniform fused kernels' batch sweep (phase 6)
 FUSED_KERNELS = ("fused_kernel", "fused_rounds_kernel")   # the uniform fused kernels' ptxas names
+MERGE_KERNELS = ("merge_kernel", "merge_round_kernel")    # the A <= 8 merges' ptxas names
+MERGE_REPS = 3            # --merges: device-time readings of each A <= 8 merge
+C4_STEPS = 5              # --merges: timed C4 ResNet actor steps
 
 OTH_B = 1024              # Othello full preset (examples/train_othello.py): games per batch
 OTH_CHANNELS, OTH_BLOCKS = 128, 5   # ... its AZResNet
@@ -1325,8 +1343,12 @@ def rounds_phase(card: str) -> tuple:
               OTH_UNIFORM_STEPS, OTH_TEMP_THRESHOLD, per_step, card,
               f"oth_uniform_B{OTH_UNIFORM_B}_100sims_K{K}")
 
-    # (e)-(f) one search each of Connect-Four (AZResNet-64x5, B=4096),
-    # Gomoku 15 and Hex at K=4 through the kernels and the plain versions
+    # (e)-(f) one search each of Connect-Four (AZResNet-64x5, B=4096, also
+    # timed), Gomoku 15 and Hex at K=4 through the kernels and the plain
+    # versions
+    game, batch, apply_fn, cfg, _ = configs[0]
+    timed_search("rounds", game, apply_fn, cfg, roots[game.name],
+                 noise_of(batch, game.num_actions, cfg.dirichlet_alpha), card)
     for (game, batch, apply_fn, cfg, _), names in zip(
             [configs[0], configs[2], configs[3]],
             [("descend_round", "merge_round", "refresh2"),
@@ -1974,12 +1996,12 @@ def fused_sweep(card: str, roots: torch.Tensor) -> None:
                   f"{1e6 * ms / nb:.3f} ns a game | {card}", flush=True)
 
 
-def fused_ptxas(lib, gate: bool = True) -> None:
-    """ptxas's report of the two uniform fused kernels: registers, stack,
-    spills and static shared bytes. With ``gate``, fails on a stack frame
-    or a spill."""
-    report = ptxas_report(lib.build_log, FUSED_KERNELS)
-    for name in FUSED_KERNELS:
+def ptxas_lines(lib, names, gate: bool = True) -> None:
+    """ptxas's report of the named kernels: registers, stack, spills and
+    static shared bytes. With ``gate``, fails on a stack frame or a
+    spill."""
+    report = ptxas_report(lib.build_log, names)
+    for name in names:
         got = report.get(name)
         print(f"[build] ptxas -v {name}: {got or 'not in the build log (a cached build)'}",
               flush=True)
@@ -1994,12 +2016,75 @@ def sweep(card: str) -> None:
     from alphazero_tpu_torch.games import ConnectFour
     from alphazero_tpu_torch.models import make_uniform_model
 
-    fused_ptxas(kernels.library(), gate=False)   # also for an older tree's kernels
+    ptxas_lines(kernels.library(), FUSED_KERNELS, gate=False)   # also an older tree's kernels
     game = ConnectFour()
     carry, *_ = run_actor("sweep", game, make_uniform_model(game).apply_fn,
                           MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH), UNIFORM_B, TIMED_STEPS,
                           TEMP_THRESHOLD, {"fused": 1}, card, "uniform actor")
     fused_sweep(card, carry[0])
+
+
+def timed_search(tag: str, game, apply_fn, cfg, roots, noise, card: str, reps: int = 3) -> None:
+    """One hybrid search of ``roots`` through the kernels, after a warm-up,
+    ``reps`` times: ms per search (host clock around work ending in a
+    synchronize)."""
+    from alphazero_tpu_torch.mcts import hybrid
+
+    root_counts = hybrid.make_hybrid_root_fn(game, apply_fn, cfg)
+    root_counts(roots, noise)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        root_counts(roots, noise)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    print(f"[{tag}] one {game.name} search, B={roots.shape[0]}, {cfg.num_sims} sims, "
+          f"K={cfg.parallel_sims}: {', '.join(f'{t:.3f}' for t in times)} ms | {card}", flush=True)
+
+
+def merge_turns(card: str) -> None:
+    """``--merges`` (see the module docstring)."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        make_apply_fn,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+
+    dev = torch.device("cuda", 0)
+    ptxas_lines(kernels.library(), MERGE_KERNELS, gate=False)   # also an older tree's kernels
+    game = ConnectFour()
+    A = game.num_actions
+    apply_fn = make_apply_fn(convert_az_resnet(
+        random_az_resnet_variables(A, channels=64, blocks=5, seed=SEED), dtype=torch.bfloat16).to(dev))
+    # phase 3's and phase 11's Connect-Four planes
+    roots = random_positions(game, B, 30, SEED, dev)
+    noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), B, A, 1.0, dev).dirichlet
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0)
+    cfg_k = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0, parallel_sims=ROUND_K)
+    _, m_args = capture_search_args(game, apply_fn, cfg, roots, noise)
+    _, m_round_args = capture_round_args(game, apply_fn, cfg_k, roots, noise)
+    for name, k_fn, p_fn, args in (("merge", kernels.merge, hybrid.merge, m_args),
+                                   ("merge_round", kernels.merge_round, hybrid.merge_round,
+                                    m_round_args)):
+        result, (k_call, _) = merge_vs_plain(name, k_fn, p_fn, args)
+        devs = [device_ms(k_call) for _ in range(MERGE_REPS)]
+        print(f"[merges] {name} at B={B}, A={A}, K={1 if args[9].dim() == 2 else ROUND_K}: "
+              f"bit-equal to plain; {', '.join(f'{d:.4f}' for d in devs)} ms of device time "
+              f"per launch; bound {result['bound_ms']:.4f} ms ({result['touched_per_game']:.2f} "
+              f"touched columns a game; whole-plane bound {result['whole_plane_bound_ms']:.4f} ms) "
+              f"| {card}", flush=True)
+    carry, step, gen, _, _ = run_actor(
+        "merges", game, apply_fn, cfg, B, C4_STEPS, TEMP_THRESHOLD,
+        {"descend": SIMS, "merge": SIMS, "refresh": 1}, card, "C4 ResNet actor, AZResNet-64x5 bf16")
+    print_profiled_step("merges", lambda: step(carry, sample_draws(gen, B, A, 1.0, dev)), card,
+                        "C4 ResNet K=1")
+    timed_search("merges", game, apply_fn, cfg_k, roots, noise, card)
 
 
 def actors(card: str) -> None:
@@ -2079,6 +2164,9 @@ def main() -> int:
     if sys.argv[1:] == ["--sweep"]:
         sweep(card)
         return 0
+    if sys.argv[1:] == ["--merges"]:
+        merge_turns(card)
+        return 0
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
@@ -2100,7 +2188,7 @@ def main() -> int:
         print(f"[build] ptxas -v {name}: "
               f"{report.get(instances.get(name, name), 'not in the build log (a cached build)')}",
               flush=True)
-    fused_ptxas(lib)
+    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS))
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
     variables = random_az_resnet_variables(A, channels=64, blocks=5, seed=SEED)
@@ -2134,8 +2222,10 @@ def main() -> int:
     results = {}
     results["descend"], edges, _ = descend_vs_plain("descend", kernels.descend, d_args)
 
-    # the A <= 8 merge still rewrites every node: its path-column bound and,
-    # labelled beside it, the whole-plane one
+    # the A <= 8 merge reads and refreshes only the columns it writes; the
+    # captured best planes are the refresh of the captured planes (its
+    # precondition). Its bound counts those columns; the whole-plane one
+    # rides beside it, labelled
     results["merge"], merge_fns = merge_vs_plain("merge", kernels.merge, hybrid.merge, m_args)
 
     ref_k = kernels.refresh(*m_args[:4], m_args[-1])
@@ -2215,6 +2305,8 @@ def main() -> int:
           f"{ms_move:.3f} ms/move mean, {ms_median:.3f} upper median "
           f"({', '.join(f'{1e3 * s:.3f}' for s in step_s)}), "
           f"{B / (ms_move / 1e3):.1f} env-steps/s | launches {launched(launches)} | {card}", flush=True)
+    print_profiled_step("slice", lambda: actor_step(carry, sample_draws(gen, B, A, 1.0, dev)), card,
+                        "C4 ResNet K=1")
 
     # identical counts through the kernels and through the plain versions
     state, _ = carry

@@ -105,6 +105,7 @@ inline unsigned __ballot_sync(unsigned, bool pred) {
 }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_warps[threadIdx.x / 32].bar->arrive_and_wait(); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
 inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }

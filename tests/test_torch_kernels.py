@@ -67,10 +67,12 @@ from alphazero_tpu_torch.models import (
 )
 from alphazero_tpu_torch.ops import sample_draws
 from tests.torch_parity import (  # noqa: F401  (emulated: a fixture)
+    MERGE_CASES,
     assert_order_free,
     bits,
     boards_from_seqs,
     emulated,
+    merge_case,
     order_free_mlp_apply,
     random_boards,
     random_othello_boards,
@@ -337,85 +339,13 @@ def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
     assert ((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).any()   # exact ties
 
 
-MERGE_CASES = ("past_capacity", "terminal_link", "root_only", "ties_illegal", "detached_link",
-               "duplicate")
-
-
-def _merge_case(A: int, K: int, case: str, seed: int):
-    """Synthetic planes, their own refresh (K=1) or refresh2 (K > 1) as the
-    best planes (the dense merges' precondition), and a merge's records of
-    ``case``, as ``run_search``/``run_rounds`` would make them: B=6 games,
-    C=37 nodes, paths of 1-4 edges from the root through distinct nodes.
-
-    * past_capacity: install slots at or past C install nothing
-      (``run_search``'s exp_ok, ``run_rounds``' inst are 0 there), the
-      paths still back up;
-    * terminal_link: expansions into finished children, whose link code
-      is -2-s and whose done/tval are 1 and +-1;
-    * root_only: every path is the root's edge alone;
-    * ties_illegal: all-zero n and w, so every legal edge of a column ties
-      on its prior, with exact ties between actions of different lanes
-      (the larger prior on action 33 and on action 40, or 5 and 12 at
-      A=16), illegal edges (-1e30) and an all-illegal node on the path;
-    * detached_link: the expanded parent is a node off every path (a
-      descent always expands at a node of its own path; the merges still
-      take any record, as their plain versions do);
-    * duplicate (rounds): descent 1 expands the edge descent 0 expanded,
-      installs nothing and still backs up its value."""
-    rng = np.random.default_rng(seed)
-    B, C = 6, 37
-    n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
-    # +0 where unvisited: a search's planes never hold -0 (see hybrid.cu)
-    w = torch.where(n > 0, torch.as_tensor((rng.integers(-2, 3, (B, A, C)) / 2).astype(np.float32)), 0.0)
-    p = torch.full((B, A, C), 1.0 / A)
-    p[:, 3::5] = -1e30
-    code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
-    if case == "ties_illegal":
-        n.zero_()
-        w.zero_()
-        lo, hi = (5, 12) if A < 32 else (33, 40)
-        p[:, lo] = p[:, hi] = 2.0 / A
-        p[1, :, 0] = -1e30                     # an all-illegal root on every path of game 1
-    done, tval = torch.zeros(B, C), torch.zeros(B, C)
-    best = list((hybrid.refresh2 if K > 1 else hybrid.refresh)(n, w, p, code, 1.25))
-    # slots slot0 .. slot0 + K - 1; past the capacity: K=1 at C, a round's
-    # first at C - 1 and the rest past it
-    slot0 = (C if K == 1 else C - 1) if case == "past_capacity" else 20
-    patha, psgn = torch.zeros(K, B, C), torch.zeros(K, B, C)
-    meta2 = torch.zeros(K, B, 8)
-    for b in range(B):
-        for k in range(K):
-            edges = 1 if case == "root_only" else int(rng.integers(1, 5))
-            nodes = [0, *rng.choice(np.arange(1, slot0 - K), edges - 1, replace=False)]
-            acts = rng.choice(np.flatnonzero(p[b, :, 0] > 0) if p[b, :, 0].max() > 0 else np.arange(A),
-                              edges)
-            if case == "duplicate" and k == 1:
-                nodes, acts = [int(c) for c in np.flatnonzero(patha[0, b])], None
-                acts = [int(patha[0, b, c]) - 1 for c in nodes]
-            for i, (c, a) in enumerate(zip(nodes, acts)):
-                patha[k, b, int(c)] = a + 1.0
-                psgn[k, b, int(c)] = 1.0 if i % 2 == 0 else -1.0
-            s = slot0 + k
-            inst = float(s < C and not (case == "duplicate" and k == 1))
-            cdone = float(case == "terminal_link")
-            parent = slot0 - 1 if case == "detached_link" else nodes[-1]   # paths use nodes < slot0 - K
-            meta2[k, b] = torch.tensor([
-                float(rng.integers(-4, 5)) / 4, inst, s + cdone * (-2.0 - 2.0 * s), cdone,
-                cdone * float(rng.choice([-1, 1])), float(parent), float(acts[-1]), 0.0])
-    pm = torch.full((K, B, A), 1.0 / A)
-    pm[..., 1::4] = -1e30
-    if K == 1:
-        return (n, w, p, code, done, tval, pm[0], patha[0], psgn[0], meta2[0], *best, slot0, 1.25)
-    return (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best, slot0, 1.25)
-
-
 @pytest.mark.parametrize("A", [16, 65, 225, 361])
 @pytest.mark.parametrize("case", MERGE_CASES[:-1])
 def test_emulated_merge_dense_cases(emulated, case, A):
     """``az_merge_dense`` on synthetic planes and records of each case
-    (``_merge_case``): planes, done/tval and best planes bit-equal to the
+    (``merge_case``): planes, done/tval and best planes bit-equal to the
     plain merge's full refresh."""
-    args = _merge_case(A, 1, case, seed=A)
+    args = merge_case(A, 1, case, seed=A)
     calls = {}
     merge = _checked_kernels(emulated, calls).merge
     n, patha, meta2 = args[0], args[7], args[9]
@@ -435,9 +365,9 @@ def test_emulated_merge_dense_cases(emulated, case, A):
 @pytest.mark.parametrize("case", MERGE_CASES)
 def test_emulated_merge_round_dense_cases(emulated, case, A):
     """``az_merge_round_dense`` at K=4 on synthetic planes and records of
-    each case (``_merge_case``): planes, done/tval and the four top-2 planes
+    each case (``merge_case``): planes, done/tval and the four top-2 planes
     bit-equal to the plain round merge's full refresh2."""
-    args = _merge_case(A, 4, case, seed=A + 1)
+    args = merge_case(A, 4, case, seed=A + 1)
     calls = {"past_capacity": 0}
     merge_round = _checked_round_kernels(emulated, calls).merge_round
     merge_round(*args)
@@ -453,7 +383,7 @@ def test_emulated_merge_round_dense_cases(emulated, case, A):
 def test_emulated_dense_merges_refuse_above_512_actions(emulated, K):
     """The dense merges keep 16 actions a lane in registers: at A=513 the
     entry returns an error and writes nothing."""
-    args = _merge_case(513, K, "root_only", seed=K)
+    args = merge_case(513, K, "root_only", seed=K)
     planes = [t.clone() for t in args[:-2]]
     entry = "az_merge_dense" if K == 1 else "az_merge_round_dense"
     B, A, C = args[0].shape

@@ -5,10 +5,11 @@ numpy arrays: random-play Connect-Four, Othello, Gomoku and Hex boards,
 a numpy replica of the position generator of tests/test_fused.py (which the
 TPU goldens were frozen from), the conversions of a batch of boards
 into each package's state, and MLPNet weights on a dyadic grid whose
-forward is the same in every order of the adds. Also the ``emulated``
-fixture: the CUDA kernel library built with g++ against the CPU stand-in
-of tests/cuda_emu/, which tests/test_torch_kernels.py and
-tests/test_torch_fused_emu.py share.
+forward is the same in every order of the adds; synthetic merge records
+(``merge_case``). Also the ``emulated`` fixture: the CUDA kernel library
+built with g++ against the CPU stand-in of tests/cuda_emu/, which
+tests/test_torch_kernels.py, tests/test_torch_fused_emu.py and
+tests/test_torch_merge_emu.py share.
 """
 
 import ctypes
@@ -29,6 +30,7 @@ from alphazero_tpu.games.othello import OthelloState
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.games import ConnectFour as TorchConnectFour
 from alphazero_tpu_torch.games import Othello as TorchOthello
+from alphazero_tpu_torch.mcts import hybrid
 from alphazero_tpu_torch.mcts.fused import _ordered_dot
 from alphazero_tpu_torch.models import convert_mlp, make_apply_fn, order_free_mlp_variables
 
@@ -217,3 +219,85 @@ def emulated(tmp_path_factory):
 def bits(t: torch.Tensor) -> torch.Tensor:
     """``t``'s float32 bits as int32, for bit-equality checks."""
     return t.contiguous().view(torch.int32)
+
+
+MERGE_CASES = ("past_capacity", "terminal_link", "root_only", "ties_illegal", "lone_legal",
+               "detached_link", "duplicate")
+
+
+def merge_case(A: int, K: int, case: str, seed: int, C: int = 37, path_len: int = 4):
+    """Synthetic planes, their own refresh (K=1) or refresh2 (K > 1) as the
+    best planes (the merges' precondition), and a merge's records of
+    ``case``, as ``run_search``/``run_rounds`` would make them: B=6 games,
+    C nodes, paths of 1 to ``path_len`` edges from the root through
+    distinct nodes below the install slots (``slot0 = C - 17``).
+
+    * past_capacity: install slots at or past C install nothing
+      (``run_search``'s exp_ok, ``run_rounds``' inst are 0 there), the
+      paths still back up;
+    * terminal_link: expansions into finished children, whose link code
+      is -2-s and whose done/tval are 1 and +-1;
+    * root_only: every path is the root's edge alone;
+    * ties_illegal: all-zero n and w, so every legal edge of a column ties
+      on its prior, with exact ties between two actions (33 and 40 at
+      A > 40, 5 and 12 at A > 12, 2 and 5 at A > 5: actions of different
+      lanes of the dense merges, and for the A <= 8 ones the second after
+      the first in one lane's scan; 0 and 1 at A=2), illegal edges
+      (-1e30) and an all-illegal node on the path;
+    * lone_legal: beside game 1's all-illegal root, game 2's root has one
+      legal edge, the last: it is the best edge, there is no runner-up
+      (-1), and the A <= 8 top-2 leaves as its code the one its scan
+      displaced (edge 0's), the dense one -1;
+    * detached_link: the expanded parent is a node off every path (a
+      descent always expands at a node of its own path; the merges still
+      take any record, as their plain versions do);
+    * duplicate (rounds): descent 1 expands the edge descent 0 expanded,
+      installs nothing and still backs up its value."""
+    rng = np.random.default_rng(seed)
+    B = 6
+    n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
+    # +0 where unvisited: a search's planes never hold -0 (see hybrid.cu)
+    w = torch.where(n > 0, torch.as_tensor((rng.integers(-2, 3, (B, A, C)) / 2).astype(np.float32)), 0.0)
+    p = torch.full((B, A, C), 1.0 / A)
+    p[:, 3::5] = -1e30
+    code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
+    if case == "ties_illegal":
+        n.zero_()
+        w.zero_()
+        lo, hi = (33, 40) if A > 40 else (5, 12) if A > 12 else (2, 5) if A > 5 else (0, 1)
+        p[:, lo] = p[:, hi] = 2.0 / A
+    if case in ("ties_illegal", "lone_legal"):
+        p[1, :, 0] = -1e30                     # an all-illegal root on every path of game 1
+    if case == "lone_legal":
+        p[2, :A - 1, 0] = -1e30                # game 2's root: its last edge alone is legal
+    done, tval = torch.zeros(B, C), torch.zeros(B, C)
+    best = list((hybrid.refresh2 if K > 1 else hybrid.refresh)(n, w, p, code, 1.25))
+    # slots slot0 .. slot0 + K - 1; past the capacity: K=1 at C, a round's
+    # first at C - 1 and the rest past it
+    slot0 = (C if K == 1 else C - 1) if case == "past_capacity" else C - 17
+    patha, psgn = torch.zeros(K, B, C), torch.zeros(K, B, C)
+    meta2 = torch.zeros(K, B, 8)
+    for b in range(B):
+        for k in range(K):
+            edges = 1 if case == "root_only" else int(rng.integers(1, path_len + 1))
+            nodes = [0, *rng.choice(np.arange(1, slot0 - K), edges - 1, replace=False)]
+            acts = rng.choice(np.flatnonzero(p[b, :, 0] > 0) if p[b, :, 0].max() > 0 else np.arange(A),
+                              edges)
+            if case == "duplicate" and k == 1:
+                nodes, acts = [int(c) for c in np.flatnonzero(patha[0, b])], None
+                acts = [int(patha[0, b, c]) - 1 for c in nodes]
+            for i, (c, a) in enumerate(zip(nodes, acts)):
+                patha[k, b, int(c)] = a + 1.0
+                psgn[k, b, int(c)] = 1.0 if i % 2 == 0 else -1.0
+            s = slot0 + k
+            inst = float(s < C and not (case == "duplicate" and k == 1))
+            cdone = float(case == "terminal_link")
+            parent = slot0 - 1 if case == "detached_link" else nodes[-1]   # paths use nodes < slot0 - K
+            meta2[k, b] = torch.tensor([
+                float(rng.integers(-4, 5)) / 4, inst, s + cdone * (-2.0 - 2.0 * s), cdone,
+                cdone * float(rng.choice([-1, 1])), float(parent), float(acts[-1]), 0.0])
+    pm = torch.full((K, B, A), 1.0 / A)
+    pm[..., 1::4] = -1e30
+    if K == 1:
+        return (n, w, p, code, done, tval, pm[0], patha[0], psgn[0], meta2[0], *best, slot0, 1.25)
+    return (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best, slot0, 1.25)
