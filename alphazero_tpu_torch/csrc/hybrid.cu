@@ -50,20 +50,24 @@
 //
 // What bounds them on an H100, and what the design does about it:
 // * descend is latency-bound pointer chasing: each step is one dependent
-//   load of besta/bestc at the current node. One thread per game walks its
-//   path with real indexing (the TPU kernel's one-hot lane reductions are
-//   layout, not semantics) and carries the board in registers as bitboards
-//   of Game::kWords 64-bit words a side (one for Connect-Four, Othello and
-//   Hex; eight for Gomoku, up to 512 cells), so a
-//   Connect-Four step is a popcount and two bit ops, an Othello step a
-//   register-only walk of the 8 rays, a Gomoku step two bit ops per word
-//   and a Hex step two 7x7 transposes of 12 masked shifts each. Small
-//   blocks (32 games) spread the games over the SMs: 4096 games fill all
-//   132 SMs, the 1024 of the Othello, Gomoku and Hex full presets only 32
-//   of them (launch geometry is later work). Each thread reads and writes
-//   its own board row, cell by cell: a warp's accesses are L floats apart,
-//   uncoalesced, which costs little at 42-64 cells and more at Gomoku 15's
-//   225 (a shared-memory transpose of the block's rows is later work).
+//   load of besta/bestc at the current node. One warp walks one game
+//   (4 games a block, so the 1024 games of the Othello, Gomoku and Hex full
+//   presets spread over all 132 SMs, and Connect-Four's 4096 fill them in
+//   one wave) with real indexing (the TPU kernel's one-hot lane reductions
+//   are layout, not semantics), and carries the board in registers as
+//   bitboards of Game::kWords 64-bit words a side (one for Connect-Four,
+//   Othello and Hex; eight for Gomoku, up to 512 cells), so a Connect-Four
+//   step is a popcount and two bit ops, an Othello step a register-only
+//   walk of the 8 rays, a Gomoku step two bit ops per word and a Hex step
+//   two 7x7 transposes of 12 masked shifts each. The board row comes in
+//   coalesced: lane l loads cells l, l + 32, ..., all in flight with the
+//   root's cells, and a ballot of each 32-cell chunk gives 32 bits of a
+//   side at once; it goes out the same way. The walk is warp-uniform:
+//   every lane loads the same cell (one transaction) and steps its own copy
+//   of the board, so no branch of a step diverges, and the next node's
+//   loads are issued before the step. What is left is the chain itself: a
+//   trip for the row and the root, one per edge of the path, one for the
+//   stores, and the launch.
 // * merge (A <= 8) works only on the columns the merge writes (the path
 //   nodes, the install slot, the expanded parent: ~2.6 of C=101 a game on
 //   the Connect-Four ResNet path), where the JAX kernel refreshes every
@@ -103,15 +107,18 @@
 //   both are, so the reference's x * 1 + 0 on an untouched cell is x.
 // K>1 rounds (parallel_sims = K): the refresh leaves the runner-up too,
 // seca/secc [B, C] (-1 where no legal runner-up exists). A round's K
-// descents run one after another in ONE thread per game, each from a copy
-// of the root board kept in registers, so a descent sees the in-round
-// counters of the descents before it: two bytes per node and game (takes
-// of the best action and of the runner-up) in shared memory, node-major
-// with the block's 32 games innermost (6.5 KB at C=101; above 48 KB the
-// launch opts in, up to C=3632), zeroed once per launch. The records are
-// K-major: bd[K, B, L], patha/psgn[K, B, C], meta[K, B, 8] with dup in lane
-// 7. Its bound is the same dependent-load chain as the K=1 descend, K times
-// as long, for K times the path bytes. The A <= 8 round merge is merge's
+// descents run one after another in ONE warp per game, as descend walks
+// its one, each from a register copy of the root board (loaded once, with
+// the root's four best cells), so a descent sees the in-round counters of
+// the descents before it: two bytes per node and game (takes of the best
+// action and of the runner-up) in the warp's slice of shared memory, [2][C]
+// (C <= 29056 at 4 games a block; above 48 KB the launch opts in), zeroed
+// by the warp. Every lane reads them; lane 0 alone adds a take, after a
+// __syncwarp, and a __syncwarp ends each descent. A step's four best cells
+// travel together. The records are K-major: bd[K, B, L], patha/psgn[K, B,
+// C], meta[K, B, 8] with dup in lane 7. Its bound is the same dependent-load
+// chain as the K=1 descend, K times as long, for K times the path bytes.
+// The A <= 8 round merge is merge's
 // design for K records: one warp per game stages the K meta2 records in
 // shared memory, merges every node's done/tval cells (two coalesced rows:
 // the reference rewrites them all) and finds the columns any record writes;
@@ -154,10 +161,12 @@
 
 namespace {
 
-constexpr int kDescendThreads = 32;
+constexpr int kDescendWarps = 4;             // games (warps) per block of a descend
+constexpr int kDescendThreads = 32 * kDescendWarps;
 constexpr int kMergeThreads = 256;
 constexpr int kMaxRoundK = 16;    // descents per round (kernels.MAX_ROUND_K)
 constexpr int kMaxSharedBytes = 232448;   // a block's dynamic shared memory on sm_90
+constexpr unsigned kFullMask = 0xffffffffu;
 
 // The games descend_kernel is instantiated for: the 64-bit words of a
 // side's bitboard, the board cells (0: the `cells` argument, at run time)
@@ -199,81 +208,125 @@ struct HexGame {
   }
 };
 
-// Flat f32[L] board (+1 / -1 / 0) -> bitboards: cell 64k + j is bit j of
-// word k (word indices are compile-time constants: registers, not stack).
+// Flat f32[L] board (+1 / -1 / 0) -> bitboards, by the calling warp: lane l
+// loads cells l, l + 32, ... (each load instruction one coalesced run of
+// the row, all of them in flight together), and a ballot of each 32-cell
+// chunk gives 32 bits of `mine` and of `theirs` at once, on every lane.
+// Cell 64k + j is bit j of word k; word indices are compile-time
+// constants, so the words stay in registers. The chunk test is the same on
+// every lane (L is), so every lane meets every ballot.
 template <int W>
-__device__ __forceinline__ void load_board(const float* board, int L, uint64_t (&mine)[W],
-                                           uint64_t (&theirs)[W]) {
+__device__ __forceinline__ void warp_load_board(const float* board, int L, int lane,
+                                                uint64_t (&mine)[W], uint64_t (&theirs)[W]) {
+  float v[2 * W];
+#pragma unroll
+  for (int j = 0; j < 2 * W; ++j) v[j] = 32 * j + lane < L ? board[32 * j + lane] : 0.f;
 #pragma unroll
   for (int k = 0; k < W; ++k) {
     uint64_t m = 0, t = 0;
-    for (int j = 0; j < 64 && 64 * k + j < L; ++j) {
-      const float v = board[64 * k + j];
-      if (v > 0.5f) m |= 1ull << j;
-      if (v < -0.5f) t |= 1ull << j;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (32 * (2 * k + h) < L) {
+        m |= (uint64_t)__ballot_sync(kFullMask, v[2 * k + h] > 0.5f) << (32 * h);
+        t |= (uint64_t)__ballot_sync(kFullMask, v[2 * k + h] < -0.5f) << (32 * h);
+      }
     }
     mine[k] = m;
     theirs[k] = t;
   }
 }
 
-// Bitboards -> flat f32[L] board, +0 in empty cells.
+// Bitboards -> flat f32[L] board, +0 in empty cells, by the calling warp:
+// lane l writes cells l, l + 32, ... (coalesced).
 template <int W>
-__device__ __forceinline__ void store_board(float* out, int L, const uint64_t (&mine)[W],
-                                            const uint64_t (&theirs)[W]) {
+__device__ __forceinline__ void warp_store_board(float* out, int L, int lane,
+                                                 const uint64_t (&mine)[W],
+                                                 const uint64_t (&theirs)[W]) {
 #pragma unroll
-  for (int k = 0; k < W; ++k) {
-    for (int j = 0; j < 64 && 64 * k + j < L; ++j) {
-      out[64 * k + j] = ((mine[k] >> j) & 1ull) ? 1.f : (((theirs[k] >> j) & 1ull) ? -1.f : 0.f);
+  for (int j = 0; j < 2 * W; ++j) {
+    const int bit = 32 * (j & 1) + lane;
+    if (32 * j + lane < L) {
+      out[32 * j + lane] = ((mine[j >> 1] >> bit) & 1ull)
+                               ? 1.f
+                               : (((theirs[j >> 1] >> bit) & 1ull) ? -1.f : 0.f);
     }
   }
 }
 
+// The end of one descent, by the calling warp: the leaf board (lanes
+// strided over its cells) and the 8 meta floats (lanes 0-7) = (exp, term,
+// psign, v_term, cut, exp_node, exp_action, dup).
+template <int W>
+__device__ __forceinline__ void warp_store_leaf(float* bd, float* m, int L, int lane,
+                                                const uint64_t (&mine)[W],
+                                                const uint64_t (&theirs)[W], float exp, float term,
+                                                float psign, float v_term, float cut,
+                                                float exp_node, float exp_action, float dup) {
+  warp_store_board(bd, L, lane, mine, theirs);
+  if (lane < 8) {
+    m[lane] = lane == 0 ? exp
+            : lane == 1 ? term
+            : lane == 2 ? psign
+            : lane == 3 ? v_term
+            : lane == 4 ? cut
+            : lane == 5 ? exp_node
+            : lane == 6 ? exp_action
+                        : dup;
+  }
+}
+
+// One descent per game, one warp per game. The warp zeroes its game's
+// patha/psgn row (coalesced), loads the root board by ballots, and then
+// walks the path uniformly: every lane loads the same besta/bestc cell
+// (one transaction) and applies the game's step to its own copy of the
+// bitboards, so the step's branches (the Othello rays) never diverge. Lane
+// 0 writes the path cells, after a __syncwarp that orders them behind the
+// other lanes' zeros. The next node's loads are issued before the step, so
+// the step's instructions overlap their trip.
 template <class Game>
-__global__ void descend_kernel(const float* __restrict__ besta,
-                               const float* __restrict__ bestc,
-                               const float* __restrict__ done,
-                               const float* __restrict__ tval,
-                               const float* __restrict__ boards,
-                               float* __restrict__ bd,
-                               float* __restrict__ patha,
-                               float* __restrict__ psgn,
-                               float* __restrict__ meta,
-                               int B, int C, int max_depth, int cells) {
+__global__ void __launch_bounds__(kDescendThreads)
+    descend_kernel(const float* __restrict__ besta, const float* __restrict__ bestc,
+                   const float* __restrict__ done, const float* __restrict__ tval,
+                   const float* __restrict__ boards, float* __restrict__ bd,
+                   float* __restrict__ patha, float* __restrict__ psgn,
+                   float* __restrict__ meta, int B, int C, int max_depth, int cells) {
   constexpr int W = Game::kWords;
   const int L = Game::kBoardCells > 0 ? Game::kBoardCells : cells;
-  const int b0 = blockIdx.x * blockDim.x;
-  const int games = min((int)blockDim.x, B - b0);
-  // zero this block's rows of the path record, cooperatively (coalesced)
-  for (int i = threadIdx.x; i < games * C; i += blockDim.x) {
-    patha[(size_t)b0 * C + i] = 0.f;
-    psgn[(size_t)b0 * C + i] = 0.f;
-  }
-  __syncthreads();
-  const int b = b0 + threadIdx.x;
-  if (b >= B) return;
-
-  uint64_t mine[W], theirs[W];
-  load_board(boards + (size_t)b * L, L, mine, theirs);
-
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kDescendWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
   const size_t row = (size_t)b * C;
+  // the root's cells travel with the board's
+  bool act = done[row] < 0.5f;  // a terminal root is not descended
+  float af = besta[row], code = bestc[row];
+  uint64_t mine[W], theirs[W];
+  warp_load_board(boards + (size_t)b * L, L, lane, mine, theirs);
+  for (int c = lane; c < C; c += 32) {
+    patha[row + c] = 0.f;
+    psgn[row + c] = 0.f;
+  }
+  __syncwarp();  // every lane's zeros before lane 0's path cells
+
   int node = 0, depth = 0, leaf = -1;
   float psign = 1.f;
   float exp = 0.f, term = 0.f, cut = 0.f, exp_node = 0.f, exp_action = 0.f;
-  bool act = done[row] < 0.5f;  // a terminal root is not descended
   while (act) {
-    const float af = besta[row + node];
-    const float code = bestc[row + node];
-    patha[row + node] = af + 1.f;
-    psgn[row + node] = psign;
-    Game::step(mine, theirs, (int)af);
-
+    if (lane == 0) {
+      patha[row + node] = af + 1.f;
+      psgn[row + node] = psign;
+    }
     const bool cterm = code < -1.5f;
     const bool unexp = !cterm && code < -0.5f;
     const float child = cterm ? -2.f - code : code;
     const bool live = !unexp && !cterm;
     const bool cutoff = live && depth + 1 >= max_depth;
     const bool go = live && !cutoff;
+    float next_af = 0.f, next_code = 0.f;
+    if (go) {
+      next_af = besta[row + (int)child];
+      next_code = bestc[row + (int)child];
+    }
+    Game::step(mine, theirs, (int)af);
     if (unexp) {
       exp = 1.f;
       exp_node = (float)node;
@@ -285,19 +338,14 @@ __global__ void descend_kernel(const float* __restrict__ besta,
     if (go) node = (int)child;
     depth += 1;
     psign = -psign;
+    af = next_af;
+    code = next_code;
     act = go;
   }
 
-  store_board(bd + (size_t)b * L, L, mine, theirs);
-  float* m = meta + (size_t)b * 8;
-  m[0] = exp;
-  m[1] = term;
-  m[2] = psign;
-  m[3] = leaf >= 0 ? tval[row + leaf] : 0.f;
-  m[4] = cut;
-  m[5] = exp_node;
-  m[6] = exp_action;
-  m[7] = 0.f;
+  const float v_term = leaf >= 0 ? tval[row + leaf] : 0.f;
+  warp_store_leaf(bd + (size_t)b * L, meta + (size_t)b * 8, L, lane, mine, theirs, exp, term,
+                  psign, v_term, cut, exp_node, exp_action, 0.f);
 }
 
 __global__ void refresh_kernel(const float* __restrict__ n,
@@ -361,7 +409,6 @@ __device__ __forceinline__ void dense_refresh_node(const float* n, const float* 
 constexpr int kMergeWarps = 4;              // games (warps) per block of a dense merge
 constexpr int kMergeWarpThreads = 32 * kMergeWarps;
 constexpr int kMaxDenseA = 32 * 16;         // a dense merge's actions: 16 a lane in registers
-constexpr unsigned kFullMask = 0xffffffffu;
 constexpr float kNoEdge = -3.0e38f;         // a lane's empty slot: below every score, -1e30 too
 constexpr float kNoAction = 1.0e9f;
 
@@ -753,52 +800,52 @@ __global__ void merge_kernel(float* __restrict__ n, float* __restrict__ w,
 // _refresh2 of alphazero_tpu/mcts/hybrid.py)
 // ---------------------------------------------------------------------------
 
-// One round's K descents per game, one thread per game. The thread keeps
-// its root board in registers and walks its K descents one after another,
-// each from a copy of the root; the in-round counters of every node (how
-// often this round took its best action, and its runner-up) are bytes in
-// shared memory, node-major with the block's games innermost, zeroed once
-// per launch. Outputs are K-major: bd[k, b, :], patha/psgn[k, b, :],
-// meta[k, b, :] = (exp, term, psign, v_term, cut, exp_node, exp_action,
-// dup).
+// One round's K descents per game, one warp per game, each descent walked
+// as descend_kernel walks its one. The warp loads the root board once and
+// starts each descent from a register copy of it; the root's four best
+// cells are loaded once too. Every node's in-round counters (how often this
+// round took its best action there, and its runner-up) are bytes in the
+// warp's own slice of shared memory, [2][C], zeroed by the warp: every lane
+// reads them, then, after a __syncwarp, lane 0 alone adds this descent's
+// take; a descent never meets a node twice, and a __syncwarp ends each
+// descent, so every read sees the takes of the descents before it. Outputs
+// are K-major: bd[k, b, :], patha/psgn[k, b, :], meta[k, b, :] = (exp,
+// term, psign, v_term, cut, exp_node, exp_action, dup).
 template <class Game>
-__global__ void descend_round_kernel(const float* __restrict__ besta,
-                                     const float* __restrict__ bestc,
-                                     const float* __restrict__ seca,
-                                     const float* __restrict__ secc,
-                                     const float* __restrict__ done,
-                                     const float* __restrict__ tval,
-                                     const float* __restrict__ boards,
-                                     float* __restrict__ bd,
-                                     float* __restrict__ patha,
-                                     float* __restrict__ psgn,
-                                     float* __restrict__ meta,
-                                     int B, int C, int K, int max_depth, int cells) {
+__global__ void __launch_bounds__(kDescendThreads)
+    descend_round_kernel(const float* __restrict__ besta, const float* __restrict__ bestc,
+                         const float* __restrict__ seca, const float* __restrict__ secc,
+                         const float* __restrict__ done, const float* __restrict__ tval,
+                         const float* __restrict__ boards, float* __restrict__ bd,
+                         float* __restrict__ patha, float* __restrict__ psgn,
+                         float* __restrict__ meta, int B, int C, int K, int max_depth,
+                         int cells) {
   constexpr int W = Game::kWords;
   const int L = Game::kBoardCells > 0 ? Game::kBoardCells : cells;
-  const int T = blockDim.x;
   extern __shared__ unsigned char round_counts[];
-  unsigned char* taken_best = round_counts;              // [C][T]
-  unsigned char* taken_second = round_counts + (size_t)C * T;
-  const int b0 = blockIdx.x * T;
-  const int games = min(T, B - b0);
-  // zero the counters and this block's rows of the K path records
-  for (int i = threadIdx.x; i < 2 * C * T; i += T) round_counts[i] = 0;
-  for (int k = 0; k < K; ++k) {
-    const size_t first = ((size_t)k * B + b0) * C;
-    for (int i = threadIdx.x; i < games * C; i += T) {
-      patha[first + i] = 0.f;
-      psgn[first + i] = 0.f;
-    }
-  }
-  __syncthreads();
-  const int b = b0 + threadIdx.x;
-  if (b >= B) return;
-
-  uint64_t root_mine[W], root_theirs[W];
-  load_board(boards + (size_t)b * L, L, root_mine, root_theirs);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kDescendWarps + warp;
+  if (b >= B) return;  // the whole warp
+  unsigned char* taken_best = round_counts + (size_t)warp * 2 * C;   // [C]
+  unsigned char* taken_second = taken_best + C;                      // [C]
   const size_t row = (size_t)b * C;
   const bool root_live = done[row] < 0.5f;  // a terminal root is not descended
+  const float root_ba = besta[row], root_bc = bestc[row];
+  const float root_sa = seca[row], root_sc = secc[row];
+  uint64_t root_mine[W], root_theirs[W];
+  warp_load_board(boards + (size_t)b * L, L, lane, root_mine, root_theirs);
+  // zero the counters and the game's rows of the K path records
+  for (int i = lane; i < 2 * C; i += 32) taken_best[i] = 0;
+  for (int k = 0; k < K; ++k) {
+    const size_t prow = ((size_t)k * B + b) * C;
+    for (int c = lane; c < C; c += 32) {
+      patha[prow + c] = 0.f;
+      psgn[prow + c] = 0.f;
+    }
+  }
+  __syncwarp();  // every lane's zeros before the counters are read and the path written
+
   for (int k = 0; k < K; ++k) {
     uint64_t mine[W], theirs[W];
 #pragma unroll
@@ -810,22 +857,27 @@ __global__ void descend_round_kernel(const float* __restrict__ besta,
     int node = 0, depth = 0, leaf = -1;
     float psign = 1.f;
     float exp = 0.f, term = 0.f, cut = 0.f, dup = 0.f, exp_node = 0.f, exp_action = 0.f;
+    float ba = root_ba, bc = root_bc, sa = root_sa, sc = root_sc;
     bool act = root_live;
     while (act) {
       // the runner-up when there is one and this round took it less often
       // than the best action here
-      unsigned char* cnt_best = taken_best + (size_t)node * T + threadIdx.x;
-      unsigned char* cnt_second = taken_second + (size_t)node * T + threadIdx.x;
-      const float a2 = seca[row + node];
-      const bool use2 = a2 > -0.5f && *cnt_second < *cnt_best;
-      const float af = use2 ? a2 : besta[row + node];
-      const float code = use2 ? secc[row + node] : bestc[row + node];
-      unsigned char* taken = use2 ? cnt_second : cnt_best;
-      const bool again = *taken > 0;  // read before this descent's take
-      *taken += 1;
-      patha[prow + node] = af + 1.f;
-      psgn[prow + node] = psign;
-      Game::step(mine, theirs, (int)af);
+      const unsigned char n_best = taken_best[node];
+      const unsigned char n_second = taken_second[node];
+      const bool use2 = sa > -0.5f && n_second < n_best;
+      const float af = use2 ? sa : ba;
+      const float code = use2 ? sc : bc;
+      const bool again = (use2 ? n_second : n_best) > 0;  // read before this descent's take
+      __syncwarp();  // every lane has read the counters before lane 0 takes
+      if (lane == 0) {
+        if (use2) {
+          taken_second[node] = n_second + 1;
+        } else {
+          taken_best[node] = n_best + 1;
+        }
+        patha[prow + node] = af + 1.f;
+        psgn[prow + node] = psign;
+      }
 
       const bool cterm = code < -1.5f;
       const bool unexp = !cterm && code < -0.5f;
@@ -833,6 +885,14 @@ __global__ void descend_round_kernel(const float* __restrict__ besta,
       const bool live = !unexp && !cterm;
       const bool cutoff = live && depth + 1 >= max_depth;
       const bool go = live && !cutoff;
+      if (go) {
+        const size_t at = row + (int)child;
+        ba = besta[at];
+        bc = bestc[at];
+        sa = seca[at];
+        sc = secc[at];
+      }
+      Game::step(mine, theirs, (int)af);
       if (unexp) {
         exp = 1.f;
         exp_node = (float)node;
@@ -847,16 +907,11 @@ __global__ void descend_round_kernel(const float* __restrict__ besta,
       psign = -psign;
       act = go;
     }
-    store_board(bd + ((size_t)k * B + b) * L, L, mine, theirs);
-    float* m = meta + ((size_t)k * B + b) * 8;
-    m[0] = exp;
-    m[1] = term;
-    m[2] = psign;
-    m[3] = leaf >= 0 ? tval[row + leaf] : 0.f;
-    m[4] = cut;
-    m[5] = exp_node;
-    m[6] = exp_action;
-    m[7] = dup;
+    __syncwarp();  // this descent's takes before the next descent's reads
+
+    const float v_term = leaf >= 0 ? tval[row + leaf] : 0.f;
+    warp_store_leaf(bd + ((size_t)k * B + b) * L, meta + ((size_t)k * B + b) * 8, L, lane, mine,
+                    theirs, exp, term, psign, v_term, cut, exp_node, exp_action, dup);
   }
 }
 
@@ -1276,12 +1331,13 @@ unsigned int blocks_for(size_t items, int threads) {
   return (unsigned int)((items + threads - 1) / threads);
 }
 
+// kDescendWarps games (warps) a block.
 template <class Game>
 int launch_descend(const float* besta, const float* bestc, const float* done,
                    const float* tval, const float* boards, float* bd, float* patha,
                    float* psgn, float* meta, int B, int C, int max_depth, int cells,
                    void* stream) {
-  descend_kernel<Game><<<blocks_for(B, kDescendThreads), kDescendThreads, 0,
+  descend_kernel<Game><<<blocks_for(B, kDescendWarps), kDescendThreads, 0,
                          (cudaStream_t)stream>>>(
       besta, bestc, done, tval, boards, bd, patha, psgn, meta, B, C, max_depth, cells);
   return (int)cudaGetLastError();
@@ -1294,14 +1350,14 @@ int launch_descend_round(const float* besta, const float* bestc, const float* se
                          const float* secc, const float* done, const float* tval,
                          const float* boards, float* bd, float* patha, float* psgn, float* meta,
                          int B, int C, int K, int max_depth, int cells, void* stream) {
-  const size_t smem = 2 * (size_t)C * kDescendThreads;
+  const size_t smem = 2 * (size_t)C * kDescendWarps;
   if (K < 1 || K > 255 || smem > (size_t)kMaxSharedBytes) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         descend_round_kernel<Game>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  descend_round_kernel<Game><<<blocks_for(B, kDescendThreads), kDescendThreads, smem,
+  descend_round_kernel<Game><<<blocks_for(B, kDescendWarps), kDescendThreads, smem,
                                (cudaStream_t)stream>>>(
       besta, bestc, seca, secc, done, tval, boards, bd, patha, psgn, meta, B, C, K, max_depth,
       cells);
@@ -1432,7 +1488,7 @@ int az_refresh_dense(const float* n, const float* w, const float* p,
   return (int)cudaGetLastError();
 }
 
-// The round entries: K descents per game (1 <= K <= 255, C <= 3632 nodes),
+// The round entries: K descents per game (1 <= K <= 255, C <= 29056 nodes),
 // outputs K-major.
 int az_descend_round(const float* besta, const float* bestc, const float* seca,
                      const float* secc, const float* done, const float* tval,

@@ -434,7 +434,7 @@ def refresh_dense(n, w, p, code, cpuct: float):
 
 
 MAX_ROUND_K = 16          # csrc/hybrid.cu kMaxRoundK: descents per round the merge takes
-ROUND_MAX_NODES = 3632    # the round descend's 2 x C x 32 counter bytes in 227 KB of shared memory
+ROUND_MAX_NODES = 29056   # the round descend: 2 x C counter bytes a game, 4 games a block, 227 KB
 
 
 def _descend_round(entry: str, besta, bestc, seca, secc, done, tval, boards, max_depth: int, ops,

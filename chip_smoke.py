@@ -18,9 +18,9 @@ card, in phases:
            compiled with nvcc for sm_90a, one process per source, and linked
            into one library, with the build seconds and ptxas's register
            report, and the registers, stack and static shared bytes of the
-           three MLP kernels, of the two uniform fused kernels and of the
-           two A <= 8 merges (these four must have no stack frame and no
-           spill);
+           three MLP kernels, of the two uniform fused kernels, of the two
+           A <= 8 merges and of the eight hybrid descends (these twelve must
+           have no stack frame and no spill);
 3. kernels vs plain: each kernel against its plain PyTorch version at the
            main path's shapes (B=4096, C=101, A=7), on tree planes taken
            from a few simulations of the plain search on random positions
@@ -226,6 +226,15 @@ warm-up and C4_STEPS timed steps, one profiled step) and one K=4 search
 of phase 11's Connect-Four roots, timed. It too runs against older trees
 (since the K=4 rounds), so the merges of two trees are compared in one
 call, in turns.
+
+``python3 chip_smoke.py --descends`` does the same for the hybrid
+descends: the build's report of ``descend_kernel`` and
+``descend_round_kernel`` of each game (not gated), then each game's descend
+at K=1 and its round descend at K=4 held bit-equal to plain on the planes
+of phases 3, 8, 9, 10 and 15 (Connect-Four B=4096; Othello, Gomoku 9, 15
+and 19 and Hex B=1024; C=101), with DESCEND_REPS readings of the device
+time per launch each and its bound. It calls only entry points the package
+has had since the K=4 rounds, so it too compares two trees in one call.
 """
 
 from __future__ import annotations
@@ -270,6 +279,11 @@ SWEEP_BS = (8192, 16384, 32768, 65536)   # the uniform fused kernels' batch swee
 FUSED_KERNELS = ("fused_kernel", "fused_rounds_kernel")   # the uniform fused kernels' ptxas names
 MERGE_KERNELS = ("merge_kernel", "merge_round_kernel")    # the A <= 8 merges' ptxas names
 MERGE_REPS = 3            # --merges: device-time readings of each A <= 8 merge
+DESCEND_REPS = 3          # --descends: device-time readings of each descend
+# the hybrid descends' ptxas names: each template's instance of each game
+DESCEND_KERNELS = tuple(f"{d}_kernelINS_{g}" for d in ("descend", "descend_round")
+                        for g in ("15ConnectFourGame", "11OthelloGame", "10GomokuGameILi8E",
+                                  "7HexGame"))
 C4_STEPS = 5              # --merges: timed C4 ResNet actor steps
 
 OTH_B = 1024              # Othello full preset (examples/train_othello.py): games per batch
@@ -1178,28 +1192,24 @@ def capture_round_args(game, apply_fn, cfg, roots, noise, rounds: int = ROUND_WA
     return captured["descend_round"], captured["merge_round"]
 
 
-def rounds_vs_plain(game, d_args, m_args, card: str) -> dict:
-    """The game's round descend, the round merge and the top-2 refresh
-    against their plain versions on the same arguments: bit-equal outputs,
-    then each timed in turns. Returns their result entries."""
+def descend_round_vs_plain(d_args) -> tuple:
+    """The game's round descend (routed as ``kernels.descend_round`` routes
+    it) against ``hybrid.descend_round`` on the same arguments: bit-equal
+    outputs. Returns ``(name, wrapper, result entry, runner-up takes,
+    duplicates)``."""
     from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.mcts import hybrid
 
     ops, K = d_args[8], d_args[9]
     B, C = d_args[0].shape
     L = d_args[6].shape[1]
-    A = m_args[0].shape[1]
-    dense = "_dense" if A > hybrid.UNROLLED_MAX_A else ""
-    d_name = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(ops)][3:]
-    m_name, r_name = f"merge_round{dense}", f"refresh2{dense}"
-    d_kernel, m_kernel, r_kernel = (getattr(kernels, n) for n in (d_name, m_name, r_name))
-    results = {}
-
-    out_k = d_kernel(*d_args)
+    name = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(ops)][3:]
+    kernel = getattr(kernels, name)
+    out_k = kernel(*d_args)
     out_p = hybrid.descend_round(*d_args)
     for nm, k, p in zip(("bd", "patha", "psgn", "meta"), out_k, out_p):
         if not bit_equal(k, p):
-            fail(f"{d_name} output {nm} differs from the plain version")
+            fail(f"{name} output {nm} differs from the plain version")
     patha, meta = out_p[1], out_p[3]
     seca = d_args[2]
     second = float(((patha - 1 == seca) & (patha > 0)).sum())
@@ -1209,10 +1219,28 @@ def rounds_vs_plain(game, d_args, m_args, card: str) -> dict:
     # K patha/psgn rows and K meta rows per game
     visited = float((patha > 0).any(dim=0).sum())
     leaves = float((meta[..., hybrid.M_TERM] + meta[..., hybrid.M_CUT]).sum())
-    results[d_name] = {
+    result = {
         "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(out_k, out_p)),
         **bound(F32 * (B * L + 4 * visited + B + leaves + K * (B * L + 2 * B * C + 8 * B)), 0.0),
     }
+    return name, kernel, result, second, dups
+
+
+def rounds_vs_plain(game, d_args, m_args, card: str) -> dict:
+    """The game's round descend, the round merge and the top-2 refresh
+    against their plain versions on the same arguments: bit-equal outputs,
+    then each timed in turns. Returns their result entries."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.mcts import hybrid
+
+    K = d_args[9]
+    B, C = d_args[0].shape
+    A = m_args[0].shape[1]
+    dense = "_dense" if A > hybrid.UNROLLED_MAX_A else ""
+    m_name, r_name = f"merge_round{dense}", f"refresh2{dense}"
+    m_kernel, r_kernel = (getattr(kernels, n) for n in (m_name, r_name))
+    d_name, d_kernel, d_result, second, dups = descend_round_vs_plain(d_args)
+    results = {d_name: d_result}
 
     results[m_name], merge_fns = merge_vs_plain(m_name, m_kernel, hybrid.merge_round, m_args)
     m_patha = m_args[7]
@@ -2087,6 +2115,57 @@ def merge_turns(card: str) -> None:
     timed_search("merges", game, apply_fn, cfg_k, roots, noise, card)
 
 
+def descend_turns(card: str) -> None:
+    """``--descends`` (see the module docstring)."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour, Gomoku, Hex, Othello
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        make_apply_fn,
+        make_uniform_model,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+
+    dev = torch.device("cuda", 0)
+    ptxas_lines(kernels.library(), DESCEND_KERNELS, gate=False)   # also an older tree's kernels
+
+    def resnet(game, channels):
+        A = game.num_actions
+        return make_apply_fn(convert_az_resnet(random_az_resnet_variables(
+            A, channels, 5, cells=game.flat_ops().size, seed=SEED), dtype=torch.bfloat16).to(dev))
+
+    c4, oth, g9, g15, g19, hx = ConnectFour(), Othello(), Gomoku(9), Gomoku(15), Gomoku(19), Hex()
+    cells = (   # the planes of phases 3, 8, 9, 10 and 15: game, B, model, depth, Dirichlet, moves
+        (c4, B, resnet(c4, 64), MAX_DEPTH, 1.0, 30),
+        (oth, OTH_B, resnet(oth, OTH_CHANNELS), OTH_MAX_DEPTH, OTH_DIRICHLET, 40),
+        (g9, GMK_B, resnet(g9, GMK_CHANNELS), GMK_MAX_DEPTH, GMK_DIRICHLET, g9.num_actions // 2),
+        (g15, GMK_B, make_uniform_model(g15).apply_fn, GMK15_MAX_DEPTH, None, g15.num_actions // 2),
+        (g19, GMK_B, make_uniform_model(g19).apply_fn, GMK15_MAX_DEPTH, None, g19.num_actions // 3),
+        (hx, HEX_B, resnet(hx, GMK_CHANNELS), HEX_MAX_DEPTH, HEX_DIRICHLET, 30),
+    )
+    for game, batch, apply_fn, depth, alpha, moves in cells:
+        A = game.num_actions
+        roots = random_positions(game, batch, moves, SEED, dev)
+        noise = None if alpha is None else sample_draws(
+            torch.Generator(device=dev).manual_seed(SEED), batch, A, alpha, dev).dirichlet
+        for K in (1, ROUND_K):
+            cfg = MCTSConfig(num_sims=SIMS, max_depth=depth, dirichlet_alpha=alpha, parallel_sims=K)
+            if K == 1:
+                d_args, _ = capture_search_args(game, apply_fn, cfg, roots, noise)
+                name = kernels.descend_entry(game.flat_ops())[3:]
+                kernel = getattr(kernels, name)
+                result, _, _ = descend_vs_plain(name, kernel, d_args)
+            else:
+                d_args, _ = capture_round_args(game, apply_fn, cfg, roots, noise)
+                name, kernel, result, _, _ = descend_round_vs_plain(d_args)
+            devs = [device_ms(lambda: kernel(*d_args)) for _ in range(DESCEND_REPS)]
+            print(f"[descends] {name}, {game.name}, B={batch}, C={cfg.nodes}, K={K}: bit-equal to "
+                  f"plain; {', '.join(f'{d:.4f}' for d in devs)} ms of device time per launch; "
+                  f"bound {result['bound_ms']:.5f} ms ({result['bound_by']}) | {card}", flush=True)
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -2167,6 +2246,9 @@ def main() -> int:
     if sys.argv[1:] == ["--merges"]:
         merge_turns(card)
         return 0
+    if sys.argv[1:] == ["--descends"]:
+        descend_turns(card)
+        return 0
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
@@ -2177,18 +2259,16 @@ def main() -> int:
         if ln.startswith("[") or "entry function" in ln or "registers" in ln or "spill" in ln:
             print(f"[build] {ln.strip()}", flush=True)
     mlp_kernels = ("fused_mlp_kernel", "fused_mlp_rounds_kernel", "mlp_eval_kernel")
-    # the dense merges' instances (J actions a lane) and the Gomoku
-    # descends (8 board words), by a piece of their mangled names
+    # the dense merges' instances (J actions a lane), by a piece of their
+    # mangled names
     instances = {f"merge{r}_dense_kernel<{j}>": f"merge{r}_dense_kernelILi{j}E"
                  for r in ("", "_round") for j in (4, 8, 16)}
-    instances.update({f"{d}_kernel<GomokuGame<8>>": f"{d}_kernelINS_10GomokuGameILi8E"
-                      for d in ("descend", "descend_round")})
     report = ptxas_report(lib.build_log, (*mlp_kernels, *instances.values()))
     for name in (*mlp_kernels, *instances):
         print(f"[build] ptxas -v {name}: "
               f"{report.get(instances.get(name, name), 'not in the build log (a cached build)')}",
               flush=True)
-    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS))
+    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS, *DESCEND_KERNELS))
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
     variables = random_az_resnet_variables(A, channels=64, blocks=5, seed=SEED)

@@ -2,14 +2,14 @@
 fused.cu and int8_tower.cu, with c4.cuh, othello.cuh and mlp.cuh), compiled with g++ against
 a CPU stand-in for the CUDA built-ins (tests/cuda_emu/cuda_runtime.h,
 cuda_bf16.h) and run on host memory: every descend, merge and refresh call
-of whole hybrid searches (Connect-Four through the A<=8 kernels, Othello
-through its descend and the dense merge and refresh) must be bit-equal
-to the plain PyTorch versions, and the searches must reproduce the
-goldens; so must whole Gomoku (edges 4, 7, 8, 9, 15, 19, on the descends'
-8-word boards) and Hex searches through their descend instances and the
-dense merge and refresh, and every call of the K>1 round kernels (the
-uniform fused kernels' whole searches are tests/test_torch_fused_emu.py's,
-on the same emulated library: tests/torch_parity.py ``emulated``). The
+of whole Connect-Four hybrid searches (through the A<=8 kernels) must be
+bit-equal to the plain PyTorch versions, and the searches must reproduce
+the goldens; so must every call of the K>1 round kernels in whole searches
+of all four games (the Othello, Gomoku and Hex K=1 searches are
+tests/test_torch_games_emu.py's, the uniform fused kernels' whole
+searches tests/test_torch_fused_emu.py's, the descends on synthetic trees
+tests/test_torch_descend_emu.py's, all on the same emulated library:
+tests/torch_parity.py ``emulated``). The
 dense merges work on the columns a merge writes, one warp per
 game, with shuffle reductions: they are also held bit for bit against the
 plain full refresh on synthetic records (slots past the capacity,
@@ -71,77 +71,19 @@ from tests.torch_parity import (  # noqa: F401  (emulated: a fixture)
     assert_order_free,
     bits,
     boards_from_seqs,
+    checked_kernels,
+    descend_round_through_kernel,
     emulated,
+    emulated_refresh,
     merge_case,
     order_free_mlp_apply,
     random_boards,
-    random_othello_boards,
     random_play_boards,
     torch_state,
 )
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 TG = ConnectFour()
-OTH = Othello()
-
-
-def _checked_kernels(lib, calls):
-    """SearchKernels running the emulated kernels AND the plain versions
-    on every call, asserting bit-equal outputs. Each call goes to the
-    kernel instance ``kernels`` routes it to on the card: descend by the
-    flat ops' type (``kernels.descend_entry``), merge and refresh by action
-    count."""
-
-    def descend(besta, bestc, done, tval, boards, max_depth, ops):
-        B, C = besta.shape
-        L = boards.shape[1]
-        assert L == ops.size
-        entry = kernels.descend_entry(ops)
-        outs = [torch.empty(B, L), torch.empty(B, C), torch.empty(B, C), torch.empty(B, 8)]
-        rc = getattr(lib.lib, entry)(
-            *(t.data_ptr() for t in (besta, bestc, done, tval, boards, *outs)),
-            B, C, max_depth, L, None,
-        )
-        assert rc == 0
-        for nm, got, want in zip(("bd", "patha", "psgn", "meta"), outs,
-                                 hybrid.descend(besta, bestc, done, tval, boards, max_depth, ops)):
-            assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
-        calls[entry] = calls.get(entry, 0) + 1
-        return tuple(outs)
-
-    def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot, cpuct):
-        B, A, C = n.shape
-        entry = "az_merge_dense" if A > hybrid.UNROLLED_MAX_A else "az_merge"
-        ref = [t.clone() for t in (n, w, p, code, done, tval, besta, bestc)]
-        planes = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc)
-        rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in planes), B, A, C, slot, cpuct, None)
-        assert rc == 0
-        hybrid.merge(*ref[:6], pm, patha, psgn, meta2, *ref[6:], slot, cpuct)
-        names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc")
-        for nm, got, want in zip(names, (n, w, p, code, done, tval, besta, bestc), ref):
-            assert torch.equal(bits(got), bits(want)), f"{entry} {nm} at slot {slot}"
-        calls[entry] = calls.get(entry, 0) + 1
-        return besta, bestc
-
-    def refresh(n, w, p, code, cpuct):
-        best, entry = _emulated_refresh(lib, n, w, p, code, cpuct)
-        calls[entry] = calls.get(entry, 0) + 1
-        return best
-
-    return SearchKernels(descend, merge, refresh)
-
-
-def _emulated_refresh(lib, n, w, p, code, cpuct):
-    """The refresh kernel for A (``az_refresh`` or ``az_refresh_dense``),
-    asserted bit-equal to the plain version: ``(best planes, entry)``."""
-    B, A, C = n.shape
-    entry = "az_refresh_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh"
-    best = [torch.empty(B, C), torch.empty(B, C)]
-    rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
-    assert rc == 0
-    for nm, got, want in zip(("besta", "bestc"), best, hybrid.refresh(n, w, p, code, cpuct)):
-        assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
-    return tuple(best), entry
 
 
 def test_emulated_kernels_reproduce_goldens(emulated):
@@ -150,7 +92,7 @@ def test_emulated_kernels_reproduce_goldens(emulated):
     calls = {}
     root_counts = make_hybrid_root_fn(
         TG, make_uniform_model(TG).apply_fn, MCTSConfig(num_sims=50, max_depth=64),
-        kernels=_checked_kernels(emulated, calls),
+        kernels=checked_kernels(emulated, calls),
     )
     counts = root_counts(torch_state(boards_from_seqs(spec["seqs"])))
     np.testing.assert_array_equal(counts.numpy().astype(int), np.asarray(spec["counts"]))
@@ -170,7 +112,7 @@ def test_emulated_kernels_bit_equal_plain_uniform(emulated, cfg, moves):
     calls = {}
     boards = torch_state(random_boards(40, moves, seed=moves))
     counts = make_hybrid_root_fn(
-        TG, make_uniform_model(TG).apply_fn, cfg, kernels=_checked_kernels(emulated, calls)
+        TG, make_uniform_model(TG).apply_fn, cfg, kernels=checked_kernels(emulated, calls)
     )(boards)
     assert calls["az_merge"] == cfg.num_sims
     live = ~TG.terminal(boards)[0]
@@ -184,136 +126,10 @@ def test_emulated_kernels_bit_equal_plain_resnet_dirichlet(emulated):
     apply_fn = make_apply_fn(convert_az_resnet(random_az_resnet_variables(7, 8, 1, seed=3), dtype=torch.float32))
     noise = sample_draws(torch.Generator().manual_seed(0), 32, 7, 1.0, "cpu").dirichlet
     calls = {}
-    make_hybrid_root_fn(TG, apply_fn, cfg, kernels=_checked_kernels(emulated, calls))(
+    make_hybrid_root_fn(TG, apply_fn, cfg, kernels=checked_kernels(emulated, calls))(
         torch_state(random_boards(32, 16, seed=9)), noise
     )
     assert calls == {"az_descend": 20, "az_merge": 20, "az_refresh": 1}
-
-
-def test_emulated_othello_kernels_reproduce_goldens(emulated):
-    with open(os.path.join(HERE, "golden_counts.json")) as f:
-        spec = json.load(f)["othello"]
-    states = []
-    for seq in spec["seqs"]:
-        s = OTH.init(1, "cpu")
-        for a in seq:
-            s = OTH.step(s, torch.tensor([a]))
-        states.append(s)
-    calls = {}
-    counts = make_hybrid_root_fn(
-        OTH, make_uniform_model(OTH).apply_fn, MCTSConfig(num_sims=50, max_depth=64),
-        kernels=_checked_kernels(emulated, calls),
-    )(torch.cat(states))
-    np.testing.assert_array_equal(counts.numpy().astype(int), np.asarray(spec["counts"]))
-    assert calls == {"az_descend_othello": 50, "az_merge_dense": 50, "az_refresh_dense": 1}
-
-
-@pytest.mark.parametrize(
-    "cfg,moves,dirichlet",
-    [
-        (MCTSConfig(num_sims=24, max_depth=80), 20, None),
-        (MCTSConfig(num_sims=24, max_depth=80), 56, None),                  # passes, endgames
-        (MCTSConfig(num_sims=20, max_depth=3, cpuct=2.5), 10, None),        # depth cutoffs
-        (MCTSConfig(num_sims=20, max_depth=80, max_nodes=8), 30, None),     # slots run out
-        (MCTSConfig(num_sims=16, max_depth=80, dirichlet_alpha=0.3), 6, 0.3),
-    ],
-    ids=["midgame", "endgames", "max_depth3", "max_nodes8", "dirichlet"],
-)
-def test_emulated_othello_kernels_bit_equal_plain(emulated, cfg, moves, dirichlet):
-    """Whole Othello searches (40 games: a full descend block of 32 and a
-    ragged one) with an f32 AZResNet-8x1 prior and value, so W backs up
-    values of both signs and the cutoff backs up the heuristic: every
-    Othello descend, dense merge and dense refresh call bit-equal to the
-    plain versions."""
-    apply_fn = make_apply_fn(convert_az_resnet(random_az_resnet_variables(65, 8, 1, cells=64, seed=moves),
-                                               dtype=torch.float32))
-    boards = torch_state(random_othello_boards(40, moves, seed=moves))
-    noise = None
-    if dirichlet is not None:
-        noise = sample_draws(torch.Generator().manual_seed(3), 40, 65, dirichlet, "cpu").dirichlet
-    calls = {}
-    counts = make_hybrid_root_fn(OTH, apply_fn, cfg, kernels=_checked_kernels(emulated, calls))(boards, noise)
-    assert calls == {"az_descend_othello": cfg.num_sims, "az_merge_dense": cfg.num_sims,
-                     "az_refresh_dense": 1}
-    live = ~OTH.terminal(boards)[0]
-    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
-
-
-@pytest.mark.parametrize(
-    "game,moves,cfg,model",
-    [
-        (Gomoku(7), 10, MCTSConfig(num_sims=16, max_depth=48), "uniform"),
-        (Gomoku(7), 40, MCTSConfig(num_sims=16, max_depth=48), "uniform"),      # terminal children
-        (Gomoku(8), 12, MCTSConfig(num_sims=16, max_depth=48, max_nodes=8), "uniform"),
-        (Gomoku(9), 20, MCTSConfig(num_sims=16, max_depth=3, cpuct=2.5), "resnet"),   # cutoffs
-        (Gomoku(15), 9, MCTSConfig(num_sims=12, max_depth=64), "uniform"),
-        (Gomoku(4, 4), 5, MCTSConfig(num_sims=16, max_depth=48), "uniform"),   # A=16: lanes 16-31 idle
-        (Gomoku(19), 40, MCTSConfig(num_sims=12, max_depth=64), "uniform"),    # 8-word boards, A=361
-        (Hex(), 0, MCTSConfig(num_sims=16, max_depth=56), "uniform"),
-        (Hex(), 30, MCTSConfig(num_sims=16, max_depth=56), "resnet"),          # terminal children
-        (Hex(), 12, MCTSConfig(num_sims=16, max_depth=3, max_nodes=8), "uniform"),
-    ],
-    ids=["gomoku7", "gomoku7_endgames", "gomoku8_max_nodes8", "gomoku9_resnet_max_depth3",
-         "gomoku15", "gomoku4", "gomoku19", "hex_opening", "hex_resnet_endgames",
-         "hex_max_depth3_max_nodes8"],
-)
-def test_emulated_gomoku_and_hex_kernels_bit_equal_plain(emulated, game, moves, cfg, model):
-    """Whole Gomoku and Hex searches (40 games: a full descend block of 32
-    and a ragged one; random positions played past the end, so some are
-    finished and some children terminal) with the uniform model or an f32
-    AZResNet-4x1 (W of both signs): every call of the game's descend
-    instance, the dense merge and the dense refresh bit-equal to the plain
-    versions, with exactly one launch of each per simulation and one
-    refresh."""
-    A = game.num_actions
-    apply_fn = make_uniform_model(game).apply_fn
-    if model == "resnet":
-        apply_fn = make_apply_fn(convert_az_resnet(
-            random_az_resnet_variables(A, 4, 1, cells=A, seed=moves), dtype=torch.float32))
-    boards = torch_state(random_play_boards(game, 40, moves, seed=moves, freeze_done=False))
-    calls = {}
-    counts = make_hybrid_root_fn(game, apply_fn, cfg, kernels=_checked_kernels(emulated, calls))(boards)
-    entry = kernels.descend_entry(game.flat_ops())
-    if isinstance(game, Hex):
-        assert entry == "az_descend_hex"
-    else:
-        assert entry == "az_descend_gomoku"
-    assert calls == {entry: cfg.num_sims, "az_merge_dense": cfg.num_sims, "az_refresh_dense": 1}
-    live = ~game.terminal(boards)[0]
-    assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
-
-
-@pytest.mark.parametrize("game", [Gomoku(5), Gomoku(7), Gomoku(8), Gomoku(9), Gomoku(15), Gomoku(16),
-                                  Gomoku(17), Gomoku(19), Gomoku(22), Hex()],
-                         ids=["gomoku5", "gomoku7", "gomoku8", "gomoku9", "gomoku15", "gomoku16",
-                              "gomoku17", "gomoku19", "gomoku22", "hex"])
-def test_emulated_descend_steps_every_action(emulated, game):
-    """The game's descend instance on synthetic best planes whose path takes
-    EVERY action from each of two positions (occupied cells of both colours
-    included, which a search never picks), then a second edge to another
-    action: leaf boards and path records bit-equal to the plain descend,
-    whose step is the flat ops'."""
-    ops = game.flat_ops()
-    A = L = ops.size
-    boards = ops.from_state(torch_state(random_play_boards(game, 2, A // 3, seed=A, freeze_done=False)))
-    B, C = 2 * A, 3
-    roots = boards.repeat_interleave(A, dim=0)
-    acts = torch.arange(A, dtype=torch.float32).repeat(2)
-    besta = torch.stack([acts, (acts * 7 + 3) % A, torch.zeros(B)], dim=1)
-    calls = {}
-    descend = _checked_kernels(emulated, calls).descend
-    for second_edge in (False, True):          # one step; two steps (then unexpanded)
-        bestc = torch.full((B, C), -1.0)
-        if second_edge:
-            bestc[:, 0] = 1.0
-        bd, *_ = descend(besta, bestc, torch.zeros(B, C), torch.zeros(B, C), roots, 48, ops)
-        want = ops.step(roots, acts[:, None])
-        if second_edge:
-            want = ops.step(want, besta[:, 1:2])
-        assert torch.equal(bd, want + 0.0)
-    assert calls == {kernels.descend_entry(ops): 2}
-    occupied = roots[torch.arange(B), acts.long()]
-    assert (occupied == 1).any() and (occupied == -1).any()
 
 
 @pytest.mark.parametrize("A", [49, 65, 81, 225])
@@ -331,7 +147,7 @@ def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
     p[:, 3::5] = -1e30
     p[1, :, 4] = -1e30                                   # an all-illegal node
     code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
-    (best_a, best_c), entry = _emulated_refresh(emulated, n, w, p, code, 1.0)
+    (best_a, best_c), entry = emulated_refresh(emulated, n, w, p, code, 1.0)
     assert entry == "az_refresh_dense"
     assert best_a[1, 4] == 0 and best_c[1, 4] == code[1, 0, 4]
     sq = torch.sqrt(n.sum(dim=1) + 1e-6)[:, None]
@@ -347,7 +163,7 @@ def test_emulated_merge_dense_cases(emulated, case, A):
     plain merge's full refresh."""
     args = merge_case(A, 1, case, seed=A)
     calls = {}
-    merge = _checked_kernels(emulated, calls).merge
+    merge = checked_kernels(emulated, calls).merge
     n, patha, meta2 = args[0], args[7], args[9]
     before = n.clone()
     merge(*args)
@@ -625,18 +441,8 @@ def _checked_round_kernels(lib, calls):
     capacity."""
 
     def descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K):
-        B, C = besta.shape
-        L = boards.shape[1]
-        entry = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(ops)]
-        outs = [torch.empty(K, B, L), torch.empty(K, B, C), torch.empty(K, B, C), torch.empty(K, B, 8)]
-        rc = getattr(lib.lib, entry)(
-            *(t.data_ptr() for t in (besta, bestc, seca, secc, done, tval, boards, *outs)),
-            B, C, K, max_depth, L, None,
-        )
-        assert rc == 0
-        want = hybrid.descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K)
-        for nm, got, ref in zip(("bd", "patha", "psgn", "meta"), outs, want):
-            assert torch.equal(bits(got), bits(ref)), f"{entry} {nm}"
+        outs, entry = descend_round_through_kernel(lib, besta, bestc, seca, secc, done, tval, boards,
+                                                   max_depth, ops, K)
         patha, meta = outs[1], outs[3]
         calls[entry] = calls.get(entry, 0) + 1
         calls["second"] += int(((patha - 1 == seca) & (patha > 0)).sum())
@@ -705,8 +511,8 @@ def _emulated_refresh2(lib, n, w, p, code, cpuct):
          "hex_K4_resnet", "hex_K2_max_nodes10"],
 )
 def test_emulated_round_kernels_bit_equal_plain(emulated, game, moves, cfg, model):
-    """Whole K>1 searches (40 games: a full descend block of 32 and a
-    ragged one) through the emulated round kernels, every call of the
+    """Whole K>1 searches (40 games: ten descend blocks of four warps, a
+    game each) through the emulated round kernels, every call of the
     game's round descend, the round merge and the top-2 refresh bit-equal to
     the plain versions on the same planes, one launch of each per round
     and one refresh; runner-up takes occur, and at K=4 duplicate

@@ -8,8 +8,12 @@ into each package's state, and MLPNet weights on a dyadic grid whose
 forward is the same in every order of the adds; synthetic merge records
 (``merge_case``). Also the ``emulated`` fixture: the CUDA kernel library
 built with g++ against the CPU stand-in of tests/cuda_emu/, which
-tests/test_torch_kernels.py, tests/test_torch_fused_emu.py and
-tests/test_torch_merge_emu.py share.
+tests/test_torch_kernels.py, tests/test_torch_fused_emu.py,
+tests/test_torch_merge_emu.py, tests/test_torch_descend_emu.py and
+tests/test_torch_games_emu.py share, and its kernels run from it against
+the plain versions (``descend_through_kernel``,
+``descend_round_through_kernel``, ``checked_kernels`` for whole hybrid
+searches, ``emulated_refresh``).
 """
 
 import ctypes
@@ -30,7 +34,7 @@ from alphazero_tpu.games.othello import OthelloState
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.games import ConnectFour as TorchConnectFour
 from alphazero_tpu_torch.games import Othello as TorchOthello
-from alphazero_tpu_torch.mcts import hybrid
+from alphazero_tpu_torch.mcts import SearchKernels, hybrid
 from alphazero_tpu_torch.mcts.fused import _ordered_dot
 from alphazero_tpu_torch.models import convert_mlp, make_apply_fn, order_free_mlp_variables
 
@@ -219,6 +223,96 @@ def emulated(tmp_path_factory):
 def bits(t: torch.Tensor) -> torch.Tensor:
     """``t``'s float32 bits as int32, for bit-equality checks."""
     return t.contiguous().view(torch.int32)
+
+
+def descend_through_kernel(lib, besta, bestc, done, tval, boards, max_depth, ops):
+    """The descend instance that ``kernels`` routes ``ops`` to on the card
+    (``kernels.descend_entry``), run from the emulated library ``lib`` on
+    these arguments and held bit-equal to ``hybrid.descend``: ``(bd, patha,
+    psgn, meta), entry``."""
+    B, C = besta.shape
+    L = boards.shape[1]
+    assert L == ops.size
+    entry = kernels.descend_entry(ops)
+    outs = [torch.empty(B, L), torch.empty(B, C), torch.empty(B, C), torch.empty(B, 8)]
+    rc = getattr(lib.lib, entry)(
+        *(t.data_ptr() for t in (besta, bestc, done, tval, boards, *outs)),
+        B, C, max_depth, L, None,
+    )
+    assert rc == 0
+    for nm, got, want in zip(("bd", "patha", "psgn", "meta"), outs,
+                             hybrid.descend(besta, bestc, done, tval, boards, max_depth, ops)):
+        assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
+    return tuple(outs), entry
+
+
+def descend_round_through_kernel(lib, besta, bestc, seca, secc, done, tval, boards, max_depth, ops,
+                                 K):
+    """The round descend instance that ``kernels`` routes ``ops`` to on the
+    card, run from the emulated library ``lib`` and held bit-equal to
+    ``hybrid.descend_round``: ``(bd, patha, psgn, meta), entry``, each
+    output K-major."""
+    B, C = besta.shape
+    L = boards.shape[1]
+    assert L == ops.size
+    entry = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(ops)]
+    outs = [torch.empty(K, B, L), torch.empty(K, B, C), torch.empty(K, B, C), torch.empty(K, B, 8)]
+    rc = getattr(lib.lib, entry)(
+        *(t.data_ptr() for t in (besta, bestc, seca, secc, done, tval, boards, *outs)),
+        B, C, K, max_depth, L, None,
+    )
+    assert rc == 0
+    want = hybrid.descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K)
+    for nm, got, ref in zip(("bd", "patha", "psgn", "meta"), outs, want):
+        assert torch.equal(bits(got), bits(ref)), f"{entry} {nm}"
+    return tuple(outs), entry
+
+
+def checked_kernels(lib, calls):
+    """SearchKernels running the emulated kernels AND the plain versions
+    on every call, asserting bit-equal outputs. Each call goes to the
+    kernel instance ``kernels`` routes it to on the card: descend by the
+    flat ops' type (``kernels.descend_entry``), merge and refresh by action
+    count."""
+
+    def descend(besta, bestc, done, tval, boards, max_depth, ops):
+        outs, entry = descend_through_kernel(lib, besta, bestc, done, tval, boards, max_depth, ops)
+        calls[entry] = calls.get(entry, 0) + 1
+        return outs
+
+    def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot, cpuct):
+        B, A, C = n.shape
+        entry = "az_merge_dense" if A > hybrid.UNROLLED_MAX_A else "az_merge"
+        ref = [t.clone() for t in (n, w, p, code, done, tval, besta, bestc)]
+        planes = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc)
+        rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in planes), B, A, C, slot, cpuct, None)
+        assert rc == 0
+        hybrid.merge(*ref[:6], pm, patha, psgn, meta2, *ref[6:], slot, cpuct)
+        names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc")
+        for nm, got, want in zip(names, (n, w, p, code, done, tval, besta, bestc), ref):
+            assert torch.equal(bits(got), bits(want)), f"{entry} {nm} at slot {slot}"
+        calls[entry] = calls.get(entry, 0) + 1
+        return besta, bestc
+
+    def refresh(n, w, p, code, cpuct):
+        best, entry = emulated_refresh(lib, n, w, p, code, cpuct)
+        calls[entry] = calls.get(entry, 0) + 1
+        return best
+
+    return SearchKernels(descend, merge, refresh)
+
+
+def emulated_refresh(lib, n, w, p, code, cpuct):
+    """The refresh kernel for A (``az_refresh`` or ``az_refresh_dense``),
+    asserted bit-equal to the plain version: ``(best planes, entry)``."""
+    B, A, C = n.shape
+    entry = "az_refresh_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh"
+    best = [torch.empty(B, C), torch.empty(B, C)]
+    rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
+    assert rc == 0
+    for nm, got, want in zip(("besta", "bestc"), best, hybrid.refresh(n, w, p, code, cpuct)):
+        assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
+    return tuple(best), entry
 
 
 MERGE_CASES = ("past_capacity", "terminal_link", "root_only", "ties_illegal", "lone_legal",
