@@ -18,9 +18,13 @@
 //               <- the same merge with _refresh's dense branch for larger
 //                  action spaces (hybrid.py:150-168; Othello A=65), which
 //                  refreshes only the columns the merge writes;
-//   az_refresh, az_refresh_dense
-//               <- the same two refreshes alone, which seed the first
-//                  best-action planes of a search (hybrid.py:815);
+//   az_refresh  <- the A<=8 refresh alone, which seeds the first best-action
+//                  planes of a search (hybrid.py:815);
+//   az_refresh_dense
+//               <- the dense refresh's seed of a fresh search (hybrid.py:815
+//                  on the planes of hybrid.py:800-815): only the roots'
+//                  column is computed, every other node's row is the empty
+//                  node's constant;
 //   az_descend_round, az_descend_round_othello, az_descend_round_gomoku,
 //   az_descend_round_hex
 //               <- descend_round_kernel (hybrid.py:437-577), K7a: a round's
@@ -30,9 +34,11 @@
 //                  unrolled and dense top-2 branches (hybrid.py:170-235),
 //                  K7b, each refreshing only the columns the K records
 //                  write;
-//   az_refresh2, az_refresh2_dense
-//               <- _refresh2 alone, which seeds a round search's first
-//                  top-2 planes (hybrid.py:874).
+//   az_refresh2 <- the A<=8 _refresh2 alone, which seeds a round search's
+//                  first top-2 planes (hybrid.py:874);
+//   az_refresh2_dense
+//               <- the dense _refresh2's seed of a fresh round search
+//                  (hybrid.py:874), designed as az_refresh_dense.
 // The plain PyTorch versions are descend/merge/refresh in
 // alphazero_tpu_torch/mcts/hybrid.py; the two must agree bit for bit.
 //
@@ -102,6 +108,22 @@
 //   bytes (~8x the useful bytes), and those scattered sectors, not their
 //   latency, set its time (it grows with A at a fixed number of columns);
 //   a node-major [B, C, A] layout would make a column contiguous.
+// * The dense seeds (az_refresh_dense, az_refresh2_dense) run once a search,
+//   on the fresh planes _init_planes leaves: the roots' priors in p[:, :, 0],
+//   n = w = p = 0 and code = -1 everywhere else. That is their
+//   precondition. Every column c >= 1 is then the empty node, whose A edges
+//   all score +0: its refresh is the constant (besta, bestc, seca, secc) =
+//   (0, -1, 1, -1). The roots' column has n = w = 0 and code = -1 as well,
+//   so its refresh is a function of the priors alone. The JAX kernel
+//   refreshes whole [Bb, A, C] tiles because a TPU block works on whole
+//   tiles (layout, not semantics); reading the four planes made the
+//   earlier thread-per-node seed move 4·B·A·C floats (372 MB at B=1024,
+//   A=225) at a third of HBM rate. One warp per game now loads the game's
+//   A priors (lane l: actions l, l + 32, ..., all in flight), scores and
+//   reduces them as merge_dense does, and writes the game's best rows
+//   lane-strided. What bounds it is B·A scattered 32-byte sectors (each
+//   prior is its own sector in [B, A, C]) plus the rows' stores and the
+//   launch.
 // * The untouched cells need no write because a search's planes never hold
 //   -0: counts, backups and priors start at +0 and x + y is -0 only when
 //   both are, so the reference's x * 1 + 0 on an untouched cell is x.
@@ -376,32 +398,6 @@ __global__ void refresh_kernel(const float* __restrict__ n,
   refresh_node(nv, wv, pv, cv, A, cpuct, besta + idx, bestc + idx);
 }
 
-// The dense refresh of one node: the first-max PUCT argmax over the A edges
-// of its A-strided column (stride C from `base`), streamed from memory in
-// two passes, the visit sum first. Any A.
-__device__ __forceinline__ void dense_refresh_node(const float* n, const float* w,
-                                                   const float* p, const float* code,
-                                                   size_t base, int A, int C, float cpuct,
-                                                   float* best_a, float* best_code) {
-  float total = 0.f;
-  for (int a = 0; a < A; ++a) {
-    total = __fadd_rn(total, n[base + (size_t)a * C]);  // integers: exact in any order
-  }
-  const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
-  float best = 0.f, ba = 0.f, bc = 0.f;
-  for (int a = 0; a < A; ++a) {
-    const size_t off = base + (size_t)a * C;
-    const float s = puct_score(n[off], w[off], p[off], sq, cpuct);
-    if (a == 0 || s > best) {
-      best = s;
-      ba = (float)a;
-      bc = code[off];
-    }
-  }
-  *best_a = ba;
-  *best_code = bc;
-}
-
 // ---------------------------------------------------------------------------
 // The dense merges (A > 8): one warp per game, one touched column at a time
 // ---------------------------------------------------------------------------
@@ -648,21 +644,6 @@ __global__ void merge_dense_kernel(float* __restrict__ n, float* __restrict__ w,
                            cpuct, lane, besta + row + col, bestc + row + col);
     }
   }
-}
-
-__global__ void refresh_dense_kernel(const float* __restrict__ n,
-                                     const float* __restrict__ w,
-                                     const float* __restrict__ p,
-                                     const float* __restrict__ code,
-                                     float* __restrict__ besta,
-                                     float* __restrict__ bestc,
-                                     int B, int A, int C, float cpuct) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * C) return;
-  const int b = (int)(idx / C);
-  const int c = (int)(idx - (size_t)b * C);
-  dense_refresh_node(n, w, p, code, (size_t)b * A * C + c, A, C, cpuct, besta + idx,
-                     bestc + idx);
 }
 
 // ---------------------------------------------------------------------------
@@ -928,22 +909,6 @@ __device__ __forceinline__ void top2_store(Top2 t, bool dense, size_t idx, float
   bestc[idx] = t.best_code;
   seca[idx] = t.sec_a;
   secc[idx] = t.sec_code;
-}
-
-// The top-2 of one node from its A-strided column in memory (stride C from
-// `base`), the visit sum first: any A.
-__device__ __forceinline__ Top2 dense_top2(const float* n, const float* w, const float* p,
-                                           const float* code, size_t base, int A, int C,
-                                           float cpuct) {
-  float total = 0.f;
-  for (int a = 0; a < A; ++a) total = __fadd_rn(total, n[base + (size_t)a * C]);  // exact
-  const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
-  Top2 t{};
-  for (int a = 0; a < A; ++a) {
-    const size_t off = base + (size_t)a * C;
-    top2_push(t, a, puct_score(n[off], w[off], p[off], sq, cpuct), code[off]);
-  }
-  return t;
 }
 
 __device__ __forceinline__ void store_if_changed(float* at, float old, float v) {
@@ -1292,9 +1257,8 @@ __global__ void merge_round_dense_kernel(float* __restrict__ n, float* __restric
   }
 }
 
-// The top-2 refresh alone, which seeds a round search's first planes
-// (_refresh2 at hybrid.py:874): A <= 8 from registers, or dense.
-template <bool kDense>
+// The A <= 8 top-2 refresh alone, which seeds a round search's first planes
+// (_refresh2 at hybrid.py:874), from registers.
 __global__ void refresh2_kernel(const float* __restrict__ n, const float* __restrict__ w,
                                 const float* __restrict__ p, const float* __restrict__ code,
                                 float* __restrict__ besta, float* __restrict__ bestc,
@@ -1306,25 +1270,90 @@ __global__ void refresh2_kernel(const float* __restrict__ n, const float* __rest
   const int c = (int)(idx - (size_t)b * C);
   const size_t base = (size_t)b * A * C + c;
   Top2 t{};
-  if (kDense) {
-    t = dense_top2(n, w, p, code, base, A, C, cpuct);
-  } else {
-    float nv[kMaxA], total = 0.f;
+  float nv[kMaxA], total = 0.f;
 #pragma unroll
-    for (int a = 0; a < kMaxA; ++a) {
-      nv[a] = a < A ? n[base + (size_t)a * C] : 0.f;
-      total = __fadd_rn(total, nv[a]);
-    }
-    const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
+  for (int a = 0; a < kMaxA; ++a) {
+    nv[a] = a < A ? n[base + (size_t)a * C] : 0.f;
+    total = __fadd_rn(total, nv[a]);
+  }
+  const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
 #pragma unroll
-    for (int a = 0; a < kMaxA; ++a) {
-      if (a < A) {
-        const size_t off = base + (size_t)a * C;
-        top2_push(t, a, puct_score(nv[a], w[off], p[off], sq, cpuct), code[off]);
-      }
+  for (int a = 0; a < kMaxA; ++a) {
+    if (a < A) {
+      const size_t off = base + (size_t)a * C;
+      top2_push(t, a, puct_score(nv[a], w[off], p[off], sq, cpuct), code[off]);
     }
   }
-  top2_store(t, kDense, idx, besta, bestc, seca, secc);
+  top2_store(t, false, idx, besta, bestc, seca, secc);
+}
+
+// The dense seed of a fresh search, one warp per game (kMergeWarps games a
+// block): _refresh (and with kTop2 _refresh2) of the planes _init_planes
+// leaves, which is its precondition: the roots' priors in p[:, :, 0], and
+// n = w = p = 0, code = -1 everywhere else. Only the game's A priors are
+// read: lane l loads those of actions l, l + 32, ... (J a lane, all in
+// flight together), scores each at n = w = 0 with the reference's
+// operations (puct_score; an illegal prior scores -1e30) and pushes them in
+// action order with strict comparisons; the warp then reduces in the
+// first-max order (score descending, action ascending), the dense branch's
+// result. Every child code is -1, so the root's best code is -1 and so is
+// its runner-up's, which is -1 (action and code) where no legal runner-up
+// exists. Every column c >= 1 is the empty node, whose edges all score +0:
+// best action 0, runner-up action 1, codes -1. The warp writes the game's
+// rows lane-strided (coalesced): the root's values at column 0, those
+// constants elsewhere; all are +0 or exact integers.
+template <int J, bool kTop2>
+__global__ void __launch_bounds__(kMergeWarpThreads)
+    seed_dense_kernel(const float* __restrict__ p, float* __restrict__ besta,
+                      float* __restrict__ bestc, float* __restrict__ seca,
+                      float* __restrict__ secc, int B, int A, int C, float cpuct) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kMergeWarps + (int)(threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
+  const float* p_root = p + (size_t)b * A * C;  // p[b, a, 0] at a * C
+  float pv[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int a = lane + 32 * j;
+    pv[j] = a < A ? p_root[(size_t)a * C] : 0.f;
+  }
+  const float sq = __fsqrt_rn(__fadd_rn(0.f, kPuctEps));  // the root's visit sum is 0
+  float root_a, root_sa = -1.f;
+  if constexpr (kTop2) {
+    Top2 t{kNoEdge, kNoEdge, kNoAction, -1.f, kNoAction, -1.f};
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int a = lane + 32 * j;
+      if (a < A) lane_top2_push(t, (float)a, puct_score(0.f, 0.f, pv[j], sq, cpuct), -1.f);
+    }
+    warp_top2(t);
+    root_a = t.best_a;
+    if (t.second > -1e29f) root_sa = t.sec_a;  // a legal runner-up
+  } else {
+    float best = kNoEdge, ba = kNoAction;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int a = lane + 32 * j;
+      if (a < A) {
+        const float sc = puct_score(0.f, 0.f, pv[j], sq, cpuct);
+        if (sc > best) {
+          best = sc;
+          ba = (float)a;
+        }
+      }
+    }
+    warp_first_max(best, ba);
+    root_a = ba;
+  }
+  const size_t row = (size_t)b * C;
+  for (int c = lane; c < C; c += 32) {
+    besta[row + c] = c == 0 ? root_a : 0.f;
+    bestc[row + c] = -1.f;
+    if constexpr (kTop2) {
+      seca[row + c] = c == 0 ? root_sa : 1.f;
+      secc[row + c] = -1.f;
+    }
+  }
 }
 
 unsigned int blocks_for(size_t items, int threads) {
@@ -1376,6 +1405,30 @@ int launch_merge_dense(float* n, float* w, float* p, float* code, float* done, f
                           (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha, psgn,
                                                   meta2, besta, bestc, B, A, C, slot, cpuct);
   return (int)cudaGetLastError();
+}
+
+// The dense seeds: kMergeWarps games (warps) a block, J actions a lane as
+// the dense merges keep them.
+template <int J, bool kTop2>
+int launch_seed_dense(const float* p, float* besta, float* bestc, float* seca, float* secc, int B,
+                      int A, int C, float cpuct, void* stream) {
+  seed_dense_kernel<J, kTop2><<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
+                                (cudaStream_t)stream>>>(p, besta, bestc, seca, secc, B, A, C,
+                                                        cpuct);
+  return (int)cudaGetLastError();
+}
+
+template <bool kTop2>
+int seed_dense(const float* p, float* besta, float* bestc, float* seca, float* secc, int B, int A,
+               int C, float cpuct, void* stream) {
+  if (A < 2 || A > kMaxDenseA) return (int)cudaErrorInvalidValue;
+  if (A <= 32 * 4) {
+    return launch_seed_dense<4, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+  }
+  if (A <= 32 * 8) {
+    return launch_seed_dense<8, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+  }
+  return launch_seed_dense<16, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
 template <int J>
@@ -1479,13 +1532,13 @@ int az_refresh(const float* n, const float* w, const float* p,
   return (int)cudaGetLastError();
 }
 
+// The dense seed of a fresh search (2 <= A <= 512): n, w and code are not
+// read; the planes must be as _init_planes leaves them (see
+// seed_dense_kernel).
 int az_refresh_dense(const float* n, const float* w, const float* p,
                      const float* code, float* besta, float* bestc, int B,
                      int A, int C, float cpuct, void* stream) {
-  refresh_dense_kernel<<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
-                         (cudaStream_t)stream>>>(n, w, p, code, besta, bestc, B,
-                                                 A, C, cpuct);
-  return (int)cudaGetLastError();
+  return seed_dense<false>(p, besta, bestc, nullptr, nullptr, B, A, C, cpuct, stream);
 }
 
 // The round entries: K descents per game (1 <= K <= 255, C <= 29056 nodes),
@@ -1567,19 +1620,18 @@ int az_refresh2(const float* n, const float* w, const float* p, const float* cod
                 float* bestc, float* seca, float* secc, int B, int A, int C, float cpuct,
                 void* stream) {
   if (A > kMaxA) return (int)cudaErrorInvalidValue;
-  refresh2_kernel<false><<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
-                           (cudaStream_t)stream>>>(n, w, p, code, besta, bestc, seca, secc, B, A,
-                                                   C, cpuct);
+  refresh2_kernel<<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
+                    (cudaStream_t)stream>>>(n, w, p, code, besta, bestc, seca, secc, B, A, C,
+                                            cpuct);
   return (int)cudaGetLastError();
 }
 
+// The dense top-2 seed of a fresh round search (2 <= A <= 512), as
+// az_refresh_dense.
 int az_refresh2_dense(const float* n, const float* w, const float* p, const float* code,
                       float* besta, float* bestc, float* seca, float* secc, int B, int A, int C,
                       float cpuct, void* stream) {
-  refresh2_kernel<true><<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
-                          (cudaStream_t)stream>>>(n, w, p, code, besta, bestc, seca, secc, B, A,
-                                                  C, cpuct);
-  return (int)cudaGetLastError();
+  return seed_dense<true>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
 }  // extern "C"

@@ -40,7 +40,9 @@ round. The merges update the search's best planes (``besta, bestc``, and
 ``seca, secc`` in rounds) in place and rewrite only the columns the merge
 touched, so they need those planes to be the refresh of the planes they
 are given, as the seed ``refresh``/``refresh2`` and every merge leave
-them. ``fused`` and ``fused_mlp`` run a whole Connect-Four
+them. The dense seeds ``refresh_dense``/``refresh2_dense`` take only a
+fresh search's planes (``mcts.hybrid._init_planes``), where every node
+but the root is empty: they read the roots' priors alone. ``fused`` and ``fused_mlp`` run a whole Connect-Four
 search in one launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the
 same in rounds of 1 <= K <= ``FUSED_MAX_K`` descents; their MLP
 evaluator runs on the bf16 tensor cores from weights in shared memory
@@ -356,6 +358,13 @@ def _check_dense_actions(name: str, A: int) -> None:
         raise ValueError(f"{name} takes at most {DENSE_MERGE_MAX_A} actions, got {A}")
 
 
+def _check_seed_actions(name: str, A: int) -> None:
+    """The dense seeds keep the dense merges' registers, and the empty
+    node's constant row needs a runner-up edge."""
+    if not 2 <= A <= DENSE_MERGE_MAX_A:
+        raise ValueError(f"{name} takes 2 to {DENSE_MERGE_MAX_A} actions, got {A}")
+
+
 def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int, cpuct: float):
     """``mcts.hybrid.merge``: in place on ``n, w, p, code, done, tval`` and
     the best planes ``besta, bestc``, which it returns. On CUDA, A <= 8 runs
@@ -413,7 +422,8 @@ def _refresh(entry: str, n, w, p, code, cpuct: float):
 def refresh(n, w, p, code, cpuct: float):
     """``mcts.hybrid.refresh``: the PUCT argmax planes of every node. On
     CUDA, A <= 8 runs this wrapper's kernel and larger A
-    ``refresh_dense``."""
+    ``refresh_dense``, which takes only a fresh search's planes (see
+    there)."""
     if _on_cpu(n, w, p, code):
         return _plain.refresh(n, w, p, code, cpuct)
     if n.shape[1] > _plain.UNROLLED_MAX_A:
@@ -424,10 +434,17 @@ def refresh(n, w, p, code, cpuct: float):
 
 
 def refresh_dense(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh``'s dense branch as a kernel, for any A (the
-    main path sends it A > 8)."""
+    """``mcts.hybrid.refresh``'s dense branch as a kernel, 2 <= A <= 512
+    (the main path sends it A > 8), for the seed of a fresh search: the
+    planes must be as ``mcts.hybrid._init_planes`` leaves them, the roots'
+    priors in ``p[:, :, 0]`` and ``n = w = p = 0``, ``code = -1``
+    everywhere else. There the kernel's planes are bit-equal to the plain
+    full refresh's; it reads only the roots' priors (every other node is
+    the empty node, whose refresh is the constant ``(0, -1)``), so on other
+    planes its result is not the refresh."""
     if _on_cpu(n, w, p, code):
         return _plain.refresh(n, w, p, code, cpuct)
+    _check_seed_actions("refresh_dense", n.shape[1])
     out = _refresh("az_refresh_dense", n, w, p, code, cpuct)
     refresh_dense.launches += 1
     return out
@@ -603,7 +620,8 @@ def _refresh2(entry: str, n, w, p, code, cpuct: float):
 def refresh2(n, w, p, code, cpuct: float):
     """``mcts.hybrid.refresh2``: the top-2 PUCT planes of every node. On
     CUDA, A <= 8 runs this wrapper's kernel and larger A
-    ``refresh2_dense``."""
+    ``refresh2_dense``, which takes only a fresh search's planes (see
+    there)."""
     if _on_cpu(n, w, p, code):
         return _plain.refresh2(n, w, p, code, cpuct)
     if n.shape[1] > _plain.UNROLLED_MAX_A:
@@ -614,10 +632,14 @@ def refresh2(n, w, p, code, cpuct: float):
 
 
 def refresh2_dense(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh2``'s dense branch as a kernel, for any A (the
-    main path sends it A > 8)."""
+    """``mcts.hybrid.refresh2``'s dense branch as a kernel, 2 <= A <= 512
+    (the main path sends it A > 8), for the seed of a fresh round search:
+    the precondition of ``refresh_dense``, under which its four planes are
+    bit-equal to the plain full refresh2's (every node but the root: ``(0,
+    -1, 1, -1)``)."""
     if _on_cpu(n, w, p, code):
         return _plain.refresh2(n, w, p, code, cpuct)
+    _check_seed_actions("refresh2_dense", n.shape[1])
     out = _refresh2("az_refresh2_dense", n, w, p, code, cpuct)
     refresh2_dense.launches += 1
     return out

@@ -18,7 +18,9 @@ memory; each simulation is
    install the new row at the lockstep slot, link parent -> child, back up
    along the path — followed by the PUCT refresh that keeps the argmax
    planes ``besta/bestc`` current for the next descent, in place. The
-   search seeds them once with ``refresh``; both kernels then refresh only
+   search seeds them once with ``refresh`` on its fresh planes (for A > 8
+   the kernel reads only the roots' priors: every other node is the empty
+   node, whose refresh is a constant); both merge kernels then refresh only
    the columns the merge wrote, which is exact because every other node's
    argmax is a function of its own unchanged column (the plain ``merge``
    refreshes every node).
@@ -387,7 +389,11 @@ def run_search(
     the leaf boards. ``heuristic(bd) -> f32[B, 1]``, when given, is backed
     up at depth cutoffs (None: they back up 0). Returns the final stat
     planes ``(n, w) f32[B, A, C]`` (the root's visit counts are
-    ``n[:, :, 0]``)."""
+    ``n[:, :, 0]``).
+
+    ``kernels.refresh`` seeds the best planes from the fresh planes of
+    ``_init_planes``, and only from those: the dense seed kernel
+    (``kernels.refresh_dense``) takes that as its precondition."""
     B = boards.shape[0]
     C = cfg.nodes
     cpuct = float(cfg.cpuct)
@@ -424,7 +430,9 @@ def run_rounds(
     for ``valid_terminal``, ``evaluate`` and ``heuristic``; descent k of
     round r installs at slot ``r*K + 1 + k`` unless that slot is past the
     capacity or the descent is a duplicate, which installs nothing but
-    still backs up its value."""
+    still backs up its value. ``kernels.refresh2`` seeds the top-2 planes
+    from ``_init_planes``' fresh planes, the dense seed kernel's
+    precondition, as in ``run_search``."""
     K = int(cfg.parallel_sims)
     if kernels.descend_round is None or kernels.merge_round is None or kernels.refresh2 is None:
         raise ValueError("parallel_sims > 1 needs the kernels' round entry points")

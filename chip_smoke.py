@@ -19,8 +19,9 @@ card, in phases:
            into one library, with the build seconds and ptxas's register
            report, and the registers, stack and static shared bytes of the
            three MLP kernels, of the two uniform fused kernels, of the two
-           A <= 8 merges and of the eight hybrid descends (these twelve must
-           have no stack frame and no spill);
+           A <= 8 merges, of the eight hybrid descends and of the six
+           instances of the dense seed (these eighteen must have no stack
+           frame and no spill);
 3. kernels vs plain: each kernel against its plain PyTorch version at the
            main path's shapes (B=4096, C=101, A=7), on tree planes taken
            from a few simulations of the plain search on random positions
@@ -80,7 +81,8 @@ card, in phases:
            12): (a) the Othello descend, the dense merge and the dense
            refresh against their plain versions at B=1024, C=101, A=65, on
            planes taken from a few simulations of the plain search on
-           random positions (bit-equal, both timed); (b) the uniform model
+           random positions (the refresh, a fresh search's seed, on that
+           search's fresh planes; bit-equal, both timed); (b) the uniform model
            reproduces ``tests/golden_counts.json`` for Othello with 50
            Othello descends and 50 dense merges; (c) one ResNet search at
            max_depth 4, where depth cutoffs back up the disc-differential
@@ -100,7 +102,8 @@ card, in phases:
            temp_threshold 8): (a) the Gomoku descend at Gomoku 9 and 15, the
            dense merge and refresh at A=81 and A=225, against their plain
            versions at B=1024, C=101 on planes from a few plain simulations
-           (bit-equal, both timed); (b) ``tests/tpu_goldens.json``'s
+           (the refresh on their fresh planes; bit-equal, both timed); (b)
+           ``tests/tpu_goldens.json``'s
            ``hybrid_gomoku_uniform_counts_head`` (initial position, B=256,
            16 sims, max_depth 32) and ``hybrid_gomoku15_uniform_counts_head``
            (positions of tests/test_fused.py's generator, rebuilt with
@@ -116,7 +119,8 @@ card, in phases:
 10. hex:   Hex on the hybrid engine, the ``full`` preset's search (B=1024,
            100 sims, max_depth 56, Dirichlet 0.2, temp_threshold 8): (a) the
            Hex descend, the dense merge and refresh at A=49 against their
-           plain versions (bit-equal, both timed); (b)
+           plain versions (the refresh on fresh planes; bit-equal, both
+           timed); (b)
            ``hybrid_hex_uniform_counts_head`` (16 sims, max_depth 56); (c)
            the ``full`` preset's actor, AZResNet-64x5 in bf16, with the
            checks of 9(c) and one profiled step; (d) the ``mlp`` preset's
@@ -126,7 +130,8 @@ card, in phases:
            refresh against their plain versions (bit-equal, timed in
            turns) at Connect-Four B=4096 A=7, Othello B=1024 A=65, Gomoku 15
            B=1024 A=225 and Hex B=1024 A=49, C=101, on planes from 6 plain
-           rounds; (b) ``tests/torch_round_goldens.json`` reproduced through
+           rounds (the dense top-2 refresh on that search's fresh planes);
+           (b) ``tests/torch_round_goldens.json`` reproduced through
            the kernels; (c) the Othello ``full`` preset's actor at K=4
            (phase 8d runs it at K=1): exactly 25 Othello round descends, 25
            dense round merges and 1 dense top-2 refresh per step, pi rows
@@ -180,9 +185,10 @@ card, in phases:
 15. gomoku19: Gomoku 19 (361 cells) on the hybrid engine, uniform model,
            B=1024, 100 sims, max_depth 64: (a) ``descend_gomoku`` (6 of its
            8 board words) and the dense merge and refresh at A=361 against
-           their plain versions on planes from a plain search (bit-equal,
-           timed in turns); (b) ``descend_round_gomoku``, the dense round
-           merge and the top-2 refresh at K=4 (the same); (c) one timed
+           their plain versions on planes from a plain search (the refresh
+           on its fresh planes; bit-equal, timed in turns); (b)
+           ``descend_round_gomoku``, the dense round merge and the top-2
+           refresh at K=4 (the same); (c) one timed
            actor step, its launches and peak memory; (d) one K=1 and one K=4
            search through the kernels and the plain versions, identical
            counts.
@@ -191,7 +197,10 @@ Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
 data-dependent walk counts the cells this run's data reaches, a merge the
 stat columns it writes: ``merge_bounds``, whose whole-plane figure, the
-four planes read once, rides beside it as ``whole_plane_bound_ms``) over
+four planes read once, rides beside it as ``whole_plane_bound_ms``; a
+dense seed the roots' priors and the best planes it writes:
+``seed_bounds``, with the whole-plane figure and, as ``sector_bound_ms``,
+each prior read as its own 32-byte sector) over
 3.35 TB/s, and its operations: f32 ones over 67 TFLOP/s plus bf16 matrix
 ones over 989 TFLOP/s plus int8 matrix ones over 1979 TOP/s (the H100
 SXM's data-sheet rates at 700 W; the int8 tower's f32 epilogue runs on the
@@ -235,6 +244,18 @@ of phases 3, 8, 9, 10 and 15 (Connect-Four B=4096; Othello, Gomoku 9, 15
 and 19 and Hex B=1024; C=101), with DESCEND_REPS readings of the device
 time per launch each and its bound. It calls only entry points the package
 has had since the K=4 rounds, so it too compares two trees in one call.
+
+``python3 chip_smoke.py --seeds`` does the same for the dense seeds,
+``refresh_dense`` and ``refresh2_dense``: the build's report of
+``seed_dense_kernel``'s six instances, or on an older tree of the
+thread-per-node kernels they replaced (not gated), then both seeds held
+bit-equal to the plain full refreshes on the fresh planes of real roots
+(the uniform model's root prior, with the preset's Dirichlet noise where it
+has one) for Hex (A=49), Othello (65), Gomoku 9 (81), Gomoku 15 (225, at
+B=1024 and at the uniform actor's B=4096) and Gomoku 19 (361), C=101,
+with SEED_REPS readings of the device time per launch each and their
+bounds. It calls only entry points the package has had since the K=4
+rounds, so it too compares two trees in one call.
 """
 
 from __future__ import annotations
@@ -285,6 +306,11 @@ DESCEND_KERNELS = tuple(f"{d}_kernelINS_{g}" for d in ("descend", "descend_round
                         for g in ("15ConnectFourGame", "11OthelloGame", "10GomokuGameILi8E",
                                   "7HexGame"))
 C4_STEPS = 5              # --merges: timed C4 ResNet actor steps
+SEED_REPS = 3             # --seeds: device-time readings of each dense seed
+# the dense seeds' ptxas names: seed_dense_kernel<J, top-2> of each J, and
+# (--seeds on an older tree) the thread-per-node kernels they replaced
+SEED_KERNELS = tuple(f"seed_dense_kernelILi{j}ELb{t}EE" for t in (0, 1) for j in (4, 8, 16))
+OLD_SEED_KERNELS = ("refresh_dense_kernel", "refresh2_kernelILb1EE")
 
 OTH_B = 1024              # Othello full preset (examples/train_othello.py): games per batch
 OTH_CHANNELS, OTH_BLOCKS = 128, 5   # ... its AZResNet
@@ -542,8 +568,8 @@ def fused_test_positions(game, batch: int, moves: int, seed: int, device) -> tor
 
 def capture_search_args(game, apply_fn, cfg, roots, noise, sims: int = 24) -> tuple:
     """The arguments of the last descend and merge calls of a plain search
-    of ``sims`` simulations at ``cfg``'s tree capacity: planes as the main
-    path meets them."""
+    of ``sims`` simulations at ``cfg``'s tree capacity, and of its seed
+    refresh (the fresh planes): planes as the main path meets them."""
     from alphazero_tpu_torch.config import MCTSConfig
     from alphazero_tpu_torch.mcts import SearchKernels, hybrid
 
@@ -558,13 +584,13 @@ def capture_search_args(game, apply_fn, cfg, roots, noise, sims: int = 24) -> tu
     cap_cfg = MCTSConfig(num_sims=sims, max_nodes=cfg.nodes, max_depth=cfg.max_depth,
                          dirichlet_alpha=cfg.dirichlet_alpha)
     hybrid.make_hybrid_root_fn(game, apply_fn, cap_cfg, kernels=SearchKernels(
-        capture("descend", hybrid.descend), capture("merge", hybrid.merge), hybrid.refresh))(
-        roots, noise)
+        capture("descend", hybrid.descend), capture("merge", hybrid.merge),
+        capture("refresh", hybrid.refresh)))(roots, noise)
     d_args, m_args = captured["descend"], captured["merge"]
     B, A = roots.shape[0], game.num_actions
     if d_args[4].shape != (B, game.flat_ops().size) or m_args[0].shape != (B, A, cfg.nodes):
         fail(f"captured {game.name} planes have shapes {d_args[4].shape}, {m_args[0].shape}")
-    return d_args, m_args
+    return d_args, m_args, captured["refresh"]
 
 
 def descend_vs_plain(name: str, kernel, d_args) -> tuple:
@@ -641,6 +667,43 @@ def merge_bounds(m_args) -> dict:
     return {**needed, "whole_plane_bound_ms": whole["bound_ms"], "touched_per_game": touched / B}
 
 
+def seed_bounds(r_args, top2: bool) -> dict:
+    """The bound of a dense seed (``refresh_dense``, with ``top2``
+    ``refresh2_dense``) on a fresh search's planes, for what its data
+    needs: the roots' priors read (B x A floats), the 2 or 4 best planes
+    written (B x C floats each), the PUCT scores of the roots' edges.
+    Beside it, labelled, the same with each prior read as its own 32-byte
+    sector (an A-strided column of [B, A, C]), and the whole-plane bound of
+    a refresh that reads the four stat planes, which the earlier kernel
+    table's rows count."""
+    B, A, C = r_args[0].shape
+    writes = F32 * (4 if top2 else 2) * B * C
+    root_ops = puct_ops(B, A) + (A * B if top2 else 0)
+    needed = bound(F32 * B * A + writes, root_ops)
+    sector = bound(32 * B * A + writes, root_ops)
+    whole = bound(F32 * 4 * B * A * C + writes, puct_ops(B * C, A) + (A * B * C if top2 else 0))
+    return {**needed, "sector_bound_ms": sector["bound_ms"],
+            "whole_plane_bound_ms": whole["bound_ms"]}
+
+
+def seed_vs_plain(name: str, kernel, plain, r_args) -> tuple:
+    """A dense seed's wrapper against the plain full refresh on the seed's
+    own arguments: a fresh search's planes (checked: the priors at node 0,
+    the empty node elsewhere), bit-equal outputs. Returns ``(result entry,
+    (kernel fn, plain fn) for in_turns)``."""
+    n, w, p, code = r_args[:4]
+    if not (bool((n == 0).all()) and bool((w == 0).all()) and bool((p[:, :, 1:] == 0).all())
+            and bool((code == -1).all())):
+        fail(f"{name}'s arguments are not a fresh search's planes")
+    out_k = kernel(*r_args)
+    out_p = plain(*r_args)
+    if not all(bit_equal(k, q) for k, q in zip(out_k, out_p)):
+        fail(f"{name} differs from the plain version at A={n.shape[1]}")
+    result = {"max_abs_err": max(float((k - q).abs().max()) for k, q in zip(out_k, out_p)),
+              **seed_bounds(r_args, len(out_k) == 4)}
+    return result, (lambda: kernel(*r_args), lambda: plain(*r_args))
+
+
 def merge_vs_plain(name: str, k_fn, p_fn, m_args) -> tuple:
     """A merge kernel wrapper (K=1 or a round's) against its plain version
     on copies of the same planes, best planes included (the precondition:
@@ -669,28 +732,20 @@ def merge_vs_plain(name: str, k_fn, p_fn, m_args) -> tuple:
     return result, (lambda: call(k_fn, scratch), lambda: call(p_fn, scratch))
 
 
-def dense_vs_plain(kernels, m_args) -> tuple:
-    """``merge_dense`` and ``refresh_dense`` against the plain versions on
-    the same planes: bit-equal outputs. Returns ``(result entries, stat
+def dense_vs_plain(kernels, m_args, r_args) -> tuple:
+    """``merge_dense`` against the plain merge on the captured planes and
+    ``refresh_dense`` against the plain refresh on the seed's fresh planes
+    of the same search: bit-equal outputs. Returns ``(result entries, stat
     plane bytes, timing pairs for in_turns)``."""
     from alphazero_tpu_torch.mcts import hybrid
 
     B, A, C = m_args[0].shape
-    planes_bytes = F32 * 4 * B * A * C
     results, fns = {}, {}
     results["merge_dense"], fns["merge_dense"] = merge_vs_plain(
         "merge_dense", kernels.merge_dense, hybrid.merge, m_args)
-    ref_k = kernels.refresh_dense(*m_args[:4], m_args[-1])
-    ref_p = hybrid.refresh(*m_args[:4], m_args[-1])
-    if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
-        fail(f"refresh_dense differs from the plain version at A={A}")
-    results["refresh_dense"] = {
-        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
-        **bound(planes_bytes + F32 * 2 * B * C, puct_ops(B * C, A)),
-    }
-    fns["refresh_dense"] = (lambda: kernels.refresh_dense(*m_args[:4], m_args[-1]),
-                            lambda: hybrid.refresh(*m_args[:4], m_args[-1]))
-    return results, planes_bytes, fns
+    results["refresh_dense"], fns["refresh_dense"] = seed_vs_plain(
+        "refresh_dense", kernels.refresh_dense, hybrid.refresh, r_args)
+    return results, F32 * 4 * B * A * C, fns
 
 
 def time_in_turns(results: dict, fns: dict, tag: str, card: str, label: str = "") -> None:
@@ -700,13 +755,23 @@ def time_in_turns(results: dict, fns: dict, tag: str, card: str, label: str = ""
         k1, k2, p1, p2 = in_turns(k_fn, p_fn)
         dev = device_ms(k_fn)
         results[name].update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None})
-        whole = results[name].get("whole_plane_bound_ms")
-        extra = "" if whole is None else (
-            f"; {results[name]['touched_per_game']:.2f} touched columns a game, whole-plane "
-            f"bound {whole:.4f} ms")
         print(f"[{tag}] {name}{label}: kernel {k1:.4f}/{k2:.4f} ms per call ({dev:.4f} ms of device "
-              f"time), plain {p1:.4f}/{p2:.4f} ms, bound {results[name]['bound_ms']:.4f} ms "
-              f"({results[name]['bound_by']}{extra}) | {card}", flush=True)
+              f"time), plain {p1:.4f}/{p2:.4f} ms, bound {bound_text(results[name])} | {card}",
+              flush=True)
+
+
+def bound_text(entry: dict) -> str:
+    """A result entry's bound, with the labelled figures beside it: a
+    merge's touched columns and whole-plane bound, a seed's sector-granular
+    and whole-plane bounds."""
+    extra = ""
+    if "touched_per_game" in entry:
+        extra += f"; {entry['touched_per_game']:.2f} touched columns a game"
+    if "sector_bound_ms" in entry:
+        extra += f"; 32-byte-sector bound {entry['sector_bound_ms']:.5f} ms"
+    if "whole_plane_bound_ms" in entry:
+        extra += f"; whole-plane bound {entry['whole_plane_bound_ms']:.4f} ms"
+    return f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}{extra})"
 
 
 def run_actor(tag: str, game, apply_fn, run_cfg, batch: int, steps: int, temp_threshold: int,
@@ -824,11 +889,11 @@ def othello_phase(card: str) -> tuple:
 
     # (a) the three kernels against their plain versions, on planes taken
     # from a few simulations of the plain search
-    d_args, m_args = capture_search_args(game, resnet, cfg, roots, noise)
+    d_args, m_args, r_args = capture_search_args(game, resnet, cfg, roots, noise)
     results = {}
     results["descend_othello"], edges, cuts = descend_vs_plain(
         "descend_othello", kernels.descend_othello, d_args)
-    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args)
+    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args, r_args)
     results.update(dense)
     print(f"[othello] B={OTH_B} C={C} A={A}: descend_othello, merge_dense, refresh_dense "
           f"bit-equal to plain ({edges / OTH_B:.2f} path edges per game, {cuts:.0f} cut leaves; "
@@ -965,11 +1030,11 @@ def gomoku_phase(card: str) -> tuple:
         if run_cfg.dirichlet_alpha is not None:
             noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), GMK_B,
                                  g.num_actions, run_cfg.dirichlet_alpha, dev).dirichlet
-        d_args, m_args = capture_search_args(g, apply_fn, run_cfg, roots, noise)
+        d_args, m_args, r_args = capture_search_args(g, apply_fn, run_cfg, roots, noise)
         entries = {}
         entries["descend_gomoku"], edges, cuts = descend_vs_plain(
             "descend_gomoku", kernels.descend_gomoku, d_args)
-        dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args)
+        dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args, r_args)
         entries.update(dense)
         print(f"[gomoku] {g.name}, B={GMK_B} C={run_cfg.nodes} A={g.num_actions}: descend_gomoku, "
               f"merge_dense, refresh_dense bit-equal to plain ({edges / GMK_B:.2f} path edges per "
@@ -1042,10 +1107,10 @@ def hex_phase(card: str) -> tuple:
                          dev).dirichlet
 
     # (a) the Hex descend and the dense merge and refresh at A=49
-    d_args, m_args = capture_search_args(game, resnet, cfg, roots, noise)
+    d_args, m_args, r_args = capture_search_args(game, resnet, cfg, roots, noise)
     entries = {}
     entries["descend_hex"], edges, _ = descend_vs_plain("descend_hex", kernels.descend_hex, d_args)
-    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args)
+    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args, r_args)
     entries.update(dense)
     print(f"[hex] B={HEX_B} C={cfg.nodes} A={A}: descend_hex, merge_dense, refresh_dense bit-equal "
           f"to plain ({edges / HEX_B:.2f} path edges per game; stat planes "
@@ -1141,9 +1206,9 @@ def gomoku19_phase(card: str) -> None:
     roots = random_positions(game, GMK_B, A // 3, SEED, dev)
 
     # (a) the descend and the dense merge and refresh at A=361
-    d_args, m_args = capture_search_args(game, uni, cfg, roots, None)
+    d_args, m_args, r_args = capture_search_args(game, uni, cfg, roots, None)
     entry, edges, _ = descend_vs_plain("descend_gomoku", kernels.descend_gomoku, d_args)
-    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args)
+    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args, r_args)
     print(f"[gomoku19] B={GMK_B} C={cfg.nodes} A={A}: descend_gomoku, merge_dense, "
           f"refresh_dense bit-equal to plain ({edges / GMK_B:.2f} path edges per game; stat planes "
           f"{planes_bytes / 1e6:.1f} MB)", flush=True)
@@ -1154,8 +1219,7 @@ def gomoku19_phase(card: str) -> None:
 
     # (b) the round kernels at K=4
     cfg4 = MCTSConfig(num_sims=SIMS, max_depth=GMK15_MAX_DEPTH, parallel_sims=ROUND_K)
-    d4, m4 = capture_round_args(game, uni, cfg4, roots, None)
-    rounds_vs_plain(game, d4, m4, card)
+    rounds_vs_plain(game, *capture_round_args(game, uni, cfg4, roots, None), card)
 
     # (c) one timed step of the uniform actor, its peak memory; (d) a K=1
     # and a K=4 search through the kernels and the plain versions
@@ -1171,7 +1235,8 @@ def gomoku19_phase(card: str) -> None:
 def capture_round_args(game, apply_fn, cfg, roots, noise, rounds: int = ROUND_WARM) -> tuple:
     """The arguments of the last descend_round and merge_round calls of a
     plain search of ``rounds`` rounds of ``cfg.parallel_sims`` descents at
-    ``cfg``'s tree capacity: planes as the main path meets them."""
+    ``cfg``'s tree capacity, and of its seed refresh2 (the fresh planes):
+    planes as the main path meets them."""
     from alphazero_tpu_torch.config import MCTSConfig
     from alphazero_tpu_torch.mcts import PLAIN, hybrid
 
@@ -1188,8 +1253,9 @@ def capture_round_args(game, apply_fn, cfg, roots, noise, rounds: int = ROUND_WA
                          dirichlet_alpha=cfg.dirichlet_alpha, parallel_sims=K)
     hybrid.make_hybrid_root_fn(game, apply_fn, cap_cfg, kernels=PLAIN._replace(
         descend_round=capture("descend_round", hybrid.descend_round),
-        merge_round=capture("merge_round", hybrid.merge_round)))(roots, noise)
-    return captured["descend_round"], captured["merge_round"]
+        merge_round=capture("merge_round", hybrid.merge_round),
+        refresh2=capture("refresh2", hybrid.refresh2)))(roots, noise)
+    return captured["descend_round"], captured["merge_round"], captured["refresh2"]
 
 
 def descend_round_vs_plain(d_args) -> tuple:
@@ -1226,10 +1292,12 @@ def descend_round_vs_plain(d_args) -> tuple:
     return name, kernel, result, second, dups
 
 
-def rounds_vs_plain(game, d_args, m_args, card: str) -> dict:
+def rounds_vs_plain(game, d_args, m_args, r_args, card: str) -> dict:
     """The game's round descend, the round merge and the top-2 refresh
-    against their plain versions on the same arguments: bit-equal outputs,
-    then each timed in turns. Returns their result entries."""
+    against their plain versions: the first two on the captured arguments,
+    the refresh on the merge's planes (A <= 8) or, for the dense seed, on
+    the search's fresh planes ``r_args``; bit-equal outputs, then each
+    timed in turns. Returns their result entries."""
     from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.mcts import hybrid
 
@@ -1248,22 +1316,26 @@ def rounds_vs_plain(game, d_args, m_args, card: str) -> dict:
     shared = edges - float(sum(((m_patha == a + 1).any(dim=0)).sum() for a in range(A)))
     installs = float(m_args[9][..., hybrid.M2_EXPOK].sum())
     planes_bytes = F32 * 4 * B * A * C
-    ref_k = r_kernel(*m_args[:4], m_args[-1])
-    ref_p = hybrid.refresh2(*m_args[:4], m_args[-1])
-    if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
-        fail(f"{r_name} differs from the plain version at A={A}")
-    results[r_name] = {
-        "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
-        **bound(planes_bytes + F32 * 4 * B * C, puct_ops(B * C, A) + A * B * C),
-    }
+    if dense:
+        results[r_name], refresh_fns = seed_vs_plain(r_name, r_kernel, hybrid.refresh2, r_args)
+    else:
+        ref_k = r_kernel(*m_args[:4], m_args[-1])
+        ref_p = hybrid.refresh2(*m_args[:4], m_args[-1])
+        if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
+            fail(f"{r_name} differs from the plain version at A={A}")
+        results[r_name] = {
+            "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
+            **bound(planes_bytes + F32 * 4 * B * C, puct_ops(B * C, A) + A * B * C),
+        }
+        refresh_fns = (lambda: r_kernel(*m_args[:4], m_args[-1]),
+                       lambda: hybrid.refresh2(*m_args[:4], m_args[-1]))
     print(f"[rounds] {game.name}, B={B} C={C} A={A} K={K}: {d_name}, {m_name}, {r_name} bit-equal "
           f"to plain ({second:.0f} runner-up takes, {dups:.0f} duplicates, {shared:.0f} shared path "
           f"edges, {installs:.0f} installs; stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
     time_in_turns(results, {
         d_name: (lambda: d_kernel(*d_args), lambda: hybrid.descend_round(*d_args)),
         m_name: merge_fns,
-        r_name: (lambda: r_kernel(*m_args[:4], m_args[-1]),
-                 lambda: hybrid.refresh2(*m_args[:4], m_args[-1])),
+        r_name: refresh_fns,
     }, "rounds", card, f" at A={A}")
     return results
 
@@ -1320,9 +1392,9 @@ def rounds_phase(card: str) -> tuple:
     results, roots = {}, {}
     for game, batch, apply_fn, cfg, moves in configs:
         roots[game.name] = random_positions(game, batch, moves, SEED, dev)
-        d_args, m_args = capture_round_args(game, apply_fn, cfg, roots[game.name],
-                                            noise_of(batch, game.num_actions, cfg.dirichlet_alpha))
-        for name, entry in rounds_vs_plain(game, d_args, m_args, card).items():
+        args = capture_round_args(game, apply_fn, cfg, roots[game.name],
+                                  noise_of(batch, game.num_actions, cfg.dirichlet_alpha))
+        for name, entry in rounds_vs_plain(game, *args, card).items():
             results.setdefault(name, entry)
 
     # (b) the round goldens through the kernels
@@ -2095,8 +2167,8 @@ def merge_turns(card: str) -> None:
     noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), B, A, 1.0, dev).dirichlet
     cfg = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0)
     cfg_k = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0, parallel_sims=ROUND_K)
-    _, m_args = capture_search_args(game, apply_fn, cfg, roots, noise)
-    _, m_round_args = capture_round_args(game, apply_fn, cfg_k, roots, noise)
+    _, m_args, _ = capture_search_args(game, apply_fn, cfg, roots, noise)
+    _, m_round_args, _ = capture_round_args(game, apply_fn, cfg_k, roots, noise)
     for name, k_fn, p_fn, args in (("merge", kernels.merge, hybrid.merge, m_args),
                                    ("merge_round", kernels.merge_round, hybrid.merge_round,
                                     m_round_args)):
@@ -2153,17 +2225,59 @@ def descend_turns(card: str) -> None:
         for K in (1, ROUND_K):
             cfg = MCTSConfig(num_sims=SIMS, max_depth=depth, dirichlet_alpha=alpha, parallel_sims=K)
             if K == 1:
-                d_args, _ = capture_search_args(game, apply_fn, cfg, roots, noise)
+                d_args, _, _ = capture_search_args(game, apply_fn, cfg, roots, noise)
                 name = kernels.descend_entry(game.flat_ops())[3:]
                 kernel = getattr(kernels, name)
                 result, _, _ = descend_vs_plain(name, kernel, d_args)
             else:
-                d_args, _ = capture_round_args(game, apply_fn, cfg, roots, noise)
+                d_args, _, _ = capture_round_args(game, apply_fn, cfg, roots, noise)
                 name, kernel, result, _, _ = descend_round_vs_plain(d_args)
             devs = [device_ms(lambda: kernel(*d_args)) for _ in range(DESCEND_REPS)]
             print(f"[descends] {name}, {game.name}, B={batch}, C={cfg.nodes}, K={K}: bit-equal to "
                   f"plain; {', '.join(f'{d:.4f}' for d in devs)} ms of device time per launch; "
                   f"bound {result['bound_ms']:.5f} ms ({result['bound_by']}) | {card}", flush=True)
+
+
+def seed_turns(card: str) -> None:
+    """``--seeds`` (see the module docstring)."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import Gomoku, Hex, Othello
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.mcts.tree import INVALID_P
+    from alphazero_tpu_torch.models import make_uniform_model
+    from alphazero_tpu_torch.ops import root_prior, sample_draws
+
+    dev = torch.device("cuda", 0)
+    ptxas_lines(kernels.library(), (*SEED_KERNELS, *OLD_SEED_KERNELS), gate=False)
+    oth, g9, g15, g19, hx = Othello(), Gomoku(9), Gomoku(15), Gomoku(19), Hex()
+    cells = (   # the roots of phases 10, 8, 9, 9(d)'s batch and 15: game, B, Dirichlet, moves
+        (hx, HEX_B, HEX_DIRICHLET, 30),
+        (oth, OTH_B, OTH_DIRICHLET, 40),
+        (g9, GMK_B, GMK_DIRICHLET, g9.num_actions // 2),
+        (g15, GMK_B, None, g15.num_actions // 2),
+        (g15, GMK15_B, None, g15.num_actions // 2),
+        (g19, GMK_B, None, g19.num_actions // 3),
+    )
+    for game, batch, alpha, moves in cells:
+        A = game.num_actions
+        ops = game.flat_ops()
+        roots = random_positions(game, batch, moves, SEED, dev)
+        noise = None if alpha is None else sample_draws(
+            torch.Generator(device=dev).manual_seed(SEED), batch, A, alpha, dev).dirichlet
+        cfg = MCTSConfig(num_sims=SIMS, dirichlet_alpha=alpha)
+        # the fresh planes a search seeds its best planes from, the uniform
+        # model's root prior (with the preset's Dirichlet noise) at node 0
+        prior, valid = root_prior(game, make_uniform_model(game).apply_fn, cfg, roots, noise)
+        planes = hybrid._init_planes(ops, ops.from_state(roots), torch.where(valid, prior, INVALID_P),
+                                     cfg.nodes, ops.aux(dev))
+        r_args = (*planes[:4], float(cfg.cpuct))
+        for name, plain in (("refresh_dense", hybrid.refresh), ("refresh2_dense", hybrid.refresh2)):
+            result, (k_call, _) = seed_vs_plain(name, getattr(kernels, name), plain, r_args)
+            devs = [device_ms(k_call) for _ in range(SEED_REPS)]
+            print(f"[seeds] {name}, {game.name}, B={batch}, C={cfg.nodes}, A={A}: bit-equal to "
+                  f"plain; {', '.join(f'{d:.4f}' for d in devs)} ms of device time per launch; "
+                  f"bound {bound_text(result)} | {card}", flush=True)
 
 
 def actors(card: str) -> None:
@@ -2249,6 +2363,9 @@ def main() -> int:
     if sys.argv[1:] == ["--descends"]:
         descend_turns(card)
         return 0
+    if sys.argv[1:] == ["--seeds"]:
+        seed_turns(card)
+        return 0
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
@@ -2268,7 +2385,7 @@ def main() -> int:
         print(f"[build] ptxas -v {name}: "
               f"{report.get(instances.get(name, name), 'not in the build log (a cached build)')}",
               flush=True)
-    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS, *DESCEND_KERNELS))
+    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS, *DESCEND_KERNELS, *SEED_KERNELS))
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
     variables = random_az_resnet_variables(A, channels=64, blocks=5, seed=SEED)
@@ -2589,10 +2706,11 @@ def main() -> int:
             # the chain of library forwards a search's evaluations take, for
             # int8_tower the torch._int_mm chain
             "library_ms": results[name].get("library_ms"),
-            # the merges: beside the bound of what the data needs, the bound
-            # of a kernel that refreshes every node
-            **({"whole_plane_bound_ms": results[name]["whole_plane_bound_ms"]}
-               if "whole_plane_bound_ms" in results[name] else {}),
+            # the merges and the dense seeds: beside the bound of what the
+            # data needs, the bound of a kernel that refreshes every node,
+            # and a seed's with each prior read as its own 32-byte sector
+            **{k: results[name][k] for k in ("whole_plane_bound_ms", "sector_bound_ms")
+               if k in results[name]},
         }
         for name in ("descend", "merge", "refresh", "fused", "fused_mlp",
                      "descend_othello", "merge_dense", "refresh_dense", "descend_gomoku",

@@ -75,10 +75,13 @@ from tests.torch_parity import (  # noqa: F401  (emulated: a fixture)
     descend_round_through_kernel,
     emulated,
     emulated_refresh,
+    emulated_refresh2,
+    fresh_planes,
     merge_case,
     order_free_mlp_apply,
     random_boards,
     random_play_boards,
+    seed_priors,
     torch_state,
 )
 
@@ -132,27 +135,28 @@ def test_emulated_kernels_bit_equal_plain_resnet_dirichlet(emulated):
     assert calls == {"az_descend": 20, "az_merge": 20, "az_refresh": 1}
 
 
+# a game of each dense A of the seed tests: Hex, Othello, Gomoku 9 and 15
+DENSE_GAMES = {49: Hex(), 65: Othello(), 81: Gomoku(9), 225: Gomoku(15)}
+
+
 @pytest.mark.parametrize("A", [49, 65, 81, 225])
 def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
-    """The dense refresh at Hex's and Gomoku-7's A, Othello's, Gomoku-9's
-    and Gomoku-15's, on synthetic
-    planes with exact score ties (equal priors, equal W and N), illegal
-    edges and all-illegal nodes: bit-equal to the plain version, whose
-    first-max picks action 0 where every edge is illegal."""
-    rng = np.random.default_rng(A)
+    """The dense refresh, a fresh search's seed, at Hex's (and Gomoku 7's)
+    A, Othello's, Gomoku 9's and Gomoku 15's, on fresh planes
+    (``_init_planes``) whose roots carry the scenarios (``seed_priors``):
+    exact ties (uniform priors), illegal edges, an all-illegal root and a
+    root whose one legal edge is the last: bit-equal to the plain version,
+    whose first-max picks action 0 at the all-illegal root and the first
+    legal edge among the ties; every other node is the empty node."""
     B, C = 5, 37
-    n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
-    w = torch.as_tensor((rng.integers(-2, 3, (B, A, C)) / 2).astype(np.float32)) * (n > 0)
-    p = torch.full((B, A, C), 1.0 / A)
-    p[:, 3::5] = -1e30
-    p[1, :, 4] = -1e30                                   # an all-illegal node
-    code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
+    p_masked = seed_priors(A, B, seed=A)
+    n, w, p, code = fresh_planes(DENSE_GAMES[A], p_masked, C)
     (best_a, best_c), entry = emulated_refresh(emulated, n, w, p, code, 1.0)
     assert entry == "az_refresh_dense"
-    assert best_a[1, 4] == 0 and best_c[1, 4] == code[1, 0, 4]
-    sq = torch.sqrt(n.sum(dim=1) + 1e-6)[:, None]
-    score = torch.where(p <= -5e29, -1e30, w / n.clamp(min=1) + p * sq / (1 + n))
-    assert ((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).any()   # exact ties
+    assert best_a[0, 0] == 1 and best_a[1, 0] == 0 and best_a[2, 0] == A - 1
+    assert (best_a[:, 1:] == 0).all() and (best_c == -1).all()
+    legal = p_masked[0] > -5e29
+    assert legal.sum() > 1 and (p_masked[0, legal] == p_masked[0, 1]).all()   # exact ties
 
 
 @pytest.mark.parametrize("A", [16, 65, 225, 361])
@@ -470,25 +474,11 @@ def _checked_round_kernels(lib, calls):
         return best4
 
     def refresh2(n, w, p, code, cpuct):
-        best, entry = _emulated_refresh2(lib, n, w, p, code, cpuct)
+        best, entry = emulated_refresh2(lib, n, w, p, code, cpuct)
         calls[entry] = calls.get(entry, 0) + 1
         return best
 
     return SearchKernels(hybrid.descend, hybrid.merge, hybrid.refresh, descend_round, merge_round, refresh2)
-
-
-def _emulated_refresh2(lib, n, w, p, code, cpuct):
-    """The top-2 refresh kernel for A (``az_refresh2`` or
-    ``az_refresh2_dense``), asserted bit-equal to the plain version:
-    ``(top-2 planes, entry)``."""
-    B, A, C = n.shape
-    entry = "az_refresh2_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh2"
-    best = [torch.empty(B, C) for _ in range(4)]
-    rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
-    assert rc == 0
-    for nm, got, want in zip(("besta", "bestc", "seca", "secc"), best, hybrid.refresh2(n, w, p, code, cpuct)):
-        assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
-    return tuple(best), entry
 
 
 @pytest.mark.parametrize(
@@ -543,14 +533,27 @@ def test_emulated_round_kernels_bit_equal_plain(emulated, game, moves, cfg, mode
 
 @pytest.mark.parametrize("A", [7, 49, 65, 225])
 def test_emulated_refresh2_ties_illegal_and_lone_nodes(emulated, A):
-    """The top-2 refresh at Connect-Four's A (unrolled) and the dense A of
-    Hex, Othello and Gomoku 15, on synthetic planes with exact score ties,
-    illegal edges, an all-illegal node and a node with one legal edge:
-    bit-equal to the plain version, with no runner-up (-1) where no second
-    legal edge exists; there the dense branch's runner-up code is -1 and the
-    unrolled one keeps what its scan left."""
-    rng = np.random.default_rng(A)
+    """The top-2 refresh at Connect-Four's A (unrolled, on synthetic planes
+    with exact score ties, illegal edges, an all-illegal node and a node
+    with one legal edge) and the dense A of Hex, Othello and Gomoku 15 (a
+    fresh search's seed, on fresh planes whose roots carry those scenarios,
+    ``seed_priors``): bit-equal to the plain version, with no runner-up
+    (-1) where no second legal edge exists; there the dense branch's
+    runner-up code is -1 and the unrolled one keeps what its scan left;
+    every other node of the fresh planes is the empty node (0, -1, 1, -1)."""
     B, C = 5, 37
+    if A > 8:
+        p_masked = seed_priors(A, B, seed=A)
+        n, w, p, code = fresh_planes(DENSE_GAMES[A], p_masked, C)
+        (best_a, best_c, sec_a, sec_c), entry = emulated_refresh2(emulated, n, w, p, code, 1.0)
+        assert entry == "az_refresh2_dense"
+        assert best_a[0, 0] == 1 and sec_a[0, 0] == (p_masked[0, 2:] > -5e29).nonzero()[0, 0] + 2
+        assert best_a[1, 0] == 0 and sec_a[1, 0] == -1 and best_a[2, 0] == A - 1 and sec_a[2, 0] == -1
+        assert (best_a[:, 1:] == 0).all() and (sec_a[:, 1:] == 1).all()
+        assert (best_c == -1).all() and (sec_c == -1).all()
+        assert (sec_a[3:, 0] >= 0).all()
+        return
+    rng = np.random.default_rng(A)
     n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
     w = torch.as_tensor((rng.integers(-2, 3, (B, A, C)) / 2).astype(np.float32)) * (n > 0)
     p = torch.full((B, A, C), 1.0 / A)
@@ -559,13 +562,10 @@ def test_emulated_refresh2_ties_illegal_and_lone_nodes(emulated, A):
     p[2, :, 5] = -1e30
     p[2, A - 1, 5] = 1.0                                 # a node with one legal edge, the last
     code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
-    (best_a, best_c, sec_a, sec_c), entry = _emulated_refresh2(emulated, n, w, p, code, 1.0)
-    assert entry == ("az_refresh2_dense" if A > 8 else "az_refresh2")
+    (best_a, best_c, sec_a, sec_c), entry = emulated_refresh2(emulated, n, w, p, code, 1.0)
+    assert entry == "az_refresh2"
     assert best_a[1, 4] == 0 and sec_a[1, 4] == -1 and best_a[2, 5] == A - 1 and sec_a[2, 5] == -1
-    if A > 8:
-        assert sec_c[1, 4] == -1 and sec_c[2, 5] == -1
-    else:
-        assert sec_c[2, 5] == code[2, 0, 5]               # the scan's leftover: action 0's code
+    assert sec_c[2, 5] == code[2, 0, 5]                  # the scan's leftover: action 0's code
     sq = torch.sqrt(n.sum(dim=1) + 1e-6)[:, None]
     score = torch.where(p <= -5e29, -1e30, w / n.clamp(min=1) + p * sq / (1 + n))
     assert ((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).any()   # exact ties

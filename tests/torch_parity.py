@@ -13,7 +13,8 @@ tests/test_torch_merge_emu.py, tests/test_torch_descend_emu.py and
 tests/test_torch_games_emu.py share, and its kernels run from it against
 the plain versions (``descend_through_kernel``,
 ``descend_round_through_kernel``, ``checked_kernels`` for whole hybrid
-searches, ``emulated_refresh``).
+searches, ``emulated_refresh``, ``emulated_refresh2``), and the fresh
+planes the dense seeds take (``fresh_planes``, ``seed_priors``).
 """
 
 import ctypes
@@ -186,8 +187,8 @@ def assert_order_free(boards: torch.Tensor, weights) -> None:
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel<<<grid, threads, smem, stream>>>(args), the kernel maybe a template instance
-_LAUNCH = re.compile(r"(\w+(?:<\w+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 10, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
+_LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
+_LAUNCHES = {"hybrid.cu": 9, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
 # a kernel's dynamic shared memory: the emulated launch's buffer
 _DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
@@ -304,15 +305,67 @@ def checked_kernels(lib, calls):
 
 def emulated_refresh(lib, n, w, p, code, cpuct):
     """The refresh kernel for A (``az_refresh`` or ``az_refresh_dense``),
-    asserted bit-equal to the plain version: ``(best planes, entry)``."""
+    asserted bit-equal to the plain version on outputs filled with NaN
+    first (so every cell must be written): ``(best planes, entry)``. The
+    dense one is the seed of a fresh search: ``n, w, p, code`` must be
+    planes as ``hybrid._init_planes`` leaves them (``fresh_planes``)."""
     B, A, C = n.shape
     entry = "az_refresh_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh"
-    best = [torch.empty(B, C), torch.empty(B, C)]
+    best = [torch.full((B, C), float("nan")) for _ in range(2)]
     rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
     assert rc == 0
     for nm, got, want in zip(("besta", "bestc"), best, hybrid.refresh(n, w, p, code, cpuct)):
         assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
     return tuple(best), entry
+
+
+def emulated_refresh2(lib, n, w, p, code, cpuct):
+    """The top-2 refresh kernel for A (``az_refresh2`` or
+    ``az_refresh2_dense``, the latter on fresh planes as
+    ``emulated_refresh``'s dense one), asserted bit-equal to the plain
+    version on outputs filled with NaN first: ``(top-2 planes, entry)``."""
+    B, A, C = n.shape
+    entry = "az_refresh2_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh2"
+    best = [torch.full((B, C), float("nan")) for _ in range(4)]
+    rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (n, w, p, code, *best)), B, A, C, cpuct, None)
+    assert rc == 0
+    for nm, got, want in zip(("besta", "bestc", "seca", "secc"), best, hybrid.refresh2(n, w, p, code, cpuct)):
+        assert torch.equal(bits(got), bits(want)), f"{entry} {nm}"
+    return tuple(best), entry
+
+
+def fresh_planes(game, p_masked: torch.Tensor, nodes: int, state=None) -> tuple:
+    """The stat planes ``n, w, p, code f32[B, A, nodes]`` of fresh trees
+    as ``run_search``/``run_rounds`` build them (``hybrid._init_planes``):
+    the masked root priors ``p_masked f32[B, A]`` at node 0, the empty
+    node everywhere else. ``state``: the roots (default: the initial
+    position), which set only the done/tval planes."""
+    ops = game.flat_ops()
+    if state is None:
+        state = game.init(p_masked.shape[0], "cpu")
+    return hybrid._init_planes(ops, ops.from_state(state), p_masked, nodes, ops.aux("cpu"))[:4]
+
+
+def seed_priors(A: int, B: int, seed: int) -> torch.Tensor:
+    """Seeded masked root priors f32[B, A] (B >= 4; illegal edges
+    INVALID_P), one scenario a game: game 0 uniform over its legal edges,
+    a third of them illegal and edge 0 among those (exact ties, the first
+    legal edge first); game 1 all illegal; game 2 one legal edge, the
+    last; the others the root prior's mix of a uniform prior with a
+    Dirichlet(0.3) sample over random legal edges."""
+    rng = np.random.default_rng(seed)
+    legal = rng.random((B, A)) > 1 / 3
+    legal[:, :2] = [False, True]
+    legal[1] = False
+    legal[2] = np.arange(A) == A - 1
+    p = np.full((B, A), -1e30, np.float32)
+    for b in range(B):
+        k = int(legal[b].sum())
+        if b == 0 or b == 2:
+            p[b, legal[b]] = np.float32(1.0) / np.float32(k)
+        elif k:
+            p[b, legal[b]] = 0.75 / k + 0.25 * rng.dirichlet(np.full(k, 0.3))
+    return torch.as_tensor(p)
 
 
 MERGE_CASES = ("past_capacity", "terminal_link", "root_only", "ties_illegal", "lone_legal",
