@@ -18,13 +18,13 @@
 //               <- the same merge with _refresh's dense branch for larger
 //                  action spaces (hybrid.py:150-168; Othello A=65), which
 //                  refreshes only the columns the merge writes;
-//   az_refresh  <- the A<=8 refresh alone, which seeds the first best-action
-//                  planes of a search (hybrid.py:815);
+//   az_refresh  <- the A<=8 refresh's seed of a fresh search (_refresh,
+//                  hybrid.py:120-149, at hybrid.py:815 on the planes of
+//                  hybrid.py:800-815): only the roots' column is computed,
+//                  every other node's row is the empty node's constant;
 //   az_refresh_dense
-//               <- the dense refresh's seed of a fresh search (hybrid.py:815
-//                  on the planes of hybrid.py:800-815): only the roots'
-//                  column is computed, every other node's row is the empty
-//                  node's constant;
+//               <- the dense refresh's seed of a fresh search (hybrid.py:815),
+//                  the same kernel for larger action spaces;
 //   az_descend_round, az_descend_round_othello, az_descend_round_gomoku,
 //   az_descend_round_hex
 //               <- descend_round_kernel (hybrid.py:437-577), K7a: a round's
@@ -34,11 +34,11 @@
 //                  unrolled and dense top-2 branches (hybrid.py:170-235),
 //                  K7b, each refreshing only the columns the K records
 //                  write;
-//   az_refresh2 <- the A<=8 _refresh2 alone, which seeds a round search's
-//                  first top-2 planes (hybrid.py:874);
+//   az_refresh2 <- the A<=8 _refresh2's seed of a fresh round search
+//                  (hybrid.py:874), designed as az_refresh;
 //   az_refresh2_dense
 //               <- the dense _refresh2's seed of a fresh round search
-//                  (hybrid.py:874), designed as az_refresh_dense.
+//                  (hybrid.py:874), the same kernel for larger action spaces.
 // The plain PyTorch versions are descend/merge/refresh in
 // alphazero_tpu_torch/mcts/hybrid.py; the two must agree bit for bit.
 //
@@ -108,22 +108,24 @@
 //   bytes (~8x the useful bytes), and those scattered sectors, not their
 //   latency, set its time (it grows with A at a fixed number of columns);
 //   a node-major [B, C, A] layout would make a column contiguous.
-// * The dense seeds (az_refresh_dense, az_refresh2_dense) run once a search,
-//   on the fresh planes _init_planes leaves: the roots' priors in p[:, :, 0],
-//   n = w = p = 0 and code = -1 everywhere else. That is their
-//   precondition. Every column c >= 1 is then the empty node, whose A edges
-//   all score +0: its refresh is the constant (besta, bestc, seca, secc) =
-//   (0, -1, 1, -1). The roots' column has n = w = 0 and code = -1 as well,
-//   so its refresh is a function of the priors alone. The JAX kernel
-//   refreshes whole [Bb, A, C] tiles because a TPU block works on whole
-//   tiles (layout, not semantics); reading the four planes made the
-//   earlier thread-per-node seed move 4·B·A·C floats (372 MB at B=1024,
-//   A=225) at a third of HBM rate. One warp per game now loads the game's
-//   A priors (lane l: actions l, l + 32, ..., all in flight), scores and
-//   reduces them as merge_dense does, and writes the game's best rows
-//   lane-strided. What bounds it is B·A scattered 32-byte sectors (each
-//   prior is its own sector in [B, A, C]) plus the rows' stores and the
-//   launch.
+// * The seeds (az_refresh, az_refresh2 and their dense entries) run once a
+//   search, on the fresh planes _init_planes leaves: the roots' priors in
+//   p[:, :, 0], n = w = p = 0 and code = -1 everywhere else. That is their
+//   precondition, at every A. Every column c >= 1 is then the empty node,
+//   whose A edges all score +0: its refresh is the constant (besta, bestc,
+//   seca, secc) = (0, -1, 1, -1), or (0, -1, -1, -1) at A = 1, which has
+//   no runner-up. The roots' column has n = w = 0 and code = -1 as well,
+//   so its refresh is a function of the priors alone. The reference
+//   refreshes every node of the [B, A, C] planes (in XLA at the seed; in
+//   whole TPU tiles in the merge kernels): layout, not semantics. Reading
+//   the four planes made the earlier
+//   thread-per-node seeds move 4·B·A·C floats (46 MB at B=4096, A=7; 372
+//   MB at B=1024, A=225). One warp per game now loads the game's A priors
+//   (lane l: actions l, l + 32, ..., all in flight; one a lane at A <= 8),
+//   scores and reduces them as merge_dense does, and writes the game's
+//   best rows lane-strided. What bounds it is B·A scattered 32-byte
+//   sectors (each prior is its own sector in [B, A, C]) plus the rows'
+//   stores and the launch.
 // * The untouched cells need no write because a search's planes never hold
 //   -0: counts, backups and priors start at +0 and x + y is -0 only when
 //   both are, so the reference's x * 1 + 0 on an untouched cell is x.
@@ -185,7 +187,6 @@ namespace {
 
 constexpr int kDescendWarps = 4;             // games (warps) per block of a descend
 constexpr int kDescendThreads = 32 * kDescendWarps;
-constexpr int kMergeThreads = 256;
 constexpr int kMaxRoundK = 16;    // descents per round (kernels.MAX_ROUND_K)
 constexpr int kMaxSharedBytes = 232448;   // a block's dynamic shared memory on sm_90
 constexpr unsigned kFullMask = 0xffffffffu;
@@ -368,34 +369,6 @@ __global__ void __launch_bounds__(kDescendThreads)
   const float v_term = leaf >= 0 ? tval[row + leaf] : 0.f;
   warp_store_leaf(bd + (size_t)b * L, meta + (size_t)b * 8, L, lane, mine, theirs, exp, term,
                   psign, v_term, cut, exp_node, exp_action, 0.f);
-}
-
-__global__ void refresh_kernel(const float* __restrict__ n,
-                               const float* __restrict__ w,
-                               const float* __restrict__ p,
-                               const float* __restrict__ code,
-                               float* __restrict__ besta,
-                               float* __restrict__ bestc,
-                               int B, int A, int C, float cpuct) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * C) return;
-  const int b = (int)(idx / C);
-  const int c = (int)(idx - (size_t)b * C);
-  float nv[kMaxA], wv[kMaxA], pv[kMaxA], cv[kMaxA];
-  const size_t base = (size_t)b * A * C + c;
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    if (a < A) {
-      const size_t off = base + (size_t)a * C;
-      nv[a] = n[off];
-      wv[a] = w[off];
-      pv[a] = p[off];
-      cv[a] = code[off];
-    } else {
-      nv[a] = wv[a] = pv[a] = cv[a] = 0.f;
-    }
-  }
-  refresh_node(nv, wv, pv, cv, A, cpuct, besta + idx, bestc + idx);
 }
 
 // ---------------------------------------------------------------------------
@@ -1257,51 +1230,28 @@ __global__ void merge_round_dense_kernel(float* __restrict__ n, float* __restric
   }
 }
 
-// The A <= 8 top-2 refresh alone, which seeds a round search's first planes
-// (_refresh2 at hybrid.py:874), from registers.
-__global__ void refresh2_kernel(const float* __restrict__ n, const float* __restrict__ w,
-                                const float* __restrict__ p, const float* __restrict__ code,
-                                float* __restrict__ besta, float* __restrict__ bestc,
-                                float* __restrict__ seca, float* __restrict__ secc, int B, int A,
-                                int C, float cpuct) {
-  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (size_t)B * C) return;
-  const int b = (int)(idx / C);
-  const int c = (int)(idx - (size_t)b * C);
-  const size_t base = (size_t)b * A * C + c;
-  Top2 t{};
-  float nv[kMaxA], total = 0.f;
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    nv[a] = a < A ? n[base + (size_t)a * C] : 0.f;
-    total = __fadd_rn(total, nv[a]);
-  }
-  const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
-#pragma unroll
-  for (int a = 0; a < kMaxA; ++a) {
-    if (a < A) {
-      const size_t off = base + (size_t)a * C;
-      top2_push(t, a, puct_score(nv[a], w[off], p[off], sq, cpuct), code[off]);
-    }
-  }
-  top2_store(t, false, idx, besta, bestc, seca, secc);
-}
-
-// The dense seed of a fresh search, one warp per game (kMergeWarps games a
-// block): _refresh (and with kTop2 _refresh2) of the planes _init_planes
-// leaves, which is its precondition: the roots' priors in p[:, :, 0], and
-// n = w = p = 0, code = -1 everywhere else. Only the game's A priors are
-// read: lane l loads those of actions l, l + 32, ... (J a lane, all in
-// flight together), scores each at n = w = 0 with the reference's
-// operations (puct_score; an illegal prior scores -1e30) and pushes them in
-// action order with strict comparisons; the warp then reduces in the
-// first-max order (score descending, action ascending), the dense branch's
-// result. Every child code is -1, so the root's best code is -1 and so is
-// its runner-up's, which is -1 (action and code) where no legal runner-up
-// exists. Every column c >= 1 is the empty node, whose edges all score +0:
-// best action 0, runner-up action 1, codes -1. The warp writes the game's
-// rows lane-strided (coalesced): the root's values at column 0, those
-// constants elsewhere; all are +0 or exact integers.
+// The seed of a fresh search at every A, one warp per game (kMergeWarps
+// games a block): _refresh (and with kTop2 _refresh2) of the planes
+// _init_planes leaves, which is its precondition: the roots' priors in
+// p[:, :, 0], and n = w = p = 0, code = -1 everywhere else. Only the game's
+// A priors are read: lane l loads those of actions l, l + 32, ... (J a
+// lane, all in flight together; J = 1 at A <= 8, where lane a holds action
+// a), scores each at n = w = 0 with the reference's operations
+// (puct_score; an illegal prior scores -1e30) and pushes them in action
+// order with strict comparisons; the warp then reduces in the first-max
+// order (score descending, action ascending). That is the dense branch's
+// result and the unrolled one's too (A <= 8): its strict-> scan from edge 0
+// keeps the first maximum, action 0 at an all-illegal root, and its
+// runner-up is the first maximum of the other edges, as the dense branch's
+// exclude-and-re-reduce. Every child code is -1, so the root's best code is
+// -1 and so is its runner-up's, which is -1 (action and code) where no
+// legal runner-up exists: the dense branch resets that code to -1, the
+// unrolled one keeps the child code its scan left there (top2_store), which
+// on these planes is -1 as well. Every column c >= 1 is the empty node,
+// whose edges all score +0: best action 0, runner-up action 1 (-1 at A = 1:
+// no runner-up), codes -1. The warp writes the game's rows lane-strided
+// (coalesced): the root's values at column 0, those constants elsewhere;
+// all are +0 or exact integers.
 template <int J, bool kTop2>
 __global__ void __launch_bounds__(kMergeWarpThreads)
     seed_dense_kernel(const float* __restrict__ p, float* __restrict__ besta,
@@ -1345,12 +1295,13 @@ __global__ void __launch_bounds__(kMergeWarpThreads)
     warp_first_max(best, ba);
     root_a = ba;
   }
+  const float empty_sa = A > 1 ? 1.f : -1.f;
   const size_t row = (size_t)b * C;
   for (int c = lane; c < C; c += 32) {
     besta[row + c] = c == 0 ? root_a : 0.f;
     bestc[row + c] = -1.f;
     if constexpr (kTop2) {
-      seca[row + c] = c == 0 ? root_sa : 1.f;
+      seca[row + c] = c == 0 ? root_sa : empty_sa;
       secc[row + c] = -1.f;
     }
   }
@@ -1407,11 +1358,11 @@ int launch_merge_dense(float* n, float* w, float* p, float* code, float* done, f
   return (int)cudaGetLastError();
 }
 
-// The dense seeds: kMergeWarps games (warps) a block, J actions a lane as
-// the dense merges keep them.
+// The seeds: kMergeWarps games (warps) a block, J actions a lane as the
+// dense merges keep them, one at A <= kMaxA.
 template <int J, bool kTop2>
-int launch_seed_dense(const float* p, float* besta, float* bestc, float* seca, float* secc, int B,
-                      int A, int C, float cpuct, void* stream) {
+int launch_seed(const float* p, float* besta, float* bestc, float* seca, float* secc, int B, int A,
+                int C, float cpuct, void* stream) {
   seed_dense_kernel<J, kTop2><<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
                                 (cudaStream_t)stream>>>(p, besta, bestc, seca, secc, B, A, C,
                                                         cpuct);
@@ -1419,16 +1370,17 @@ int launch_seed_dense(const float* p, float* besta, float* bestc, float* seca, f
 }
 
 template <bool kTop2>
-int seed_dense(const float* p, float* besta, float* bestc, float* seca, float* secc, int B, int A,
-               int C, float cpuct, void* stream) {
-  if (A < 2 || A > kMaxDenseA) return (int)cudaErrorInvalidValue;
+int seed(const float* p, float* besta, float* bestc, float* seca, float* secc, int B, int A, int C,
+         float cpuct, void* stream) {
+  if (A < 1 || A > kMaxDenseA) return (int)cudaErrorInvalidValue;
+  if (A <= kMaxA) return launch_seed<1, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
   if (A <= 32 * 4) {
-    return launch_seed_dense<4, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+    return launch_seed<4, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
   }
   if (A <= 32 * 8) {
-    return launch_seed_dense<8, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+    return launch_seed<8, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
   }
-  return launch_seed_dense<16, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+  return launch_seed<16, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
 template <int J>
@@ -1523,22 +1475,21 @@ int az_merge_dense(float* n, float* w, float* p, float* code, float* done,
                                 B, A, C, slot, cpuct, stream);
 }
 
+// The seed of a fresh search (1 <= A <= 512; the wrappers send it A <= 8):
+// n, w and code are not read; the planes must be as _init_planes leaves
+// them (see seed_dense_kernel).
 int az_refresh(const float* n, const float* w, const float* p,
                const float* code, float* besta, float* bestc, int B, int A,
                int C, float cpuct, void* stream) {
-  refresh_kernel<<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
-                   (cudaStream_t)stream>>>(n, w, p, code, besta, bestc, B, A,
-                                           C, cpuct);
-  return (int)cudaGetLastError();
+  return seed<false>(p, besta, bestc, nullptr, nullptr, B, A, C, cpuct, stream);
 }
 
-// The dense seed of a fresh search (2 <= A <= 512): n, w and code are not
-// read; the planes must be as _init_planes leaves them (see
-// seed_dense_kernel).
+// The same seed for the dense path (2 <= A <= 512).
 int az_refresh_dense(const float* n, const float* w, const float* p,
                      const float* code, float* besta, float* bestc, int B,
                      int A, int C, float cpuct, void* stream) {
-  return seed_dense<false>(p, besta, bestc, nullptr, nullptr, B, A, C, cpuct, stream);
+  if (A < 2) return (int)cudaErrorInvalidValue;
+  return seed<false>(p, besta, bestc, nullptr, nullptr, B, A, C, cpuct, stream);
 }
 
 // The round entries: K descents per game (1 <= K <= 255, C <= 29056 nodes),
@@ -1616,22 +1567,20 @@ int az_merge_round_dense(float* n, float* w, float* p, float* code, float* done,
                                       bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
 }
 
+// The top-2 seed of a fresh round search (1 <= A <= 512; the wrappers send
+// it A <= 8), as az_refresh.
 int az_refresh2(const float* n, const float* w, const float* p, const float* code, float* besta,
                 float* bestc, float* seca, float* secc, int B, int A, int C, float cpuct,
                 void* stream) {
-  if (A > kMaxA) return (int)cudaErrorInvalidValue;
-  refresh2_kernel<<<blocks_for((size_t)B * C, kMergeThreads), kMergeThreads, 0,
-                    (cudaStream_t)stream>>>(n, w, p, code, besta, bestc, seca, secc, B, A, C,
-                                            cpuct);
-  return (int)cudaGetLastError();
+  return seed<true>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
-// The dense top-2 seed of a fresh round search (2 <= A <= 512), as
-// az_refresh_dense.
+// The same top-2 seed for the dense path (2 <= A <= 512).
 int az_refresh2_dense(const float* n, const float* w, const float* p, const float* code,
                       float* besta, float* bestc, float* seca, float* secc, int B, int A, int C,
                       float cpuct, void* stream) {
-  return seed_dense<true>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+  if (A < 2) return (int)cudaErrorInvalidValue;
+  return seed<true>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
 }  // extern "C"

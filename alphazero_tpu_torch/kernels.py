@@ -4,9 +4,9 @@ The kernels live in ``csrc/`` (see each source's header for what it
 replaces and how it is designed): ``hybrid.cu`` holds the hybrid engine's
 descend (one instance per game: Connect-Four, and Othello, Gomoku and Hex,
 whose steps are in ``othello.cuh``, ``gomoku.cuh`` and ``hex.cuh``), merge
-and refresh (unrolled for A <= 8, dense above), and the same three for
-K>1 leaf-parallel rounds (``descend_round`` per game, ``merge_round`` and
-the top-2 ``refresh2``),
+(unrolled for A <= 8, dense above) and the seed refresh of a fresh search
+(one kernel for every A), and the same three for K>1 leaf-parallel rounds
+(``descend_round`` per game, ``merge_round`` and the top-2 ``refresh2``),
 ``fused.cu`` the fused search kernels (the uniform evaluator's, and the
 MLP's with the evaluator of ``mlp.cuh``, each at K=1 and in K>1
 leaf-parallel rounds); both include the Connect-Four and
@@ -40,9 +40,10 @@ round. The merges update the search's best planes (``besta, bestc``, and
 ``seca, secc`` in rounds) in place and rewrite only the columns the merge
 touched, so they need those planes to be the refresh of the planes they
 are given, as the seed ``refresh``/``refresh2`` and every merge leave
-them. The dense seeds ``refresh_dense``/``refresh2_dense`` take only a
-fresh search's planes (``mcts.hybrid._init_planes``), where every node
-but the root is empty: they read the roots' priors alone. ``fused`` and ``fused_mlp`` run a whole Connect-Four
+them. The seeds ``refresh``/``refresh2`` (and ``refresh_dense``/
+``refresh2_dense``, where they route A > 8) take only a fresh search's
+planes (``mcts.hybrid._init_planes``), where every node but the root is
+empty: they read the roots' priors alone, at every A. ``fused`` and ``fused_mlp`` run a whole Connect-Four
 search in one launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the
 same in rounds of 1 <= K <= ``FUSED_MAX_K`` descents; their MLP
 evaluator runs on the bf16 tensor cores from weights in shared memory
@@ -401,7 +402,9 @@ def merge_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
 
 
 def _refresh(entry: str, n, w, p, code, cpuct: float):
-    """Launch the refresh kernel ``entry`` on CUDA tensors."""
+    """Launch the seed kernel ``entry`` on CUDA tensors: a fresh search's
+    planes (``mcts.hybrid._init_planes``), of which it reads only the
+    roots' priors ``p[:, :, 0]``."""
     B, A, C = n.shape
     if B == 0:
         raise ValueError("refresh kernel needs B > 0")
@@ -420,10 +423,14 @@ def _refresh(entry: str, n, w, p, code, cpuct: float):
 
 
 def refresh(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh``: the PUCT argmax planes of every node. On
-    CUDA, A <= 8 runs this wrapper's kernel and larger A
-    ``refresh_dense``, which takes only a fresh search's planes (see
-    there)."""
+    """``mcts.hybrid.refresh``, the PUCT argmax planes of every node, as
+    the seed of a fresh search: on CUDA, A <= 8 runs this wrapper's kernel
+    and larger A ``refresh_dense``, and both take only the planes
+    ``mcts.hybrid._init_planes`` leaves (see ``refresh_dense``). The
+    kernel reads only the roots' priors and writes every other node's row
+    as the empty node's constant ``(0, -1)``, so on other planes its result
+    is not the refresh. Nothing checks the planes here (it would
+    synchronise with the card)."""
     if _on_cpu(n, w, p, code):
         return _plain.refresh(n, w, p, code, cpuct)
     if n.shape[1] > _plain.UNROLLED_MAX_A:
@@ -600,7 +607,8 @@ def merge_round_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, 
 
 
 def _refresh2(entry: str, n, w, p, code, cpuct: float):
-    """Launch the top-2 refresh kernel ``entry`` on CUDA tensors."""
+    """Launch the top-2 seed kernel ``entry`` on CUDA tensors, under
+    ``_refresh``'s precondition."""
     B, A, C = n.shape
     if B == 0:
         raise ValueError("refresh2 kernel needs B > 0")
@@ -618,10 +626,12 @@ def _refresh2(entry: str, n, w, p, code, cpuct: float):
 
 
 def refresh2(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh2``: the top-2 PUCT planes of every node. On
-    CUDA, A <= 8 runs this wrapper's kernel and larger A
-    ``refresh2_dense``, which takes only a fresh search's planes (see
-    there)."""
+    """``mcts.hybrid.refresh2``, the top-2 PUCT planes of every node, as
+    the seed of a fresh round search: on CUDA, A <= 8 runs this wrapper's
+    kernel and larger A ``refresh2_dense``, both under ``refresh``'s
+    precondition (a fresh search's planes), where the kernels' four planes
+    are bit-equal to the plain full refresh2's (every node but the root:
+    ``(0, -1, 1, -1)``, at A = 1 ``(0, -1, -1, -1)``)."""
     if _on_cpu(n, w, p, code):
         return _plain.refresh2(n, w, p, code, cpuct)
     if n.shape[1] > _plain.UNROLLED_MAX_A:

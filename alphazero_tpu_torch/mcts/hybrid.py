@@ -331,7 +331,9 @@ def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
 class SearchKernels(NamedTuple):
     """The kernel entry points the search loops call (see ``kernels``):
     ``run_search``'s three, and ``run_rounds``' three (None where a caller
-    gives only the first three; K > 1 then raises)."""
+    gives only the first three; K > 1 then raises). ``refresh`` and
+    ``refresh2`` are called once a search, on ``_init_planes``' fresh
+    planes only; the merges keep the best planes current after that."""
 
     descend: Callable
     merge: Callable
@@ -392,8 +394,8 @@ def run_search(
     ``n[:, :, 0]``).
 
     ``kernels.refresh`` seeds the best planes from the fresh planes of
-    ``_init_planes``, and only from those: the dense seed kernel
-    (``kernels.refresh_dense``) takes that as its precondition."""
+    ``_init_planes``, and only from those: the seed kernels take that as
+    their precondition at every A (they read only the roots' priors)."""
     B = boards.shape[0]
     C = cfg.nodes
     cpuct = float(cfg.cpuct)
@@ -431,8 +433,8 @@ def run_rounds(
     round r installs at slot ``r*K + 1 + k`` unless that slot is past the
     capacity or the descent is a duplicate, which installs nothing but
     still backs up its value. ``kernels.refresh2`` seeds the top-2 planes
-    from ``_init_planes``' fresh planes, the dense seed kernel's
-    precondition, as in ``run_search``."""
+    from ``_init_planes``' fresh planes, the seed kernels' precondition at
+    every A, as in ``run_search``."""
     K = int(cfg.parallel_sims)
     if kernels.descend_round is None or kernels.merge_round is None or kernels.refresh2 is None:
         raise ValueError("parallel_sims > 1 needs the kernels' round entry points")

@@ -19,14 +19,15 @@ card, in phases:
            into one library, with the build seconds and ptxas's register
            report, and the registers, stack and static shared bytes of the
            three MLP kernels, of the two uniform fused kernels, of the two
-           A <= 8 merges, of the eight hybrid descends and of the six
-           instances of the dense seed (these eighteen must have no stack
-           frame and no spill);
+           A <= 8 merges, of the eight hybrid descends and of the eight
+           instances of the seed (these twenty must have no stack frame and
+           no spill);
 3. kernels vs plain: each kernel against its plain PyTorch version at the
            main path's shapes (B=4096, C=101, A=7), on tree planes taken
            from a few simulations of the plain search on random positions
            (the merge, which refreshes only the columns it writes, on best
-           planes that are the refresh of those planes, as in a search);
+           planes that are the refresh of those planes, as in a search; the
+           refresh, a fresh search's seed, on that search's fresh planes);
            outputs must be bit-equal; both timed with CUDA events;
 4. goldens: the uniform model through the CUDA path reproduces
            ``tests/golden_counts.json`` for Connect-Four exactly;
@@ -130,7 +131,8 @@ card, in phases:
            refresh against their plain versions (bit-equal, timed in
            turns) at Connect-Four B=4096 A=7, Othello B=1024 A=65, Gomoku 15
            B=1024 A=225 and Hex B=1024 A=49, C=101, on planes from 6 plain
-           rounds (the dense top-2 refresh on that search's fresh planes);
+           rounds (the top-2 refresh, the seed, on that search's fresh
+           planes);
            (b) ``tests/torch_round_goldens.json`` reproduced through
            the kernels; (c) the Othello ``full`` preset's actor at K=4
            (phase 8d runs it at K=1): exactly 25 Othello round descends, 25
@@ -245,14 +247,17 @@ and 19 and Hex B=1024; C=101), with DESCEND_REPS readings of the device
 time per launch each and its bound. It calls only entry points the package
 has had since the K=4 rounds, so it too compares two trees in one call.
 
-``python3 chip_smoke.py --seeds`` does the same for the dense seeds,
-``refresh_dense`` and ``refresh2_dense``: the build's report of
-``seed_dense_kernel``'s six instances, or on an older tree of the
+``python3 chip_smoke.py --seeds`` does the same for the seeds of a fresh
+search, ``refresh`` and ``refresh2`` at Connect-Four's A=7 and
+``refresh_dense`` and ``refresh2_dense`` above: the build's report of
+``seed_dense_kernel``'s eight instances, or on an older tree of the
 thread-per-node kernels they replaced (not gated), then both seeds held
 bit-equal to the plain full refreshes on the fresh planes of real roots
 (the uniform model's root prior, with the preset's Dirichlet noise where it
-has one) for Hex (A=49), Othello (65), Gomoku 9 (81), Gomoku 15 (225, at
-B=1024 and at the uniform actor's B=4096) and Gomoku 19 (361), C=101,
+has one) for Connect-Four (A=7, B=4096, Dirichlet 1.0: the roots of phase
+3 and of phase 11's search, and phase 5's actor's first roots, the
+initial position), Hex (49), Othello (65), Gomoku 9 (81), Gomoku 15 (225,
+at B=1024 and at the uniform actor's B=4096) and Gomoku 19 (361), C=101,
 with SEED_REPS readings of the device time per launch each and their
 bounds. It calls only entry points the package has had since the K=4
 rounds, so it too compares two trees in one call.
@@ -306,11 +311,14 @@ DESCEND_KERNELS = tuple(f"{d}_kernelINS_{g}" for d in ("descend", "descend_round
                         for g in ("15ConnectFourGame", "11OthelloGame", "10GomokuGameILi8E",
                                   "7HexGame"))
 C4_STEPS = 5              # --merges: timed C4 ResNet actor steps
-SEED_REPS = 3             # --seeds: device-time readings of each dense seed
-# the dense seeds' ptxas names: seed_dense_kernel<J, top-2> of each J, and
-# (--seeds on an older tree) the thread-per-node kernels they replaced
-SEED_KERNELS = tuple(f"seed_dense_kernelILi{j}ELb{t}EE" for t in (0, 1) for j in (4, 8, 16))
-OLD_SEED_KERNELS = ("refresh_dense_kernel", "refresh2_kernelILb1EE")
+SEED_REPS = 3             # --seeds: device-time readings of each seed
+# the seeds' ptxas names: seed_dense_kernel<J, top-2> of each J (1 at
+# A <= 8), and (--seeds on an older tree) the thread-per-node kernels they
+# replaced: the dense ones, then the A <= 8 refresh_kernel and
+# refresh2_kernel (their mangled names end "_kernelE" + the arguments)
+SEED_KERNELS = tuple(f"seed_dense_kernelILi{j}ELb{t}EE" for t in (0, 1) for j in (1, 4, 8, 16))
+OLD_SEED_KERNELS = ("refresh_dense_kernel", "refresh2_kernelILb1EE", "refresh_kernelE",
+                    "refresh2_kernelE")
 
 OTH_B = 1024              # Othello full preset (examples/train_othello.py): games per batch
 OTH_CHANNELS, OTH_BLOCKS = 128, 5   # ... its AZResNet
@@ -668,8 +676,8 @@ def merge_bounds(m_args) -> dict:
 
 
 def seed_bounds(r_args, top2: bool) -> dict:
-    """The bound of a dense seed (``refresh_dense``, with ``top2``
-    ``refresh2_dense``) on a fresh search's planes, for what its data
+    """The bound of a seed (``refresh``/``refresh_dense``, with ``top2``
+    ``refresh2``/``refresh2_dense``) on a fresh search's planes, for what its data
     needs: the roots' priors read (B x A floats), the 2 or 4 best planes
     written (B x C floats each), the PUCT scores of the roots' edges.
     Beside it, labelled, the same with each prior read as its own 32-byte
@@ -687,9 +695,9 @@ def seed_bounds(r_args, top2: bool) -> dict:
 
 
 def seed_vs_plain(name: str, kernel, plain, r_args) -> tuple:
-    """A dense seed's wrapper against the plain full refresh on the seed's
-    own arguments: a fresh search's planes (checked: the priors at node 0,
-    the empty node elsewhere), bit-equal outputs. Returns ``(result entry,
+    """A seed's wrapper against the plain full refresh on the seed's own
+    arguments: a fresh search's planes (checked: the priors at node 0, the
+    empty node elsewhere), bit-equal outputs. Returns ``(result entry,
     (kernel fn, plain fn) for in_turns)``."""
     n, w, p, code = r_args[:4]
     if not (bool((n == 0).all()) and bool((w == 0).all()) and bool((p[:, :, 1:] == 0).all())
@@ -1295,9 +1303,9 @@ def descend_round_vs_plain(d_args) -> tuple:
 def rounds_vs_plain(game, d_args, m_args, r_args, card: str) -> dict:
     """The game's round descend, the round merge and the top-2 refresh
     against their plain versions: the first two on the captured arguments,
-    the refresh on the merge's planes (A <= 8) or, for the dense seed, on
-    the search's fresh planes ``r_args``; bit-equal outputs, then each
-    timed in turns. Returns their result entries."""
+    the refresh, the search's seed, on its fresh planes ``r_args``;
+    bit-equal outputs, then each timed in turns. Returns their result
+    entries."""
     from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.mcts import hybrid
 
@@ -1316,19 +1324,7 @@ def rounds_vs_plain(game, d_args, m_args, r_args, card: str) -> dict:
     shared = edges - float(sum(((m_patha == a + 1).any(dim=0)).sum() for a in range(A)))
     installs = float(m_args[9][..., hybrid.M2_EXPOK].sum())
     planes_bytes = F32 * 4 * B * A * C
-    if dense:
-        results[r_name], refresh_fns = seed_vs_plain(r_name, r_kernel, hybrid.refresh2, r_args)
-    else:
-        ref_k = r_kernel(*m_args[:4], m_args[-1])
-        ref_p = hybrid.refresh2(*m_args[:4], m_args[-1])
-        if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
-            fail(f"{r_name} differs from the plain version at A={A}")
-        results[r_name] = {
-            "max_abs_err": max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p)),
-            **bound(planes_bytes + F32 * 4 * B * C, puct_ops(B * C, A) + A * B * C),
-        }
-        refresh_fns = (lambda: r_kernel(*m_args[:4], m_args[-1]),
-                       lambda: hybrid.refresh2(*m_args[:4], m_args[-1]))
+    results[r_name], refresh_fns = seed_vs_plain(r_name, r_kernel, hybrid.refresh2, r_args)
     print(f"[rounds] {game.name}, B={B} C={C} A={A} K={K}: {d_name}, {m_name}, {r_name} bit-equal "
           f"to plain ({second:.0f} runner-up takes, {dups:.0f} duplicates, {shared:.0f} shared path "
           f"edges, {installs:.0f} installs; stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
@@ -2242,7 +2238,7 @@ def seed_turns(card: str) -> None:
     """``--seeds`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.config import MCTSConfig
-    from alphazero_tpu_torch.games import Gomoku, Hex, Othello
+    from alphazero_tpu_torch.games import ConnectFour, Gomoku, Hex, Othello
     from alphazero_tpu_torch.mcts import hybrid
     from alphazero_tpu_torch.mcts.tree import INVALID_P
     from alphazero_tpu_torch.models import make_uniform_model
@@ -2250,8 +2246,12 @@ def seed_turns(card: str) -> None:
 
     dev = torch.device("cuda", 0)
     ptxas_lines(kernels.library(), (*SEED_KERNELS, *OLD_SEED_KERNELS), gate=False)
-    oth, g9, g15, g19, hx = Othello(), Gomoku(9), Gomoku(15), Gomoku(19), Hex()
-    cells = (   # the roots of phases 10, 8, 9, 9(d)'s batch and 15: game, B, Dirichlet, moves
+    c4, oth, g9, g15, g19, hx = ConnectFour(), Othello(), Gomoku(9), Gomoku(15), Gomoku(19), Hex()
+    # the roots of phases 3 and 11(e) (the same), 5 (its first: the initial
+    # position), 10, 8, 9, 9(d)'s batch and 15: game, B, Dirichlet, moves
+    cells = (
+        (c4, B, 1.0, 30),
+        (c4, B, 1.0, 0),
         (hx, HEX_B, HEX_DIRICHLET, 30),
         (oth, OTH_B, OTH_DIRICHLET, 40),
         (g9, GMK_B, GMK_DIRICHLET, g9.num_actions // 2),
@@ -2272,7 +2272,8 @@ def seed_turns(card: str) -> None:
         planes = hybrid._init_planes(ops, ops.from_state(roots), torch.where(valid, prior, INVALID_P),
                                      cfg.nodes, ops.aux(dev))
         r_args = (*planes[:4], float(cfg.cpuct))
-        for name, plain in (("refresh_dense", hybrid.refresh), ("refresh2_dense", hybrid.refresh2)):
+        dense = "_dense" if A > hybrid.UNROLLED_MAX_A else ""
+        for name, plain in ((f"refresh{dense}", hybrid.refresh), (f"refresh2{dense}", hybrid.refresh2)):
             result, (k_call, _) = seed_vs_plain(name, getattr(kernels, name), plain, r_args)
             devs = [device_ms(k_call) for _ in range(SEED_REPS)]
             print(f"[seeds] {name}, {game.name}, B={batch}, C={cfg.nodes}, A={A}: bit-equal to "
@@ -2404,15 +2405,19 @@ def main() -> int:
         captured["merge"] = [a.clone() if torch.is_tensor(a) else a for a in args]
         return hybrid.merge(*args)
 
+    def capture_refresh(*args):
+        captured["refresh"] = [a.clone() if torch.is_tensor(a) else a for a in args]
+        return hybrid.refresh(*args)
+
     warm_sims = 24
     cfg_cap = MCTSConfig(num_sims=warm_sims, max_nodes=C, max_depth=MAX_DEPTH, dirichlet_alpha=1.0)
     roots = random_positions(game, B, 30, SEED, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     noise = sample_draws(gen, B, A, 1.0, dev).dirichlet
     hybrid.make_hybrid_root_fn(
-        game, apply_fn, cfg_cap, kernels=SearchKernels(capture_descend, capture_merge, hybrid.refresh)
+        game, apply_fn, cfg_cap, kernels=SearchKernels(capture_descend, capture_merge, capture_refresh)
     )(roots, noise)
-    d_args, m_args = captured["descend"], captured["merge"]
+    d_args, m_args, r_args = captured["descend"], captured["merge"], captured["refresh"]
     if d_args[0].shape != (B, C) or m_args[0].shape != (B, A, C):
         fail(f"captured planes have shapes {d_args[0].shape}, {m_args[0].shape}")
 
@@ -2425,13 +2430,11 @@ def main() -> int:
     # rides beside it, labelled
     results["merge"], merge_fns = merge_vs_plain("merge", kernels.merge, hybrid.merge, m_args)
 
-    ref_k = kernels.refresh(*m_args[:4], m_args[-1])
-    ref_p = hybrid.refresh(*m_args[:4], m_args[-1])
-    err = max(float((k - p).abs().max()) for k, p in zip(ref_k, ref_p))
-    if not all(bit_equal(k, p) for k, p in zip(ref_k, ref_p)):
-        fail("refresh differs from the plain version")
-    results["refresh"] = {"max_abs_err": err}
-    results["refresh"].update(bound(F32 * (4 * B * A * C + 2 * B * C), puct_ops(B * C, A)))
+    # the refresh seeds a search from its fresh planes (_init_planes), its
+    # precondition, and reads only the roots' priors; its bound counts those
+    # and the rows it writes, the sector and whole-plane ones ride beside it
+    results["refresh"], refresh_fns = seed_vs_plain("refresh", kernels.refresh, hybrid.refresh,
+                                                    r_args)
     print(f"[kernels] B={B} C={C} A={A}: descend, merge, refresh bit-equal to plain "
           f"(mean path length {edges / B:.2f} edges/game)", flush=True)
 
@@ -2439,10 +2442,7 @@ def main() -> int:
     fns = {
         "descend": (lambda: kernels.descend(*d_args), lambda: hybrid.descend(*d_args)),
         "merge": merge_fns,
-        "refresh": (
-            lambda: kernels.refresh(*m_args[:4], m_args[-1]),
-            lambda: hybrid.refresh(*m_args[:4], m_args[-1]),
-        ),
+        "refresh": refresh_fns,
     }
     time_in_turns(results, fns, "kernels", card)
 
@@ -2706,7 +2706,7 @@ def main() -> int:
             # the chain of library forwards a search's evaluations take, for
             # int8_tower the torch._int_mm chain
             "library_ms": results[name].get("library_ms"),
-            # the merges and the dense seeds: beside the bound of what the
+            # the merges and the seeds: beside the bound of what the
             # data needs, the bound of a kernel that refreshes every node,
             # and a seed's with each prior read as its own 32-byte sector
             **{k: results[name][k] for k in ("whole_plane_bound_ms", "sector_bound_ms")

@@ -135,24 +135,30 @@ def test_emulated_kernels_bit_equal_plain_resnet_dirichlet(emulated):
     assert calls == {"az_descend": 20, "az_merge": 20, "az_refresh": 1}
 
 
-# a game of each dense A of the seed tests: Hex, Othello, Gomoku 9 and 15
-DENSE_GAMES = {49: Hex(), 65: Othello(), 81: Gomoku(9), 225: Gomoku(15)}
+# a game of each A of the seed tests: Connect-Four (the A <= 8 seed), Hex,
+# Othello, Gomoku 9 and 15
+SEED_GAMES = {7: ConnectFour(), 49: Hex(), 65: Othello(), 81: Gomoku(9), 225: Gomoku(15)}
 
 
-@pytest.mark.parametrize("A", [49, 65, 81, 225])
+def _seed_entry(name: str, A: int) -> str:
+    return f"az_{name}_dense" if A > hybrid.UNROLLED_MAX_A else f"az_{name}"
+
+
+@pytest.mark.parametrize("A", [7, 49, 65, 81, 225])
 def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
-    """The dense refresh, a fresh search's seed, at Hex's (and Gomoku 7's)
-    A, Othello's, Gomoku 9's and Gomoku 15's, on fresh planes
-    (``_init_planes``) whose roots carry the scenarios (``seed_priors``):
-    exact ties (uniform priors), illegal edges, an all-illegal root and a
-    root whose one legal edge is the last: bit-equal to the plain version,
-    whose first-max picks action 0 at the all-illegal root and the first
-    legal edge among the ties; every other node is the empty node."""
+    """The refresh, a fresh search's seed, at Connect-Four's A (the A <= 8
+    seed) and the dense A of Hex (and Gomoku 7), Othello, Gomoku 9 and
+    Gomoku 15, on fresh planes (``_init_planes``) whose roots carry the
+    scenarios (``seed_priors``): exact ties (uniform priors), illegal
+    edges, an all-illegal root and a root whose one legal edge is the last:
+    bit-equal to the plain version, whose first-max picks action 0 at the
+    all-illegal root and the first legal edge among the ties; every other
+    node is the empty node."""
     B, C = 5, 37
     p_masked = seed_priors(A, B, seed=A)
-    n, w, p, code = fresh_planes(DENSE_GAMES[A], p_masked, C)
+    n, w, p, code = fresh_planes(SEED_GAMES[A], p_masked, C)
     (best_a, best_c), entry = emulated_refresh(emulated, n, w, p, code, 1.0)
-    assert entry == "az_refresh_dense"
+    assert entry == _seed_entry("refresh", A)
     assert best_a[0, 0] == 1 and best_a[1, 0] == 0 and best_a[2, 0] == A - 1
     assert (best_a[:, 1:] == 0).all() and (best_c == -1).all()
     legal = p_masked[0] > -5e29
@@ -533,43 +539,26 @@ def test_emulated_round_kernels_bit_equal_plain(emulated, game, moves, cfg, mode
 
 @pytest.mark.parametrize("A", [7, 49, 65, 225])
 def test_emulated_refresh2_ties_illegal_and_lone_nodes(emulated, A):
-    """The top-2 refresh at Connect-Four's A (unrolled, on synthetic planes
-    with exact score ties, illegal edges, an all-illegal node and a node
-    with one legal edge) and the dense A of Hex, Othello and Gomoku 15 (a
-    fresh search's seed, on fresh planes whose roots carry those scenarios,
-    ``seed_priors``): bit-equal to the plain version, with no runner-up
-    (-1) where no second legal edge exists; there the dense branch's
-    runner-up code is -1 and the unrolled one keeps what its scan left;
-    every other node of the fresh planes is the empty node (0, -1, 1, -1)."""
+    """The top-2 refresh, a fresh round search's seed, at Connect-Four's A
+    (the A <= 8 seed) and the dense A of Hex, Othello and Gomoku 15, on
+    fresh planes whose roots carry exact score ties, illegal edges, an
+    all-illegal root and a root with one legal edge, the last
+    (``seed_priors``): bit-equal to the plain version, with no runner-up
+    (-1, code -1) where no second legal edge exists; every other node of
+    the fresh planes is the empty node (0, -1, 1, -1). (Off fresh planes
+    the unrolled top-2 keeps, as the runner-up code of a node without one,
+    the code its scan displaced; the A <= 8 round merge's tests,
+    tests/test_torch_merge_emu.py ``lone_legal``, pin that.)"""
     B, C = 5, 37
-    if A > 8:
-        p_masked = seed_priors(A, B, seed=A)
-        n, w, p, code = fresh_planes(DENSE_GAMES[A], p_masked, C)
-        (best_a, best_c, sec_a, sec_c), entry = emulated_refresh2(emulated, n, w, p, code, 1.0)
-        assert entry == "az_refresh2_dense"
-        assert best_a[0, 0] == 1 and sec_a[0, 0] == (p_masked[0, 2:] > -5e29).nonzero()[0, 0] + 2
-        assert best_a[1, 0] == 0 and sec_a[1, 0] == -1 and best_a[2, 0] == A - 1 and sec_a[2, 0] == -1
-        assert (best_a[:, 1:] == 0).all() and (sec_a[:, 1:] == 1).all()
-        assert (best_c == -1).all() and (sec_c == -1).all()
-        assert (sec_a[3:, 0] >= 0).all()
-        return
-    rng = np.random.default_rng(A)
-    n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
-    w = torch.as_tensor((rng.integers(-2, 3, (B, A, C)) / 2).astype(np.float32)) * (n > 0)
-    p = torch.full((B, A, C), 1.0 / A)
-    p[:, 3::5] = -1e30
-    p[1, :, 4] = -1e30                                   # an all-illegal node
-    p[2, :, 5] = -1e30
-    p[2, A - 1, 5] = 1.0                                 # a node with one legal edge, the last
-    code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
+    p_masked = seed_priors(A, B, seed=A)
+    n, w, p, code = fresh_planes(SEED_GAMES[A], p_masked, C)
     (best_a, best_c, sec_a, sec_c), entry = emulated_refresh2(emulated, n, w, p, code, 1.0)
-    assert entry == "az_refresh2"
-    assert best_a[1, 4] == 0 and sec_a[1, 4] == -1 and best_a[2, 5] == A - 1 and sec_a[2, 5] == -1
-    assert sec_c[2, 5] == code[2, 0, 5]                  # the scan's leftover: action 0's code
-    sq = torch.sqrt(n.sum(dim=1) + 1e-6)[:, None]
-    score = torch.where(p <= -5e29, -1e30, w / n.clamp(min=1) + p * sq / (1 + n))
-    assert ((score == score.amax(dim=1, keepdim=True)).sum(dim=1) > 1).any()   # exact ties
-    assert (sec_a >= 0).sum() > B * C - 4
+    assert entry == _seed_entry("refresh2", A)
+    assert best_a[0, 0] == 1 and sec_a[0, 0] == (p_masked[0, 2:] > -5e29).nonzero()[0, 0] + 2
+    assert best_a[1, 0] == 0 and sec_a[1, 0] == -1 and best_a[2, 0] == A - 1 and sec_a[2, 0] == -1
+    assert (best_a[:, 1:] == 0).all() and (sec_a[:, 1:] == 1).all()
+    assert (best_c == -1).all() and (sec_c == -1).all()
+    assert (sec_a[3:, 0] >= 0).all()
 
 
 def _checked_fused_mlp_rounds(lib, calls):

@@ -188,7 +188,7 @@ def assert_order_free(boards: torch.Tensor, weights) -> None:
 _HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel<<<grid, threads, smem, stream>>>(args), the kernel maybe a template instance
 _LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 9, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
+_LAUNCHES = {"hybrid.cu": 7, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
 # a kernel's dynamic shared memory: the emulated launch's buffer
 _DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
@@ -304,11 +304,11 @@ def checked_kernels(lib, calls):
 
 
 def emulated_refresh(lib, n, w, p, code, cpuct):
-    """The refresh kernel for A (``az_refresh`` or ``az_refresh_dense``),
+    """The seed kernel for A (``az_refresh`` or ``az_refresh_dense``),
     asserted bit-equal to the plain version on outputs filled with NaN
-    first (so every cell must be written): ``(best planes, entry)``. The
-    dense one is the seed of a fresh search: ``n, w, p, code`` must be
-    planes as ``hybrid._init_planes`` leaves them (``fresh_planes``)."""
+    first (so every cell must be written): ``(best planes, entry)``. Both
+    seed a fresh search: ``n, w, p, code`` must be planes as
+    ``hybrid._init_planes`` leaves them (``fresh_planes``)."""
     B, A, C = n.shape
     entry = "az_refresh_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh"
     best = [torch.full((B, C), float("nan")) for _ in range(2)]
@@ -320,10 +320,10 @@ def emulated_refresh(lib, n, w, p, code, cpuct):
 
 
 def emulated_refresh2(lib, n, w, p, code, cpuct):
-    """The top-2 refresh kernel for A (``az_refresh2`` or
-    ``az_refresh2_dense``, the latter on fresh planes as
-    ``emulated_refresh``'s dense one), asserted bit-equal to the plain
-    version on outputs filled with NaN first: ``(top-2 planes, entry)``."""
+    """The top-2 seed kernel for A (``az_refresh2`` or
+    ``az_refresh2_dense``, on fresh planes as ``emulated_refresh``'s),
+    asserted bit-equal to the plain version on outputs filled with NaN
+    first: ``(top-2 planes, entry)``."""
     B, A, C = n.shape
     entry = "az_refresh2_dense" if A > hybrid.UNROLLED_MAX_A else "az_refresh2"
     best = [torch.full((B, C), float("nan")) for _ in range(4)]
