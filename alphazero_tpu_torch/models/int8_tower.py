@@ -12,7 +12,11 @@ Layout (the reference's): activations f32[B*42, 64], rows game-major
 b*42 + r*7 + c. A layer's weights hold K = 9 taps x 64 input channels,
 row tap*64 + c_in with tap = (dr+1)*3 + (dc+1); the reference stores them
 int8[576, 64], the port int8[11, 64, 576], K-contiguous per output channel
-as the tensor cores' ``.col`` operand takes them (``tower_weights_from_jax``).
+as the tensor cores' K-major operand takes them (``tower_weights_from_jax``).
+The kernel computes on a padded board (``padded_rows``: per game a zero
+row, then each board row and a zero column), where each tap's operand is
+the rows shifted by ``padded_shift(tap)``; ``padded_patches`` is that
+im2col in plain PyTorch, equal to ``patches``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,11 @@ ASCALE = 32.0         # activation quant scale (the same)
 # (cell, tap) pairs of one game whose neighbour lies on the board: the
 # others multiply the SAME padding's zeros
 BOARD_PAIRS = sum((ROWS - abs(dr)) * (COLS - abs(dc)) for dr in (-1, 0, 1) for dc in (-1, 0, 1))
+# the kernel's padded board (csrc/int8_tower.cu): a zero row of PAD_COLS
+# cells, then each board row with a zero column after it; GAME_ROWS rows a
+# game
+PAD_COLS = COLS + 1
+GAME_ROWS = PAD_COLS * (1 + ROWS)
 
 
 def tower_ops(B: int) -> int:
@@ -70,6 +79,34 @@ def patches(q: torch.Tensor) -> torch.Tensor:
     taps = [pad[:, 1 + dr:1 + dr + ROWS, 1 + dc:1 + dc + COLS]
             for dr in (-1, 0, 1) for dc in (-1, 0, 1)]
     return torch.cat(taps, dim=-1).view(B * CELLS, TAPS * CH)
+
+
+def padded_rows(q: torch.Tensor) -> torch.Tensor:
+    """int8[B*42, 64] -> the kernel's padded layout int8[B*GAME_ROWS, 64]:
+    per game a zero row, then each board row and a zero column."""
+    B = q.shape[0] // CELLS
+    pad = q.new_zeros(B, 1 + ROWS, PAD_COLS, CH)
+    pad[:, 1:, :COLS] = q.view(B, ROWS, COLS, CH)
+    return pad.view(B * GAME_ROWS, CH)
+
+
+def padded_shift(tap: int) -> int:
+    """Rows from a cell to its tap (dr, dc) neighbour in the padded layout."""
+    return (tap // 3 - 1) * PAD_COLS + tap % 3 - 1
+
+
+def padded_patches(q: torch.Tensor) -> torch.Tensor:
+    """``patches(q)`` the kernel's way: each tap's operand is the padded
+    rows shifted by ``padded_shift(tap)``, zero past either end, read at the
+    board's cells. Equal to ``patches(q)`` because every neighbour off the
+    board lands on a pad row or column."""
+    rows = padded_rows(q)
+    n = rows.shape[0]
+    halo = PAD_COLS + 1
+    ext = torch.cat([rows.new_zeros(halo, CH), rows, rows.new_zeros(halo, CH)])
+    cells = torch.arange(n).view(-1, GAME_ROWS)[:, PAD_COLS:].reshape(-1, PAD_COLS)[:, :COLS]
+    cells = cells.reshape(-1)
+    return torch.cat([ext[halo + cells + padded_shift(tap)] for tap in range(TAPS)], dim=-1)
 
 
 def _requant(acc: torch.Tensor, res: Optional[torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -177,7 +177,8 @@ card, in phases:
            bit-equal, timed in turns; (b) the library's int8 tower (the
            ``torch._int_mm`` chain) bit-equal to the kernel; (c) the bf16
            cuDNN conv tower of ``FoldedAZResNet._conv`` on the same input,
-           finite; both yardsticks timed by the main; (d) TOPS of each;
+           finite; both yardsticks timed by the main; (d) TOPS of each, and
+           the kernel's share of its bound;
 14. fall-through: MLPNet (512, 512) on Connect-Four (wider than the
            in-kernel evaluator; seeded random weights) and the uniform
            ``Gomoku(4, 4)`` (a step the fused kernels lack): the fused
@@ -261,6 +262,14 @@ at B=1024 and at the uniform actor's B=4096) and Gomoku 19 (361), C=101,
 with SEED_REPS readings of the device time per launch each and their
 bounds. It calls only entry points the package has had since the K=4
 rounds, so it too compares two trees in one call.
+
+``python3 chip_smoke.py --tower`` does the same for the int8 tower: the
+build's report of ``int8_tower_kernel`` (not gated), then the kernel held
+bit-equal to ``tower_plain`` on the experiment main's inputs (B=4096) and
+at the ragged B=4093 with full-range weights, with TOWER_REPS readings of
+the device time per launch each and the bound and its share. It calls only
+entry points the package has had since the tower's port, so it too
+compares two trees in one call.
 """
 
 from __future__ import annotations
@@ -351,6 +360,8 @@ BENCH_K_GAMES, BENCH_K_SIMS, BENCH_K_SEEDS, BENCH_K_TEMP_MOVES = 1024, 100, 2, 8
 BENCH_K_KS = (2, 4)
 WIDE_MLP_HIDDEN = (512, 512)   # phase 14: wider than the in-kernel evaluator takes
 TOWER_RAGGED_B = 4093     # phase 13(a): a tail tile of 5 games (the kernel's tiles hold 8)
+TOWER_REPS = 3            # --tower: device-time readings at each B
+TOWER_KERNELS = ("int8_tower_kernel",)   # the tower's ptxas name
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -1773,14 +1784,50 @@ def int8_tower_phase(card: str) -> tuple:
         "max_abs_err": max(float((out - plain).abs().max()), float((kr - pr).abs().max())),
         "ms": k_ms, "plain_ms": (p1 + p2) / 2, "library_ms": lib_ms,
         # reads x and the weights once, writes f once
-        **bound(2 * F32 * rows * tower.CH + w.numel(), 0.0, int8_ops=tower.board_ops(B)),
+        **tower_bound(x, w),
     }
     print(f"[int8] library int8 tower (torch._int_mm chain) bit-equal to the kernel; main's best "
           f"of {exp.MAIN_TRIALS}x{exp.MAIN_REPS}: kernel {run['ms']:.4f}, _int_mm {lib_ms:.4f}, "
           f"bf16 cuDNN conv tower {cudnn_ms:.4f} ms; TOPS (reference count) kernel "
           f"{ops / k_ms / 1e9:.1f}, _int_mm {ops / lib_ms / 1e9:.1f}, cuDNN {ops / cudnn_ms / 1e9:.1f}; "
-          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) | {card}", flush=True)
+          f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}), the kernel at "
+          f"{100 * res['bound_ms'] / k_ms:.1f}% of it [device {100 * res['bound_ms'] / dev_ms:.1f}%] "
+          f"| {card}", flush=True)
     return {"int8_tower": res}, {"int8_tower": got["int8_tower"]}
+
+
+def tower_bound(x: torch.Tensor, w: torch.Tensor) -> dict:
+    """The tower's bound: x and the weights read once, f written once; the
+    products of the taps whose neighbour is on the board."""
+    from alphazero_tpu_torch.models import int8_tower as tower
+
+    return bound(2 * F32 * x.numel() + w.numel(), 0.0,
+                 int8_ops=tower.board_ops(x.shape[0] // tower.CELLS))
+
+
+def tower_turns(card: str) -> None:
+    """``--tower`` (see the module docstring)."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.experiments import int8_fused_tower as exp
+    from alphazero_tpu_torch.models import int8_tower as tower
+
+    dev = torch.device("cuda", 0)
+    ptxas_lines(kernels.library(), TOWER_KERNELS, gate=False)
+    cells = ((f"B={exp.MAIN_B}, the main's inputs", exp.MAIN_SEED, exp.MAIN_B, -16, 16),
+             (f"B={TOWER_RAGGED_B}, full-range weights", SEED + 1, TOWER_RAGGED_B, -127, 128))
+    for label, seed, batch, low, high in cells:
+        x_np, ws = exp.random_tower_inputs(seed, batch, low, high)
+        x, w = torch.from_numpy(x_np).to(dev), tower.tower_weights_from_jax(ws).to(dev)
+        out = kernels.int8_tower(x, w)
+        if not bit_equal(out, tower.tower_plain(x, w)):
+            fail(f"int8_tower differs from tower_plain at {label}")
+        devs = [device_ms(lambda: kernels.int8_tower(x, w)) for _ in range(TOWER_REPS)]
+        b = tower_bound(x, w)
+        shares = [100 * b["bound_ms"] / d for d in devs]
+        print(f"[tower] int8_tower, {label}: bit-equal to tower_plain; "
+              f"{', '.join(f'{d:.4f}' for d in devs)} ms of device time per launch; bound "
+              f"{b['bound_ms']:.4f} ms ({b['bound_by']}), "
+              f"{', '.join(f'{p:.1f}' for p in shares)}% of it | {card}", flush=True)
 
 
 def ptxas_report(log: str, kernels_wanted) -> dict:
@@ -2367,6 +2414,9 @@ def main() -> int:
     if sys.argv[1:] == ["--seeds"]:
         seed_turns(card)
         return 0
+    if sys.argv[1:] == ["--tower"]:
+        tower_turns(card)
+        return 0
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
@@ -2386,7 +2436,8 @@ def main() -> int:
         print(f"[build] ptxas -v {name}: "
               f"{report.get(instances.get(name, name), 'not in the build log (a cached build)')}",
               flush=True)
-    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS, *DESCEND_KERNELS, *SEED_KERNELS))
+    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS, *DESCEND_KERNELS, *SEED_KERNELS,
+                      *TOWER_KERNELS))
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
     variables = random_az_resnet_variables(A, channels=64, blocks=5, seed=SEED)

@@ -10,8 +10,13 @@
 // -ffp-contract=off), as on the card; expf and tanhf are glibc's, which
 // may differ from the card's in the last bit. Inline PTX has no stand-in:
 // a source keeps it under `#ifndef CUDA_EMU` and calls the emulated
-// instruction below (emu_mma_m16n8k32_s8, emu_mma_m16n8k16_bf16,
-// emu_cp_async16 and emu_cp_async_wait_all) otherwise. Each block starts
+// instruction below (emu_mma_m16n8k16_bf16,
+// emu_cp_async16 and emu_cp_async_wait_all; Hopper's int8 wgmma, its fence,
+// commit and wait, the mbarrier and the TMA tiled load, emu_wgmma_* ,
+// emu_mbarrier_* and emu_tma_load_2d) otherwise; a source keeps
+// `#include <cuda.h>` under it too, and the host's tensor-map encoder
+// (cuTensorMapEncodeTiled, found through cudaGetDriverEntryPointByVersion)
+// is emulated below. Each block starts
 // with its dynamic shared memory filled with 0xff bytes (a bf16 or f32 NaN),
 // so that a kernel that reads what it never wrote shows it. The warp
 // intrinsics (__shfl_sync, __shfl_xor_sync, __ballot_sync, __syncwarp)
@@ -27,7 +32,10 @@
 #include <cstdlib>
 #include <cstring>
 #include <math.h>
+#include <deque>
+#include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <vector>
 
@@ -38,23 +46,48 @@
 #define __restrict__
 #define __shared__ static
 #define __launch_bounds__(...)
+#define __grid_constant__
 #define CUDA_EMU 1
 
 struct emu_dim3 { unsigned int x, y, z; };
 inline thread_local emu_dim3 threadIdx, blockIdx;
-inline emu_dim3 blockDim;
+inline emu_dim3 blockDim, gridDim;
 inline std::barrier<>* emu_block_barrier = nullptr;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 constexpr cudaError_t cudaSuccess = 0;
 constexpr cudaError_t cudaErrorInvalidValue = 1;
+constexpr cudaError_t cudaErrorSymbolNotFound = 500;
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+// The emulated card's multiprocessors: few, so that a persistent grid's
+// blocks walk several tiles in the tests.
+inline int emu_multiprocessors = 2;
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline cudaError_t cudaGetDevice(int* device) { *device = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
+  if (attr != cudaDevAttrMultiProcessorCount) return cudaErrorInvalidValue;
+  *value = emu_multiprocessors;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return 0; }
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return cudaSuccess; }
 inline unsigned char* emu_dynamic_smem = nullptr;
+inline size_t emu_dynamic_smem_bytes = 0;
+// The shared-window address of the dynamic buffer: 16-byte aligned, as the
+// card guarantees, and no more, so a kernel that needs a 1024-byte base
+// has to align it itself.
+inline constexpr uint32_t emu_smem_window = 0x410;
+inline size_t __cvta_generic_to_shared(const void* p) {
+  return (size_t)(static_cast<const unsigned char*>(p) - emu_dynamic_smem) + emu_smem_window;
+}
+// The dynamic buffer's bytes at a shared-window address; aborts outside it.
+inline unsigned char* emu_smem_ptr(uint32_t addr, size_t bytes = 1) {
+  if (addr < emu_smem_window || addr - emu_smem_window + bytes > emu_dynamic_smem_bytes) std::abort();
+  return emu_dynamic_smem + (addr - emu_smem_window);
+}
 inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 
 // The warps of the running block: a barrier each and a double-buffered
@@ -123,6 +156,14 @@ inline float __uint_as_float(unsigned int u) {
   return x;
 }
 inline float __int2float_rn(int x) { return static_cast<float>(x); }
+// prmt.b32 (default mode): byte i of the result is byte s of the 8 bytes
+// {y, x} (x the low four), s the i-th nibble of the selector
+inline unsigned int __byte_perm(unsigned int x, unsigned int y, unsigned int s) {
+  const uint64_t bytes = (uint64_t)y << 32 | x;
+  unsigned int r = 0;
+  for (int i = 0; i < 4; ++i) r |= (unsigned int)(bytes >> (8 * (s >> (4 * i) & 7)) & 0xff) << (8 * i);
+  return r;
+}
 using std::fmaxf;
 using std::min;
 
@@ -131,47 +172,6 @@ struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 inline float2 make_float2(float x, float y) { return {x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
-
-// m_tiles x n_tiles instructions mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32
-// of the calling thread's warp: d[i][j][0..3] += A_i B_j, with the PTX ISA's
-// fragments: lane l = 4 * gid + tq holds of A_i (16x32, row-major) a[i][0]
-// = row gid, k 4tq..4tq+3; a[i][1] = row gid + 8, the same k; a[i][2], a[i][3]
-// the same rows at k 16 + 4tq..; of B_j (32x8) b[j][0] = k 4tq..4tq+3 of
-// column gid, b[j][1] = k 16 + 4tq..; of D rows gid (d 0, 1) and gid + 8
-// (d 2, 3), columns 2tq and 2tq + 1; 4 int8 a register, the lowest k in
-// the lowest byte. Block-collective: every thread of the block stages its
-// fragments, meets the others at a barrier, computes its own accumulators
-// from its warp's 32 lanes and meets them again, so the kernel must issue
-// its MMAs block-uniformly (as the card needs them warp-uniform).
-inline constexpr int emu_mma_max_words = 32;
-inline uint32_t emu_mma_stage[1024][emu_mma_max_words];
-inline void emu_mma_m16n8k32_s8(int32_t* d, const uint32_t* a, const uint32_t* b, int m_tiles,
-                                int n_tiles) {
-  const int na = 4 * m_tiles, nb = 2 * n_tiles;
-  if (na + nb > emu_mma_max_words) std::abort();
-  const unsigned t = threadIdx.x, lane = t % 32, warp0 = t - lane;
-  std::memcpy(emu_mma_stage[t], a, na * sizeof(uint32_t));
-  std::memcpy(emu_mma_stage[t] + na, b, nb * sizeof(uint32_t));
-  __syncthreads();
-  auto byte = [](uint32_t word, int k) { return (int)(int8_t)(word >> (8 * (k % 4)) & 0xff); };
-  const int gid = lane / 4, tq = lane % 4;
-  for (int i = 0; i < m_tiles; ++i) {
-    for (int j = 0; j < n_tiles; ++j) {
-      for (int e = 0; e < 4; ++e) {
-        const int row = gid + 8 * (e / 2), col = 2 * tq + e % 2;
-        int32_t sum = 0;
-        for (int k = 0; k < 32; ++k) {
-          const unsigned src = k % 16 / 4;   // the thread in group holding k
-          const uint32_t* la = emu_mma_stage[warp0 + 4 * (row % 8) + src];
-          const uint32_t* lb = emu_mma_stage[warp0 + 4 * col + src];
-          sum += byte(la[4 * i + row / 8 + 2 * (k / 16)], k) * byte(lb[na + 2 * j + k / 16], k);
-        }
-        d[(i * n_tiles + j) * 4 + e] += sum;
-      }
-    }
-  }
-  __syncthreads();
-}
 
 // m_tiles x n_tiles instructions mma.sync.aligned.m16n8k16.row.col.f32.bf16
 // .bf16.f32 of the calling thread's warp: d[i][j][0..3] += A_i B_j, with the
@@ -182,7 +182,12 @@ inline void emu_mma_m16n8k32_s8(int32_t* d, const uint32_t* a, const uint32_t* b
 // of D rows gid (d 0, 1) and gid + 8 (d 2, 3), columns 2tq and 2tq + 1; two
 // bf16 a register, the lower k in the lower half. Each product is exact; an
 // instruction's 16 products and its accumulator are summed in float64 and
-// rounded once to f32. Block-collective, as emu_mma_m16n8k32_s8.
+// rounded once to f32. Block-collective: every thread of the block stages
+// its fragments, meets the others at a barrier, computes its own
+// accumulators from its warp's 32 lanes and meets them again, so the kernel
+// must issue its MMAs block-uniformly (as the card needs them warp-uniform).
+inline constexpr int emu_mma_max_words = 32;
+inline uint32_t emu_mma_stage[1024][emu_mma_max_words];
 inline float emu_bf16_half(uint32_t word, int k) {
   const uint32_t u = (k % 2 ? word >> 16 : word & 0xffffu) << 16;
   float f;
@@ -233,15 +238,249 @@ inline void emu_cp_async_wait_all() {
   emu_cp_async_pending.clear();
 }
 
+// ---- Hopper: the TMA tiled load, mbarriers and int8 wgmma -------------
+
+// The driver's tensor-map types (cuda.h), as far as the kernels use them.
+typedef int CUresult;
+constexpr CUresult CUDA_SUCCESS = 0;
+constexpr CUresult CUDA_ERROR_INVALID_VALUE = 1;
+typedef uint32_t cuuint32_t;
+typedef uint64_t cuuint64_t;
+enum CUtensorMapDataType { CU_TENSOR_MAP_DATA_TYPE_UINT8 = 0 };
+enum CUtensorMapInterleave { CU_TENSOR_MAP_INTERLEAVE_NONE = 0 };
+enum CUtensorMapSwizzle { CU_TENSOR_MAP_SWIZZLE_NONE = 0, CU_TENSOR_MAP_SWIZZLE_32B = 1,
+                          CU_TENSOR_MAP_SWIZZLE_64B = 2, CU_TENSOR_MAP_SWIZZLE_128B = 3 };
+enum CUtensorMapL2promotion { CU_TENSOR_MAP_L2_PROMOTION_NONE = 0,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B = 2 };
+enum CUtensorMapFloatOOBfill { CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE = 0 };
+enum cudaDriverEntryPointQueryResult { cudaDriverEntryPointSuccess = 0,
+                                       cudaDriverEntryPointSymbolNotFound = 1 };
+constexpr unsigned long long cudaEnableDefault = 0;
+// A 2-D tiled tensor map of bytes: what cuTensorMapEncodeTiled recorded.
+struct alignas(64) CUtensorMap {
+  const unsigned char* base;
+  uint64_t dims[2];   // bytes of a row, rows
+  uint64_t stride;    // bytes from one row to the next
+  uint32_t box[2];    // bytes, rows
+  int swizzle;        // CUtensorMapSwizzle
+};
+
+// The 16-byte-unit swizzle of a shared-memory address, as TMA writes and
+// wgmma reads it: bits [4, 4 + b) ^= bits [7, 7 + b), b = 1, 2, 3 for the
+// 32-, 64- and 128-byte modes (CUTLASS's Swizzle<b, 4, 3>).
+inline uint32_t emu_swizzle(uint32_t addr, int b) {
+  return addr ^ (((addr >> 7) & ((1u << b) - 1)) << 4);
+}
+
+// cuTensorMapEncodeTiled for 2-D maps of bytes; with a swizzle, only a box
+// row of exactly the swizzle's span is emulated (the driver also takes
+// narrower).
+inline CUresult emu_encode_tiled(CUtensorMap* map, CUtensorMapDataType type, cuuint32_t rank,
+                                 void* base, const cuuint64_t* dims, const cuuint64_t* strides,
+                                 const cuuint32_t* box, const cuuint32_t* elem_strides,
+                                 CUtensorMapInterleave interleave, CUtensorMapSwizzle swizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill) {
+  const uint32_t span = swizzle == CU_TENSOR_MAP_SWIZZLE_NONE ? 0u : 16u << swizzle;
+  if (type != CU_TENSOR_MAP_DATA_TYPE_UINT8 || rank != 2 || reinterpret_cast<uintptr_t>(base) % 16 ||
+      strides[0] % 16 || strides[0] < dims[0] || box[0] < 1 || box[0] > 256 || box[1] < 1 ||
+      box[1] > 256 || box[0] % 16 || elem_strides[0] != 1 || elem_strides[1] != 1 ||
+      interleave != CU_TENSOR_MAP_INTERLEAVE_NONE || (span && box[0] != span))
+    return CUDA_ERROR_INVALID_VALUE;
+  *map = {static_cast<const unsigned char*>(base), {dims[0], dims[1]}, strides[0],
+          {box[0], box[1]}, (int)swizzle};
+  return CUDA_SUCCESS;
+}
+
+inline cudaError_t cudaGetDriverEntryPointByVersion(const char* symbol, void** fn, unsigned int,
+                                                    unsigned long long,
+                                                    cudaDriverEntryPointQueryResult* status) {
+  const bool found = std::strcmp(symbol, "cuTensorMapEncodeTiled") == 0;
+  *fn = found ? reinterpret_cast<void*>(&emu_encode_tiled) : nullptr;
+  if (status) *status = found ? cudaDriverEntryPointSuccess : cudaDriverEntryPointSymbolNotFound;
+  return cudaSuccess;
+}
+
+// mbarriers, by shared address: init sets the arrival count; arrive
+// (.expect_tx adds its bytes first) counts one arrival; a phase completes
+// when every arrival is in and every expected byte has landed, and the next
+// phase begins. try_wait.parity(P) is true once the phase of parity P is
+// complete: current phase parity != P. A TMA load lands only when a thread
+// waits on its barrier (then its bytes complete), so a read of the tile
+// before that wait sees the old bytes.
+struct emu_tma_copy { uint32_t dst; CUtensorMap map; int c0, c1; };
+struct emu_bulk_copy { uint32_t dst; const void* src; uint32_t bytes; };
+struct emu_mbar {
+  unsigned count = 0, pending = 0, phase = 0;
+  long long tx = 0;
+  std::vector<emu_tma_copy> copies;
+  std::vector<emu_bulk_copy> bulk;
+};
+inline std::mutex emu_mbar_mutex;
+inline std::map<uint32_t, emu_mbar> emu_mbars;
+
+inline emu_mbar& emu_mbar_at(uint32_t bar) {
+  const auto it = emu_mbars.find(bar);
+  if (it == emu_mbars.end() || bar % 8) std::abort();   // not initialised, or misaligned
+  return it->second;
+}
+inline void emu_mbar_complete(emu_mbar& b) {
+  if (b.pending == 0 && b.tx == 0) {
+    ++b.phase;
+    b.pending = b.count;
+  }
+}
+inline void emu_mbarrier_init(uint32_t bar, unsigned count) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+  emu_smem_ptr(bar, 8);
+  if (bar % 8 || count == 0) std::abort();
+  emu_mbar& b = emu_mbars[bar];
+  b = emu_mbar{};
+  b.count = b.pending = count;
+}
+inline void emu_mbarrier_arrive_expect_tx(uint32_t bar, unsigned bytes) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+  emu_mbar& b = emu_mbar_at(bar);
+  if (b.pending == 0) std::abort();
+  b.tx += bytes;
+  --b.pending;
+  emu_mbar_complete(b);
+}
+// cp.async.bulk.tensor.2d ... mbarrier::complete_tx::bytes [dst], [map, {c0, c1}], [bar]
+inline void emu_tma_load_2d(uint32_t dst, const CUtensorMap* map, int c0, int c1, uint32_t bar) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+  if (dst % 128) std::abort();
+  emu_smem_ptr(dst, (size_t)map->box[0] * map->box[1]);
+  emu_mbar_at(bar).copies.push_back({dst, *map, c0, c1});
+}
+// cp.async.bulk ... mbarrier::complete_tx::bytes [dst], [src], bytes, [bar]
+inline void emu_bulk_load(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+  if (dst % 16 || reinterpret_cast<uintptr_t>(src) % 16 || bytes % 16) std::abort();
+  emu_smem_ptr(dst, bytes);
+  emu_mbar_at(bar).bulk.push_back({dst, src, bytes});
+}
+// The box at (c0, c1): row r, byte i of the box to dst + r * box[0] + i,
+// swizzled; bytes outside the tensor read zero.
+inline void emu_tma_perform(const emu_tma_copy& c) {
+  const CUtensorMap& m = c.map;
+  for (uint32_t r = 0; r < m.box[1]; ++r) {
+    for (uint32_t i = 0; i < m.box[0]; ++i) {
+      const long long col = c.c0 + (long long)i, row = c.c1 + (long long)r;
+      const bool inside = col >= 0 && row >= 0 && col < (long long)m.dims[0] && row < (long long)m.dims[1];
+      uint32_t addr = c.dst + r * m.box[0] + i;
+      if (m.swizzle) addr = emu_swizzle(addr, m.swizzle);
+      *emu_smem_ptr(addr) = inside ? m.base[row * m.stride + col] : 0;
+    }
+  }
+}
+inline bool emu_mbarrier_try_wait_parity(uint32_t bar, unsigned parity) {
+  bool done;
+  {
+    std::lock_guard<std::mutex> lock(emu_mbar_mutex);
+    emu_mbar& b = emu_mbar_at(bar);
+    for (const auto& c : b.copies) {
+      emu_tma_perform(c);
+      b.tx -= (long long)c.map.box[0] * c.map.box[1];
+    }
+    b.copies.clear();
+    for (const auto& c : b.bulk) {
+      std::memcpy(emu_smem_ptr(c.dst, c.bytes), c.src, c.bytes);
+      b.tx -= c.bytes;
+    }
+    b.bulk.clear();
+    emu_mbar_complete(b);
+    done = (b.phase & 1u) != (parity & 1u);
+  }
+  if (!done) std::this_thread::yield();
+  return done;
+}
+
+// A wgmma shared-memory matrix descriptor's byte of row `row` (M or N), K
+// byte `k`: start address, LBO and SBO in 16-byte units at bits 0, 16 and
+// 32, the layout in bits 62-63 (0 no swizzle, 1 128-byte, 2 64-byte, 3
+// 32-byte swizzle); K-major. No swizzle: 8 x 16-byte core matrices, rows
+// 16 bytes apart, the next 8 rows SBO on, the next 16 K bytes LBO on.
+// Swizzled: rows the swizzle's width apart (LBO unused), the next 8 rows
+// SBO on, K contiguous, then the address swizzled. A base offset (bits
+// 49-51) is not emulated.
+inline const int8_t* emu_desc_row(uint64_t desc, int row, int k) {
+  const uint32_t start = (uint32_t)(desc & 0x3fff) << 4;
+  const uint32_t lbo = (uint32_t)(desc >> 16 & 0x3fff) << 4;
+  const uint32_t sbo = (uint32_t)(desc >> 32 & 0x3fff) << 4;
+  const int layout = (int)(desc >> 62);
+  if (desc >> 49 & 7) std::abort();
+  uint32_t addr;
+  if (layout == 0) {
+    addr = start + row / 8 * sbo + row % 8 * 16 + k / 16 * lbo + k % 16;
+  } else {
+    const int b = layout == 1 ? 3 : layout == 2 ? 2 : 1;
+    addr = emu_swizzle(start + row / 8 * sbo + row % 8 * (16u << b) + k, b);
+  }
+  return reinterpret_cast<const int8_t*>(emu_smem_ptr(addr, 16));
+}
+
+// wgmma.mma_async.sync.aligned.m64nNk32.s32.s8.s8 of the calling thread's
+// warpgroup, A and B from descriptors: D (+)= A B^T, A 64 x 32 and B N x 32
+// bytes, both K-major. Thread t of the group holds d[4 j + e] = row 16 (t /
+// 32 % 4) + t % 32 / 4 + 8 (e / 2), column 8 j + 2 (t % 4) + e % 2 (the m16n8
+// C fragment of each warp, for every n8 block j). Asynchronous, as on the
+// card: the instruction is queued (a wgmma.fence must come first), its
+// group is closed by commit_group, and it computes, reading shared memory
+// then, only in the wait_group that retires the group; accumulate = 0
+// overwrites d. A thread that ends with a group it never waited for aborts
+// the launch.
+struct emu_wgmma_op { int32_t* d; int n; uint64_t da, db; int accumulate; };
+inline thread_local std::vector<emu_wgmma_op> emu_wgmma_open;
+inline thread_local std::deque<std::vector<emu_wgmma_op>> emu_wgmma_groups;
+inline thread_local bool emu_wgmma_fenced = false;
+inline void emu_wgmma_fence() { emu_wgmma_fenced = true; }
+inline void emu_wgmma_m64nNk32_s8(int32_t* d, int n, uint64_t da, uint64_t db, int accumulate) {
+  if (!emu_wgmma_fenced || n % 8 || n < 8 || n > 256) std::abort();
+  emu_wgmma_open.push_back({d, n, da, db, accumulate});
+}
+inline void emu_wgmma_commit_group() {
+  emu_wgmma_groups.push_back(std::move(emu_wgmma_open));
+  emu_wgmma_open.clear();
+}
+inline void emu_wgmma_run(const emu_wgmma_op& op) {
+  const unsigned t = threadIdx.x % 128;
+  const int r0 = 16 * (t / 32) + t % 32 / 4, tq = t % 4;
+  int8_t a[2][32];
+  for (int h = 0; h < 2; ++h)
+    for (int c = 0; c < 2; ++c) std::memcpy(a[h] + 16 * c, emu_desc_row(op.da, r0 + 8 * h, 16 * c), 16);
+  for (int j = 0; j < op.n / 8; ++j) {
+    for (int e = 0; e < 2; ++e) {
+      int8_t b[32];
+      for (int c = 0; c < 2; ++c) std::memcpy(b + 16 * c, emu_desc_row(op.db, 8 * j + 2 * tq + e, 16 * c), 16);
+      for (int h = 0; h < 2; ++h) {
+        int32_t sum = 0;
+        for (int k = 0; k < 32; ++k) sum += (int32_t)a[h][k] * (int32_t)b[k];
+        int32_t& out = op.d[4 * j + 2 * h + e];
+        out = op.accumulate ? out + sum : sum;
+      }
+    }
+  }
+}
+inline void emu_wgmma_wait_group(int n) {
+  while ((int)emu_wgmma_groups.size() > n) {
+    for (const auto& op : emu_wgmma_groups.front()) emu_wgmma_run(op);
+    emu_wgmma_groups.pop_front();
+  }
+  emu_wgmma_fenced = false;   // the accumulators may be read now: fence again before the next
+}
+
 // kernel<<<grid, threads, smem, stream>>>(args) is rewritten by the test to
 // emu_launch(grid, threads, smem, [&] { kernel(args); });
 template <class F>
 void emu_launch(unsigned int grid, unsigned int threads, size_t smem, F body) {
   blockDim = {threads, 1, 1};
+  gridDim = {grid, 1, 1};
   std::vector<unsigned char> dynamic_smem(smem);
   emu_dynamic_smem = dynamic_smem.data();
+  emu_dynamic_smem_bytes = smem;
   for (unsigned int bx = 0; bx < grid; ++bx) {
     std::fill(dynamic_smem.begin(), dynamic_smem.end(), (unsigned char)0xff);
+    emu_mbars.clear();
     std::barrier<> bar(threads);
     emu_block_barrier = &bar;
     std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
@@ -256,7 +495,8 @@ void emu_launch(unsigned int grid, unsigned int threads, size_t smem, F body) {
         blockIdx = {bx, 0, 0};
         threadIdx = {t, 0, 0};
         body();
-        if (!emu_cp_async_pending.empty()) std::abort();
+        if (!emu_cp_async_pending.empty() || !emu_wgmma_open.empty() || !emu_wgmma_groups.empty())
+          std::abort();
       });
     }
     for (auto& th : team) th.join();

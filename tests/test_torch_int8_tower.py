@@ -5,7 +5,7 @@ interpreter on the same numpy inputs: the plain version must be bit-equal
 (the function is exact integer arithmetic with power-of-two scales, one
 rounded residual add and round-half-to-even requantization). The kernel
 itself is held to the plain version through g++ in
-tests/test_torch_kernels.py, and on the card by chip_smoke.py's phase 13.
+tests/test_torch_tower_emu.py, and on the card by chip_smoke.py's phase 13.
 """
 
 import functools
@@ -169,3 +169,22 @@ def test_board_ops_count_the_patches_on_board():
     q = torch.ones(2 * port.CELLS, port.CH, dtype=torch.int8)
     assert int(port.patches(q).count_nonzero()) == 2 * port.BOARD_PAIRS * port.CH == 2 * 304 * 64
     assert port.board_ops(2) * port.TAPS * port.CELLS == port.tower_ops(2) * port.BOARD_PAIRS
+
+
+@pytest.mark.parametrize("B", [1, 3, 8])
+def test_padded_layout_reads_zeros_exactly_off_the_board(B):
+    """The kernel's padded board (a zero row and a zero column a game): each
+    tap's operand, the padded rows shifted by ``padded_shift(tap)``, equals
+    the reference's patches, so it reads a zero exactly where the cell's
+    neighbour is off the board, neighbouring games included; the pad rows
+    and columns hold zeros and the board's cells in order."""
+    q = torch.from_numpy(np.random.default_rng(B).integers(1, 128, (B * port.CELLS, port.CH))
+                         .astype(np.int8))   # no zero on the board
+    got = port.padded_patches(q)
+    assert torch.equal(got, port.patches(q))
+    off = (got.view(B * port.CELLS, port.TAPS, port.CH) == 0).all(dim=2)
+    assert int(off.sum()) == B * (port.CELLS * port.TAPS - port.BOARD_PAIRS)
+    rows = port.padded_rows(q).view(B, 1 + port.ROWS, port.PAD_COLS, port.CH)
+    assert (rows[:, 0] == 0).all() and (rows[:, :, port.COLS:] == 0).all()
+    assert torch.equal(rows[:, 1:, :port.COLS].reshape(-1, port.CH), q)
+    assert sorted(port.padded_shift(t) for t in range(port.TAPS)) == [-9, -8, -7, -1, 0, 1, 7, 8, 9]

@@ -22,9 +22,8 @@ with random weights its logits stay within a stated tolerance and its
 searches identical on >= 95% of games. Prior and value may also differ
 where glibc's expf/tanhf and torch's CPU exp/tanh differ in the last bit.
 The emulated bf16 instruction itself is held against a float64 product of
-random fragments. The fused int8 tower must be bit-equal to its plain
-version, ragged tiles included (its int8 tensor-core products through the
-emulator's mma.sync).
+random fragments. The fused int8 tower's emulated cases are
+tests/test_torch_tower_emu.py's.
 
 This checks the kernels' LOGIC (indexing, record format, install/link/
 backup, PUCT order of operations, first-max ties across a warp's lanes,
@@ -43,8 +42,6 @@ import torch
 
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
-from alphazero_tpu_torch.experiments import int8_fused_tower
-from alphazero_tpu_torch.models import int8_tower
 from alphazero_tpu_torch.games import ConnectFour, Gomoku, Hex, Othello
 from alphazero_tpu_torch.games.connect_four import FlatOps
 from alphazero_tpu_torch.mcts import (
@@ -622,28 +619,3 @@ def test_emulated_mlp_rounds_match_plain(emulated, cfg, moves, freeze, weights):
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
     need = calls["games"] if weights == "order_free" else 0.95 * calls["games"]
     assert calls["same"] >= need, f"{calls['same']} of {calls['games']} games equal"
-
-
-@pytest.mark.parametrize(
-    "B,low,high",
-    [(1, -127, 128), (13, -16, 16), (19, -127, 128)],
-    ids=["B1_full_range", "B13_main_weights", "B19_full_range"],
-)
-def test_emulated_int8_tower_bit_equal_plain(emulated, B, low, high):
-    """``az_int8_tower`` (blocks of 8 games; B=13 and B=19 = 2*8+3 end in a
-    ragged tile) against ``tower_plain``, bit-equal: the tensor-core
-    fragments, the in-place im2col with its board edges, the requantizing
-    epilogue (full-range weights reach the clip), the residual carried in
-    registers, and no store for the missing games of the last tile (the
-    output buffer runs on for a tile of NaN rows, which must stay NaN)."""
-    x, ws = int8_fused_tower.random_tower_inputs(B, B, low, high)
-    x = torch.from_numpy(x).clone()
-    w = int8_tower.tower_weights_from_jax(ws).clone()
-    buf = torch.full(((B + 8) * 42, 64), float("nan"))
-    rc = emulated.lib.az_int8_tower(x.data_ptr(), w.data_ptr(), buf.data_ptr(), B, None)
-    assert rc == 0
-    want = int8_tower.tower_plain(x, w)
-    assert torch.equal(bits(buf[:B * 42]), bits(want))
-    assert buf[B * 42:].isnan().all()
-    if high == 128:
-        assert (want * int8_tower.ASCALE > 127).any()

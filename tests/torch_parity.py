@@ -10,7 +10,9 @@ forward is the same in every order of the adds; synthetic merge records
 built with g++ against the CPU stand-in of tests/cuda_emu/, which
 tests/test_torch_kernels.py, tests/test_torch_fused_emu.py,
 tests/test_torch_merge_emu.py, tests/test_torch_descend_emu.py and
-tests/test_torch_games_emu.py share, and its kernels run from it against
+tests/test_torch_games_emu.py share (``build_emulated`` builds a subset,
+with the probes of the emulated instructions: tests/test_torch_tower_emu.py),
+and its kernels run from it against
 the plain versions (``descend_through_kernel``,
 ``descend_round_through_kernel``, ``checked_kernels`` for whole hybrid
 searches, ``emulated_refresh``, ``emulated_refresh2``), and the fresh
@@ -22,6 +24,7 @@ import os
 import re
 import shutil
 import subprocess
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -193,32 +196,45 @@ _LAUNCHES = {"hybrid.cu": 7, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launc
 _DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
 
-@pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
-    """The kernel library built for the host from every source, as
-    ``kernels.library`` links it for the card (skips without g++)."""
+def build_emulated(build_dir, sources=kernels.SOURCES, probes=("mma_tile.cpp",)):
+    """The kernel library built for the host with g++ from ``sources``, as
+    ``kernels.library`` links them for the card, plus the probes of
+    tests/cuda_emu/ (skips without g++)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
-    build_dir = tmp_path_factory.mktemp("emu")
     cpps = []
-    for src in kernels.SOURCES:
+    for src in sources:
         out = _LAUNCH.sub(r"emu_launch(\2, \3, \4, [&] { \1(\5); });", src.read_text())
         out = _DYNAMIC_SMEM.sub(r"\1* \2 = (\1*)emu_dynamic_smem;", out)
         assert out.count("emu_launch(") == _LAUNCHES[src.name], "every kernel launch must be rewritten"
         cpp = build_dir / f"{src.stem}_emu.cpp"
         cpp.write_text(out)
         cpps.append(str(cpp))
-    cpps.append(os.path.join(_HERE, "cuda_emu", "mma_tile.cpp"))   # the bf16 tile probe
+    cpps += [os.path.join(_HERE, "cuda_emu", probe) for probe in probes]
     so = build_dir / "libaz_emu.so"
-    subprocess.run(
+    proc = subprocess.run(
         [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
          "-Wno-unknown-pragmas", "-I", os.path.join(_HERE, "cuda_emu"),
          "-I", str(kernels.SOURCES[0].parent),
          "-o", str(so), *cpps, "-lpthread"],
-        check=True, capture_output=True,
+        capture_output=True, text=True,
     )
-    return kernels._Library(ctypes.CDLL(str(so)), so, 0.0, "")
+    assert proc.returncode == 0, f"g++ failed:\n{proc.stderr[-4000:]}"
+    lib = ctypes.CDLL(str(so))
+    if tuple(sources) == kernels.SOURCES:
+        return kernels._Library(lib, so, 0.0, "")
+    for fn, (args, res) in kernels._SIGNATURES.items():   # the entries these sources export
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes, getattr(lib, fn).restype = args, res
+    return types.SimpleNamespace(lib=lib, path=so)
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The kernel library built for the host from every source (with the
+    bf16 tile probe), as ``kernels.library`` links it for the card."""
+    return build_emulated(tmp_path_factory.mktemp("emu"))
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
