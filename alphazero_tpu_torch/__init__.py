@@ -6,9 +6,10 @@ it on identical numpy inputs (``tests/test_torch_*.py``).
 
 Ported so far (the Connect-Four self-play slices: ResNet, uniform, MLP;
 Othello's, Gomoku's and Hex's self-play on the hybrid engine with any
-model):
+model; the learner loop: episode generation, replay, training):
 
-  - :mod:`alphazero_tpu_torch.config`   — ``MCTSConfig``, ``PUCT_EPS``
+  - :mod:`alphazero_tpu_torch.config`   — ``MCTSConfig``, ``PUCT_EPS``, ``SelfPlayConfig``,
+    ``ReplayConfig``, ``TrainConfig``
   - :mod:`alphazero_tpu_torch.games`    — ``Game`` protocol, ``ConnectFour`` + ``FlatOps``,
     ``Othello`` + ``OthelloFlatOps``, ``Gomoku`` + ``GomokuFlatOps``, ``Hex`` + ``HexFlatOps``
   - :mod:`alphazero_tpu_torch.ops`      — masked policy, action probabilities, root prior
@@ -16,7 +17,10 @@ model):
     ``MLPNet`` (with its packed in-kernel weights), the flax -> torch parameter converter
   - :mod:`alphazero_tpu_torch.mcts`     — the hybrid descend/merge engine and the fused engine
   - :mod:`alphazero_tpu_torch.kernels`  — the hand-written CUDA kernels of both engines
-  - :mod:`alphazero_tpu_torch.selfplay` — the steady-state self-play actor
+  - :mod:`alphazero_tpu_torch.selfplay` — the steady-state actor, the fixed-scan and the
+    recycling episode generators with exact value targets
+  - :mod:`alphazero_tpu_torch.replay`   — the packed replay ring on the device
+  - :mod:`alphazero_tpu_torch.train`    — the learner: loss, Adam step, training phase
 
 The package imports ``torch`` and nothing of ``jax`` or of the JAX package.
 """

@@ -1,10 +1,11 @@
-"""Search configuration of the port.
+"""Search, self-play, replay and learner configuration of the port.
 
-The same fields, defaults and meaning as ``alphazero_tpu.config.MCTSConfig``
+The same fields, defaults and meaning as ``alphazero_tpu.config``'s
+``MCTSConfig``, ``SelfPlayConfig``, ``ReplayConfig`` and ``TrainConfig``
 (see there for each knob's rationale), held here so that the port and
 anything that runs it import nothing of the JAX package;
-``tests/test_torch_imports.py`` pins the two dataclasses to each other.
-``MCTSConfig(**dataclasses.asdict(jax_cfg))`` converts a JAX config.
+``tests/test_torch_imports.py`` pins each pair of dataclasses to each
+other. ``MCTSConfig(**dataclasses.asdict(jax_cfg))`` converts a JAX config.
 """
 
 from __future__ import annotations
@@ -36,3 +37,28 @@ class MCTSConfig:
     @property
     def nodes(self) -> int:
         return self.max_nodes if self.max_nodes is not None else self.num_sims + 1
+
+
+@dataclasses.dataclass(frozen=True)
+class SelfPlayConfig:
+    batch_size: int = 1024           # games stepped in lockstep
+    temp_threshold: int = 15         # temp 1 before this move index, 0 after
+    max_moves: Optional[int] = None  # fixed scan length (game.max_moves)
+    full_search_prob: Optional[float] = None  # playout-cap randomization; None = off
+    cheap_sims: Optional[int] = None  # its reduced budget
+    recycle: bool = False            # episode-recycling self-play
+    recycle_steps: Optional[int] = None  # searches a recycling call (game.max_moves)
+
+
+@dataclasses.dataclass(frozen=True)
+class ReplayConfig:
+    capacity: int = 1 << 18          # rows of the packed replay ring
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    batch_size: int = 256            # rows a minibatch
+    learning_rate: float = 1e-3      # Adam
+    steps_per_iteration: int = 256   # minibatch steps a training phase
+    weight_decay: float = 0.0        # > 0: AdamW's decoupled decay
+    l2_scale: float = 1e-4           # L2 on conv and dense kernels

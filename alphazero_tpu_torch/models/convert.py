@@ -112,14 +112,16 @@ def _mlp_hidden_names(params) -> list:
     return [f"Dense_{i}" for i in range(sum(1 for k in params if k.startswith("Dense_")))]
 
 
-def convert_mlp(variables: Any) -> MLPNet:
-    """A port ``MLPNet`` holding the weights of a flax ``MLPNet`` tree;
-    widths are read from the tree."""
+def convert_mlp(variables: Any, dtype: torch.dtype = torch.bfloat16) -> MLPNet:
+    """A port ``MLPNet`` (f32 parameters, hidden layers computed in
+    ``dtype``) holding the weights of a flax ``MLPNet`` tree; widths are
+    read from the tree."""
     p = variables["params"]
     model = MLPNet(
         num_actions=int(np.shape(p["policy"]["kernel"])[1]),
         hidden=[int(np.shape(p[n]["kernel"])[1]) for n in _mlp_hidden_names(p)],
         cells=int(np.shape(p["Dense_0"]["kernel"])[0]) // 2,
+        dtype=dtype,
     )
     model.load_state_dict(mlp_state_dict(variables))
     return model.eval()

@@ -3,7 +3,9 @@
 Counterpart of ``alphazero_tpu/models/nets.py``. Every model's search-side
 entry is ``apply_fn(feats_nhwc) -> (logits f32[B, A], value f32[B])`` with
 a ``needs_features`` flag; the JAX ``apply_fn(variables, feats)`` closes
-over its parameters here instead (``make_apply_fn``).
+over its parameters here instead (``make_apply_fn``). ``model(feats,
+train=True)`` is the learner's forward (``train.make_train_step``), at the
+flax modules' rounding points.
 
 Features keep the JAX NHWC layout ``[B, 6, 7, 2]`` at the public
 functions; the conv stack permutes them to an NCHW view with channels_last
@@ -23,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5          # flax BatchNorm default, used by _fold_conv_bn
-BN_MOMENTUM = 0.01     # torch convention for flax's momentum=0.99
+BN_MOMENTUM = 0.99     # flax BatchNorm default: ra = m * ra + (1 - m) * batch
 
 
 class UniformModel:
@@ -53,7 +55,37 @@ def make_uniform_model(game, value: float = 0.0) -> UniformModel:
 
 
 def _bn(channels: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(channels, eps=BN_EPS, momentum=BN_MOMENTUM)
+    # a holder of flax's BatchNorm parameters and statistics: weight
+    # (flax's scale), bias, running_mean, running_var; ``_batch_norm``
+    # applies them
+    return nn.BatchNorm2d(channels, eps=BN_EPS)
+
+
+def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
+    """flax ``BatchNorm(dtype=float32)`` on the NCHW conv output ``x``:
+    in f32, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. ``train``
+    normalises by the batch's statistics, ``var = max(0, E[x^2] -
+    E[x]^2)`` (biased, as flax's fast variance), and moves the running
+    statistics toward them by flax's momentum (torch's own BatchNorm
+    would move ``running_var`` toward the unbiased variance); otherwise
+    by the running statistics."""
+    x = x.float()
+    if train:
+        mean = x.mean(dim=(0, 2, 3))
+        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
+            bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
+    else:
+        mean, var = bn.running_mean, bn.running_var
+    mul = torch.rsqrt(var + bn.eps) * bn.weight
+    return (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
+
+
+def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``Conv(dtype=dtype)``: input and f32 kernel cast to ``dtype``."""
+    w = conv.weight.to(dtype)
+    return F.conv2d(x.to(dtype), w, padding=w.shape[-1] // 2)
 
 
 class _ResBlock(nn.Module):
@@ -64,18 +96,23 @@ class _ResBlock(nn.Module):
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
         self.bn2 = _bn(channels)
 
-    def forward(self, x):
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = self.bn2(self.conv2(y))
-        return F.relu(x + y)
+    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+        # the flax _ResBlock: BatchNorm in f32, the residual add in x's dtype
+        y = F.relu(_batch_norm(_conv(x, self.conv1, x.dtype), self.bn1, train))
+        y = _batch_norm(_conv(y, self.conv2, x.dtype), self.bn2, train)
+        return F.relu(x + y.to(x.dtype))
 
 
 class AZResNet(nn.Module):
     """AlphaZero-style conv ResNet with the training-shaped layers: stem
     conv + residual tower + 1x1-conv policy/value heads, BatchNorm after
-    every conv. ``forward`` runs in the parameter dtype (the learner's
-    bf16 mix arrives with the learner port); the search runs the
-    BN-folded ``fold()`` network.
+    every conv. Parameters and statistics are f32; ``forward`` is the flax
+    ``AZResNet.__call__`` at its rounding points: convs and the value
+    hidden Dense in ``dtype``, BatchNorm in f32 (``train=True``: the
+    batch's statistics, updating the running ones), the stem's output cast
+    back to ``dtype``, the residual add in ``dtype``, f32 policy and value
+    heads, ``tanh`` on the value. The search runs the BN-folded ``fold()``
+    network.
 
     The policy ``Linear`` consumes the NCHW flatten (C*H*W order) of the
     2-channel head map; ``models/convert.py`` permutes the flax kernel's
@@ -105,16 +142,21 @@ class AZResNet(nn.Module):
         self.value_hidden = nn.Linear(cells, value_hidden)
         self.value = nn.Linear(value_hidden, 1)
 
-    def forward(self, feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = feats.to(self.stem.weight.dtype).permute(0, 3, 1, 2)
-        x = F.relu(self.stem_bn(self.stem(x)))
+    def forward(self, feats: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt = self.dtype
+        # NHWC -> an NCHW view whose strides are channels_last
+        x = feats.to(dt).permute(0, 3, 1, 2)
+        x = F.relu(_batch_norm(_conv(x, self.stem, dt), self.stem_bn, train)).to(dt)
         for blk in self.blocks:
-            x = blk(x)
-        p = F.relu(self.policy_bn(self.policy_conv(x))).flatten(1)
+            x = blk(x, train)
+        p = F.relu(_batch_norm(_conv(x, self.policy_conv, dt), self.policy_bn, train)).flatten(1)
         logits = self.policy(p)
-        v = F.relu(self.value_bn(self.value_conv(x))).flatten(1)
-        v = self.value(F.relu(self.value_hidden(v)))
-        return logits.float(), torch.tanh(v.float())[:, 0]
+        v = F.relu(_batch_norm(_conv(x, self.value_conv, dt), self.value_bn, train)).flatten(1)
+        # the flax Dense in dt: product rounded to dt, then the bias add
+        vh = F.relu(F.linear(v.to(dt), self.value_hidden.weight.to(dt))
+                    + self.value_hidden.bias.to(dt))
+        v = self.value(vh.float())
+        return logits, torch.tanh(v)[:, 0]
 
     @torch.no_grad()
     def fold(self) -> "FoldedAZResNet":
@@ -193,13 +235,13 @@ class FoldedAZResNet(nn.Module):
 
 
 def _mlp_forward(feats, hidden, heads) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The MLP on NHWC features: ``hidden`` is ``[(W bf16[out, in], b
-    bf16[out]), ...]``, ``heads`` the f32 ``(policy W, policy b, value W,
-    value b)``."""
-    x = feats.reshape(feats.shape[0], -1).to(torch.bfloat16)
+    """The MLP on NHWC features: ``hidden`` is ``[(W [out, in], b [out]),
+    ...]`` in the hidden layers' dtype, ``heads`` the f32 ``(policy W,
+    policy b, value W, value b)``."""
+    x = feats.reshape(feats.shape[0], -1).to(hidden[0][0].dtype)
     for w, b in hidden:
-        # the product rounded to bf16, then the bias add rounded again: the
-        # rounding points of the flax Dense (F.linear(x, w, b) rounds once)
+        # the product rounded to the dtype, then the bias add rounded again:
+        # the rounding points of the flax Dense (F.linear(x, w, b) rounds once)
         x = F.relu(F.linear(x, w).add_(b))
     h = x.float()
     wp, bp, wv, bv = heads
@@ -208,16 +250,21 @@ def _mlp_forward(feats, hidden, heads) -> Tuple[torch.Tensor, torch.Tensor]:
 
 class MLPNet(nn.Module):
     """Tiny MLP policy/value net (BASELINE config 2), the flax ``MLPNet``:
-    hidden layers ``Dense_0..n-1`` in bf16 with ReLU, then f32 ``policy``
-    and ``value`` heads, ``tanh`` on the value. The input is the NHWC-flat
-    feature vector ``[B, 2 * cells]``, as flax flattens it. Parameters are
-    f32; the forward casts the hidden layers' to bf16."""
+    hidden layers ``Dense_0..n-1`` in ``dtype`` (bf16, flax's default) with
+    ReLU, then f32 ``policy`` and ``value`` heads, ``tanh`` on the value.
+    The input is the NHWC-flat feature vector ``[B, 2 * cells]``, as flax
+    flattens it. Parameters are f32; the forward casts the hidden layers'
+    to ``dtype``. The search takes only the bf16 one, whose hidden layers
+    the fused kernel's evaluator computes (``make_apply_fn`` raises for
+    another); another ``dtype`` runs only the learner's forward."""
 
-    def __init__(self, num_actions: int, hidden: Sequence[int] = (256, 256), cells: int = 42):
+    def __init__(self, num_actions: int, hidden: Sequence[int] = (256, 256), cells: int = 42,
+                 dtype: torch.dtype = torch.bfloat16):
         super().__init__()
         self.num_actions = num_actions
         self.hidden = tuple(int(h) for h in hidden)
         self.cells = cells
+        self.dtype = dtype
         widths = (2 * cells, *self.hidden)
         for i in range(len(self.hidden)):
             setattr(self, f"Dense_{i}", nn.Linear(widths[i], widths[i + 1]))
@@ -229,13 +276,14 @@ class MLPNet(nn.Module):
 
     def forward_weights(self):
         """``(hidden, heads)`` of ``_mlp_forward``: the hidden layers cast
-        to bf16, the f32 heads."""
-        hidden = [(d.weight.to(torch.bfloat16), d.bias.to(torch.bfloat16))
-                  for d in self.dense_layers()]
+        to ``dtype``, the f32 heads."""
+        hidden = [(d.weight.to(self.dtype), d.bias.to(self.dtype)) for d in self.dense_layers()]
         heads = (self.policy.weight, self.policy.bias, self.value.weight, self.value.bias)
         return hidden, heads
 
-    def forward(self, feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, feats: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+        # no BatchNorm: training and inference are one forward, as in flax;
+        # gradients reach the f32 parameters through the bf16 casts
         return _mlp_forward(feats, *self.forward_weights())
 
 
@@ -310,22 +358,28 @@ def pack_mlp_weights(model: MLPNet) -> MLPKernelWeights:
 
 
 def _mlp_apply_fn(model: MLPNet) -> Callable:
+    if model.dtype != torch.bfloat16:
+        raise ValueError(
+            f"the search evaluates a bf16 MLPNet (the fused kernel's evaluator); "
+            f"this one's hidden layers are {model.dtype}"
+        )
     # a snapshot of the weights, as the packed kernel weights are one
     with torch.no_grad():
         hidden, heads = model.forward_weights()
         heads = tuple(t.clone() for t in heads)
-    weights = pack_mlp_weights(model)
 
     def apply_fn(feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         with torch.no_grad():
             return _mlp_forward(feats, hidden, heads)
+
+    apply_fn.needs_features = True
+    weights = pack_mlp_weights(model)
 
     def kernel_eval_factory(ops) -> MLPKernelWeights:
         if ops.size != model.cells:
             raise ValueError(f"the MLP takes {model.cells}-cell boards, the game has {ops.size}")
         return weights
 
-    apply_fn.needs_features = True
     # the in-kernel evaluator of the fused search (mcts/fused.py), under
     # the JAX package's name
     apply_fn.kernel_eval_factory = kernel_eval_factory
@@ -334,10 +388,10 @@ def _mlp_apply_fn(model: MLPNet) -> Callable:
 
 def make_apply_fn(model) -> Callable:
     """Search-side ``apply_fn(feats_nhwc) -> (logits f32[B, A], value
-    f32[B])``. An ``AZResNet`` is BN-folded once, here; an ``MLPNet``'s
-    bf16 weights and its packed in-kernel weights (``kernel_eval_factory``)
-    are built once, here; a ``UniformModel`` returns its own feature-free
-    apply_fn."""
+    f32[B])``. An ``AZResNet`` is BN-folded once, here; a bf16 ``MLPNet``'s
+    cast weights and its packed in-kernel weights (``kernel_eval_factory``)
+    are built once, here, and an MLPNet of another dtype raises; a
+    ``UniformModel`` returns its own feature-free apply_fn."""
     if isinstance(model, UniformModel):
         return model.apply_fn
     if isinstance(model, MLPNet):

@@ -9,7 +9,8 @@ engine's K=4 leaf-parallel rounds, and the fused engine's K>1 rounds for
 the uniform model and the MLP; then the fused int8 ResNet tower of the
 experiment ``int8_fused_tower``; then what the fused engine declines
 (an MLPNet wider than its evaluator, ``Gomoku(4, 4)``) through the ladder
-on the hybrid engine, and Gomoku 19 — on one CUDA
+on the hybrid engine, and Gomoku 19; then the learner loop (recycling
+self-play, the replay ring, the learner step and back) — on one CUDA
 card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
@@ -63,10 +64,12 @@ card, in phases:
            largest differences; (b) the fused MLP kernel against its plain
            version on random roots (B=4096, 100 sims, sims conserved):
            order-free counts and root W bit-equal; random ones with >= 75%
-           of games identical and max |dpi| <= 0.25, both timed (the
-           numbers of the kernels line), and, not gated, the share of games
-           identical to a plain search whose leaves ``kernels.mlp_eval``
-           evaluates; (b') MLPNet (256, 256, 256, 256), too large to stay
+           of games identical and max |dpi| <= 0.25, both timed, with the
+           library forward's time for 100 calls on the roots' features
+           (``fused_mlp_vs_plain``, which phase 16(e) runs again on the
+           ``mlp`` preset's own roots for the kernels line), and, not
+           gated, the share of games identical to a plain search whose
+           leaves ``kernels.mlp_eval`` evaluates; (b') MLPNet (256, 256, 256, 256), too large to stay
            in shared memory, runs staged once, order-free, bit-equal to
            plain; (c) the MLP actor
            at the engine bench's size (B=4096, 100 sims, max_depth 48, no
@@ -75,8 +78,7 @@ card, in phases:
            own B=512, 50 sims; (d) one search of the actor's roots through
            the fused route and through the hybrid route (the library
            forward): >= 75% of games identical and max |dpi| <= 0.25, the
-           JAX package's bound between its Mosaic and XLA engines; (e) the
-           library forward of the MLP on B=4096 features, timed per call;
+           JAX package's bound between its Mosaic and XLA engines;
 8. othello: Othello on the hybrid engine, the ``full`` preset's search
            (B=1024, 100 sims, max_depth 80, Dirichlet 0.3, temp_threshold
            12): (a) the Othello descend, the dense merge and the dense
@@ -194,7 +196,36 @@ card, in phases:
            refresh at K=4 (the same); (c) one timed
            actor step, its launches and peak memory; (d) one K=1 and one K=4
            search through the kernels and the plain versions, identical
-           counts.
+           counts;
+16. learner: the learner loop of the Connect-Four ``full`` preset
+           (AZResNet-64x5 bf16, seeded random weights, B=4096, 100 sims,
+           Dirichlet 1.0, ``recycle=True``), with the launch counters set
+           to 0 just before each self-play call and read just after: (a)
+           one recycling call (42 searches: 4200 descend and merge launches,
+           42 refresh), its pi rows and boards bit-equal to
+           ``make_actor_step_fn``'s steps under the same draws; (b) the
+           trajectory into the 2^21-row ring on the card, bit-equal to the
+           CPU insert of the same trajectory (twice: the second time is the
+           steady one); (c) 16 of the preset's train steps (batch 1024), the
+           first against the same step of a CPU copy within
+           tests/test_torch_train.py's bf16 bound, the last profiled, then
+           one more profiled call by call (``learner_step_stages``: the
+           device kernels of the forward, the backward, Adam's step and
+           one BatchNorm); (d) a second
+           recycling call with the trained weights (refolded), every carried
+           fragment row of a game that closed in it valid; (e) the ``mlp``
+           preset's fixed scan (MLPNet (256, 256), B=512, 50 sims, T=42: 42
+           ``fused_mlp`` launches); ``fused_mlp`` against its plain version
+           (``fused_mlp_vs_plain``, 7(b)'s gate) on the scan's own roots at
+           step 10 (most games live) and at its last step (most finished:
+           frozen terminal roots, which must stay inert), the kernels
+           line's ``fused_mlp`` numbers (error over both, times and bound
+           at step 10); 8 train steps (batch 512) on its ring, and the scan
+           again on the repacked weights. It prints ms per self-play call
+           and per move, moves and valid samples per second, the insert's
+           ms, train ms per step and peak memory; its launches of
+           ``descend``, ``merge``, ``refresh`` and ``fused_mlp`` are the
+           kernels line's.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -215,6 +246,9 @@ line is ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits non-zero without that line. Run from the repository root:
 
     python3 chip_smoke.py
+
+``python3 chip_smoke.py --learner`` builds the kernels and runs phase 16
+alone.
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -362,6 +396,10 @@ WIDE_MLP_HIDDEN = (512, 512)   # phase 14: wider than the in-kernel evaluator ta
 TOWER_RAGGED_B = 4093     # phase 13(a): a tail tile of 5 games (the kernel's tiles hold 8)
 TOWER_REPS = 3            # --tower: device-time readings at each B
 TOWER_KERNELS = ("int8_tower_kernel",)   # the tower's ptxas name
+LEARNER_RING = 1 << 21    # phase 16: the full preset's ReplayConfig capacity ...
+LEARNER_BATCH = 1024      # ... its TrainConfig batch (Adam 1e-3, l2 1e-4) ...
+LEARNER_TRAIN_STEPS = 16  # ... and 16 of its 512 steps a phase
+MLP_RING, MLP_BATCH, MLP_TRAIN_STEPS = 1 << 17, 512, 8   # the mlp preset's ring and batch
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -516,9 +554,13 @@ def launched(counts: dict) -> dict:
 
 def profile_step(step) -> tuple:
     """One call of ``step`` under ``torch.profiler``: ``(wall ms, device
-    busy ms, [(kernel, device ms, launches), ...] by time)``, the busy time
-    being the sum of the device kernels' own times (one stream: they do not
-    overlap)."""
+    busy ms, [(kernel, device ms, launches), ...] by time, host launch
+    calls)``, the busy time being the sum of the device kernels' own times
+    (one stream: they do not overlap). The host launch calls (the CUDA API
+    calls that launch a kernel, a memset or a copy) are the count of the
+    work sent to the card: the device events can cover
+    fewer of them (a card's trace may drop records), and then the busy
+    time is a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -528,16 +570,22 @@ def profile_step(step) -> tuple:
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = []
+    kernels, calls = [], 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:   # the host ops that launched them
+            if evt.key.startswith(("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy")):
+                calls += evt.count
+            continue
+        # a named range's span on the device timeline (the optimizer's
+        # step) is not a kernel
+        if getattr(evt, "is_user_annotation", False) or "#" in evt.key:
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
             dev_us = evt.self_cuda_time_total
         kernels.append((evt.key, dev_us / 1e3, evt.count))
     kernels.sort(key=lambda k: -k[1])
-    return 1e3 * wall, sum(k[1] for k in kernels), kernels
+    return 1e3 * wall, sum(k[1] for k in kernels), kernels, calls
 
 
 def device_ms(fn, reps: int = 20, sleep_cycles: int = 50_000_000) -> float:
@@ -837,10 +885,11 @@ def run_actor(tag: str, game, apply_fn, run_cfg, batch: int, steps: int, temp_th
 
 
 def print_profiled_step(tag: str, step, card: str, label: str = "full-preset") -> None:
-    wall, busy, top = profile_step(step)
+    wall, busy, top, calls = profile_step(step)
     print(f"[{tag}] one profiled {label} step: {wall:.3f} ms wall (profiler on), device "
           f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
-          f"{sum(k[2] for k in top)} device kernels | {card}", flush=True)
+          f"{sum(k[2] for k in top)} device kernel events of {calls} host launch calls | {card}",
+          flush=True)
     for name, ms, count in top[:12]:
         print(f"[{tag}]   {ms:9.3f} ms {count:6d}x {name[:100]}", flush=True)
 
@@ -1871,6 +1920,120 @@ def search_agreement(label: str, ck: torch.Tensor, cp: torch.Tensor) -> tuple:
     return same, dpi
 
 
+def fused_mlp_args(game, apply_fn, weights, roots: torch.Tensor, cfg) -> tuple:
+    """``kernels.fused_mlp``'s arguments for one search of ``roots`` with
+    the kernel weights ``weights`` (``apply_fn``'s, or order-free ones)."""
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts.tree import INVALID_P
+    from alphazero_tpu_torch.ops import root_prior
+
+    prior, valid = root_prior(game, apply_fn, cfg, roots, None)
+    return (FlatOps().from_state(roots).contiguous(), torch.where(valid, prior, INVALID_P),
+            weights, cfg.num_sims, cfg.nodes, cfg.max_depth, float(cfg.cpuct))
+
+
+def plain_fused_mlp(f_args, cfg):
+    """``fused_mlp_search``, the fused MLP kernel's plain version, on the
+    kernel's arguments ``f_args``: the plain search through its body with
+    ``fused.mlp_eval`` of the same weights at its leaves. Returns a
+    callable that gives its ``(N, W, done)`` planes."""
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts import SearchKernels, fused, hybrid
+
+    bds, prior, weights = f_args[:3]
+    planes = {}
+
+    def merge_keeping_done(*args):
+        planes["done"] = args[4]   # the done plane, which merge updates in place
+        return hybrid.merge(*args)
+
+    def plain():
+        n, w = hybrid.run_search(FlatOps(), bds, prior, cfg,
+                                 lambda bd, vm: fused.mlp_eval(bd, vm, weights),
+                                 SearchKernels(hybrid.descend, merge_keeping_done, hybrid.refresh))
+        return n, w, planes["done"]
+    return plain
+
+
+def conserved(label: str, game, roots: torch.Tensor, ck: torch.Tensor, sims: int) -> None:
+    """Root counts ``ck`` of a search of ``roots``: the budget on every
+    live root, nothing on a terminal one."""
+    live = ~game.terminal(roots)[0]
+    if not bool((ck.sum(dim=1)[live] == sims).all() and (ck.sum(dim=1)[~live] == 0).all()):
+        fail(f"{label} counts do not sum to the simulation budget on live roots and 0 on "
+             f"terminal ones")
+
+
+def fused_mlp_vs_plain(tag: str, game, apply_fn, roots: torch.Tensor, cfg, card: str,
+                       label: str) -> dict:
+    """``kernels.fused_mlp`` with ``apply_fn``'s packed weights (random:
+    the tensor cores add in another order than the plain version) against
+    ``fused_mlp_search`` on ``roots``, terminal ones included: counts
+    conserved, ``search_agreement``'s gate, both timed in turns (plain,
+    kernel, kernel, plain), the bound of the work this run's data needs,
+    and the library forward's time for ``cfg.num_sims`` calls on these
+    roots' features. Returns the kernels line's ``fused_mlp`` entry."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts import PLAIN, hybrid
+
+    weights = apply_fn.kernel_eval_factory(FlatOps())
+    batch, sims = roots.shape[0], cfg.num_sims
+    f_args = fused_mlp_args(game, apply_fn, weights, roots, cfg)
+    plain = plain_fused_mlp(f_args, cfg)
+    (n_all, w_all, done), p1 = timed_once(plain)
+    ck, wk = kernels.fused_mlp(*f_args)
+    cp, wp = n_all[:, :, 0], w_all[:, :, 0]
+    conserved(f"{tag}: fused_mlp", game, roots, ck, sims)
+    same, dpi = search_agreement(f"{tag}: fused_mlp (random weights, {label})", ck, cp)
+    # informative: the plain search with the kernel's own evaluator at its leaves
+    n_e, _ = hybrid.run_search(FlatOps(), f_args[0], f_args[1], cfg,
+                               lambda bd, vm: kernels.mlp_eval(bd, weights)[:2], PLAIN)
+    same_e = float((ck == n_e[:, :, 0]).all(dim=1).float().mean())
+    k1 = time_ms(lambda: kernels.fused_mlp(*f_args), FUSED_REPS)
+    k2 = time_ms(lambda: kernels.fused_mlp(*f_args), FUSED_REPS)
+    dev_ms = device_ms(lambda: kernels.fused_mlp(*f_args), reps=FUSED_REPS)
+    _, p2 = timed_once(plain)
+    # the work this run's data needs: every descent step's PUCT argmax and
+    # backup (the sum of N over every edge), and one evaluation per
+    # expansion into a child that is not terminal (every edge ever visited
+    # installed one child; a terminal child's slot has done = 1, and its
+    # evaluation is discarded)
+    steps, installs = float(n_all.sum()), float((n_all > 0).sum())
+    terminal = float(done[:, 1:].sum())
+    expansions = installs - terminal
+    A = game.num_actions
+    hidden = weights.hidden
+    widths = (84, *hidden)
+    bf16_ops = expansions * 2 * sum(a * b for a, b in zip(widths, widths[1:]))
+    f32_ops = (steps * (puct_ops(1, A) + 3)
+               + expansions * (2 * sum(hidden)                      # bias adds, ReLU
+                               + 2 * hidden[-1] * (A + 1) + (A + 1)  # the head
+                               + 5 * A + 1))                         # softmax, tanh
+    feats = game.to_features(roots).contiguous()
+    fwd_ms = time_ms(lambda: apply_fn(feats), 20)
+    entry = {
+        "max_abs_err": max(float((ck - cp).abs().max()), float((wk - wp).abs().max())),
+        "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+        **bound(sum(t.numel() * t.element_size() for t in weights.sections())
+                + F32 * batch * (42 + A + 2 * A), f32_ops, bf16_ops),
+        "library_ms": fwd_ms * sims,
+    }
+    n_term = int(game.terminal(roots)[0].sum())
+    print(f"[{tag}] {label}, random weights: B={batch} ({batch - n_term} live, {n_term} "
+          f"terminal roots), {sims} sims, max_depth {cfg.max_depth}: fused_mlp identical to "
+          f"fused_mlp_search on {same:.4f} of games, max |dpi| {dpi:.4f} (gate >= "
+          f"{ROUTE_SAME_GAMES}, <= {ROUTE_MAX_DPI}), max |dN|, |dW| {entry['max_abs_err']}; "
+          f"identical to the plain search with kernels.mlp_eval at its leaves on {same_e:.4f} "
+          f"(not gated); {installs / batch:.2f} installs per game, of which "
+          f"{terminal / batch:.2f} terminal children, so {expansions / batch:.2f} evaluations "
+          f"needed, and {steps / batch:.2f} descent steps; kernel {k1:.4f}/{k2:.4f} ms "
+          f"({dev_ms:.4f} ms of device time), plain {p1:.4f}/{p2:.4f} ms, bound "
+          f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}); library forward (F.linear, bf16) "
+          f"{fwd_ms:.4f} ms a call, {entry['library_ms']:.4f} ms for {sims} | {card}", flush=True)
+    return entry
+
+
 def evaluator_vs_plain(tag: str, bds, weights, kind: str, card: str) -> None:
     """The kernel's evaluator alone against its plain version on the boards
     ``bds``: with order-free weights the logits bit-equal and prior and
@@ -1911,15 +2074,13 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
     from alphazero_tpu_torch.config import MCTSConfig
     from alphazero_tpu_torch.games import ConnectFour
     from alphazero_tpu_torch.games.connect_four import FlatOps
-    from alphazero_tpu_torch.mcts import PLAIN, SearchKernels, fused, hybrid
-    from alphazero_tpu_torch.mcts.tree import INVALID_P
     from alphazero_tpu_torch.models import (
         convert_mlp,
         make_apply_fn,
         order_free_mlp_variables,
         random_mlp_variables,
     )
-    from alphazero_tpu_torch.ops import root_prior, sample_draws
+    from alphazero_tpu_torch.ops import sample_draws
     from alphazero_tpu_torch.selfplay import _make_root_counts_fn, make_actor_step_fn
 
     dev = torch.device("cuda", 0)
@@ -1932,7 +2093,6 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
     free_w = free_apply.kernel_eval_factory(flat)
     cfg_mlp = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH)
     bds = flat.from_state(roots).contiguous()
-    live_r = ~game.terminal(roots)[0]
     nbytes, resident = kernels.mlp_plan(MLP_HIDDEN)
     print(f"[mlp] MLPNet {MLP_HIDDEN}: {'resident' if resident else 'staged'} weights, "
           f"{nbytes} bytes of dynamic shared memory a block", flush=True)
@@ -1942,84 +2102,17 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
     evaluator_vs_plain("mlp", bds, mlp_w, "random", card)
 
     # (b) the fused MLP kernel against its plain version on random roots
-    def inputs(apply_fn, weights, cfg=cfg_mlp) -> tuple:
-        prior, valid = root_prior(game, apply_fn, cfg, roots, None)
-        return (bds, torch.where(valid, prior, INVALID_P), weights, cfg.num_sims, cfg.nodes,
-                cfg.max_depth, float(cfg.cpuct))
-
-    def plain_of(f_args, evaluate, cfg=cfg_mlp):
-        """The plain search through its body: ``(N, W, done)`` planes."""
-        planes = {}
-
-        def merge_keeping_done(*args):
-            planes["done"] = args[4]   # the done plane, which merge updates in place
-            return hybrid.merge(*args)
-
-        def plain():
-            n, w = hybrid.run_search(flat, bds, f_args[1], cfg, evaluate,
-                                     SearchKernels(hybrid.descend, merge_keeping_done,
-                                                   hybrid.refresh))
-            return n, w, planes["done"]
-        return plain
-
-    def conserved(label: str, ck: torch.Tensor, sims: int) -> None:
-        if not bool((ck.sum(dim=1)[live_r] == sims).all() and (ck.sum(dim=1)[~live_r] == 0).all()):
-            fail(f"{label} counts do not sum to the simulation budget")
-
-    f_free = inputs(free_apply, free_w)
-    (n_p, w_p, _), _ = timed_once(plain_of(f_free, lambda bd, vm: fused.mlp_eval(bd, vm, free_w)))
+    f_free = fused_mlp_args(game, free_apply, free_w, roots, cfg_mlp)
+    n_p, w_p, _ = plain_fused_mlp(f_free, cfg_mlp)()
     ck, wk = kernels.fused_mlp(*f_free)
-    conserved("fused_mlp (order-free weights)", ck, SIMS)
+    conserved("fused_mlp (order-free weights)", game, roots, ck, SIMS)
     if not (bit_equal(ck, n_p[:, :, 0]) and bit_equal(wk, w_p[:, :, 0])):
         diff = int(((ck != n_p[:, :, 0]) | (wk != w_p[:, :, 0])).any(dim=1).sum())
         fail(f"fused_mlp (order-free weights) differs from its plain version on {diff} of {B} "
              f"games (counts or root W)")
     print(f"[mlp] random roots, order-free weights: fused_mlp bit-equal to fused_mlp_search "
           f"(counts and root W) on all {B} games", flush=True)
-
-    f_args = inputs(mlp_apply, mlp_w)
-    plain_mlp = plain_of(f_args, lambda bd, vm: fused.mlp_eval(bd, vm, mlp_w))
-    (n_all, w_all, done), p1 = timed_once(plain_mlp)
-    ck, wk = kernels.fused_mlp(*f_args)
-    cp, wp = n_all[:, :, 0], w_all[:, :, 0]
-    conserved("fused_mlp", ck, SIMS)
-    same, dpi = search_agreement("fused_mlp (random weights)", ck, cp)
-    # informative: the plain search with the kernel's own evaluator at its leaves
-    n_e, _ = hybrid.run_search(flat, bds, f_args[1], cfg_mlp,
-                               lambda bd, vm: kernels.mlp_eval(bd, mlp_w)[:2], PLAIN)
-    same_e = float((ck == n_e[:, :, 0]).all(dim=1).float().mean())
-    k1 = time_ms(lambda: kernels.fused_mlp(*f_args), FUSED_REPS)
-    k2 = time_ms(lambda: kernels.fused_mlp(*f_args), FUSED_REPS)
-    dev_ms = device_ms(lambda: kernels.fused_mlp(*f_args), reps=FUSED_REPS)
-    _, p2 = timed_once(plain_mlp)
-    # the work this run's data needs: every descent step's PUCT argmax and
-    # backup (the sum of N over every edge), and one evaluation per
-    # expansion into a child that is not terminal (every edge ever visited
-    # installed one child; a terminal child's slot has done = 1, and its
-    # evaluation is discarded)
-    steps, installs = float(n_all.sum()), float((n_all > 0).sum())
-    terminal = float(done[:, 1:].sum())
-    expansions = installs - terminal
-    widths = (84, *MLP_HIDDEN)
-    bf16_ops = expansions * 2 * sum(a * b for a, b in zip(widths, widths[1:]))
-    f32_ops = (steps * (puct_ops(1, A) + 3)
-               + expansions * (2 * sum(MLP_HIDDEN)                      # bias adds, ReLU
-                               + 2 * MLP_HIDDEN[-1] * (A + 1) + (A + 1)  # the head
-                               + 5 * A + 1))                             # softmax, tanh
-    entry = {
-        "max_abs_err": max(float((ck - cp).abs().max()), float((wk - wp).abs().max())),
-        "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
-        **bound(sum(t.numel() * t.element_size() for t in mlp_w.sections())
-                + F32 * B * (42 + A + 2 * A), f32_ops, bf16_ops),
-    }
-    print(f"[mlp] random roots, random weights: B={B}, {SIMS} sims, max_depth {MAX_DEPTH}: "
-          f"fused_mlp identical to fused_mlp_search on {same:.4f} of games, max |dpi| {dpi:.4f} "
-          f"(gate >= {ROUTE_SAME_GAMES}, <= {ROUTE_MAX_DPI}); identical to the plain search "
-          f"with kernels.mlp_eval at its leaves on {same_e:.4f} (not gated); {installs / B:.2f} "
-          f"installs per game, of which {terminal / B:.2f} terminal children, so "
-          f"{expansions / B:.2f} evaluations needed, and {steps / B:.2f} descent steps; kernel "
-          f"{k1:.4f}/{k2:.4f} ms ({dev_ms:.4f} ms of device time), plain {p1:.4f}/{p2:.4f} ms, "
-          f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}) | {card}", flush=True)
+    entry = fused_mlp_vs_plain("mlp", game, mlp_apply, roots, cfg_mlp, card, "random roots")
 
     # (b') a stack too large to stay resident runs staged: order-free
     # weights, bit-equal to its plain version
@@ -2029,10 +2122,10 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
     nbytes_s, resident_s = kernels.mlp_plan(MLP_STAGED_HIDDEN)
     if resident_s:
         fail(f"MLPNet {MLP_STAGED_HIDDEN} planned resident: the staged path would not run")
-    s_args = inputs(staged_apply, staged_w)
-    n_s, w_s, _ = plain_of(s_args, lambda bd, vm: fused.mlp_eval(bd, vm, staged_w))()
+    s_args = fused_mlp_args(game, staged_apply, staged_w, roots, cfg_mlp)
+    n_s, w_s, _ = plain_fused_mlp(s_args, cfg_mlp)()
     (cs_, ws_), ks = timed_once(lambda: kernels.fused_mlp(*s_args))
-    conserved(f"fused_mlp {MLP_STAGED_HIDDEN}", cs_, SIMS)
+    conserved(f"fused_mlp {MLP_STAGED_HIDDEN}", game, roots, cs_, SIMS)
     if not (bit_equal(cs_, n_s[:, :, 0]) and bit_equal(ws_, w_s[:, :, 0])):
         fail(f"staged fused_mlp {MLP_STAGED_HIDDEN} differs from its plain version")
     print(f"[mlp] MLPNet {MLP_STAGED_HIDDEN}, order-free weights: staged ({nbytes_s} bytes of "
@@ -2097,12 +2190,6 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
           f"{same_route:.4f} of {B} games identical, max |dpi| {dpi:.4f}; hybrid-route search "
           f"{ms_hybrid:.3f} ms | {card}", flush=True)
 
-    # (e) the library forward, the hybrid route's evaluation, per call
-    feats_m = game.to_features(state_m).contiguous()
-    mlp_fwd_ms = time_ms(lambda: mlp_apply(feats_m), 20)
-    entry["library_ms"] = mlp_fwd_ms * SIMS
-    print(f"[mlp] library forward (F.linear, bf16), B={B}: {mlp_fwd_ms:.4f} ms per call, "
-          f"{mlp_fwd_ms * SIMS:.4f} ms for {SIMS} sims | {card}", flush=True)
     return {"fused_mlp": entry}, {"fused_mlp": mlp_launches["fused_mlp"]}, ms_mlp
 
 
@@ -2328,6 +2415,297 @@ def seed_turns(card: str) -> None:
                   f"bound {bound_text(result)} | {card}", flush=True)
 
 
+def timed_sync(fn):
+    """``fn()`` and its host-clock seconds, ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def train_step_vs_cpu(tag: str, state, tcfg, batch, card: str):
+    """One learner step on the card against the same step of a CPU copy of
+    the model on the same minibatch, within the bf16 bound of
+    tests/test_torch_train.py: loss terms within rtol 2e-2, >= 95% of the
+    parameter entries within half a learning rate (the two Adam steps agree
+    in sign), running statistics within rtol 1e-3 plus 1e-4."""
+    import copy
+
+    from alphazero_tpu_torch.train import init_train_state, make_train_step
+
+    lr = tcfg.learning_rate
+    step = make_train_step(tcfg)
+    cpu_model = copy.deepcopy(state.model).cpu()
+    cpu_state = init_train_state(cpu_model, tcfg)
+    (state, met), gpu_s = timed_sync(lambda: step(state, *batch))
+    t0 = time.perf_counter()
+    cpu_state, cmet = step(cpu_state, *(x.cpu() for x in batch))
+    cpu_s = time.perf_counter() - t0
+    rel = [abs(float(g) - float(c)) / max(abs(float(c)), 1e-30) for g, c in zip(met, cmet)]
+    if max(rel) > 2e-2:
+        fail(f"{tag}: train step 1 loss terms {[float(x) for x in met]} vs CPU "
+             f"{[float(x) for x in cmet]}")
+    gsd, csd = state.model.state_dict(), cpu_model.state_dict()
+    names = {n for n, _ in cpu_model.named_parameters()}
+    near = total = 0
+    for k, c in csd.items():
+        g = gsd[k].cpu()
+        if k in names:
+            near += int(((g - c).abs() <= lr / 2).sum())
+            total += c.numel()
+        elif k.endswith(("running_mean", "running_var")) and not torch.allclose(
+                g, c, rtol=1e-3, atol=1e-4):
+            fail(f"{tag}: {k} after step 1 differs from the CPU step's")
+    if near < 0.95 * total:
+        fail(f"{tag}: {total - near} of {total} parameter entries off the CPU step's by > lr/2")
+    print(f"[{tag}] train step 1 on the card vs the CPU step: loss terms within "
+          f"{max(rel):.3g} (rtol), {100 * near / total:.2f}% of {total} parameter entries within "
+          f"lr/2, running statistics within 1e-3; card {1e3 * gpu_s:.3f} ms (first step), "
+          f"CPU {1e3 * cpu_s:.1f} ms | {card}", flush=True)
+    return state
+
+
+def learner_step_stages(tag: str, state, tcfg, batch, card: str) -> None:
+    """Where one learner step's launches come from (not gated): the step's
+    three calls (``train.loss_terms``, the backward, the optimizer's step),
+    each profiled alone on ``batch`` (its host launch calls, its device
+    kernel events and the kernels that launch most often); and one
+    BatchNorm (``nets._batch_norm`` at the tower's shape, training mode)
+    forward and backward, of which the AZResNet has 13. The step is a real
+    one: the weights move."""
+    from alphazero_tpu_torch.models import nets
+    from alphazero_tpu_torch.train import loss_terms
+
+    held = {}
+
+    def forward():
+        held["loss"] = loss_terms(state.model, tcfg, *batch).loss
+
+    def backward():
+        state.optimizer.zero_grad(set_to_none=True)
+        held["loss"].backward()
+
+    # the conv output a BatchNorm takes: [batch, channels, 6, 7] in the model's dtype
+    x = torch.randn(batch[0].shape[0], state.model.stem.out_channels, 6, 7,
+                    device=batch[0].device, dtype=state.model.dtype, requires_grad=True)
+    bn = state.model.stem_bn
+
+    def bn_forward():
+        held["bn"] = nets._batch_norm(x, bn, True)
+
+    def bn_backward():
+        held["bn"].backward(torch.ones_like(held["bn"]))
+
+    for label, fn in (("forward and loss (loss_terms)", forward), ("backward", backward),
+                      ("optimizer step (Adam)", state.optimizer.step),
+                      ("one BatchNorm forward (train)", bn_forward),
+                      ("one BatchNorm backward", bn_backward)):
+        wall, busy, top, calls = profile_step(fn)
+        by_count = sorted(top, key=lambda k: -k[2])
+        print(f"[{tag}] learner step, {label}: {calls} host launch calls, "
+              f"{sum(k[2] for k in top)} device kernel events, {busy:.3f} ms busy of "
+              f"{wall:.3f} ms wall (profiler on); most launched: "
+              + "; ".join(f"{c}x {n.replace('void at::native::', '')[:90]}"
+                          for n, _, c in by_count[:4]) + f" | {card}", flush=True)
+
+
+def learner_phase(card: str) -> tuple:
+    """Phase 16: the learner loop of the Connect-Four ``full`` preset and
+    the ``mlp`` preset's fixed scan (see the module docstring). Returns the
+    kernels line's ``fused_mlp`` entry, at the scan's shapes, and the
+    loop's launches of each kernel it runs."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig, ReplayConfig, SelfPlayConfig, TrainConfig
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        convert_mlp,
+        make_apply_fn,
+        pack_mlp_weights,
+        random_az_resnet_variables,
+        random_mlp_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+    from alphazero_tpu_torch.replay import replay_init, replay_insert, replay_sample, replay_total
+    from alphazero_tpu_torch.selfplay import (
+        make_actor_step_fn,
+        make_recycling_selfplay_fn,
+        make_selfplay_fn,
+    )
+    from alphazero_tpu_torch.train import init_train_state, make_train_phase, make_train_step
+
+    dev = torch.device("cuda", 0)
+    game = ConnectFour()
+    A, M = game.num_actions, game.max_moves
+    torch.cuda.reset_peak_memory_stats()
+    model = convert_az_resnet(random_az_resnet_variables(A, 64, 5, seed=SEED),
+                              dtype=torch.bfloat16).to(dev)
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0)
+    sp = SelfPlayConfig(batch_size=B, temp_threshold=TEMP_THRESHOLD, recycle=True)
+    init, play = make_recycling_selfplay_fn(game, cfg, sp, device=dev)
+    S = M   # recycle_steps' default
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    recorded = []
+
+    def draws(t):
+        d = sample_draws(gen, B, A, 1.0, dev)
+        recorded.append(d)
+        return d
+
+    def call(carry, tag_n: int):
+        """One recycling call with the launch counters set to 0 just before
+        and read just after: ``(carry, traj, stats, launches)``."""
+        kernels.reset_launch_counts()
+        (out, sec) = timed_sync(lambda: play(model, carry, draws))
+        got = dict(kernels.launch_counts())
+        want = launches_of(kernels, descend=S * SIMS, merge=S * SIMS, refresh=S)
+        if got != want:
+            fail(f"learner: recycling call {tag_n} launches {got} != {want}")
+        carry, traj, stats = out
+        n_valid = int(traj.valid.sum())
+        if traj.pi.shape != (S + M, B, A) or not torch.isfinite(traj.value).all():
+            fail(f"learner: recycling call {tag_n} trajectory is not finite [S + M, B, A]")
+        if not torch.allclose(traj.pi[M:].sum(-1), torch.ones(S, B, device=dev), atol=1e-5):
+            fail(f"learner: recycling call {tag_n} pi rows do not sum to 1")
+        vals = traj.value[traj.valid]
+        if not bool(((vals == 1) | (vals == 0) | (vals == -1)).all()):
+            fail(f"learner: recycling call {tag_n} valid values outside {{-1, 0, 1}}")
+        print(f"[learner] recycling call {tag_n} (AZResNet-64x5 bf16, B={B}, {SIMS} sims, "
+              f"{S} searches): {1e3 * sec:.3f} ms a call, {1e3 * sec / S:.3f} ms per move, "
+              f"{S * B / sec:.1f} moves/s, {n_valid} valid samples ({n_valid / sec:.1f} samples/s), "
+              f"{int(stats.done.sum())} games closed an episode | launches {launched(got)} | {card}",
+              flush=True)
+        return carry, traj, stats, got
+
+    # ---- (a) one recycling call, and the actor step under its draws
+    carry0 = init()
+    carry1, traj1, stats1, launches = call(carry0, 1)
+    _, actor_step = make_actor_step_fn(game, make_apply_fn(model), cfg, B, TEMP_THRESHOLD, device=dev)
+    a_carry = (carry0.state, carry0.move_count)
+    for t in range(S):
+        if not bit_equal(traj1.features[M + t], game.to_features(a_carry[0])):
+            fail(f"learner: recycling step {t}'s board differs from the actor step's")
+        a_carry, a_pi = actor_step(a_carry, recorded[t])
+        if not bit_equal(traj1.pi[M + t], a_pi):
+            fail(f"learner: recycling step {t}'s pi differs from the actor step's")
+    if not (torch.equal(a_carry[0], carry1.state) and torch.equal(a_carry[1], carry1.move_count)):
+        fail("learner: the recycling call's final boards differ from the actor's")
+    print(f"[learner] the recycling call's {S} pi rows and boards are bit-equal to "
+          f"make_actor_step_fn's under the same draws ({B} games) | {card}", flush=True)
+
+    # ---- (b) the 2^21-row ring
+    ring_cfg = ReplayConfig(capacity=LEARNER_RING)
+    # inserted twice (the second insert's time is the steady one: the
+    # first loads the library kernels it launches), as is the CPU ring
+    ring = replay_init(game, ring_cfg, device=dev)
+    cpu_ring = replay_init(game, ring_cfg, device="cpu")
+    cpu_traj = type(traj1)(*(x.cpu() for x in traj1))
+    ins_s = []
+    for _ in range(2):
+        ring, sec = timed_sync(lambda: replay_insert(ring, game, traj1))
+        ins_s.append(sec)
+        cpu_ring = replay_insert(cpu_ring, game, cpu_traj)
+    if not bit_equal(ring.data.cpu(), cpu_ring.data) or ring[1:] != cpu_ring[1:]:
+        fail("learner: the card's ring inserts differ from the CPU inserts")
+    print(f"[learner] two inserts into the {LEARNER_RING}-row ring "
+          f"({ring.data.numel() * F32 / 1e6:.1f} MB): {replay_total(ring) // 2} rows each (2 "
+          f"symmetries) in {1e3 * ins_s[0]:.3f} ms (first) and {1e3 * ins_s[1]:.3f} ms, "
+          f"bit-equal to the CPU inserts | {card}", flush=True)
+
+    # ---- (c) the learner: step 1 against the CPU, then 15 more
+    tcfg = TrainConfig(batch_size=LEARNER_BATCH, steps_per_iteration=512)
+    tgen = torch.Generator(device=dev).manual_seed(SEED)
+    batch = replay_sample(ring, tcfg.batch_size, game, tgen)
+    state = train_step_vs_cpu("learner", init_train_state(model, tcfg), tcfg, batch, card)
+    rest = LEARNER_TRAIN_STEPS - 2   # the last one profiled
+    phase = make_train_phase(tcfg, rest, game)
+    (state, losses), tr_s = timed_sync(lambda: phase(state, ring, tgen))
+    if not torch.isfinite(losses).all() or state.step != LEARNER_TRAIN_STEPS - 1:
+        fail(f"learner: train phase losses {losses.tolist()}, step {state.step}")
+    print(f"[learner] {rest} more train steps (batch {tcfg.batch_size}, Adam "
+          f"{tcfg.learning_rate}, l2 {tcfg.l2_scale}): "
+          f"{1e3 * tr_s / rest:.3f} ms per step; loss {losses[0].item():.4f} -> "
+          f"{losses[-1].item():.4f} | {card}", flush=True)
+    batch = replay_sample(ring, tcfg.batch_size, game, tgen)
+    print_profiled_step("learner", lambda: make_train_step(tcfg)(state, *batch), card,
+                        "AZResNet-64x5 train")
+    learner_step_stages("learner", state, tcfg, batch, card)
+
+    # ---- (d) a second call with the trained weights: the fragment resolves
+    recorded.clear()
+    carry2, traj2, stats2, got = call(carry1, 2)
+    launches = {k: launches[k] + got[k] for k in launches}
+    rows = torch.arange(M, device=dev)[:, None]
+    owed = (rows < carry1.move_count[None, :]) & stats2.done[None, :]
+    if not bool(traj2.valid[:M][owed].all()):
+        fail("learner: a carried fragment row of a game that closed in call 2 is not valid")
+    print(f"[learner] call 2 resolves all {int(owed.sum())} carried fragment rows of the "
+          f"{int(stats2.done.sum())} games that closed | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
+
+    # ---- (e) the mlp preset: the fixed scan on az_fused_mlp, 8 train steps
+    mlp = convert_mlp(random_mlp_variables(A, MLP_HIDDEN, seed=SEED)).to(dev)
+    mcfg = MCTSConfig(num_sims=MLP_PRESET_SIMS, max_depth=MAX_DEPTH)
+    play_games = make_selfplay_fn(game, mcfg, SelfPlayConfig(batch_size=MLP_PRESET_B,
+                                                             temp_threshold=TEMP_THRESHOLD), device=dev)
+    mgen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def scan(tag_n: int):
+        kernels.reset_launch_counts()
+        (traj, stats), sec = timed_sync(lambda: play_games(
+            mlp, lambda t: sample_draws(mgen, MLP_PRESET_B, A, None, dev)))
+        got = dict(kernels.launch_counts())
+        if got != launches_of(kernels, fused_mlp=M):
+            fail(f"learner: mlp fixed scan {tag_n} launches {got}: want {M} fused_mlp")
+        if not torch.allclose(traj.pi.sum(-1), torch.ones(M, MLP_PRESET_B, device=dev), atol=1e-5):
+            fail(f"learner: mlp fixed scan {tag_n} pi rows do not sum to 1")
+        n_valid = int(traj.valid.sum())
+        print(f"[learner] mlp fixed scan {tag_n} (MLPNet {MLP_HIDDEN}, B={MLP_PRESET_B}, "
+              f"{MLP_PRESET_SIMS} sims, T={M}): {1e3 * sec:.3f} ms a call, {1e3 * sec / M:.3f} ms "
+              f"per step, {int(stats.num_moves.sum()) / sec:.1f} moves/s, {n_valid} valid samples "
+              f"({n_valid / sec:.1f} samples/s), {int(stats.done.sum())} games done | launches "
+              f"{launched(got)} | {card}", flush=True)
+        return traj, got
+
+    traj_m, got = scan(1)
+    launches["fused_mlp"] = got["fused_mlp"]
+    # fused_mlp against its plain version on the scan's own roots (each
+    # step's boards from its features): at step 10, most games live, and
+    # at the last step, most finished (frozen terminal boards searched with
+    # the live ones). The kernels line takes the larger error of the two,
+    # and the times and bound of step 10's, the heavier search
+    mlp_apply = make_apply_fn(mlp)
+    entries = []
+    for t in (10, M - 1):
+        roots = (traj_m.features[t][..., 0] - traj_m.features[t][..., 1]).to(torch.int8)
+        if not bit_equal(game.to_features(roots), traj_m.features[t]):
+            fail(f"learner: the mlp scan's step {t} boards do not round-trip through its features")
+        entries.append(fused_mlp_vs_plain("learner", game, mlp_apply, roots, mcfg, card,
+                                          f"mlp fixed scan's step {t} roots"))
+    entry = {**entries[0], "max_abs_err": max(e["max_abs_err"] for e in entries)}
+
+    mring = replay_insert(replay_init(game, ReplayConfig(capacity=MLP_RING), device=dev), game, traj_m)
+    packed_before = [t.clone() for t in pack_mlp_weights(mlp).sections()]
+    mcfg_train = TrainConfig(batch_size=MLP_BATCH, steps_per_iteration=128)
+    mphase = make_train_phase(mcfg_train, MLP_TRAIN_STEPS, game)
+    (_, mlosses), mtr_s = timed_sync(lambda: mphase(init_train_state(mlp, mcfg_train), mring, mgen))
+    if not torch.isfinite(mlosses).all():
+        fail(f"learner: mlp train losses {mlosses.tolist()}")
+    changed = sum(not torch.equal(a, b) for a, b in zip(packed_before, pack_mlp_weights(mlp).sections()))
+    if changed != len(packed_before):
+        fail(f"learner: only {changed} of {len(packed_before)} packed MLP sections changed in training")
+    _, got = scan(2)   # repacked from the trained weights
+    launches["fused_mlp"] += got["fused_mlp"]
+    print(f"[learner] mlp: {MLP_TRAIN_STEPS} train steps (batch {MLP_BATCH}) at "
+          f"{1e3 * mtr_s / MLP_TRAIN_STEPS:.3f} ms per step, loss {mlosses[0].item():.4f} -> "
+          f"{mlosses[-1].item():.4f}; every packed section changed and scan 2 ran on the repacked "
+          f"weights | peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}",
+          flush=True)
+    print(f"[learner] launches of the loop: {launched(launches)} | {card}", flush=True)
+    return {"fused_mlp": entry}, launches
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -2416,6 +2794,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--tower"]:
         tower_turns(card)
+        return 0
+    if sys.argv[1:] == ["--learner"]:
+        kernels.library()
+        learner_phase(card)
         return 0
 
     # ---- 2. build ------------------------------------------------------
@@ -2739,6 +3121,14 @@ def main() -> int:
 
     # ---- 15. Gomoku 19 --------------------------------------------------
     gomoku19_phase(card)
+
+    # ---- 16. the learner loop -------------------------------------------
+    # its launches of descend, merge, refresh and fused_mlp replace those of
+    # phases 5 and 7 in the kernels line, and its fused_mlp entry, at the
+    # mlp scan's shapes, phase 7's: this slice's path
+    phase_results, phase_launches = learner_phase(card)
+    results.update(phase_results)
+    launches.update(phase_launches)
 
     print(card)
     print(json.dumps({"kernels": [

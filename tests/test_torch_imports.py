@@ -1,6 +1,6 @@
 """The port stands alone: it imports with ``jax`` (and the JAX package)
 unavailable, reaches no compiler or library kernel in place of its own,
-and its search config is the JAX package's, field for field."""
+and its configs are the JAX package's, field for field."""
 
 import dataclasses
 import pathlib
@@ -73,6 +73,16 @@ def test_config_mirrors_the_jax_package():
     assert port_config.PUCT_EPS == jax_config.PUCT_EPS
     for kw in ({}, {"num_sims": 7}, {"num_sims": 7, "max_nodes": 3}):
         assert port_config.MCTSConfig(**kw).nodes == jax_config.MCTSConfig(**kw).nodes
+
+
+@pytest.mark.parametrize("name", ["SelfPlayConfig", "ReplayConfig", "TrainConfig"])
+def test_loop_configs_mirror_the_jax_package(name):
+    """Field for field: names, order, defaults and annotations."""
+    jax_cls, port_cls = getattr(jax_config, name), getattr(port_config, name)
+    jf = [(f.name, f.default, str(f.type)) for f in dataclasses.fields(jax_cls)]
+    pf = [(f.name, f.default, str(f.type)) for f in dataclasses.fields(port_cls)]
+    assert jf == pf
+    assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls())
 
 
 @pytest.mark.parametrize("needle", ["torch.compile", "import triton", "cpp_extension"])

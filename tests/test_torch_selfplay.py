@@ -19,10 +19,11 @@ from alphazero_tpu.selfplay import make_actor_step_fn as jax_actor_step_fn
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.games import ConnectFour, Othello
 from alphazero_tpu_torch.models import make_uniform_model
-from alphazero_tpu_torch.ops import Draws, sample_draws
+from alphazero_tpu_torch.ops import sample_draws
 from alphazero_tpu_torch.selfplay import _make_root_counts_fn, make_actor_step_fn
 from tests.torch_parity import (
     jax_state,
+    jax_step_draws,
     othello_jax_state,
     random_boards,
     random_othello_boards,
@@ -39,11 +40,7 @@ def _jax_draws(key, alpha, actions=7):
     """The draws the JAX actor makes from ``key`` (selfplay.py actor_step:
     split 3 ways; Dirichlet in root_prior, uniforms in action_probs,
     Gumbel inside jax.random.categorical)."""
-    k_noise, k_tie, k_act = jax.random.split(key, 3)
-    dirichlet = jax.random.dirichlet(k_noise, jnp.full((actions,), alpha), (B,))
-    tie = jax.random.uniform(k_tie, (B, actions))
-    gumbel = jax.random.gumbel(k_act, (B, actions))
-    return Draws(*(torch.as_tensor(np.array(x)) for x in (dirichlet, tie, gumbel)))
+    return jax_step_draws(*jax.random.split(key, 3), B, actions, alpha)
 
 
 def test_actor_steps_match_jax_with_injected_draws():

@@ -26,6 +26,7 @@ import shutil
 import subprocess
 import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -41,6 +42,7 @@ from alphazero_tpu_torch.games import Othello as TorchOthello
 from alphazero_tpu_torch.mcts import SearchKernels, hybrid
 from alphazero_tpu_torch.mcts.fused import _ordered_dot
 from alphazero_tpu_torch.models import convert_mlp, make_apply_fn, order_free_mlp_variables
+from alphazero_tpu_torch.ops import Draws
 
 # Tier-1 runs several pytest workers side by side; keep each one's
 # intra-op pool small.
@@ -79,6 +81,31 @@ def random_boards(batch: int, moves: int, seed: int, freeze_done: bool = True) -
             stop |= done
         state = torch.where(stop[:, None, None], state, nxt)
     return state.numpy()
+
+
+def jax_step_draws(k_noise, k_tie, k_act, batch: int, actions: int, alpha) -> Draws:
+    """The draws a JAX search + move makes from its three keys: the
+    Dirichlet sample of ``root_prior`` (None when ``alpha`` is None), the
+    tie-break uniforms of ``action_probs`` and the Gumbel noise inside
+    ``jax.random.categorical``."""
+    dirichlet = None
+    if alpha is not None:
+        dirichlet = jax.random.dirichlet(k_noise, jnp.full((actions,), alpha), (batch,))
+        dirichlet = torch.as_tensor(np.array(dirichlet))
+    tie = jax.random.uniform(k_tie, (batch, actions))
+    gumbel = jax.random.gumbel(k_act, (batch, actions))
+    return Draws(dirichlet, torch.as_tensor(np.array(tie)), torch.as_tensor(np.array(gumbel)))
+
+
+def jax_scan_draws(key, steps: int, batch: int, actions: int, alpha) -> list:
+    """Each step's draws of a JAX self-play scan run with ``key``: both
+    scans split ``rng, k_noise, k_tie, k_act = split(rng, 4)`` a step
+    (selfplay.py :266 and :532)."""
+    out = []
+    for _ in range(steps):
+        key, k_noise, k_tie, k_act = jax.random.split(key, 4)
+        out.append(jax_step_draws(k_noise, k_tie, k_act, batch, actions, alpha))
+    return out
 
 
 def jax_state(boards: np.ndarray) -> ConnectFourState:
