@@ -6,10 +6,12 @@ it on identical numpy inputs (``tests/test_torch_*.py``).
 
 Ported so far (the Connect-Four self-play slices: ResNet, uniform, MLP;
 Othello's, Gomoku's and Hex's self-play on the hybrid engine with any
-model; the learner loop: episode generation, replay, training):
+model; the learner loop: episode generation, replay, training; the outer
+loop: the arena gate, the coach with its anchored Elo, checkpoints and the
+training CLI):
 
   - :mod:`alphazero_tpu_torch.config`   — ``MCTSConfig``, ``PUCT_EPS``, ``SelfPlayConfig``,
-    ``ReplayConfig``, ``TrainConfig``
+    ``ReplayConfig``, ``TrainConfig``, ``ArenaConfig``, ``ReanalyzeConfig``, ``AZConfig``
   - :mod:`alphazero_tpu_torch.games`    — ``Game`` protocol, ``ConnectFour`` + ``FlatOps``,
     ``Othello`` + ``OthelloFlatOps``, ``Gomoku`` + ``GomokuFlatOps``, ``Hex`` + ``HexFlatOps``
   - :mod:`alphazero_tpu_torch.ops`      — masked policy, action probabilities, root prior
@@ -21,6 +23,11 @@ model; the learner loop: episode generation, replay, training):
     recycling episode generators with exact value targets
   - :mod:`alphazero_tpu_torch.replay`   — the packed replay ring on the device
   - :mod:`alphazero_tpu_torch.train`    — the learner: loss, Adam step, training phase
+  - :mod:`alphazero_tpu_torch.arena`    — the batched arena and the gate
+  - :mod:`alphazero_tpu_torch.coach`    — the outer loop: gate, anchored Elo, save and resume
+  - :mod:`alphazero_tpu_torch.checkpoint` — whole-state checkpoints with a JSON sidecar
+  - :mod:`alphazero_tpu_torch.utils`    — Elo ratings, metrics logging, phase timers
+  - :mod:`alphazero_tpu_torch.examples.train_connect_four` — the training CLI
 
 The package imports ``torch`` and nothing of ``jax`` or of the JAX package.
 """

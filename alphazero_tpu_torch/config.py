@@ -1,8 +1,10 @@
-"""Search, self-play, replay and learner configuration of the port.
+"""Configuration of the port: search, self-play, replay, learner, arena
+and the whole run.
 
 The same fields, defaults and meaning as ``alphazero_tpu.config``'s
-``MCTSConfig``, ``SelfPlayConfig``, ``ReplayConfig`` and ``TrainConfig``
-(see there for each knob's rationale), held here so that the port and
+``MCTSConfig``, ``SelfPlayConfig``, ``ReplayConfig``, ``TrainConfig``,
+``ArenaConfig``, ``ReanalyzeConfig`` and ``AZConfig`` (see there for each
+knob's rationale), held here so that the port and
 anything that runs it import nothing of the JAX package;
 ``tests/test_torch_imports.py`` pins each pair of dataclasses to each
 other. ``MCTSConfig(**dataclasses.asdict(jax_cfg))`` converts a JAX config.
@@ -62,3 +64,43 @@ class TrainConfig:
     steps_per_iteration: int = 256   # minibatch steps a training phase
     weight_decay: float = 0.0        # > 0: AdamW's decoupled decay
     l2_scale: float = 1e-4           # L2 on conv and dense kernels
+
+
+@dataclasses.dataclass(frozen=True)
+class ArenaConfig:
+    num_games: int = 128             # arena games, half with each seating
+    update_threshold: Optional[float] = 0.6  # gate; None = continuous (always adopt)
+    num_sims: Optional[int] = None   # arena search budget (MCTSConfig's)
+    anchor_interval: Optional[int] = None  # anchored rating pass every k iterations
+    pool_size: int = 5               # past-generation snapshots kept
+    anchor_ladder: tuple = ()        # pure-MCTS rungs at these budgets ("anchor@SIMS")
+    anchor_warmup: int = 0           # also run the pass at iterations <= this
+    anchor_warmup_mult: int = 1      # anchor arenas a warmup pass repeats
+    pool_cross_matches: int = 0      # pool-vs-pool arenas a pass
+    pool_in_checkpoint: bool = False  # persist the pool's snapshots
+
+
+@dataclasses.dataclass(frozen=True)
+class ReanalyzeConfig:
+    batch_size: int = 1024           # positions re-searched a pass
+    interval: int = 1                # a pass every k iterations
+    capacity: int = 1 << 16          # position-ring slots
+    num_sims: Optional[int] = None   # re-search budget (MCTSConfig's)
+    record_stride: int = 1           # record every k-th valid sample
+
+
+@dataclasses.dataclass(frozen=True)
+class AZConfig:
+    mcts: MCTSConfig = dataclasses.field(default_factory=MCTSConfig)
+    selfplay: SelfPlayConfig = dataclasses.field(default_factory=SelfPlayConfig)
+    replay: ReplayConfig = dataclasses.field(default_factory=ReplayConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    arena: ArenaConfig = dataclasses.field(default_factory=ArenaConfig)
+    reanalyze: Optional[ReanalyzeConfig] = None  # not ported: raises in the coach
+    num_iterations: int = 10         # coach iterations
+    seed: int = 0
+    checkpoint_dir: Optional[str] = None
+    checkpoint_interval: int = 1     # whole-state save every k iterations
+    replay_save_stride: int = 1      # only every k-th periodic save carries the rings
+    keep_checkpoints: Optional[int] = None  # retention: newest k (None keeps all)
+    skip_first_selfplay: bool = False  # train on the restored ring first after a resume

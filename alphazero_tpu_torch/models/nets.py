@@ -390,9 +390,10 @@ def make_apply_fn(model) -> Callable:
     """Search-side ``apply_fn(feats_nhwc) -> (logits f32[B, A], value
     f32[B])``. An ``AZResNet`` is BN-folded once, here; a bf16 ``MLPNet``'s
     cast weights and its packed in-kernel weights (``kernel_eval_factory``)
-    are built once, here, and an MLPNet of another dtype raises; a
-    ``UniformModel`` returns its own feature-free apply_fn."""
-    if isinstance(model, UniformModel):
+    are built once, here, and an MLPNet of another dtype raises; an
+    object with an ``apply_fn`` of this kind (a ``UniformModel``, a
+    rule-based prior) returns that."""
+    if callable(getattr(model, "apply_fn", None)):
         return model.apply_fn
     if isinstance(model, MLPNet):
         return _mlp_apply_fn(model)

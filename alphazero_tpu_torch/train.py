@@ -57,6 +57,25 @@ def init_train_state(model: torch.nn.Module, cfg: TrainConfig) -> TrainState:
     return TrainState(model, make_optimizer(model.parameters(), cfg))
 
 
+def prime_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
+    """Give every parameter the Adam state its first step would make
+    (step 0, zero moments, each where torch keeps it), so the optimizer's
+    state dict has one structure from the start: a checkpoint's template
+    (``coach``). The steps that follow are the same as without it."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state[p]
+            if state:
+                continue
+            on_param = group.get("capturable") or group.get("fused")
+            state["step"] = (torch.zeros((), device=p.device) if on_param
+                             else torch.tensor(0.0, device="cpu"))
+            state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+            if group.get("amsgrad"):
+                state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+
 def loss_terms(model, cfg: TrainConfig, feats, pi_t, v_t) -> TrainMetrics:
     """The loss of one minibatch through the training forward."""
     logits, v = model(feats, train=True)

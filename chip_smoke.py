@@ -10,8 +10,9 @@ the uniform model and the MLP; then the fused int8 ResNet tower of the
 experiment ``int8_fused_tower``; then what the fused engine declines
 (an MLPNet wider than its evaluator, ``Gomoku(4, 4)``) through the ladder
 on the hybrid engine, and Gomoku 19; then the learner loop (recycling
-self-play, the replay ring, the learner step and back) — on one CUDA
-card, in phases:
+self-play, the replay ring, the learner step and back); then the coach
+(gate arena, anchored rating pass, whole-state checkpoint and resume) — on
+one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``,
@@ -224,8 +225,31 @@ card, in phases:
            again on the repacked weights. It prints ms per self-play call
            and per move, moves and valid samples per second, the insert's
            ms, train ms per step and peak memory; its launches of
-           ``descend``, ``merge``, ``refresh`` and ``fused_mlp`` are the
-           kernels line's.
+           ``descend``, ``merge``, ``refresh`` and ``fused_mlp`` were the
+           kernels line's until phase 17;
+17. coach: the outer loop through ``Coach.learn`` (``coach_phase``): (a)
+           the ``full`` preset as the training CLI builds it
+           (``examples.train_connect_four.preset``: AZResNet-64x5 bf16,
+           recycling self-play B=4096 at 100 sims, the 2^21-row ring, 512
+           train steps of batch 1024, the 256-game gate arena at 50 sims
+           on the combined forward, the anchored pass with warmup x4, the
+           ladder (400, 1600) and its one-time calibration), iteration 1
+           with a checkpoint in a temporary directory and the launch
+           counters set to 0 just before and read just after; a second
+           Coach over the directory resumes bit-equal to the first one's
+           live state (weights, BatchNorm statistics, Adam moments, ring,
+           actor carry, generator, counters, Elo history, match graph) and
+           runs iteration 2: each phase's seconds, anchored Elo +- SE,
+           launches per kernel, peak memory, checkpoint bytes, save and
+           restore ms; (b) the root counts of one gate-arena move at mixed
+           seating (B=256, 50 sims, two AZResNets on the combined forward)
+           through the kernels and the plain versions, identical, and one
+           rung move's uniform side (B=256, 1600 sims, nodes 1601) through
+           ``az_fused``, its first roots held against the plain fused
+           search; (c) the ``mlp`` preset for 2 iterations (the anchored
+           pass at 2: fused calls on both sides). Its launches of
+           ``descend``, ``merge``, ``refresh``, ``fused`` and ``fused_mlp``
+           (one iteration of each preset) are the kernels line's.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -248,7 +272,7 @@ script exits non-zero without that line. Run from the repository root:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --learner`` builds the kernels and runs phase 16
-alone.
+alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone.
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -399,6 +423,7 @@ TOWER_KERNELS = ("int8_tower_kernel",)   # the tower's ptxas name
 LEARNER_RING = 1 << 21    # phase 16: the full preset's ReplayConfig capacity ...
 LEARNER_BATCH = 1024      # ... its TrainConfig batch (Adam 1e-3, l2 1e-4) ...
 LEARNER_TRAIN_STEPS = 16  # ... and 16 of its 512 steps a phase
+COACH_SUBSET = 16         # phase 17(b): roots of the 1600-sim rung search held against plain
 MLP_RING, MLP_BATCH, MLP_TRAIN_STEPS = 1 << 17, 512, 8   # the mlp preset's ring and batch
 
 SOURCE = {
@@ -2706,6 +2731,193 @@ def learner_phase(card: str) -> tuple:
     return {"fused_mlp": entry}, launches
 
 
+def bits_differ(a, b, where: str = "state"):
+    """The first place where two nests of dicts, lists and tensors differ
+    (tensors bit for bit, with dtype, shape and device), or None."""
+    if isinstance(a, dict):
+        if not isinstance(b, dict) or a.keys() != b.keys():
+            return f"{where}: keys differ"
+        for k in a:
+            d = bits_differ(a[k], b[k], f"{where}/{k}")
+            if d:
+                return d
+        return None
+    if isinstance(a, (list, tuple)):
+        if not isinstance(b, (list, tuple)) or len(a) != len(b):
+            return f"{where}: lengths differ"
+        for i, (x, y) in enumerate(zip(a, b)):
+            d = bits_differ(x, y, f"{where}[{i}]")
+            if d:
+                return d
+        return None
+    if isinstance(a, torch.Tensor):
+        if not isinstance(b, torch.Tensor) or (a.dtype, a.shape, a.device) != (b.dtype, b.shape, b.device):
+            return f"{where}: dtype, shape or device differ"
+        flat = (lambda t: t.reshape(-1).view(torch.uint8)) if a.is_floating_point() else (lambda t: t)
+        return None if torch.equal(flat(a), flat(b)) else f"{where}: values differ"
+    return None if a == b else f"{where}: {a!r} != {b!r}"
+
+
+def coach_state(coach) -> dict:
+    """What a resume restores: the incumbent (weights, BatchNorm
+    statistics, Adam moments, step), the ring, the actor carry, the
+    coach's generator, the counters, the Elo history and the match graph."""
+    inc = coach.incumbent
+    state = {"model": inc.model.state_dict(), "optimizer": inc.optimizer.state_dict(),
+             "step": inc.step, "replay": coach.replay._asdict(), "rng": coach.rng.get_state(),
+             "counters": [coach.iteration, coach.model_id],
+             "elo": [coach.elo.ratings, coach.elo.history], "pool_matches": coach.pool_matches}
+    if coach.actor_carry is not None:
+        state["actor"] = coach.actor_carry._asdict()
+    return state
+
+
+def check_record(tag: str, rec: dict, games: int, anchored: bool) -> None:
+    """A coach record of a finished iteration: finite losses, the arena's
+    games counted, anchored Elo and its SE where the pass ran."""
+    if not (np.isfinite(rec["loss_first"]) and np.isfinite(rec["loss_last"])):
+        fail(f"{tag}: iteration {rec['iteration']} losses are not finite: {rec}")
+    if not 0 < rec["arena_wins"] + rec["arena_losses"] + rec["arena_draws"] <= games:
+        fail(f"{tag}: iteration {rec['iteration']} arena counts {rec}")
+    if anchored and not ("anchored_elo" in rec and np.isfinite(rec["anchored_elo"])
+                         and rec["anchored_elo_se"] > 0):
+        fail(f"{tag}: iteration {rec['iteration']} has no finite anchored Elo and SE: {rec}")
+
+
+def print_record(tag: str, label: str, rec: dict, sec: float, got: dict, card: str) -> None:
+    phases = ", ".join(f"{k} {v:.3f} s" for k, v in rec.items() if k.startswith("t_"))
+    elo = (f"anchored Elo {rec['anchored_elo']} +- {rec['anchored_elo_se']} (anchor win rate "
+           f"{rec['anchor_win_rate']})" if "anchored_elo" in rec else "no anchored pass")
+    print(f"[{tag}] {label} iteration {rec['iteration']}: {sec:.3f} s | {phases} | gate "
+          f"{rec['arena_wins']}-{rec['arena_losses']}-{rec['arena_draws']} accepted "
+          f"{rec['accepted']} model_id {rec['model_id']} | {elo} | loss {rec['loss_first']:.4f} -> "
+          f"{rec['loss_last']:.4f} | ring {rec['replay_size']} rows | {rec['selfplay_moves']} "
+          f"self-play moves | launches {launched(got)} | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
+
+
+def coach_phase(card: str, dev=None) -> dict:
+    """Phase 17: the coach of the ``full`` and ``mlp`` presets through
+    ``Coach.learn`` (see the module docstring), on ``dev`` (the card).
+    Returns the launches of one iteration of each preset, the kernels
+    line's."""
+    import dataclasses
+    import tempfile
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.arena import combined_apply
+    from alphazero_tpu_torch.checkpoint import restore_checkpoint
+    from alphazero_tpu_torch.coach import Coach
+    from alphazero_tpu_torch.examples.train_connect_four import preset
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts import fused
+    from alphazero_tpu_torch.mcts.tree import INVALID_P
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        make_apply_fn,
+        make_uniform_model,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import root_prior
+
+    dev = dev or torch.device("cuda", 0)
+    game = ConnectFour()
+    A = game.num_actions
+    torch.cuda.reset_peak_memory_stats()
+    launches = {}
+
+    def learn_one(coach, tag: str, label: str, need, anchored: bool) -> tuple:
+        kernels.reset_launch_counts()
+        (recs, sec) = timed_sync(lambda: coach.learn(1))
+        got = dict(kernels.launch_counts())
+        idle = [k for k in need if got[k] == 0]
+        if idle:
+            fail(f"{tag}: {label} iteration launched no {idle}: {got}")
+        check_record(tag, recs[0], coach.cfg.arena.num_games, anchored)
+        print_record(tag, label, recs[0], sec, got, card)
+        return recs[0], got
+
+    # ---- (a) the full preset: iteration 1, checkpoint, resume, iteration 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_coach_") as ckdir:
+        model, cfg = preset("full", SEED, ckdir)
+        coach = Coach(game, model, cfg, device=dev)
+        full_need = ("descend", "merge", "refresh", "fused")
+        rec1, got = learn_one(coach, "coach", "full preset", full_need, True)
+        launches.update({k: got[k] for k in full_need})
+        if rec1["selfplay_moves"] != cfg.selfplay.batch_size * game.max_moves:
+            fail(f"coach: iteration 1 self-play moves {rec1['selfplay_moves']}")
+        nbytes = os.path.getsize(os.path.join(ckdir, "ckpt_000001"))
+        # the same checkpoint saved again, then read back onto the card
+        _, save_s = timed_sync(lambda: coach.save())
+        (payload, _), restore_s = timed_sync(lambda: restore_checkpoint(ckdir, 1, coach._payload()))
+        del payload
+        other, _ = preset("full", SEED + 7)      # other initial weights: the resume must replace them
+        resumed, resume_s = timed_sync(lambda: Coach(game, other, cfg, device=dev))
+        diff = bits_differ(coach_state(coach), coach_state(resumed))
+        if diff:
+            fail(f"coach: the resumed coach differs from the live one at {diff}")
+        print(f"[coach] checkpoint 1: {nbytes} bytes ({nbytes / 2**20:.1f} MiB), save "
+              f"{1e3 * save_s:.3f} ms, restore_checkpoint {1e3 * restore_s:.3f} ms, a new Coach "
+              f"resuming from it {1e3 * resume_s:.3f} ms: bit-equal to the live coach (weights, "
+              f"BatchNorm statistics, Adam moments, the {resumed.replay.size}-row ring, actor "
+              f"carry, generator, counters, Elo history, {len(resumed.pool_matches)} matches) "
+              f"| {card}", flush=True)
+        del coach
+        torch.cuda.empty_cache()
+        rec2, got2 = learn_one(resumed, "coach", "full preset (resumed)", full_need, True)
+        if rec2["iteration"] != 2:
+            fail(f"coach: the resumed coach ran iteration {rec2['iteration']}")
+
+    full_cfg = cfg
+
+    # ---- (b) root counts through the kernels and the plain versions
+    arena_cfg = dataclasses.replace(cfg.mcts, num_sims=cfg.arena.num_sims, dirichlet_alpha=None)
+    games = cfg.arena.num_games
+    roots = random_positions(game, games, 20, SEED, dev)
+    second = convert_az_resnet(random_az_resnet_variables(A, 64, 5, seed=SEED + 1),
+                               dtype=torch.bfloat16).to(dev)
+    seats = torch.arange(games, device=dev) < (games + 1) // 2
+    both = combined_apply(make_apply_fn(resumed.incumbent.model), make_apply_fn(second), seats)
+    same_counts_through_kernels_and_plain(
+        "coach", game, both, arena_cfg, roots, None,
+        {"descend": arena_cfg.num_sims, "merge": arena_cfg.num_sims, "refresh": 1})
+    uniform = make_uniform_model(game).apply_fn
+    rung_cfg = dataclasses.replace(arena_cfg, num_sims=max(cfg.arena.anchor_ladder))
+    kernels.reset_launch_counts()
+    c_kernel, ms = timed_once(lambda: fused.make_fused_root_fn(game, uniform, rung_cfg)(roots))
+    if kernels.launch_counts() != launches_of(kernels, fused=1):
+        fail(f"coach: the rung search launches {kernels.launch_counts()}")
+    live = ~game.terminal(roots)[0]
+    if not bool((c_kernel.sum(dim=1)[live] == rung_cfg.num_sims).all()):
+        fail("coach: the rung search's counts of live games do not sum to its budget")
+    sub = roots[:COACH_SUBSET]
+    prior, valid = root_prior(game, uniform, rung_cfg, sub)
+    c_plain, plain_ms = timed_once(lambda: fused.fused_search(
+        FlatOps().from_state(sub), torch.where(valid, prior, INVALID_P), rung_cfg, 0.0)[0])
+    if not torch.equal(c_kernel[:COACH_SUBSET], c_plain):
+        fail(f"coach: the {rung_cfg.num_sims}-sim rung search differs from the plain one on "
+             f"{int((c_kernel[:COACH_SUBSET] != c_plain).any(dim=1).sum())} of {COACH_SUBSET} roots")
+    print(f"[coach] one rung move's uniform side ({rung_cfg.num_sims} sims, nodes "
+          f"{rung_cfg.nodes}, B={games}): one az_fused launch, {ms:.3f} ms; its first "
+          f"{COACH_SUBSET} roots' counts identical to the plain fused search's ({plain_ms:.3f} ms "
+          f"for those {COACH_SUBSET}) | {card}", flush=True)
+    del resumed, second
+    torch.cuda.empty_cache()
+
+    # ---- (c) the mlp preset: 2 iterations, the anchored pass at the second
+    model, cfg = preset("mlp", SEED)
+    coach = Coach(game, model, cfg, device=dev)
+    learn_one(coach, "coach", "mlp preset", ("fused_mlp",), False)
+    _, got = learn_one(coach, "coach", "mlp preset", ("fused_mlp", "fused"), True)
+    launches["fused_mlp"] = got["fused_mlp"]
+    print(f"[coach] launches of one full-preset iteration (iteration 1: warmup anchored pass x"
+          f"{full_cfg.arena.anchor_warmup_mult} and the ladder's calibration): "
+          f"{launched({k: launches[k] for k in full_need})}; of iteration 2: {launched(got2)}; "
+          f"fused_mlp of the mlp preset's iteration 2: {launches['fused_mlp']} | {card}", flush=True)
+    return launches
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -2798,6 +3010,10 @@ def main() -> int:
     if sys.argv[1:] == ["--learner"]:
         kernels.library()
         learner_phase(card)
+        return 0
+    if sys.argv[1:] == ["--coach"]:
+        kernels.library()
+        coach_phase(card)
         return 0
 
     # ---- 2. build ------------------------------------------------------
@@ -3129,6 +3345,11 @@ def main() -> int:
     phase_results, phase_launches = learner_phase(card)
     results.update(phase_results)
     launches.update(phase_launches)
+
+    # ---- 17. the coach ----------------------------------------------------
+    # one iteration of each preset: its launches of descend, merge, refresh,
+    # fused and fused_mlp replace phase 16's in the kernels line
+    launches.update(coach_phase(card))
 
     print(card)
     print(json.dumps({"kernels": [

@@ -35,11 +35,12 @@ def test_port_imports_without_jax_or_the_jax_package():
         for f in _port_sources()
     )
     modules = [m.removesuffix(".__init__") for m in modules]
-    code = _BLOCK.format(mods=["jax", "jaxlib", "flax", "optax", "alphazero_tpu"]) + (
+    code = _BLOCK.format(mods=["jax", "jaxlib", "flax", "optax", "orbax", "alphazero_tpu"]) + (
         "import importlib\n"
         f"for m in {modules!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'alphazero_tpu') "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'alphazero_tpu') "
         "and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith('alphazero_tpu_torch')]))\n"
@@ -83,6 +84,44 @@ def test_loop_configs_mirror_the_jax_package(name):
     pf = [(f.name, f.default, str(f.type)) for f in dataclasses.fields(port_cls)]
     assert jf == pf
     assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls())
+
+
+@pytest.mark.parametrize("name", ["ArenaConfig", "ReanalyzeConfig"])
+def test_arena_configs_mirror_the_jax_package(name):
+    """Field for field: names, order, defaults and annotations."""
+    jax_cls, port_cls = getattr(jax_config, name), getattr(port_config, name)
+    jf = [(f.name, f.default, str(f.type)) for f in dataclasses.fields(jax_cls)]
+    pf = [(f.name, f.default, str(f.type)) for f in dataclasses.fields(port_cls)]
+    assert jf == pf
+    assert dataclasses.asdict(port_cls()) == dataclasses.asdict(jax_cls())
+
+
+def test_run_config_mirrors_the_jax_package():
+    """``AZConfig``: the same fields in order, the same annotations, the
+    same defaults (each sub-config the port's own copy of the JAX one)."""
+    def fields(cls):
+        out = []
+        for f in dataclasses.fields(cls):
+            default = f.default
+            if default is dataclasses.MISSING:
+                default = dataclasses.asdict(f.default_factory())
+            out.append((f.name, default, str(f.type)))
+        return out
+
+    assert fields(port_config.AZConfig) == fields(jax_config.AZConfig)
+    assert dataclasses.asdict(port_config.AZConfig()) == dataclasses.asdict(jax_config.AZConfig())
+    for f in dataclasses.fields(port_config.AZConfig):
+        if f.default is dataclasses.MISSING:
+            assert type(f.default_factory()).__module__ == "alphazero_tpu_torch.config"
+
+
+def test_the_scan_covers_the_outer_loop():
+    """The import scan above reaches the arena, the checkpoints, the coach,
+    the utilities and the training CLI."""
+    names = {f.relative_to(PORT).as_posix() for f in _port_sources()}
+    for want in ("arena.py", "checkpoint.py", "coach.py", "utils/elo.py", "utils/logging.py",
+                 "utils/timing.py", "examples/train_connect_four.py"):
+        assert want in names
 
 
 @pytest.mark.parametrize("needle", ["torch.compile", "import triton", "cpp_extension"])
