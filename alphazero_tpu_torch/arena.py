@@ -114,9 +114,9 @@ def make_arena_fn(
 ):
     """Build ``play(model_cand, model_inc, tie_draws) -> ArenaResult``.
 
-    The models are any the search takes (``UniformModel``, ``AZResNet``,
+    The models are any the search takes (``UniformModel``, ``AZResNet``, ``AZConvNet``,
     ``MLPNet``), and may differ in kind; each ``play`` builds their search
-    ``apply_fn`` once (an AZResNet refolded, an MLPNet repacked), so a
+    ``apply_fn`` once (a conv net refolded, an MLPNet repacked), so a
     model trained between calls plays with its new weights.
     ``tie_draws(t)`` gives the tie uniforms f32[B, A] of move ``t``
     (``tie_draws_from``). ``mcts_cfg_inc`` gives the incumbent side its

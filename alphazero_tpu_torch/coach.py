@@ -59,7 +59,7 @@ from alphazero_tpu_torch.checkpoint import (
     save_checkpoint,
 )
 from alphazero_tpu_torch.config import AZConfig
-from alphazero_tpu_torch.models import AZResNet, make_uniform_model
+from alphazero_tpu_torch.models import is_folded, make_uniform_model
 from alphazero_tpu_torch.ops import sample_draws
 from alphazero_tpu_torch.replay import ReplayState, replay_init, replay_insert, replay_total
 from alphazero_tpu_torch.selfplay import (
@@ -133,7 +133,7 @@ class Coach:
         self.cfg = cfg
         self.device = torch.device(device)
         dev = self.device
-        self._eval_folded = isinstance(model, AZResNet)
+        self._eval_folded = is_folded(model)
 
         self.rng = torch.Generator(device="cpu").manual_seed(cfg.seed)
         self.incumbent = init_train_state(model.to(dev), cfg.train)

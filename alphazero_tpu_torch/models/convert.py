@@ -14,7 +14,11 @@ port's ``AZResNet`` or ``MLPNet`` with the same weights:
   but the torch module flattens NCHW (C*H*W order), so the ``policy``
   kernel's rows are permuted. The value head has one channel: no change.
 * ``MLPNet`` reads the NHWC-flat features in flax's order: its Dense
-  kernels are only transposed.
+  kernels are only transposed;
+* ``AZConvNet``'s ``Dense_0`` consumes the flatten of the last VALID
+  conv's map, H*W*C in flax and C*H*W in torch: its rows are permuted as
+  the policy head's; its dense BatchNorms (``BatchNorm_4``, ``_5``) are
+  held as the convs' are.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from typing import Any, Dict, Sequence
 import numpy as np
 import torch
 
-from alphazero_tpu_torch.models.nets import AZResNet, MLPNet
+from alphazero_tpu_torch.models.nets import CONVNET_DENSE, AZConvNet, AZResNet, MLPNet
 
 
 def _t(a) -> torch.Tensor:
@@ -52,8 +56,9 @@ def _dense(sd: Dict[str, torch.Tensor], name: str, params, row_perm=None) -> Non
 
 
 def policy_row_perm(hw: int, channels: int = 2) -> np.ndarray:
-    """Row ``c*hw + i`` of the torch (NCHW-flatten) policy kernel is row
-    ``i*channels + c`` of the flax (NHWC-flatten) kernel."""
+    """Row ``c*hw + i`` of a torch kernel over an NCHW flatten (the
+    policy head's; ``AZConvNet``'s ``Dense_0``) is row ``i*channels + c``
+    of the flax kernel over the NHWC flatten."""
     return np.array([i * channels + c for c in range(channels) for i in range(hw)])
 
 
@@ -222,4 +227,79 @@ def random_az_resnet_variables(
     params["BatchNorm_2"], stats["BatchNorm_2"] = bn(1)
     params["Dense_0"] = dense(cells, value_hidden)
     params["value"] = dense(value_hidden, 1)
+    return {"params": params, "batch_stats": stats}
+
+
+def az_convnet_state_dict(variables: Any) -> Dict[str, torch.Tensor]:
+    """The ``AZConvNet`` state dict for a flax ``AZConvNet`` variable tree."""
+    p, bs = variables["params"], variables["batch_stats"]
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(4):
+        sd[f"convs.{i}.weight"] = _conv(p[f"Conv_{i}"]["kernel"])
+        _bn(sd, f"conv_bns.{i}", p[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"])
+    channels = int(np.shape(p["Conv_3"]["kernel"])[3])
+    hw = int(np.shape(p["Dense_0"]["kernel"])[0]) // channels
+    for j in range(2):
+        kernel = np.asarray(p[f"Dense_{j}"]["kernel"])
+        if j == 0:
+            kernel = kernel[policy_row_perm(hw, channels)]
+        sd[f"dense.{j}.weight"] = _t(kernel.T)
+        _bn(sd, f"dense_bns.{j}", p[f"BatchNorm_{4 + j}"], bs[f"BatchNorm_{4 + j}"])
+    _dense(sd, "policy", p["policy"])
+    _dense(sd, "value", p["value"])
+    return sd
+
+
+def convert_az_convnet(variables: Any, board=(6, 7),
+                       dtype: torch.dtype = torch.bfloat16) -> AZConvNet:
+    """A port ``AZConvNet`` (f32 parameters, compute ``dtype``, the flax
+    module's dropout rate) holding the weights of a flax ``AZConvNet``
+    tree on a ``board`` of (rows, cols); the widths are read from the
+    tree."""
+    p = variables["params"]
+    model = AZConvNet(
+        num_actions=int(np.shape(p["policy"]["kernel"])[1]),
+        channels=int(np.shape(p["Conv_0"]["kernel"])[3]),
+        board=board,
+        dtype=dtype,
+    )
+    model.load_state_dict(az_convnet_state_dict(variables))
+    return model.eval()
+
+
+def random_az_convnet_variables(
+    num_actions: int, channels: int, board=(6, 7), seed: int = 0
+) -> Dict[str, Dict[str, Any]]:
+    """A flax-layout ``AZConvNet`` variable tree of seeded numpy arrays
+    (He-scaled kernels, BatchNorm statistics near identity, nonzero head
+    biases), for runs that need real widths but no trained weights and no
+    JAX."""
+    rng = np.random.default_rng(seed)
+
+    def bn(c):
+        params = {"scale": rng.uniform(0.8, 1.2, c).astype(np.float32),
+                  "bias": (rng.standard_normal(c) * 0.1).astype(np.float32)}
+        stats = {"mean": (rng.standard_normal(c) * 0.1).astype(np.float32),
+                 "var": rng.uniform(0.5, 1.5, c).astype(np.float32)}
+        return params, stats
+
+    params: Dict[str, Any] = {}
+    stats: Dict[str, Any] = {}
+    for i in range(4):
+        cin = 2 if i == 0 else channels
+        std = np.sqrt(2.0 / (9 * cin))
+        params[f"Conv_{i}"] = {
+            "kernel": (rng.standard_normal((3, 3, cin, channels)) * std).astype(np.float32)}
+        params[f"BatchNorm_{i}"], stats[f"BatchNorm_{i}"] = bn(channels)
+    rows, cols = board
+    widths = ((rows - 4) * (cols - 4) * channels, *CONVNET_DENSE)
+    for j in range(2):
+        params[f"Dense_{j}"] = {"kernel": (rng.standard_normal((widths[j], widths[j + 1]))
+                                           * np.sqrt(2.0 / widths[j])).astype(np.float32)}
+        params[f"BatchNorm_{4 + j}"], stats[f"BatchNorm_{4 + j}"] = bn(widths[j + 1])
+    for name, cout in (("policy", num_actions), ("value", 1)):
+        params[name] = {
+            "kernel": (rng.standard_normal((widths[-1], cout)) / np.sqrt(widths[-1])).astype(np.float32),
+            "bias": (rng.standard_normal(cout) * 0.1).astype(np.float32),
+        }
     return {"params": params, "batch_stats": stats}

@@ -5,7 +5,7 @@ entry is ``apply_fn(feats_nhwc) -> (logits f32[B, A], value f32[B])`` with
 a ``needs_features`` flag; the JAX ``apply_fn(variables, feats)`` closes
 over its parameters here instead (``make_apply_fn``). ``model(feats,
 train=True)`` is the learner's forward (``train.make_train_step``), at the
-flax modules' rounding points.
+flax modules' rounding points; ``AZConvNet``'s also takes its dropout.
 
 Features keep the JAX NHWC layout ``[B, 6, 7, 2]`` at the public
 functions; the conv stack permutes them to an NCHW view with channels_last
@@ -62,30 +62,33 @@ def _bn(channels: int) -> nn.BatchNorm2d:
 
 
 def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
-    """flax ``BatchNorm(dtype=float32)`` on the NCHW conv output ``x``:
-    in f32, ``(x - mean) * (rsqrt(var + eps) * scale) + bias``. ``train``
-    normalises by the batch's statistics, ``var = max(0, E[x^2] -
-    E[x]^2)`` (biased, as flax's fast variance), and moves the running
-    statistics toward them by flax's momentum (torch's own BatchNorm
-    would move ``running_var`` toward the unbiased variance); otherwise
-    by the running statistics."""
+    """flax ``BatchNorm(dtype=float32)`` on ``x``, an NCHW conv output or
+    a ``[B, F]`` dense output (features on dim 1): in f32, ``(x - mean) *
+    (rsqrt(var + eps) * scale) + bias``. ``train`` normalises by the
+    batch's statistics, ``var = max(0, E[x^2] - E[x]^2)`` (biased, as
+    flax's fast variance), and moves the running statistics toward them
+    by flax's momentum (torch's own BatchNorm would move ``running_var``
+    toward the unbiased variance); otherwise by the running statistics."""
     x = x.float()
+    dims = (0, *range(2, x.ndim))
     if train:
-        mean = x.mean(dim=(0, 2, 3))
-        var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        mean = x.mean(dim=dims)
+        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
     else:
         mean, var = bn.running_mean, bn.running_var
     mul = torch.rsqrt(var + bn.eps) * bn.weight
-    return (x - mean.view(1, -1, 1, 1)) * mul.view(1, -1, 1, 1) + bn.bias.view(1, -1, 1, 1)
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
 
 
-def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
-    """flax ``Conv(dtype=dtype)``: input and f32 kernel cast to ``dtype``."""
+def _conv(x: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype, padding=None) -> torch.Tensor:
+    """flax ``Conv(dtype=dtype)``: input and f32 kernel cast to ``dtype``;
+    ``padding`` None is SAME, 0 VALID."""
     w = conv.weight.to(dtype)
-    return F.conv2d(x.to(dtype), w, padding=w.shape[-1] // 2)
+    return F.conv2d(x.to(dtype), w, padding=w.shape[-1] // 2 if padding is None else padding)
 
 
 class _ResBlock(nn.Module):
@@ -165,18 +168,28 @@ class AZResNet(nn.Module):
         return FoldedAZResNet(self)
 
 
-def _fold_conv_bn(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype):
+def _fold_conv_bn(conv: nn.Module, bn: nn.BatchNorm2d, dtype):
     """(W * gamma/sqrt(var+eps), beta - mean*gamma/sqrt(var+eps)) in
     ``dtype`` — the arithmetic of the JAX ``_fold_conv_bn``, with the
-    scale on the output-channel (first, OIHW) dim."""
+    scale on the output-channel (first: OIHW, or a ``Linear``'s ``[out,
+    in]``) dim. A conv kernel comes channels_last."""
     inv = 1.0 / torch.sqrt(bn.running_var + bn.eps)
     scale = bn.weight * inv
-    w = conv.weight * scale.reshape(-1, 1, 1, 1)
+    w = conv.weight * scale.reshape((-1,) + (1,) * (conv.weight.ndim - 1))
     b = bn.bias - bn.running_mean * scale
-    return (
-        w.to(dtype).contiguous(memory_format=torch.channels_last),
-        b.to(dtype),
-    )
+    w = w.to(dtype)
+    if w.ndim == 4:
+        w = w.contiguous(memory_format=torch.channels_last)
+    return w, b.to(dtype)
+
+
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t.detach().clone(), requires_grad=False)
+
+
+def _folded_pair(conv: nn.Module, bn: nn.BatchNorm2d, dtype) -> nn.ParameterList:
+    w, b = _fold_conv_bn(conv, bn, dtype)
+    return nn.ParameterList([_frozen(w), _frozen(b)])
 
 
 class FoldedAZResNet(nn.Module):
@@ -188,27 +201,19 @@ class FoldedAZResNet(nn.Module):
         super().__init__()
         dt = net.dtype
         self.dtype = dt
-
-        def frozen(t):
-            return nn.Parameter(t.detach().clone(), requires_grad=False)
-
-        def conv_pair(conv, bn):
-            w, b = _fold_conv_bn(conv, bn, dt)
-            return nn.ParameterList([frozen(w), frozen(b)])
-
-        self.stem = conv_pair(net.stem, net.stem_bn)
+        self.stem = _folded_pair(net.stem, net.stem_bn, dt)
         self.blocks = nn.ModuleList(
-            nn.ModuleList([conv_pair(b.conv1, b.bn1), conv_pair(b.conv2, b.bn2)])
+            nn.ModuleList([_folded_pair(b.conv1, b.bn1, dt), _folded_pair(b.conv2, b.bn2, dt)])
             for b in net.blocks
         )
-        self.policy_conv = conv_pair(net.policy_conv, net.policy_bn)
-        self.value_conv = conv_pair(net.value_conv, net.value_bn)
-        self.policy_w = frozen(net.policy.weight.float())
-        self.policy_b = frozen(net.policy.bias.float())
-        self.hidden_w = frozen(net.value_hidden.weight.to(dt))
-        self.hidden_b = frozen(net.value_hidden.bias.to(dt))
-        self.value_w = frozen(net.value.weight.float())
-        self.value_b = frozen(net.value.bias.float())
+        self.policy_conv = _folded_pair(net.policy_conv, net.policy_bn, dt)
+        self.value_conv = _folded_pair(net.value_conv, net.value_bn, dt)
+        self.policy_w = _frozen(net.policy.weight.float())
+        self.policy_b = _frozen(net.policy.bias.float())
+        self.hidden_w = _frozen(net.value_hidden.weight.to(dt))
+        self.hidden_b = _frozen(net.value_hidden.bias.to(dt))
+        self.value_w = _frozen(net.value.weight.float())
+        self.value_b = _frozen(net.value.bias.float())
 
     @staticmethod
     def _conv(x, wb):
@@ -232,6 +237,124 @@ class FoldedAZResNet(nn.Module):
         vh = F.relu(F.linear(v, self.hidden_w).add_(self.hidden_b))
         v = F.linear(vh.float(), self.value_w, self.value_b)
         return logits, torch.tanh(v)[:, 0]
+
+
+CONVNET_PADDING = (None, None, 0, 0)   # SAME, SAME, VALID, VALID: the flax AZConvNet's
+CONVNET_DENSE = (1024, 512)
+
+
+def _dropout(x: torch.Tensor, rate: float, mask: torch.Tensor) -> torch.Tensor:
+    """flax's ``Dropout``: ``x / keep`` where ``mask`` keeps, else 0. JAX
+    casts the Python scalar ``keep = 1 - rate`` to ``x``'s dtype (a weak
+    type), so the divisor is ``keep`` rounded to that dtype."""
+    keep = torch.tensor(1.0 - rate, dtype=x.dtype).item()
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class AZConvNet(nn.Module):
+    """The plain conv net of the reference's TF1 architecture spec, the
+    flax ``AZConvNet`` (the ``convnet`` preset): four 3x3 convs (SAME,
+    SAME, VALID, VALID) without bias, each with BatchNorm and ReLU; the
+    flatten; Dense(1024) and Dense(512) without bias, each with
+    BatchNorm, ReLU and Dropout(``dropout``); f32 ``policy`` and
+    ``value`` heads, ``tanh`` on the value. Parameters are f32; the
+    forward rounds where flax does: convs and dense layers in ``dtype``,
+    BatchNorm in f32, a cast back to ``dtype`` after each ReLU. ``board``
+    is ``(rows, cols)``: the VALID convs leave ``(rows - 4) * (cols - 4)``
+    cells of ``channels``, the input of ``Dense_0``, which consumes their
+    NCHW flatten (``models/convert.py`` permutes the flax kernel's H*W*C
+    rows to match).
+
+    Dropout (rate ``dropout``) runs only in ``forward(train=True)``, and
+    then needs the forward's ``dropout`` argument: a ``torch.Generator``
+    on ``feats``' device, from which each layer's keep mask is drawn as
+    flax's (``uniform < 1 - rate``), or the two bool masks themselves (a
+    test replaying the JAX step's)."""
+
+    def __init__(
+        self,
+        num_actions: int,
+        channels: int = 512,
+        dropout: float = 0.3,
+        board: Tuple[int, int] = (6, 7),
+        dtype: torch.dtype = torch.bfloat16,
+    ):
+        super().__init__()
+        self.num_actions = num_actions
+        self.dropout = float(dropout)
+        self.board = tuple(board)
+        self.dtype = dtype
+        rows, cols = self.board
+        self.convs = nn.ModuleList(
+            nn.Conv2d(2 if i == 0 else channels, channels, 3, bias=False) for i in range(4))
+        self.conv_bns = nn.ModuleList(_bn(channels) for _ in range(4))
+        widths = ((rows - 4) * (cols - 4) * channels, *CONVNET_DENSE)
+        self.dense = nn.ModuleList(
+            nn.Linear(widths[j], widths[j + 1], bias=False) for j in range(2))
+        self.dense_bns = nn.ModuleList(_bn(h) for h in CONVNET_DENSE)
+        self.policy = nn.Linear(widths[-1], num_actions)
+        self.value = nn.Linear(widths[-1], 1)
+
+    def forward(self, feats: torch.Tensor, train: bool = False,
+                dropout=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        dt = self.dtype
+        if train and self.dropout > 0 and dropout is None:
+            raise ValueError("AZConvNet's training forward needs its dropout: a generator or masks")
+        # NHWC -> an NCHW view whose strides are channels_last
+        x = feats.to(dt).permute(0, 3, 1, 2)
+        for conv, bn, pad in zip(self.convs, self.conv_bns, CONVNET_PADDING):
+            x = F.relu(_batch_norm(_conv(x, conv, dt, pad), bn, train)).to(dt)
+        x = x.flatten(1)
+        for j, (lin, bn) in enumerate(zip(self.dense, self.dense_bns)):
+            x = F.relu(_batch_norm(F.linear(x, lin.weight.to(dt)), bn, train)).to(dt)
+            if train and self.dropout > 0:
+                if isinstance(dropout, torch.Generator):
+                    mask = torch.rand(x.shape, generator=dropout, device=x.device) < 1.0 - self.dropout
+                else:
+                    mask = dropout[j]
+                x = _dropout(x, self.dropout, mask)
+        h = x.float()
+        return F.linear(h, self.policy.weight, self.policy.bias), torch.tanh(
+            F.linear(h, self.value.weight, self.value.bias))[:, 0]
+
+    @torch.no_grad()
+    def fold(self) -> "FoldedAZConvNet":
+        """The BN-folded inference network, in ``self.dtype``."""
+        return FoldedAZConvNet(self)
+
+
+class FoldedAZConvNet(nn.Module):
+    """BN-folded AZConvNet inference forward, matching the JAX
+    ``AZConvNet.folded_apply``: the four convs and the two dense layers
+    with their BatchNorms folded in, in the compute dtype (the product
+    rounded, then the bias add rounded again), ReLU; f32 heads, ``tanh``
+    on the value. Dropout is the identity here."""
+
+    def __init__(self, net: AZConvNet):
+        super().__init__()
+        dt = net.dtype
+        self.dtype = dt
+        self.convs = nn.ModuleList(
+            _folded_pair(c, bn, dt) for c, bn in zip(net.convs, net.conv_bns))
+        self.dense = nn.ModuleList(
+            _folded_pair(d, bn, dt) for d, bn in zip(net.dense, net.dense_bns))
+        self.policy_w = _frozen(net.policy.weight.float())
+        self.policy_b = _frozen(net.policy.bias.float())
+        self.value_w = _frozen(net.value.weight.float())
+        self.value_b = _frozen(net.value.bias.float())
+
+    def forward(self, feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        # NHWC -> an NCHW view whose strides are channels_last
+        x = feats.to(self.dtype).permute(0, 3, 1, 2)
+        for (w, b), pad in zip(self.convs, CONVNET_PADDING):
+            pad = w.shape[-1] // 2 if pad is None else pad
+            x = F.relu(F.conv2d(x, w, padding=pad).add_(b.view(1, -1, 1, 1)))
+        x = x.flatten(1)
+        for w, b in self.dense:
+            x = F.relu(F.linear(x, w).add_(b))
+        h = x.float()
+        v = F.linear(h, self.value_w, self.value_b)
+        return F.linear(h, self.policy_w, self.policy_b), torch.tanh(v)[:, 0]
 
 
 def _mlp_forward(feats, hidden, heads) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -386,9 +509,16 @@ def _mlp_apply_fn(model: MLPNet) -> Callable:
     return apply_fn
 
 
+def is_folded(model) -> bool:
+    """Whether the search evaluates ``model`` BN-folded (``fold()``): the
+    JAX ``make_flax_apply_fn``'s ``folded`` for a model with a
+    ``folded_apply``."""
+    return callable(getattr(model, "fold", None))
+
+
 def make_apply_fn(model) -> Callable:
     """Search-side ``apply_fn(feats_nhwc) -> (logits f32[B, A], value
-    f32[B])``. An ``AZResNet`` is BN-folded once, here; a bf16 ``MLPNet``'s
+    f32[B])``. An ``AZResNet`` or ``AZConvNet`` is BN-folded once, here; a bf16 ``MLPNet``'s
     cast weights and its packed in-kernel weights (``kernel_eval_factory``)
     are built once, here, and an MLPNet of another dtype raises; an
     object with an ``apply_fn`` of this kind (a ``UniformModel``, a
@@ -397,7 +527,7 @@ def make_apply_fn(model) -> Callable:
         return model.apply_fn
     if isinstance(model, MLPNet):
         return _mlp_apply_fn(model)
-    if not isinstance(model, AZResNet):
+    if not is_folded(model):
         raise TypeError(f"no search apply_fn for {type(model).__name__}")
     folded = model.fold().eval()
 

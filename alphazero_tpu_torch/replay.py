@@ -62,8 +62,10 @@ def replay_insert(replay: ReplayState, game, traj: Trajectory) -> ReplayState:
     sym_f, sym_p = game.symmetries(feats, pis)
     S = sym_f.shape[1]
     n = keep.numel() * S
+    # explicit widths: a call with no valid sample (every game cut by the
+    # scan's length) inserts nothing
     rows = torch.cat(
-        [sym_f.reshape(n, -1), sym_p.reshape(n, -1),
+        [sym_f.reshape(n, math.prod(sym_f.shape[2:])), sym_p.reshape(n, sym_p.shape[-1]),
          traj.value.reshape(T * B)[keep].repeat_interleave(S)[:, None]],
         dim=1,
     )

@@ -17,8 +17,8 @@ The random draws of a step (root Dirichlet noise, tie-break uniforms,
 Gumbel noise for the move choice) are an input, ``ops.Draws``; the episode
 generators take a callable ``draws(t) -> Draws`` for step ``t`` of a call,
 which real runs build on ``ops.sample_draws`` and one ``torch.Generator``.
-They take the model (``UniformModel``, ``AZResNet`` or ``MLPNet``) on
-every call and rebuild its search ``apply_fn`` there (an AZResNet refolded,
+They take the model (``UniformModel``, ``AZResNet``, ``AZConvNet`` or ``MLPNet``) on
+every call and rebuild its search ``apply_fn`` there (a conv net refolded,
 an MLPNet's kernel weights repacked), so trained weights reach the actor.
 
 One semantic differs from the JAX package on purpose: recycling's

@@ -10,8 +10,13 @@ optimizer is optax's ``adam`` (``adamw`` with a weight decay) as
 ``torch.optim``. The forward is the model's training forward
 (``model(feats, train=True)``: an AZResNet normalises by the batch's
 statistics and moves its running ones, as flax's mutable
-``batch_stats``). The model is updated in place; the actor picks the new
-weights up on its next call (``selfplay``).
+``batch_stats``). A model with dropout (``AZConvNet``) also takes its
+``dropout``: the training phase passes its generator, from which the
+masks are drawn after each minibatch's sample (the JAX step draws them
+from ``rngs={"dropout": rng}``, a stream torch cannot reproduce; a parity
+test passes the JAX masks themselves). A model without dropout draws
+nothing more, so its steps are as before. The model is updated in place;
+the actor picks the new weights up on its next call (``selfplay``).
 """
 
 from __future__ import annotations
@@ -76,9 +81,17 @@ def prime_optimizer_state(optimizer: torch.optim.Optimizer) -> None:
                 state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
 
 
-def loss_terms(model, cfg: TrainConfig, feats, pi_t, v_t) -> TrainMetrics:
-    """The loss of one minibatch through the training forward."""
-    logits, v = model(feats, train=True)
+def has_dropout(model) -> bool:
+    return getattr(model, "dropout", 0.0) > 0
+
+
+def loss_terms(model, cfg: TrainConfig, feats, pi_t, v_t, dropout=None) -> TrainMetrics:
+    """The loss of one minibatch through the training forward; ``dropout``
+    (a generator or the masks) goes to a model that has dropout."""
+    if dropout is None:
+        logits, v = model(feats, train=True)
+    else:
+        logits, v = model(feats, train=True, dropout=dropout)
     p_each = -(pi_t * F.log_softmax(logits, dim=-1)).sum(dim=-1)
     has_pi = (pi_t.sum(dim=-1) > 0.5).float()
     p_loss = (p_each * has_pi).sum() / has_pi.sum().clamp(min=1.0)
@@ -90,12 +103,13 @@ def loss_terms(model, cfg: TrainConfig, feats, pi_t, v_t) -> TrainMetrics:
 
 
 def make_train_step(cfg: TrainConfig):
-    """Build ``train_step(state, feats, pi_t, v_t) -> (state, metrics)``:
-    one optimizer step on the minibatch, in place. The metrics stay on the
+    """Build ``train_step(state, feats, pi_t, v_t, dropout=None) ->
+    (state, metrics)``: one optimizer step on the minibatch, in place.
+    ``dropout`` is the model's (``loss_terms``). The metrics stay on the
     device."""
 
-    def train_step(state: TrainState, feats, pi_t, v_t):
-        metrics = loss_terms(state.model, cfg, feats, pi_t, v_t)
+    def train_step(state: TrainState, feats, pi_t, v_t, dropout=None):
+        metrics = loss_terms(state.model, cfg, feats, pi_t, v_t, dropout)
         state.optimizer.zero_grad(set_to_none=True)
         metrics.loss.backward()
         state.optimizer.step()
@@ -108,15 +122,17 @@ def make_train_step(cfg: TrainConfig):
 def make_train_phase(cfg: TrainConfig, steps: int, game):
     """Build ``phase(state, replay, generator) -> (state, losses
     f32[steps])``: ``steps`` minibatches of ``cfg.batch_size`` rows, each
-    sampled from the ring by ``generator``. The losses stay on the device
-    until the caller reads them, once a phase."""
+    sampled from the ring by ``generator``, which also draws a dropout
+    model's masks. The losses stay on the device until the caller reads
+    them, once a phase."""
     train_step = make_train_step(cfg)
 
     def phase(state: TrainState, replay, generator: torch.Generator):
+        dropout = generator if has_dropout(state.model) else None
         losses = []
         for _ in range(steps):
             feats, pi_t, v_t = replay_sample(replay, cfg.batch_size, game, generator)
-            state, metrics = train_step(state, feats, pi_t, v_t)
+            state, metrics = train_step(state, feats, pi_t, v_t, dropout)
             losses.append(metrics.loss)
         return state, torch.stack(losses)
 

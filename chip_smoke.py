@@ -11,7 +11,8 @@ experiment ``int8_fused_tower``; then what the fused engine declines
 (an MLPNet wider than its evaluator, ``Gomoku(4, 4)``) through the ladder
 on the hybrid engine, and Gomoku 19; then the learner loop (recycling
 self-play, the replay ring, the learner step and back); then the coach
-(gate arena, anchored rating pass, whole-state checkpoint and resume) — on
+(gate arena, anchored rating pass, whole-state checkpoint and resume); then
+the coach on Othello, Gomoku, Hex and the Connect-Four ``AZConvNet`` — on
 one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
@@ -249,7 +250,28 @@ one CUDA card, in phases:
            search; (c) the ``mlp`` preset for 2 iterations (the anchored
            pass at 2: fused calls on both sides). Its launches of
            ``descend``, ``merge``, ``refresh``, ``fused`` and ``fused_mlp``
-           (one iteration of each preset) are the kernels line's.
+           (one iteration of each preset) are the kernels line's;
+18. games: the coach on the other games and on ``AZConvNet``
+           (``games_phase``): one ``Coach.learn`` iteration each of the
+           Othello ``full`` preset (AZResNet-128x5 bf16, B=1024, 100 sims,
+           max_depth 80, the 128-game gate at 50 sims in continuous mode,
+           the warmup anchored pass x2), Gomoku 9 ``full`` and Hex ``full``
+           (AZResNet-64x5, B=1024) and the Connect-Four ``convnet`` preset
+           (AZConvNet-512, B=1024 at 50 sims), as their CLIs build them,
+           with a checkpoint each and the launch counters set to 0 just
+           before and read just after: each phase's seconds, launches,
+           peak memory and the checkpoint's bytes. The default run cuts
+           each preset's train steps to GAMES_CUT_STEPS and prints the cut
+           beside the preset's own value; ``--games`` runs this phase alone
+           with nothing cut. A second Othello coach resumes bit-equal to
+           the live one; one Othello gate move (B=128, 50 sims, two
+           AZResNet-128x5 on the combined forward) gives identical counts
+           through the kernels and the plain versions; AZConvNet-512's
+           folded forward is held against its unfolded one at B=1024 (f32
+           within CONVNET_F32_ATOL, bf16 within CONVNET_BF16_ATOL). Its
+           launches of the Othello, Gomoku and Hex descends, ``merge_dense``
+           and ``refresh_dense`` (summed over its iterations) are the
+           kernels line's.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -272,7 +294,8 @@ script exits non-zero without that line. Run from the repository root:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --learner`` builds the kernels and runs phase 16
-alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone.
+alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone;
+``python3 chip_smoke.py --games`` runs phase 18 alone, uncut.
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -332,6 +355,7 @@ compares two trees in one call.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import subprocess
@@ -425,6 +449,9 @@ LEARNER_BATCH = 1024      # ... its TrainConfig batch (Adam 1e-3, l2 1e-4) ...
 LEARNER_TRAIN_STEPS = 16  # ... and 16 of its 512 steps a phase
 COACH_SUBSET = 16         # phase 17(b): roots of the 1600-sim rung search held against plain
 MLP_RING, MLP_BATCH, MLP_TRAIN_STEPS = 1 << 17, 512, 8   # the mlp preset's ring and batch
+GAMES_CUT_STEPS = 64      # phase 18, the default run: train steps an iteration of each preset
+CONVNET_F32_ATOL = 1e-3   # phase 18: AZConvNet folded vs unfolded on the card, f32 ...
+CONVNET_BF16_ATOL = 0.1   # ... and bf16 (tests/test_torch_convnet.py's bf16 bound)
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -613,28 +640,44 @@ def profile_step(step) -> tuple:
     return 1e3 * wall, sum(k[1] for k in kernels), kernels, calls
 
 
-def device_ms(fn, reps: int = 20, sleep_cycles: int = 50_000_000) -> float:
+def device_ms(fn, reps: int = 20, sleep_cycles: int = 50_000_000, tries: int = 4) -> float:
     """Mean device time per call of the kernels ``fn`` launches, without
     the host work between launches: the calls queue up behind a kernel that
     sleeps ``sleep_cycles`` clock cycles (~25 ms), so the events around
-    them time the device alone. Fails if the host took longer to queue them
-    than the sleep lasted. (No profiler: its sessions slow the host-paced
-    steps that follow.)"""
+    them time the device alone. The reading holds only if the host queued
+    the calls within half the sleep; when it did not (the host was
+    descheduled: a one-card machine shares its host's cores), the reading
+    is dropped and taken again behind a sleep four times as long as that
+    queueing took. Fails if none of ``tries`` readings holds. The garbage
+    collector is off while the calls queue. (No profiler: its sessions
+    slow the host-paced steps that follow.)"""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    torch.cuda._sleep(sleep_cycles)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    queued_ms = 1e3 * (time.perf_counter() - t0)
-    torch.cuda.synchronize()
-    if queued_ms >= 0.5 * sleep_cycles / 2.0e6:   # at most half the sleep at <= 2 GHz
-        fail(f"queuing {reps} calls took {queued_ms:.3f} ms: the device time is not measurable")
-    return start.elapsed_time(end) / reps
+    for _ in range(tries):
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            t0 = time.perf_counter()
+            torch.cuda._sleep(sleep_cycles)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            queued_ms = 1e3 * (time.perf_counter() - t0)
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize()
+        sleep_ms = sleep_cycles / 2.0e6   # at most this long at <= 2 GHz
+        if queued_ms < 0.5 * sleep_ms:
+            return start.elapsed_time(end) / reps
+        print(f"[timing] queuing {reps} calls took {queued_ms:.3f} ms, over half the "
+              f"{sleep_ms:.1f} ms sleep: reading dropped, taken again", flush=True)
+        sleep_cycles = int(min(4 * queued_ms * 2.0e6, 4.0e9))
+    fail(f"queuing {reps} calls took {queued_ms:.3f} ms in each of {tries} tries: "
+         "the device time is not measurable")
 
 
 def read_goldens(name: str) -> dict:
@@ -2728,7 +2771,9 @@ def learner_phase(card: str) -> tuple:
           f"weights | peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}",
           flush=True)
     print(f"[learner] launches of the loop: {launched(launches)} | {card}", flush=True)
-    return {"fused_mlp": entry}, launches
+    # only this path's kernels: the others keep their own phases' counts
+    return {"fused_mlp": entry}, {k: launches[k] for k in ("descend", "merge", "refresh",
+                                                           "fused_mlp")}
 
 
 def bits_differ(a, b, where: str = "state"):
@@ -2918,6 +2963,136 @@ def coach_phase(card: str, dev=None) -> dict:
     return launches
 
 
+def games_phase(card: str, cut: bool, dev=None) -> dict:
+    """Phase 18: one ``Coach.learn`` iteration of the Othello, Gomoku 9
+    and Hex ``full`` presets and of the Connect-Four ``convnet`` preset,
+    as their training CLIs build them, on ``dev`` (the card); with
+    ``cut``, each preset's train steps cut to GAMES_CUT_STEPS (printed
+    beside the preset's own). Othello is resumed from its checkpoint
+    bit-equal to the live coach; one Othello gate move's counts through
+    the kernels equal the plain versions'; AZConvNet's folded forward is
+    held against its unfolded one. Returns the launches of the phase's
+    iterations (summed over the games), the kernels line's for the
+    games' kernels."""
+    import dataclasses
+    import tempfile
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.arena import combined_apply
+    from alphazero_tpu_torch.coach import Coach
+    from alphazero_tpu_torch.examples import (
+        train_connect_four,
+        train_gomoku,
+        train_hex,
+        train_othello,
+    )
+    from alphazero_tpu_torch.games import ConnectFour, Gomoku, Hex, Othello
+    from alphazero_tpu_torch.models import (
+        convert_az_convnet,
+        convert_az_resnet,
+        make_apply_fn,
+        random_az_convnet_variables,
+        random_az_resnet_variables,
+    )
+
+    dev = dev or torch.device("cuda", 0)
+    total = {}
+    runs = (
+        ("Othello full", Othello(), lambda seed, d: train_othello.preset("full", seed, d),
+         ("descend_othello", "merge_dense", "refresh_dense")),
+        ("Gomoku 9 full", Gomoku(9), lambda seed, d: train_gomoku.preset("full", seed, d, 9),
+         ("descend_gomoku", "merge_dense", "refresh_dense")),
+        ("Hex full", Hex(), lambda seed, d: train_hex.preset("full", seed, d),
+         ("descend_hex", "merge_dense", "refresh_dense")),
+        ("Connect-Four convnet", ConnectFour(),
+         lambda seed, d: train_connect_four.preset("convnet", seed, d),
+         ("descend", "merge", "refresh")),
+    )
+    for label, game, preset, need in runs:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_games_") as ckdir:
+            model, cfg = preset(SEED, ckdir)
+            steps = cfg.train.steps_per_iteration
+            if cut and steps > GAMES_CUT_STEPS:
+                cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+                    cfg.train, steps_per_iteration=GAMES_CUT_STEPS))
+                print(f"[games] {label}: cut steps_per_iteration {steps} -> {GAMES_CUT_STEPS} "
+                      f"(the preset's own: {steps}); nothing else cut", flush=True)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            coach = Coach(game, model, cfg, device=dev)
+            kernels.reset_launch_counts()
+            recs, sec = timed_sync(lambda: coach.learn(1))
+            got = dict(kernels.launch_counts())
+            idle = [k for k in need if got[k] == 0]
+            if idle:
+                fail(f"games: the {label} iteration launched no {idle}: {got}")
+            rec = recs[0]
+            # iteration 1 runs the anchored pass where the preset warms up
+            warm = bool(cfg.arena.anchor_interval and (cfg.arena.anchor_warmup or 0) >= 1)
+            check_record("games", rec, cfg.arena.num_games, warm)
+            if rec["eval_folded"] is not True:
+                fail(f"games: {label} searched an unfolded net: {rec}")
+            print_record("games", label, rec, sec, got, card)
+            nbytes = os.path.getsize(os.path.join(ckdir, "ckpt_000001"))
+            print(f"[games] {label}: checkpoint 1 {nbytes} bytes ({nbytes / 2**20:.1f} MiB), "
+                  f"ring {coach.replay.size} rows of {cfg.replay.capacity} ({game.num_symmetries} "
+                  f"symmetries a sample) | {card}", flush=True)
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+            if label == "Othello full":
+                other, _ = preset(SEED + 7, None)   # other initial weights: the resume replaces them
+                resumed, resume_s = timed_sync(lambda: Coach(game, other, cfg, device=dev))
+                diff = bits_differ(coach_state(coach), coach_state(resumed))
+                if diff:
+                    fail(f"games: the resumed Othello coach differs from the live one at {diff}")
+                print(f"[games] Othello: a new Coach resuming from checkpoint 1 in "
+                      f"{1e3 * resume_s:.3f} ms: bit-equal to the live coach (weights, BatchNorm "
+                      f"statistics, Adam moments, the {resumed.replay.size}-row ring, generator, "
+                      f"counters, Elo history, {len(resumed.pool_matches)} matches) | {card}",
+                      flush=True)
+                # one gate-arena move at mixed seating: the incumbent against
+                # another AZResNet of the preset's width on the combined forward
+                A, games = game.num_actions, cfg.arena.num_games
+                arena_cfg = dataclasses.replace(cfg.mcts, num_sims=cfg.arena.num_sims,
+                                                dirichlet_alpha=None)
+                roots = random_positions(game, games, 30, SEED, dev)
+                second = convert_az_resnet(random_az_resnet_variables(
+                    A, OTH_CHANNELS, OTH_BLOCKS, cells=64, seed=SEED + 1),
+                    dtype=torch.bfloat16).to(dev)
+                seats = torch.arange(games, device=dev) < (games + 1) // 2
+                both = combined_apply(make_apply_fn(resumed.incumbent.model),
+                                      make_apply_fn(second), seats)
+                same_counts_through_kernels_and_plain(
+                    "games", game, both, arena_cfg, roots, None,
+                    {"descend_othello": arena_cfg.num_sims, "merge_dense": arena_cfg.num_sims,
+                     "refresh_dense": 1})
+                del resumed, second, both
+            del coach
+
+    # AZConvNet (the convnet preset's width): folded against unfolded
+    game = ConnectFour()
+    feats = game.to_features(random_positions(game, 1024, 30, SEED, dev))
+    variables = random_az_convnet_variables(game.num_actions, 512, seed=SEED)
+    for dtype, atol in ((torch.float32, CONVNET_F32_ATOL), (torch.bfloat16, CONVNET_BF16_ATOL)):
+        net = convert_az_convnet(variables, dtype=dtype).to(dev)
+        with torch.no_grad():
+            ul, uv = net(feats)
+        fl, fv = make_apply_fn(net)(feats)
+        dl = float((fl - ul).abs().max())
+        dv = float((fv - uv).abs().max())
+        if not (torch.isfinite(fl).all() and torch.isfinite(fv).all()) or max(dl, dv) > atol:
+            fail(f"games: AZConvNet-512 {dtype} folded vs unfolded |dlogits| {dl:.4g} "
+                 f"|dvalue| {dv:.4g} > {atol}")
+        fold_ms = time_ms(lambda: make_apply_fn(net)(feats), 5)
+        print(f"[games] AZConvNet-512 {str(dtype)[6:]} folded vs unfolded forward (B=1024): "
+              f"|dlogits| {dl:.4g}, |dvalue| {dv:.4g} <= {atol}; the folded forward with its "
+              f"fold {fold_ms:.3f} ms | {card}", flush=True)
+        del net
+    print(f"[games] launches of the phase's four iterations: {launched(total)} | {card}",
+          flush=True)
+    return total
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -3014,6 +3189,10 @@ def main() -> int:
     if sys.argv[1:] == ["--coach"]:
         kernels.library()
         coach_phase(card)
+        return 0
+    if sys.argv[1:] == ["--games"]:
+        kernels.library()
+        games_phase(card, cut=False)
         return 0
 
     # ---- 2. build ------------------------------------------------------
@@ -3350,6 +3529,13 @@ def main() -> int:
     # one iteration of each preset: its launches of descend, merge, refresh,
     # fused and fused_mlp replace phase 16's in the kernels line
     launches.update(coach_phase(card))
+
+    # ---- 18. the coach on Othello, Gomoku, Hex and AZConvNet -------------
+    # its launches of the games' descends and of the dense merge and seed
+    # replace phases 8-10's in the kernels line
+    games = games_phase(card, cut=True)
+    launches.update({k: games[k] for k in ("descend_othello", "descend_gomoku", "descend_hex",
+                                           "merge_dense", "refresh_dense")})
 
     print(card)
     print(json.dumps({"kernels": [

@@ -1,7 +1,7 @@
 """The port's training CLI (``alphazero_tpu_torch.examples.train_connect_four``):
-the presets hold the reference CLI's values, the unported ones are
-refused with their ROADMAP item, and a smoke run on the CPU trains,
-saves and resumes."""
+the presets hold the reference CLI's values (the ``convnet`` preset's
+``AZConvNet`` too), the unported ones are refused with their ROADMAP
+item, and a smoke run on the CPU trains, saves and resumes."""
 
 import json
 
@@ -48,8 +48,25 @@ def test_mlp_and_smoke_presets():
     assert cfg.num_iterations == 3
 
 
+def test_convnet_preset_is_the_reference_parity_net():
+    """The ``convnet`` preset, refused until ``AZConvNet`` was ported: the
+    reference CLI's values (``tests/test_torch_cli_games.py`` holds every
+    preset against the JAX CLI's itself)."""
+    from alphazero_tpu_torch.models import AZConvNet
+
+    model, cfg = cli.preset("convnet", seed=2, checkpoint_dir="d")
+    assert isinstance(model, AZConvNet) and model.board == (6, 7) and model.dropout == 0.3
+    assert model.convs[0].out_channels == 512 and str(model.dtype) == "torch.bfloat16"
+    assert (cfg.mcts.num_sims, cfg.mcts.max_depth, cfg.mcts.dirichlet_alpha) == (50, 48, 1.0)
+    assert (cfg.selfplay.batch_size, cfg.selfplay.recycle) == (1024, False)
+    assert cfg.replay.capacity == 1 << 18
+    assert (cfg.train.batch_size, cfg.train.steps_per_iteration) == (512, 256)
+    a = cfg.arena
+    assert (a.num_games, a.update_threshold, a.num_sims, a.anchor_interval) == (128, 0.55, 25, 3)
+    assert (cfg.num_iterations, cfg.seed, cfg.checkpoint_dir) == (10, 2, "d")
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["--preset", "convnet"], "`AZConvNet` and the CLIs"),
     (["--preset", "economy"], "The opt-in engines"),
     (["--gumbel", "8"], "The opt-in engines"),
     (["--reanalyze", "64"], "The opt-in engines"),

@@ -27,7 +27,7 @@ from alphazero_tpu_torch.config import (
     SelfPlayConfig,
     TrainConfig,
 )
-from alphazero_tpu_torch.games import ConnectFour
+from alphazero_tpu_torch.games import ConnectFour, Othello
 from alphazero_tpu_torch.models import AZResNet, MLPNet
 from alphazero_tpu_torch.replay import replay_total
 
@@ -243,3 +243,34 @@ def test_primed_adam_steps_as_a_fresh_one():
             step(s, feats, pi, v)
     assert_bit_equal(states[1].model.state_dict(), states[0].model.state_dict())
     assert_bit_equal(states[1].optimizer.state_dict(), states[0].optimizer.state_dict())
+
+
+def test_othello_resume_is_exact(tmp_path):
+    """The Othello ``full`` preset's plan at a tiny size (an AZResNet over
+    64 cells, continuous mode, a warmup pass of two anchor arenas, pool
+    cross matches, the pool in the checkpoint): three unbroken iterations
+    equal two, a resume in a new Coach and one more, bit for bit."""
+    game = Othello()
+
+    def coach(directory):
+        cfg = small_cfg(directory, seed=5, arena={
+            "update_threshold": None, "anchor_interval": 1, "anchor_warmup": 1,
+            "anchor_warmup_mult": 2, "pool_cross_matches": 1, "pool_in_checkpoint": True})
+        cfg = dataclasses.replace(cfg, selfplay=dataclasses.replace(cfg.selfplay, batch_size=2),
+                                  replay=ReplayConfig(capacity=4096),
+                                  arena=dataclasses.replace(cfg.arena, num_games=2))
+        torch.manual_seed(6)
+        model = AZResNet(game.num_actions, channels=4, blocks=1, value_hidden=8, cells=64)
+        return Coach(game, model, cfg, device="cpu")
+
+    unbroken = coach(tmp_path / "a")
+    want = without_times(unbroken.learn(3))
+    first = coach(tmp_path / "b")
+    got = without_times(first.learn(2))
+    resumed = coach(tmp_path / "b")
+    assert_bit_equal(live_state(resumed), live_state(first))
+    got += without_times(resumed.learn(1))
+    assert got == want
+    assert_bit_equal(live_state(resumed), live_state(unbroken))
+    assert [(m["a"], m["b"]) for m in resumed.pool_matches][-1] == (1, 2)   # the cross match
+    assert all(r["replay_total"] % 8 == 0 for r in got)

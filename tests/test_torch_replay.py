@@ -105,6 +105,17 @@ def test_insert_matches_jax_through_each_games_symmetries(name):
     _insert_both(jg, tg, trajs, cap=rows - 7)
 
 
+@pytest.mark.parametrize("name", sorted(GAMES))
+def test_insert_of_no_valid_sample_matches_jax(name):
+    """A call whose games were all cut by the scan's length has no valid
+    sample: the insert leaves the ring as it was, as the JAX one does."""
+    jg, tg = GAMES[name](jax_games), GAMES[name](port_games)
+    first = _random_traj(tg, 3, 4, seed=7)
+    empty = _random_traj(tg, 3, 4, seed=8)
+    empty = empty._replace(valid=torch.zeros_like(empty.valid), value=torch.zeros_like(empty.value))
+    _insert_both(jg, tg, [empty, first, empty], cap=64)
+
+
 def test_sample_draws_uniformly_from_the_live_region():
     tg = port_games.ConnectFour()
     tr = replay_init(tg, ReplayConfig(capacity=64), device="cpu")

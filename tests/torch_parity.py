@@ -491,3 +491,136 @@ def merge_case(A: int, K: int, case: str, seed: int, C: int = 37, path_len: int 
     if K == 1:
         return (n, w, p, code, done, tval, pm[0], patha[0], psgn[0], meta2[0], *best, slot0, 1.25)
     return (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best, slot0, 1.25)
+
+
+# ---- the outer loop on any game: arenas and coaches of both packages
+
+def port_az_config(jcfg):
+    """The port's copy of a JAX ``AZConfig``."""
+    import dataclasses
+
+    from alphazero_tpu_torch import config as port_config
+
+    sub = {f.name: getattr(port_config, type(getattr(jcfg, f.name)).__name__)(
+        **dataclasses.asdict(getattr(jcfg, f.name)))
+        for f in dataclasses.fields(jcfg) if dataclasses.is_dataclass(getattr(jcfg, f.name))}
+    rest = {f.name: getattr(jcfg, f.name) for f in dataclasses.fields(jcfg) if f.name not in sub}
+    return port_config.AZConfig(**sub, **rest)
+
+
+def jax_arena_ties(seed: int, batch: int, actions: int, moves: int) -> list:
+    """The JAX arena's tie uniforms of each move (``rng, k_tie =
+    split(rng)``, then ``uniform(k_tie, [B, A])`` inside
+    ``action_probs``), as torch tensors."""
+    key = jax.random.key(seed)
+    out = []
+    for _ in range(moves):
+        key, k_tie = jax.random.split(key)
+        out.append(torch.from_numpy(np.array(jax.random.uniform(k_tie, (batch, actions)))))
+    return out
+
+
+def arena_both(jgame, pgame, jax_cand, jax_inc, port_cand, port_inc, num_games, seed,
+               jax_params=({}, {}), **cfg):
+    """``(JAX ArenaResult as ints, port ArenaResult)`` of one arena on a
+    game: the JAX ``make_arena_fn`` jitted on its apply_fns, the port's
+    on its models with the JAX tie uniforms replayed. ``inc`` in ``cfg``
+    gives the incumbent side its own search settings."""
+    from alphazero_tpu.arena import make_arena_fn as jax_make_arena_fn
+    from alphazero_tpu.config import MCTSConfig as JaxMCTSConfig
+    from alphazero_tpu_torch.arena import ArenaResult, make_arena_fn
+    from alphazero_tpu_torch.config import MCTSConfig
+
+    inc_cfg = cfg.pop("inc", None)
+    jcfg = JaxMCTSConfig(**cfg)
+    jinc = None if inc_cfg is None else JaxMCTSConfig(**{**cfg, **inc_cfg})
+    play = jax.jit(jax_make_arena_fn(jgame, jax_cand, jax_inc, jcfg, num_games, mcts_cfg_inc=jinc))
+    want = ArenaResult(*(int(x) for x in play(*jax_params, jax.random.key(seed))))
+    pinc = None if inc_cfg is None else MCTSConfig(**{**cfg, **inc_cfg})
+    ties = jax_arena_ties(seed, num_games, pgame.num_actions, pgame.max_moves)
+    got = make_arena_fn(pgame, MCTSConfig(**cfg), num_games, mcts_cfg_inc=pinc, device="cpu")(
+        port_cand, port_inc, lambda t: ties[t])
+    return want, got
+
+
+# the anchored pass of the Othello full preset's shape at a tiny size:
+# continuous mode, a warmup pass of two anchor arenas, a pool cross match
+OUTER_ARENA = dict(num_games=2, update_threshold=None, num_sims=2, anchor_interval=1,
+                   anchor_warmup=1, anchor_warmup_mult=2, pool_cross_matches=1)
+
+
+def outer_cfg(**arena):
+    """A tiny JAX ``AZConfig`` for both packages' coaches: the fixed scan
+    at the game's own length (every game finishes), the anchored pass of
+    ``OUTER_ARENA`` updated by ``arena``."""
+    from alphazero_tpu import config as C
+
+    return C.AZConfig(
+        mcts=C.MCTSConfig(num_sims=4, max_depth=8),
+        selfplay=C.SelfPlayConfig(batch_size=2, temp_threshold=6),
+        replay=C.ReplayConfig(capacity=1 << 14),
+        train=C.TrainConfig(batch_size=16, steps_per_iteration=2),
+        arena=C.ArenaConfig(**{**OUTER_ARENA, **arena}),
+        seed=0,
+    )
+
+
+def coach_runs(jgame, pgame, iterations: int, hidden=(16,), **arena) -> tuple:
+    """``(jax run, port run)``: each package's coach on
+    ``outer_cfg(**arena)`` with an MLPNet of ``hidden``, ``iterations``
+    iterations; a run holds the coach, its records and its match graph."""
+    from alphazero_tpu.coach import Coach as JaxCoach
+    from alphazero_tpu.models import MLPNet as JaxMLPNet
+    from alphazero_tpu_torch.coach import Coach
+    from alphazero_tpu_torch.models import MLPNet
+
+    runs = []
+    for make in (lambda: JaxCoach(jgame, JaxMLPNet(num_actions=jgame.num_actions, hidden=hidden),
+                                  outer_cfg(**arena)),
+                 lambda: Coach(pgame, MLPNet(pgame.num_actions, hidden=hidden,
+                                             cells=pgame.feature_shape[0] * pgame.feature_shape[1]),
+                               port_az_config(outer_cfg(**arena)), device="cpu")):
+        torch.manual_seed(0)
+        coach = make()
+        records = [coach.run_iteration() for _ in range(iterations)]
+        runs.append(types.SimpleNamespace(coach=coach, records=records,
+                                          pool_matches=[dict(m) for m in coach.pool_matches]))
+    return tuple(runs)
+
+
+def check_record_keys(jax_run, port_run) -> None:
+    assert [list(r) for r in port_run.records] == [list(r) for r in jax_run.records]
+    for r in port_run.records:
+        assert np.isfinite(r["loss_last"]) and r["eval_folded"] is False
+        if "anchored_elo" in r:
+            assert np.isfinite(r["anchored_elo"]) and r["anchored_elo_se"] > 0
+
+
+def check_replay_holds_the_symmetries(run, symmetries: int) -> None:
+    """Every game of the fixed scan finishes, so every move is a valid
+    sample and enters the ring once per symmetry."""
+    moves = 0
+    for r in run.records:
+        assert r["selfplay_truncated"] == 0 and r["selfplay_moves"] > 0
+        moves += r["selfplay_moves"]
+        assert r["replay_total"] == symmetries * moves
+
+
+def check_continuous(jax_run, port_run) -> None:
+    n = len(port_run.records)
+    assert [r["accepted"] for r in port_run.records] == [True] * n
+    assert [r["model_id"] for r in port_run.records] == list(range(1, n + 1))
+    assert port_run.coach.elo.ratings.keys() == jax_run.coach.elo.ratings.keys()
+
+
+def match_graph_shape(matches) -> list:
+    return [(m["a"], m["b"], m["wins_a"] + m["wins_b"] + m["draws"]) for m in matches]
+
+
+def check_match_graph(jax_run, port_run) -> None:
+    """Players in order and each match's game total, the fitted players
+    and the pool's generations."""
+    assert match_graph_shape(port_run.pool_matches) == match_graph_shape(jax_run.pool_matches)
+    assert port_run.coach.anchored_ratings.keys() == jax_run.coach.anchored_ratings.keys()
+    assert port_run.coach.anchored_ratings["anchor"] == 0.0
+    assert [g for g, _ in port_run.coach.pool] == [g for g, _ in jax_run.coach.pool]
