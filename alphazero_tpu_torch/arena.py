@@ -13,10 +13,11 @@ The search routes are the JAX package's ladder:
   ``MLPNet`` the kernel's evaluator takes): each side searches the whole
   batch with its own fused call, and the played counts are row-selected
   by whose turn it is in each game;
-* otherwise the hybrid engine searches with the *combined forward*: both
-  models evaluate every leaf batch and the rows are selected per game by
-  the root's mover (``combined_apply``; at ``parallel_sims = K`` the
-  selector is tiled K times, as the rounds stack their leaves K-major);
+* otherwise the hybrid engine (the dense engine for a game it declines)
+  searches with the *combined forward*: both models evaluate every leaf
+  batch and the rows are selected per game by the root's mover
+  (``combined_apply``; at ``parallel_sims = K`` the selector is tiled K
+  times, as the rounds stack their leaves K-major);
 * ``mcts_cfg_inc`` (asymmetric budgets, the anchor ladder's rungs): each
   side searches the whole batch with its own budget, on its fused call
   where it has one and on the combined forward where not, and the counts
@@ -38,6 +39,7 @@ import torch
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.mcts.fused import make_fused_root_fn
 from alphazero_tpu_torch.mcts.hybrid import make_hybrid_root_fn
+from alphazero_tpu_torch.mcts.search import dense_root_fn
 from alphazero_tpu_torch.models import make_apply_fn
 from alphazero_tpu_torch.ops import action_probs
 
@@ -132,8 +134,14 @@ def make_arena_fn(
     cfg_inc = mcts_cfg_inc or mcts_cfg
 
     def hybrid(cfg, apply_c, apply_i):
-        return lambda state, ctm: make_hybrid_root_fn(
-            game, combined_apply(apply_c, apply_i, ctm), cfg)(state)
+        """The combined forward on the hybrid engine, or on the dense one
+        for a game the hybrid engine declines."""
+        def root_counts(state, ctm):
+            apply_fn = combined_apply(apply_c, apply_i, ctm)
+            return (make_hybrid_root_fn(game, apply_fn, cfg)
+                    or dense_root_fn(game, apply_fn, cfg))(state)
+
+        return root_counts
 
     def root_counts_fn(apply_c, apply_i) -> Callable:
         """``root_counts(state, cand_to_move) -> f32[B, A]``, the counts

@@ -37,11 +37,13 @@ def make_game(name: str):
     return {"connect_four": ConnectFour, "othello": Othello, "gomoku": Gomoku, "hex": Hex}[name]()
 
 
-def load_side(game, ckpt_dir, model_kind, hidden, channels, blocks, device="cuda"):
+def load_side(game, ckpt_dir, model_kind, hidden, channels, blocks, device="cuda",
+              allow_missing=False):
     """``(model, label)``: the incumbent of the newest checkpoint in
     ``ckpt_dir`` as an ``AZResNet`` (``model_kind`` "resnet") or an
     ``MLPNet`` (hidden, hidden), on ``device``; the uniform model when
-    ``ckpt_dir`` is None."""
+    ``ckpt_dir`` is None. A directory with no checkpoint raises, or with
+    ``allow_missing`` (the play CLIs) falls back to the uniform model."""
     from alphazero_tpu_torch.checkpoint import latest_step, restore_checkpoint
     from alphazero_tpu_torch.models import AZResNet, MLPNet, make_uniform_model
 
@@ -49,6 +51,8 @@ def load_side(game, ckpt_dir, model_kind, hidden, channels, blocks, device="cuda
         return make_uniform_model(game), "pure-mcts"
     step = latest_step(ckpt_dir)
     if step is None:
+        if allow_missing:
+            return make_uniform_model(game), f"pure-mcts (no checkpoint in {ckpt_dir})"
         raise SystemExit(f"no checkpoint found in {ckpt_dir}")
     cells = game.feature_shape[0] * game.feature_shape[1]
     if model_kind == "resnet":

@@ -7,8 +7,12 @@ from alphazero_tpu_torch.mcts.fused import (
     mlp_eval,
 )
 from alphazero_tpu_torch.mcts.hybrid import PLAIN, SearchKernels, make_hybrid_root_fn
+from alphazero_tpu_torch.mcts.search import make_search_fn
+from alphazero_tpu_torch.mcts.tree import Tree
 
 __all__ = [
+    "Tree",
+    "make_search_fn",
     "make_fused_root_fn",
     "fused_search",
     "fused_mlp_search",

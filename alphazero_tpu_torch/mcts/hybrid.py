@@ -471,31 +471,30 @@ def run_rounds(
 
 def make_hybrid_root_fn(
     game, apply_fn, cfg: MCTSConfig, kernels: Optional[SearchKernels] = None
-) -> Callable[..., torch.Tensor]:
-    """Build ``root_counts(root_state, dirichlet=None) -> f32[B, A]``.
+) -> Optional[Callable[..., torch.Tensor]]:
+    """Build ``root_counts(root_state, dirichlet=None) -> f32[B, A]``, or
+    None where the JAX engine declines the configuration too: a game
+    without flat ops (or flat ops without features), or a nonzero cutoff
+    heuristic that the flat ops cannot evaluate. The ladder then runs the
+    dense engine (``mcts/search.py``).
 
     ``dirichlet`` is the injected root-noise sample f32[B, A], required
     when ``cfg.dirichlet_alpha`` is set. ``kernels`` defaults to
     ``alphazero_tpu_torch.kernels.KERNELS`` (CUDA kernels for CUDA
     tensors, plain versions for CPU tensors); ``PLAIN`` forces the plain
     versions on any device, which is how the CUDA path is checked."""
+    flat_ops_factory = getattr(game, "flat_ops", None)
+    if flat_ops_factory is None:
+        return None
+    ops = flat_ops_factory()
+    if not hasattr(ops, "to_features"):
+        return None
+    zero_heuristic = bool(getattr(game, "heuristic_is_zero", False))
+    if not zero_heuristic and not hasattr(ops, "heuristic"):
+        return None
     K = int(getattr(cfg, "parallel_sims", 1) or 1)
     if K > 1 and cfg.num_sims % K != 0:
         raise ValueError(f"num_sims={cfg.num_sims} must be divisible by parallel_sims={K}")
-    flat_ops_factory = getattr(game, "flat_ops", None)
-    if flat_ops_factory is None:
-        raise NotImplementedError(
-            f"{game.name} has no flat ops: it needs the dense engine (ROADMAP "
-            "queue 1, \"The dense engine: mcts/tree.py + mcts/search.py\"), not yet ported"
-        )
-    ops = flat_ops_factory()
-    zero_heuristic = bool(getattr(game, "heuristic_is_zero", False))
-    if not zero_heuristic and not hasattr(ops, "heuristic"):
-        raise NotImplementedError(
-            f"{game.name} has a nonzero depth-cutoff heuristic but its flat ops "
-            "cannot evaluate it: it needs the dense engine (ROADMAP queue 1, "
-            "\"The dense engine: mcts/tree.py + mcts/search.py\"), not yet ported"
-        )
     if kernels is None:
         from alphazero_tpu_torch.kernels import KERNELS
 

@@ -36,6 +36,7 @@ import torch
 from alphazero_tpu_torch.config import MCTSConfig, SelfPlayConfig
 from alphazero_tpu_torch.mcts.fused import make_fused_root_fn
 from alphazero_tpu_torch.mcts.hybrid import make_hybrid_root_fn
+from alphazero_tpu_torch.mcts.search import dense_root_fn, make_search_fn, pruned_root_counts
 from alphazero_tpu_torch.models import make_apply_fn
 from alphazero_tpu_torch.ops import Draws, action_probs
 
@@ -68,7 +69,7 @@ class ActorCarry(NamedTuple):
     frag_pi: torch.Tensor        # f32[M, B, A]
 
 
-def _check_ported(game, mcts_cfg: MCTSConfig) -> None:
+def _check_ported(mcts_cfg: MCTSConfig) -> None:
     """Raise for an engine the port lacks: no engine stands in silently
     for another."""
     if getattr(mcts_cfg, "transposition", False):
@@ -81,16 +82,6 @@ def _check_ported(game, mcts_cfg: MCTSConfig) -> None:
             "Gumbel search (mcts/gumbel.py) is not yet ported "
             "(ROADMAP queue 1, \"The opt-in engines\")"
         )
-    if getattr(mcts_cfg, "forced_playouts", None) is not None:
-        raise NotImplementedError(
-            "forced playouts live in the dense engine, not yet ported "
-            "(ROADMAP queue 1, \"The dense engine: mcts/tree.py + mcts/search.py\")"
-        )
-    if getattr(game, "flat_ops", None) is None:
-        raise NotImplementedError(
-            f"{game.name} has no flat ops: it needs the dense engine, not yet "
-            "ported (ROADMAP queue 1, \"The dense engine: mcts/tree.py + mcts/search.py\")"
-        )
 
 
 def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., torch.Tensor]:
@@ -101,21 +92,25 @@ def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., 
     ``MLPNet`` of the widths its evaluator takes, through its
     ``kernel_eval_factory``) on Connect-Four, on any device; then the
     hybrid engine for any model on a flat-ops game, which also takes what
-    the fused kernel declines. The engines the port lacks raise."""
-    _check_ported(game, mcts_cfg)
-    fused = make_fused_root_fn(game, apply_fn, mcts_cfg)
-    if fused is not None:
-        return fused
-    return make_hybrid_root_fn(game, apply_fn, mcts_cfg)
+    the fused kernel declines; then the dense engine (``mcts/search.py``)
+    for what both decline. The engines the port lacks raise."""
+    _check_ported(mcts_cfg)
+    return (make_fused_root_fn(game, apply_fn, mcts_cfg)
+            or make_hybrid_root_fn(game, apply_fn, mcts_cfg)
+            or dense_root_fn(game, apply_fn, mcts_cfg))
+
+
+def _choose(counts: torch.Tensor, temp, draws: Draws) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(pi f32[B, A], action i64[B])`` from root counts: the
+    temperature-applied play distribution (``temp`` a float or f32[B]) and
+    the categorical sample ``argmax(log(pi + 1e-12) + draws.gumbel)``."""
+    pi = action_probs(counts, temp, draws.tie)
+    return pi, (torch.log(pi + 1e-12) + draws.gumbel).argmax(dim=-1)
 
 
 def _move(root_counts, state, temp, draws: Draws) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One search of every board: ``(pi f32[B, A], action i64[B])``, the
-    temperature-applied play distribution (``temp`` a float or f32[B]) and
-    the categorical sample ``argmax(log(pi + 1e-12) + draws.gumbel)``."""
-    counts = root_counts(state, draws.dirichlet)
-    pi = action_probs(counts, temp, draws.tie)
-    return pi, (torch.log(pi + 1e-12) + draws.gumbel).argmax(dim=-1)
+    """One search of every board and its move (``_choose``)."""
+    return _choose(root_counts(state, draws.dirichlet), temp, draws)
 
 
 def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -137,7 +132,15 @@ def make_actor_step_fn(
     ``actor_step(carry, draws) -> (carry, pi f32[B, A])`` where ``pi`` is
     the temperature-applied play distribution (temp 1 before move
     ``temp_threshold``, 0 after) and the move is
-    ``argmax(log(pi + 1e-12) + draws.gumbel)`` — a categorical sample."""
+    ``argmax(log(pi + 1e-12) + draws.gumbel)`` — a categorical sample.
+
+    Forced playouts raise: the JAX actor runs its fused/hybrid ladder,
+    which never reads them, so it searches unforced without a word."""
+    if getattr(mcts_cfg, "forced_playouts", None) is not None:
+        raise ValueError(
+            "forced_playouts is a training-target device of the fixed scan "
+            "(make_selfplay_fn); the actor step would search unforced (ROADMAP queue 3)"
+        )
     root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
     B = batch_size
 
@@ -173,8 +176,26 @@ def make_selfplay_fn(
     outcome signed by the parity of ``moves - t``; a game that never
     finishes has all its samples masked.
 
-    Playout-cap randomization, Gumbel search, forced playouts, tree reuse
-    and ``record_states`` (reanalyze's feed) are not ported and raise."""
+    With ``mcts_cfg.forced_playouts = k`` every move searches on the dense
+    engine with the root's forced children searched first; the move plays
+    from the raw counts and the stored target is ``action_probs`` of the
+    pruned counts (``pruned_root_counts``), with the same tie draws.
+
+    Playout-cap randomization, Gumbel search and ``record_states``
+    (reanalyze's feed) are not ported and raise; tree reuse is not ported
+    by design (ROADMAP, "Do not port")."""
+    forced = getattr(mcts_cfg, "forced_playouts", None)
+    if forced is not None and (
+        getattr(mcts_cfg, "gumbel", False)
+        or getattr(mcts_cfg, "tree_reuse", False)
+        or getattr(mcts_cfg, "transposition", False)
+        or getattr(sp_cfg, "full_search_prob", None) is not None
+    ):
+        raise ValueError(
+            "forced_playouts is a root-PUCT training-target device — "
+            "mutually exclusive with gumbel/tree_reuse/transposition/"
+            "playout-cap randomization"
+        )
     if getattr(sp_cfg, "full_search_prob", None) is not None:
         raise NotImplementedError(
             "playout-cap randomization is not yet ported "
@@ -182,20 +203,30 @@ def make_selfplay_fn(
         )
     if getattr(mcts_cfg, "tree_reuse", False):
         raise NotImplementedError(
-            "tree reuse carries trees on the dense engine, not yet ported "
-            "(ROADMAP queue 1, \"The dense engine: mcts/tree.py + mcts/search.py\")"
+            "tree reuse (mcts/reuse.py) was measured and rejected and is not ported "
+            "(ROADMAP, \"Do not port\")"
         )
     if record_states:
         raise NotImplementedError(
             "record_states feeds reanalyze.py, not yet ported "
             "(ROADMAP queue 1, \"The opt-in engines\")"
         )
-    _check_ported(game, mcts_cfg)
+    _check_ported(mcts_cfg)
+    if forced is not None and getattr(mcts_cfg, "parallel_sims", 1) > 1:
+        raise ValueError(
+            "forced_playouts runs on the XLA engine — set "
+            "parallel_sims=1"
+        )
     B = sp_cfg.batch_size
     T = sp_cfg.max_moves or game.max_moves
+    cpuct = float(mcts_cfg.cpuct)
 
     def play_games(model, draws: DrawsFn) -> Tuple[Trajectory, SelfPlayStats]:
-        root_counts = _make_root_counts_fn(game, make_apply_fn(model), mcts_cfg)
+        apply_fn = make_apply_fn(model)
+        if forced is None:
+            root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
+        else:
+            search = make_search_fn(game, apply_fn, mcts_cfg)
         state = game.init(B, device)
         done = torch.zeros(B, dtype=torch.bool, device=device)
         outcome = torch.zeros(B, device=device)
@@ -203,7 +234,15 @@ def make_selfplay_fn(
         feats, pis, valid = [], [], []
         for t in range(T):
             temp = 1.0 if t < sp_cfg.temp_threshold else 0.0
-            pi, action = _move(root_counts, state, temp, draws(t))
+            d = draws(t)
+            if forced is None:
+                pi, action = _move(root_counts, state, temp, d)
+            else:
+                # play from the raw counts (the forcing is the exploration),
+                # train on the pruned ones
+                tree = search(state, d.dirichlet)
+                _, action = _choose(tree.root_counts(), temp, d)
+                pi = action_probs(pruned_root_counts(tree, float(forced), cpuct), temp, d.tie)
             feats.append(game.to_features(state))
             pis.append(pi)
             state = _where(done, state, game.step(state, action))
@@ -262,7 +301,7 @@ def make_recycling_selfplay_fn(
         raise ValueError("recycling self-play is incompatible with transposition")
     if getattr(sp_cfg, "full_search_prob", None) is not None:
         raise ValueError("recycling self-play is incompatible with playout-cap randomization")
-    _check_ported(game, mcts_cfg)
+    _check_ported(mcts_cfg)
     B = sp_cfg.batch_size
     M = game.max_moves
     S = getattr(sp_cfg, "recycle_steps", None) or sp_cfg.max_moves or M

@@ -12,8 +12,10 @@ experiment ``int8_fused_tower``; then what the fused engine declines
 on the hybrid engine, and Gomoku 19; then the learner loop (recycling
 self-play, the replay ring, the learner step and back); then the coach
 (gate arena, anchored rating pass, whole-state checkpoint and resume); then
-the coach on Othello, Gomoku, Hex and the Connect-Four ``AZConvNet`` — on
-one CUDA card, in phases:
+the coach on Othello, Gomoku, Hex and the Connect-Four ``AZConvNet``; then
+the dense engine (plain PyTorch, the engine ladder's last rung), forced
+playouts in the fixed scan, and the play and analyze CLIs — on one CUDA
+card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``,
@@ -271,7 +273,31 @@ one CUDA card, in phases:
            within CONVNET_F32_ATOL, bf16 within CONVNET_BF16_ATOL). Its
            launches of the Othello, Gomoku and Hex descends, ``merge_dense``
            and ``refresh_dense`` (summed over its iterations) are the
-           kernels line's.
+           kernels line's;
+19. dense: the dense engine (``mcts/search.py``, plain PyTorch: it adds
+           no kernel and its searches launch none, counted with the
+           counters at 0) against the hybrid engine (``dense_phase``): (a)
+           Connect-Four on phase 3's roots and Dirichlet draws (B=4096, 100
+           sims, max_depth 48): the uniform prior and order-free MLPNet
+           (256, 256) weights give identical counts, the AZResNet-64x5 bf16
+           within phase 7(d)'s bound; ms a search of each engine (twice),
+           peak memory, and one profiled dense search of 25 sims (device
+           idle share, host launch calls and host synchronisations); (b)
+           Othello at phase 8c's max_depth 4 (B=1024, Dirichlet 0.3), the
+           uniform prior: identical counts, the cutoffs backing up the
+           disc differential; (c) ``experiments/train_compare.py``'s
+           ``forced`` arm at its ``tpu`` preset: the fixed scan with forced
+           playouts (MLPNet (256, 256) order-free, B=2048, 25 sims,
+           max_depth 48, temp_threshold 15, Dirichlet 1.0, k=2): one call's
+           ms, moves/s and valid samples, the pruned targets summing to 1
+           on every valid row, and its first 64 games replayed on the CPU
+           with the same draws: moves, features, values and stats
+           identical, the targets within 1e-6; (d) the CLIs as a user runs
+           them, each exiting 0: ``analyze`` (800 sims, a seeded
+           AZResNet-64x5 checkpoint written by ``save_checkpoint``) on "3 3
+           4", ``play_othello --sims 200`` with stdin closed, and, through
+           ``analyze.main`` in this process (200 sims), a position with an
+           immediate win, which its best move must take.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -295,7 +321,8 @@ script exits non-zero without that line. Run from the repository root:
 
 ``python3 chip_smoke.py --learner`` builds the kernels and runs phase 16
 alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone;
-``python3 chip_smoke.py --games`` runs phase 18 alone, uncut.
+``python3 chip_smoke.py --games`` runs phase 18 alone, uncut;
+``python3 chip_smoke.py --dense`` runs phase 19 alone.
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -447,11 +474,17 @@ TOWER_KERNELS = ("int8_tower_kernel",)   # the tower's ptxas name
 LEARNER_RING = 1 << 21    # phase 16: the full preset's ReplayConfig capacity ...
 LEARNER_BATCH = 1024      # ... its TrainConfig batch (Adam 1e-3, l2 1e-4) ...
 LEARNER_TRAIN_STEPS = 16  # ... and 16 of its 512 steps a phase
-COACH_SUBSET = 16         # phase 17(b): roots of the 1600-sim rung search held against plain
+COACH_SUBSET = 4          # phase 17(b): roots of the 1600-sim rung search held against plain
+                          # (its plain search takes ~1.5 s a root)
 MLP_RING, MLP_BATCH, MLP_TRAIN_STEPS = 1 << 17, 512, 8   # the mlp preset's ring and batch
 GAMES_CUT_STEPS = 64      # phase 18, the default run: train steps an iteration of each preset
 CONVNET_F32_ATOL = 1e-3   # phase 18: AZConvNet folded vs unfolded on the card, f32 ...
 CONVNET_BF16_ATOL = 0.1   # ... and bf16 (tests/test_torch_convnet.py's bf16 bound)
+
+FORCED_B, FORCED_SIMS, FORCED_K = 2048, 25, 2.0   # phase 19(c): train_compare.py's forced arm
+FORCED_CPU_B = 64         # ... its games replayed on the CPU
+DENSE_PROFILED_SIMS = 25  # phase 19(a): the profiled dense search's simulations (the profiler's
+                          # host time grows with the launches: ~38 s for a 100-sim search)
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -607,12 +640,13 @@ def launched(counts: dict) -> dict:
 def profile_step(step) -> tuple:
     """One call of ``step`` under ``torch.profiler``: ``(wall ms, device
     busy ms, [(kernel, device ms, launches), ...] by time, host launch
-    calls)``, the busy time being the sum of the device kernels' own times
+    calls, host synchronisations)``, the busy time being the sum of the device kernels' own times
     (one stream: they do not overlap). The host launch calls (the CUDA API
     calls that launch a kernel, a memset or a copy) are the count of the
     work sent to the card: the device events can cover
     fewer of them (a card's trace may drop records), and then the busy
-    time is a lower bound."""
+    time is a lower bound. A synchronisation is a device value read on
+    the host (``aten::_local_scalar_dense``: ``bool()``, ``item()``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -622,11 +656,13 @@ def profile_step(step) -> tuple:
         step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, calls = [], 0
+    kernels, calls, syncs = [], 0, 0
     for evt in prof.key_averages():
         if evt.device_type != DeviceType.CUDA:   # the host ops that launched them
             if evt.key.startswith(("cudaLaunch", "cuLaunch", "cudaMemset", "cudaMemcpy")):
                 calls += evt.count
+            if evt.key == "aten::_local_scalar_dense":   # a device value read on the host
+                syncs += evt.count
             continue
         # a named range's span on the device timeline (the optimizer's
         # step) is not a kernel
@@ -637,7 +673,7 @@ def profile_step(step) -> tuple:
             dev_us = evt.self_cuda_time_total
         kernels.append((evt.key, dev_us / 1e3, evt.count))
     kernels.sort(key=lambda k: -k[1])
-    return 1e3 * wall, sum(k[1] for k in kernels), kernels, calls
+    return 1e3 * wall, sum(k[1] for k in kernels), kernels, calls, syncs
 
 
 def device_ms(fn, reps: int = 20, sleep_cycles: int = 50_000_000, tries: int = 4) -> float:
@@ -953,7 +989,7 @@ def run_actor(tag: str, game, apply_fn, run_cfg, batch: int, steps: int, temp_th
 
 
 def print_profiled_step(tag: str, step, card: str, label: str = "full-preset") -> None:
-    wall, busy, top, calls = profile_step(step)
+    wall, busy, top, calls, _ = profile_step(step)
     print(f"[{tag}] one profiled {label} step: {wall:.3f} ms wall (profiler on), device "
           f"busy {busy:.3f} ms ({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, "
           f"{sum(k[2] for k in top)} device kernel events of {calls} host launch calls | {card}",
@@ -2569,7 +2605,7 @@ def learner_step_stages(tag: str, state, tcfg, batch, card: str) -> None:
                       ("optimizer step (Adam)", state.optimizer.step),
                       ("one BatchNorm forward (train)", bn_forward),
                       ("one BatchNorm backward", bn_backward)):
-        wall, busy, top, calls = profile_step(fn)
+        wall, busy, top, calls, _ = profile_step(fn)
         by_count = sorted(top, key=lambda k: -k[2])
         print(f"[{tag}] learner step, {label}: {calls} host launch calls, "
               f"{sum(k[2] for k in top)} device kernel events, {busy:.3f} ms busy of "
@@ -3093,6 +3129,225 @@ def games_phase(card: str, cut: bool, dev=None) -> dict:
     return total
 
 
+def dense_phase(card: str, dev=None) -> None:
+    """Phase 19: the dense engine (see the module docstring), on ``dev``
+    (the card). Its searches launch none of the hand-written kernels (the
+    counters are set to 0 just before each and read just after), the
+    hybrid searches they are held against exactly theirs."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.checkpoint import save_checkpoint
+    from alphazero_tpu_torch.examples import analyze
+    from alphazero_tpu_torch.config import MCTSConfig, SelfPlayConfig
+    from alphazero_tpu_torch.games import ConnectFour, Othello
+    from alphazero_tpu_torch.mcts import hybrid, make_search_fn
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        convert_mlp,
+        make_apply_fn,
+        make_uniform_model,
+        order_free_mlp_variables,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+    from alphazero_tpu_torch.selfplay import make_selfplay_fn
+
+    dev = dev or torch.device("cuda", 0)
+    c4, oth = ConnectFour(), Othello()
+    marks = [("start", time.perf_counter())]
+
+    def dense_vs_hybrid(tag: str, game, apply_fn, cfg, roots, noise, exact: bool, want: dict):
+        """One search of ``roots`` on each engine, the launch counters at 0
+        just before each: the dense engine launches no kernel, the hybrid
+        one ``want``. Root counts identical (``exact``) or within the JAX
+        package's Mosaic-vs-XLA bound; each engine timed twice, peak
+        memory. Returns the dense engine's ``search``."""
+        search = make_search_fn(game, apply_fn, cfg)
+        hyb = hybrid.make_hybrid_root_fn(game, apply_fn, cfg)
+        out = {}
+        for name, run, expect in (("dense", lambda: search(roots, noise).root_counts(), {}),
+                                  ("hybrid", lambda: hyb(roots, noise), want)):
+            times = []
+            for _ in range(2):
+                torch.cuda.reset_peak_memory_stats()
+                kernels.reset_launch_counts()
+                counts, sec = timed_sync(run)
+                got = dict(kernels.launch_counts())
+                if got != launches_of(kernels, **expect):
+                    fail(f"dense {tag} {name} search launches {launched(got)} != {expect}")
+                times.append(1e3 * sec)
+            out[name] = (counts, times, torch.cuda.max_memory_allocated())
+        cd, ch = out["dense"][0], out["hybrid"][0]
+        conserved(f"dense {tag}", game, roots, cd, cfg.num_sims)
+        if exact:
+            if not torch.equal(cd, ch):
+                fail(f"dense {tag}: dense and hybrid counts differ on "
+                     f"{int((cd != ch).any(dim=1).sum())} of {cd.shape[0]} games")
+            verdict = f"identical counts on all {cd.shape[0]} games"
+        else:
+            same, dpi = search_agreement(f"dense {tag}", cd, ch)
+            verdict = f"{same:.4f} of games identical, max |dpi| {dpi:.4f}"
+        print(f"[dense] {tag}: B={roots.shape[0]}, {cfg.num_sims} sims, max_depth "
+              f"{cfg.max_depth}: dense vs hybrid engine, {verdict}; ms a search dense "
+              f"{out['dense'][1][0]:.1f}/{out['dense'][1][1]:.1f}, hybrid "
+              f"{out['hybrid'][1][0]:.1f}/{out['hybrid'][1][1]:.1f}; peak memory dense "
+              f"{out['dense'][2] / 2**30:.3f} GiB, hybrid {out['hybrid'][2] / 2**30:.3f} GiB | "
+              f"{card}", flush=True)
+        return search
+
+    # ---- (a) Connect-Four, phase 3's roots -------------------------------
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0)
+    roots = random_positions(c4, B, 30, SEED, dev)
+    noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), B, c4.num_actions, 1.0,
+                         dev).dirichlet
+    resnet = make_apply_fn(convert_az_resnet(random_az_resnet_variables(7, 64, 5, seed=SEED),
+                                             dtype=torch.bfloat16).to(dev))
+    order_free = make_apply_fn(convert_mlp(order_free_mlp_variables(7, MLP_HIDDEN, seed=SEED)).to(dev))
+    marks.append(("(a) roots and models", time.perf_counter()))
+    c4_want = {"descend": SIMS, "merge": SIMS, "refresh": 1}
+    dense_vs_hybrid("C4 uniform", c4, make_uniform_model(c4).apply_fn, cfg, roots, noise, True,
+                    c4_want)
+    dense_vs_hybrid("C4 MLPNet (256, 256) order-free", c4, order_free, cfg, roots, noise, True,
+                    c4_want)
+    search = dense_vs_hybrid("C4 AZResNet-64x5 bf16", c4, resnet, cfg, roots, noise, False,
+                             c4_want)
+    marks.append(("(a) searches", time.perf_counter()))
+    n_prof = DENSE_PROFILED_SIMS
+    wall, busy, top, calls, syncs = profile_step(lambda: search(roots, noise, num_sims=n_prof))
+    print(f"[dense] one profiled C4 AZResNet-64x5 search of {n_prof} sims: {wall:.3f} ms wall "
+          f"(profiler on), device busy {busy:.3f} ms ({100 * busy / wall:.1f}%), idle "
+          f"{100 * (1 - busy / wall):.1f}%, {calls} host launch calls "
+          f"({calls / n_prof:.1f} a simulation), {syncs} host synchronisations "
+          f"({syncs / n_prof:.2f} a simulation: one a descent level) | {card}", flush=True)
+    for name, ms, count in top[:8]:
+        print(f"[dense]   {ms:9.3f} ms {count:6d}x {name[:100]}", flush=True)
+
+    marks.append(("(a) profiled search", time.perf_counter()))
+
+    # ---- (b) Othello at phase 8c's cutoff depth --------------------------
+    oth_cfg = MCTSConfig(num_sims=SIMS, max_depth=OTH_CUT_DEPTH, dirichlet_alpha=OTH_DIRICHLET)
+    oth_roots = random_positions(oth, OTH_B, 40, SEED, dev)
+    oth_noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), OTH_B,
+                             oth.num_actions, OTH_DIRICHLET, dev).dirichlet
+    dense_vs_hybrid("Othello uniform, depth cutoffs", oth, make_uniform_model(oth).apply_fn,
+                    oth_cfg, oth_roots, oth_noise, True,
+                    {"descend_othello": SIMS, "merge_dense": SIMS, "refresh_dense": 1})
+
+    marks.append(("(b)", time.perf_counter()))
+
+    # ---- (c) the forced arm: fixed-scan self-play with forced playouts ----
+    f_cfg = MCTSConfig(num_sims=FORCED_SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0,
+                       forced_playouts=FORCED_K)
+    f_sp = SelfPlayConfig(batch_size=FORCED_B, temp_threshold=TEMP_THRESHOLD)
+    model = convert_mlp(order_free_mlp_variables(7, MLP_HIDDEN, seed=SEED + 1))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    draws = [sample_draws(gen, FORCED_B, 7, 1.0, dev) for _ in range(c4.max_moves)]
+    play = make_selfplay_fn(c4, f_cfg, f_sp, device=dev)
+    kernels.reset_launch_counts()
+    (traj, stats), sec = timed_sync(lambda: play(model.to(dev), lambda t: draws[t]))
+    if kernels.launch_counts() != launches_of(kernels):
+        fail(f"dense forced scan launched kernels {launched(kernels.launch_counts())}")
+    valid = traj.valid
+    sums = traj.pi[valid].sum(dim=-1)
+    if not bool(((sums - 1.0).abs() <= 1e-5).all()) or not bool((traj.pi >= 0).all()):
+        fail("dense forced scan: a valid row's pruned target does not sum to 1")
+    moves = int(stats.num_moves.sum())
+    print(f"[dense] forced arm (train_compare.py tpu preset): MLPNet (256, 256) order-free, "
+          f"fixed scan B={FORCED_B}, {FORCED_SIMS} sims, max_depth {MAX_DEPTH}, k={FORCED_K}: "
+          f"one call {1e3 * sec:.1f} ms, {moves} moves ({moves / sec:.1f} moves/s), "
+          f"{int(valid.sum())} valid samples ({int(valid.sum()) / sec:.1f}/s), "
+          f"{int(stats.done.sum())} of {FORCED_B} games done; pruned targets sum to 1 on every "
+          f"valid row | {card}", flush=True)
+    n = FORCED_CPU_B
+    cpu_draws = [type(d)(*(x[:n].cpu() for x in d)) for d in draws]
+    play_cpu = make_selfplay_fn(c4, f_cfg, dataclasses.replace(f_sp, batch_size=n), device="cpu")
+    (c_traj, c_stats), c_sec = timed_sync(lambda: play_cpu(model.cpu(), lambda t: cpu_draws[t]))
+    for name in ("features", "value", "valid"):
+        if not torch.equal(getattr(traj, name)[:, :n].cpu(), getattr(c_traj, name)):
+            fail(f"dense forced scan: the card's first {n} games' {name} differ from the CPU's")
+    for name in stats._fields:
+        if not torch.equal(getattr(stats, name)[:n].cpu(), getattr(c_stats, name)):
+            fail(f"dense forced scan: the card's first {n} games' {name} differ from the CPU's")
+    dpi = (traj.pi[:, :n].cpu() - c_traj.pi).abs()
+    if float(dpi.max()) > 1e-6:
+        fail(f"dense forced scan: pruned targets differ by {float(dpi.max())} from the CPU's")
+    print(f"[dense] forced arm, its first {n} games on the CPU ({1e3 * c_sec:.1f} ms) with the same "
+          f"draws: moves, features, values, valid rows and stats identical; pruned targets "
+          f"bit-equal on {float((dpi == 0).float().mean()):.4f} of entries, max |d| "
+          f"{float(dpi.max()):.3g} (exp, log and tanh may round apart on the two devices)",
+          flush=True)
+
+    marks.append(("(c)", time.perf_counter()))
+
+    # ---- (d) the CLIs ------------------------------------------------------
+    root_dir = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root_dir)
+
+    def cli(args, label):
+        t0 = time.perf_counter()
+        args = [*args, *(["--cpu"] if dev.type == "cpu" else [])]
+        r = subprocess.run([sys.executable, "-m", *args], cwd=root_dir, env=env,
+                           stdin=subprocess.DEVNULL, capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            fail(f"{label} exited {r.returncode}: {r.stderr[-2000:]}")
+        return r.stdout, time.perf_counter() - t0
+
+    def report_analysis(moves: str, sims: int, out: str, how: str) -> None:
+        """Gate and print one analysis: its best move takes an immediate win
+        where the position has one."""
+        best = int(out.rsplit("search best move: ", 1)[1].split()[0])
+        wins = winning_moves([int(a) for a in moves.split()])
+        if wins and best not in wins:
+            fail(f"analyze --moves '{moves}': best move {best}, not one of the wins {wins}")
+        net = next(ln for ln in out.splitlines() if ln.startswith("net ["))
+        print(f"[dense] analyze --moves '{moves}' --sims {sims} --model resnet (a seeded "
+              f"AZResNet-64x5 checkpoint): {how}; {net.split(']: ')[1]}; best move {best} "
+              f"(immediate wins: {sorted(wins) or 'none'})", flush=True)
+
+    def winning_moves(seq):
+        s = c4.init(1, "cpu")
+        for a in seq:
+            s = c4.step(s, torch.tensor([a]))
+        valid = c4.valid_moves(s)[0]
+        return {a for a in range(7)
+                if valid[a] and bool(c4.terminal(c4.step(s, torch.tensor([a])))[0][0])}
+
+    with tempfile.TemporaryDirectory() as ckpt:
+        save_checkpoint(ckpt, 1, {"incumbent": {"model": convert_az_resnet(
+            random_az_resnet_variables(7, 64, 5, seed=SEED)).state_dict()}})
+        out, sec = cli(["alphazero_tpu_torch.examples.analyze", "--game", "connect_four",
+                        "--moves", "3 3 4", "--sims", "800", "--model", "resnet",
+                        "--checkpoint-dir", ckpt], "analyze --moves '3 3 4'")
+        report_analysis("3 3 4", 800, out, f"exit 0 in {sec:.1f} s")
+        # a position with an immediate win (columns 2 and 6), through the
+        # same entry point in this process
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = analyze.main(["--moves", "3 0 4 0 5 0", "--sims", "200", "--model", "resnet",
+                               "--checkpoint-dir", ckpt,
+                               *(["--cpu"] if dev.type == "cpu" else [])])
+        if rc != 0:
+            fail(f"analyze --moves '3 0 4 0 5 0' returned {rc}")
+        report_analysis("3 0 4 0 5 0", 200, buf.getvalue(),
+                        f"main() returned 0 in {time.perf_counter() - t0:.1f} s")
+    out, sec = cli(["alphazero_tpu_torch.examples.play_othello", "--sims", "200"],
+                   "play_othello")
+    if "engine plays" not in out or not out.rstrip().endswith("bye"):
+        fail(f"play_othello did not move and end at EOF: {out[-500:]}")
+    played = next(ln for ln in out.splitlines() if ln.startswith("engine plays"))
+    print(f"[dense] play_othello --sims 200, stdin closed: exit 0 in {sec:.1f} s; {played}",
+          flush=True)
+    marks.append(("(d)", time.perf_counter()))
+    print("[dense] phase 19: " + ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
+                                          in zip(marks, marks[1:]))
+          + f"; {marks[-1][1] - marks[0][1]:.1f} s in all | {card}", flush=True)
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -3193,6 +3448,10 @@ def main() -> int:
     if sys.argv[1:] == ["--games"]:
         kernels.library()
         games_phase(card, cut=False)
+        return 0
+    if sys.argv[1:] == ["--dense"]:
+        kernels.library()
+        dense_phase(card)
         return 0
 
     # ---- 2. build ------------------------------------------------------
@@ -3536,6 +3795,10 @@ def main() -> int:
     games = games_phase(card, cut=True)
     launches.update({k: games[k] for k in ("descend_othello", "descend_gomoku", "descend_hex",
                                            "merge_dense", "refresh_dense")})
+
+    # ---- 19. the dense engine, forced playouts, the play and analyze CLIs -
+    # plain PyTorch: it adds no kernel, and its searches launch none
+    dense_phase(card)
 
     print(card)
     print(json.dumps({"kernels": [

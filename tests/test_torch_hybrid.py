@@ -187,8 +187,8 @@ def test_unported_paths_raise():
         name = "no_flat_ops"
         num_actions = 3
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_hybrid_root_fn(NoFlatOps(), uni, MCTSConfig(num_sims=8))
+    # declined, as the JAX engine declines it: the ladder's dense engine takes it
+    assert make_hybrid_root_fn(NoFlatOps(), uni, MCTSConfig(num_sims=8)) is None
 
     class HeuristicFreeOps:
         """Flat ops that cannot evaluate a depth-cutoff heuristic."""
@@ -201,8 +201,7 @@ def test_unported_paths_raise():
         def flat_ops(self):
             return HeuristicFreeOps()
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_hybrid_root_fn(NonzeroHeuristicGame(), uni, MCTSConfig(num_sims=8))
+    assert make_hybrid_root_fn(NonzeroHeuristicGame(), uni, MCTSConfig(num_sims=8)) is None
     # the same game with its own flat ops, which have the heuristic, is taken
     assert callable(make_hybrid_root_fn(Othello(), uni, MCTSConfig(num_sims=8)))
 

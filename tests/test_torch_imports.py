@@ -124,6 +124,32 @@ def test_the_scan_covers_the_outer_loop():
         assert want in names
 
 
+def test_the_scan_covers_the_dense_engine_and_its_clis():
+    """The dense engine and the CLIs that search with it are in the scan,
+    and running them (their imports inside ``main`` too) needs neither
+    JAX nor the JAX package."""
+    names = {f.relative_to(PORT).as_posix() for f in _port_sources()}
+    clis = ("analyze", "play_connect_four", "play_othello", "play_gomoku", "play_hex")
+    for want in ("mcts/tree.py", "mcts/search.py", "examples/boardio.py", "examples/play.py",
+                 *(f"examples/{cli}.py" for cli in clis)):
+        assert want in names
+    code = _BLOCK.format(mods=["jax", "jaxlib", "flax", "optax", "orbax", "alphazero_tpu"]) + (
+        "import importlib, io\n"
+        f"for cli in {clis!r}:\n"
+        "    sys.stdin = io.StringIO('')\n"
+        "    main = importlib.import_module('alphazero_tpu_torch.examples.' + cli).main\n"
+        "    assert main(['--cpu', '--sims', '2'] + (['--human-first'] if cli != 'analyze' "
+        "else [])) == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'alphazero_tpu') "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.count("bye") == 4 and "search best move" in proc.stdout
+
+
 @pytest.mark.parametrize("needle", ["torch.compile", "import triton", "cpp_extension"])
 def test_no_compiler_or_library_kernel_stands_in(needle):
     """The hybrid kernels are hand-written CUDA built with nvcc; nothing in

@@ -3,8 +3,9 @@ exactly (every action, the pass and illegal placements included), and the
 port's hybrid engine (the plain versions of its kernels on the CPU) gives
 root visit counts EQUAL to the JAX XLA engine and the frozen goldens, for
 uniform and dyadic models, depth-cutoff leaves with their nonzero
-heuristic included (tests/test_torch_othello_models.py holds the real
-networks and the JAX hybrid engine).
+heuristic included, and so do the port's dense engine's whole trees
+(tests/test_torch_othello_models.py holds the real networks and the JAX
+hybrid engine).
 
 The JAX side is jitted once per configuration (an Othello search compiles
 in ~20 s on the CPU), so each configuration serves several inputs."""
@@ -27,6 +28,7 @@ from alphazero_tpu.models import make_uniform_model as jax_uniform
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.games import Game, Othello
 from alphazero_tpu_torch.mcts import PLAIN, SearchKernels, hybrid, make_hybrid_root_fn
+from alphazero_tpu_torch.mcts import make_search_fn as make_search_fn_port
 from alphazero_tpu_torch.models import make_uniform_model
 from tests.torch_parity import othello_jax_state, random_othello_boards, torch_state
 
@@ -173,14 +175,14 @@ CUTOFF_CFG = JaxMCTSConfig(num_sims=32, max_depth=3)
 
 
 @lru_cache(maxsize=None)
-def _jax_xla_counts_fn(model: str):
-    """The JAX XLA engine, jitted once: the uniform model at UNIFORM_CFG or
-    the dyadic model at CUTOFF_CFG."""
+def _jax_xla_tree_fn(model: str):
+    """The JAX XLA engine's search, jitted once: the uniform model at
+    UNIFORM_CFG or the dyadic model at CUTOFF_CFG."""
     if model == "uniform":
         search = make_search_fn(JG, jax_uniform(JG).apply_fn, UNIFORM_CFG)
     else:
         search = make_search_fn(JG, _dyadic_models()[0], CUTOFF_CFG)
-    return jax.jit(lambda state: search({}, state).root_counts())
+    return jax.jit(lambda state: search({}, state))
 
 
 def _port_counts(apply_fn, cfg, boards, kernels=None):
@@ -191,7 +193,7 @@ def _port_counts(apply_fn, cfg, boards, kernels=None):
 @pytest.mark.parametrize("moves", [0, 8])
 def test_uniform_matches_xla_engine(moves):
     boards = random_othello_boards(4, moves, seed=moves)
-    ref = np.asarray(_jax_xla_counts_fn("uniform")(othello_jax_state(boards)))
+    ref = np.asarray(_jax_xla_tree_fn("uniform")(othello_jax_state(boards)).root_counts())
     got = _port_counts(make_uniform_model(TG).apply_fn, UNIFORM_CFG, boards)
     np.testing.assert_array_equal(ref, got)
     assert (got.sum(1) == UNIFORM_CFG.num_sims).all()
@@ -213,12 +215,41 @@ def test_dyadic_cutoff_matches_xla_engine():
     heuristic of the leaf board; counts equal the XLA engine's."""
     jax_apply, torch_apply = _dyadic_models()
     boards = random_othello_boards(4, 6, seed=9)
-    ref = np.asarray(_jax_xla_counts_fn("dyadic")(othello_jax_state(boards)))
+    ref = np.asarray(_jax_xla_tree_fn("dyadic")(othello_jax_state(boards)).root_counts())
     cuts = []
     got = _port_counts(torch_apply, CUTOFF_CFG, boards, kernels=_cut_counting_kernels(cuts))
     np.testing.assert_array_equal(ref, got)
     assert sum(cuts) > 0                                  # the cutoff path ran
     assert (got.max(1) > got.min(1) + 2).any()            # a non-uniform search
+
+
+@pytest.mark.parametrize("model", ["uniform", "dyadic"])
+def test_dense_engine_trees_match_xla_engine(model):
+    """The port's dense engine (mcts/search.py) against the same jitted
+    XLA engine: every decoded view of the trees (N, W, P, child codes,
+    legality, terminal flags and values, counts, cursors) equal. The
+    dyadic model at max_depth 3 backs the disc-differential heuristic up
+    at its cutoffs; its prior goes through exp, whose last bit XLA and
+    torch may round apart, so P and W are held within 1e-5 there."""
+    cfg = UNIFORM_CFG if model == "uniform" else CUTOFF_CFG
+    apply_fn = make_uniform_model(TG).apply_fn if model == "uniform" else _dyadic_models()[1]
+    boards = random_othello_boards(4, 8 if model == "uniform" else 6, seed=9)
+    jt = _jax_xla_tree_fn(model)(othello_jax_state(boards))
+    pt = make_search_fn_port(TG, apply_fn, MCTSConfig(**dataclasses.asdict(cfg)))(
+        torch_state(boards))
+    for view in ("N", "W", "P", "child", "valid", "term", "tval", "count", "cursor"):
+        j, p = np.asarray(getattr(jt, view)), getattr(pt, view).numpy()
+        if model == "dyadic" and view in ("P", "W"):
+            np.testing.assert_allclose(p, j, rtol=0, atol=1e-5, err_msg=view)
+        else:
+            np.testing.assert_array_equal(p, j, err_msg=view)
+    if model == "dyadic":
+        class ZeroHeuristic(Othello):
+            heuristic_is_zero = True
+
+        zero = make_search_fn_port(ZeroHeuristic(), apply_fn, MCTSConfig(**dataclasses.asdict(cfg)))(
+            torch_state(boards))
+        assert not torch.equal(zero.W, pt.W)   # the cutoffs fired and backed the heuristic up
 
 
 def test_frozen_goldens():

@@ -105,18 +105,21 @@ def test_recycling_refuses(mcts, sp, err, match):
 
 
 @pytest.mark.parametrize(
-    "mcts,sp,kw,item",
+    "mcts,sp,kw,err,item",
     [
-        ({}, dict(full_search_prob=0.25, cheap_sims=2), {}, "The opt-in engines"),
-        (dict(gumbel=True), {}, {}, "The opt-in engines"),
-        (dict(transposition=True), {}, {}, "The opt-in engines"),
-        (dict(forced_playouts=2.0), {}, {}, "The dense engine"),
-        (dict(tree_reuse=True), {}, {}, "The dense engine"),
-        ({}, {}, dict(record_states=True), "The opt-in engines"),
+        ({}, dict(full_search_prob=0.25, cheap_sims=2), {}, NotImplementedError,
+         "The opt-in engines"),
+        (dict(gumbel=True), {}, {}, NotImplementedError, "The opt-in engines"),
+        (dict(transposition=True), {}, {}, NotImplementedError, "The opt-in engines"),
+        # the fixed scan runs forced playouts on the dense engine, which has
+        # no parallel_sims rounds (the JAX ValueError)
+        (dict(forced_playouts=2.0, parallel_sims=4), {}, {}, ValueError, "set parallel_sims=1"),
+        (dict(tree_reuse=True), {}, {}, NotImplementedError, "Do not port"),
+        ({}, {}, dict(record_states=True), NotImplementedError, "The opt-in engines"),
     ],
     ids=["pcr", "gumbel", "transposition", "forced_playouts", "tree_reuse", "record_states"],
 )
-def test_fixed_scan_refuses_what_is_not_ported(mcts, sp, kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_fixed_scan_refuses_what_is_not_ported(mcts, sp, kw, err, item):
+    with pytest.raises(err, match=item):
         make_selfplay_fn(G, dataclasses.replace(CFG, **mcts), dataclasses.replace(SP, **sp),
                          device="cpu", **kw)

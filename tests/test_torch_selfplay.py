@@ -113,23 +113,38 @@ def test_actor_with_generator_draws():
 
 
 @pytest.mark.parametrize(
-    "cfg",
+    "cfg,err",
     [
-        MCTSConfig(transposition=True),
-        MCTSConfig(gumbel=True),
-        MCTSConfig(forced_playouts=2.0, dirichlet_alpha=1.0),
+        (MCTSConfig(transposition=True), NotImplementedError),
+        (MCTSConfig(gumbel=True), NotImplementedError),
+        # a training-target device of the fixed scan: the actor refuses it
+        # where the JAX actor searches unforced (ROADMAP queue 3)
+        (MCTSConfig(forced_playouts=2.0, dirichlet_alpha=1.0), ValueError),
     ],
     ids=["transposition", "gumbel", "forced_playouts"],
 )
-def test_unported_engines_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_unported_engines_raise(cfg, err):
+    with pytest.raises(err, match="ROADMAP"):
         make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD, device="cpu")
 
 
 def test_game_without_flat_ops_raises():
-    class NoFlatOps:
-        name = "no_flat_ops"
-        num_actions = 3
+    """A game without flat ops no longer raises: the ladder's last rung,
+    the dense engine, searches it, with the counts the hybrid engine gives
+    the same game with its flat ops."""
+    class NoFlatOps(ConnectFour):
+        flat_ops = None
 
-    with pytest.raises(NotImplementedError, match="dense engine"):
-        _make_root_counts_fn(NoFlatOps(), make_uniform_model(TG).apply_fn, MCTSConfig())
+    cfg = MCTSConfig(num_sims=24, max_depth=48, dirichlet_alpha=1.0)
+    state = torch_state(random_boards(B, 6, seed=4))
+    noise = sample_draws(torch.Generator().manual_seed(1), B, 7, 1.0, "cpu").dirichlet
+
+    def no_fused(feats):
+        return make_uniform_model(TG).apply_fn(feats)
+
+    no_fused.needs_features = False
+    dense = _make_root_counts_fn(NoFlatOps(), no_fused, cfg)
+    assert dense.__qualname__.startswith("dense_root_fn.")
+    hybrid = _make_root_counts_fn(TG, no_fused, cfg)
+    assert hybrid.__qualname__.startswith("make_hybrid_root_fn.")
+    assert torch.equal(dense(state, noise), hybrid(state, noise))
