@@ -21,13 +21,18 @@ The search routes are the JAX package's ladder:
 * ``mcts_cfg_inc`` (asymmetric budgets, the anchor ladder's rungs): each
   side searches the whole batch with its own budget, on its fused call
   where it has one and on the combined forward where not, and the counts
-  are row-selected.
+  are row-selected;
+* ``mcts_cfg.gumbel``: Gumbel search (``mcts/gumbel.py``) with the combined
+  forward, and the move is its halving winner; each move's draw
+  ``tie_draws(t)`` is then the search's root Gumbel sample, which keeps
+  the games from collapsing onto one line (``tie_draws_from(...,
+  gumbel=True)``).
 
 The JAX package demotes the second of two hybrid engines to its XLA
 engine in an asymmetric arena, to avoid a TPU compiler fault; here both
 sides run on the port's kernels. ``host_chunk`` and ``state_sharding``
-served the TPU and are not ported; a ``mesh``, Gumbel and transposition
-arenas raise (ROADMAP queue 1).
+served the TPU and are not ported; a ``mesh`` and transposition arenas
+raise (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -38,10 +43,11 @@ import torch
 
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.mcts.fused import make_fused_root_fn
+from alphazero_tpu_torch.mcts.gumbel import check_gumbel_config, make_gumbel_search_fn
 from alphazero_tpu_torch.mcts.hybrid import make_hybrid_root_fn
 from alphazero_tpu_torch.mcts.search import dense_root_fn
 from alphazero_tpu_torch.models import make_apply_fn
-from alphazero_tpu_torch.ops import action_probs
+from alphazero_tpu_torch.ops import action_probs, gumbel_from_uniform
 
 TieDraws = Callable[[int], torch.Tensor]
 
@@ -85,10 +91,16 @@ def combined_apply(apply_cand: Callable, apply_inc: Callable, cand_to_move: torc
     return apply_fn
 
 
-def tie_draws_from(generator: torch.Generator, batch: int, num_actions: int, device) -> TieDraws:
+def tie_draws_from(generator: torch.Generator, batch: int, num_actions: int, device,
+                   gumbel: bool = False) -> TieDraws:
     """``tie_draws(t)``: the tie uniforms f32[B, A] of each move, drawn in
-    move order from ``generator`` (on ``device``)."""
-    return lambda t: torch.rand((batch, num_actions), generator=generator, device=device)
+    move order from ``generator`` (on ``device``); with ``gumbel``, a
+    Gumbel arena's root samples ``-log(-log(u))`` of them."""
+    def tie_draws(t):
+        u = torch.rand((batch, num_actions), generator=generator, device=device)
+        return gumbel_from_uniform(u) if gumbel else u
+
+    return tie_draws
 
 
 def _check_ported(cfg: MCTSConfig, mesh) -> None:
@@ -97,13 +109,11 @@ def _check_ported(cfg: MCTSConfig, mesh) -> None:
             "a sharded arena runs on a mesh, not yet ported "
             "(ROADMAP queue 1, \"`parallel/` → `torch.distributed`\")"
         )
-    for flag, engine in (("gumbel", "Gumbel search (mcts/gumbel.py)"),
-                         ("transposition", "transposition search (mcts/tt.py)")):
-        if getattr(cfg, flag, False):
-            raise NotImplementedError(
-                f"an arena on {engine} is not yet ported "
-                "(ROADMAP queue 1, \"The opt-in engines\")"
-            )
+    if getattr(cfg, "transposition", False):
+        raise NotImplementedError(
+            "an arena on transposition search (mcts/tt.py) is not yet ported "
+            "(ROADMAP queue 1, \"The opt-in engines\")"
+        )
 
 
 def make_arena_fn(
@@ -121,9 +131,10 @@ def make_arena_fn(
     ``apply_fn`` once (a conv net refolded, an MLPNet repacked), so a
     model trained between calls plays with its new weights.
     ``tie_draws(t)`` gives the tie uniforms f32[B, A] of move ``t``
-    (``tie_draws_from``). ``mcts_cfg_inc`` gives the incumbent side its
-    own search config. The move loop stops once every game is done: a
-    move past that point changes nothing."""
+    (``tie_draws_from``), or with ``mcts_cfg.gumbel`` the root Gumbel
+    samples. ``mcts_cfg_inc`` gives the incumbent side its own search
+    config. The move loop stops once every game is done: a move past that
+    point changes nothing."""
     for cfg in (mcts_cfg, mcts_cfg_inc):
         if cfg is not None:
             _check_ported(cfg, mesh)
@@ -131,6 +142,14 @@ def make_arena_fn(
     T = game.max_moves
     if mcts_cfg_inc == mcts_cfg:
         mcts_cfg_inc = None
+    gumbel = getattr(mcts_cfg, "gumbel", False)
+    if mcts_cfg_inc is not None and gumbel:
+        raise ValueError(
+            "asymmetric per-side budgets (mcts_cfg_inc) are a PUCT-engine "
+            "feature — not supported with gumbel/transposition arenas"
+        )
+    if gumbel:
+        check_gumbel_config(mcts_cfg)
     cfg_inc = mcts_cfg_inc or mcts_cfg
 
     def hybrid(cfg, apply_c, apply_i):
@@ -156,8 +175,19 @@ def make_arena_fn(
             cfg_inc, apply_c, apply_i)
         return lambda state, ctm: torch.where(ctm[:, None], rc_c(state, ctm), rc_i(state, ctm))
 
+    def move_fn(apply_c, apply_i) -> Callable:
+        """``move(state, cand_to_move, draw) -> action i64[B]``: the greedy
+        argmax of the counts with ties broken by the uniforms ``draw``, or
+        the Gumbel search's winner from the root sample ``draw``."""
+        if gumbel:
+            return lambda state, ctm, draw: make_gumbel_search_fn(
+                game, combined_apply(apply_c, apply_i, ctm), mcts_cfg)(state, draw).action
+        root_counts = root_counts_fn(apply_c, apply_i)
+        return lambda state, ctm, draw: action_probs(root_counts(state, ctm), 0.0,
+                                                     draw).argmax(dim=-1)
+
     def play(model_cand, model_inc, tie_draws: TieDraws) -> ArenaResult:
-        root_counts = root_counts_fn(make_apply_fn(model_cand), make_apply_fn(model_inc))
+        move = move_fn(make_apply_fn(model_cand), make_apply_fn(model_inc))
         state = game.init(B, device)
         done = torch.zeros(B, dtype=torch.bool, device=device)
         cand_to_move = torch.arange(B, device=device) < (B + 1) // 2
@@ -166,9 +196,7 @@ def make_arena_fn(
         for t in range(T):
             if bool(done.all()):
                 break
-            counts = root_counts(state, cand_to_move)
-            action = action_probs(counts, 0.0, tie_draws(t)).argmax(dim=-1)
-            nxt = game.step(state, action)
+            nxt = game.step(state, move(state, cand_to_move, tie_draws(t)))
             state = torch.where(done.reshape((-1,) + (1,) * (nxt.ndim - 1)), state, nxt)
             now_done, tv = game.terminal(state)
             ended = ~done & now_done

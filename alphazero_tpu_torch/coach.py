@@ -5,7 +5,10 @@ runs, in order:
 
   (a) self-play: the recycling actor (``selfplay.recycle``) or the fixed
       scan, with the incumbent's weights;
-  (b) replay: the ring insert with the game's symmetries;
+  (b) replay: the ring insert with the game's symmetries; with
+      ``cfg.reanalyze``, the recorded root states into the position ring,
+      and every ``interval`` iterations a reanalyze pass whose refreshed
+      samples go into the replay ring too (``reanalyze.py``);
   (c) train: the candidate, a copy of the incumbent (model, BatchNorm
       statistics, Adam moments and step), takes ``steps_per_iteration``
       minibatch steps; the incumbent stays as it was;
@@ -17,7 +20,8 @@ runs, in order:
       pure-MCTS anchor, the ladder's rungs and the snapshot pool, and the
       whole match graph is refitted with the anchor pinned at Elo 0;
   (f) the whole-state checkpoint (``checkpoint.py``): weights, optimizer,
-      ring, actor carry, the generator's state, counters; the sidecar
+      rings (replay, positions), actor carry, the generator's state,
+      counters; the sidecar
       holds the Elo history and the match graph, so a resume is exact.
 
 Randomness: the coach holds one CPU ``torch.Generator`` seeded from
@@ -30,10 +34,9 @@ retired for the incumbent once the incumbent itself has swept it in its
 last two matches against it; the JAX coach retires it once any two
 generations have (ROADMAP queue 3, "ADVICE low, coach.py:950").
 
-Not ported: a ``mesh`` (ROADMAP queue 1, "`parallel/` → `torch.distributed`"),
-``reanalyze`` (ROADMAP queue 1, "The opt-in engines"), and the host
-example archive, ``{iteration}.examples`` (ROADMAP queue 1, "The host
-example archive"): the whole-state checkpoint holds the ring.
+Not ported: a ``mesh`` (ROADMAP queue 1, "`parallel/` → `torch.distributed`")
+and the host example archive, ``{iteration}.examples`` (ROADMAP queue 1,
+"The host example archive"): the whole-state checkpoint holds the ring.
 """
 
 from __future__ import annotations
@@ -60,7 +63,13 @@ from alphazero_tpu_torch.checkpoint import (
 )
 from alphazero_tpu_torch.config import AZConfig
 from alphazero_tpu_torch.models import is_folded, make_uniform_model
-from alphazero_tpu_torch.ops import sample_draws
+from alphazero_tpu_torch.ops import gumbel_from_uniform, sample_draws
+from alphazero_tpu_torch.reanalyze import (
+    PositionStore,
+    make_reanalyze_fn,
+    position_init,
+    position_insert,
+)
 from alphazero_tpu_torch.replay import ReplayState, replay_init, replay_insert, replay_total
 from alphazero_tpu_torch.selfplay import (
     ActorCarry,
@@ -84,7 +93,7 @@ from alphazero_tpu_torch.utils import (
 
 log = logging.getLogger(__name__)
 
-_RINGS = ("replay", "actor")
+_RINGS = ("replay", "positions", "actor")
 # what a restore raises for a file that does not fit the template, is
 # missing, or is cut short
 _RESTORE_ERRORS = (ValueError, OSError, EOFError, RuntimeError, pickle.UnpicklingError)
@@ -119,15 +128,11 @@ class Coach:
                 "(ROADMAP queue 1, \"`parallel/` → `torch.distributed`\")"
             )
         self._recycle = bool(getattr(cfg.selfplay, "recycle", False))
-        if cfg.reanalyze is not None:
-            if self._recycle:
-                raise ValueError(
-                    "selfplay.recycle is incompatible with reanalyze "
-                    "(the position ring records the fixed scan's [T, B] root states)"
-                )
-            raise NotImplementedError(
-                "reanalyze (reanalyze.py) is not yet ported "
-                "(ROADMAP queue 1, \"The opt-in engines\")"
+        rz_cfg = cfg.reanalyze
+        if rz_cfg is not None and self._recycle:
+            raise ValueError(
+                "selfplay.recycle is incompatible with reanalyze "
+                "(the position ring records the fixed scan's [T, B] root states)"
             )
         self.game = game
         self.cfg = cfg
@@ -145,7 +150,13 @@ class Coach:
                 game, cfg.mcts, cfg.selfplay, device=dev)
             self.actor_carry = init_actor()
         else:
-            self._selfplay = make_selfplay_fn(game, cfg.mcts, cfg.selfplay, device=dev)
+            self._selfplay = make_selfplay_fn(game, cfg.mcts, cfg.selfplay, device=dev,
+                                              record_states=rz_cfg is not None)
+        self.positions = None
+        self._reanalyze = None
+        if rz_cfg is not None:
+            self.positions = position_init(game, rz_cfg.capacity, device=dev)
+            self._reanalyze = make_reanalyze_fn(game, cfg.mcts, rz_cfg)
         self._train_phase = make_train_phase(cfg.train, cfg.train.steps_per_iteration, game)
 
         # the arena plays noise-free greedy moves: no root Dirichlet, no
@@ -204,8 +215,8 @@ class Coach:
     # ------------------------------------------------------------------
     def _payload(self, rings: bool = True) -> dict:
         """The checkpoint's payload. ``rings=False`` is the LIGHT payload
-        (``replay_save_stride``): no replay ring and no actor carry, the
-        only state a run regenerates."""
+        (``replay_save_stride``): no replay ring, position ring or actor
+        carry, the only state a run regenerates."""
         inc = self.incumbent
         payload = {
             "incumbent": {
@@ -218,6 +229,9 @@ class Coach:
         if rings:
             r = self.replay
             payload["replay"] = {"data": r.data, "pos": r.pos, "size": r.size, "total": r.total}
+            if self.positions is not None:
+                # the reanalyze position ring resumes exactly with the run
+                payload["positions"] = self.positions._asdict()
             if self.actor_carry is not None:
                 # the recycling actor's live boards and open fragments:
                 # a resume continues mid-episode
@@ -242,12 +256,12 @@ class Coach:
 
     def _restore_dropping_optional(self, step, template):
         """``restore_checkpoint``; when the exact template fails, retry
-        without the smallest set of optional subtrees ("pool", "actor")
-        that restores, and start those empty."""
+        without the smallest set of optional subtrees ("positions", "pool",
+        "actor") that restores, and start those empty."""
         try:
             return restore_checkpoint(self.cfg.checkpoint_dir, step, template)
         except _RESTORE_ERRORS:
-            optional = [k for k in ("pool", "actor") if k in template]
+            optional = [k for k in ("positions", "pool", "actor") if k in template]
             if not optional:
                 raise
             for r in range(1, len(optional) + 1):
@@ -320,6 +334,10 @@ class Coach:
         if "replay" in payload:
             r = payload["replay"]
             self.replay = ReplayState(r["data"], int(r["pos"]), int(r["size"]), int(r["total"]))
+        if "positions" in payload and self.positions is not None:
+            p = payload["positions"]
+            self.positions = PositionStore(p["states"], p["value"], p["born"], int(p["pos"]),
+                                           int(p["size"]))
         if "actor" in payload and self.actor_carry is not None:
             self.actor_carry = ActorCarry(**payload["actor"])
         if "pool" in payload:
@@ -371,9 +389,21 @@ class Coach:
         """A phase's generator on the device."""
         return torch.Generator(device=self.device).manual_seed(seed)
 
-    def _ties(self, seed: int):
+    def _ties(self, seed: int, gumbel: bool = False):
         return tie_draws_from(self._gen(seed), self.cfg.arena.num_games,
-                              self.game.num_actions, self.device)
+                              self.game.num_actions, self.device, gumbel=gumbel)
+
+    def _reanalyze_draws(self, seed: int) -> tuple:
+        """A reanalyze pass's draws: ``batch_size`` rows uniform over the
+        position ring's live region and, for Gumbel search, the root
+        sample."""
+        gen = self._gen(seed)
+        R, A = self.cfg.reanalyze.batch_size, self.game.num_actions
+        idx = torch.randint(0, max(self.positions.size, 1), (R,), generator=gen,
+                            device=self.device)
+        if not self.cfg.mcts.gumbel:
+            return idx, None
+        return idx, gumbel_from_uniform(torch.rand((R, A), generator=gen, device=self.device))
 
     def _model_from(self, snapshot: dict) -> torch.nn.Module:
         """A pool snapshot staged onto the device for its arena."""
@@ -396,29 +426,48 @@ class Coach:
         if not skip_sp:
             gen = self._gen(k_sp)
             B, A, alpha = cfg.selfplay.batch_size, game.num_actions, cfg.mcts.dirichlet_alpha
+            permute = cfg.selfplay.full_search_prob is not None
 
             def draws(t):
-                return sample_draws(gen, B, A, alpha, dev)
+                return sample_draws(gen, B, A, alpha, dev, permute=permute)
 
             with self.timer.phase("selfplay"):
                 model = self.incumbent.model
                 if self._recycle:
                     self.actor_carry, traj, stats = self._selfplay(model, self.actor_carry, draws)
                 else:
-                    traj, stats = self._selfplay(model, draws)
+                    traj, stats, *states = self._selfplay(model, draws)
                 synchronize(traj.features)
             selfplay_moves, selfplay_truncated = torch.stack(
                 [stats.num_moves.sum(), (~stats.done).sum()]).tolist()
             with self.timer.phase("replay_insert"):
                 self.replay = replay_insert(self.replay, game, traj)
+                if self._reanalyze is not None:
+                    self.positions = position_insert(
+                        self.positions, states[0], traj.value, traj.valid, self.iteration,
+                        stride=cfg.reanalyze.record_stride)
                 synchronize(self.replay.data)
             del traj
+        reanalyzed = reanalyze_age = None
+        if self._reanalyze is not None and (self.iteration + 1) % cfg.reanalyze.interval == 0:
+            (k_rz,) = self._split(1)
+            with self.timer.phase("reanalyze"):
+                rz_traj, reanalyzed, age = self._reanalyze(
+                    self.incumbent.model, self.positions, *self._reanalyze_draws(k_rz),
+                    iteration=self.iteration)
+                self.replay = replay_insert(self.replay, game, rz_traj)
+                synchronize(self.replay.data)
+            # the staleness metric: near 0, the ring wraps within an
+            # iteration and the pass refreshes targets that were never stale
+            reanalyze_age = round(age, 3)
         with self.timer.phase("train"):
             candidate, losses = self._train_phase(copy_train_state(self.incumbent), self.replay,
                                                   self._gen(k_train))
             synchronize(losses)
         with self.timer.phase("arena"):
-            result = self._arena(candidate.model, self.incumbent.model, self._ties(k_arena))
+            # a Gumbel gate arena takes root samples in place of tie uniforms
+            result = self._arena(candidate.model, self.incumbent.model,
+                                 self._ties(k_arena, cfg.mcts.gumbel))
 
         cw, iw, dr = result.cand_wins, result.inc_wins, result.draws
         accepted = gate(result, cfg.arena.update_threshold)
@@ -455,6 +504,8 @@ class Coach:
             "selfplay_moves": selfplay_moves,
             "selfplay_truncated": selfplay_truncated,
             "eval_folded": self._eval_folded,
+            **({"reanalyzed": reanalyzed} if reanalyzed is not None else {}),
+            **({"reanalyze_age_mean": reanalyze_age} if reanalyze_age is not None else {}),
             **({"anchor_win_rate": round(anchor, 4)} if anchor is not None else {}),
             **({"anchored_elo": round(anchored_elo, 2)} if anchored_elo is not None else {}),
             # the ±1 Fisher-information standard error of the anchored fit

@@ -1,17 +1,20 @@
 #!/usr/bin/env python
-"""Analyze a position with the port's dense engine.
+"""Analyze a position with the port's dense engine or Gumbel search.
 
 Counterpart of ``examples/analyze.py``, with its flags. Give a game, an
 optional move sequence from the initial position and a model (a port
 checkpoint, or the pure-MCTS uniform prior); prints the board, the net's
 raw value, a per-action table of prior / visits / Q and the search's best
 move. ``--engine xla`` (the default, the JAX package's name for this
-engine) runs the dense engine; ``tt`` and ``gumbel`` are not yet ported.
-It runs on the card unless ``--cpu`` is given.
+engine) runs the dense engine; ``--engine gumbel`` runs Gumbel search in
+evaluation mode (no Gumbel sample), prints its recommendation and adds the
+improved policy to the table; ``tt`` is not yet ported. It runs on the
+card unless ``--cpu`` is given.
 
 Usage:
   python -m alphazero_tpu_torch.examples.analyze --game connect_four --moves "3 3 4" --sims 400
   python -m alphazero_tpu_torch.examples.analyze --game othello --sims 800 --cpu
+  python -m alphazero_tpu_torch.examples.analyze --engine gumbel --moves "3 3" --sims 64
   python -m alphazero_tpu_torch.examples.analyze --game gomoku \\
       --checkpoint-dir runs/gomoku --model resnet
 """
@@ -46,14 +49,14 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", type=int, default=5)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     args = ap.parse_args(argv)
-    if args.engine != "xla":
+    if args.engine == "tt":
         raise NotImplementedError(
-            f"--engine {args.engine}: {'transposition' if args.engine == 'tt' else 'Gumbel'} "
-            "search is not yet ported (ROADMAP queue 1, \"The opt-in engines\")"
+            "--engine tt: transposition search is not yet ported "
+            "(ROADMAP queue 1, \"The opt-in engines\")"
         )
 
     from alphazero_tpu_torch.config import MCTSConfig
-    from alphazero_tpu_torch.mcts import make_search_fn
+    from alphazero_tpu_torch.mcts import make_gumbel_search_fn, make_search_fn
     from alphazero_tpu_torch.models import make_apply_fn
     from alphazero_tpu_torch.ops import masked_policy
 
@@ -103,19 +106,29 @@ def main(argv=None) -> int:
     valid = valid[0].cpu().numpy()
     print(f"\nnet [{label}]: value {float(v_raw[0]):+.3f} (side to move)")
 
-    cfg = MCTSConfig(num_sims=args.sims, max_depth=args.max_depth, dirichlet_alpha=None)
-    tree = make_search_fn(game, apply_fn, cfg)(state)
+    gumbel = args.engine == "gumbel"
+    cfg = MCTSConfig(num_sims=args.sims, max_depth=args.max_depth, gumbel=gumbel,
+                     dirichlet_alpha=None)
+    if gumbel:
+        res = make_gumbel_search_fn(game, apply_fn, cfg)(state)
+        tree = res.tree
+        improved = res.improved_pi[0].cpu().numpy()
+        print(f"gumbel recommendation (eval mode): {int(res.action[0])}")
+    else:
+        tree = make_search_fn(game, apply_fn, cfg)(state)
     counts = tree.root_counts()[0].cpu().numpy()
     q = tree.root_q()[0].cpu().numpy()
 
     total = max(counts.sum(), 1.0)
-    print("\n" + f"{'a':>4} {'prior':>7} {'N':>7} {'N%':>6} {'Q':>7}")
+    hdr = f"{'a':>4} {'prior':>7} {'N':>7} {'N%':>6} {'Q':>7}"
+    print("\n" + hdr + (f" {'pi_imp':>7}" if gumbel else ""))
     order = np.argsort(-counts, kind="stable")
     for a in order:
         if not valid[a]:
             continue
-        print(f"{a:>4} {net_pi[a]:>7.3f} {int(counts[a]):>7} "
-              f"{100.0 * counts[a] / total:>5.1f}% {q[a]:>+7.3f}")
+        row = (f"{a:>4} {net_pi[a]:>7.3f} {int(counts[a]):>7} "
+               f"{100.0 * counts[a] / total:>5.1f}% {q[a]:>+7.3f}")
+        print(row + (f" {improved[a]:>7.3f}" if gumbel else ""))
     best = int(order[0])
     print(f"\nsearch best move: {best} (N={int(counts[best])}, Q={q[best]:+.3f})")
     return 0

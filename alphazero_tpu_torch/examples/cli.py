@@ -1,6 +1,6 @@
-"""What the training CLIs share: their common options, the refusal of the
-unported ones, and the run itself (``Coach.learn`` on the card, or on the
-CPU with ``--cpu``)."""
+"""What the training CLIs share: their common options, the training-economy
+overrides ``--gumbel`` and ``--reanalyze``, and the run itself
+(``Coach.learn`` on the card, or on the CPU with ``--cpu``)."""
 
 from __future__ import annotations
 
@@ -19,26 +19,33 @@ def parser(doc: str, presets) -> argparse.ArgumentParser:
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--gumbel", type=int, default=None, metavar="SIMS",
-                    help="Gumbel search (not yet ported)")
+                    help="search with Gumbel sequential halving (mcts/gumbel.py) at SIMS "
+                         "simulations a move")
     ap.add_argument("--reanalyze", type=int, default=None, metavar="BATCH",
-                    help="replay-target refresh by re-search (not yet ported)")
+                    help="re-search BATCH stored positions each iteration for fresh policy "
+                         "targets (reanalyze.py; value targets stay the game outcome)")
     ap.add_argument("--replay-stride", type=int, default=None, metavar="K",
                     help="carry the replay ring in only every K-th periodic checkpoint "
                          "(config.replay_save_stride)")
     return ap
 
 
-def refuse_unported(args) -> None:
-    """``--gumbel`` and ``--reanalyze`` raise, citing their ROADMAP item."""
+def with_economy(cfg, args, game):
+    """The JAX CLIs' overrides: ``--gumbel SIMS`` searches with Gumbel
+    sequential halving at SIMS simulations (no Dirichlet noise: exploration
+    is the Gumbel sample); ``--reanalyze BATCH`` re-searches BATCH stored
+    positions a pass, from a position ring of the replay ring's capacity
+    over the game's symmetries."""
     if args.gumbel is not None:
-        raise NotImplementedError(
-            "--gumbel: Gumbel search (mcts/gumbel.py) is not yet ported "
-            "(ROADMAP queue 1, \"The opt-in engines\")"
-        )
+        cfg = dataclasses.replace(cfg, mcts=dataclasses.replace(
+            cfg.mcts, gumbel=True, num_sims=args.gumbel, dirichlet_alpha=None, parallel_sims=1))
     if args.reanalyze is not None:
-        raise NotImplementedError(
-            "--reanalyze: reanalyze.py is not yet ported (ROADMAP queue 1, \"The opt-in engines\")"
-        )
+        from alphazero_tpu_torch.config import ReanalyzeConfig
+
+        cfg = dataclasses.replace(cfg, reanalyze=ReanalyzeConfig(
+            batch_size=args.reanalyze,
+            capacity=cfg.replay.capacity // max(game.num_symmetries, 1)))
+    return cfg
 
 
 def with_replay_stride(cfg, args):

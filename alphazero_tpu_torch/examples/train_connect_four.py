@@ -10,12 +10,12 @@ Usage:
   python -m alphazero_tpu_torch.examples.train_connect_four --preset full \\
       --iterations 10 --checkpoint-dir runs/c4_full                         # AZResNet-64x5
   python -m alphazero_tpu_torch.examples.train_connect_four --preset convnet  # AZConvNet-512
+  python -m alphazero_tpu_torch.examples.train_connect_four --preset economy  # Gumbel, 32 sims
 
 The model's initial weights are torch's default initialisation under
 ``torch.manual_seed(seed + 1)`` (the JAX coach initialises from
-``seed + 1`` too). Not ported, and refused with the ROADMAP item that
-holds them: the ``economy`` preset and ``--gumbel`` (Gumbel search),
-``--reanalyze``.
+``seed + 1`` too). ``--gumbel SIMS`` and ``--reanalyze BATCH`` apply the
+JAX CLI's overrides (``cli.with_economy``), after ``--replay-capacity``.
 """
 
 from __future__ import annotations
@@ -46,11 +46,6 @@ def preset(name: str, seed: int = 0, checkpoint_dir=None):
 
     game = ConnectFour()
     A = game.num_actions
-    if name == "economy":
-        raise NotImplementedError(
-            "the economy preset runs Gumbel search (mcts/gumbel.py), not yet ported "
-            "(ROADMAP queue 1, \"The opt-in engines\")"
-        )
     torch.manual_seed(seed + 1)
     if name == "smoke":
         model = MLPNet(A, hidden=(64,))
@@ -104,6 +99,31 @@ def preset(name: str, seed: int = 0, checkpoint_dir=None):
             ),
             num_iterations=50,
         )
+    elif name == "economy":
+        # the training-economy recipe: the flagship net searched by Gumbel
+        # sequential halving at a small budget, on the fixed scan
+        model = AZResNet(A, channels=64, blocks=5)
+        cfg = AZConfig(
+            mcts=MCTSConfig(num_sims=32, max_depth=48, gumbel=True, dirichlet_alpha=None),
+            selfplay=SelfPlayConfig(batch_size=4096, temp_threshold=15),
+            replay=ReplayConfig(capacity=1 << 20),
+            train=TrainConfig(batch_size=1024, steps_per_iteration=512),
+            arena=ArenaConfig(
+                num_games=256,
+                update_threshold=0.55,
+                num_sims=50,
+                anchor_interval=5,
+                anchor_warmup=6,
+                anchor_warmup_mult=4,
+                pool_cross_matches=2,
+                anchor_ladder=(400, 1600),
+            ),
+            num_iterations=50,
+            # the replay-bearing checkpoint of a 2^20-row ring is large:
+            # save every 5th iteration (the final state is always saved)
+            checkpoint_interval=5,
+            keep_checkpoints=4,
+        )
     else:
         raise ValueError(f"unknown preset {name!r}; choose from {PRESETS}")
     return model, dataclasses.replace(cfg, seed=seed, checkpoint_dir=checkpoint_dir)
@@ -118,7 +138,6 @@ def main(argv=None) -> int:
     ap.add_argument("--replay-capacity", type=int, default=None, metavar="N",
                     help="override the preset's replay ring capacity (rows)")
     args = ap.parse_args(argv)
-    cli.refuse_unported(args)
 
     model, cfg = preset(args.preset, args.seed, args.checkpoint_dir)
     cfg = cli.with_replay_stride(cfg, args)
@@ -128,7 +147,8 @@ def main(argv=None) -> int:
     if args.replay_capacity is not None:
         cfg = dataclasses.replace(cfg, replay=dataclasses.replace(
             cfg.replay, capacity=args.replay_capacity))
-    return cli.run(ConnectFour(), model, cfg, args)
+    game = ConnectFour()
+    return cli.run(game, model, cli.with_economy(cfg, args, game), args)
 
 
 if __name__ == "__main__":

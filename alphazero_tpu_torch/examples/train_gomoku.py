@@ -13,10 +13,10 @@ Usage:
       --checkpoint-dir runs/gomoku9_full                                # AZResNet-64x5
 
 The card's Gomoku descends take boards of up to 512 cells (edges up to
-22): a larger ``--size`` is refused, citing its ROADMAP item, as are
-``--gumbel`` (Gumbel search) and ``--reanalyze``. The model's initial
-weights are torch's default initialisation under
-``torch.manual_seed(seed + 1)``.
+22): a larger ``--size`` is refused, citing its ROADMAP item.
+``--gumbel SIMS`` and ``--reanalyze BATCH`` apply the JAX CLI's overrides
+(``cli.with_economy``). The model's initial weights are torch's default
+initialisation under ``torch.manual_seed(seed + 1)``.
 """
 
 from __future__ import annotations
@@ -97,10 +97,10 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, default=9,
                     help="board edge: 9 (the default) or 15 (the standard board, A=225)")
     args = ap.parse_args(argv)
-    cli.refuse_unported(args)
     model, cfg = preset(args.preset, args.seed, args.checkpoint_dir, args.size)
-    return cli.run(Gomoku(args.size), model, cli.with_replay_stride(cfg, args), args,
-                   anchored=True)
+    game = Gomoku(args.size)
+    cfg = cli.with_economy(cli.with_replay_stride(cfg, args), args, game)
+    return cli.run(game, model, cfg, args, anchored=True)
 
 
 if __name__ == "__main__":

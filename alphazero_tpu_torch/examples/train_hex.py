@@ -13,8 +13,8 @@ Usage:
       --checkpoint-dir runs/hex_full                                     # AZResNet-64x5
 
 The model's initial weights are torch's default initialisation under
-``torch.manual_seed(seed + 1)``. Not ported, and refused with the ROADMAP
-item that holds them: ``--gumbel`` (Gumbel search), ``--reanalyze``.
+``torch.manual_seed(seed + 1)``. ``--gumbel SIMS`` and ``--reanalyze
+BATCH`` apply the JAX CLI's overrides (``cli.with_economy``).
 """
 
 from __future__ import annotations
@@ -87,9 +87,10 @@ def preset(name: str, seed: int = 0, checkpoint_dir=None):
 def main(argv=None) -> int:
     ap = cli.parser(__doc__, PRESETS)
     args = ap.parse_args(argv)
-    cli.refuse_unported(args)
     model, cfg = preset(args.preset, args.seed, args.checkpoint_dir)
-    return cli.run(Hex(), model, cli.with_replay_stride(cfg, args), args, anchored=True)
+    game = Hex()
+    cfg = cli.with_economy(cli.with_replay_stride(cfg, args), args, game)
+    return cli.run(game, model, cfg, args, anchored=True)
 
 
 if __name__ == "__main__":

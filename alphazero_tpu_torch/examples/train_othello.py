@@ -16,8 +16,8 @@ The ``full`` preset trains in continuous mode (every candidate adopted;
 the gate arena still runs for the Elo curve) with warmup anchored passes
 and pool cross matches and no anchor ladder, as the JAX preset does. The
 model's initial weights are torch's default initialisation under
-``torch.manual_seed(seed + 1)``. Not ported, and refused with the ROADMAP
-item that holds them: ``--gumbel`` (Gumbel search), ``--reanalyze``.
+``torch.manual_seed(seed + 1)``. ``--gumbel SIMS`` and ``--reanalyze
+BATCH`` apply the JAX CLI's overrides (``cli.with_economy``).
 """
 
 from __future__ import annotations
@@ -103,9 +103,10 @@ def main(argv=None) -> int:
                     help="AZResNet tower width of the full preset")
     ap.add_argument("--blocks", type=int, default=5, help="AZResNet depth of the full preset")
     args = ap.parse_args(argv)
-    cli.refuse_unported(args)
     model, cfg = preset(args.preset, args.seed, args.checkpoint_dir, args.channels, args.blocks)
-    return cli.run(Othello(), model, cli.with_replay_stride(cfg, args), args)
+    game = Othello()
+    cfg = cli.with_economy(cli.with_replay_stride(cfg, args), args, game)
+    return cli.run(game, model, cfg, args)
 
 
 if __name__ == "__main__":

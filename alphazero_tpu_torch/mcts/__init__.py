@@ -6,6 +6,7 @@ from alphazero_tpu_torch.mcts.fused import (
     make_fused_root_fn,
     mlp_eval,
 )
+from alphazero_tpu_torch.mcts.gumbel import GumbelResult, make_gumbel_search_fn
 from alphazero_tpu_torch.mcts.hybrid import PLAIN, SearchKernels, make_hybrid_root_fn
 from alphazero_tpu_torch.mcts.search import make_search_fn
 from alphazero_tpu_torch.mcts.tree import Tree
@@ -13,6 +14,8 @@ from alphazero_tpu_torch.mcts.tree import Tree
 __all__ = [
     "Tree",
     "make_search_fn",
+    "make_gumbel_search_fn",
+    "GumbelResult",
     "make_fused_root_fn",
     "fused_search",
     "fused_mlp_search",

@@ -78,11 +78,20 @@ def root_prior(game, apply_fn, cfg, root_state, dirichlet: Optional[torch.Tensor
 
 
 class Draws(NamedTuple):
-    """The random inputs of one actor step, each f32[B, A]."""
+    """The random inputs of one self-play step, f32[B, A] each but ``perm``.
+
+    With Gumbel search (``MCTSConfig.gumbel``) ``gumbel`` is the search's
+    root sample, and the move needs no other draw. With playout-cap
+    randomization (``SelfPlayConfig.full_search_prob``) ``perm`` i64[B] is
+    the step's game permutation; its first ``round(p * B)`` games search the
+    full budget. The search noise (``dirichlet``, or ``gumbel`` for Gumbel
+    search) is then in permuted order: rows ``[:round(p * B)]`` are the
+    full sub-batch's, the rest the cheap one's."""
 
     dirichlet: Optional[torch.Tensor]  # root noise sample (None: noise off)
     tie: torch.Tensor                  # tie-break uniforms for action_probs
-    gumbel: torch.Tensor               # Gumbel noise for the move choice
+    gumbel: torch.Tensor               # the move's Gumbel noise, or Gumbel search's root sample
+    perm: Optional[torch.Tensor] = None  # i64[B] playout-cap randomization's permutation
 
 
 def _standard_gamma(
@@ -109,21 +118,27 @@ def _standard_gamma(
     return out
 
 
+def gumbel_from_uniform(u: torch.Tensor) -> torch.Tensor:
+    """Standard Gumbel samples ``-log(-log(u))`` of uniforms ``u`` in [0, 1)."""
+    return -torch.log(-torch.log(u.clamp(min=torch.finfo(torch.float32).tiny)))
+
+
 def sample_draws(
     generator: torch.Generator,
     batch: int,
     num_actions: int,
     dirichlet_alpha: Optional[float],
     device,
+    permute: bool = False,
 ) -> Draws:
-    """All draws of one actor step from one generator (on ``device``)."""
+    """All draws of one self-play step from one generator (on ``device``);
+    ``permute`` adds playout-cap randomization's permutation."""
     shape = (batch, num_actions)
     dirichlet = None
     if dirichlet_alpha is not None:
         g = _standard_gamma(float(dirichlet_alpha), shape, generator, device)
         dirichlet = g / g.sum(dim=-1, keepdim=True)
     tie = torch.rand(shape, generator=generator, device=device)
-    u = torch.rand(shape, generator=generator, device=device)
-    tiny = torch.finfo(torch.float32).tiny
-    gumbel = -torch.log(-torch.log(u.clamp(min=tiny)))
-    return Draws(dirichlet, tie, gumbel)
+    gumbel = gumbel_from_uniform(torch.rand(shape, generator=generator, device=device))
+    perm = torch.randperm(batch, generator=generator, device=device) if permute else None
+    return Draws(dirichlet, tie, gumbel, perm)

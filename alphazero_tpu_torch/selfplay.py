@@ -14,12 +14,18 @@ Counterpart of ``alphazero_tpu/selfplay.py``:
   a fragment (``ActorCarry``) that call resolves by parity.
 
 The random draws of a step (root Dirichlet noise, tie-break uniforms,
-Gumbel noise for the move choice) are an input, ``ops.Draws``; the episode
+Gumbel noise for the move choice or for Gumbel search's root, playout-cap
+randomization's permutation) are an input, ``ops.Draws``; the episode
 generators take a callable ``draws(t) -> Draws`` for step ``t`` of a call,
 which real runs build on ``ops.sample_draws`` and one ``torch.Generator``.
 They take the model (``UniformModel``, ``AZResNet``, ``AZConvNet`` or ``MLPNet``) on
 every call and rebuild its search ``apply_fn`` there (a conv net refolded,
 an MLPNet's kernel weights repacked), so trained weights reach the actor.
+
+With ``MCTSConfig.gumbel`` every generator searches with Gumbel
+sequential halving (``mcts/gumbel.py``): the move is the halving winner
+and the stored target the improved policy, with no temperature and no
+categorical draw.
 
 One semantic differs from the JAX package on purpose: recycling's
 walk-back starts over at a truncation, so a truncated episode's samples
@@ -29,12 +35,14 @@ episode's values (ROADMAP queue 3, "ADVICE medium").
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, NamedTuple, Tuple
 
 import torch
 
 from alphazero_tpu_torch.config import MCTSConfig, SelfPlayConfig
 from alphazero_tpu_torch.mcts.fused import make_fused_root_fn
+from alphazero_tpu_torch.mcts.gumbel import check_gumbel_config, make_gumbel_search_fn
 from alphazero_tpu_torch.mcts.hybrid import make_hybrid_root_fn
 from alphazero_tpu_torch.mcts.search import dense_root_fn, make_search_fn, pruned_root_counts
 from alphazero_tpu_torch.models import make_apply_fn
@@ -77,11 +85,6 @@ def _check_ported(mcts_cfg: MCTSConfig) -> None:
             "transposition search (mcts/tt.py) is not yet ported "
             "(ROADMAP queue 1, \"The opt-in engines\")"
         )
-    if getattr(mcts_cfg, "gumbel", False):
-        raise NotImplementedError(
-            "Gumbel search (mcts/gumbel.py) is not yet ported "
-            "(ROADMAP queue 1, \"The opt-in engines\")"
-        )
 
 
 def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., torch.Tensor]:
@@ -113,6 +116,24 @@ def _move(root_counts, state, temp, draws: Draws) -> Tuple[torch.Tensor, torch.T
     return _choose(root_counts(state, draws.dirichlet), temp, draws)
 
 
+def _make_mover(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., Tuple[torch.Tensor,
+                                                                          torch.Tensor]]:
+    """``move(state, temp, draws) -> (pi, action)`` of every board: the
+    ladder's counts and ``_choose``, or with ``mcts_cfg.gumbel`` Gumbel
+    search from the root sample ``draws.gumbel`` (``pi`` the improved
+    policy, ``action`` the halving winner; ``temp`` is not used)."""
+    if getattr(mcts_cfg, "gumbel", False):
+        gsearch = make_gumbel_search_fn(game, apply_fn, mcts_cfg)
+
+        def gumbel_move(state, temp, draws: Draws):
+            res = gsearch(state, draws.gumbel)
+            return res.improved_pi, res.action
+
+        return gumbel_move
+    root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
+    return lambda state, temp, draws: _move(root_counts, state, temp, draws)
+
+
 def _where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per game: ``a`` where ``mask`` bool[B], else ``b``."""
     return torch.where(mask.reshape((-1,) + (1,) * (a.ndim - 1)), a, b)
@@ -132,7 +153,8 @@ def make_actor_step_fn(
     ``actor_step(carry, draws) -> (carry, pi f32[B, A])`` where ``pi`` is
     the temperature-applied play distribution (temp 1 before move
     ``temp_threshold``, 0 after) and the move is
-    ``argmax(log(pi + 1e-12) + draws.gumbel)`` — a categorical sample.
+    ``argmax(log(pi + 1e-12) + draws.gumbel)`` — a categorical sample; with
+    Gumbel search, the improved policy and the halving winner.
 
     Forced playouts raise: the JAX actor runs its fused/hybrid ladder,
     which never reads them, so it searches unforced without a word."""
@@ -141,7 +163,8 @@ def make_actor_step_fn(
             "forced_playouts is a training-target device of the fixed scan "
             "(make_selfplay_fn); the actor step would search unforced (ROADMAP queue 3)"
         )
-    root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
+    _check_ported(mcts_cfg)
+    move = _make_mover(game, apply_fn, mcts_cfg)
     B = batch_size
 
     def init_carry() -> Tuple[torch.Tensor, torch.Tensor]:
@@ -150,7 +173,7 @@ def make_actor_step_fn(
     def actor_step(carry, draws: Draws):
         state, move_count = carry
         temp = (move_count < temp_threshold).float()
-        pi, action = _move(root_counts, state, temp, draws)
+        pi, action = move(state, temp, draws)
         state = game.step(state, action)
         done, _ = game.terminal(state)
         move_count = torch.where(done, 0, move_count + 1).to(torch.int32)
@@ -181,70 +204,151 @@ def make_selfplay_fn(
     from the raw counts and the stored target is ``action_probs`` of the
     pruned counts (``pruned_root_counts``), with the same tie draws.
 
-    Playout-cap randomization, Gumbel search and ``record_states``
-    (reanalyze's feed) are not ported and raise; tree reuse is not ported
-    by design (ROADMAP, "Do not port")."""
+    With ``mcts_cfg.gumbel`` every move is Gumbel search's (``_make_mover``).
+
+    Playout-cap randomization (``sp_cfg.full_search_prob = p``): each step
+    exactly ``n_full = round(p * B)`` games search the full budget and the
+    rest ``sp_cfg.cheap_sims`` simulations without root noise; the games are
+    the first ``n_full`` of the step's permutation ``draws(t).perm``, and the
+    two sub-batches search as two batches (the noise in permuted order,
+    ``ops.Draws``), their results scattered back to game order. A cheap
+    move advances the game and stores an all-zero ``pi``: a value-only
+    sample. ``p`` of 0 or 1 runs one search of the whole batch.
+
+    ``record_states=True`` makes ``play_games`` return ``(Trajectory,
+    SelfPlayStats, states [T, B, ...])``, each sample's root state before
+    its move (reanalyze's feed); the trajectory is the same. Tree reuse is
+    not ported by design (ROADMAP, "Do not port")."""
     forced = getattr(mcts_cfg, "forced_playouts", None)
+    gumbel = getattr(mcts_cfg, "gumbel", False)
+    reuse = getattr(mcts_cfg, "tree_reuse", False)
+    pcr = getattr(sp_cfg, "full_search_prob", None)
     if forced is not None and (
-        getattr(mcts_cfg, "gumbel", False)
-        or getattr(mcts_cfg, "tree_reuse", False)
+        gumbel
+        or reuse
         or getattr(mcts_cfg, "transposition", False)
-        or getattr(sp_cfg, "full_search_prob", None) is not None
+        or pcr is not None
     ):
         raise ValueError(
             "forced_playouts is a root-PUCT training-target device — "
             "mutually exclusive with gumbel/tree_reuse/transposition/"
             "playout-cap randomization"
         )
-    if getattr(sp_cfg, "full_search_prob", None) is not None:
-        raise NotImplementedError(
-            "playout-cap randomization is not yet ported "
-            "(ROADMAP queue 1, \"The opt-in engines\")"
+    B = sp_cfg.batch_size
+    cheap_cfg = None
+    if pcr is not None:
+        if sp_cfg.cheap_sims is None:
+            raise ValueError("full_search_prob requires cheap_sims")
+        if reuse:
+            raise ValueError(
+                "playout-cap randomization is incompatible with tree_reuse "
+                "(carried trees assume a fixed per-move budget/capacity)"
+            )
+        # cheap searches take no root noise (KataGo)
+        cheap_cfg = dataclasses.replace(mcts_cfg, num_sims=int(sp_cfg.cheap_sims),
+                                        max_nodes=None, dirichlet_alpha=None)
+        n_full = max(0, min(B, int(round(pcr * B))))
+    if gumbel and (reuse or getattr(mcts_cfg, "transposition", False)):
+        raise ValueError(
+            "gumbel is its own root/interior scoring rule — it is "
+            "mutually exclusive with tree_reuse and transposition"
         )
-    if getattr(mcts_cfg, "tree_reuse", False):
+    if reuse:
         raise NotImplementedError(
             "tree reuse (mcts/reuse.py) was measured and rejected and is not ported "
             "(ROADMAP, \"Do not port\")"
         )
-    if record_states:
-        raise NotImplementedError(
-            "record_states feeds reanalyze.py, not yet ported "
-            "(ROADMAP queue 1, \"The opt-in engines\")"
-        )
     _check_ported(mcts_cfg)
+    if gumbel:
+        check_gumbel_config(mcts_cfg)   # when built, as the JAX generator refuses
     if forced is not None and getattr(mcts_cfg, "parallel_sims", 1) > 1:
         raise ValueError(
             "forced_playouts runs on the XLA engine — set "
             "parallel_sims=1"
         )
-    B = sp_cfg.batch_size
     T = sp_cfg.max_moves or game.max_moves
     cpuct = float(mcts_cfg.cpuct)
 
-    def play_games(model, draws: DrawsFn) -> Tuple[Trajectory, SelfPlayStats]:
-        apply_fn = make_apply_fn(model)
-        if forced is None:
-            root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
-        else:
+    def make_step(apply_fn) -> Callable:
+        """``step(state, temp, draws) -> (pi, action)`` of every board."""
+        if forced is not None:
             search = make_search_fn(game, apply_fn, mcts_cfg)
-        state = game.init(B, device)
-        done = torch.zeros(B, dtype=torch.bool, device=device)
-        outcome = torch.zeros(B, device=device)
-        moves = torch.zeros(B, dtype=torch.int32, device=device)
-        feats, pis, valid = [], [], []
-        for t in range(T):
-            temp = 1.0 if t < sp_cfg.temp_threshold else 0.0
-            d = draws(t)
-            if forced is None:
-                pi, action = _move(root_counts, state, temp, d)
-            else:
+
+            def forced_step(state, temp, d: Draws):
                 # play from the raw counts (the forcing is the exploration),
                 # train on the pruned ones
                 tree = search(state, d.dirichlet)
                 _, action = _choose(tree.root_counts(), temp, d)
-                pi = action_probs(pruned_root_counts(tree, float(forced), cpuct), temp, d.tie)
+                return action_probs(pruned_root_counts(tree, float(forced), cpuct), temp,
+                                    d.tie), action
+
+            return forced_step
+        if pcr is None:
+            return _make_mover(game, apply_fn, mcts_cfg)
+        if gumbel:
+            full_search = make_gumbel_search_fn(game, apply_fn, mcts_cfg)
+            cheap_search = make_gumbel_search_fn(game, apply_fn, cheap_cfg)
+
+            def run_full(sub, noise):
+                res = full_search(sub, noise)
+                return res.improved_pi, res.action
+
+            def run_cheap(sub, noise):
+                # cheap moves emit value-only samples
+                res = cheap_search(sub, noise)
+                return torch.zeros_like(res.improved_pi), res.action
+        else:
+            root_counts = _make_root_counts_fn(game, apply_fn, mcts_cfg)
+            cheap_counts = _make_root_counts_fn(game, apply_fn, cheap_cfg)
+
+            def run_full(sub, noise):
+                return (root_counts(sub, noise),)
+
+            def run_cheap(sub, noise):
+                return (cheap_counts(sub),)
+
+        def split_search(state, d: Draws) -> tuple:
+            """The full search of the step's first ``n_full`` permuted games
+            and the cheap one of the rest, each output back in game order;
+            ``(full bool[B], outputs)``."""
+            noise = d.gumbel if gumbel else d.dirichlet
+            if n_full >= B:
+                return torch.ones(B, dtype=torch.bool, device=state.device), run_full(state, noise)
+            if n_full <= 0:
+                return torch.zeros(B, dtype=torch.bool, device=state.device), run_cheap(state, noise)
+            if d.perm is None:
+                raise ValueError(
+                    "playout-cap randomization needs the step's permutation (Draws.perm)")
+            inv = torch.argsort(d.perm)
+            sub = state[d.perm]
+            out_f = run_full(sub[:n_full], None if noise is None else noise[:n_full])
+            out_c = run_cheap(sub[n_full:], None if noise is None else noise[n_full:])
+            return inv < n_full, tuple(torch.cat([a, b])[inv] for a, b in zip(out_f, out_c))
+
+        def pcr_step(state, temp, d: Draws):
+            full, out = split_search(state, d)
+            if gumbel:
+                return out
+            pi, action = _choose(out[0], temp, d)
+            # a cheap move advances the game but stores a value-only sample
+            return torch.where(full[:, None], pi, 0.0), action
+
+        return pcr_step
+
+    def play_games(model, draws: DrawsFn):
+        step = make_step(make_apply_fn(model))
+        state = game.init(B, device)
+        done = torch.zeros(B, dtype=torch.bool, device=device)
+        outcome = torch.zeros(B, device=device)
+        moves = torch.zeros(B, dtype=torch.int32, device=device)
+        feats, pis, valid, roots = [], [], [], []
+        for t in range(T):
+            temp = 1.0 if t < sp_cfg.temp_threshold else 0.0
+            pi, action = step(state, temp, draws(t))
             feats.append(game.to_features(state))
             pis.append(pi)
+            if record_states:
+                roots.append(state)
             state = _where(done, state, game.step(state, action))
             now_done, tv = game.terminal(state)
             outcome = torch.where(~done & now_done, tv, outcome)
@@ -259,7 +363,10 @@ def make_selfplay_fn(
         valid = torch.stack(valid) & done[None, :]
         value = sign * outcome[None, :] * valid
         traj = Trajectory(torch.stack(feats), torch.stack(pis), value, valid)
-        return traj, SelfPlayStats(outcome=outcome, num_moves=moves, done=done)
+        stats = SelfPlayStats(outcome=outcome, num_moves=moves, done=done)
+        if record_states:
+            return traj, stats, torch.stack(roots)
+        return traj, stats
 
     return play_games
 
@@ -290,9 +397,9 @@ def make_recycling_selfplay_fn(
 
     Stats: ``outcome`` the terminal value of each game's last closure in
     the call (0 if none), ``num_moves`` = S, ``done`` whether any episode
-    closed. tree_reuse, forced playouts, transposition and playout-cap
-    randomization raise the JAX package's ``ValueError``; Gumbel search is
-    not ported."""
+    closed. With ``mcts_cfg.gumbel`` every move is Gumbel search's
+    (``_make_mover``). tree_reuse, forced playouts, transposition and
+    playout-cap randomization raise the JAX package's ``ValueError``."""
     if getattr(mcts_cfg, "tree_reuse", False):
         raise ValueError("recycling self-play is incompatible with tree_reuse")
     if getattr(mcts_cfg, "forced_playouts", None) is not None:
@@ -302,6 +409,8 @@ def make_recycling_selfplay_fn(
     if getattr(sp_cfg, "full_search_prob", None) is not None:
         raise ValueError("recycling self-play is incompatible with playout-cap randomization")
     _check_ported(mcts_cfg)
+    if getattr(mcts_cfg, "gumbel", False):
+        check_gumbel_config(mcts_cfg)
     B = sp_cfg.batch_size
     M = game.max_moves
     S = getattr(sp_cfg, "recycle_steps", None) or sp_cfg.max_moves or M
@@ -322,7 +431,7 @@ def make_recycling_selfplay_fn(
         )
 
     def play(model, carry: ActorCarry, draws: DrawsFn):
-        root_counts = _make_root_counts_fn(game, make_apply_fn(model), mcts_cfg)
+        move = _make_mover(game, make_apply_fn(model), mcts_cfg)
         dev = carry.move_count.device
         fresh = game.init(B, dev)
         games = torch.arange(B, device=dev)
@@ -330,7 +439,7 @@ def make_recycling_selfplay_fn(
         ff, fp = carry.frag_features.clone(), carry.frag_pi.clone()
         feats, pis, closed, tvs, truncs = [], [], [], [], []
         for t in range(S):
-            pi, action = _move(root_counts, state, (mc < sp_cfg.temp_threshold).float(), draws(t))
+            pi, action = move(state, (mc < sp_cfg.temp_threshold).float(), draws(t))
             f = game.to_features(state)
             row = mc.long()
             ff[row, games] = f

@@ -14,8 +14,9 @@ self-play, the replay ring, the learner step and back); then the coach
 (gate arena, anchored rating pass, whole-state checkpoint and resume); then
 the coach on Othello, Gomoku, Hex and the Connect-Four ``AZConvNet``; then
 the dense engine (plain PyTorch, the engine ladder's last rung), forced
-playouts in the fixed scan, and the play and analyze CLIs — on one CUDA
-card, in phases:
+playouts in the fixed scan, and the play and analyze CLIs; then the
+training economy (Gumbel search, the ``economy`` preset, playout-cap
+randomization, reanalyze) — on one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``,
@@ -297,7 +298,40 @@ card, in phases:
            AZResNet-64x5 checkpoint written by ``save_checkpoint``) on "3 3
            4", ``play_othello --sims 200`` with stdin closed, and, through
            ``analyze.main`` in this process (200 sims), a position with an
-           immediate win, which its best move must take.
+           immediate win, which its best move must take;
+20. economy: the training economy (``economy_phase``; Gumbel search is
+           plain PyTorch on the dense engine's parts and launches no
+           kernel, counted with the counters at 0): (a) Gumbel search at
+           the ``economy`` preset's width (AZResNet-64x5 bf16, seeded random
+           weights through the converter, B=4096, 32 sims, max_depth 48, a
+           sampled root Gumbel): root visits sum to 32 on live games, pi'
+           rows to 1, the action legal and most visited; ms a search
+           (twice), and one profiled 8-sim search (launch calls and syncs a
+           simulation, device idle share); then order-free MLPNet (256, 256)
+           weights at B=4096, the first 64 games searched again on the CPU:
+           counts and actions identical; (b) one ``economy`` fixed-scan
+           self-play call (B=4096, 42 steps): seconds, moves/s, valid
+           samples, pi' rows summing to 1 and values +-1/0 on valid rows;
+           (c) playout-cap randomization on the ``mlp`` preset (MLPNet (256,
+           256) order-free, B=512, 50 sims, full_search_prob 0.25, cheap_sims
+           8): exactly 2 ``az_fused_mlp`` launches a step and no other
+           kernel, exactly 128 policy rows a step (the step permutation's
+           first 128; all 128 among live games while every game is live),
+           and step 10's two sub-batch searches (B=128 at 51 nodes, B=384 at
+           9) bit-equal to the plain version; (d) a reanalyze pass of 1024
+           positions recorded with ``record_states`` from a ResNet fixed scan
+           (B=128, 16 sims), re-searched at 100 sims on the hybrid route:
+           100 ``az_descend``, 100 ``az_merge``, 1 ``az_refresh``, and the
+           same pass through the plain versions gives identical counts (the
+           seed takes only fresh planes); (e) one cut ``economy`` coach
+           iteration with reanalyze (self-play B=512, 16 train steps, a
+           64-game Gumbel gate, the anchored pass off): seconds by phase,
+           no kernel launched, the rings' bytes reckoned beside the
+           checkpoint's, and a new Coach resuming from it bit-equal on both
+           rings; (f) ``analyze --engine gumbel`` in this process (200 sims)
+           on a position with an immediate win, which it must recommend.
+           Its ``fused_mlp`` launches and the pass's hybrid launches add to
+           the kernels line's.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -322,7 +356,8 @@ script exits non-zero without that line. Run from the repository root:
 ``python3 chip_smoke.py --learner`` builds the kernels and runs phase 16
 alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone;
 ``python3 chip_smoke.py --games`` runs phase 18 alone, uncut;
-``python3 chip_smoke.py --dense`` runs phase 19 alone.
+``python3 chip_smoke.py --dense`` runs phase 19 alone;
+``python3 chip_smoke.py --economy`` runs phase 20 alone.
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -384,6 +419,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -485,6 +521,15 @@ FORCED_B, FORCED_SIMS, FORCED_K = 2048, 25, 2.0   # phase 19(c): train_compare.p
 FORCED_CPU_B = 64         # ... its games replayed on the CPU
 DENSE_PROFILED_SIMS = 25  # phase 19(a): the profiled dense search's simulations (the profiler's
                           # host time grows with the launches: ~38 s for a 100-sim search)
+ECO_B, ECO_SIMS = 4096, 32   # phase 20(a-b): the economy preset's self-play batch and Gumbel sims
+ECO_SCAN_MOVES = None     # (b): the fixed scan's steps (None: game.max_moves, the preset's)
+ECO_PROFILED_SIMS = 8     # (a): the profiled Gumbel search's simulations
+ECO_CPU_B = 64            # (a): games of the order-free MLP search replayed on the CPU
+PCR_B, PCR_SIMS, PCR_P, PCR_CHEAP = 512, 50, 0.25, 8   # (c): PCR on the mlp preset's scan
+PCR_CHECK_STEP = 10       # (c): the step whose two sub-batch searches are held against plain
+RZ_SCAN_B, RZ_SCAN_SIMS = 128, 16   # (d): the ResNet fixed scan that records positions ...
+RZ_CAP, RZ_R, RZ_SIMS = 1 << 13, 1024, 100   # ... into this ring; the pass re-searches R at SIMS
+ECO_COACH_B, ECO_COACH_STEPS, ECO_COACH_GAMES, ECO_COACH_RZ = 512, 16, 64, 1024   # (e): the cut
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -2842,7 +2887,8 @@ def bits_differ(a, b, where: str = "state"):
 def coach_state(coach) -> dict:
     """What a resume restores: the incumbent (weights, BatchNorm
     statistics, Adam moments, step), the ring, the actor carry, the
-    coach's generator, the counters, the Elo history and the match graph."""
+    reanalyze position ring, the coach's generator, the counters, the Elo
+    history and the match graph."""
     inc = coach.incumbent
     state = {"model": inc.model.state_dict(), "optimizer": inc.optimizer.state_dict(),
              "step": inc.step, "replay": coach.replay._asdict(), "rng": coach.rng.get_state(),
@@ -2850,6 +2896,8 @@ def coach_state(coach) -> dict:
              "elo": [coach.elo.ratings, coach.elo.history], "pool_matches": coach.pool_matches}
     if coach.actor_carry is not None:
         state["actor"] = coach.actor_carry._asdict()
+    if coach.positions is not None:
+        state["positions"] = coach.positions._asdict()
     return state
 
 
@@ -3263,7 +3311,7 @@ def dense_phase(card: str, dev=None) -> None:
           f"{int(stats.done.sum())} of {FORCED_B} games done; pruned targets sum to 1 on every "
           f"valid row | {card}", flush=True)
     n = FORCED_CPU_B
-    cpu_draws = [type(d)(*(x[:n].cpu() for x in d)) for d in draws]
+    cpu_draws = [type(d)(*(None if x is None else x[:n].cpu() for x in d)) for d in draws]
     play_cpu = make_selfplay_fn(c4, f_cfg, dataclasses.replace(f_sp, batch_size=n), device="cpu")
     (c_traj, c_stats), c_sec = timed_sync(lambda: play_cpu(model.cpu(), lambda t: cpu_draws[t]))
     for name in ("features", "value", "valid"):
@@ -3346,6 +3394,308 @@ def dense_phase(card: str, dev=None) -> None:
     print("[dense] phase 19: " + ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
                                           in zip(marks, marks[1:]))
           + f"; {marks[-1][1] - marks[0][1]:.1f} s in all | {card}", flush=True)
+
+
+def economy_phase(card: str, dev=None) -> dict:
+    """Phase 20: the training economy (see the module docstring), on
+    ``dev`` (the card): Gumbel search, the ``economy`` fixed scan,
+    playout-cap randomization, a reanalyze pass, a cut ``economy`` coach
+    iteration with reanalyze, and ``analyze --engine gumbel``. Gumbel search
+    is plain PyTorch on the dense engine and launches no kernel; PCR's two
+    sub-batch searches launch ``az_fused_mlp``, the PUCT reanalyze pass the
+    hybrid kernels. Returns those launches (the counters at 0 just before
+    each and read just after), which the kernels line adds."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.checkpoint import save_checkpoint
+    from alphazero_tpu_torch.coach import Coach
+    from alphazero_tpu_torch.config import MCTSConfig, ReanalyzeConfig, SelfPlayConfig
+    from alphazero_tpu_torch.examples import analyze
+    from alphazero_tpu_torch.examples.train_connect_four import preset
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts import PLAIN, hybrid, make_gumbel_search_fn
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        convert_mlp,
+        make_apply_fn,
+        order_free_mlp_variables,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+    from alphazero_tpu_torch.reanalyze import make_reanalyze_fn, position_init, position_insert
+    from alphazero_tpu_torch.selfplay import _make_root_counts_fn, make_selfplay_fn
+
+    dev = dev or torch.device("cuda", 0)
+    c4 = ConnectFour()
+    A = c4.num_actions
+    marks = [("start", time.perf_counter())]
+    out = {}
+
+    def resnet():
+        """AZResNet-64x5 in bf16, seeded random weights through the converter."""
+        return convert_az_resnet(random_az_resnet_variables(A, 64, 5, seed=SEED),
+                                 dtype=torch.bfloat16).to(dev)
+
+    def no_launches(tag: str) -> None:
+        if kernels.launch_counts() != launches_of(kernels):
+            fail(f"economy {tag} launched kernels {launched(kernels.launch_counts())}")
+
+    def gumbel_checks(tag: str, roots, res, sims: int) -> None:
+        """Root visits sum to ``sims`` on live games, pi' rows to 1 where a
+        move is legal, the action legal and most visited."""
+        counts = res.tree.root_counts()
+        conserved(f"economy {tag}", c4, roots, counts, sims)
+        live = ~c4.terminal(roots)[0]
+        valid = c4.valid_moves(roots)
+        movable = valid.any(dim=1)
+        if not bool(((res.improved_pi.sum(dim=1) - 1.0).abs()[movable] <= 1e-5).all()):
+            fail(f"economy {tag}: an improved policy does not sum to 1")
+        act = res.action[:, None]
+        if not bool(valid.gather(1, act)[movable].all()):
+            fail(f"economy {tag}: an action is illegal")
+        if not bool((counts.gather(1, act)[:, 0] == counts.amax(dim=1))[live].all()):
+            fail(f"economy {tag}: an action is not among the most visited")
+
+    # ---- (a) Gumbel search at the economy preset's width -----------------
+    cfg = MCTSConfig(num_sims=ECO_SIMS, max_depth=MAX_DEPTH, gumbel=True)
+    roots = random_positions(c4, ECO_B, 30, SEED, dev)
+    g = sample_draws(torch.Generator(device=dev).manual_seed(SEED), ECO_B, A, None, dev).gumbel
+    net = make_apply_fn(resnet())
+    gsearch = make_gumbel_search_fn(c4, net, cfg)
+    times = []
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        res, sec = timed_sync(lambda: gsearch(roots, g))
+        no_launches("Gumbel search")
+        times.append(1e3 * sec)
+    gumbel_checks("Gumbel search", roots, res, ECO_SIMS)
+    marks.append(("(a) search", time.perf_counter()))
+    n_prof = ECO_PROFILED_SIMS
+    wall, busy, top, calls, syncs = profile_step(lambda: gsearch(roots, g, num_sims=n_prof))
+    print(f"[economy] Gumbel search, AZResNet-64x5 bf16, B={ECO_B}, {ECO_SIMS} sims, max_depth "
+          f"{MAX_DEPTH}: {times[0]:.1f}/{times[1]:.1f} ms a search ({times[1] / ECO_SIMS:.2f} ms "
+          f"a simulation), no kernel launched; visits sum to {ECO_SIMS} on live roots, pi' rows "
+          f"to 1, actions legal and most visited | one profiled search of {n_prof} sims: "
+          f"{wall:.3f} ms wall (profiler on), device busy {busy:.3f} ms, idle "
+          f"{100 * (1 - busy / wall):.1f}%, {calls / n_prof:.1f} host launch calls and "
+          f"{syncs / n_prof:.2f} host synchronisations a simulation | {card}", flush=True)
+    for name, ms, count in top[:6]:
+        print(f"[economy]   {ms:9.3f} ms {count:6d}x {name[:100]}", flush=True)
+    marks.append(("(a) profile", time.perf_counter()))
+    mlp = convert_mlp(order_free_mlp_variables(A, MLP_HIDDEN, seed=SEED))
+    cpu_net = make_apply_fn(mlp)
+    res_d = make_gumbel_search_fn(c4, make_apply_fn(mlp.to(dev)), cfg)(roots, g)
+    n = ECO_CPU_B
+    res_c = make_gumbel_search_fn(c4, cpu_net, cfg)(roots[:n].cpu(), g[:n].cpu())
+    gumbel_checks("order-free MLP search", roots, res_d, ECO_SIMS)
+    if not (torch.equal(res_d.tree.root_counts()[:n].cpu(), res_c.tree.root_counts())
+            and torch.equal(res_d.action[:n].cpu(), res_c.action)):
+        fail(f"economy: the card's Gumbel search of the first {n} games differs from the CPU's")
+    dpi = float((res_d.improved_pi[:n].cpu() - res_c.improved_pi).abs().max())
+    print(f"[economy] Gumbel search, MLPNet {MLP_HIDDEN} order-free, B={ECO_B}, {ECO_SIMS} sims: "
+          f"the first {n} games on the CPU give identical root counts and actions, pi' within "
+          f"{dpi:.3g} | {card}", flush=True)
+    del res, res_d, gsearch
+    marks.append(("(a) CPU", time.perf_counter()))
+
+    # ---- (b) one economy fixed-scan self-play call -----------------------
+    _, eco = preset("economy", SEED)
+    sp = dataclasses.replace(eco.selfplay, batch_size=ECO_B, max_moves=ECO_SCAN_MOVES)
+    play = make_selfplay_fn(c4, eco.mcts, sp, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    model = resnet()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    (traj, stats), sec = timed_sync(
+        lambda: play(model, lambda t: sample_draws(gen, ECO_B, A, None, dev)))
+    no_launches("fixed scan")
+    valid = traj.valid
+    sums = traj.pi[valid].sum(dim=-1)
+    if not bool(((sums - 1.0).abs() <= 1e-5).all()):
+        fail("economy fixed scan: a valid row's improved policy does not sum to 1")
+    values = traj.value[valid]
+    if not bool(((values == 1) | (values == -1) | (values == 0)).all()):
+        fail("economy fixed scan: a valid row's value is not +-1 or 0")
+    moves = int(stats.num_moves.sum())
+    steps = traj.pi.shape[0]
+    print(f"[economy] the economy preset's fixed scan (Gumbel, {eco.mcts.num_sims} sims, "
+          f"AZResNet-64x5 bf16), B={ECO_B}, {steps} steps: one call {sec:.3f} s "
+          f"({1e3 * sec / steps:.1f} ms a step, {1e3 * sec / (steps * eco.mcts.num_sims):.2f} ms a "
+          f"simulation), {moves} moves ({moves / sec:.1f} moves/s), {int(valid.sum())} valid "
+          f"samples, {int(stats.done.sum())} of {ECO_B} games done; pi' rows sum to 1 and values "
+          f"are +-1/0 on every valid row; no kernel launched; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
+    del traj, stats, play
+    marks.append(("(b)", time.perf_counter()))
+
+    # ---- (c) playout-cap randomization on the mlp preset -----------------
+    _, mlp_cfg = preset("mlp", SEED)
+    mcfg = dataclasses.replace(mlp_cfg.mcts, num_sims=PCR_SIMS)
+    sp = dataclasses.replace(mlp_cfg.selfplay, batch_size=PCR_B, full_search_prob=PCR_P,
+                             cheap_sims=PCR_CHEAP)
+    n_full = int(round(PCR_P * PCR_B))
+    play = make_selfplay_fn(c4, mcfg, sp, device=dev, record_states=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    draws = [sample_draws(gen, PCR_B, A, mcfg.dirichlet_alpha, dev, permute=True)
+             for _ in range(c4.max_moves)]
+    kernels.reset_launch_counts()
+    (traj, stats, states), sec = timed_sync(lambda: play(mlp, lambda t: draws[t]))
+    got = dict(kernels.launch_counts())
+    steps = traj.pi.shape[0]
+    if got != launches_of(kernels, fused_mlp=2 * steps):
+        fail(f"economy PCR: launches {launched(got)}, want 2 fused_mlp a step and no other")
+    out["fused_mlp"] = got["fused_mlp"]
+    sums = traj.pi.sum(dim=-1)
+    full = sums > 0.5
+    if not bool(((sums[full] - 1.0).abs() <= 1e-5).all() and (traj.pi[~full] == 0).all()):
+        fail("economy PCR: a row is neither a distribution nor all zero")
+    per_step = full.sum(dim=1)
+    live = torch.arange(steps, device=dev)[:, None] < stats.num_moves[None, :]
+    live_rows = (full & live).sum(dim=1)
+    all_live = live.all(dim=1)
+    if not bool((per_step == n_full).all()) or not bool((live_rows <= n_full).all()) \
+            or not bool((live_rows[all_live] == n_full).all()):
+        fail(f"economy PCR: policy rows a step {per_step.tolist()} (among live games "
+             f"{live_rows.tolist()}), want {n_full}")
+    for t in range(steps):
+        if not bool(full[t][draws[t].perm[:n_full]].all()):
+            fail(f"economy PCR: step {t}'s policy rows are not its permutation's first {n_full}")
+    vo = int((traj.valid & ~full).sum())
+    print(f"[economy] PCR on the mlp preset (MLPNet {MLP_HIDDEN} order-free, B={PCR_B}, "
+          f"{PCR_SIMS} sims, full_search_prob {PCR_P}, cheap_sims {PCR_CHEAP}): one call "
+          f"{sec:.3f} s, {steps} steps; {got['fused_mlp']} az_fused_mlp launches (2 a step) and no "
+          f"other kernel; exactly {n_full} policy rows a step, the permutation's first {n_full} "
+          f"(among live games: {int(live_rows[0])} at step 0, {int(live_rows[all_live].numel())} "
+          f"steps with every game live, {int(live_rows[-1])} at the last); {int(traj.valid.sum())} "
+          f"valid samples, {vo} of them value-only | {card}", flush=True)
+    # the two sub-batch searches of step PCR_CHECK_STEP, through the kernel
+    # and through its plain version: counts and root W bit-equal
+    weights = make_apply_fn(mlp).kernel_eval_factory(FlatOps())
+    sub = states[PCR_CHECK_STEP][draws[PCR_CHECK_STEP].perm]
+    cheap_cfg = dataclasses.replace(mcfg, num_sims=PCR_CHEAP, max_nodes=None, dirichlet_alpha=None)
+    for label, roots_s, scfg in (("full", sub[:n_full], mcfg), ("cheap", sub[n_full:], cheap_cfg)):
+        f_args = fused_mlp_args(c4, make_apply_fn(mlp), weights, roots_s, scfg)
+        ck, wk = kernels.fused_mlp(*f_args)
+        n_all, w_all, _ = plain_fused_mlp(f_args, scfg)()
+        if not (bit_equal(ck, n_all[:, :, 0]) and bit_equal(wk, w_all[:, :, 0])):
+            fail(f"economy PCR: the {label} sub-batch's az_fused_mlp differs from its plain version")
+        print(f"[economy] PCR step {PCR_CHECK_STEP}'s {label} sub-batch (B={roots_s.shape[0]}, "
+              f"{scfg.num_sims} sims, {scfg.nodes} nodes): az_fused_mlp bit-equal to "
+              f"fused_mlp_search (counts and root W)", flush=True)
+    del traj, stats, states, play, draws
+    marks.append(("(c)", time.perf_counter()))
+
+    # ---- (d) a reanalyze pass on the hybrid route ------------------------
+    model = resnet()
+    scan_cfg = MCTSConfig(num_sims=RZ_SCAN_SIMS, max_depth=MAX_DEPTH)
+    play = make_selfplay_fn(c4, scan_cfg, SelfPlayConfig(batch_size=RZ_SCAN_B,
+                                                         temp_threshold=TEMP_THRESHOLD),
+                            device=dev, record_states=True)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    (traj, _, states), scan_s = timed_sync(
+        lambda: play(model, lambda t: sample_draws(gen, RZ_SCAN_B, A, None, dev)))
+    store = position_insert(position_init(c4, RZ_CAP, dev), states, traj.value, traj.valid, 0)
+    rz_cfg = ReanalyzeConfig(batch_size=RZ_R, capacity=RZ_CAP, num_sims=RZ_SIMS)
+    rz_mcts = MCTSConfig(num_sims=RZ_SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0)
+    reanalyze = make_reanalyze_fn(c4, rz_mcts, rz_cfg)
+    idx = torch.randint(0, max(store.size, 1), (RZ_R,), generator=gen, device=dev)
+    kernels.reset_launch_counts()
+    (rz_traj, num, age), sec = timed_sync(lambda: reanalyze(model, store, idx, iteration=1))
+    got = dict(kernels.launch_counts())
+    want = {"descend": RZ_SIMS, "merge": RZ_SIMS, "refresh": 1}
+    if got != launches_of(kernels, **want):
+        fail(f"economy reanalyze: launches {launched(got)} != {want}")
+    out.update({k: got[k] for k in want})
+    search_cfg = dataclasses.replace(rz_mcts, dirichlet_alpha=None)
+    c_plain = hybrid.make_hybrid_root_fn(c4, make_apply_fn(model), search_cfg, kernels=PLAIN)(
+        store.states[idx])
+    pi_plain = c_plain / c_plain.sum(dim=-1, keepdim=True).clamp(min=1.0)
+    if not torch.equal(rz_traj.pi[0], pi_plain):
+        fail("economy reanalyze: the pass through the kernels differs from the plain versions")
+    conserved("economy reanalyze", c4, store.states[idx], c_plain, RZ_SIMS)
+    if num != RZ_R or age != 1.0 or not bool(rz_traj.valid.all()):
+        fail(f"economy reanalyze: {num} rows refreshed, age {age}")
+    print(f"[economy] reanalyze: {store.size} positions recorded (record_states) from a fixed scan "
+          f"of the AZResNet-64x5 (B={RZ_SCAN_B}, {RZ_SCAN_SIMS} sims, {scan_s:.3f} s); a pass of "
+          f"{RZ_R} re-searched at {RZ_SIMS} sims on the hybrid route: {sec:.3f} s, launches "
+          f"{launched(got)}; the same pass through the plain versions gives identical counts "
+          f"(the seed on fresh planes); {num} rows, mean age {age} | {card}", flush=True)
+    del traj, states, store, rz_traj, play
+    marks.append(("(d)", time.perf_counter()))
+
+    # ---- (e) one cut economy coach iteration with reanalyze --------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_economy_") as ckdir:
+        _, eco = preset("economy", SEED, ckdir)
+        cfg = dataclasses.replace(
+            eco,
+            selfplay=dataclasses.replace(eco.selfplay, batch_size=ECO_COACH_B),
+            train=dataclasses.replace(eco.train, steps_per_iteration=ECO_COACH_STEPS),
+            arena=dataclasses.replace(eco.arena, num_games=ECO_COACH_GAMES, anchor_interval=None),
+            reanalyze=ReanalyzeConfig(batch_size=ECO_COACH_RZ,
+                                      capacity=eco.replay.capacity // c4.num_symmetries),
+            checkpoint_interval=1)
+        F = math.prod(c4.feature_shape)
+        ring_bytes = cfg.replay.capacity * (F + A + 1) * F32
+        pos_bytes = cfg.reanalyze.capacity * (math.prod(c4.init(1, "cpu").shape[1:]) + 2 * 4)
+        print(f"[economy] reckoned before the run: the economy replay ring {cfg.replay.capacity} "
+              f"rows x {F + A + 1} f32 = {ring_bytes} bytes ({ring_bytes / 2**20:.1f} MiB), the "
+              f"position ring {cfg.reanalyze.capacity} states x (42 int8 + value + stamp) = "
+              f"{pos_bytes} bytes ({pos_bytes / 2**20:.1f} MiB)", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        coach = Coach(c4, resnet(), cfg, device=dev)
+        kernels.reset_launch_counts()
+        (recs, sec) = timed_sync(lambda: coach.learn(1))
+        got = dict(kernels.launch_counts())
+        rec = recs[0]
+        check_record("economy", rec, cfg.arena.num_games, False)
+        if got != launches_of(kernels):
+            fail(f"economy coach: launches {launched(got)} (Gumbel self-play, reanalyze and gate "
+                 f"run on the dense engine)")
+        if rec["reanalyzed"] != ECO_COACH_RZ or rec["reanalyze_age_mean"] != 0.0:
+            fail(f"economy coach: reanalyze record {rec}")
+        print_record("economy", "economy preset (cut, reanalyze on)", rec, sec, got, card)
+        nbytes = os.path.getsize(os.path.join(ckdir, "ckpt_000001"))
+        resumed, resume_s = timed_sync(lambda: Coach(c4, resnet(), cfg, device=dev))
+        diff = bits_differ(coach_state(coach), coach_state(resumed))
+        if diff:
+            fail(f"economy coach: the resumed coach differs from the live one at {diff}")
+        print(f"[economy] checkpoint 1: {nbytes} bytes ({nbytes / 2**20:.1f} MiB) with the "
+              f"{coach.replay.size}-row replay ring and the {coach.positions.size}-position ring; a "
+              f"new Coach resuming from it in {resume_s:.3f} s is bit-equal on both rings, weights, "
+              f"Adam moments, generator and counters | {card}", flush=True)
+        del coach, resumed
+        torch.cuda.empty_cache()
+    marks.append(("(e)", time.perf_counter()))
+
+    # ---- (f) analyze --engine gumbel in this process ---------------------
+    with tempfile.TemporaryDirectory() as ckpt:
+        save_checkpoint(ckpt, 1, {"incumbent": {"model": convert_az_resnet(
+            random_az_resnet_variables(A, 64, 5, seed=SEED)).state_dict()}})
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = analyze.main(["--engine", "gumbel", "--moves", "3 0 4 0 5 0", "--sims", "200",
+                               "--model", "resnet", "--checkpoint-dir", ckpt,
+                               *(["--cpu"] if dev.type == "cpu" else [])])
+        text = buf.getvalue()
+        if rc != 0 or "gumbel recommendation (eval mode): " not in text:
+            fail(f"analyze --engine gumbel returned {rc}: {text[-500:]}")
+        rec_move = int(text.split("gumbel recommendation (eval mode): ", 1)[1].split()[0])
+        if rec_move not in (2, 6):
+            fail(f"analyze --engine gumbel recommends {rec_move}, not an immediate win (2, 6)")
+        print(f"[economy] analyze --engine gumbel --moves '3 0 4 0 5 0' --sims 200 (a seeded "
+              f"AZResNet-64x5 checkpoint), in this process: {time.perf_counter() - t0:.1f} s, "
+              f"recommends {rec_move}, an immediate win", flush=True)
+    marks.append(("(f)", time.perf_counter()))
+    print("[economy] phase 20: " + ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
+                                            in zip(marks, marks[1:]))
+          + f"; {marks[-1][1] - marks[0][1]:.1f} s in all | {card}", flush=True)
+    return out
 
 
 def actors(card: str) -> None:
@@ -3452,6 +3802,10 @@ def main() -> int:
     if sys.argv[1:] == ["--dense"]:
         kernels.library()
         dense_phase(card)
+        return 0
+    if sys.argv[1:] == ["--economy"]:
+        kernels.library()
+        economy_phase(card)
         return 0
 
     # ---- 2. build ------------------------------------------------------
@@ -3799,6 +4153,12 @@ def main() -> int:
     # ---- 19. the dense engine, forced playouts, the play and analyze CLIs -
     # plain PyTorch: it adds no kernel, and its searches launch none
     dense_phase(card)
+
+    # ---- 20. the training economy: Gumbel search, PCR, reanalyze ----------
+    # Gumbel search launches no kernel; PCR's az_fused_mlp launches and the
+    # reanalyze pass's hybrid ones add to the kernels line's
+    for k, v in economy_phase(card).items():
+        launches[k] += v
 
     print(card)
     print(json.dumps({"kernels": [

@@ -171,9 +171,17 @@ def test_combined_apply_selects_rows_per_game():
     assert logits[:, 0].tolist() == value.tolist()
 
 
-@pytest.mark.parametrize("flag, item", [("gumbel", "The opt-in engines"),
+@pytest.mark.parametrize("flag, item", [("gumbel", "asymmetric per-side budgets"),
                                         ("transposition", "The opt-in engines")])
 def test_unported_engines_raise(flag, item):
+    """Transposition arenas are not ported. Gumbel arenas are
+    (tests/test_torch_gumbel_selfplay.py); what they refuse is the JAX
+    arena's asymmetric budgets."""
+    if flag == "gumbel":
+        with pytest.raises(ValueError, match=item):
+            make_arena_fn(G, MCTSConfig(gumbel=True), 4, device="cpu",
+                          mcts_cfg_inc=MCTSConfig(gumbel=True, num_sims=8))
+        return
     with pytest.raises(NotImplementedError, match=item):
         make_arena_fn(G, MCTSConfig(**{flag: True}), 4, device="cpu")
 

@@ -1,7 +1,8 @@
 """The port's training CLI (``alphazero_tpu_torch.examples.train_connect_four``):
 the presets hold the reference CLI's values (the ``convnet`` preset's
-``AZConvNet`` too), the unported ones are refused with their ROADMAP
-item, and a smoke run on the CPU trains, saves and resumes."""
+``AZConvNet`` too, and the ``economy`` preset's Gumbel search), the
+``--gumbel`` and ``--reanalyze`` overrides set what the JAX CLI sets, and
+a smoke run on the CPU trains, saves and resumes."""
 
 import json
 
@@ -66,14 +67,52 @@ def test_convnet_preset_is_the_reference_parity_net():
     assert (cfg.num_iterations, cfg.seed, cfg.checkpoint_dir) == (10, 2, "d")
 
 
+class _Stop(Exception):
+    pass
+
+
 @pytest.mark.parametrize("argv, item", [
-    (["--preset", "economy"], "The opt-in engines"),
-    (["--gumbel", "8"], "The opt-in engines"),
-    (["--reanalyze", "64"], "The opt-in engines"),
+    (["--preset", "economy"], "economy"),
+    (["--gumbel", "8"], "gumbel"),
+    (["--reanalyze", "64"], "reanalyze"),
 ])
-def test_unported_options_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_options_raise(argv, item, monkeypatch):
+    """Once refused, these run now: the config the CLI hands the coach
+    holds the JAX CLI's values (tests/test_torch_cli_games.py holds them
+    against its ``main()`` too)."""
+    import alphazero_tpu_torch.coach
+
+    got = {}
+
+    def stub(game, model, cfg, *args, **kwargs):
+        got.update(model=model, cfg=cfg)
+        raise _Stop
+
+    monkeypatch.setattr(alphazero_tpu_torch.coach, "Coach", stub)
+    with pytest.raises(_Stop):
         cli.main(argv + ["--cpu"])
+    cfg, model = got["cfg"], got["model"]
+    if item == "economy":
+        assert isinstance(model, AZResNet) and len(model.blocks) == 5
+        assert model.stem.out_channels == 64 and str(model.dtype) == "torch.bfloat16"
+        m = cfg.mcts
+        assert (m.num_sims, m.max_depth, m.gumbel, m.dirichlet_alpha) == (32, 48, True, None)
+        assert (cfg.selfplay.batch_size, cfg.selfplay.temp_threshold, cfg.selfplay.recycle) == (
+            4096, 15, False)
+        assert cfg.replay.capacity == 1 << 20 and cfg.reanalyze is None
+        assert (cfg.train.batch_size, cfg.train.steps_per_iteration) == (1024, 512)
+        a = cfg.arena
+        assert (a.num_games, a.update_threshold, a.num_sims, a.anchor_interval) == (256, 0.55, 50, 5)
+        assert (a.anchor_warmup, a.anchor_warmup_mult, a.pool_cross_matches) == (6, 4, 2)
+        assert a.anchor_ladder == (400, 1600)
+        assert (cfg.num_iterations, cfg.checkpoint_interval, cfg.keep_checkpoints) == (50, 5, 4)
+    elif item == "gumbel":
+        m = cfg.mcts
+        assert (m.gumbel, m.num_sims, m.dirichlet_alpha, m.parallel_sims) == (True, 8, None, 1)
+    else:
+        rz = cfg.reanalyze
+        assert (rz.batch_size, rz.capacity, rz.interval, rz.record_stride) == (
+            64, cfg.replay.capacity // 2, 1, 1)
 
 
 def test_smoke_run_trains_saves_and_resumes(tmp_path, capsys, monkeypatch):

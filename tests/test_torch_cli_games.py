@@ -6,8 +6,10 @@ Each preset equals the JAX CLI's: both ``main()``s run on the same
 arguments with their package's ``Coach`` replaced by a stub that captures
 ``(game, model, cfg)`` and stops, so the reference scripts run unedited;
 the configs must be equal field for field and the models of one kind and
-widths. Smoke runs train, save and resume on the CPU; unported options
-raise and cite their ROADMAP item. ``eval_checkpoints`` prints the JAX
+widths (the Connect-Four ``economy`` preset and the ``--gumbel`` and
+``--reanalyze`` overrides of every CLI too). Smoke runs train, save and
+resume on the CPU; Gomoku boards past the card's descend raise and cite
+their ROADMAP item. ``eval_checkpoints`` prints the JAX
 tool's JSON line (the same keys, score and Elo difference for the same
 match result), and pits two port checkpoints, or one against pure MCTS."""
 
@@ -122,7 +124,9 @@ def _port_model(model, cells: int) -> tuple:
 
 
 CASES = [
-    ("connect_four", p, []) for p in ("smoke", "mlp", "full", "convnet")
+    ("connect_four", p, []) for p in ("smoke", "mlp", "full", "convnet", "economy")
+] + [
+    ("connect_four", "full", ["--replay-capacity", "4096", "--gumbel", "16", "--reanalyze", "32"]),
 ] + [
     ("othello", p, []) for p in ("smoke", "mlp", "full")
 ] + [
@@ -178,9 +182,19 @@ def test_smoke_run_trains_saves_and_resumes(tmp_path, capsys, monkeypatch, game)
     (g, a, "The opt-in engines") for g in ("othello", "gomoku", "hex")
     for a in (["--gumbel", "8"], ["--reanalyze", "64"])
 ] + [("gomoku", ["--size", "23"], "Gomoku boards above 512 cells")])
-def test_unported_options_raise(game, argv, item):
-    with pytest.raises(NotImplementedError, match=item):
-        PORT[game].main(argv + ["--cpu"])
+def test_unported_options_raise(monkeypatch, game, argv, item):
+    """Gomoku boards past the card's descend raise. ``--gumbel`` and
+    ``--reanalyze``, once refused with the opt-in engines' item, are ported:
+    the config they make equals the JAX CLI's."""
+    if "--size" in argv:
+        with pytest.raises(NotImplementedError, match=item):
+            PORT[game].main(argv + ["--cpu"])
+        return
+    want = _jax_cli(monkeypatch, f"train_{game}", argv)
+    got = _port_cli(monkeypatch, game, argv)
+    assert got["cfg"] == port_az_config(want["cfg"])
+    assert got["cfg"].mcts.gumbel == ("--gumbel" in argv)
+    assert (got["cfg"].reanalyze is not None) == ("--reanalyze" in argv)
 
 
 RESULTS = [(3, 1, 0), (0, 4, 0), (2, 2, 4), (8, 0, 0), (0, 0, 0), (5, 0, 3)]

@@ -180,9 +180,11 @@ def test_unported_options_raise():
     cfg = port_cfg(tiny_cfg())
     with pytest.raises(NotImplementedError, match="torch.distributed"):
         Coach(game, MLPNet(7, hidden=(8,)), cfg, mesh=object(), device="cpu")
-    rz = dataclasses.replace(cfg, reanalyze=port_config.ReanalyzeConfig())
-    with pytest.raises(NotImplementedError, match="The opt-in engines"):
-        Coach(game, MLPNet(7, hidden=(8,)), rz, device="cpu")
+    # reanalyze is ported (tests/test_torch_reanalyze.py): the coach records
+    # root states into a position ring of the configured capacity
+    rz = dataclasses.replace(cfg, reanalyze=port_config.ReanalyzeConfig(capacity=64))
+    coach = Coach(game, MLPNet(7, hidden=(8,)), rz, device="cpu")
+    assert coach.positions.states.shape == (64, 6, 7) and coach.positions.size == 0
     rz_rec = dataclasses.replace(rz, selfplay=dataclasses.replace(cfg.selfplay, recycle=True))
     with pytest.raises(ValueError, match="incompatible with reanalyze"):
         Coach(game, MLPNet(7, hidden=(8,)), rz_rec, device="cpu")

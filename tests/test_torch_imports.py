@@ -150,6 +150,55 @@ def test_the_scan_covers_the_dense_engine_and_its_clis():
     assert proc.stdout.count("bye") == 4 and "search best move" in proc.stdout
 
 
+def test_the_scan_covers_the_training_economy():
+    """Gumbel search, playout-cap randomization's draws, reanalyze and the
+    CLI options that reach them are in the scan, and a Gumbel search, a
+    reanalyze pass and ``analyze --engine gumbel`` run with neither JAX nor
+    the JAX package importable."""
+    names = {f.relative_to(PORT).as_posix() for f in _port_sources()}
+    for want in ("mcts/gumbel.py", "reanalyze.py", "ops/policy.py", "examples/cli.py"):
+        assert want in names
+    code = _BLOCK.format(mods=["jax", "jaxlib", "flax", "optax", "orbax", "alphazero_tpu"]) + (
+        "import torch\n"
+        "from alphazero_tpu_torch.config import MCTSConfig, ReanalyzeConfig\n"
+        "from alphazero_tpu_torch.examples import analyze\n"
+        "from alphazero_tpu_torch.games import ConnectFour\n"
+        "from alphazero_tpu_torch.mcts import make_gumbel_search_fn\n"
+        "from alphazero_tpu_torch.models import make_uniform_model\n"
+        "from alphazero_tpu_torch.ops import sample_draws\n"
+        "from alphazero_tpu_torch.reanalyze import make_reanalyze_fn, position_init, "
+        "position_insert\n"
+        "g, cfg = ConnectFour(), MCTSConfig(num_sims=4, gumbel=True)\n"
+        "m = make_uniform_model(g)\n"
+        "d = sample_draws(torch.Generator().manual_seed(0), 2, 7, None, 'cpu', permute=True)\n"
+        "res = make_gumbel_search_fn(g, m.apply_fn, cfg)(g.init(2, 'cpu'), d.gumbel)\n"
+        "assert res.tree.root_counts().sum().item() == 8 and sorted(d.perm.tolist()) == [0, 1]\n"
+        "store = position_insert(position_init(g, 4, 'cpu'), g.init(2, 'cpu')[None], "
+        "torch.ones(1, 2), torch.ones(1, 2, dtype=torch.bool))\n"
+        "rz = make_reanalyze_fn(g, cfg, ReanalyzeConfig(batch_size=2, capacity=4))\n"
+        "assert rz(m, store, torch.zeros(2, dtype=torch.long), d.gumbel)[1] == 2\n"
+        "assert analyze.main(['--cpu', '--engine', 'gumbel', '--sims', '4']) == 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'alphazero_tpu') "
+        "and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+    )
+    proc = _run(code)
+    assert proc.returncode == 0, proc.stderr
+    assert "gumbel recommendation (eval mode)" in proc.stdout
+
+
+def test_only_the_transposition_engine_still_raises():
+    """"The opt-in engines" item is cited by three raise sites, each the
+    transposition engine's (``mcts/tt.py``): the self-play ladder's, the
+    arena's and ``analyze --engine tt``."""
+    hits = {f.relative_to(PORT).as_posix(): f.read_text() for f in _port_sources()
+            if "The opt-in engines" in f.read_text()}
+    assert sorted(hits) == ["arena.py", "examples/analyze.py", "selfplay.py"]
+    for text in hits.values():
+        assert text.count("The opt-in engines") == 1 and "transposition" in text
+
+
 @pytest.mark.parametrize("needle", ["torch.compile", "import triton", "cpp_extension"])
 def test_no_compiler_or_library_kernel_stands_in(needle):
     """The hybrid kernels are hand-written CUDA built with nvcc; nothing in

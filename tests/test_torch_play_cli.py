@@ -1,7 +1,7 @@
 """The port's play and analyze CLIs (``alphazero_tpu_torch/examples/``) on
 the CPU: ``analyze`` finds an immediate win, reads a checkpoint of the
-port's, rejects an illegal or terminal move sequence and refuses the
-unported engines; a scripted ``play_connect_four`` runs as a user runs it
+port's, rejects an illegal or terminal move sequence, refuses the
+transposition engine and prints the JAX CLI's Gumbel analysis; a scripted ``play_connect_four`` runs as a user runs it
 and ends at EOF; ``boardio.render`` draws what the JAX CLIs draw."""
 
 import importlib.util
@@ -85,9 +85,28 @@ def test_analyze_prints_a_terminal_position(capsys):
 
 
 @pytest.mark.parametrize("engine", ["tt", "gumbel"])
-def test_analyze_refuses_the_opt_in_engines(engine):
-    with pytest.raises(NotImplementedError, match="The opt-in engines"):
-        analyze.main(["--engine", engine, "--cpu"])
+def test_analyze_refuses_the_opt_in_engines(engine, capsys, monkeypatch):
+    """``--engine tt`` is not ported and raises. ``--engine gumbel`` is:
+    run in the process, it prints what the JAX CLI prints (the board, the
+    net's value, the eval-mode recommendation, the table with the improved
+    policy and the best move) for the same position and budget."""
+    if engine == "tt":
+        with pytest.raises(NotImplementedError, match="The opt-in engines"):
+            analyze.main(["--engine", engine, "--cpu"])
+        return
+    argv = ["--engine", "gumbel", "--moves", "3 3 2", "--sims", "24"]
+    assert analyze.main(argv + ["--cpu"]) == 0
+    got = capsys.readouterr().out
+    monkeypatch.syspath_prepend(os.path.join(REPO, "examples"))
+    monkeypatch.setattr(sys, "argv", ["analyze.py", *argv, "--cpu"])
+    spec = importlib.util.spec_from_file_location("jax_analyze",
+                                                  os.path.join(REPO, "examples", "analyze.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    module.main()
+    want = capsys.readouterr().out
+    assert "gumbel recommendation (eval mode): " in got and "pi_imp" in got
+    assert got == want
 
 
 def test_play_connect_four_scripted_ends_at_eof():

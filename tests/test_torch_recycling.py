@@ -93,7 +93,9 @@ def test_the_search_refuses_an_f32_mlp():
         (dict(forced_playouts=2.0), {}, ValueError, "forced_playouts"),
         (dict(transposition=True), {}, ValueError, "transposition"),
         ({}, dict(full_search_prob=0.25, cheap_sims=2), ValueError, "playout-cap"),
-        (dict(gumbel=True), {}, NotImplementedError, "The opt-in engines"),
+        # Gumbel recycling is ported (tests/test_torch_gumbel_selfplay.py):
+        # CFG's Dirichlet noise is refused as the JAX engine refuses it
+        (dict(gumbel=True), {}, ValueError, "gumbel search replaces Dirichlet root noise"),
         ({}, dict(recycle_steps=41), ValueError, "recycle_steps=41"),
     ],
     ids=["tree_reuse", "forced_playouts", "transposition", "pcr", "gumbel", "short_steps"],
@@ -107,19 +109,31 @@ def test_recycling_refuses(mcts, sp, err, match):
 @pytest.mark.parametrize(
     "mcts,sp,kw,err,item",
     [
-        ({}, dict(full_search_prob=0.25, cheap_sims=2), {}, NotImplementedError,
-         "The opt-in engines"),
-        (dict(gumbel=True), {}, {}, NotImplementedError, "The opt-in engines"),
+        # playout-cap randomization, Gumbel search and record_states are
+        # ported (tests/test_torch_pcr.py, test_torch_gumbel_selfplay.py,
+        # test_torch_reanalyze.py): their cases pin the JAX ValueErrors and
+        # record_states' third output
+        ({}, dict(full_search_prob=0.25), {}, ValueError, "full_search_prob requires cheap_sims"),
+        (dict(gumbel=True, dirichlet_alpha=None, transposition=True), {}, {}, ValueError,
+         "gumbel is its own root/interior scoring rule"),
         (dict(transposition=True), {}, {}, NotImplementedError, "The opt-in engines"),
         # the fixed scan runs forced playouts on the dense engine, which has
         # no parallel_sims rounds (the JAX ValueError)
         (dict(forced_playouts=2.0, parallel_sims=4), {}, {}, ValueError, "set parallel_sims=1"),
         (dict(tree_reuse=True), {}, {}, NotImplementedError, "Do not port"),
-        ({}, {}, dict(record_states=True), NotImplementedError, "The opt-in engines"),
+        ({}, dict(max_moves=3), dict(record_states=True), None, None),
     ],
     ids=["pcr", "gumbel", "transposition", "forced_playouts", "tree_reuse", "record_states"],
 )
 def test_fixed_scan_refuses_what_is_not_ported(mcts, sp, kw, err, item):
+    build = lambda: make_selfplay_fn(G, dataclasses.replace(CFG, **mcts),   # noqa: E731
+                                     dataclasses.replace(SP, **sp), device="cpu", **kw)
+    if err is None:
+        draws = _draws(3, 3)
+        traj, _, states = build()(make_uniform_model(G), lambda t: draws[t])
+        assert states.shape == (3, B, 6, 7) and states.dtype == torch.int8
+        assert torch.equal(G.to_features(states.reshape(-1, 6, 7)).reshape(traj.features.shape),
+                           traj.features)
+        return
     with pytest.raises(err, match=item):
-        make_selfplay_fn(G, dataclasses.replace(CFG, **mcts), dataclasses.replace(SP, **sp),
-                         device="cpu", **kw)
+        build()

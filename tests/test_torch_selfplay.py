@@ -113,18 +113,21 @@ def test_actor_with_generator_draws():
 
 
 @pytest.mark.parametrize(
-    "cfg,err",
+    "cfg,err,match",
     [
-        (MCTSConfig(transposition=True), NotImplementedError),
-        (MCTSConfig(gumbel=True), NotImplementedError),
+        (MCTSConfig(transposition=True), NotImplementedError, "ROADMAP"),
+        # Gumbel search is ported (tests/test_torch_gumbel_selfplay.py); the
+        # actor refuses its Dirichlet noise with the JAX engine's ValueError
+        (MCTSConfig(gumbel=True, dirichlet_alpha=1.0), ValueError,
+         "gumbel search replaces Dirichlet root noise"),
         # a training-target device of the fixed scan: the actor refuses it
         # where the JAX actor searches unforced (ROADMAP queue 3)
-        (MCTSConfig(forced_playouts=2.0, dirichlet_alpha=1.0), ValueError),
+        (MCTSConfig(forced_playouts=2.0, dirichlet_alpha=1.0), ValueError, "ROADMAP"),
     ],
     ids=["transposition", "gumbel", "forced_playouts"],
 )
-def test_unported_engines_raise(cfg, err):
-    with pytest.raises(err, match="ROADMAP"):
+def test_unported_engines_raise(cfg, err, match):
+    with pytest.raises(err, match=match):
         make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD, device="cpu")
 
 

@@ -108,6 +108,52 @@ def jax_scan_draws(key, steps: int, batch: int, actions: int, alpha) -> list:
     return out
 
 
+def jax_gumbel_scan_draws(key, steps: int, batch: int, actions: int) -> list:
+    """Each step's draws of a JAX Gumbel self-play scan run with ``key``: the
+    same four-way split a step, the search's root sample
+    ``gumbel(k_noise, [B, A])`` in ``Draws.gumbel`` (the move needs no
+    other draw; ``tie`` is ``k_tie``'s uniforms, unused)."""
+    out = []
+    for _ in range(steps):
+        key, k_noise, k_tie, _ = jax.random.split(key, 4)
+        out.append(Draws(None, torch.as_tensor(np.array(jax.random.uniform(k_tie, (batch, actions)))),
+                         torch.as_tensor(np.array(jax.random.gumbel(k_noise, (batch, actions))))))
+    return out
+
+
+def jax_pcr_scan_draws(key, steps: int, batch: int, actions: int, n_full: int, alpha,
+                       gumbel: bool) -> list:
+    """Each step's draws of a JAX playout-cap-randomized scan run with
+    ``key``: the five-way split ``rng, k_noise, k_tie, k_act, k_coin`` a step
+    (selfplay.py :238), the permutation ``permutation(k_coin, B)`` when
+    ``0 < n_full < B``, and the search noise of the two sub-batches from
+    ``kf, kc = split(k_noise)`` in permuted order: the full one's Dirichlet
+    sample (``alpha``), or with ``gumbel`` both sub-batches' root samples,
+    in ``Draws.gumbel``; else ``Draws.gumbel`` is the move's ``k_act`` noise."""
+    out = []
+    n_cheap = batch - n_full
+    for _ in range(steps):
+        key, k_noise, k_tie, k_act, k_coin = jax.random.split(key, 5)
+        kf, kc = jax.random.split(k_noise)
+        perm = None
+        if 0 < n_full < batch:
+            perm = torch.as_tensor(np.array(jax.random.permutation(k_coin, batch))).long()
+        tie = torch.as_tensor(np.array(jax.random.uniform(k_tie, (batch, actions))))
+        dirichlet = None
+        if gumbel:
+            parts = [jax.random.gumbel(k, (n, actions)) for k, n in ((kf, n_full), (kc, n_cheap))
+                     if n > 0]
+            noise = torch.as_tensor(np.concatenate([np.array(x) for x in parts]))
+        else:
+            noise = torch.as_tensor(np.array(jax.random.gumbel(k_act, (batch, actions))))
+            if alpha is not None and n_full > 0:
+                dirichlet = torch.zeros((batch, actions))
+                dirichlet[:n_full] = torch.as_tensor(np.array(
+                    jax.random.dirichlet(kf, jnp.full((actions,), alpha), (n_full,))))
+        out.append(Draws(dirichlet, tie, noise, perm))
+    return out
+
+
 def jax_state(boards: np.ndarray) -> ConnectFourState:
     return ConnectFourState(board=jnp.asarray(boards, jnp.int8))
 
@@ -508,15 +554,17 @@ def port_az_config(jcfg):
     return port_config.AZConfig(**sub, **rest)
 
 
-def jax_arena_ties(seed: int, batch: int, actions: int, moves: int) -> list:
+def jax_arena_ties(seed: int, batch: int, actions: int, moves: int, gumbel: bool = False) -> list:
     """The JAX arena's tie uniforms of each move (``rng, k_tie =
     split(rng)``, then ``uniform(k_tie, [B, A])`` inside
-    ``action_probs``), as torch tensors."""
+    ``action_probs``), or with ``gumbel`` a Gumbel arena's root samples
+    ``gumbel(k_tie, [B, A])``, as torch tensors."""
     key = jax.random.key(seed)
+    draw = jax.random.gumbel if gumbel else jax.random.uniform
     out = []
     for _ in range(moves):
         key, k_tie = jax.random.split(key)
-        out.append(torch.from_numpy(np.array(jax.random.uniform(k_tie, (batch, actions)))))
+        out.append(torch.from_numpy(np.array(draw(k_tie, (batch, actions)))))
     return out
 
 
@@ -537,7 +585,8 @@ def arena_both(jgame, pgame, jax_cand, jax_inc, port_cand, port_inc, num_games, 
     play = jax.jit(jax_make_arena_fn(jgame, jax_cand, jax_inc, jcfg, num_games, mcts_cfg_inc=jinc))
     want = ArenaResult(*(int(x) for x in play(*jax_params, jax.random.key(seed))))
     pinc = None if inc_cfg is None else MCTSConfig(**{**cfg, **inc_cfg})
-    ties = jax_arena_ties(seed, num_games, pgame.num_actions, pgame.max_moves)
+    ties = jax_arena_ties(seed, num_games, pgame.num_actions, pgame.max_moves,
+                          gumbel=cfg.get("gumbel", False))
     got = make_arena_fn(pgame, MCTSConfig(**cfg), num_games, mcts_cfg_inc=pinc, device="cpu")(
         port_cand, port_inc, lambda t: ties[t])
     return want, got
