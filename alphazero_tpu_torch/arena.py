@@ -26,13 +26,14 @@ The search routes are the JAX package's ladder:
   forward, and the move is its halving winner; each move's draw
   ``tie_draws(t)`` is then the search's root Gumbel sample, which keeps
   the games from collapsing onto one line (``tie_draws_from(...,
-  gumbel=True)``).
+  gumbel=True)``);
+* ``mcts_cfg.transposition``: both seats search with the transposition
+  engine (``mcts/tt.py``) on the combined forward.
 
 The JAX package demotes the second of two hybrid engines to its XLA
 engine in an asymmetric arena, to avoid a TPU compiler fault; here both
 sides run on the port's kernels. ``host_chunk`` and ``state_sharding``
-served the TPU and are not ported; a ``mesh`` and transposition arenas
-raise (ROADMAP queue 1).
+served the TPU and are not ported; a ``mesh`` raises (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ from alphazero_tpu_torch.mcts.fused import make_fused_root_fn
 from alphazero_tpu_torch.mcts.gumbel import check_gumbel_config, make_gumbel_search_fn
 from alphazero_tpu_torch.mcts.hybrid import make_hybrid_root_fn
 from alphazero_tpu_torch.mcts.search import dense_root_fn
+from alphazero_tpu_torch.mcts.tt import tt_root_fn
 from alphazero_tpu_torch.models import make_apply_fn
 from alphazero_tpu_torch.ops import action_probs, gumbel_from_uniform
 
@@ -103,19 +105,6 @@ def tie_draws_from(generator: torch.Generator, batch: int, num_actions: int, dev
     return tie_draws
 
 
-def _check_ported(cfg: MCTSConfig, mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded arena runs on a mesh, not yet ported "
-            "(ROADMAP queue 1, \"`parallel/` → `torch.distributed`\")"
-        )
-    if getattr(cfg, "transposition", False):
-        raise NotImplementedError(
-            "an arena on transposition search (mcts/tt.py) is not yet ported "
-            "(ROADMAP queue 1, \"The opt-in engines\")"
-        )
-
-
 def make_arena_fn(
     game,
     mcts_cfg: MCTSConfig,
@@ -135,15 +124,18 @@ def make_arena_fn(
     samples. ``mcts_cfg_inc`` gives the incumbent side its own search
     config. The move loop stops once every game is done: a move past that
     point changes nothing."""
-    for cfg in (mcts_cfg, mcts_cfg_inc):
-        if cfg is not None:
-            _check_ported(cfg, mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            "a sharded arena runs on a mesh, not yet ported "
+            "(ROADMAP queue 1, \"`parallel/` → `torch.distributed`\")"
+        )
     B = num_games
     T = game.max_moves
     if mcts_cfg_inc == mcts_cfg:
         mcts_cfg_inc = None
     gumbel = getattr(mcts_cfg, "gumbel", False)
-    if mcts_cfg_inc is not None and gumbel:
+    transposition = getattr(mcts_cfg, "transposition", False)
+    if mcts_cfg_inc is not None and (gumbel or transposition):
         raise ValueError(
             "asymmetric per-side budgets (mcts_cfg_inc) are a PUCT-engine "
             "feature — not supported with gumbel/transposition arenas"
@@ -182,7 +174,11 @@ def make_arena_fn(
         if gumbel:
             return lambda state, ctm, draw: make_gumbel_search_fn(
                 game, combined_apply(apply_c, apply_i, ctm), mcts_cfg)(state, draw).action
-        root_counts = root_counts_fn(apply_c, apply_i)
+        if transposition:
+            root_counts = lambda state, ctm: tt_root_fn(
+                game, combined_apply(apply_c, apply_i, ctm), mcts_cfg)(state)
+        else:
+            root_counts = root_counts_fn(apply_c, apply_i)
         return lambda state, ctm, draw: action_probs(root_counts(state, ctm), 0.0,
                                                      draw).argmax(dim=-1)
 

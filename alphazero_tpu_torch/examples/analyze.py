@@ -1,19 +1,21 @@
 #!/usr/bin/env python
-"""Analyze a position with the port's dense engine or Gumbel search.
+"""Analyze a position with the port's dense, transposition or Gumbel search.
 
 Counterpart of ``examples/analyze.py``, with its flags. Give a game, an
 optional move sequence from the initial position and a model (a port
 checkpoint, or the pure-MCTS uniform prior); prints the board, the net's
 raw value, a per-action table of prior / visits / Q and the search's best
 move. ``--engine xla`` (the default, the JAX package's name for this
-engine) runs the dense engine; ``--engine gumbel`` runs Gumbel search in
-evaluation mode (no Gumbel sample), prints its recommendation and adds the
-improved policy to the table; ``tt`` is not yet ported. It runs on the
-card unless ``--cpu`` is given.
+engine) runs the dense engine; ``--engine tt`` runs the transposition
+engine, prints the links it made and reads Q from the root children's node
+statistics; ``--engine gumbel`` runs Gumbel search in evaluation mode (no
+Gumbel sample), prints its recommendation and adds the improved policy to
+the table. It runs on the card unless ``--cpu`` is given.
 
 Usage:
   python -m alphazero_tpu_torch.examples.analyze --game connect_four --moves "3 3 4" --sims 400
   python -m alphazero_tpu_torch.examples.analyze --game othello --sims 800 --cpu
+  python -m alphazero_tpu_torch.examples.analyze --engine tt --sims 400
   python -m alphazero_tpu_torch.examples.analyze --engine gumbel --moves "3 3" --sims 64
   python -m alphazero_tpu_torch.examples.analyze --game gomoku \\
       --checkpoint-dir runs/gomoku --model resnet
@@ -49,14 +51,9 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", type=int, default=5)
     ap.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
     args = ap.parse_args(argv)
-    if args.engine == "tt":
-        raise NotImplementedError(
-            "--engine tt: transposition search is not yet ported "
-            "(ROADMAP queue 1, \"The opt-in engines\")"
-        )
 
     from alphazero_tpu_torch.config import MCTSConfig
-    from alphazero_tpu_torch.mcts import make_gumbel_search_fn, make_search_fn
+    from alphazero_tpu_torch.mcts import make_gumbel_search_fn, make_search_fn, make_tt_search_fn
     from alphazero_tpu_torch.models import make_apply_fn
     from alphazero_tpu_torch.ops import masked_policy
 
@@ -107,9 +104,12 @@ def main(argv=None) -> int:
     print(f"\nnet [{label}]: value {float(v_raw[0]):+.3f} (side to move)")
 
     gumbel = args.engine == "gumbel"
-    cfg = MCTSConfig(num_sims=args.sims, max_depth=args.max_depth, gumbel=gumbel,
-                     dirichlet_alpha=None)
-    if gumbel:
+    cfg = MCTSConfig(num_sims=args.sims, max_depth=args.max_depth,
+                     transposition=args.engine == "tt", gumbel=gumbel, dirichlet_alpha=None)
+    if args.engine == "tt":
+        tree = make_tt_search_fn(game, apply_fn, cfg)(state)
+        print(f"transposition links made: {int(tree.dedup[0])}")
+    elif gumbel:
         res = make_gumbel_search_fn(game, apply_fn, cfg)(state)
         tree = res.tree
         improved = res.improved_pi[0].cpu().numpy()

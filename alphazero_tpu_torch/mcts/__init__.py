@@ -10,10 +10,13 @@ from alphazero_tpu_torch.mcts.gumbel import GumbelResult, make_gumbel_search_fn
 from alphazero_tpu_torch.mcts.hybrid import PLAIN, SearchKernels, make_hybrid_root_fn
 from alphazero_tpu_torch.mcts.search import make_search_fn
 from alphazero_tpu_torch.mcts.tree import Tree
+from alphazero_tpu_torch.mcts.tt import TTTree, make_tt_search_fn
 
 __all__ = [
     "Tree",
     "make_search_fn",
+    "TTTree",
+    "make_tt_search_fn",
     "make_gumbel_search_fn",
     "GumbelResult",
     "make_fused_root_fn",

@@ -45,6 +45,7 @@ from alphazero_tpu_torch.mcts.fused import make_fused_root_fn
 from alphazero_tpu_torch.mcts.gumbel import check_gumbel_config, make_gumbel_search_fn
 from alphazero_tpu_torch.mcts.hybrid import make_hybrid_root_fn
 from alphazero_tpu_torch.mcts.search import dense_root_fn, make_search_fn, pruned_root_counts
+from alphazero_tpu_torch.mcts.tt import tt_root_fn
 from alphazero_tpu_torch.models import make_apply_fn
 from alphazero_tpu_torch.ops import Draws, action_probs
 
@@ -77,27 +78,19 @@ class ActorCarry(NamedTuple):
     frag_pi: torch.Tensor        # f32[M, B, A]
 
 
-def _check_ported(mcts_cfg: MCTSConfig) -> None:
-    """Raise for an engine the port lacks: no engine stands in silently
-    for another."""
-    if getattr(mcts_cfg, "transposition", False):
-        raise NotImplementedError(
-            "transposition search (mcts/tt.py) is not yet ported "
-            "(ROADMAP queue 1, \"The opt-in engines\")"
-        )
-
-
 def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., torch.Tensor]:
     """``(state, dirichlet) -> root visit counts f32[B, A]``.
 
-    The port's engine ladder, as in the JAX package: the fused kernel for
-    a model it can evaluate inside the kernel (the uniform prior, or an
-    ``MLPNet`` of the widths its evaluator takes, through its
-    ``kernel_eval_factory``) on Connect-Four, on any device; then the
-    hybrid engine for any model on a flat-ops game, which also takes what
-    the fused kernel declines; then the dense engine (``mcts/search.py``)
-    for what both decline. The engines the port lacks raise."""
-    _check_ported(mcts_cfg)
+    The port's engine ladder, as in the JAX package: the transposition
+    engine (``mcts/tt.py``) first when ``mcts_cfg.transposition`` opts in;
+    else the fused kernel for a model it can evaluate inside the kernel
+    (the uniform prior, or an ``MLPNet`` of the widths its evaluator
+    takes, through its ``kernel_eval_factory``) on Connect-Four, on any
+    device; then the hybrid engine for any model on a flat-ops game, which
+    also takes what the fused kernel declines; then the dense engine
+    (``mcts/search.py``) for what both decline."""
+    if getattr(mcts_cfg, "transposition", False):
+        return tt_root_fn(game, apply_fn, mcts_cfg)
     return (make_fused_root_fn(game, apply_fn, mcts_cfg)
             or make_hybrid_root_fn(game, apply_fn, mcts_cfg)
             or dense_root_fn(game, apply_fn, mcts_cfg))
@@ -163,7 +156,6 @@ def make_actor_step_fn(
             "forced_playouts is a training-target device of the fixed scan "
             "(make_selfplay_fn); the actor step would search unforced (ROADMAP queue 3)"
         )
-    _check_ported(mcts_cfg)
     move = _make_mover(game, apply_fn, mcts_cfg)
     B = batch_size
 
@@ -258,7 +250,6 @@ def make_selfplay_fn(
             "tree reuse (mcts/reuse.py) was measured and rejected and is not ported "
             "(ROADMAP, \"Do not port\")"
         )
-    _check_ported(mcts_cfg)
     if gumbel:
         check_gumbel_config(mcts_cfg)   # when built, as the JAX generator refuses
     if forced is not None and getattr(mcts_cfg, "parallel_sims", 1) > 1:
@@ -408,7 +399,6 @@ def make_recycling_selfplay_fn(
         raise ValueError("recycling self-play is incompatible with transposition")
     if getattr(sp_cfg, "full_search_prob", None) is not None:
         raise ValueError("recycling self-play is incompatible with playout-cap randomization")
-    _check_ported(mcts_cfg)
     if getattr(mcts_cfg, "gumbel", False):
         check_gumbel_config(mcts_cfg)
     B = sp_cfg.batch_size

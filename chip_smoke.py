@@ -16,7 +16,8 @@ the coach on Othello, Gomoku, Hex and the Connect-Four ``AZConvNet``; then
 the dense engine (plain PyTorch, the engine ladder's last rung), forced
 playouts in the fixed scan, and the play and analyze CLIs; then the
 training economy (Gumbel search, the ``economy`` preset, playout-cap
-randomization, reanalyze) — on one CUDA card, in phases:
+randomization, reanalyze); then the transposition-DAG engine through its
+routes — on one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``,
@@ -331,7 +332,27 @@ randomization, reanalyze) — on one CUDA card, in phases:
            rings; (f) ``analyze --engine gumbel`` in this process (200 sims)
            on a position with an immediate win, which it must recommend.
            Its ``fused_mlp`` launches and the pass's hybrid launches add to
-           the kernels line's.
+           the kernels line's;
+21. tt:    the transposition-DAG engine (``tt_phase``; plain PyTorch, it
+           launches no kernel, counted with the counters at 0 around each
+           search): (a) ``tests/tpu_goldens.json``'s ``tt_c4_uniform_*``
+           heads (Connect-Four, uniform model, B=64 positions of
+           tests/test_fused.py's generator, 25 sims, max_depth 48); (b) a
+           deep search at ``bench_tt``'s defaults (uniform, B=512, 400 sims,
+           max_depth 48): the first 64 games' root counts and links equal
+           to the CPU's, every live row's counts summing to 400, links made;
+           ms a search and a simulation, peak memory, one profiled search
+           cut to 25 sims (launch calls and syncs a simulation, device idle
+           share), and the dense engine's search of the same roots for the
+           cost ratio; (c) Othello (uniform, B=256, 200 sims, max_depth 64),
+           the first 16 games equal to the CPU's; (d) MLPNet (256, 256) with
+           order-free weights on Connect-Four (B=512, 100 sims), every game
+           equal to the CPU's; (e) the routes: the transposition fixed scan
+           (uniform, B=512, 50 sims, Dirichlet 1.0: s a call, moves/s), a
+           64-game transposition arena at 25 sims (order-free MLPNet against
+           the uniform model, results summing to 64) and ``analyze --engine
+           tt --sims 400`` from the initial position in this process (links
+           made).
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -357,7 +378,8 @@ script exits non-zero without that line. Run from the repository root:
 alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone;
 ``python3 chip_smoke.py --games`` runs phase 18 alone, uncut;
 ``python3 chip_smoke.py --dense`` runs phase 19 alone;
-``python3 chip_smoke.py --economy`` runs phase 20 alone.
+``python3 chip_smoke.py --economy`` runs phase 20 alone;
+``python3 chip_smoke.py --tt`` runs phase 21 alone.
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -530,6 +552,14 @@ PCR_CHECK_STEP = 10       # (c): the step whose two sub-batch searches are held 
 RZ_SCAN_B, RZ_SCAN_SIMS = 128, 16   # (d): the ResNet fixed scan that records positions ...
 RZ_CAP, RZ_R, RZ_SIMS = 1 << 13, 1024, 100   # ... into this ring; the pass re-searches R at SIMS
 ECO_COACH_B, ECO_COACH_STEPS, ECO_COACH_GAMES, ECO_COACH_RZ = 512, 16, 64, 1024   # (e): the cut
+TT_GOLDEN_B, TT_GOLDEN_SIMS = 64, 25   # phase 21(a): tests/test_tpu_gate.py's tt golden search
+TT_B, TT_SIMS = 512, 400  # (b): bench_tt's defaults (--batch, --sims)
+TT_CPU_B = 64             # (b): games of the deep search replayed on the CPU
+TT_PROFILED_SIMS = 25     # (b): the profiled search's simulations
+TT_OTH_B, TT_OTH_SIMS, TT_OTH_DEPTH, TT_OTH_CPU_B = 256, 200, 64, 16   # (c)
+TT_MLP_B, TT_MLP_SIMS = 512, 100   # (d)
+TT_SCAN_B, TT_SCAN_SIMS = 512, 50  # (e): the transposition fixed scan
+TT_ARENA_GAMES, TT_ARENA_SIMS = 64, 25   # (e): the transposition arena
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -3698,6 +3728,188 @@ def economy_phase(card: str, dev=None) -> dict:
     return out
 
 
+def tt_phase(card: str, dev=None) -> None:
+    """Phase 21: the transposition-DAG engine (see the module docstring),
+    on ``dev`` (the card). Plain PyTorch: the counters are set to 0 just
+    before each of its searches and read just after, and must read 0."""
+    import contextlib
+    import io
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.arena import make_arena_fn, tie_draws_from
+    from alphazero_tpu_torch.config import MCTSConfig, SelfPlayConfig
+    from alphazero_tpu_torch.examples import analyze
+    from alphazero_tpu_torch.games import ConnectFour, Othello
+    from alphazero_tpu_torch.mcts import make_search_fn, make_tt_search_fn
+    from alphazero_tpu_torch.models import (
+        convert_mlp,
+        make_apply_fn,
+        make_uniform_model,
+        order_free_mlp_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+    from alphazero_tpu_torch.selfplay import make_selfplay_fn
+
+    dev = dev or torch.device("cuda", 0)
+    c4, oth = ConnectFour(), Othello()
+    marks = [("start", time.perf_counter())]
+
+    def tt(game, apply_fn, sims: int, depth: int):
+        return make_tt_search_fn(game, apply_fn, MCTSConfig(num_sims=sims, max_depth=depth,
+                                                            transposition=True))
+
+    def no_launches(tag: str, run):
+        """``run()`` with the counters at 0 just before and read just after:
+        the engine launches no kernel. Returns its output and seconds."""
+        kernels.reset_launch_counts()
+        out, sec = timed_sync(run)
+        if kernels.launch_counts() != launches_of(kernels):
+            fail(f"tt {tag} launched kernels {launched(kernels.launch_counts())}")
+        return out, sec
+
+    def same_as_cpu(tag: str, game, apply_cpu, sims: int, depth: int, roots, tree, n: int):
+        """The first ``n`` games searched again on the CPU: root counts and
+        links identical. Returns the CPU's seconds."""
+        cpu_tree, sec = no_launches(f"{tag} on the CPU",
+                                    lambda: tt(game, apply_cpu, sims, depth)(roots[:n].cpu()))
+        if not (torch.equal(tree.root_counts()[:n].cpu(), cpu_tree.root_counts())
+                and torch.equal(tree.dedup[:n].cpu(), cpu_tree.dedup)):
+            fail(f"tt {tag}: the card's first {n} games differ from the CPU's")
+        return sec
+
+    # ---- (a) the TPU goldens ---------------------------------------------
+    uni_c4 = make_uniform_model(c4).apply_fn
+    goldens = read_goldens("tpu_goldens.json")
+    roots = fused_test_positions(c4, TT_GOLDEN_B, 6, 17, dev)
+    tree, sec = no_launches("goldens", lambda: tt(c4, uni_c4, TT_GOLDEN_SIMS, MAX_DEPTH)(roots))
+    counts = tree.root_counts()
+    if not (counts[:8].cpu().tolist() == goldens["tt_c4_uniform_counts_head"]
+            and tree.dedup[:16].cpu().tolist() == goldens["tt_c4_uniform_dedup_head"]
+            and float(counts.sum(-1).max()) == TT_GOLDEN_SIMS):
+        fail("tt goldens: tt_c4_uniform_counts_head / dedup_head not reproduced")
+    print(f"[tt] tests/tpu_goldens.json tt_c4_uniform_counts_head and tt_c4_uniform_dedup_head "
+          f"reproduced (B={TT_GOLDEN_B}, {TT_GOLDEN_SIMS} sims, max_depth {MAX_DEPTH}) in "
+          f"{1e3 * sec:.1f} ms, no kernel launched", flush=True)
+    marks.append(("(a)", time.perf_counter()))
+
+    # ---- (b) a deep search at bench_tt's defaults -------------------------
+    roots = random_positions(c4, TT_B, 30, SEED, dev)
+    search = tt(c4, uni_c4, TT_SIMS, MAX_DEPTH)
+    times = []
+    for _ in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        tree, sec = no_launches("deep search", lambda: search(roots))
+        times.append(1e3 * sec)
+    peak = torch.cuda.max_memory_allocated()
+    conserved("tt deep search", c4, roots, tree.root_counts(), TT_SIMS)
+    links = tree.dedup
+    if not bool((links > 0).any()):
+        fail("tt deep search: no transposition link made")
+    cpu_s = same_as_cpu("deep search", c4, make_uniform_model(c4).apply_fn, TT_SIMS, MAX_DEPTH,
+                        roots, tree, TT_CPU_B)
+    dense = make_search_fn(c4, uni_c4, MCTSConfig(num_sims=TT_SIMS, max_depth=MAX_DEPTH))
+    dense_ms = []
+    for _ in range(2):
+        _, sec = no_launches("dense search", lambda: dense(roots))
+        dense_ms.append(1e3 * sec)
+    print(f"[tt] deep search, C4 uniform, B={TT_B}, {TT_SIMS} sims, max_depth {MAX_DEPTH}: "
+          f"{times[0]:.1f}/{times[1]:.1f} ms a search ({times[1] / TT_SIMS:.3f} ms a simulation), "
+          f"no kernel launched; {int(links.sum())} links in all ({float(links.float().mean()):.1f} "
+          f"a game, {int((links > 0).sum())} of {TT_B} games), {int(tree.count.sum())} nodes "
+          f"materialised ({float(tree.count.float().mean()):.1f} a game); peak memory "
+          f"{peak / 2**30:.3f} GiB; the first {TT_CPU_B} games on the CPU ({cpu_s:.1f} s): "
+          f"identical counts and links | the dense engine on the same roots "
+          f"{dense_ms[0]:.1f}/{dense_ms[1]:.1f} ms a search: the DAG costs "
+          f"{times[1] / dense_ms[1]:.2f}x | {card}", flush=True)
+    marks.append(("(b) searches", time.perf_counter()))
+    n_prof = TT_PROFILED_SIMS
+    wall, busy, top, calls, syncs = profile_step(lambda: search(roots, num_sims=n_prof))
+    print(f"[tt] one profiled deep-search call of {n_prof} sims: {wall:.3f} ms wall (profiler "
+          f"on), device busy {busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}%, {calls} host "
+          f"launch calls ({calls / n_prof:.1f} a simulation), {syncs} host synchronisations "
+          f"({syncs / n_prof:.2f} a simulation: one a descent level) | {card}", flush=True)
+    for name, ms, count in top[:6]:
+        print(f"[tt]   {ms:9.3f} ms {count:6d}x {name[:100]}", flush=True)
+    del tree, search, dense
+    marks.append(("(b) profile", time.perf_counter()))
+
+    # ---- (c) Othello -------------------------------------------------------
+    uni_oth = make_uniform_model(oth).apply_fn
+    roots = random_positions(oth, TT_OTH_B, 40, SEED, dev)
+    tree, sec = no_launches("Othello", lambda: tt(oth, uni_oth, TT_OTH_SIMS, TT_OTH_DEPTH)(roots))
+    conserved("tt Othello", oth, roots, tree.root_counts(), TT_OTH_SIMS)
+    cpu_s = same_as_cpu("Othello", oth, make_uniform_model(oth).apply_fn, TT_OTH_SIMS,
+                        TT_OTH_DEPTH, roots, tree, TT_OTH_CPU_B)
+    print(f"[tt] Othello uniform, B={TT_OTH_B}, {TT_OTH_SIMS} sims, max_depth {TT_OTH_DEPTH}: "
+          f"{1e3 * sec:.1f} ms a search ({1e3 * sec / TT_OTH_SIMS:.3f} ms a simulation), "
+          f"{int(tree.dedup.sum())} links, no kernel launched; the first {TT_OTH_CPU_B} games on "
+          f"the CPU ({cpu_s:.1f} s): identical counts and links | {card}", flush=True)
+    del tree
+    marks.append(("(c)", time.perf_counter()))
+
+    # ---- (d) an order-free MLPNet --------------------------------------------
+    variables = order_free_mlp_variables(c4.num_actions, MLP_HIDDEN, seed=SEED)
+    cpu_net = make_apply_fn(convert_mlp(variables))
+    mlp = convert_mlp(variables).to(dev)
+    mlp_net = make_apply_fn(mlp)
+    roots = random_positions(c4, TT_MLP_B, 30, SEED + 1, dev)
+    tree, sec = no_launches("MLP", lambda: tt(c4, mlp_net, TT_MLP_SIMS, MAX_DEPTH)(roots))
+    conserved("tt MLP", c4, roots, tree.root_counts(), TT_MLP_SIMS)
+    cpu_s = same_as_cpu("MLP", c4, cpu_net, TT_MLP_SIMS, MAX_DEPTH, roots, tree, TT_MLP_B)
+    print(f"[tt] MLPNet {MLP_HIDDEN} order-free, C4, B={TT_MLP_B}, {TT_MLP_SIMS} sims: "
+          f"{1e3 * sec:.1f} ms a search ({1e3 * sec / TT_MLP_SIMS:.3f} ms a simulation), "
+          f"{int(tree.dedup.sum())} links, no kernel launched; all {TT_MLP_B} games on the CPU "
+          f"({cpu_s:.1f} s): identical counts and links | {card}", flush=True)
+    del tree
+    marks.append(("(d)", time.perf_counter()))
+
+    # ---- (e) the routes: fixed scan, arena, analyze --engine tt ---------------
+    scfg = MCTSConfig(num_sims=TT_SCAN_SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0,
+                      transposition=True)
+    play = make_selfplay_fn(c4, scfg, SelfPlayConfig(batch_size=TT_SCAN_B,
+                                                    temp_threshold=TEMP_THRESHOLD), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    (traj, stats), sec = no_launches("fixed scan", lambda: play(
+        make_uniform_model(c4), lambda t: sample_draws(gen, TT_SCAN_B, c4.num_actions, 1.0, dev)))
+    valid = traj.valid
+    if not bool(((traj.pi[valid].sum(dim=-1) - 1.0).abs() <= 1e-5).all()):
+        fail("tt fixed scan: a valid row's target does not sum to 1")
+    moves = int(stats.num_moves.sum())
+    print(f"[tt] the transposition fixed scan, C4 uniform, B={TT_SCAN_B}, {TT_SCAN_SIMS} sims, "
+          f"Dirichlet 1.0: one call {sec:.3f} s, {moves} moves ({moves / sec:.1f} moves/s), "
+          f"{int(valid.sum())} valid samples, {int(stats.done.sum())} of {TT_SCAN_B} games done; "
+          f"no kernel launched | {card}", flush=True)
+    del traj, stats, play
+    acfg = MCTSConfig(num_sims=TT_ARENA_SIMS, max_depth=MAX_DEPTH, transposition=True)
+    ties = tie_draws_from(torch.Generator(device=dev).manual_seed(SEED), TT_ARENA_GAMES,
+                          c4.num_actions, dev)
+    result, sec = no_launches("arena", lambda: make_arena_fn(
+        c4, acfg, TT_ARENA_GAMES, device=dev)(mlp, make_uniform_model(c4), ties))
+    if result.cand_wins + result.inc_wins + result.draws + result.unfinished != TT_ARENA_GAMES \
+            or result.unfinished:
+        fail(f"tt arena: {result}")
+    print(f"[tt] a transposition arena, MLPNet {MLP_HIDDEN} order-free against the uniform model, "
+          f"{TT_ARENA_GAMES} games at {TT_ARENA_SIMS} sims: {tuple(result)} (wins, losses, draws, "
+          f"unfinished) in {sec:.1f} s, no kernel launched | {card}", flush=True)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        (rc, sec) = no_launches("analyze", lambda: analyze.main(
+            ["--engine", "tt", "--sims", "400", *(["--cpu"] if dev.type == "cpu" else [])]))
+    text = buf.getvalue()
+    if rc != 0 or "transposition links made: " not in text:
+        fail(f"analyze --engine tt returned {rc}: {text[-500:]}")
+    made = int(text.split("transposition links made: ", 1)[1].split()[0])
+    best = text.rsplit("search best move: ", 1)[1].strip()
+    if made <= 0:
+        fail("analyze --engine tt --sims 400 made no transposition link")
+    print(f"[tt] analyze --engine tt --sims 400 from the initial position, in this process: "
+          f"{sec:.1f} s, {made} transposition links, search best move {best}", flush=True)
+    marks.append(("(e)", time.perf_counter()))
+    print("[tt] phase 21: " + ", ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t)
+                                       in zip(marks, marks[1:]))
+          + f"; {marks[-1][1] - marks[0][1]:.1f} s in all | {card}", flush=True)
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -3806,6 +4018,9 @@ def main() -> int:
     if sys.argv[1:] == ["--economy"]:
         kernels.library()
         economy_phase(card)
+        return 0
+    if sys.argv[1:] == ["--tt"]:
+        tt_phase(card)
         return 0
 
     # ---- 2. build ------------------------------------------------------
@@ -4159,6 +4374,10 @@ def main() -> int:
     # reanalyze pass's hybrid ones add to the kernels line's
     for k, v in economy_phase(card).items():
         launches[k] += v
+
+    # ---- 21. the transposition-DAG engine through its routes --------------
+    # plain PyTorch: it adds no kernel, and its searches launch none
+    tt_phase(card)
 
     print(card)
     print(json.dumps({"kernels": [

@@ -21,7 +21,13 @@ from alphazero_tpu.config import MCTSConfig as JaxMCTSConfig
 from alphazero_tpu.games import ConnectFour as JaxConnectFour
 from alphazero_tpu.models import make_uniform_model as jax_uniform
 from alphazero_tpu.models.nets import MLPNet as JaxMLPNet
-from alphazero_tpu_torch.arena import ArenaResult, combined_apply, gate, make_arena_fn
+from alphazero_tpu_torch.arena import (
+    ArenaResult,
+    combined_apply,
+    gate,
+    make_arena_fn,
+    tie_draws_from,
+)
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.games import ConnectFour
 from alphazero_tpu_torch.games.connect_four import ROWS, _has_win
@@ -172,18 +178,21 @@ def test_combined_apply_selects_rows_per_game():
 
 
 @pytest.mark.parametrize("flag, item", [("gumbel", "asymmetric per-side budgets"),
-                                        ("transposition", "The opt-in engines")])
+                                        ("transposition", "asymmetric per-side budgets")])
 def test_unported_engines_raise(flag, item):
-    """Transposition arenas are not ported. Gumbel arenas are
-    (tests/test_torch_gumbel_selfplay.py); what they refuse is the JAX
-    arena's asymmetric budgets."""
-    if flag == "gumbel":
-        with pytest.raises(ValueError, match=item):
-            make_arena_fn(G, MCTSConfig(gumbel=True), 4, device="cpu",
-                          mcts_cfg_inc=MCTSConfig(gumbel=True, num_sims=8))
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        make_arena_fn(G, MCTSConfig(**{flag: True}), 4, device="cpu")
+    """Gumbel arenas (tests/test_torch_gumbel_selfplay.py) and transposition
+    arenas (tests/test_torch_tt_routes.py holds them against JAX) are
+    ported; what they refuse is the JAX arena's asymmetric budgets, in its
+    words. A symmetric transposition arena plays every game."""
+    with pytest.raises(ValueError, match=item):
+        make_arena_fn(G, MCTSConfig(**{flag: True}), 4, device="cpu",
+                      mcts_cfg_inc=MCTSConfig(**{flag: True}, num_sims=8))
+    if flag == "transposition":
+        play = make_arena_fn(G, MCTSConfig(num_sims=6, max_depth=16, transposition=True), 4,
+                             device="cpu")
+        uni = make_uniform_model(G)
+        r = play(uni, uni, tie_draws_from(torch.Generator().manual_seed(0), 4, A, "cpu"))
+        assert r.cand_wins + r.inc_wins + r.draws + r.unfinished == 4
 
 
 def test_mesh_raises():

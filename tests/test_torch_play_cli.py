@@ -1,7 +1,7 @@
 """The port's play and analyze CLIs (``alphazero_tpu_torch/examples/``) on
 the CPU: ``analyze`` finds an immediate win, reads a checkpoint of the
-port's, rejects an illegal or terminal move sequence, refuses the
-transposition engine and prints the JAX CLI's Gumbel analysis; a scripted ``play_connect_four`` runs as a user runs it
+port's, rejects an illegal or terminal move sequence, and prints the JAX
+CLI's transposition and Gumbel analyses; a scripted ``play_connect_four`` runs as a user runs it
 and ends at EOF; ``boardio.render`` draws what the JAX CLIs draw."""
 
 import importlib.util
@@ -86,15 +86,12 @@ def test_analyze_prints_a_terminal_position(capsys):
 
 @pytest.mark.parametrize("engine", ["tt", "gumbel"])
 def test_analyze_refuses_the_opt_in_engines(engine, capsys, monkeypatch):
-    """``--engine tt`` is not ported and raises. ``--engine gumbel`` is:
-    run in the process, it prints what the JAX CLI prints (the board, the
-    net's value, the eval-mode recommendation, the table with the improved
-    policy and the best move) for the same position and budget."""
-    if engine == "tt":
-        with pytest.raises(NotImplementedError, match="The opt-in engines"):
-            analyze.main(["--engine", engine, "--cpu"])
-        return
-    argv = ["--engine", "gumbel", "--moves", "3 3 2", "--sims", "24"]
+    """``--engine tt`` and ``--engine gumbel`` are ported: run in the
+    process, each prints what the JAX CLI prints for the same position and
+    budget (the board, the net's value, the transposition links made or the
+    eval-mode recommendation, the table with node-statistics Q or the
+    improved policy, and the best move)."""
+    argv = ["--engine", engine, "--moves", "3 3 2", "--sims", "300" if engine == "tt" else "24"]
     assert analyze.main(argv + ["--cpu"]) == 0
     got = capsys.readouterr().out
     monkeypatch.syspath_prepend(os.path.join(REPO, "examples"))
@@ -105,7 +102,10 @@ def test_analyze_refuses_the_opt_in_engines(engine, capsys, monkeypatch):
     spec.loader.exec_module(module)
     module.main()
     want = capsys.readouterr().out
-    assert "gumbel recommendation (eval mode): " in got and "pi_imp" in got
+    if engine == "tt":
+        assert int(got.split("transposition links made: ")[1].split()[0]) > 0
+    else:
+        assert "gumbel recommendation (eval mode): " in got and "pi_imp" in got
     assert got == want
 
 

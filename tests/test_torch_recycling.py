@@ -2,7 +2,8 @@
 parity is tests/test_torch_selfplay_scan.py): recycling's first episode
 is the fixed scan's under the same draws, every move of a run lands in
 exactly one emitted sample, fragments alternate in sign, the search
-refuses the learner's f32 MLPNet, and what is not ported raises."""
+refuses the learner's f32 MLPNet, what is not ported raises, and the fixed
+scan's moves ride the transposition engine when the config opts in."""
 
 import dataclasses
 
@@ -11,8 +12,9 @@ import torch
 
 from alphazero_tpu_torch.config import MCTSConfig, SelfPlayConfig
 from alphazero_tpu_torch.games import ConnectFour
+from alphazero_tpu_torch.mcts.tt import tt_root_fn
 from alphazero_tpu_torch.models import MLPNet, make_apply_fn, make_uniform_model
-from alphazero_tpu_torch.ops import sample_draws
+from alphazero_tpu_torch.ops import action_probs, sample_draws
 from alphazero_tpu_torch.selfplay import (
     make_recycling_selfplay_fn,
     make_selfplay_fn,
@@ -116,7 +118,9 @@ def test_recycling_refuses(mcts, sp, err, match):
         ({}, dict(full_search_prob=0.25), {}, ValueError, "full_search_prob requires cheap_sims"),
         (dict(gumbel=True, dirichlet_alpha=None, transposition=True), {}, {}, ValueError,
          "gumbel is its own root/interior scoring rule"),
-        (dict(transposition=True), {}, {}, NotImplementedError, "The opt-in engines"),
+        # the transposition engine is ported (tests/test_torch_tt_routes.py
+        # holds its scan against JAX): every move is its search's
+        (dict(transposition=True), dict(max_moves=4), {}, None, "transposition"),
         # the fixed scan runs forced playouts on the dense engine, which has
         # no parallel_sims rounds (the JAX ValueError)
         (dict(forced_playouts=2.0, parallel_sims=4), {}, {}, ValueError, "set parallel_sims=1"),
@@ -128,6 +132,19 @@ def test_recycling_refuses(mcts, sp, err, match):
 def test_fixed_scan_refuses_what_is_not_ported(mcts, sp, kw, err, item):
     build = lambda: make_selfplay_fn(G, dataclasses.replace(CFG, **mcts),   # noqa: E731
                                      dataclasses.replace(SP, **sp), device="cpu", **kw)
+    if err is None and item == "transposition":
+        draws = _draws(5, 4)
+        model = make_uniform_model(G)
+        traj, stats = build()(model, lambda t: draws[t])
+        root_counts = tt_root_fn(G, model.apply_fn, dataclasses.replace(CFG, **mcts))
+        state = G.init(B, "cpu")
+        for t in range(4):
+            assert torch.equal(traj.features[t], G.to_features(state))
+            pi = action_probs(root_counts(state, draws[t].dirichlet), 1.0, draws[t].tie)
+            assert torch.equal(traj.pi[t], pi)
+            state = G.step(state, (torch.log(pi + 1e-12) + draws[t].gumbel).argmax(dim=-1))
+        assert (stats.num_moves == 4).all() and not stats.done.any()
+        return
     if err is None:
         draws = _draws(3, 3)
         traj, _, states = build()(make_uniform_model(G), lambda t: draws[t])

@@ -18,8 +18,9 @@ from alphazero_tpu.models import make_uniform_model as jax_uniform
 from alphazero_tpu.selfplay import make_actor_step_fn as jax_actor_step_fn
 from alphazero_tpu_torch.config import MCTSConfig
 from alphazero_tpu_torch.games import ConnectFour, Othello
+from alphazero_tpu_torch.mcts import make_tt_search_fn
 from alphazero_tpu_torch.models import make_uniform_model
-from alphazero_tpu_torch.ops import sample_draws
+from alphazero_tpu_torch.ops import action_probs, sample_draws
 from alphazero_tpu_torch.selfplay import _make_root_counts_fn, make_actor_step_fn
 from tests.torch_parity import (
     jax_state,
@@ -115,7 +116,10 @@ def test_actor_with_generator_draws():
 @pytest.mark.parametrize(
     "cfg,err,match",
     [
-        (MCTSConfig(transposition=True), NotImplementedError, "ROADMAP"),
+        # the transposition engine is ported (tests/test_torch_tt.py): the
+        # actor rides it, its move the ladder's counts of that engine
+        (MCTSConfig(num_sims=12, max_depth=48, dirichlet_alpha=1.0, transposition=True),
+         None, None),
         # Gumbel search is ported (tests/test_torch_gumbel_selfplay.py); the
         # actor refuses its Dirichlet noise with the JAX engine's ValueError
         (MCTSConfig(gumbel=True, dirichlet_alpha=1.0), ValueError,
@@ -127,8 +131,22 @@ def test_actor_with_generator_draws():
     ids=["transposition", "gumbel", "forced_playouts"],
 )
 def test_unported_engines_raise(cfg, err, match):
+    apply_fn = make_uniform_model(TG).apply_fn
+    if err is None:
+        init, step = make_actor_step_fn(TG, apply_fn, cfg, B, TEMP_THRESHOLD, device="cpu")
+        search = make_tt_search_fn(TG, apply_fn, cfg)
+        gen = torch.Generator().manual_seed(2)
+        state = torch_state(random_boards(B, 12, seed=2))
+        carry = (state, torch.arange(B, dtype=torch.int32) * 3)
+        draws = sample_draws(gen, B, 7, cfg.dirichlet_alpha, "cpu")
+        _, pi = step(carry, draws)
+        counts = search(state, draws.dirichlet).root_counts()
+        assert (counts.sum(1)[~TG.terminal(state)[0]] == cfg.num_sims).all()
+        temp = (carry[1] < TEMP_THRESHOLD).float()
+        assert torch.equal(pi, action_probs(counts, temp, draws.tie))
+        return
     with pytest.raises(err, match=match):
-        make_actor_step_fn(TG, make_uniform_model(TG).apply_fn, cfg, B, TEMP_THRESHOLD, device="cpu")
+        make_actor_step_fn(TG, apply_fn, cfg, B, TEMP_THRESHOLD, device="cpu")
 
 
 def test_game_without_flat_ops_raises():
