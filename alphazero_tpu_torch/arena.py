@@ -30,10 +30,15 @@ The search routes are the JAX package's ladder:
 * ``mcts_cfg.transposition``: both seats search with the transposition
   engine (``mcts/tt.py``) on the combined forward.
 
+Under a ``mesh`` (``parallel/``) each rank plays its share of the games
+(``batch_sharding``, in rank order: the seating is the global batch's),
+takes its rows of every move's global tie draws, and the four totals are
+summed over the ranks, so every rank returns the one-process result.
+
 The JAX package demotes the second of two hybrid engines to its XLA
 engine in an asymmetric arena, to avoid a TPU compiler fault; here both
 sides run on the port's kernels. ``host_chunk`` and ``state_sharding``
-served the TPU and are not ported; a ``mesh`` raises (ROADMAP queue 1).
+served the TPU and are not ported.
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ from alphazero_tpu_torch.mcts.search import dense_root_fn
 from alphazero_tpu_torch.mcts.tt import tt_root_fn
 from alphazero_tpu_torch.models import make_apply_fn
 from alphazero_tpu_torch.ops import action_probs, gumbel_from_uniform
+from alphazero_tpu_torch.parallel.distributed import all_reduce
+from alphazero_tpu_torch.parallel.mesh import Mesh, batch_sharding
 
 TieDraws = Callable[[int], torch.Tensor]
 
@@ -123,12 +130,12 @@ def make_arena_fn(
     (``tie_draws_from``), or with ``mcts_cfg.gumbel`` the root Gumbel
     samples. ``mcts_cfg_inc`` gives the incumbent side its own search
     config. The move loop stops once every game is done: a move past that
-    point changes nothing."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "a sharded arena runs on a mesh, not yet ported "
-            "(ROADMAP queue 1, \"`parallel/` → `torch.distributed`\")"
-        )
+    point changes nothing. ``mesh`` splits the games over its ranks (the
+    module's docstring); ``num_games`` must divide over them."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh), not "
+                        f"{type(mesh).__name__}")
+    rows = slice(None) if mesh is None else batch_sharding(mesh, num_games, "arena's games")
     B = num_games
     T = game.max_moves
     if mcts_cfg_inc == mcts_cfg:
@@ -184,15 +191,16 @@ def make_arena_fn(
 
     def play(model_cand, model_inc, tie_draws: TieDraws) -> ArenaResult:
         move = move_fn(make_apply_fn(model_cand), make_apply_fn(model_inc))
-        state = game.init(B, device)
-        done = torch.zeros(B, dtype=torch.bool, device=device)
-        cand_to_move = torch.arange(B, device=device) < (B + 1) // 2
-        winner_cand = torch.zeros(B, dtype=torch.bool, device=device)
-        is_draw = torch.zeros(B, dtype=torch.bool, device=device)
+        cand_to_move = (torch.arange(B, device=device) < (B + 1) // 2)[rows]
+        b = cand_to_move.shape[0]
+        state = game.init(b, device)
+        done = torch.zeros(b, dtype=torch.bool, device=device)
+        winner_cand = torch.zeros(b, dtype=torch.bool, device=device)
+        is_draw = torch.zeros(b, dtype=torch.bool, device=device)
         for t in range(T):
             if bool(done.all()):
                 break
-            nxt = game.step(state, move(state, cand_to_move, tie_draws(t)))
+            nxt = game.step(state, move(state, cand_to_move, tie_draws(t)[rows]))
             state = torch.where(done.reshape((-1,) + (1,) * (nxt.ndim - 1)), state, nxt)
             now_done, tv = game.terminal(state)
             ended = ~done & now_done
@@ -208,7 +216,10 @@ def make_arena_fn(
         totals = torch.stack([
             (decisive & winner_cand).sum(), (decisive & ~winner_cand).sum(),
             (done & is_draw).sum(), (~done).sum(),
-        ]).tolist()
+        ])
+        if mesh is not None:
+            totals = all_reduce(totals, mesh)
+        totals = totals.tolist()
         return ArenaResult(*(int(x) for x in totals))
 
     return play

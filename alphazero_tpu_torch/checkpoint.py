@@ -13,6 +13,11 @@ once it is whole. A crash therefore leaves either a sidecar with no
 payload, or a temporary file, both of which ``latest_step`` and
 ``newest_ring_step`` do not see (they key off the payload's name), or a
 complete pair.
+
+Under a ``mesh`` (``parallel/``) every rank builds the payload (the whole
+state, the same on every rank once the coach has gathered what it
+shards), rank 0 alone writes it between two barriers, and every rank
+restores it from the shared directory.
 """
 
 from __future__ import annotations
@@ -24,6 +29,8 @@ import tempfile
 from typing import Any, Optional, Tuple
 
 import torch
+
+from alphazero_tpu_torch.parallel.distributed import barrier
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)$")
 
@@ -38,11 +45,25 @@ def _steps(directory: str) -> list:
     return [int(m.group(1)) for name in os.listdir(directory) if (m := _CKPT_RE.match(name))]
 
 
-def save_checkpoint(directory: str, step: int, payload: Any, sidecar: Optional[dict] = None) -> str:
+def save_checkpoint(directory: str, step: int, payload: Any, sidecar: Optional[dict] = None,
+                    mesh=None) -> str:
     """Save ``payload`` as checkpoint ``step`` (and the JSON ``sidecar``,
-    written first). Returns the payload's path."""
-    os.makedirs(directory, exist_ok=True)
+    written first). Returns the payload's path. Under ``mesh`` rank 0
+    writes once every rank has arrived, and every rank returns once it
+    has written."""
     path = _ckpt_path(directory, step)
+    if mesh is not None:
+        barrier(mesh)
+        if mesh.rank == 0:
+            _write(directory, path, payload, sidecar)
+        barrier(mesh)
+        return path
+    _write(directory, path, payload, sidecar)
+    return path
+
+
+def _write(directory: str, path: str, payload: Any, sidecar: Optional[dict]) -> None:
+    os.makedirs(directory, exist_ok=True)
     if sidecar is not None:
         with open(path + ".json", "w") as f:
             json.dump(sidecar, f)
@@ -56,7 +77,6 @@ def save_checkpoint(directory: str, step: int, payload: Any, sidecar: Optional[d
         if os.path.exists(tmp):
             os.remove(tmp)
         raise
-    return path
 
 
 def read_sidecar(directory: str, step: int) -> Optional[dict]:

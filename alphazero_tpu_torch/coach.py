@@ -34,9 +34,27 @@ retired for the incumbent once the incumbent itself has swept it in its
 last two matches against it; the JAX coach retires it once any two
 generations have (ROADMAP queue 3, "ADVICE low, coach.py:950").
 
-Not ported: a ``mesh`` (ROADMAP queue 1, "`parallel/` → `torch.distributed`")
-and the host example archive, ``{iteration}.examples`` (ROADMAP queue 1,
-"The host example archive"): the whole-state checkpoint holds the ring.
+Under a ``mesh`` (``parallel/``, one process per rank, one device each)
+every phase is data-parallel and the iteration equals the one-process
+iteration of the same config (its integers exactly; its losses within
+1e-5 where the learner computes in f32, while a bf16 learner's drift
+further, since each rank rounds its bf16 weight gradients before the
+ranks' sum, ``train.py``): every rank holds the same coach state and
+draws every phase's global draws from generators seeded alike; self-play
+plays the rank's games, and their trajectory is gathered in global game
+order and inserted on every rank, so the replay and position rings are
+the same everywhere (each rank holds the whole ring, where the JAX ring
+is sharded over its capacity: ROADMAP queue 3); the learner trains on the
+rank's rows of each minibatch with the gradients summed over the ranks;
+the arenas and reanalyze split their games and rows and sum their
+results, so Elo, the pool and the match graph are the same everywhere.
+Rank 0 alone logs the metrics and writes the checkpoint; every rank
+restores it, and the recycling actor's carry is gathered into global
+order for the save and cut to the rank's games on restore.
+
+Not ported: the host example archive, ``{iteration}.examples`` (ROADMAP
+queue 1, "The host example archive"): the whole-state checkpoint holds
+the ring.
 """
 
 from __future__ import annotations
@@ -64,6 +82,8 @@ from alphazero_tpu_torch.checkpoint import (
 from alphazero_tpu_torch.config import AZConfig
 from alphazero_tpu_torch.models import is_folded, make_uniform_model
 from alphazero_tpu_torch.ops import gumbel_from_uniform, sample_draws
+from alphazero_tpu_torch.parallel.distributed import all_reduce, gather_batch
+from alphazero_tpu_torch.parallel.mesh import Mesh, shard_batch
 from alphazero_tpu_torch.reanalyze import (
     PositionStore,
     make_reanalyze_fn,
@@ -116,17 +136,25 @@ def copy_train_state(state: TrainState) -> TrainState:
     return TrainState(model, optimizer, state.step)
 
 
+# the dimension of the batch in each field of the actor's carry
+_CARRY_DIMS = {"state": 0, "move_count": 0, "frag_features": 1, "frag_pi": 1}
+
+
 class Coach:
     """The outer loop over one device (``device``, the card unless the
-    caller passes a CPU device). The coach owns ``model``: it moves it to
-    the device and trains copies of it."""
+    caller passes a CPU device), or with ``mesh`` over its ranks, each on
+    its own device (``mesh.device`` unless ``device`` is given). The
+    coach owns ``model``: it moves it to the device and trains copies of
+    it; under a mesh every rank must pass the same weights."""
 
-    def __init__(self, game, model, cfg: AZConfig, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a coach over a mesh is not yet ported "
-                "(ROADMAP queue 1, \"`parallel/` → `torch.distributed`\")"
-            )
+    def __init__(self, game, model, cfg: AZConfig, mesh=None, device=None):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.Mesh (parallel.make_mesh), not "
+                            f"{type(mesh).__name__}")
+        if device is None:
+            device = "cuda" if mesh is None else mesh.device
+        self.mesh = mesh
+        self._primary = mesh is None or mesh.rank == 0
         self._recycle = bool(getattr(cfg.selfplay, "recycle", False))
         rz_cfg = cfg.reanalyze
         if rz_cfg is not None and self._recycle:
@@ -147,17 +175,18 @@ class Coach:
         self.actor_carry = None
         if self._recycle:
             init_actor, self._selfplay = make_recycling_selfplay_fn(
-                game, cfg.mcts, cfg.selfplay, device=dev)
+                game, cfg.mcts, cfg.selfplay, device=dev, mesh=mesh)
             self.actor_carry = init_actor()
         else:
             self._selfplay = make_selfplay_fn(game, cfg.mcts, cfg.selfplay, device=dev,
-                                              record_states=rz_cfg is not None)
+                                              record_states=rz_cfg is not None, mesh=mesh)
         self.positions = None
         self._reanalyze = None
         if rz_cfg is not None:
             self.positions = position_init(game, rz_cfg.capacity, device=dev)
-            self._reanalyze = make_reanalyze_fn(game, cfg.mcts, rz_cfg)
-        self._train_phase = make_train_phase(cfg.train, cfg.train.steps_per_iteration, game)
+            self._reanalyze = make_reanalyze_fn(game, cfg.mcts, rz_cfg, mesh=mesh)
+        self._train_phase = make_train_phase(cfg.train, cfg.train.steps_per_iteration, game,
+                                             mesh=mesh)
 
         # the arena plays noise-free greedy moves: no root Dirichlet, no
         # forced playouts (a training-target device)
@@ -168,7 +197,7 @@ class Coach:
             forced_playouts=None,
         )
         games = cfg.arena.num_games
-        self._arena = make_arena_fn(game, arena_cfg, games, device=dev)
+        self._arena = make_arena_fn(game, arena_cfg, games, device=dev, mesh=mesh)
         self._uniform = make_uniform_model(game)
         self._anchor_arena = None
         self._rung_arenas = {}
@@ -179,7 +208,7 @@ class Coach:
             # the anchor's strength (pinned at 0) stays one across runs
             anchor_cfg = dataclasses.replace(
                 arena_cfg, gumbel=False, transposition=False, parallel_sims=1)
-            self._anchor_arena = make_arena_fn(game, anchor_cfg, games, device=dev)
+            self._anchor_arena = make_arena_fn(game, anchor_cfg, games, device=dev, mesh=mesh)
             # the ladder's rungs: fixed pure-MCTS agents at higher budgets,
             # each with an arena against the net (asymmetric budgets) and a
             # chain arena from the rung below
@@ -188,15 +217,15 @@ class Coach:
                 rung_cfg = dataclasses.replace(anchor_cfg, num_sims=int(sims))
                 name = f"anchor@{int(sims)}"
                 self._rung_arenas[name] = make_arena_fn(
-                    game, anchor_cfg, games, mcts_cfg_inc=rung_cfg, device=dev)
+                    game, anchor_cfg, games, mcts_cfg_inc=rung_cfg, device=dev, mesh=mesh)
                 self._rung_chain.append((prev_name, name, make_arena_fn(
                     game, dataclasses.replace(anchor_cfg, num_sims=prev_sims), games,
-                    mcts_cfg_inc=rung_cfg, device=dev)))
+                    mcts_cfg_inc=rung_cfg, device=dev, mesh=mesh)))
                 prev_name, prev_sims = name, int(sims)
             # incumbent-vs-pool matches ride the same protocol
             self._rating_arena = self._arena
             if anchor_cfg != arena_cfg:
-                self._rating_arena = make_arena_fn(game, anchor_cfg, games, device=dev)
+                self._rating_arena = make_arena_fn(game, anchor_cfg, games, device=dev, mesh=mesh)
 
         self.iteration = 0
         self.model_id = 0
@@ -207,7 +236,7 @@ class Coach:
         self.pool_matches = []   # [{a, b, wins_a, wins_b, draws}]
         self._pool_ckpt = bool(cfg.arena.pool_in_checkpoint and cfg.arena.anchor_interval)
         self.anchored_ratings = {}
-        self.metrics = MetricsLogger(cfg.checkpoint_dir)
+        self.metrics = MetricsLogger(cfg.checkpoint_dir if self._primary else None)
         self.timer = PhaseTimer()
         if cfg.checkpoint_dir:
             self._maybe_resume()
@@ -233,9 +262,10 @@ class Coach:
                 # the reanalyze position ring resumes exactly with the run
                 payload["positions"] = self.positions._asdict()
             if self.actor_carry is not None:
-                # the recycling actor's live boards and open fragments:
-                # a resume continues mid-episode
-                payload["actor"] = self.actor_carry._asdict()
+                # the recycling actor's live boards and open fragments, in
+                # global game order: a resume continues mid-episode
+                payload["actor"] = {k: gather_batch(self.mesh, v, _CARRY_DIMS[k])
+                                    for k, v in self.actor_carry._asdict().items()}
         if self._pool_ckpt:
             payload["pool"] = self._pool_payload()
         return payload
@@ -339,7 +369,9 @@ class Coach:
             self.positions = PositionStore(p["states"], p["value"], p["born"], int(p["pos"]),
                                            int(p["size"]))
         if "actor" in payload and self.actor_carry is not None:
-            self.actor_carry = ActorCarry(**payload["actor"])
+            self.actor_carry = ActorCarry(**{
+                k: v if self.mesh is None else shard_batch(self.mesh, v, _CARRY_DIMS[k])
+                for k, v in payload["actor"].items()})
         if "pool" in payload:
             ids = payload["pool"]["ids"].tolist()
             for i, gen_id in enumerate(ids):
@@ -375,9 +407,10 @@ class Coach:
                 "elo_ratings": self.elo.ratings,
                 "pool_matches": self.pool_matches,
             },
+            mesh=self.mesh,
         )
         self._last_save_rings = rings
-        if self.cfg.keep_checkpoints:
+        if self.cfg.keep_checkpoints and self._primary:
             prune_checkpoints(self.cfg.checkpoint_dir, self.cfg.keep_checkpoints)
 
     # ------------------------------------------------------------------
@@ -433,10 +466,14 @@ class Coach:
 
             with self.timer.phase("selfplay"):
                 model = self.incumbent.model
+                states = []
                 if self._recycle:
                     self.actor_carry, traj, stats = self._selfplay(model, self.actor_carry, draws)
                 else:
                     traj, stats, *states = self._selfplay(model, draws)
+                # the ranks' games in global order ([T, B] samples)
+                traj, states = gather_batch(self.mesh, (traj, states), dim=1)
+                stats = gather_batch(self.mesh, stats)
                 synchronize(traj.features)
             selfplay_moves, selfplay_truncated = torch.stack(
                 [stats.num_moves.sum(), (~stats.done).sum()]).tolist()
@@ -455,6 +492,7 @@ class Coach:
                 rz_traj, reanalyzed, age = self._reanalyze(
                     self.incumbent.model, self.positions, *self._reanalyze_draws(k_rz),
                     iteration=self.iteration)
+                rz_traj = gather_batch(self.mesh, rz_traj, dim=1)
                 self.replay = replay_insert(self.replay, game, rz_traj)
                 synchronize(self.replay.data)
             # the staleness metric: near 0, the ring wraps within an
@@ -512,7 +550,8 @@ class Coach:
             **({"anchored_elo_se": round(anchored_se, 2)} if anchored_se is not None else {}),
             **{f"t_{k}": round(v, 3) for k, v in phases.items()},
         }
-        self.metrics.log(record)
+        if self._primary:
+            self.metrics.log(record)
         interval = max(cfg.checkpoint_interval, 1)
         if self.iteration % interval == 0:
             # with replay_save_stride=k only every k-th periodic save
@@ -624,12 +663,21 @@ class Coach:
                     best_i, best_gap = i, gap
             del self.pool[best_i]
 
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` on any rank (under a mesh every rank then stops
+        together, its collectives matched)."""
+        if self.mesh is None:
+            return flag
+        return bool(all_reduce(torch.tensor([int(flag)], device=self.device), self.mesh,
+                               op="max"))
+
     def learn(self, num_iterations: Optional[int] = None) -> list:
         """The outer loop. SIGTERM is caught for its duration: the
         iteration in flight finishes, the whole state is saved, and
         ``learn`` returns; a new Coach over the same ``checkpoint_dir``
         resumes exactly. The run's last state is always saved with its
-        rings."""
+        rings. Under a mesh a SIGTERM to any rank stops every rank after
+        the same iteration."""
         n = num_iterations if num_iterations is not None else self.cfg.num_iterations
         records = []
         caught = []
@@ -640,7 +688,7 @@ class Coach:
         try:
             for _ in range(n):
                 records.append(self.run_iteration())
-                if caught:
+                if self._any_rank(bool(caught)):
                     if self.cfg.checkpoint_dir:
                         log.warning("SIGTERM: checkpointing at iteration %d and stopping "
                                     "(resume from %s)", self.iteration, self.cfg.checkpoint_dir)

@@ -39,12 +39,15 @@ with other weights a hidden unit can round to the other bf16 neighbour,
 and the searches agree within the JAX package's own bound between its
 Mosaic and XLA engines.
 
+A ``mesh`` needs no code here: under ``parallel/`` each rank is a process
+that calls the engine on its own games, as JAX's ``shard_map`` calls the
+kernel on each shard, and any per-batch choice is made on that batch.
+
 Not ported (ROADMAP): depth-sorted blocking (``run_kernel_sorted``, whose
-8192-game threshold was measured on another device), ``mesh`` sharding,
-MLPs beyond the kernel's widths, and games other than Connect-Four; for
-the last two ``make_fused_root_fn`` returns None and the self-play ladder
-runs the hybrid engine, as the JAX ladder does where its fused kernel
-declines.
+8192-game threshold was measured on another device), MLPs beyond the
+kernel's widths, and games other than Connect-Four; for the last two
+``make_fused_root_fn`` returns None and the self-play ladder runs the
+hybrid engine, as the JAX ladder does where its fused kernel declines.
 """
 
 from __future__ import annotations

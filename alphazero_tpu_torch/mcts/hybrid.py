@@ -62,10 +62,14 @@ elsewhere), ``psgn [B, C]`` its root-parity sign, and the expansion's
 link_code, cdone, ctval, exp_node, exp_action, 0). A round's records are
 the same with a leading K axis.
 
+A ``mesh`` needs no code here: under ``parallel/`` each rank is a process
+that calls the engine on its own games, as JAX's ``shard_map`` calls the
+kernels on each shard, and any per-batch choice is made on that batch.
+
 Not ported (ROADMAP queue 1 / queue 2): depth-sorted blocking
 (``run_search_sorted``, whose 8192-game threshold was measured on another
-device), ``mesh`` sharding, and Gomoku boards above 512 cells on the card
-(their plain version runs; the CUDA descends raise).
+device), and Gomoku boards above 512 cells on the card (their plain
+version runs; the CUDA descends raise).
 """
 
 from __future__ import annotations

@@ -24,6 +24,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from alphazero_tpu_torch.parallel.distributed import global_sum
+
 BN_EPS = 1e-5          # flax BatchNorm default, used by _fold_conv_bn
 BN_MOMENTUM = 0.99     # flax BatchNorm default: ra = m * ra + (1 - m) * batch
 
@@ -61,19 +63,37 @@ def _bn(channels: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(channels, eps=BN_EPS)
 
 
-def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool) -> torch.Tensor:
+def _batch_moments(x: torch.Tensor, dims, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(E[x], E[x^2])`` over ``dims``: the local batch's, or with a
+    ``mesh`` the global batch's, the sum over the ranks of each rank's
+    moments times its share of the rows (``global_sum``: the
+    backward sums the ranks' gradients of the statistics, as flax's
+    BatchNorm over a sharded batch differentiates through its global
+    mean). The ranks' batches are equal (``parallel.batch_sharding``), so
+    each share is ``1 / ranks``, and a world of one takes the local
+    moments bit for bit."""
+    mean, ex2 = x.mean(dim=dims), (x * x).mean(dim=dims)
+    if mesh is None:
+        return mean, ex2
+    share = 1.0 / mesh.data
+    tot = global_sum(torch.stack([mean * share, ex2 * share]), mesh)
+    return tot[0], tot[1]
+
+
+def _batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool, mesh=None) -> torch.Tensor:
     """flax ``BatchNorm(dtype=float32)`` on ``x``, an NCHW conv output or
     a ``[B, F]`` dense output (features on dim 1): in f32, ``(x - mean) *
     (rsqrt(var + eps) * scale) + bias``. ``train`` normalises by the
-    batch's statistics, ``var = max(0, E[x^2] - E[x]^2)`` (biased, as
-    flax's fast variance), and moves the running statistics toward them
-    by flax's momentum (torch's own BatchNorm would move ``running_var``
-    toward the unbiased variance); otherwise by the running statistics."""
+    batch's statistics (with a ``mesh``, the global batch's of its ranks),
+    ``var = max(0, E[x^2] - E[x]^2)`` (biased, as flax's fast variance),
+    and moves the running statistics toward them by flax's momentum
+    (torch's own BatchNorm would move ``running_var`` toward the unbiased
+    variance); otherwise by the running statistics."""
     x = x.float()
     dims = (0, *range(2, x.ndim))
     if train:
-        mean = x.mean(dim=dims)
-        var = torch.clamp((x * x).mean(dim=dims) - mean * mean, min=0.0)
+        mean, ex2 = _batch_moments(x, dims, mesh)
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
         with torch.no_grad():
             bn.running_mean.copy_(BN_MOMENTUM * bn.running_mean + (1.0 - BN_MOMENTUM) * mean)
             bn.running_var.copy_(BN_MOMENTUM * bn.running_var + (1.0 - BN_MOMENTUM) * var)
@@ -99,10 +119,10 @@ class _ResBlock(nn.Module):
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False)
         self.bn2 = _bn(channels)
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, bn_mesh=None) -> torch.Tensor:
         # the flax _ResBlock: BatchNorm in f32, the residual add in x's dtype
-        y = F.relu(_batch_norm(_conv(x, self.conv1, x.dtype), self.bn1, train))
-        y = _batch_norm(_conv(y, self.conv2, x.dtype), self.bn2, train)
+        y = F.relu(_batch_norm(_conv(x, self.conv1, x.dtype), self.bn1, train, bn_mesh))
+        y = _batch_norm(_conv(y, self.conv2, x.dtype), self.bn2, train, bn_mesh)
         return F.relu(x + y.to(x.dtype))
 
 
@@ -145,16 +165,19 @@ class AZResNet(nn.Module):
         self.value_hidden = nn.Linear(cells, value_hidden)
         self.value = nn.Linear(value_hidden, 1)
 
-    def forward(self, feats: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, feats: torch.Tensor, train: bool = False,
+                bn_mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         dt = self.dtype
         # NHWC -> an NCHW view whose strides are channels_last
         x = feats.to(dt).permute(0, 3, 1, 2)
-        x = F.relu(_batch_norm(_conv(x, self.stem, dt), self.stem_bn, train)).to(dt)
+        x = F.relu(_batch_norm(_conv(x, self.stem, dt), self.stem_bn, train, bn_mesh)).to(dt)
         for blk in self.blocks:
-            x = blk(x, train)
-        p = F.relu(_batch_norm(_conv(x, self.policy_conv, dt), self.policy_bn, train)).flatten(1)
+            x = blk(x, train, bn_mesh)
+        p = F.relu(_batch_norm(_conv(x, self.policy_conv, dt), self.policy_bn, train,
+                               bn_mesh)).flatten(1)
         logits = self.policy(p)
-        v = F.relu(_batch_norm(_conv(x, self.value_conv, dt), self.value_bn, train)).flatten(1)
+        v = F.relu(_batch_norm(_conv(x, self.value_conv, dt), self.value_bn, train,
+                               bn_mesh)).flatten(1)
         # the flax Dense in dt: product rounded to dt, then the bias add
         vh = F.relu(F.linear(v.to(dt), self.value_hidden.weight.to(dt))
                     + self.value_hidden.bias.to(dt))
@@ -268,8 +291,9 @@ class AZConvNet(nn.Module):
     Dropout (rate ``dropout``) runs only in ``forward(train=True)``, and
     then needs the forward's ``dropout`` argument: a ``torch.Generator``
     on ``feats``' device, from which each layer's keep mask is drawn as
-    flax's (``uniform < 1 - rate``), or the two bool masks themselves (a
-    test replaying the JAX step's)."""
+    flax's (``uniform < 1 - rate``), a callable giving each layer's
+    uniforms for the layer's output (a rank's rows of the global batch's),
+    or the two bool masks themselves (a test replaying the JAX step's)."""
 
     def __init__(
         self,
@@ -296,20 +320,24 @@ class AZConvNet(nn.Module):
         self.value = nn.Linear(widths[-1], 1)
 
     def forward(self, feats: torch.Tensor, train: bool = False,
-                dropout=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                dropout=None, bn_mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
         dt = self.dtype
         if train and self.dropout > 0 and dropout is None:
             raise ValueError("AZConvNet's training forward needs its dropout: a generator or masks")
         # NHWC -> an NCHW view whose strides are channels_last
         x = feats.to(dt).permute(0, 3, 1, 2)
         for conv, bn, pad in zip(self.convs, self.conv_bns, CONVNET_PADDING):
-            x = F.relu(_batch_norm(_conv(x, conv, dt, pad), bn, train)).to(dt)
+            x = F.relu(_batch_norm(_conv(x, conv, dt, pad), bn, train, bn_mesh)).to(dt)
         x = x.flatten(1)
         for j, (lin, bn) in enumerate(zip(self.dense, self.dense_bns)):
-            x = F.relu(_batch_norm(F.linear(x, lin.weight.to(dt)), bn, train)).to(dt)
+            x = F.relu(_batch_norm(F.linear(x, lin.weight.to(dt)), bn, train, bn_mesh)).to(dt)
             if train and self.dropout > 0:
                 if isinstance(dropout, torch.Generator):
                     mask = torch.rand(x.shape, generator=dropout, device=x.device) < 1.0 - self.dropout
+                elif callable(dropout):
+                    # a rank's rows of the global batch's uniforms
+                    # (train.py under a mesh)
+                    mask = dropout(x) < 1.0 - self.dropout
                 else:
                     mask = dropout[j]
                 x = _dropout(x, self.dropout, mask)
@@ -404,8 +432,10 @@ class MLPNet(nn.Module):
         heads = (self.policy.weight, self.policy.bias, self.value.weight, self.value.bias)
         return hidden, heads
 
-    def forward(self, feats: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-        # no BatchNorm: training and inference are one forward, as in flax;
+    def forward(self, feats: torch.Tensor, train: bool = False,
+                bn_mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        # no BatchNorm (``bn_mesh`` has nothing to act on): training and
+        # inference are one forward, as in flax;
         # gradients reach the f32 parameters through the bf16 casts
         return _mlp_forward(feats, *self.forward_weights())
 

@@ -15,6 +15,13 @@ on freshly built trees each time: on the hybrid route the seeds
 (``kernels.refresh``/``refresh2``) see a fresh search's planes, their
 precondition. The ring's counters are Python ints, as the replay ring's.
 The row indices of a pass and its Gumbel sample are inputs.
+
+Under a ``mesh`` (``parallel/``) the position ring is the same on every
+rank (the coach inserts the gathered self-play rows), the pass's ``idx``
+and Gumbel sample are the global ones, and each rank re-searches its
+share of the ``R`` rows (``R`` must divide over the ranks); the returned
+trajectory is the rank's rows, and the count and the mean age are the
+global ones.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import torch
 from alphazero_tpu_torch.config import MCTSConfig, ReanalyzeConfig
 from alphazero_tpu_torch.mcts.gumbel import check_gumbel_config, make_gumbel_search_fn
 from alphazero_tpu_torch.models import make_apply_fn
+from alphazero_tpu_torch.parallel.distributed import all_reduce
+from alphazero_tpu_torch.parallel.mesh import batch_sharding
 from alphazero_tpu_torch.selfplay import Trajectory, _make_root_counts_fn
 
 
@@ -76,7 +85,7 @@ def position_insert(store: PositionStore, states: torch.Tensor, value: torch.Ten
                          min(store.size + num, cap))
 
 
-def make_reanalyze_fn(game, mcts_cfg: MCTSConfig, rz_cfg: ReanalyzeConfig
+def make_reanalyze_fn(game, mcts_cfg: MCTSConfig, rz_cfg: ReanalyzeConfig, mesh=None
                       ) -> Callable[..., Tuple[Trajectory, int, float]]:
     """Build ``reanalyze(model, store, idx, gumbel=None, iteration=0) ->
     (Trajectory [1, R], num_refreshed, age_mean)``.
@@ -98,10 +107,16 @@ def make_reanalyze_fn(game, mcts_cfg: MCTSConfig, rz_cfg: ReanalyzeConfig
     gumbel_on = getattr(mcts_cfg, "gumbel", False)
     if gumbel_on:
         check_gumbel_config(search_cfg)
+    rows = slice(None) if mesh is None else batch_sharding(mesh, rz_cfg.batch_size,
+                                                           "reanalyze batch")
 
     def reanalyze(model, store: PositionStore, idx: torch.Tensor,
                   gumbel: Optional[torch.Tensor] = None, iteration: int = 0):
         apply_fn = make_apply_fn(model)
+        R = idx.shape[0]
+        idx = idx[rows]
+        if gumbel is not None:
+            gumbel = gumbel[rows]
         states = store.states[idx]
         if gumbel_on:
             pi = make_gumbel_search_fn(game, apply_fn, search_cfg)(states, gumbel).improved_pi
@@ -109,12 +124,13 @@ def make_reanalyze_fn(game, mcts_cfg: MCTSConfig, rz_cfg: ReanalyzeConfig
             counts = _make_root_counts_fn(game, apply_fn, search_cfg)(states)
             pi = counts / counts.sum(dim=-1, keepdim=True).clamp(min=1.0)
         live = store.size > 0
-        R = idx.shape[0]
-        valid = torch.full((1, R), live, dtype=torch.bool, device=idx.device)
+        valid = torch.full((1, idx.shape[0]), live, dtype=torch.bool, device=idx.device)
         traj = Trajectory(features=game.to_features(states)[None], pi=pi[None],
                           value=(store.value[idx] * live)[None], valid=valid)
         num = R if live else 0
-        age = (int(iteration) - store.born[idx]).float() * live
-        return traj, num, float(age.sum() / max(num, 1))
+        age = ((int(iteration) - store.born[idx]).float() * live).sum()
+        if mesh is not None:
+            age = all_reduce(age, mesh)
+        return traj, num, float(age / max(num, 1))
 
     return reanalyze

@@ -27,6 +27,18 @@ sequential halving (``mcts/gumbel.py``): the move is the halving winner
 and the stored target the improved policy, with no temperature and no
 categorical draw.
 
+Under a ``mesh`` (``parallel/``) every generator plays this rank's games,
+the rows ``batch_sharding`` gives it of the global batch, and returns
+their trajectory, stats and carry; the caller gathers them in global game
+order (``parallel.distributed.all_gather``). Every rank draws the global
+step's draws and keeps its rows, so a game's moves are those of the
+one-process run. Playout-cap randomization's sub-batches split over the
+ranks as JAX's ``shard_map`` splits them: the step's boards are gathered,
+each rank searches its share of the permuted full and cheap sub-batches,
+and the outputs are gathered back; each sub-batch must divide over the
+ranks. Each engine call, and so each per-batch choice a kernel wrapper
+makes, sees the rank's own batch.
+
 One semantic differs from the JAX package on purpose: recycling's
 walk-back starts over at a truncation, so a truncated episode's samples
 are invalid with value 0; the JAX scan marks them valid with the next
@@ -48,8 +60,23 @@ from alphazero_tpu_torch.mcts.search import dense_root_fn, make_search_fn, prune
 from alphazero_tpu_torch.mcts.tt import tt_root_fn
 from alphazero_tpu_torch.models import make_apply_fn
 from alphazero_tpu_torch.ops import Draws, action_probs
+from alphazero_tpu_torch.parallel.distributed import all_gather
+from alphazero_tpu_torch.parallel.mesh import batch_sharding
 
 DrawsFn = Callable[[int], Draws]
+
+
+def _rows(mesh, batch: int, what: str = "self-play batch") -> slice:
+    """This rank's games of a ``batch``-game call (all of them without a
+    mesh)."""
+    return slice(None) if mesh is None else batch_sharding(mesh, batch, what)
+
+
+def _local_draws(d: Draws, rows: slice) -> Draws:
+    """This rank's rows of a step's global draws; the permutation stays
+    global."""
+    return Draws(None if d.dirichlet is None else d.dirichlet[rows], d.tie[rows],
+                 d.gumbel[rows], d.perm)
 
 
 class Trajectory(NamedTuple):
@@ -139,6 +166,7 @@ def make_actor_step_fn(
     batch_size: int,
     temp_threshold: int,
     device="cuda",
+    mesh=None,
 ):
     """Returns ``(init_carry, actor_step)``.
 
@@ -150,14 +178,19 @@ def make_actor_step_fn(
     Gumbel search, the improved policy and the halving winner.
 
     Forced playouts raise: the JAX actor runs its fused/hybrid ladder,
-    which never reads them, so it searches unforced without a word."""
+    which never reads them, so it searches unforced without a word.
+
+    Under ``mesh`` the carry holds this rank's games of the global
+    ``batch_size``, ``draws`` are the global step's, and ``pi`` is this
+    rank's rows."""
     if getattr(mcts_cfg, "forced_playouts", None) is not None:
         raise ValueError(
             "forced_playouts is a training-target device of the fixed scan "
             "(make_selfplay_fn); the actor step would search unforced (ROADMAP queue 3)"
         )
     move = _make_mover(game, apply_fn, mcts_cfg)
-    B = batch_size
+    rows = _rows(mesh, batch_size)
+    B = batch_size if mesh is None else batch_size // mesh.data
 
     def init_carry() -> Tuple[torch.Tensor, torch.Tensor]:
         return game.init(B, device), torch.zeros(B, dtype=torch.int32, device=device)
@@ -165,7 +198,7 @@ def make_actor_step_fn(
     def actor_step(carry, draws: Draws):
         state, move_count = carry
         temp = (move_count < temp_threshold).float()
-        pi, action = move(state, temp, draws)
+        pi, action = move(state, temp, _local_draws(draws, rows))
         state = game.step(state, action)
         done, _ = game.terminal(state)
         move_count = torch.where(done, 0, move_count + 1).to(torch.int32)
@@ -181,6 +214,7 @@ def make_selfplay_fn(
     sp_cfg: SelfPlayConfig,
     device="cuda",
     record_states: bool = False,
+    mesh=None,
 ) -> Callable[..., Tuple[Trajectory, SelfPlayStats]]:
     """Build ``play_games(model, draws) -> (Trajectory, SelfPlayStats)``:
     ``sp_cfg.batch_size`` games from the initial position, ``T =
@@ -210,7 +244,10 @@ def make_selfplay_fn(
     ``record_states=True`` makes ``play_games`` return ``(Trajectory,
     SelfPlayStats, states [T, B, ...])``, each sample's root state before
     its move (reanalyze's feed); the trajectory is the same. Tree reuse is
-    not ported by design (ROADMAP, "Do not port")."""
+    not ported by design (ROADMAP, "Do not port").
+
+    Under ``mesh`` ``play_games`` plays this rank's games from the global
+    ``draws(t)`` and returns their rows (``B`` the rank's share)."""
     forced = getattr(mcts_cfg, "forced_playouts", None)
     gumbel = getattr(mcts_cfg, "gumbel", False)
     reuse = getattr(mcts_cfg, "tree_reuse", False)
@@ -240,6 +277,14 @@ def make_selfplay_fn(
         cheap_cfg = dataclasses.replace(mcts_cfg, num_sims=int(sp_cfg.cheap_sims),
                                         max_nodes=None, dirichlet_alpha=None)
         n_full = max(0, min(B, int(round(pcr * B))))
+        if mesh is not None and 0 < n_full < sp_cfg.batch_size:
+            shards = int(mesh.shape.get("data", 1))
+            if n_full % shards or (sp_cfg.batch_size - n_full) % shards:
+                raise ValueError(
+                    "full_search_prob sub-batches must divide the mesh "
+                    f"data axis: round(p*B)={n_full} of B="
+                    f"{sp_cfg.batch_size} over {shards} shards"
+                )
     if gumbel and (reuse or getattr(mcts_cfg, "transposition", False)):
         raise ValueError(
             "gumbel is its own root/interior scoring rule — it is "
@@ -259,9 +304,18 @@ def make_selfplay_fn(
         )
     T = sp_cfg.max_moves or game.max_moves
     cpuct = float(mcts_cfg.cpuct)
+    rows = _rows(mesh, B)
+    gather = (lambda x: x) if mesh is None else (lambda x: all_gather(x, mesh))
 
     def make_step(apply_fn) -> Callable:
-        """``step(state, temp, draws) -> (pi, action)`` of every board."""
+        """``step(state, temp, draws) -> (pi, action)`` of every board of
+        this rank, from the global step's ``draws``."""
+        inner = make_inner_step(apply_fn)
+        if pcr is not None:
+            return inner
+        return lambda state, temp, d: inner(state, temp, _local_draws(d, rows))
+
+    def make_inner_step(apply_fn) -> Callable:
         if forced is not None:
             search = make_search_fn(game, apply_fn, mcts_cfg)
 
@@ -301,26 +355,34 @@ def make_selfplay_fn(
         def split_search(state, d: Draws) -> tuple:
             """The full search of the step's first ``n_full`` permuted games
             and the cheap one of the rest, each output back in game order;
-            ``(full bool[B], outputs)``."""
+            ``(full bool[b], outputs)`` of this rank's ``b`` games. Under a
+            mesh each rank searches its share of each permuted sub-batch,
+            and the outputs are gathered back."""
             noise = d.gumbel if gumbel else d.dirichlet
+            b = state.shape[0]
             if n_full >= B:
-                return torch.ones(B, dtype=torch.bool, device=state.device), run_full(state, noise)
+                return (torch.ones(b, dtype=torch.bool, device=state.device),
+                        run_full(state, None if noise is None else noise[rows]))
             if n_full <= 0:
-                return torch.zeros(B, dtype=torch.bool, device=state.device), run_cheap(state, noise)
+                return (torch.zeros(b, dtype=torch.bool, device=state.device),
+                        run_cheap(state, None if noise is None else noise[rows]))
             if d.perm is None:
                 raise ValueError(
                     "playout-cap randomization needs the step's permutation (Draws.perm)")
             inv = torch.argsort(d.perm)
-            sub = state[d.perm]
-            out_f = run_full(sub[:n_full], None if noise is None else noise[:n_full])
-            out_c = run_cheap(sub[n_full:], None if noise is None else noise[n_full:])
-            return inv < n_full, tuple(torch.cat([a, b])[inv] for a, b in zip(out_f, out_c))
+            sub = gather(state)[d.perm]
+            fr = _rows(mesh, n_full, "full sub-batch")
+            cr = _rows(mesh, B - n_full, "cheap sub-batch")
+            out_f = run_full(sub[:n_full][fr], None if noise is None else noise[:n_full][fr])
+            out_c = run_cheap(sub[n_full:][cr], None if noise is None else noise[n_full:][cr])
+            return (inv < n_full)[rows], tuple(
+                torch.cat([gather(a), gather(c)])[inv][rows] for a, c in zip(out_f, out_c))
 
         def pcr_step(state, temp, d: Draws):
             full, out = split_search(state, d)
             if gumbel:
                 return out
-            pi, action = _choose(out[0], temp, d)
+            pi, action = _choose(out[0], temp, _local_draws(d, rows))
             # a cheap move advances the game but stores a value-only sample
             return torch.where(full[:, None], pi, 0.0), action
 
@@ -328,10 +390,11 @@ def make_selfplay_fn(
 
     def play_games(model, draws: DrawsFn):
         step = make_step(make_apply_fn(model))
-        state = game.init(B, device)
-        done = torch.zeros(B, dtype=torch.bool, device=device)
-        outcome = torch.zeros(B, device=device)
-        moves = torch.zeros(B, dtype=torch.int32, device=device)
+        b = B if mesh is None else B // mesh.data
+        state = game.init(b, device)
+        done = torch.zeros(b, dtype=torch.bool, device=device)
+        outcome = torch.zeros(b, device=device)
+        moves = torch.zeros(b, dtype=torch.int32, device=device)
         feats, pis, valid, roots = [], [], [], []
         for t in range(T):
             temp = 1.0 if t < sp_cfg.temp_threshold else 0.0
@@ -367,6 +430,7 @@ def make_recycling_selfplay_fn(
     mcts_cfg: MCTSConfig,
     sp_cfg: SelfPlayConfig,
     device="cuda",
+    mesh=None,
 ):
     """Episode recycling with exact value targets. Returns ``(init_carry,
     play)``: ``init_carry() -> ActorCarry`` on ``device``;
@@ -390,7 +454,10 @@ def make_recycling_selfplay_fn(
     the call (0 if none), ``num_moves`` = S, ``done`` whether any episode
     closed. With ``mcts_cfg.gumbel`` every move is Gumbel search's
     (``_make_mover``). tree_reuse, forced playouts, transposition and
-    playout-cap randomization raise the JAX package's ``ValueError``."""
+    playout-cap randomization raise the JAX package's ``ValueError``.
+
+    Under ``mesh`` the carry, the trajectory and the stats hold this
+    rank's games, and ``draws(t)`` are the global step's."""
     if getattr(mcts_cfg, "tree_reuse", False):
         raise ValueError("recycling self-play is incompatible with tree_reuse")
     if getattr(mcts_cfg, "forced_playouts", None) is not None:
@@ -411,6 +478,9 @@ def make_recycling_selfplay_fn(
             "open episode per game)"
         )
     A = game.num_actions
+    own = _rows(mesh, B)
+    if mesh is not None:
+        B //= mesh.data
 
     def init_carry() -> ActorCarry:
         return ActorCarry(
@@ -429,7 +499,8 @@ def make_recycling_selfplay_fn(
         ff, fp = carry.frag_features.clone(), carry.frag_pi.clone()
         feats, pis, closed, tvs, truncs = [], [], [], [], []
         for t in range(S):
-            pi, action = move(state, (mc < sp_cfg.temp_threshold).float(), draws(t))
+            pi, action = move(state, (mc < sp_cfg.temp_threshold).float(),
+                              _local_draws(draws(t), own))
             f = game.to_features(state)
             row = mc.long()
             ff[row, games] = f

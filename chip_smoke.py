@@ -244,7 +244,12 @@ routes — on one CUDA card, in phases:
            Coach over the directory resumes bit-equal to the first one's
            live state (weights, BatchNorm statistics, Adam moments, ring,
            actor carry, generator, counters, Elo history, match graph) and
-           runs iteration 2: each phase's seconds, anchored Elo +- SE,
+           runs iteration 2. The default run cuts the preset by
+           ``cut_coach_cfg`` (train steps to GAMES_CUT_STEPS, self-play
+           sims to GAMES_CUT_SIMS, the warmup pass to one repeat) and runs
+           iteration 2 without its anchored pass, each cut printed beside
+           the preset's own value; ``--coach`` runs this phase uncut: each
+           phase's seconds, anchored Elo +- SE,
            launches per kernel, peak memory, checkpoint bytes, save and
            restore ms; (b) the root counts of one gate-arena move at mixed
            seating (B=256, 50 sims, two AZResNets on the combined forward)
@@ -265,9 +270,9 @@ routes — on one CUDA card, in phases:
            with a checkpoint each and the launch counters set to 0 just
            before and read just after: each phase's seconds, launches,
            peak memory and the checkpoint's bytes. The default run cuts
-           each preset's train steps to GAMES_CUT_STEPS and prints the cut
-           beside the preset's own value; ``--games`` runs this phase alone
-           with nothing cut. A second Othello coach resumes bit-equal to
+           each preset as phase 17 does (``cut_coach_cfg``) and prints the
+           cuts beside the preset's own values; ``--games`` runs this phase
+           alone with nothing cut. A second Othello coach resumes bit-equal to
            the live one; one Othello gate move (B=128, 50 sims, two
            AZResNet-128x5 on the combined forward) gives identical counts
            through the kernels and the plain versions; AZConvNet-512's
@@ -326,7 +331,7 @@ routes — on one CUDA card, in phases:
            same pass through the plain versions gives identical counts (the
            seed takes only fresh planes); (e) one cut ``economy`` coach
            iteration with reanalyze (self-play B=512, 16 train steps, a
-           64-game Gumbel gate, the anchored pass off): seconds by phase,
+           64-game Gumbel gate at 25 sims, the anchored pass off): seconds by phase,
            no kernel launched, the rings' bytes reckoned beside the
            checkpoint's, and a new Coach resuming from it bit-equal on both
            rings; (f) ``analyze --engine gumbel`` in this process (200 sims)
@@ -348,11 +353,47 @@ routes — on one CUDA card, in phases:
            the first 16 games equal to the CPU's; (d) MLPNet (256, 256) with
            order-free weights on Connect-Four (B=512, 100 sims), every game
            equal to the CPU's; (e) the routes: the transposition fixed scan
-           (uniform, B=512, 50 sims, Dirichlet 1.0: s a call, moves/s), a
+           (uniform, B=512, 25 sims, Dirichlet 1.0: s a call, moves/s), a
            64-game transposition arena at 25 sims (order-free MLPNet against
            the uniform model, results summing to 64) and ``analyze --engine
            tt --sims 400`` from the initial position in this process (links
-           made).
+           made);
+22. parallel: the data-parallel path over ``torch.distributed``
+           (``parallel_phase``; it adds no kernel: each rank's kernels run
+           on its games): (a) a world of one under NCCL in this process:
+           the collectives on CUDA tensors, and the global-statistics
+           BatchNorm forward and backward (AZResNet-64x5 in f32, B=1024)
+           against the mesh-less values: the forward and the running
+           statistics bit for bit, the gradients within 1e-5 of each
+           tensor's largest entry; one
+           ``Coach(mesh=make_mesh())`` iteration against the mesh-less
+           coach of the same config, MLPNet (256, 256) with order-free
+           weights and AZResNet-64x5 (the multi-process CLI's config at
+           B=1024, 100 sims; the ResNet's cut to 25 sims, 16 train steps
+           and a gate at 25 sims), the integers equal and the losses within
+           1e-5; (b) two ranks sharing the card over gloo, spawned by
+           ``launch_local_multihost`` (``--parallel-rank`` is the rank's
+           entry) as the phase starts, their start-up overlapping (a) and
+           their checks waiting for its end: the MLPNet iteration of (a)
+           equal to the one-process one in the integers (the losses
+           printed: each rank rounds its bf16 weight gradients before the
+           ranks' sum); the learner witness
+           (``par_learner``): the iteration's 64 train steps on its ring,
+           hidden layers in f32 and in bf16, two ranks against one
+           process, the f32 losses within 1e-5 (the bf16 ones printed);
+           one sharded AZResNet-64x5 search of phase 3's roots (B=4096,
+           100 sims, Dirichlet 1.0), each rank's launches counted, held to
+           the bounded-divergence gate (>= 75% of games identical, max
+           |dpi| <= 0.25) against the unsharded search; then the CLI at
+           full width (``--net resnet --channels 64 --blocks 5 --batch
+           1024 --sims 100``; 16 train steps and the gate at 25 sims) for
+           1 iteration with a checkpoint directory,
+           and a new pair that resumes and prints iteration 2; (c) with a
+           second card, the pair of (b) over NCCL,
+           one card each; with one, a line saying that (c) did not run;
+           (d) ``bench_scaling`` at its defaults, its lines printed. Each
+           rank's launches of ``az_fused_mlp``, ``az_descend``,
+           ``az_merge`` and ``az_refresh`` in (b) add to the kernels line.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -375,11 +416,15 @@ script exits non-zero without that line. Run from the repository root:
     python3 chip_smoke.py
 
 ``python3 chip_smoke.py --learner`` builds the kernels and runs phase 16
-alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone;
+alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone, uncut;
 ``python3 chip_smoke.py --games`` runs phase 18 alone, uncut;
 ``python3 chip_smoke.py --dense`` runs phase 19 alone;
 ``python3 chip_smoke.py --economy`` runs phase 20 alone;
-``python3 chip_smoke.py --tt`` runs phase 21 alone.
+``python3 chip_smoke.py --tt`` runs phase 21 alone;
+``python3 chip_smoke.py --parallel`` builds the kernels and runs phase 22
+alone; ``python3 chip_smoke.py --parallel-cards``, for a machine of
+several cards, runs the one-process MLPNet iteration of 22(a) and then
+22(c) and (d) alone.
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -535,7 +580,8 @@ LEARNER_TRAIN_STEPS = 16  # ... and 16 of its 512 steps a phase
 COACH_SUBSET = 4          # phase 17(b): roots of the 1600-sim rung search held against plain
                           # (its plain search takes ~1.5 s a root)
 MLP_RING, MLP_BATCH, MLP_TRAIN_STEPS = 1 << 17, 512, 8   # the mlp preset's ring and batch
-GAMES_CUT_STEPS = 64      # phase 18, the default run: train steps an iteration of each preset
+GAMES_CUT_STEPS = 64      # phases 17-18, the default run: train steps an iteration of each preset
+GAMES_CUT_SIMS = 50       # ... and self-play sims (the gates' own stay)
 CONVNET_F32_ATOL = 1e-3   # phase 18: AZConvNet folded vs unfolded on the card, f32 ...
 CONVNET_BF16_ATOL = 0.1   # ... and bf16 (tests/test_torch_convnet.py's bf16 bound)
 
@@ -552,13 +598,29 @@ PCR_CHECK_STEP = 10       # (c): the step whose two sub-batch searches are held 
 RZ_SCAN_B, RZ_SCAN_SIMS = 128, 16   # (d): the ResNet fixed scan that records positions ...
 RZ_CAP, RZ_R, RZ_SIMS = 1 << 13, 1024, 100   # ... into this ring; the pass re-searches R at SIMS
 ECO_COACH_B, ECO_COACH_STEPS, ECO_COACH_GAMES, ECO_COACH_RZ = 512, 16, 64, 1024   # (e): the cut
+ECO_COACH_GATE_SIMS = 25  # ... and its gate's sims
 TT_GOLDEN_B, TT_GOLDEN_SIMS = 64, 25   # phase 21(a): tests/test_tpu_gate.py's tt golden search
 TT_B, TT_SIMS = 512, 400  # (b): bench_tt's defaults (--batch, --sims)
 TT_CPU_B = 64             # (b): games of the deep search replayed on the CPU
 TT_PROFILED_SIMS = 25     # (b): the profiled search's simulations
 TT_OTH_B, TT_OTH_SIMS, TT_OTH_DEPTH, TT_OTH_CPU_B = 256, 200, 64, 16   # (c)
 TT_MLP_B, TT_MLP_SIMS = 512, 100   # (d)
-TT_SCAN_B, TT_SCAN_SIMS = 512, 50  # (e): the transposition fixed scan
+# phase 22: the multi-process CLI's flags at full width (its defaults
+# otherwise: 64 train steps of 256, a 64-game gate at 100 sims)
+PAR_RESNET = ("--net", "resnet", "--channels", "64", "--blocks", "5", "--batch", "1024",
+              "--sims", "100")
+PAR_MLP = ("--net", "mlp", "--hidden", "256", "--batch", "1024", "--sims", "100")
+# (a)'s ResNet iterations, cut: 25 sims, 16 train steps, the gate at 25 sims
+PAR_RESNET_CUT = (*PAR_RESNET, "--sims", "25", "--train-steps", "16", "--arena-sims", "25")
+# (b)'s CLI pair: self-play at full width and 100 sims, 16 train steps, the gate at 25 sims
+PAR_CLI = (*PAR_RESNET, "--train-steps", "16", "--arena-sims", "25")
+PAR_BN_B = 1024           # (a): rows of the global-statistics BatchNorm check
+PAR_LOSS_ATOL = 1e-5      # a record's loss_first and loss_last (the JAX tests' bound)
+PAR_GRAD_RTOL = 1e-5      # (a): the BatchNorm gradients, of each tensor's largest entry
+PAR_TIMEOUT = 240         # seconds a spawned gang may take
+PAR_INTS = ("iteration", "model_id", "accepted", "arena_wins", "arena_losses", "arena_draws",
+            "replay_size", "replay_total", "selfplay_moves", "selfplay_truncated")
+TT_SCAN_B, TT_SCAN_SIMS = 512, 25  # (e): the transposition fixed scan
 TT_ARENA_GAMES, TT_ARENA_SIMS = 64, 25   # (e): the transposition arena
 
 SOURCE = {
@@ -2955,11 +3017,37 @@ def print_record(tag: str, label: str, rec: dict, sec: float, got: dict, card: s
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
 
 
-def coach_phase(card: str, dev=None) -> dict:
+def cut_coach_cfg(tag: str, label: str, cfg):
+    """The default run's cut of a coach preset (phases 17-18): train
+    steps to GAMES_CUT_STEPS, self-play sims to GAMES_CUT_SIMS and the
+    warmup anchored pass to one repeat, printed beside the preset's own
+    values. The gates' sims, the batch and the model stay."""
+    import dataclasses
+
+    train, mcts, arena = cfg.train, cfg.mcts, cfg.arena
+    cut = dataclasses.replace(
+        cfg,
+        train=dataclasses.replace(train, steps_per_iteration=min(train.steps_per_iteration,
+                                                                 GAMES_CUT_STEPS)),
+        mcts=dataclasses.replace(mcts, num_sims=min(mcts.num_sims, GAMES_CUT_SIMS)),
+        arena=dataclasses.replace(arena, anchor_warmup_mult=1))
+    pairs = (("steps_per_iteration", train.steps_per_iteration, cut.train.steps_per_iteration),
+             ("self-play sims", mcts.num_sims, cut.mcts.num_sims),
+             ("anchor_warmup_mult", arena.anchor_warmup_mult, 1))
+    cuts = [f"{name} {was} -> {now}" for name, was, now in pairs if was != now]
+    if cuts:
+        print(f"[{tag}] {label}: cut {', '.join(cuts)} (the preset's own first); nothing else "
+              f"cut", flush=True)
+    return cut
+
+
+def coach_phase(card: str, cut: bool, dev=None) -> dict:
     """Phase 17: the coach of the ``full`` and ``mlp`` presets through
-    ``Coach.learn`` (see the module docstring), on ``dev`` (the card).
-    Returns the launches of one iteration of each preset, the kernels
-    line's."""
+    ``Coach.learn`` (see the module docstring), on ``dev`` (the card);
+    with ``cut``, the full preset cut by ``cut_coach_cfg`` and the
+    resumed iteration 2 run without its anchored pass (both printed
+    beside the preset's own). Returns the launches of one iteration of
+    each preset, the kernels line's."""
     import dataclasses
     import tempfile
 
@@ -3000,6 +3088,9 @@ def coach_phase(card: str, dev=None) -> dict:
     # ---- (a) the full preset: iteration 1, checkpoint, resume, iteration 2
     with tempfile.TemporaryDirectory(prefix="chip_smoke_coach_") as ckdir:
         model, cfg = preset("full", SEED, ckdir)
+        own = cfg
+        if cut:
+            cfg = cut_coach_cfg("coach", "full preset", cfg)
         coach = Coach(game, model, cfg, device=dev)
         full_need = ("descend", "merge", "refresh", "fused")
         rec1, got = learn_one(coach, "coach", "full preset", full_need, True)
@@ -3012,7 +3103,11 @@ def coach_phase(card: str, dev=None) -> dict:
         (payload, _), restore_s = timed_sync(lambda: restore_checkpoint(ckdir, 1, coach._payload()))
         del payload
         other, _ = preset("full", SEED + 7)      # other initial weights: the resume must replace them
-        resumed, resume_s = timed_sync(lambda: Coach(game, other, cfg, device=dev))
+        # with ``cut``, the resumed coach's iteration 2 is past the warmup:
+        # no anchored pass, whose protocol iteration 1 ran
+        cfg2 = dataclasses.replace(cfg, arena=dataclasses.replace(cfg.arena, anchor_warmup=1)) \
+            if cut else cfg
+        resumed, resume_s = timed_sync(lambda: Coach(game, other, cfg2, device=dev))
         diff = bits_differ(coach_state(coach), coach_state(resumed))
         if diff:
             fail(f"coach: the resumed coach differs from the live one at {diff}")
@@ -3024,7 +3119,12 @@ def coach_phase(card: str, dev=None) -> dict:
               f"| {card}", flush=True)
         del coach
         torch.cuda.empty_cache()
-        rec2, got2 = learn_one(resumed, "coach", "full preset (resumed)", full_need, True)
+        if cut:
+            print(f"[coach] full preset (resumed): iteration 2 cut to no anchored pass (the "
+                  f"preset's own: warmup x{own.arena.anchor_warmup_mult} through iteration "
+                  f"{own.arena.anchor_warmup})", flush=True)
+        rec2, got2 = learn_one(resumed, "coach", "full preset (resumed)",
+                               full_need[:3] if cut else full_need, not cut)
         if rec2["iteration"] != 2:
             fail(f"coach: the resumed coach ran iteration {rec2['iteration']}")
 
@@ -3072,7 +3172,8 @@ def coach_phase(card: str, dev=None) -> dict:
     launches["fused_mlp"] = got["fused_mlp"]
     print(f"[coach] launches of one full-preset iteration (iteration 1: warmup anchored pass x"
           f"{full_cfg.arena.anchor_warmup_mult} and the ladder's calibration): "
-          f"{launched({k: launches[k] for k in full_need})}; of iteration 2: {launched(got2)}; "
+          f"{launched({k: launches[k] for k in full_need})}; of iteration 2"
+          f"{' (no anchored pass)' if cut else ''}: {launched(got2)}; "
           f"fused_mlp of the mlp preset's iteration 2: {launches['fused_mlp']} | {card}", flush=True)
     return launches
 
@@ -3081,8 +3182,7 @@ def games_phase(card: str, cut: bool, dev=None) -> dict:
     """Phase 18: one ``Coach.learn`` iteration of the Othello, Gomoku 9
     and Hex ``full`` presets and of the Connect-Four ``convnet`` preset,
     as their training CLIs build them, on ``dev`` (the card); with
-    ``cut``, each preset's train steps cut to GAMES_CUT_STEPS (printed
-    beside the preset's own). Othello is resumed from its checkpoint
+    ``cut``, each preset cut by ``cut_coach_cfg``. Othello is resumed from its checkpoint
     bit-equal to the live coach; one Othello gate move's counts through
     the kernels equal the plain versions'; AZConvNet's folded forward is
     held against its unfolded one. Returns the launches of the phase's
@@ -3125,12 +3225,8 @@ def games_phase(card: str, cut: bool, dev=None) -> dict:
     for label, game, preset, need in runs:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_games_") as ckdir:
             model, cfg = preset(SEED, ckdir)
-            steps = cfg.train.steps_per_iteration
-            if cut and steps > GAMES_CUT_STEPS:
-                cfg = dataclasses.replace(cfg, train=dataclasses.replace(
-                    cfg.train, steps_per_iteration=GAMES_CUT_STEPS))
-                print(f"[games] {label}: cut steps_per_iteration {steps} -> {GAMES_CUT_STEPS} "
-                      f"(the preset's own: {steps}); nothing else cut", flush=True)
+            if cut:
+                cfg = cut_coach_cfg("games", label, cfg)
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             coach = Coach(game, model, cfg, device=dev)
@@ -3665,7 +3761,8 @@ def economy_phase(card: str, dev=None) -> dict:
             eco,
             selfplay=dataclasses.replace(eco.selfplay, batch_size=ECO_COACH_B),
             train=dataclasses.replace(eco.train, steps_per_iteration=ECO_COACH_STEPS),
-            arena=dataclasses.replace(eco.arena, num_games=ECO_COACH_GAMES, anchor_interval=None),
+            arena=dataclasses.replace(eco.arena, num_games=ECO_COACH_GAMES,
+                                      num_sims=ECO_COACH_GATE_SIMS, anchor_interval=None),
             reanalyze=ReanalyzeConfig(batch_size=ECO_COACH_RZ,
                                       capacity=eco.replay.capacity // c4.num_symmetries),
             checkpoint_interval=1)
@@ -3910,6 +4007,377 @@ def tt_phase(card: str, dev=None) -> None:
           + f"; {marks[-1][1] - marks[0][1]:.1f} s in all | {card}", flush=True)
 
 
+def par_setup(flags, order_free: bool = False):
+    """``(game, model, cfg)`` of the multi-process CLI's flags and one
+    iteration, through its ``build_game_and_model`` and ``build_cfg``; an
+    MLPNet with ``order_free`` takes ``order_free_mlp_variables``."""
+    from alphazero_tpu_torch.examples import train_multihost as tm
+    from alphazero_tpu_torch.models import convert_mlp, order_free_mlp_variables
+
+    args = tm.parse_args(["--coordinator", "unused", "--num-processes", "1", "--process-id", "0",
+                          *flags, "--iterations", "1"])
+    game, model = tm.build_game_and_model(args)
+    if order_free:
+        model = convert_mlp(order_free_mlp_variables(game.num_actions, model.hidden, seed=SEED),
+                            torch.bfloat16)
+    return game, model, tm.build_cfg(args)
+
+
+def par_same_record(tag: str, got: dict, want: dict, losses: bool = True) -> float:
+    """A mesh coach's record against the one-process one: the integers
+    equal and, with ``losses``, the losses within PAR_LOSS_ATOL. Returns
+    the larger of the two losses' differences."""
+    for k in PAR_INTS:
+        if got[k] != want[k]:
+            fail(f"{tag}: {k} {got[k]} where the one-process coach has {want[k]}")
+    diff = max(abs(got[k] - want[k]) for k in ("loss_first", "loss_last"))
+    if losses and not diff <= PAR_LOSS_ATOL:
+        fail(f"{tag}: the losses {got['loss_first']}, {got['loss_last']} where the one-process "
+             f"coach has {want['loss_first']}, {want['loss_last']}")
+    return diff
+
+
+def par_phases(rec: dict) -> str:
+    return ", ".join(f"{k[2:]} {v:.3f} s" for k, v in rec.items() if k.startswith("t_"))
+
+
+PAR_KERNELS = ("fused_mlp", "descend", "merge", "refresh")
+
+
+def par_learner(game, cfg, hidden, ring, mesh, dev):
+    """Phase 22(b)/(c)'s learner witness: the train phase of ``cfg`` (64
+    steps of 256 rows) on the coach's ``ring`` from one generator seed,
+    the order-free MLPNet's hidden layers in f32 and in bf16, over
+    ``mesh`` and, on rank 0, in one process. Returns (rank 0) the largest
+    |dloss| over the steps by dtype: f32 shows the sharded learner's sums,
+    bf16 adds each rank's bf16 rounding of its weight gradients."""
+    from alphazero_tpu_torch.models import convert_mlp, order_free_mlp_variables
+    from alphazero_tpu_torch.train import init_train_state, make_train_phase
+
+    out = {}
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        losses = []
+        for m in (mesh, None) if mesh.rank == 0 else (mesh,):
+            model = convert_mlp(order_free_mlp_variables(game.num_actions, hidden, seed=SEED),
+                                dt).to(dev)
+            phase = make_train_phase(cfg.train, cfg.train.steps_per_iteration, game, m)
+            _, got = phase(init_train_state(model, cfg.train), ring,
+                           torch.Generator(device=dev).manual_seed(SEED))
+            losses.append(got)
+        if mesh.rank == 0:
+            out[name] = float((losses[0] - losses[1]).abs().max())
+    return out
+
+
+def parallel_rank(argv) -> int:
+    """One rank of phase 22(b) and (c), spawned by ``parallel_phase``: the
+    order-free MLPNet coach iteration on the mesh, then one sharded
+    AZResNet-64x5 search of phase 3's roots; rank 0 prints one JSON line
+    (the record, every rank's launches and seconds, the search's agreement
+    with the unsharded search)."""
+    import argparse
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.coach import Coach
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.models import (
+        convert_az_resnet,
+        make_apply_fn,
+        random_az_resnet_variables,
+    )
+    from alphazero_tpu_torch.ops import sample_draws
+    from alphazero_tpu_torch.parallel import batch_sharding, distributed, make_mesh
+
+    ap = argparse.ArgumentParser()
+    for flag in ("--coordinator", "--platform", "--backend", "--go"):
+        ap.add_argument(flag)
+    for flag in ("--num-processes", "--process-id"):
+        ap.add_argument(flag, type=int)
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                                 platform=args.platform, backend=args.backend)
+    try:
+        mesh = make_mesh()
+        kernels.library()
+        game, model, cfg = par_setup(PAR_MLP, order_free=True)
+        coach = Coach(game, model, cfg, mesh=mesh)
+        while args.go is not None and not os.path.exists(args.go):
+            time.sleep(0.05)
+        distributed.barrier(mesh)
+        kernels.reset_launch_counts()
+        rec, sec = timed_sync(coach.run_iteration)
+        mlp_counts = dict(kernels.launch_counts())
+        learner, learner_s = timed_sync(lambda: par_learner(game, cfg, model.hidden,
+                                                            coach.replay, mesh, dev))
+
+        A = game.num_actions
+        apply_fn = make_apply_fn(convert_az_resnet(random_az_resnet_variables(
+            A, 64, 5, seed=SEED), dtype=torch.bfloat16).to(dev))
+        cfg_full = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH, dirichlet_alpha=1.0)
+        roots = random_positions(game, B, 30, SEED, dev)
+        noise = sample_draws(torch.Generator(device=dev).manual_seed(SEED), B, A, 1.0,
+                             dev).dirichlet
+        rows = batch_sharding(mesh, B, "search batch")
+        search = hybrid.make_hybrid_root_fn(game, apply_fn, cfg_full)
+        kernels.reset_launch_counts()
+        counts, search_s = timed_sync(lambda: search(roots[rows], noise[rows]))
+        search_counts = dict(kernels.launch_counts())
+        counts = distributed.all_gather(counts, mesh)
+        mine = {k: mlp_counts[k] + search_counts[k] for k in PAR_KERNELS}
+        every = distributed.all_gather(torch.tensor(
+            [[mine[k] for k in PAR_KERNELS] + [sec, search_s]], dtype=torch.float64, device=dev),
+            mesh).tolist()
+        out = {"record": rec, "launches": {k: [int(r[i]) for r in every]
+                                           for i, k in enumerate(PAR_KERNELS)},
+               "coach_s": [r[-2] for r in every], "search_s": [r[-1] for r in every]}
+        if mesh.rank == 0:
+            whole, whole_s = timed_sync(lambda: search(roots, noise))
+            live = ~game.terminal(roots)[0]
+            if not bool((counts.sum(dim=1)[live] == SIMS).all()):
+                fail("parallel: the sharded search's live counts do not sum to the budget")
+            same, dpi = search_agreement("parallel: the sharded ResNet search", counts, whole)
+            out["search"] = {"same": same, "dpi": dpi, "whole_s": whole_s,
+                             "equal": bool(torch.equal(counts, whole))}
+            out["learner"] = {**learner, "seconds": learner_s}
+            print(json.dumps(out), flush=True)
+        distributed.barrier(mesh)
+    finally:
+        distributed.shutdown()
+    return 0
+
+
+def par_spawn(backend: str, go=None) -> list:
+    """Phase 22(b)/(c)'s two ranks over ``backend`` (``parallel_rank``):
+    rank 0's records. With ``go``, the ranks start up and then wait for
+    that file before their checks, so their start-up overlaps (a)."""
+    from alphazero_tpu_torch.parallel.distributed import launch_local_multihost
+
+    return launch_local_multihost(
+        [] if go is None else ["--go", go], num_processes=2, timeout=PAR_TIMEOUT,
+        platform=None, backend=backend, entry=[os.path.abspath(__file__), "--parallel-rank"])
+
+
+def par_pair(card: str, tag: str, backend: str, want: dict, pending=None) -> dict:
+    """Phase 22(b)/(c)'s two ranks over ``backend`` (spawned here, or the
+    future ``pending`` of ranks started earlier): the MLPNet iteration
+    against the one-process record ``want``, the sharded search's gate
+    (in the ranks), each rank's launches and seconds printed. Returns the
+    launches, by kernel and rank."""
+    t0 = time.perf_counter()
+    (out,) = par_spawn(backend) if pending is None else pending.result()
+    sec = time.perf_counter() - t0
+    rec = out["record"]
+    check_record(tag, rec, 64, False)
+    # the integers; the losses are printed, not gated: each rank rounds its
+    # bf16 weight gradients before the ranks' sum (the learner witness
+    # below holds the same steps in f32 to PAR_LOSS_ATOL)
+    diff = par_same_record(f"{tag}: the two-rank MLPNet iteration", rec, want, losses=False)
+    lrn = out["learner"]
+    if not lrn["f32"] <= PAR_LOSS_ATOL:
+        fail(f"{tag}: the two-rank f32 learner's losses are {lrn['f32']} from the one-process "
+             f"learner's (bf16: {lrn['bf16']})")
+    for k in PAR_KERNELS:
+        if 0 in out["launches"][k]:
+            fail(f"{tag}: a rank launched no {k}: {out['launches']}")
+    srch = out["search"]
+    print(f"[parallel] ({tag}) two ranks over {backend}, "
+          f"{'spawned and done' if pending is None else 'started during (a), done'} in "
+          f"{sec:.3f} s: the order-free "
+          f"MLPNet (256, 256) iteration (B=1024, 100 sims) equal to the one-process one in "
+          f"the integers (losses {rec['loss_first']:.6f} -> {rec['loss_last']:.6f}, "
+          f"{want['loss_first']:.6f} -> {want['loss_last']:.6f} in one process: {diff:.3g} "
+          f"apart), "
+          f"{'/'.join(f'{s:.3f}' for s in out['coach_s'])} s an iteration by rank | "
+          f"{par_phases(rec)} | the learner on that ring (64 steps of 256, one seed) against "
+          f"one process: max |dloss| {lrn['f32']:.3g} with f32 hidden layers (<= "
+          f"{PAR_LOSS_ATOL}), {lrn['bf16']:.3g} with bf16 ({lrn['seconds']:.3f} s) "
+          f"| the sharded AZResNet-64x5 search of phase 3's roots (B={B}, {SIMS} sims, "
+          f"{B // 2} a rank): {srch['same']:.4f} of games identical to the unsharded search "
+          f"({'all counts equal' if srch['equal'] else 'not all equal'}), max |dpi| "
+          f"{srch['dpi']:.4f}; {'/'.join(f'{1e3 * s:.3f}' for s in out['search_s'])} ms by rank "
+          f"against {1e3 * srch['whole_s']:.3f} ms unsharded | launches by rank "
+          f"{out['launches']} | {card}", flush=True)
+    return out["launches"]
+
+
+def par_iteration(card: str, tag: str, flags, need, mesh, label: str) -> dict:
+    """One coach iteration of the CLI's ``flags`` (the MLPNet order-free)
+    on ``mesh`` or in one process, on cuda:0: its record, printed."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.coach import Coach
+
+    game, model, cfg = par_setup(flags, order_free=tag == "mlp")
+    coach = Coach(game, model, cfg, mesh=mesh, device=torch.device("cuda", 0))
+    kernels.reset_launch_counts()
+    rec, sec = timed_sync(coach.run_iteration)
+    counts = dict(kernels.launch_counts())
+    if any(counts[k] == 0 for k in need):
+        fail(f"parallel: the {tag} iteration ({label}) launched {counts}")
+    check_record("parallel", rec, cfg.arena.num_games, False)
+    print(f"[parallel] (a) {tag} coach iteration, {label}: {sec:.3f} s | {par_phases(rec)} | "
+          f"gate {rec['arena_wins']}-{rec['arena_losses']}-{rec['arena_draws']} | loss "
+          f"{rec['loss_first']:.6f} -> {rec['loss_last']:.6f} | ring {rec['replay_size']} rows "
+          f"| launches {launched(counts)} | {card}", flush=True)
+    del coach, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def parallel_phase(card: str, cards_only: bool = False) -> dict:
+    """Phase 22 (see the module docstring). Returns each rank's launches
+    of (b), by kernel. ``cards_only`` runs the one-process MLPNet
+    iteration, (c) and (d) alone (``--parallel-cards``: a machine of
+    several cards)."""
+    import concurrent.futures
+    import shutil
+    import socket
+    import tempfile
+
+    from alphazero_tpu_torch.models import AZResNet
+    from alphazero_tpu_torch.parallel import distributed, make_mesh
+    from alphazero_tpu_torch.parallel.distributed import launch_local_multihost
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    if cards_only:
+        want = par_iteration(card, "mlp", PAR_MLP, ("fused_mlp",), None, "one process")
+        return par_cards(card, want, t_phase)
+
+    # (b)'s ranks start up now and wait for `go`, written once (a) is done
+    go = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_go_"), "go")
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    pending = pool.submit(par_spawn, "gloo", go)
+
+    # ---- (a) a world of one under NCCL -----------------------------------
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    if distributed.initialize(f"localhost:{port}", 1, 0, backend="nccl") != dev:
+        fail("parallel: the world of one is not on cuda:0")
+    records = {}
+    try:
+        mesh = make_mesh()
+        x = torch.randn(B, 7, generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+        for name, got in (("all_reduce", distributed.all_reduce(x, mesh)),
+                          ("all_gather", distributed.all_gather(x, mesh, dim=1)),
+                          ("broadcast", distributed.broadcast(x, mesh)),
+                          ("all_gather bool", distributed.all_gather(x > 0, mesh)),
+                          ("max", distributed.all_reduce(x, mesh, op="max"))):
+            if not torch.equal(got, x > 0 if "bool" in name else x) or not got.is_cuda:
+                fail(f"parallel: NCCL {name} of a world of one is not the identity")
+        distributed.barrier(mesh)
+        torch.manual_seed(SEED)
+        net = AZResNet(7, channels=64, blocks=5, dtype=torch.float32).to(dev)
+        feats = torch.rand(PAR_BN_B, 6, 7, 2, device=dev)
+        start = {k: v.clone() for k, v in net.state_dict().items()}
+        outs = []
+        for m in (None, mesh):
+            net.load_state_dict(start)
+            probe = feats.clone().requires_grad_(True)
+            net.zero_grad()
+            logits, v = net(probe, train=True, bn_mesh=m)
+            (logits.square().mean() + v.mean()).backward()
+            outs.append([logits, v, probe.grad] + [p.grad for p in net.parameters()]
+                        + [b.clone() for b in net.buffers()])
+        # the forward and the running statistics bit for bit; the gradients
+        # within PAR_GRAD_RTOL of each tensor's largest entry: the global
+        # moments' autograd nodes change the order in which the engine sums
+        # a tensor's incoming gradients
+        n_grads = 3 + len(list(net.parameters()))
+        fwd = [i for i, (a, b) in enumerate(zip(*outs)) if (i < 2 or i >= n_grads)
+               and not bit_equal(a.float(), b.float())]
+        if fwd:
+            fail(f"parallel: the global-statistics BatchNorm of a world of one differs at {fwd}")
+        rel = max(float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+                  for a, b in list(zip(*outs))[2:n_grads])
+        same = sum(bit_equal(a, b) for a, b in list(zip(*outs))[2:n_grads])
+        if not rel <= PAR_GRAD_RTOL:
+            fail(f"parallel: the global-statistics BatchNorm's gradients differ by {rel} of "
+                 f"their tensors' largest entries")
+        print(f"[parallel] (a) NCCL world of one on {dev}: all_reduce (sum, max), all_gather "
+              f"(f32, bool), broadcast, barrier on CUDA tensors the identity; the "
+              f"global-statistics BatchNorm of AZResNet-64x5 in f32 (B={PAR_BN_B}): logits, "
+              f"value and running statistics bit-equal to the mesh-less ones, the input and "
+              f"parameter gradients {same} of {n_grads - 2} tensors bit-equal, the rest within "
+              f"{rel:.3g} of each tensor's largest entry | {card}", flush=True)
+        for tag, flags, need in (("mlp", PAR_MLP, ("fused_mlp",)),
+                                 ("resnet", PAR_RESNET_CUT, ("descend", "merge", "refresh"))):
+            got = {label: par_iteration(card, tag, flags, need, m, label)
+                   for label, m in (("one process", None), ("world of one", mesh))}
+            diff = par_same_record(f"parallel: the {tag} world of one", got["world of one"],
+                                   got["one process"])
+            print(f"[parallel] (a) {tag}: the world-of-one iteration equals the one-process "
+                  f"one (integers; losses {diff:.3g} apart)", flush=True)
+            records[tag] = got["one process"]
+    finally:
+        distributed.shutdown()
+        open(go, "w").close()
+
+    # ---- (b) two ranks sharing the card over gloo --------------------------
+    per_rank = par_pair(card, "b", "gloo", records["mlp"], pending)
+    pool.shutdown()
+    shutil.rmtree(os.path.dirname(go))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multihost_") as ckdir:
+        flags = [*PAR_CLI, "--checkpoint-dir", ckdir]
+        for iters, want in ((1, [1]), (1, [2])):
+            recs, sec = timed_sync(lambda: launch_local_multihost(
+                [*flags, "--iterations", iters], num_processes=2, timeout=PAR_TIMEOUT,
+                platform=None, backend="gloo"))
+            if [r["iteration"] for r in recs] != want:
+                fail(f"parallel: the CLI pair printed iterations {[r['iteration'] for r in recs]}")
+            for r in recs:
+                check_record("parallel", r, 64, False)
+                print(f"[parallel] (b) CLI pair over gloo ({' '.join(PAR_CLI)}), iteration "
+                      f"{r['iteration']}: {par_phases(r)} | gate {r['arena_wins']}-"
+                      f"{r['arena_losses']}-{r['arena_draws']} accepted {r['accepted']} | loss "
+                      f"{r['loss_first']:.4f} -> {r['loss_last']:.4f} | ring {r['replay_size']} "
+                      f"rows | {card}", flush=True)
+            print(f"[parallel] (b) the CLI pair {'resumed and ran' if want == [2] else 'ran'} "
+                  f"{len(recs)} iteration(s) in {sec:.3f} s (spawn included) | {card}",
+                  flush=True)
+
+    par_cards(card, records["mlp"], t_phase)
+    return per_rank
+
+
+def par_cards(card: str, want: dict, t_phase: float) -> dict:
+    """Phase 22(c) and (d); returns (c)'s launches by kernel and rank."""
+    per_rank = {}
+    # ---- (c) two ranks over NCCL, one card each -----------------------------
+    if torch.cuda.device_count() >= 2:
+        per_rank = par_pair(card, "c", "nccl", want)
+    else:
+        print(f"[parallel] (c) did not run: {torch.cuda.device_count()} card on this machine, "
+              f"and two ranks over NCCL need a card each | {card}", flush=True)
+
+    # ---- (d) bench_scaling at its defaults (its main here; its ranks spawned)
+    import contextlib
+    import io
+
+    from alphazero_tpu_torch import bench_scaling
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, sec = timed_sync(lambda: bench_scaling.main([]))
+    if rc != 0:
+        fail(f"parallel: bench_scaling returned {rc}:\n{out.getvalue()}")
+    lines = [json.loads(ln) for ln in out.getvalue().splitlines() if ln.startswith("{")]
+    summary = lines[-1]
+    if (len(lines) != len([n for n in (1, 2, 4, 8) if n <= torch.cuda.device_count()]) + 1
+            or summary["meaningful"] != (len(lines) > 2) or summary["backend"] != "cuda"):
+        fail(f"parallel: bench_scaling printed {lines}")
+    for ln in lines:
+        print(f"[parallel] (d) bench_scaling: {json.dumps(ln)} | {card}", flush=True)
+    print(f"[parallel] (d) bench_scaling took {sec:.3f} s; phase 22 "
+          f"{time.perf_counter() - t_phase:.3f} s | {card}", flush=True)
+    return per_rank
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -3954,6 +4422,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        return parallel_rank(sys.argv[2:])
     from alphazero_tpu_torch.config import MCTSConfig
     from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.games import ConnectFour
@@ -4005,7 +4475,7 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--coach"]:
         kernels.library()
-        coach_phase(card)
+        coach_phase(card, cut=False)
         return 0
     if sys.argv[1:] == ["--games"]:
         kernels.library()
@@ -4021,6 +4491,10 @@ def main() -> int:
         return 0
     if sys.argv[1:] == ["--tt"]:
         tt_phase(card)
+        return 0
+    if sys.argv[1:] in (["--parallel"], ["--parallel-cards"]):
+        kernels.library()
+        parallel_phase(card, cards_only=sys.argv[1:] == ["--parallel-cards"])
         return 0
 
     # ---- 2. build ------------------------------------------------------
@@ -4356,7 +4830,7 @@ def main() -> int:
     # ---- 17. the coach ----------------------------------------------------
     # one iteration of each preset: its launches of descend, merge, refresh,
     # fused and fused_mlp replace phase 16's in the kernels line
-    launches.update(coach_phase(card))
+    launches.update(coach_phase(card, cut=True))
 
     # ---- 18. the coach on Othello, Gomoku, Hex and AZConvNet -------------
     # its launches of the games' descends and of the dense merge and seed
@@ -4378,6 +4852,12 @@ def main() -> int:
     # ---- 21. the transposition-DAG engine through its routes --------------
     # plain PyTorch: it adds no kernel, and its searches launch none
     tt_phase(card)
+
+    # ---- 22. the data-parallel path over torch.distributed ----------------
+    # each rank's launches in (b) add to the kernels line's
+    per_rank = parallel_phase(card)
+    for k, counts in per_rank.items():
+        launches[k] += sum(counts)
 
     print(card)
     print(json.dumps({"kernels": [
@@ -4401,6 +4881,8 @@ def main() -> int:
             # and a seed's with each prior read as its own 32-byte sector
             **{k: results[name][k] for k in ("whole_plane_bound_ms", "sector_bound_ms")
                if k in results[name]},
+            # phase 22(b): each rank's launches of the two-rank runs
+            **({"parallel_launches_per_rank": per_rank[name]} if name in per_rank else {}),
         }
         for name in ("descend", "merge", "refresh", "fused", "fused_mlp",
                      "descend_othello", "merge_dense", "refresh_dense", "descend_gomoku",

@@ -196,5 +196,13 @@ def test_unported_engines_raise(flag, item):
 
 
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    """The arena takes a ``parallel.Mesh`` (tests/test_torch_parallel.py
+    plays one over two ranks); anything else, and a game count that does
+    not divide over the ranks, raise when the arena is built."""
+    from alphazero_tpu_torch.parallel import Mesh
+
+    with pytest.raises(TypeError, match="parallel.Mesh"):
         make_arena_fn(G, MCTSConfig(), 4, device="cpu", mesh=object())
+    two = Mesh(None, 0, 2, {"data": 2, "model": 1}, "gloo", torch.device("cpu"))
+    with pytest.raises(ValueError, match="arena's games of 7 does not divide over the mesh's 2"):
+        make_arena_fn(G, MCTSConfig(), 7, device="cpu", mesh=two)

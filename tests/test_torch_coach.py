@@ -178,7 +178,9 @@ def test_rung_retirement_counts_only_the_incumbents_matches(jax_run, port_run, s
 def test_unported_options_raise():
     game = ConnectFour()
     cfg = port_cfg(tiny_cfg())
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    # a mesh is ported (tests/test_torch_parallel.py): the coach takes a
+    # parallel.Mesh and nothing else
+    with pytest.raises(TypeError, match="parallel.make_mesh"):
         Coach(game, MLPNet(7, hidden=(8,)), cfg, mesh=object(), device="cpu")
     # reanalyze is ported (tests/test_torch_reanalyze.py): the coach records
     # root states into a position ring of the configured capacity

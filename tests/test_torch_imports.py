@@ -205,3 +205,17 @@ def test_no_compiler_or_library_kernel_stands_in(needle):
     the port routes them through torch.compile or cpp_extension."""
     hits = [str(f) for f in _port_sources() if needle in f.read_text()]
     assert not hits, hits
+
+
+def test_the_scan_covers_the_data_parallel_path():
+    """The mesh, the collectives, the multi-process CLI and the scaling
+    harness are in the import scan, and no raise in the port cites the
+    ROADMAP item "`parallel/` → `torch.distributed`" any more (the coach
+    and the arena once did)."""
+    names = {f.relative_to(PORT).as_posix() for f in _port_sources()}
+    for want in ("parallel/__init__.py", "parallel/mesh.py", "parallel/distributed.py",
+                 "examples/train_multihost.py", "bench_scaling.py"):
+        assert want in names
+    hits = [f.relative_to(PORT).as_posix() for f in _port_sources()
+            if "`parallel/` → `torch.distributed`" in f.read_text()]
+    assert hits == []
