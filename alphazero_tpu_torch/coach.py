@@ -52,9 +52,19 @@ Rank 0 alone logs the metrics and writes the checkpoint; every rank
 restores it, and the recycling actor's carry is gathered into global
 order for the save and cut to the rank's games on restore.
 
-Not ported: the host example archive, ``{iteration}.examples`` (ROADMAP
-queue 1, "The host example archive"): the whole-state checkpoint holds
-the ring.
+The host archive of samples: with a ``checkpoint_dir`` and one rank, the
+coach mirrors each iteration's valid self-play samples (features, pi,
+value; step-major, as the trajectory holds them) into a
+``native.ExampleStore`` of ``cfg.replay.capacity`` rows, right after the
+replay insert, and saves the store as ``{iteration}.examples`` in the
+checkpoint directory (``iteration`` counted before the iteration ends, as
+the JAX coach names them: the first file is ``0.examples``). The file is
+the JAX store's format, and holds every archived row the ring still has,
+oldest first. Under a mesh of more than one rank no archive is written, as
+under the JAX coach's multi-process runs; the whole-state checkpoint holds
+the replay ring there. Without g++ on ``PATH`` the coach logs one warning
+and writes none; any other failure of the store raises (the JAX coach
+drops the archive on any exception).
 """
 
 from __future__ import annotations
@@ -63,6 +73,8 @@ import copy
 import dataclasses
 import itertools
 import logging
+import math
+import os
 import pickle
 import signal
 import threading
@@ -70,6 +82,7 @@ from typing import Optional
 
 import torch
 
+from alphazero_tpu_torch import native
 from alphazero_tpu_torch.arena import gate, make_arena_fn, tie_draws_from
 from alphazero_tpu_torch.checkpoint import (
     latest_step,
@@ -238,6 +251,16 @@ class Coach:
         self.anchored_ratings = {}
         self.metrics = MetricsLogger(cfg.checkpoint_dir if self._primary else None)
         self.timer = PhaseTimer()
+        # the host archive of training samples, `{iteration}.examples`
+        self.example_store = None
+        if cfg.checkpoint_dir and (mesh is None or mesh.size == 1):
+            if native.available():
+                self.example_store = native.ExampleStore(
+                    cfg.replay.capacity, feat_size=math.prod(game.feature_shape),
+                    num_actions=game.num_actions)
+            else:
+                log.warning("no g++ on PATH: the host example archive ({iteration}.examples) "
+                            "is not written")
         if cfg.checkpoint_dir:
             self._maybe_resume()
 
@@ -484,6 +507,8 @@ class Coach:
                         self.positions, states[0], traj.value, traj.valid, self.iteration,
                         stride=cfg.reanalyze.record_stride)
                 synchronize(self.replay.data)
+            if self.example_store is not None:
+                self._archive_examples(traj)
             del traj
         reanalyzed = reanalyze_age = None
         if self._reanalyze is not None and (self.iteration + 1) % cfg.reanalyze.interval == 0:
@@ -559,6 +584,18 @@ class Coach:
             stride = max(cfg.replay_save_stride, 1)
             self.save(rings=(self.iteration // interval) % stride == 1 % stride)
         return record
+
+    def _archive_examples(self, traj) -> None:
+        """Mirror the trajectory's valid samples into the host store and
+        save it as ``{iteration}.examples`` in the checkpoint directory."""
+        valid = traj.valid.reshape(-1)
+        n = valid.shape[0]
+        feats = traj.features.reshape(n, -1)[valid].float().cpu().numpy()
+        pis = traj.pi.reshape(n, -1)[valid].float().cpu().numpy()
+        vals = traj.value.reshape(-1)[valid].float().cpu().numpy()
+        self.example_store.append(feats, pis, vals)
+        self.example_store.save(os.path.join(self.cfg.checkpoint_dir,
+                                             f"{self.iteration}.examples"))
 
     def _play(self, arena, model_a, model_b, reps: int = 1) -> tuple:
         """``reps`` arenas of ``model_a`` (the candidate's seat) against

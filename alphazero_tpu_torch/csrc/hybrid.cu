@@ -7,7 +7,7 @@
 //                  (FlatOps.step, games/connect_four.py:201-217) from c4.cuh,
 //                  the Othello step (OthelloFlatOps.step, games/othello.py
 //                  :228-265) from othello.cuh, the Gomoku step of every edge
-//                  up to 22 (GomokuFlatOps.step, games/gomoku.py:191-200)
+//                  up to 27 (GomokuFlatOps.step, games/gomoku.py:191-200)
 //                  from gomoku.cuh, the canonical Hex step (HexFlatOps.step,
 //                  games/hex.py:214-232, without its parity lane) from
 //                  hex.cuh;
@@ -62,7 +62,8 @@
 //   one wave) with real indexing (the TPU kernel's one-hot lane reductions
 //   are layout, not semantics), and carries the board in registers as
 //   bitboards of Game::kWords 64-bit words a side (one for Connect-Four,
-//   Othello and Hex; eight for Gomoku, up to 512 cells), so a Connect-Four
+//   Othello and Hex; eight for Gomoku up to 512 cells, twelve up to 768),
+//   so a Connect-Four
 //   step is a popcount and two bit ops, an Othello step a register-only
 //   walk of the 8 rays, a Gomoku step two bit ops per word and a Hex step
 //   two 7x7 transposes of 12 masked shifts each. The board row comes in
@@ -96,9 +97,10 @@
 //   ballot the path nodes, the install slot and the expanded parent; for
 //   each, lane l takes actions l, l + 32, ...: it loads its cells of the
 //   four planes together (one trip to memory), applies the install, backup
-//   and link terms of merge_kernel, and keeps them in registers (J = 4, 8
-//   or 16 a lane by A, so A <= 512: the entries refuse more, which no
-//   ported game has; Gomoku stops at 484). The visit sum is a
+//   and link terms of merge_kernel, and keeps them in registers (J = 4, 8,
+//   16 or 24 a lane by A, so A <= 768: the entries refuse more, which no
+//   ported game the kernels take has; Gomoku stops at 729, edge 27). The
+//   visit sum is a
 //   butterfly of shuffles (integer counts below 2^24: exact in any order),
 //   the argmax a butterfly on (score descending, action ascending), the
 //   sequential strict-> scan's order, and the winning lane hands over the
@@ -211,7 +213,8 @@ struct OthelloGame {
 };
 
 // Gomoku boards of up to 64 * W cells, any edge: the cells come at run time.
-// Instantiated for W = 8 (up to 512 cells, edges up to 22): on the H100 a
+// Instantiated for W = 8 (up to 512 cells, edges up to 22) and W = 12 (up to
+// 768 cells, edges 23 to 27, which only those boards take): on the H100 a
 // 4-word instance descends Gomoku 15 in the same time, the path's loads
 // and not the words' bit operations setting it.
 template <int W>
@@ -377,7 +380,7 @@ __global__ void __launch_bounds__(kDescendThreads)
 
 constexpr int kMergeWarps = 4;              // games (warps) per block of a dense merge
 constexpr int kMergeWarpThreads = 32 * kMergeWarps;
-constexpr int kMaxDenseA = 32 * 16;         // a dense merge's actions: 16 a lane in registers
+constexpr int kMaxDenseA = 32 * 24;         // a dense merge's actions: 24 a lane in registers
 constexpr float kNoEdge = -3.0e38f;         // a lane's empty slot: below every score, -1e30 too
 constexpr float kNoAction = 1.0e9f;
 
@@ -1346,7 +1349,7 @@ int launch_descend_round(const float* besta, const float* bestc, const float* se
 
 // The dense merges: kMergeWarps games (warps) a block, in the kernel
 // instance whose lanes keep J actions each in registers: J = 4 up to A =
-// 128, 8 up to 256, 16 up to kMaxDenseA = 512.
+// 128, 8 up to 256, 16 up to 512, 24 up to kMaxDenseA = 768.
 template <int J>
 int launch_merge_dense(float* n, float* w, float* p, float* code, float* done, float* tval,
                        const float* pm, const float* patha, const float* psgn, const float* meta2,
@@ -1380,7 +1383,10 @@ int seed(const float* p, float* besta, float* bestc, float* seca, float* secc, i
   if (A <= 32 * 8) {
     return launch_seed<8, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
   }
-  return launch_seed<16, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+  if (A <= 32 * 16) {
+    return launch_seed<16, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+  }
+  return launch_seed<24, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
 template <int J>
@@ -1405,7 +1411,8 @@ const char* az_error_string(int code) {
 }
 
 // The descend entries: boards f32[B, cells], cells being the game's own
-// (42, 64, 49) or, for Gomoku, its edge squared (at most 512).
+// (42, 64, 49) or, for Gomoku, its edge squared (at most 768: the 8-word
+// instance up to 512, the 12-word one above).
 int az_descend(const float* besta, const float* bestc, const float* done,
                const float* tval, const float* boards, float* bd, float* patha,
                float* psgn, float* meta, int B, int C, int max_depth, int cells,
@@ -1426,9 +1433,13 @@ int az_descend_gomoku(const float* besta, const float* bestc, const float* done,
                       const float* tval, const float* boards, float* bd,
                       float* patha, float* psgn, float* meta, int B, int C,
                       int max_depth, int cells, void* stream) {
-  if (cells > 64 * 8) return (int)cudaErrorInvalidValue;
-  return launch_descend<GomokuGame<8>>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
-                                       B, C, max_depth, cells, stream);
+  if (cells > 64 * 12) return (int)cudaErrorInvalidValue;
+  if (cells <= 64 * 8) {
+    return launch_descend<GomokuGame<8>>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
+                                         B, C, max_depth, cells, stream);
+  }
+  return launch_descend<GomokuGame<12>>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
+                                        B, C, max_depth, cells, stream);
 }
 
 int az_descend_hex(const float* besta, const float* bestc, const float* done,
@@ -1454,7 +1465,7 @@ int az_merge(float* n, float* w, float* p, float* code, float* done,
   return (int)cudaGetLastError();
 }
 
-// The dense K=1 merge (A <= 512): updates besta/bestc in place at the
+// The dense K=1 merge (A <= 768): updates besta/bestc in place at the
 // columns it writes, and relies on them being the refresh of the entry
 // planes.
 int az_merge_dense(float* n, float* w, float* p, float* code, float* done,
@@ -1471,11 +1482,15 @@ int az_merge_dense(float* n, float* w, float* p, float* code, float* done,
     return launch_merge_dense<8>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
                                  B, A, C, slot, cpuct, stream);
   }
-  return launch_merge_dense<16>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
+  if (A <= 32 * 16) {
+    return launch_merge_dense<16>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
+                                  B, A, C, slot, cpuct, stream);
+  }
+  return launch_merge_dense<24>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
                                 B, A, C, slot, cpuct, stream);
 }
 
-// The seed of a fresh search (1 <= A <= 512; the wrappers send it A <= 8):
+// The seed of a fresh search (1 <= A <= 768; the wrappers send it A <= 8):
 // n, w and code are not read; the planes must be as _init_planes leaves
 // them (see seed_dense_kernel).
 int az_refresh(const float* n, const float* w, const float* p,
@@ -1484,7 +1499,7 @@ int az_refresh(const float* n, const float* w, const float* p,
   return seed<false>(p, besta, bestc, nullptr, nullptr, B, A, C, cpuct, stream);
 }
 
-// The same seed for the dense path (2 <= A <= 512).
+// The same seed for the dense path (2 <= A <= 768).
 int az_refresh_dense(const float* n, const float* w, const float* p,
                      const float* code, float* besta, float* bestc, int B,
                      int A, int C, float cpuct, void* stream) {
@@ -1517,9 +1532,15 @@ int az_descend_round_gomoku(const float* besta, const float* bestc, const float*
                             const float* boards, float* bd, float* patha, float* psgn,
                             float* meta, int B, int C, int K, int max_depth, int cells,
                             void* stream) {
-  if (cells > 64 * 8) return (int)cudaErrorInvalidValue;
-  return launch_descend_round<GomokuGame<8>>(besta, bestc, seca, secc, done, tval, boards, bd,
-                                             patha, psgn, meta, B, C, K, max_depth, cells, stream);
+  if (cells > 64 * 12) return (int)cudaErrorInvalidValue;
+  if (cells <= 64 * 8) {
+    return launch_descend_round<GomokuGame<8>>(besta, bestc, seca, secc, done, tval, boards, bd,
+                                               patha, psgn, meta, B, C, K, max_depth, cells,
+                                               stream);
+  }
+  return launch_descend_round<GomokuGame<12>>(besta, bestc, seca, secc, done, tval, boards, bd,
+                                              patha, psgn, meta, B, C, K, max_depth, cells,
+                                              stream);
 }
 
 int az_descend_round_hex(const float* besta, const float* bestc, const float* seca,
@@ -1546,7 +1567,7 @@ int az_merge_round(float* n, float* w, float* p, float* code, float* done, float
   return (int)cudaGetLastError();
 }
 
-// The dense round merge (A <= 512): updates the four top-2 planes in place
+// The dense round merge (A <= 768): updates the four top-2 planes in place
 // at the columns it writes, and relies on them being the refresh2 of the
 // entry planes.
 int az_merge_round_dense(float* n, float* w, float* p, float* code, float* done, float* tval,
@@ -1563,11 +1584,15 @@ int az_merge_round_dense(float* n, float* w, float* p, float* code, float* done,
     return launch_merge_round_dense<8>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
                                        bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
   }
-  return launch_merge_round_dense<16>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
+  if (A <= 32 * 16) {
+    return launch_merge_round_dense<16>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
+                                        bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
+  }
+  return launch_merge_round_dense<24>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
                                       bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
 }
 
-// The top-2 seed of a fresh round search (1 <= A <= 512; the wrappers send
+// The top-2 seed of a fresh round search (1 <= A <= 768; the wrappers send
 // it A <= 8), as az_refresh.
 int az_refresh2(const float* n, const float* w, const float* p, const float* code, float* besta,
                 float* bestc, float* seca, float* secc, int B, int A, int C, float cpuct,
@@ -1575,7 +1600,7 @@ int az_refresh2(const float* n, const float* w, const float* p, const float* cod
   return seed<true>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
-// The same top-2 seed for the dense path (2 <= A <= 512).
+// The same top-2 seed for the dense path (2 <= A <= 768).
 int az_refresh2_dense(const float* n, const float* w, const float* p, const float* code,
                       float* besta, float* bestc, float* seca, float* secc, int B, int A, int C,
                       float cpuct, void* stream) {

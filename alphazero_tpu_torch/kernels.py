@@ -29,8 +29,9 @@ Each wrapper takes tensors on ONE device:
 ``descend``, ``merge`` and ``refresh`` route a CUDA call to the kernel
 instance that takes it: ``descend`` by the type of the game's flat ops
 (``descend_entry``: Connect-Four's ``FlatOps`` its own kernel, then
-``descend_othello``, ``descend_gomoku`` (boards of up to 512 cells; above,
-it raises) and ``descend_hex``; any other type raises), ``merge`` and
+``descend_othello``, ``descend_gomoku`` (boards of up to 768 cells: the
+8-word instance up to 512, the 12-word one above; beyond, it raises) and
+``descend_hex``; any other type raises), ``merge`` and
 ``refresh`` by action count (A <= 8 their own kernels; above,
 ``merge_dense`` and ``refresh_dense``). ``descend_round``,
 ``merge_round`` and ``refresh2`` route the same way (to
@@ -235,15 +236,15 @@ _DESCEND_ENTRIES = {
     GomokuFlatOps: "az_descend_gomoku",
     HexFlatOps: "az_descend_hex",
 }
-GOMOKU_MAX_CELLS = 512      # az_descend_gomoku: 8-word bitboards, edges up to 22
-DENSE_MERGE_MAX_A = 512     # the dense merges: 16 actions a lane of a warp in registers
+GOMOKU_MAX_CELLS = 768      # az_descend_gomoku: 8-word bitboards to 512 cells, 12-word to 768
+DENSE_MERGE_MAX_A = 768     # the dense merges: up to 24 actions a lane of a warp in registers
 
 
 def descend_entry(ops) -> str:
     """The entry of the descend kernel instance that steps boards as
     ``ops.step`` does, by the exact type of the flat ops (a subclass may
     step otherwise). Raises for any other type and for a Gomoku board
-    above 512 cells."""
+    above 768 cells (edges above 27)."""
     entry = _DESCEND_ENTRIES.get(type(ops))
     if entry is None:
         raise NotImplementedError(
@@ -253,8 +254,8 @@ def descend_entry(ops) -> str:
     if entry == "az_descend_gomoku" and ops.size > GOMOKU_MAX_CELLS:
         raise NotImplementedError(
             f"the Gomoku descend kernels take boards of at most {GOMOKU_MAX_CELLS} cells "
-            f"(edge 22), got {ops.size}: wider bitboards are later work (ROADMAP queue 2, "
-            "\"Gomoku boards above 512 cells\")"
+            f"(edge 27), got {ops.size}: wider bitboards are later work (ROADMAP queue 2, "
+            "\"Gomoku boards above 768 cells\")"
         )
     return entry
 
@@ -308,7 +309,7 @@ descend_othello = _descend_instance(
     "``mcts.hybrid.descend`` for Othello boards f32[B, 64].")
 descend_gomoku = _descend_instance(
     "descend_gomoku", "az_descend_gomoku",
-    "``mcts.hybrid.descend`` for Gomoku boards f32[B, S*S], any edge S up to 22.")
+    "``mcts.hybrid.descend`` for Gomoku boards f32[B, S*S], any edge S up to 27.")
 descend_hex = _descend_instance(
     "descend_hex", "az_descend_hex",
     "``mcts.hybrid.descend`` for canonical Hex boards f32[B, 49].")
@@ -385,8 +386,8 @@ def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot:
 
 def merge_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int,
                 cpuct: float):
-    """``mcts.hybrid.merge`` with the dense refresh, for A up to 512 (the
-    main path sends it A > 8; no ported game has more than Gomoku 22's 484
+    """``mcts.hybrid.merge`` with the dense refresh, for A up to 768 (the
+    main path sends it A > 8; the widest board it takes is Gomoku 27's 729
     actions). The kernel reads and refreshes only the columns
     the merge writes (path nodes, the install slot, the expanded parent)
     and leaves every other node's best planes as they are: on entry
@@ -441,7 +442,7 @@ def refresh(n, w, p, code, cpuct: float):
 
 
 def refresh_dense(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh``'s dense branch as a kernel, 2 <= A <= 512
+    """``mcts.hybrid.refresh``'s dense branch as a kernel, 2 <= A <= 768
     (the main path sends it A > 8), for the seed of a fresh search: the
     planes must be as ``mcts.hybrid._init_planes`` leaves them, the roots'
     priors in ``p[:, :, 0]`` and ``n = w = p = 0``, ``code = -1``
@@ -461,6 +462,16 @@ MAX_ROUND_K = 16          # csrc/hybrid.cu kMaxRoundK: descents per round the me
 ROUND_MAX_NODES = 29056   # the round descend: 2 x C counter bytes a game, 4 games a block, 227 KB
 
 
+def _check_round_k(K: int) -> None:
+    if K < 1:
+        raise ValueError(f"the round kernels take 1 <= K <= {MAX_ROUND_K} descents, got {K}")
+    if K > MAX_ROUND_K:
+        raise NotImplementedError(
+            f"the round kernels take at most {MAX_ROUND_K} descents a round, got K={K}: staging "
+            "the records in chunks is later work "
+            "(ROADMAP queue 2, \"Round kernels for K above 16\")")
+
+
 def _descend_round(entry: str, besta, bestc, seca, secc, done, tval, boards, max_depth: int, ops,
                    K: int):
     """Launch the round descend kernel ``entry`` on CUDA tensors, for
@@ -471,8 +482,7 @@ def _descend_round(entry: str, besta, bestc, seca, secc, done, tval, boards, max
     L = ops.size
     if B == 0:
         raise ValueError("descend_round kernel needs B > 0")
-    if not 1 <= K <= MAX_ROUND_K:
-        raise ValueError(f"the round kernels take 1 <= K <= {MAX_ROUND_K} descents, got {K}")
+    _check_round_k(K)
     if C > ROUND_MAX_NODES:
         raise ValueError(f"the round descend kernel takes at most {ROUND_MAX_NODES} nodes, got {C}")
     lib = library()
@@ -521,7 +531,7 @@ descend_round_othello = _descend_round_instance(
     "``mcts.hybrid.descend_round`` for Othello boards f32[B, 64].")
 descend_round_gomoku = _descend_round_instance(
     "descend_round_gomoku", "az_descend_round_gomoku",
-    "``mcts.hybrid.descend_round`` for Gomoku boards f32[B, S*S], any edge S up to 22.")
+    "``mcts.hybrid.descend_round`` for Gomoku boards f32[B, S*S], any edge S up to 27.")
 descend_round_hex = _descend_round_instance(
     "descend_round_hex", "az_descend_round_hex",
     "``mcts.hybrid.descend_round`` for canonical Hex boards f32[B, 49].")
@@ -556,8 +566,7 @@ def _merge_round(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, 
     K = patha.shape[0]
     if B == 0:
         raise ValueError("merge_round kernel needs B > 0")
-    if not 1 <= K <= MAX_ROUND_K:
-        raise ValueError(f"the round kernels take 1 <= K <= {MAX_ROUND_K} descents, got {K}")
+    _check_round_k(K)
     lib = library()
     ptrs = [
         _check("n", n, (B, A, C)), _check("w", w, (B, A, C)),
@@ -594,7 +603,7 @@ def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
 def merge_round_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc,
                       slot0: int, cpuct: float):
     """``mcts.hybrid.merge_round`` with the dense top-2 refresh, for A up
-    to 512 (the main path sends it A > 8). Like ``merge_dense`` it reads and
+    to 768 (the main path sends it A > 8). Like ``merge_dense`` it reads and
     refreshes only the columns the K records write: on entry the top-2
     planes must be the ``refresh2`` of the entry planes."""
     args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc)
@@ -642,7 +651,7 @@ def refresh2(n, w, p, code, cpuct: float):
 
 
 def refresh2_dense(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh2``'s dense branch as a kernel, 2 <= A <= 512
+    """``mcts.hybrid.refresh2``'s dense branch as a kernel, 2 <= A <= 768
     (the main path sends it A > 8), for the seed of a fresh round search:
     the precondition of ``refresh_dense``, under which its four planes are
     bit-equal to the plain full refresh2's (every node but the root: ``(0,

@@ -68,7 +68,7 @@ kernels on each shard, and any per-batch choice is made on that batch.
 
 Not ported (ROADMAP queue 1 / queue 2): depth-sorted blocking
 (``run_search_sorted``, whose 8192-game threshold was measured on another
-device), and Gomoku boards above 512 cells on the card (their plain
+device), and Gomoku boards above 768 cells on the card (their plain
 version runs; the CUDA descends raise).
 """
 

@@ -17,7 +17,8 @@ the dense engine (plain PyTorch, the engine ladder's last rung), forced
 playouts in the fixed scan, and the play and analyze CLIs; then the
 training economy (Gumbel search, the ``economy`` preset, playout-cap
 randomization, reanalyze); then the transposition-DAG engine through its
-routes — on one CUDA card, in phases:
+routes; then the data-parallel path; then Gomoku boards above 512 cells on
+the kernels' wider instances — on one CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``,
@@ -28,7 +29,9 @@ routes — on one CUDA card, in phases:
            three MLP kernels, of the two uniform fused kernels, of the two
            A <= 8 merges, of the eight hybrid descends and of the eight
            instances of the seed (these twenty must have no stack frame and
-           no spill);
+           no spill), and of the dense merges' instances (J = 4, 8, 16 and
+           24 actions a lane; phase 23 prints the 12-word descends' and the
+           J = 24 seeds', none of these gated: a spill is printed);
 3. kernels vs plain: each kernel against its plain PyTorch version at the
            main path's shapes (B=4096, C=101, A=7), on tree planes taken
            from a few simulations of the plain search on random positions
@@ -246,18 +249,32 @@ routes — on one CUDA card, in phases:
            actor carry, generator, counters, Elo history, match graph) and
            runs iteration 2. The default run cuts the preset by
            ``cut_coach_cfg`` (train steps to GAMES_CUT_STEPS, self-play
-           sims to GAMES_CUT_SIMS, the warmup pass to one repeat) and runs
+           sims to GAMES_CUT_SIMS, the arenas' sims to GAMES_CUT_GATE_SIMS,
+           the warmup pass to one repeat) and runs
            iteration 2 without its anchored pass, each cut printed beside
            the preset's own value; ``--coach`` runs this phase uncut: each
            phase's seconds, anchored Elo +- SE,
            launches per kernel, peak memory, checkpoint bytes, save and
            restore ms; (b) the root counts of one gate-arena move at mixed
-           seating (B=256, 50 sims, two AZResNets on the combined forward)
+           seating (B=256, the gate's sims, two AZResNets on the combined
+           forward)
            through the kernels and the plain versions, identical, and one
            rung move's uniform side (B=256, 1600 sims, nodes 1601) through
-           ``az_fused``, its first roots held against the plain fused
+           ``az_fused``, its first COACH_SUBSET roots held against the plain fused
            search; (c) the ``mlp`` preset for 2 iterations (the anchored
-           pass at 2: fused calls on both sides). Its launches of
+           pass at 2: fused calls on both sides); (a') the host example
+           archive: each ``full`` iteration's ``{iteration}.examples`` (the
+           first coach's ``0.examples``, the resumed one's ``1.examples``)
+           loads through the port's ``native.ExampleStore`` bit-equal to the
+           valid rows of the trajectories that coach's self-play returned,
+           with its rows, bytes and the append, save and load ms; (d) one
+           gate arena (the resumed incumbent against a second AZResNet-64x5
+           on the combined forward, 256 games at the gate's sims: 50 uncut,
+           TRACE_CUT_SIMS in the default run) and one rung of the anchored
+           pass (the net at those sims against the uniform rung at 400)
+           under ``utils.timing.profiler_trace``, each chrome trace read
+           back (``trace_shares``): wall ms, the device's busy and idle
+           share, its top operations, and the launches. Its launches of
            ``descend``, ``merge``, ``refresh``, ``fused`` and ``fused_mlp``
            (one iteration of each preset) are the kernels line's;
 18. games: the coach on the other games and on ``AZConvNet``
@@ -300,7 +317,7 @@ routes — on one CUDA card, in phases:
            on every valid row, and its first 64 games replayed on the CPU
            with the same draws: moves, features, values and stats
            identical, the targets within 1e-6; (d) the CLIs as a user runs
-           them, each exiting 0: ``analyze`` (800 sims, a seeded
+           them, each exiting 0: ``analyze`` (ANALYZE_SIMS, a seeded
            AZResNet-64x5 checkpoint written by ``save_checkpoint``) on "3 3
            4", ``play_othello --sims 200`` with stdin closed, and, through
            ``analyze.main`` in this process (200 sims), a position with an
@@ -330,8 +347,9 @@ routes — on one CUDA card, in phases:
            100 ``az_descend``, 100 ``az_merge``, 1 ``az_refresh``, and the
            same pass through the plain versions gives identical counts (the
            seed takes only fresh planes); (e) one cut ``economy`` coach
-           iteration with reanalyze (self-play B=512, 16 train steps, a
-           64-game Gumbel gate at 25 sims, the anchored pass off): seconds by phase,
+           iteration with reanalyze (self-play B=512 at 16 Gumbel sims, 16
+           train steps, a 64-game Gumbel gate at 25 sims, the anchored pass
+           off; each cut printed beside the preset's value): seconds by phase,
            no kernel launched, the rings' bytes reckoned beside the
            checkpoint's, and a new Coach resuming from it bit-equal on both
            rings; (f) ``analyze --engine gumbel`` in this process (200 sims)
@@ -386,14 +404,32 @@ routes — on one CUDA card, in phases:
            the bounded-divergence gate (>= 75% of games identical, max
            |dpi| <= 0.25) against the unsharded search; then the CLI at
            full width (``--net resnet --channels 64 --blocks 5 --batch
-           1024 --sims 100``; 16 train steps and the gate at 25 sims) for
+           1024``; self-play cut to 25 sims of the JAX CLI's 100,
+           16 train steps and the gate at 25 sims) for
            1 iteration with a checkpoint directory,
            and a new pair that resumes and prints iteration 2; (c) with a
            second card, the pair of (b) over NCCL,
            one card each; with one, a line saying that (c) did not run;
            (d) ``bench_scaling`` at its defaults, its lines printed. Each
            rank's launches of ``az_fused_mlp``, ``az_descend``,
-           ``az_merge`` and ``az_refresh`` in (b) add to the kernels line.
+           ``az_merge`` and ``az_refresh`` in (b) add to the kernels line;
+23. gomoku23: Gomoku boards above 512 cells, which the 12-word
+           ``descend_gomoku``/``descend_round_gomoku`` instances and the J =
+           24 dense merges and seeds take (``gomoku23_phase``): their ptxas
+           lines; on Gomoku 23 (A=529) with the ``full`` preset's model
+           (AZResNet-64x5 bf16, seeded random weights; B=1024, 100 sims,
+           max_depth 48, Dirichlet 0.15, roots of up to WIDE_MOVES random
+           moves): (a) the descend, the dense merge and the dense seed
+           bit-equal to plain on a plain search's planes (the seed on its
+           fresh planes), timed in turns with their device ms and bounds;
+           (b) their round variants at K=4, the same; (c) one K=1 and one
+           K=4 search through the kernels and the plain versions, equal root
+           counts and exactly 100/100/1 and 25/25/1 launches; (d) (a)-(c) at
+           A=729 (edge 27) at B=WIDEST_B; (e) ``train_gomoku --size 23
+           --preset smoke`` in this process (1 iteration of the preset's 2)
+           exiting 0 with the wider kernels launched and ``0.examples``
+           written. Its entries ``*_w12``/``*_j24`` in the kernels line
+           are (a)-(c)'s at A=529, with (c)'s launches.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -424,7 +460,9 @@ alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone, uncut;
 ``python3 chip_smoke.py --parallel`` builds the kernels and runs phase 22
 alone; ``python3 chip_smoke.py --parallel-cards``, for a machine of
 several cards, runs the one-process MLPNet iteration of 22(a) and then
-22(c) and (d) alone.
+22(c) and (d) alone; ``python3 chip_smoke.py --gomoku23`` builds the
+kernels and runs phase 23 alone. Each phase's seconds print as it ends
+(``[time]``).
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -577,16 +615,18 @@ TOWER_KERNELS = ("int8_tower_kernel",)   # the tower's ptxas name
 LEARNER_RING = 1 << 21    # phase 16: the full preset's ReplayConfig capacity ...
 LEARNER_BATCH = 1024      # ... its TrainConfig batch (Adam 1e-3, l2 1e-4) ...
 LEARNER_TRAIN_STEPS = 16  # ... and 16 of its 512 steps a phase
-COACH_SUBSET = 4          # phase 17(b): roots of the 1600-sim rung search held against plain
+COACH_SUBSET = 2          # phase 17(b): roots of the 1600-sim rung search held against plain
                           # (its plain search takes ~1.5 s a root)
 MLP_RING, MLP_BATCH, MLP_TRAIN_STEPS = 1 << 17, 512, 8   # the mlp preset's ring and batch
 GAMES_CUT_STEPS = 64      # phases 17-18, the default run: train steps an iteration of each preset
-GAMES_CUT_SIMS = 50       # ... and self-play sims (the gates' own stay)
+GAMES_CUT_SIMS = 25       # ... self-play sims ...
+GAMES_CUT_GATE_SIMS = 25  # ... and the arenas' sims (the gate and the anchored pass's net side)
 CONVNET_F32_ATOL = 1e-3   # phase 18: AZConvNet folded vs unfolded on the card, f32 ...
 CONVNET_BF16_ATOL = 0.1   # ... and bf16 (tests/test_torch_convnet.py's bf16 bound)
 
 FORCED_B, FORCED_SIMS, FORCED_K = 2048, 25, 2.0   # phase 19(c): train_compare.py's forced arm
 FORCED_CPU_B = 64         # ... its games replayed on the CPU
+ANALYZE_SIMS = 200        # phase 19(d): the analyze CLI's sims on "3 3 4" (cut from 800)
 DENSE_PROFILED_SIMS = 25  # phase 19(a): the profiled dense search's simulations (the profiler's
                           # host time grows with the launches: ~38 s for a 100-sim search)
 ECO_B, ECO_SIMS = 4096, 32   # phase 20(a-b): the economy preset's self-play batch and Gumbel sims
@@ -598,13 +638,15 @@ PCR_CHECK_STEP = 10       # (c): the step whose two sub-batch searches are held 
 RZ_SCAN_B, RZ_SCAN_SIMS = 128, 16   # (d): the ResNet fixed scan that records positions ...
 RZ_CAP, RZ_R, RZ_SIMS = 1 << 13, 1024, 100   # ... into this ring; the pass re-searches R at SIMS
 ECO_COACH_B, ECO_COACH_STEPS, ECO_COACH_GAMES, ECO_COACH_RZ = 512, 16, 64, 1024   # (e): the cut
-ECO_COACH_GATE_SIMS = 25  # ... and its gate's sims
+ECO_COACH_GATE_SIMS = 25  # ... its gate's sims ...
+ECO_COACH_SIMS = 16       # ... and its self-play's Gumbel sims (cut from the preset's 32)
 TT_GOLDEN_B, TT_GOLDEN_SIMS = 64, 25   # phase 21(a): tests/test_tpu_gate.py's tt golden search
 TT_B, TT_SIMS = 512, 400  # (b): bench_tt's defaults (--batch, --sims)
 TT_CPU_B = 64             # (b): games of the deep search replayed on the CPU
 TT_PROFILED_SIMS = 25     # (b): the profiled search's simulations
 TT_OTH_B, TT_OTH_SIMS, TT_OTH_DEPTH, TT_OTH_CPU_B = 256, 200, 64, 16   # (c)
 TT_MLP_B, TT_MLP_SIMS = 512, 100   # (d)
+TT_MLP_CPU_B = 128        # (d): its games replayed on the CPU
 # phase 22: the multi-process CLI's flags at full width (its defaults
 # otherwise: 64 train steps of 256, a 64-game gate at 100 sims)
 PAR_RESNET = ("--net", "resnet", "--channels", "64", "--blocks", "5", "--batch", "1024",
@@ -613,7 +655,7 @@ PAR_MLP = ("--net", "mlp", "--hidden", "256", "--batch", "1024", "--sims", "100"
 # (a)'s ResNet iterations, cut: 25 sims, 16 train steps, the gate at 25 sims
 PAR_RESNET_CUT = (*PAR_RESNET, "--sims", "25", "--train-steps", "16", "--arena-sims", "25")
 # (b)'s CLI pair: self-play at full width and 100 sims, 16 train steps, the gate at 25 sims
-PAR_CLI = (*PAR_RESNET, "--train-steps", "16", "--arena-sims", "25")
+PAR_CLI = (*PAR_RESNET, "--sims", "25", "--train-steps", "16", "--arena-sims", "25")
 PAR_BN_B = 1024           # (a): rows of the global-statistics BatchNorm check
 PAR_LOSS_ATOL = 1e-5      # a record's loss_first and loss_last (the JAX tests' bound)
 PAR_GRAD_RTOL = 1e-5      # (a): the BatchNorm gradients, of each tensor's largest entry
@@ -622,6 +664,25 @@ PAR_INTS = ("iteration", "model_id", "accepted", "arena_wins", "arena_losses", "
             "replay_size", "replay_total", "selfplay_moves", "selfplay_truncated")
 TT_SCAN_B, TT_SCAN_SIMS = 512, 25  # (e): the transposition fixed scan
 TT_ARENA_GAMES, TT_ARENA_SIMS = 64, 25   # (e): the transposition arena
+TRACE_TOP = 8             # phase 17(d): device operations printed of each traced run
+TRACE_CUT_SIMS = 8        # phase 17(d), the default run: the traced arenas' sims (a chrome trace
+                          # grows with the simulations: ~16 MiB a simulation at 256 games)
+WIDE_SIZE, WIDEST_SIZE = 23, 27   # phase 23: Gomoku edges past the 8-word boards (529, 729 cells)
+WIDE_MOVES = 66           # phase 23: random moves into the roots (up to)
+WIDEST_B = 128            # phase 23(d): games of the A=729 checks
+WIDE_CLI_ITERATIONS = 1   # phase 23(e): the smoke CLI's iterations (the preset's own: 2)
+# phase 23: the 12-word descends' and the J = 24 seeds' ptxas names (not
+# gated: a spill is printed, not hidden; the J = 24 merges print with the
+# other dense merges' instances)
+WIDE_KERNELS = ("descend_kernelINS_10GomokuGameILi12E", "descend_round_kernelINS_10GomokuGameILi12E",
+                "seed_dense_kernelILi24ELb0EE", "seed_dense_kernelILi24ELb1EE")
+# the kernels line's entries of the instances that only boards above 512
+# cells reach: each its wrapper's kernel at the wider instance
+WIDE_ENTRIES = {
+    "descend_gomoku_w12": "descend_gomoku", "merge_dense_j24": "merge_dense",
+    "refresh_dense_j24": "refresh_dense", "descend_round_gomoku_w12": "descend_round_gomoku",
+    "merge_round_dense_j24": "merge_round_dense", "refresh2_dense_j24": "refresh2_dense",
+}
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -646,6 +707,9 @@ SOURCE = {
     "fused_rounds": "alphazero_tpu_torch/csrc/fused.cu",
     "fused_mlp_rounds": "alphazero_tpu_torch/csrc/fused.cu",   # with its evaluator, csrc/mlp.cuh
     "int8_tower": "alphazero_tpu_torch/csrc/int8_tower.cu",
+    # phase 23: descend_kernel / descend_round_kernel<GomokuGame<12>> and the
+    # J = 24 instances of the dense merges and seeds
+    **{name: "alphazero_tpu_torch/csrc/hybrid.cu" for name in WIDE_ENTRIES},
 }
 REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
@@ -673,6 +737,7 @@ REPLACES = {
     "fused_mlp_rounds": "alphazero_tpu/mcts/fused.py:428 + alphazero_tpu/models/nets.py:129",
     "int8_tower": "experiments/int8_fused_tower.py:46",   # tower_kernel, pallas_call :112
 }
+REPLACES.update({name: REPLACES[base] for name, base in WIDE_ENTRIES.items()})
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 on the tensor cores
@@ -3017,11 +3082,133 @@ def print_record(tag: str, label: str, rec: dict, sec: float, got: dict, card: s
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | {card}", flush=True)
 
 
+def archive_probe(coach) -> dict:
+    """What the coach's host example archive should hold: the valid rows
+    (features, pi, value; step-major) of each trajectory its self-play
+    returns, selected here on the device and copied to the host, and the
+    host ms of each of the store's appends and saves."""
+    probe = {"rows": [], "append_ms": [], "save_ms": []}
+    play = coach._selfplay
+
+    def recording(*args):
+        out = play(*args)
+        traj = out[1] if coach._recycle else out[0]
+        valid = traj.valid.reshape(-1)
+        n = valid.shape[0]
+        probe["rows"].append([x.reshape(n, *shape)[valid].float().cpu().numpy()
+                              for x, shape in ((traj.features, (-1,)), (traj.pi, (-1,)),
+                                               (traj.value, ()))])
+        return out
+
+    coach._selfplay = recording
+    store = coach.example_store
+    if store is None:
+        fail("the coach has no host example store (no g++ on PATH?)")
+    for name in ("append", "save"):
+        def timed(*args, fn=getattr(store, name), name=name):
+            t0 = time.perf_counter()
+            fn(*args)
+            probe[f"{name}_ms"].append(1e3 * (time.perf_counter() - t0))
+        setattr(store, name, timed)
+    return probe
+
+
+def check_archive(tag: str, probe: dict, ckdir: str, iteration: int, game, cfg, card: str) -> None:
+    """``{iteration}.examples`` in ``ckdir`` loads through the port's
+    ``ExampleStore`` and equals, bit for bit, the valid rows of the
+    trajectories the probed coach archived, oldest first; prints its rows,
+    bytes, and the append, save and load ms."""
+    from alphazero_tpu_torch.native import ExampleStore
+
+    path = os.path.join(ckdir, f"{iteration}.examples")
+    if not os.path.exists(path):
+        fail(f"{tag}: no {iteration}.examples in the checkpoint directory: "
+             f"{sorted(os.listdir(ckdir))}")
+    store = ExampleStore(cfg.replay.capacity, math.prod(game.feature_shape), game.num_actions)
+    t0 = time.perf_counter()
+    store.load(path)
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    want = [np.concatenate(parts) for parts in zip(*probe["rows"])]
+    n = len(store)
+    if n != len(want[2]) or store.total != n:
+        fail(f"{tag}: {iteration}.examples holds {n} rows (total {store.total}), the "
+             f"trajectories {len(want[2])} valid samples")
+    for name, got, w in zip(("features", "pi", "value"), store.read(0, n), want):
+        if got.shape != w.shape or not np.array_equal(got.view(np.uint32), w.view(np.uint32)):
+            fail(f"{tag}: {iteration}.examples {name} differ from the trajectories' valid rows")
+    print(f"[{tag}] {iteration}.examples: {n} rows ({os.path.getsize(path)} bytes), bit-equal to "
+          f"the valid rows of the archived trajectories; append "
+          f"{', '.join(f'{t:.3f}' for t in probe['append_ms'])} ms, save "
+          f"{', '.join(f'{t:.3f}' for t in probe['save_ms'])} ms (host), load {load_ms:.3f} ms "
+          f"| {card}", flush=True)
+
+
+def trace_shares(path: str) -> tuple:
+    """From a chrome trace of ``profiler_trace``: ``(device busy ms, host
+    launch calls, device kernel events, [(operation, device ms, count),
+    ...] by time)``. Busy is the union of the
+    device's kernel, copy and memset intervals; the card's trace can drop
+    records, so it is a lower bound."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    spans, ops, calls, n_kernels = [], {}, 0, 0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat", "")
+        if cat == "cuda_runtime" and e.get("name", "").startswith(("cudaLaunch", "cuLaunch")):
+            calls += 1
+        if cat not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        n_kernels += cat == "kernel"
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))))
+        t, c = ops.get(e["name"], (0.0, 0))
+        ops[e["name"]] = (t + float(e.get("dur", 0)) / 1e3, c + 1)
+    busy, end = 0.0, -math.inf
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(((k, t, c) for k, (t, c) in ops.items()), key=lambda x: -x[1])
+    return busy / 1e3, calls, n_kernels, top
+
+
+def traced_run(tag: str, label: str, fn, card: str) -> float:
+    """``fn()`` under ``utils.timing.profiler_trace`` into a temporary
+    directory; prints the block's wall ms, the device's busy and idle
+    share, and its top operations, from the chrome trace. Returns the
+    idle share."""
+    import tempfile
+
+    from alphazero_tpu_torch.utils.timing import profiler_trace
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as log_dir:
+        torch.cuda.synchronize()
+        with profiler_trace(log_dir) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        t2 = time.perf_counter()
+        busy, calls, n_kernels, top = trace_shares(prof.trace_path)
+        nbytes = os.path.getsize(prof.trace_path)
+        t3 = time.perf_counter()
+    wall = 1e3 * (t1 - t0)
+    print(f"[{tag}] traced {label}: {wall:.3f} ms wall (profiler on), device busy {busy:.3f} ms "
+          f"({100 * busy / wall:.1f}%), idle {100 * (1 - busy / wall):.1f}%, {n_kernels} device "
+          f"kernel events of {calls} host launch calls; chrome trace {nbytes / 2**20:.1f} MiB, "
+          f"written in {t2 - t1:.1f} s, read in {t3 - t2:.1f} s | {card}", flush=True)
+    for name, ms, count in top[:TRACE_TOP]:
+        print(f"[{tag}]   {ms:9.3f} ms {count:7d}x {name[:100]}", flush=True)
+    return 1 - busy / wall
+
+
 def cut_coach_cfg(tag: str, label: str, cfg):
     """The default run's cut of a coach preset (phases 17-18): train
-    steps to GAMES_CUT_STEPS, self-play sims to GAMES_CUT_SIMS and the
-    warmup anchored pass to one repeat, printed beside the preset's own
-    values. The gates' sims, the batch and the model stay."""
+    steps to GAMES_CUT_STEPS, self-play sims to GAMES_CUT_SIMS, the arenas'
+    sims (the gate, the anchored pass's net side) to GAMES_CUT_GATE_SIMS
+    and the warmup anchored pass to one repeat, printed beside the
+    preset's own values. The batch, the games and the model stay."""
     import dataclasses
 
     train, mcts, arena = cfg.train, cfg.mcts, cfg.arena
@@ -3030,9 +3217,11 @@ def cut_coach_cfg(tag: str, label: str, cfg):
         train=dataclasses.replace(train, steps_per_iteration=min(train.steps_per_iteration,
                                                                  GAMES_CUT_STEPS)),
         mcts=dataclasses.replace(mcts, num_sims=min(mcts.num_sims, GAMES_CUT_SIMS)),
-        arena=dataclasses.replace(arena, anchor_warmup_mult=1))
+        arena=dataclasses.replace(arena, anchor_warmup_mult=1, num_sims=min(
+            arena.num_sims or mcts.num_sims, GAMES_CUT_GATE_SIMS)))
     pairs = (("steps_per_iteration", train.steps_per_iteration, cut.train.steps_per_iteration),
              ("self-play sims", mcts.num_sims, cut.mcts.num_sims),
+             ("arena sims", arena.num_sims or mcts.num_sims, cut.arena.num_sims),
              ("anchor_warmup_mult", arena.anchor_warmup_mult, 1))
     cuts = [f"{name} {was} -> {now}" for name, was, now in pairs if was != now]
     if cuts:
@@ -3052,7 +3241,7 @@ def coach_phase(card: str, cut: bool, dev=None) -> dict:
     import tempfile
 
     from alphazero_tpu_torch import kernels
-    from alphazero_tpu_torch.arena import combined_apply
+    from alphazero_tpu_torch.arena import combined_apply, make_arena_fn
     from alphazero_tpu_torch.checkpoint import restore_checkpoint
     from alphazero_tpu_torch.coach import Coach
     from alphazero_tpu_torch.examples.train_connect_four import preset
@@ -3092,9 +3281,11 @@ def coach_phase(card: str, cut: bool, dev=None) -> dict:
         if cut:
             cfg = cut_coach_cfg("coach", "full preset", cfg)
         coach = Coach(game, model, cfg, device=dev)
+        probe = archive_probe(coach)
         full_need = ("descend", "merge", "refresh", "fused")
         rec1, got = learn_one(coach, "coach", "full preset", full_need, True)
         launches.update({k: got[k] for k in full_need})
+        check_archive("coach", probe, ckdir, 0, game, cfg, card)
         if rec1["selfplay_moves"] != cfg.selfplay.batch_size * game.max_moves:
             fail(f"coach: iteration 1 self-play moves {rec1['selfplay_moves']}")
         nbytes = os.path.getsize(os.path.join(ckdir, "ckpt_000001"))
@@ -3123,10 +3314,13 @@ def coach_phase(card: str, cut: bool, dev=None) -> dict:
             print(f"[coach] full preset (resumed): iteration 2 cut to no anchored pass (the "
                   f"preset's own: warmup x{own.arena.anchor_warmup_mult} through iteration "
                   f"{own.arena.anchor_warmup})", flush=True)
+        probe = archive_probe(resumed)
         rec2, got2 = learn_one(resumed, "coach", "full preset (resumed)",
                                full_need[:3] if cut else full_need, not cut)
         if rec2["iteration"] != 2:
             fail(f"coach: the resumed coach ran iteration {rec2['iteration']}")
+        # the resumed coach's store starts empty: its file holds iteration 2
+        check_archive("coach", probe, ckdir, 1, game, cfg, card)
 
     full_cfg = cfg
 
@@ -3161,6 +3355,36 @@ def coach_phase(card: str, cut: bool, dev=None) -> dict:
           f"{rung_cfg.nodes}, B={games}): one az_fused launch, {ms:.3f} ms; its first "
           f"{COACH_SUBSET} roots' counts identical to the plain fused search's ({plain_ms:.3f} ms "
           f"for those {COACH_SUBSET}) | {card}", flush=True)
+
+    # ---- (d) one gate arena and one rung of the anchored pass, traced: the
+    # coach's arenas (its gate's config; the anchored pass's protocol, the
+    # first rung), at TRACE_CUT_SIMS in the default run
+    sims = min(TRACE_CUT_SIMS, cfg.arena.num_sims) if cut else cfg.arena.num_sims
+    if sims != cfg.arena.num_sims:
+        print(f"[coach] traced arenas: sims cut {cfg.arena.num_sims} -> {sims} (the cut config's "
+              f"gate first; the preset's own: {own.arena.num_sims})", flush=True)
+    trace_cfg = dataclasses.replace(arena_cfg, num_sims=sims, parallel_sims=1)
+    rung_sims = min(cfg.arena.anchor_ladder)
+    inc = resumed.incumbent.model
+    (k_gate, k_rung) = resumed._split(2)
+    kernels.reset_launch_counts()
+    gate_arena = make_arena_fn(game, trace_cfg, games, device=dev)
+    traced_run("coach", f"gate arena ({games} games, {sims} sims, two AZResNet-64x5 on the "
+               f"combined forward)", lambda: gate_arena(second, inc, resumed._ties(k_gate)), card)
+    gate_got = dict(kernels.launch_counts())
+    kernels.reset_launch_counts()
+    rung_arena = make_arena_fn(game, trace_cfg, games,
+                               mcts_cfg_inc=dataclasses.replace(trace_cfg, num_sims=rung_sims),
+                               device=dev)
+    traced_run("coach", f"anchored pass rung anchor@{rung_sims} (the net at {sims} sims, the "
+               f"uniform rung at {rung_sims})",
+               lambda: rung_arena(inc, resumed._uniform, resumed._ties(k_rung)), card)
+    rung_got = dict(kernels.launch_counts())
+    for label, got_t, need in (("gate", gate_got, full_need[:3]), ("rung", rung_got, full_need)):
+        if any(got_t[k] == 0 for k in need):
+            fail(f"coach: the traced {label} arena launched no {need}: {got_t}")
+    print(f"[coach] traced launches: gate {launched(gate_got)}; rung {launched(rung_got)}",
+          flush=True)
     del resumed, second
     torch.cuda.empty_cache()
 
@@ -3494,9 +3718,10 @@ def dense_phase(card: str, dev=None) -> None:
         save_checkpoint(ckpt, 1, {"incumbent": {"model": convert_az_resnet(
             random_az_resnet_variables(7, 64, 5, seed=SEED)).state_dict()}})
         out, sec = cli(["alphazero_tpu_torch.examples.analyze", "--game", "connect_four",
-                        "--moves", "3 3 4", "--sims", "800", "--model", "resnet",
+                        "--moves", "3 3 4", "--sims", str(ANALYZE_SIMS), "--model", "resnet",
                         "--checkpoint-dir", ckpt], "analyze --moves '3 3 4'")
-        report_analysis("3 3 4", 800, out, f"exit 0 in {sec:.1f} s")
+        report_analysis("3 3 4", ANALYZE_SIMS, out, f"exit 0 in {sec:.1f} s (sims cut 800 -> "
+                        f"{ANALYZE_SIMS})")
         # a position with an immediate win (columns 2 and 6), through the
         # same entry point in this process
         buf = io.StringIO()
@@ -3759,6 +3984,7 @@ def economy_phase(card: str, dev=None) -> dict:
         _, eco = preset("economy", SEED, ckdir)
         cfg = dataclasses.replace(
             eco,
+            mcts=dataclasses.replace(eco.mcts, num_sims=ECO_COACH_SIMS),
             selfplay=dataclasses.replace(eco.selfplay, batch_size=ECO_COACH_B),
             train=dataclasses.replace(eco.train, steps_per_iteration=ECO_COACH_STEPS),
             arena=dataclasses.replace(eco.arena, num_games=ECO_COACH_GAMES,
@@ -3766,6 +3992,11 @@ def economy_phase(card: str, dev=None) -> dict:
             reanalyze=ReanalyzeConfig(batch_size=ECO_COACH_RZ,
                                       capacity=eco.replay.capacity // c4.num_symmetries),
             checkpoint_interval=1)
+        print(f"[economy] economy preset: cut self-play B {eco.selfplay.batch_size} -> "
+              f"{ECO_COACH_B} at {eco.mcts.num_sims} -> {ECO_COACH_SIMS} sims, train steps "
+              f"{eco.train.steps_per_iteration} -> {ECO_COACH_STEPS}, gate {eco.arena.num_games} "
+              f"games at {eco.arena.num_sims} -> {ECO_COACH_GAMES} at {ECO_COACH_GATE_SIMS} sims, "
+              f"no anchored pass (the preset's own first)", flush=True)
         F = math.prod(c4.feature_shape)
         ring_bytes = cfg.replay.capacity * (F + A + 1) * F32
         pos_bytes = cfg.reanalyze.capacity * (math.prod(c4.init(1, "cpu").shape[1:]) + 2 * 4)
@@ -3952,11 +4183,12 @@ def tt_phase(card: str, dev=None) -> None:
     roots = random_positions(c4, TT_MLP_B, 30, SEED + 1, dev)
     tree, sec = no_launches("MLP", lambda: tt(c4, mlp_net, TT_MLP_SIMS, MAX_DEPTH)(roots))
     conserved("tt MLP", c4, roots, tree.root_counts(), TT_MLP_SIMS)
-    cpu_s = same_as_cpu("MLP", c4, cpu_net, TT_MLP_SIMS, MAX_DEPTH, roots, tree, TT_MLP_B)
+    cpu_s = same_as_cpu("MLP", c4, cpu_net, TT_MLP_SIMS, MAX_DEPTH, roots, tree, TT_MLP_CPU_B)
     print(f"[tt] MLPNet {MLP_HIDDEN} order-free, C4, B={TT_MLP_B}, {TT_MLP_SIMS} sims: "
           f"{1e3 * sec:.1f} ms a search ({1e3 * sec / TT_MLP_SIMS:.3f} ms a simulation), "
-          f"{int(tree.dedup.sum())} links, no kernel launched; all {TT_MLP_B} games on the CPU "
-          f"({cpu_s:.1f} s): identical counts and links | {card}", flush=True)
+          f"{int(tree.dedup.sum())} links, no kernel launched; the first {TT_MLP_CPU_B} games on "
+          f"the CPU ({cpu_s:.1f} s; cut from all {TT_MLP_B}): identical counts and "
+          f"links | {card}", flush=True)
     del tree
     marks.append(("(d)", time.perf_counter()))
 
@@ -4378,6 +4610,108 @@ def par_cards(card: str, want: dict, t_phase: float) -> dict:
     return per_rank
 
 
+def wide_gomoku_checks(tag: str, game, apply_fn, batch: int, card: str, dev) -> tuple:
+    """Phase 23(a)-(c) on ``game`` (a board above 512 cells): the 12-word
+    ``descend_gomoku`` and the J = 24 ``merge_dense`` and ``refresh_dense``,
+    then their round variants at K=ROUND_K, bit-equal to plain on planes of
+    a plain search of ``batch`` random roots (the seeds on its fresh
+    planes) and timed in turns; then one K=1 and one K=ROUND_K search of
+    the roots through the kernels and through the plain versions: equal
+    root counts, and exactly one launch of each kernel a simulation (a
+    round) and one seed. Returns ``(result entries, launches)`` keyed by
+    ``WIDE_ENTRIES``' names."""
+    import dataclasses
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.mcts import hybrid
+    from alphazero_tpu_torch.ops import sample_draws
+
+    A = game.num_actions
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=GMK_MAX_DEPTH, dirichlet_alpha=GMK_DIRICHLET)
+    roots = random_positions(game, batch, WIDE_MOVES, SEED, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noise = sample_draws(gen, batch, A, GMK_DIRICHLET, dev).dirichlet
+
+    # (a) K=1: the descend and the dense merge and seed
+    d_args, m_args, r_args = capture_search_args(game, apply_fn, cfg, roots, noise)
+    results = {}
+    results["descend_gomoku"], edges, _ = descend_vs_plain("descend_gomoku", kernels.descend_gomoku,
+                                                           d_args)
+    dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args, r_args)
+    results.update(dense)
+    print(f"[{tag}] B={batch} C={cfg.nodes} A={A}: descend_gomoku (12-word boards), merge_dense "
+          f"and refresh_dense (24 actions a lane) bit-equal to plain ({edges / batch:.2f} path "
+          f"edges per game; stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
+    time_in_turns(results, {"descend_gomoku": (lambda: kernels.descend_gomoku(*d_args),
+                                               lambda: hybrid.descend(*d_args)), **dense_fns},
+                  tag, card, f" at A={A}")
+
+    # (b) their round variants at K=ROUND_K
+    cfg4 = dataclasses.replace(cfg, parallel_sims=ROUND_K)
+    results.update(rounds_vs_plain(game, *capture_round_args(game, apply_fn, cfg4, roots, noise),
+                                   card))
+
+    # (c) whole searches through the kernels and the plain versions
+    rounds = SIMS // ROUND_K
+    got = dict(same_counts_through_kernels_and_plain(
+        tag, game, apply_fn, cfg, roots, noise,
+        {"descend_gomoku": SIMS, "merge_dense": SIMS, "refresh_dense": 1}))
+    got4 = same_counts_through_kernels_and_plain(
+        tag, game, apply_fn, cfg4, roots, noise,
+        {"descend_round_gomoku": rounds, "merge_round_dense": rounds, "refresh2_dense": 1})
+    got.update({k: v for k, v in got4.items() if v})
+    launches = {name: got[base] for name, base in WIDE_ENTRIES.items()}
+    print(f"[{tag}] launches of the K=1 and K={ROUND_K} searches (B={batch}, A={A}): "
+          f"{launches} | {card}", flush=True)
+    return {name: results[base] for name, base in WIDE_ENTRIES.items()}, launches
+
+
+def gomoku23_phase(card: str, dev=None) -> tuple:
+    """Phase 23: Gomoku boards above 512 cells on the hybrid kernels' wider
+    instances (see the module docstring), on ``dev`` (the card). Returns
+    the kernels line's entries of those instances (Gomoku 23 at full
+    width) and their launches."""
+    import tempfile
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.examples import train_gomoku
+    from alphazero_tpu_torch.games import Gomoku
+    from alphazero_tpu_torch.models import convert_az_resnet, make_apply_fn, random_az_resnet_variables
+
+    dev = dev or torch.device("cuda", 0)
+    ptxas_lines(kernels.library(), WIDE_KERNELS, gate=False)
+
+    def full_net(game):   # the full preset's AZResNet-64x5, bf16, seeded random weights
+        A = game.num_actions
+        return make_apply_fn(convert_az_resnet(random_az_resnet_variables(
+            A, GMK_CHANNELS, GMK_BLOCKS, cells=A, seed=SEED), dtype=torch.bfloat16).to(dev))
+
+    g23, g27 = Gomoku(WIDE_SIZE), Gomoku(WIDEST_SIZE)
+    entries, launches = wide_gomoku_checks("gomoku23", g23, full_net(g23), GMK_B, card, dev)
+    # (d) the same at A=729, edge 27, the instances' widest board, at a small batch
+    wide_gomoku_checks("gomoku27", g27, full_net(g27), WIDEST_B, card, dev)
+
+    # (e) the training CLI at --size 23, the smoke preset
+    argv = ["--size", str(WIDE_SIZE), "--preset", "smoke", "--seed", str(SEED),
+            "--iterations", str(WIDE_CLI_ITERATIONS), *(["--cpu"] if dev.type == "cpu" else [])]
+    print(f"[gomoku23] train_gomoku {' '.join(argv)}: iterations cut 2 -> "
+          f"{WIDE_CLI_ITERATIONS} (the preset's own first)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gomoku23_") as ckdir:
+        kernels.reset_launch_counts()
+        rc, sec = timed_sync(lambda: train_gomoku.main([*argv, "--checkpoint-dir", ckdir]))
+        got = dict(kernels.launch_counts())
+        if rc != 0:
+            fail(f"gomoku23: train_gomoku {' '.join(argv)} exited {rc}")
+        if any(got[k] == 0 for k in ("descend_gomoku", "merge_dense", "refresh_dense")):
+            fail(f"gomoku23: the CLI's iteration launched {got}")
+        if not os.path.exists(os.path.join(ckdir, "0.examples")):
+            fail(f"gomoku23: the CLI wrote no 0.examples: {sorted(os.listdir(ckdir))}")
+    print(f"[gomoku23] the CLI exited 0 in {sec:.3f} s | launches {launched(got)} | {card}",
+          flush=True)
+    return entries, launches
+
+
 def actors(card: str) -> None:
     """``--actors`` (see the module docstring)."""
     from alphazero_tpu_torch import kernels
@@ -4496,6 +4830,18 @@ def main() -> int:
         kernels.library()
         parallel_phase(card, cards_only=sys.argv[1:] == ["--parallel-cards"])
         return 0
+    if sys.argv[1:] == ["--gomoku23"]:
+        gomoku23_phase(card)
+        return 0
+
+    # each phase's seconds, printed as it ends
+    t_start = t_last = time.perf_counter()
+
+    def tick(label: str) -> None:
+        nonlocal t_last
+        now = time.perf_counter()
+        print(f"[time] {label}: {now - t_last:.1f} s (script {now - t_start:.1f} s)", flush=True)
+        t_last = now
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
@@ -4509,7 +4855,7 @@ def main() -> int:
     # the dense merges' instances (J actions a lane), by a piece of their
     # mangled names
     instances = {f"merge{r}_dense_kernel<{j}>": f"merge{r}_dense_kernelILi{j}E"
-                 for r in ("", "_round") for j in (4, 8, 16)}
+                 for r in ("", "_round") for j in (4, 8, 16, 24)}
     report = ptxas_report(lib.build_log, (*mlp_kernels, *instances.values()))
     for name in (*mlp_kernels, *instances):
         print(f"[build] ptxas -v {name}: "
@@ -4517,6 +4863,8 @@ def main() -> int:
               flush=True)
     ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS, *DESCEND_KERNELS, *SEED_KERNELS,
                       *TOWER_KERNELS))
+
+    tick("phases 1-2")
 
     # ---- 3. kernels vs plain at the main path's shapes ------------------
     variables = random_az_resnet_variables(A, channels=64, blocks=5, seed=SEED)
@@ -4791,33 +5139,40 @@ def main() -> int:
     print(f"[uniform] one search through the fused and the hybrid routes: identical counts on "
           f"all {UNIFORM_B} games", flush=True)
     launches["fused"] = uni_launches["fused"]
+    tick("phases 3-6")
 
     # ---- 7. the MLP: the fused kernel with the in-kernel evaluator ------
     phase_results, phase_launches, ms_mlp = mlp_phase(card, roots)
     results.update(phase_results)
     launches.update(phase_launches)
+    tick("phase 7")
 
     # ---- 8-11. Othello, Gomoku and Hex on the hybrid engine; rounds ----
-    for phase in (othello_phase, gomoku_phase, hex_phase, rounds_phase):
+    for number, phase in zip(range(8, 12), (othello_phase, gomoku_phase, hex_phase, rounds_phase)):
         phase_results, phase_launches = phase(card)
         results.update(phase_results)
         launches.update(phase_launches)
+        tick(f"phase {number}")
 
     # ---- 12. the fused engine's K>1 rounds ------------------------------
     phase_results, phase_launches = fused_rounds_phase(card, {"uniform": ms_u, "mlp": ms_mlp})
     results.update(phase_results)
     launches.update(phase_launches)
+    tick("phase 12")
 
     # ---- 13. the fused int8 tower --------------------------------------
     phase_results, phase_launches = int8_tower_phase(card)
     results.update(phase_results)
     launches.update(phase_launches)
+    tick("phase 13")
 
     # ---- 14. what the fused engine declines runs on the hybrid one -------
     fallthrough_phase(card)
+    tick("phase 14")
 
     # ---- 15. Gomoku 19 --------------------------------------------------
     gomoku19_phase(card)
+    tick("phase 15")
 
     # ---- 16. the learner loop -------------------------------------------
     # its launches of descend, merge, refresh and fused_mlp replace those of
@@ -4826,11 +5181,13 @@ def main() -> int:
     phase_results, phase_launches = learner_phase(card)
     results.update(phase_results)
     launches.update(phase_launches)
+    tick("phase 16")
 
     # ---- 17. the coach ----------------------------------------------------
     # one iteration of each preset: its launches of descend, merge, refresh,
     # fused and fused_mlp replace phase 16's in the kernels line
     launches.update(coach_phase(card, cut=True))
+    tick("phase 17")
 
     # ---- 18. the coach on Othello, Gomoku, Hex and AZConvNet -------------
     # its launches of the games' descends and of the dense merge and seed
@@ -4838,26 +5195,38 @@ def main() -> int:
     games = games_phase(card, cut=True)
     launches.update({k: games[k] for k in ("descend_othello", "descend_gomoku", "descend_hex",
                                            "merge_dense", "refresh_dense")})
+    tick("phase 18")
 
     # ---- 19. the dense engine, forced playouts, the play and analyze CLIs -
     # plain PyTorch: it adds no kernel, and its searches launch none
     dense_phase(card)
+    tick("phase 19")
 
     # ---- 20. the training economy: Gumbel search, PCR, reanalyze ----------
     # Gumbel search launches no kernel; PCR's az_fused_mlp launches and the
     # reanalyze pass's hybrid ones add to the kernels line's
     for k, v in economy_phase(card).items():
         launches[k] += v
+    tick("phase 20")
 
     # ---- 21. the transposition-DAG engine through its routes --------------
     # plain PyTorch: it adds no kernel, and its searches launch none
     tt_phase(card)
+    tick("phase 21")
 
     # ---- 22. the data-parallel path over torch.distributed ----------------
     # each rank's launches in (b) add to the kernels line's
     per_rank = parallel_phase(card)
     for k, counts in per_rank.items():
         launches[k] += sum(counts)
+    tick("phase 22")
+
+    # ---- 23. Gomoku boards above 512 cells --------------------------------
+    # the wider kernel instances' entries: Gomoku 23 at full width
+    phase_results, phase_launches = gomoku23_phase(card)
+    results.update(phase_results)
+    launches.update(phase_launches)
+    tick("phase 23")
 
     print(card)
     print(json.dumps({"kernels": [
@@ -4889,7 +5258,7 @@ def main() -> int:
                      "descend_hex", "descend_round", "descend_round_othello",
                      "descend_round_gomoku", "descend_round_hex", "merge_round",
                      "merge_round_dense", "refresh2", "refresh2_dense", "fused_rounds",
-                     "fused_mlp_rounds", "int8_tower")
+                     "fused_mlp_rounds", "int8_tower", *WIDE_ENTRIES)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1,9 +1,10 @@
 // CPU stand-in for the few CUDA runtime features alphazero_tpu_torch's
 // csrc/*.cu kernels use, so their logic compiles with g++ and runs on the
 // host (tests/test_torch_kernels.py). Each launch runs its blocks one after
-// another, each block's threads as std::threads meeting at a std::barrier
-// for __syncthreads(); a __shared__ array is a static one, which the
-// block's threads share (blocks run one at a time), and the launch's
+// another, each block's threads as fibers on the calling host thread (below,
+// "Block threads as fibers") meeting at a barrier for __syncthreads(); a
+// __shared__ array is a static one, which the block's threads share
+// (blocks run one at a time), and the launch's
 // dynamic shared memory one buffer (the test rewrites each
 // `extern __shared__ T name[];` into a pointer to it). The round-to-nearest
 // intrinsics are plain IEEE float operations (build with
@@ -26,18 +27,21 @@
 // whole warps.
 #pragma once
 #include <algorithm>
-#include <barrier>
 #include <cmath>
 #include <cstdint>
 #include <cstdlib>
+#include <cstdio>
 #include <cstring>
 #include <math.h>
 #include <deque>
 #include <map>
 #include <memory>
 #include <mutex>
-#include <thread>
+#include <sys/mman.h>
 #include <vector>
+#if !defined(__x86_64__)
+#include <ucontext.h>
+#endif
 
 #define __global__
 #define __host__
@@ -50,9 +54,185 @@
 #define CUDA_EMU 1
 
 struct emu_dim3 { unsigned int x, y, z; };
-inline thread_local emu_dim3 threadIdx, blockIdx;
-inline emu_dim3 blockDim, gridDim;
-inline std::barrier<>* emu_block_barrier = nullptr;
+inline emu_dim3 blockIdx, blockDim, gridDim;
+
+// ---- Block threads as fibers --------------------------------------------
+// A block's threads run as fibers on the launching host thread, each on a
+// stack of its own, and switch only where a CUDA thread waits: at
+// __syncthreads(), a warp collective, an mbarrier poll that fails, and the
+// block's end. (OS threads meeting at futex barriers spent most of the
+// tests' time in the kernel's scheduler, more so on a loaded host.) The
+// scheduler resumes the runnable fibers in turn, alternating forward and
+// backward passes (odd blocks starting backward), so that between two
+// barriers a block's threads run in both orders over a launch; a block
+// whose threads all wait on barriers that cannot complete (a thread
+// returned before a __syncthreads(), a lane skipped a collective) aborts,
+// where the card would hang.
+enum emu_fiber_state { EMU_RUNNABLE, EMU_BLOCKED, EMU_DONE };
+struct emu_fiber {
+  emu_dim3 idx;            // threadIdx
+  int warp_phase = 0;      // which exchange buffer its warp's next collective uses
+  int state = EMU_DONE;
+  unsigned char* stack = nullptr;
+#if defined(__x86_64__)
+  void* sp = nullptr;      // the saved stack pointer while switched out
+#else
+  ucontext_t ctx;
+#endif
+};
+inline emu_fiber* emu_self = nullptr;   // the fiber running now
+#define threadIdx (emu_self->idx)
+inline constexpr size_t emu_fiber_stack_bytes = size_t(1) << 20;
+inline std::vector<std::unique_ptr<emu_fiber>> emu_fibers;
+inline void (*emu_body_fn)(void*) = nullptr;   // the launch's kernel call
+inline void* emu_body_arg = nullptr;
+
+#if defined(__x86_64__)
+// emu_ctx_switch(save, load): push the callee-saved registers and the
+// x87/SSE control words, store the stack pointer at *save, take `load` as
+// the stack pointer and pop the same. A new fiber's stack starts as if
+// switched out just before emu_ctx_start, which calls r13(r12). Weak, as
+// every source that includes this header defines it.
+extern "C" void emu_ctx_switch(void** save, void* load);
+extern "C" void emu_ctx_start();
+asm(R"(
+  .pushsection .text
+  .weak emu_ctx_switch
+  .type emu_ctx_switch, @function
+emu_ctx_switch:
+  pushq %rbp
+  pushq %rbx
+  pushq %r12
+  pushq %r13
+  pushq %r14
+  pushq %r15
+  subq $8, %rsp
+  stmxcsr (%rsp)
+  fnstcw 4(%rsp)
+  movq %rsp, (%rdi)
+  movq %rsi, %rsp
+  ldmxcsr (%rsp)
+  fldcw 4(%rsp)
+  addq $8, %rsp
+  popq %r15
+  popq %r14
+  popq %r13
+  popq %r12
+  popq %rbx
+  popq %rbp
+  ret
+  .size emu_ctx_switch, .-emu_ctx_switch
+  .weak emu_ctx_start
+  .type emu_ctx_start, @function
+emu_ctx_start:
+  movq %r12, %rdi
+  callq *%r13
+  ud2
+  .size emu_ctx_start, .-emu_ctx_start
+  .popsection
+)");
+inline void* emu_sched_sp = nullptr;
+inline void emu_to_scheduler() { emu_ctx_switch(&emu_self->sp, emu_sched_sp); }
+inline void emu_to_fiber(emu_fiber* f) { emu_ctx_switch(&emu_sched_sp, f->sp); }
+#else
+inline ucontext_t emu_sched_ctx;
+inline void emu_to_scheduler() { swapcontext(&emu_self->ctx, &emu_sched_ctx); }
+inline void emu_to_fiber(emu_fiber* f) { swapcontext(&emu_sched_ctx, &f->ctx); }
+#endif
+
+// A fiber's life: one block's run of the kernel as thread f->idx.
+inline void emu_fiber_main(emu_fiber* f) {
+  emu_body_fn(emu_body_arg);
+  f->state = EMU_DONE;
+  emu_to_scheduler();
+  std::abort();   // a finished fiber is never resumed
+}
+// Ready f to start the kernel at its next resume.
+inline void emu_fiber_reset(emu_fiber* f) {
+  f->state = EMU_RUNNABLE;
+  f->warp_phase = 0;
+#if defined(__x86_64__)
+  // the frame emu_ctx_switch pops: control words, r15, r14, r13, r12, rbx,
+  // rbp, then the return address; 16-byte aligned after the ret
+  uint64_t* top = reinterpret_cast<uint64_t*>(f->stack + emu_fiber_stack_bytes) - 10;
+  uint32_t mxcsr;
+  uint16_t fpucw;
+  asm volatile("stmxcsr %0" : "=m"(mxcsr));
+  asm volatile("fnstcw %0" : "=m"(fpucw));
+  top[0] = mxcsr | (uint64_t)fpucw << 32;
+  top[1] = top[2] = 0;                                        // r15, r14
+  top[3] = reinterpret_cast<uint64_t>(&emu_fiber_main);       // r13
+  top[4] = reinterpret_cast<uint64_t>(f);                     // r12
+  top[5] = top[6] = 0;                                        // rbx, rbp
+  top[7] = reinterpret_cast<uint64_t>(&emu_ctx_start);
+  f->sp = top;
+#else
+  getcontext(&f->ctx);
+  f->ctx.uc_stack.ss_sp = f->stack;
+  f->ctx.uc_stack.ss_size = emu_fiber_stack_bytes;
+  f->ctx.uc_link = nullptr;
+  makecontext(&f->ctx, reinterpret_cast<void (*)()>(&emu_fiber_main), 1, f);
+#endif
+}
+inline emu_fiber* emu_fiber_at(unsigned t) {
+  while (emu_fibers.size() <= t) {
+    auto f = std::make_unique<emu_fiber>();
+    void* mem = mmap(nullptr, emu_fiber_stack_bytes, PROT_READ | PROT_WRITE,
+                     MAP_PRIVATE | MAP_ANONYMOUS | MAP_NORESERVE, -1, 0);
+    if (mem == MAP_FAILED) std::abort();
+    mprotect(mem, 4096, PROT_NONE);   // a guard page: an overflow faults
+    f->stack = static_cast<unsigned char*>(mem);
+    emu_fibers.push_back(std::move(f));
+  }
+  return emu_fibers[t].get();
+}
+// Run threads 0 .. threads-1 of one block to their end.
+inline void emu_run_block(unsigned threads) {
+  for (unsigned t = 0; t < threads; ++t) {
+    emu_fiber* f = emu_fiber_at(t);
+    f->idx = {t, 0, 0};
+    emu_fiber_reset(f);
+  }
+  unsigned done = 0;
+  bool backward = blockIdx.x & 1;   // odd blocks start backward: both orders from the start
+  while (done < threads) {
+    bool ran = false;
+    for (unsigned i = 0; i < threads; ++i) {
+      emu_fiber* f = emu_fibers[backward ? threads - 1 - i : i].get();
+      if (f->state != EMU_RUNNABLE) continue;
+      ran = true;
+      emu_self = f;
+      emu_to_fiber(f);
+      if (f->state == EMU_DONE) ++done;
+    }
+    if (!ran) {
+      std::fprintf(stderr, "emulated block %u: every thread waits at a barrier that cannot complete\n",
+                   blockIdx.x);
+      std::abort();
+    }
+    backward = !backward;
+  }
+  emu_self = nullptr;
+}
+// A barrier of `count` block threads: the last to arrive releases the others.
+struct emu_barrier {
+  unsigned count = 0, arrived = 0;
+  std::vector<emu_fiber*> waiting;
+  explicit emu_barrier(unsigned n) : count(n) {}
+  void arrive_and_wait() {
+    if (++arrived == count) {
+      arrived = 0;
+      for (emu_fiber* f : waiting) f->state = EMU_RUNNABLE;
+      waiting.clear();
+      return;
+    }
+    emu_fiber* me = emu_self;
+    waiting.push_back(me);
+    me->state = EMU_BLOCKED;
+    emu_to_scheduler();
+  }
+};
+inline emu_barrier* emu_block_barrier = nullptr;
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -97,16 +277,15 @@ inline void __syncthreads() { emu_block_barrier->arrive_and_wait(); }
 // overwrites a slot another lane has still to read (it cannot pass the
 // next barrier before that lane has read).
 struct emu_warp {
-  std::barrier<>* bar;
+  emu_barrier* bar;
   uint64_t slot[2][32];
 };
 inline std::vector<emu_warp> emu_warps;
-inline thread_local int emu_warp_phase = 0;
 // Post this lane's value, meet the warp, return the slots of every lane.
 inline const uint64_t* emu_warp_post(uint64_t v) {
   emu_warp& warp = emu_warps[threadIdx.x / 32];
-  const int ph = emu_warp_phase;
-  emu_warp_phase ^= 1;
+  const int ph = emu_self->warp_phase;
+  emu_self->warp_phase ^= 1;
   warp.slot[ph][threadIdx.x % 32] = v;
   warp.bar->arrive_and_wait();
   return warp.slot[ph];
@@ -228,14 +407,15 @@ inline void emu_mma_m16n8k16_bf16(float* d, const uint32_t* a, const uint32_t* b
 // cp.async.wait_all), so a read before the wait sees the old bytes. A
 // thread that ends with copies it never waited for aborts the launch.
 struct emu_cp_async_copy { void* dst; const void* src; };
-inline thread_local std::vector<emu_cp_async_copy> emu_cp_async_pending;
+inline std::vector<std::vector<emu_cp_async_copy>> emu_cp_async_pending;   // by thread
 inline void emu_cp_async16(void* dst, const void* src) {
   if (reinterpret_cast<uintptr_t>(dst) % 16 || reinterpret_cast<uintptr_t>(src) % 16) std::abort();
-  emu_cp_async_pending.push_back({dst, src});
+  emu_cp_async_pending[threadIdx.x].push_back({dst, src});
 }
 inline void emu_cp_async_wait_all() {
-  for (const auto& c : emu_cp_async_pending) std::memcpy(c.dst, c.src, 16);
-  emu_cp_async_pending.clear();
+  auto& mine = emu_cp_async_pending[threadIdx.x];
+  for (const auto& c : mine) std::memcpy(c.dst, c.src, 16);
+  mine.clear();
 }
 
 // ---- Hopper: the TMA tiled load, mbarriers and int8 wgmma -------------
@@ -391,7 +571,7 @@ inline bool emu_mbarrier_try_wait_parity(uint32_t bar, unsigned parity) {
     emu_mbar_complete(b);
     done = (b.phase & 1u) != (parity & 1u);
   }
-  if (!done) std::this_thread::yield();
+  if (!done) emu_to_scheduler();   // stays runnable: the others run, then it polls again
   return done;
 }
 
@@ -430,17 +610,22 @@ inline const int8_t* emu_desc_row(uint64_t desc, int row, int k) {
 // overwrites d. A thread that ends with a group it never waited for aborts
 // the launch.
 struct emu_wgmma_op { int32_t* d; int n; uint64_t da, db; int accumulate; };
-inline thread_local std::vector<emu_wgmma_op> emu_wgmma_open;
-inline thread_local std::deque<std::vector<emu_wgmma_op>> emu_wgmma_groups;
-inline thread_local bool emu_wgmma_fenced = false;
-inline void emu_wgmma_fence() { emu_wgmma_fenced = true; }
+struct emu_wgmma_queue {
+  std::vector<emu_wgmma_op> open;
+  std::deque<std::vector<emu_wgmma_op>> groups;
+  bool fenced = false;
+};
+inline std::vector<emu_wgmma_queue> emu_wgmma_queues;   // by thread
+inline void emu_wgmma_fence() { emu_wgmma_queues[threadIdx.x].fenced = true; }
 inline void emu_wgmma_m64nNk32_s8(int32_t* d, int n, uint64_t da, uint64_t db, int accumulate) {
-  if (!emu_wgmma_fenced || n % 8 || n < 8 || n > 256) std::abort();
-  emu_wgmma_open.push_back({d, n, da, db, accumulate});
+  emu_wgmma_queue& q = emu_wgmma_queues[threadIdx.x];
+  if (!q.fenced || n % 8 || n < 8 || n > 256) std::abort();
+  q.open.push_back({d, n, da, db, accumulate});
 }
 inline void emu_wgmma_commit_group() {
-  emu_wgmma_groups.push_back(std::move(emu_wgmma_open));
-  emu_wgmma_open.clear();
+  emu_wgmma_queue& q = emu_wgmma_queues[threadIdx.x];
+  q.groups.push_back(std::move(q.open));
+  q.open.clear();
 }
 inline void emu_wgmma_run(const emu_wgmma_op& op) {
   const unsigned t = threadIdx.x % 128;
@@ -462,43 +647,44 @@ inline void emu_wgmma_run(const emu_wgmma_op& op) {
   }
 }
 inline void emu_wgmma_wait_group(int n) {
-  while ((int)emu_wgmma_groups.size() > n) {
-    for (const auto& op : emu_wgmma_groups.front()) emu_wgmma_run(op);
-    emu_wgmma_groups.pop_front();
+  emu_wgmma_queue& q = emu_wgmma_queues[threadIdx.x];
+  while ((int)q.groups.size() > n) {
+    for (const auto& op : q.groups.front()) emu_wgmma_run(op);
+    q.groups.pop_front();
   }
-  emu_wgmma_fenced = false;   // the accumulators may be read now: fence again before the next
+  q.fenced = false;   // the accumulators may be read now: fence again before the next
 }
 
 // kernel<<<grid, threads, smem, stream>>>(args) is rewritten by the test to
 // emu_launch(grid, threads, smem, [&] { kernel(args); });
 template <class F>
 void emu_launch(unsigned int grid, unsigned int threads, size_t smem, F body) {
+  if (emu_self) std::abort();   // a launch from inside a kernel
   blockDim = {threads, 1, 1};
   gridDim = {grid, 1, 1};
   std::vector<unsigned char> dynamic_smem(smem);
   emu_dynamic_smem = dynamic_smem.data();
   emu_dynamic_smem_bytes = smem;
+  emu_body_fn = [](void* arg) { (*static_cast<F*>(arg))(); };
+  emu_body_arg = &body;
+  emu_cp_async_pending.assign(threads, {});
+  emu_wgmma_queues.assign(threads, {});
   for (unsigned int bx = 0; bx < grid; ++bx) {
     std::fill(dynamic_smem.begin(), dynamic_smem.end(), (unsigned char)0xff);
     emu_mbars.clear();
-    std::barrier<> bar(threads);
+    blockIdx = {bx, 0, 0};
+    emu_barrier bar(threads);
     emu_block_barrier = &bar;
-    std::vector<std::unique_ptr<std::barrier<>>> warp_bars;
+    std::vector<std::unique_ptr<emu_barrier>> warp_bars;
     emu_warps.assign((threads + 31) / 32, emu_warp{});
     for (unsigned int w = 0; w < emu_warps.size(); ++w) {
-      warp_bars.push_back(std::make_unique<std::barrier<>>(std::min(32u, threads - 32 * w)));
+      warp_bars.push_back(std::make_unique<emu_barrier>(std::min(32u, threads - 32 * w)));
       emu_warps[w].bar = warp_bars.back().get();
     }
-    std::vector<std::thread> team;
-    for (unsigned int t = 0; t < threads; ++t) {
-      team.emplace_back([&, bx, t] {
-        blockIdx = {bx, 0, 0};
-        threadIdx = {t, 0, 0};
-        body();
-        if (!emu_cp_async_pending.empty() || !emu_wgmma_open.empty() || !emu_wgmma_groups.empty())
-          std::abort();
-      });
-    }
-    for (auto& th : team) th.join();
+    emu_run_block(threads);
+    for (unsigned int t = 0; t < threads; ++t)
+      if (!emu_cp_async_pending[t].empty() || !emu_wgmma_queues[t].open.empty() ||
+          !emu_wgmma_queues[t].groups.empty())
+        std::abort();
   }
 }

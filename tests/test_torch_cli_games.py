@@ -181,7 +181,7 @@ def test_smoke_run_trains_saves_and_resumes(tmp_path, capsys, monkeypatch, game)
 @pytest.mark.parametrize("game, argv, item", [
     (g, a, "The opt-in engines") for g in ("othello", "gomoku", "hex")
     for a in (["--gumbel", "8"], ["--reanalyze", "64"])
-] + [("gomoku", ["--size", "23"], "Gomoku boards above 512 cells")])
+] + [("gomoku", ["--size", "28"], "Gomoku boards above 768 cells")])
 def test_unported_options_raise(monkeypatch, game, argv, item):
     """Gomoku boards past the card's descend raise. ``--gumbel`` and
     ``--reanalyze``, once refused with the opt-in engines' item, are ported:

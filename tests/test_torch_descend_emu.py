@@ -91,9 +91,9 @@ def _both(lib, planes, max_depth: int, ops, K: int):
 
 
 @pytest.mark.parametrize("game", [Gomoku(5), Gomoku(7), Gomoku(8), Gomoku(9), Gomoku(15), Gomoku(16),
-                                  Gomoku(17), Gomoku(19), Gomoku(22), Hex()],
+                                  Gomoku(17), Gomoku(19), Gomoku(22), Gomoku(23), Gomoku(27), Hex()],
                          ids=["gomoku5", "gomoku7", "gomoku8", "gomoku9", "gomoku15", "gomoku16",
-                              "gomoku17", "gomoku19", "gomoku22", "hex"])
+                              "gomoku17", "gomoku19", "gomoku22", "gomoku23", "gomoku27", "hex"])
 def test_emulated_descend_steps_every_action(emulated, game):
     """The game's descend instance on synthetic best planes whose path takes
     EVERY action from each of two positions (occupied cells of both colours
@@ -166,18 +166,30 @@ def test_emulated_descend_cutoffs_and_terminal_children(emulated, game, max_dept
     assert (rounds[3][..., hybrid.M_CUT] > 0).any()
 
 
-@pytest.mark.parametrize("cells", [484, 512], ids=["gomoku22", "cells512"])
+# stones on both sides of ballot chunks and 64-bit words, and in the last cell
+_GOMOKU_MARKS = {
+    484: [31, 32, 63, 64, 255, 256, 447, 448],
+    512: [31, 32, 63, 64, 255, 256, 447, 448],
+    529: [31, 32, 63, 64, 447, 448, 511, 512],
+    768: [31, 32, 511, 512, 575, 576, 703, 704],
+}
+
+
+@pytest.mark.parametrize("cells", [484, 512, 529, 768],
+                         ids=["gomoku22", "cells512", "gomoku23", "cells768"])
 def test_emulated_gomoku_descend_chunk_and_word_boundaries(emulated, cells):
-    """The Gomoku instance's 8-word boards with stones on both sides of the
-    32-cell ballot chunks and 64-bit words (cells 31/32, 63/64, 255/256)
-    and in the last cells (483 of Gomoku 22's 484; 511, the instance's
-    last, through flat ops whose cell count is set to 512, its limit),
-    and paths whose edges land on those cells: K=1 and K=4 bit-equal to
-    plain, every marked cell reaching the leaf boards."""
-    ops = Gomoku(22).flat_ops()
+    """The Gomoku instances' boards (8 words up to 512 cells, 12 above)
+    with stones on both sides of the 32-cell ballot chunks and 64-bit words
+    (cells 31/32, 63/64, 255/256, and 511/512, 575/576, 703/704 across the
+    two instances) and in the last cells (483 of Gomoku 22's 484; 511, the
+    8-word instance's last, and 767, the 12-word one's, through flat ops
+    whose cell count is set to 512 and 768, the limits; 528 of Gomoku 23's
+    529), and paths whose edges land on those cells: K=1 and K=4 bit-equal
+    to plain, every marked cell reaching the leaf boards."""
+    ops = Gomoku(22 if cells <= 512 else 23).flat_ops()
     if cells != ops.size:
         ops.size = ops.num_actions = cells    # the Gomoku step needs no geometry
-    marks = [31, 32, 63, 64, 255, 256, 447, 448, cells - 1]
+    marks = _GOMOKU_MARKS[cells] + [cells - 1]
     B, C = 2 * len(marks), 5
     boards = torch.zeros(B, cells)
     for i, m in enumerate(marks):

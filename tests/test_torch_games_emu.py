@@ -105,12 +105,15 @@ def test_emulated_othello_kernels_bit_equal_plain(emulated, cfg, moves, dirichle
         (Gomoku(15), 9, MCTSConfig(num_sims=12, max_depth=64), "uniform"),
         (Gomoku(4, 4), 5, MCTSConfig(num_sims=16, max_depth=48), "uniform"),   # A=16: lanes 16-31 idle
         (Gomoku(19), 40, MCTSConfig(num_sims=12, max_depth=64), "uniform"),    # 8-word boards, A=361
+        (Gomoku(23), 40, MCTSConfig(num_sims=12, max_depth=64), "uniform"),    # 12 words, J=24: A=529
+        (Gomoku(27), 60, MCTSConfig(num_sims=12, max_depth=64), "uniform"),    # A=729
         (Hex(), 0, MCTSConfig(num_sims=16, max_depth=56), "uniform"),
         (Hex(), 30, MCTSConfig(num_sims=16, max_depth=56), "resnet"),          # terminal children
         (Hex(), 12, MCTSConfig(num_sims=16, max_depth=3, max_nodes=8), "uniform"),
     ],
     ids=["gomoku7", "gomoku7_endgames", "gomoku8_max_nodes8", "gomoku9_resnet_max_depth3",
-         "gomoku15", "gomoku4", "gomoku19", "hex_opening", "hex_resnet_endgames",
+         "gomoku15", "gomoku4", "gomoku19", "gomoku23", "gomoku27", "hex_opening",
+         "hex_resnet_endgames",
          "hex_max_depth3_max_nodes8"],
 )
 def test_emulated_gomoku_and_hex_kernels_bit_equal_plain(emulated, game, moves, cfg, model):

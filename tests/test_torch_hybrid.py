@@ -286,11 +286,12 @@ def test_descend_route_refuses_unknown_flat_ops():
     for ops in (SubclassedFlatOps(), OtherOps()):
         with pytest.raises(NotImplementedError, match="no descend kernel"):
             kernels.descend_entry(ops)
-    with pytest.raises(NotImplementedError, match="512 cells"):
-        kernels._descend("az_descend_gomoku", *[torch.zeros(2, 3)] * 4, torch.zeros(2, 529), 8,
-                         GomokuFlatOps(23))
-    with pytest.raises(NotImplementedError, match="512 cells"):
-        kernels.descend_entry(GomokuFlatOps(23))
+    with pytest.raises(NotImplementedError, match="768 cells"):
+        kernels._descend("az_descend_gomoku", *[torch.zeros(2, 3)] * 4, torch.zeros(2, 784), 8,
+                         GomokuFlatOps(28))
+    with pytest.raises(NotImplementedError, match="768 cells"):
+        kernels.descend_entry(GomokuFlatOps(28))
+    assert kernels.descend_entry(GomokuFlatOps(27)) == "az_descend_gomoku"
 
 
 def test_zero_heuristic_game_backs_up_zero_at_cutoffs():

@@ -134,18 +134,19 @@ def test_emulated_kernels_bit_equal_plain_resnet_dirichlet(emulated):
 
 # a game of each A of the seed tests: Connect-Four (the A <= 8 seed), Hex,
 # Othello, Gomoku 9 and 15
-SEED_GAMES = {7: ConnectFour(), 49: Hex(), 65: Othello(), 81: Gomoku(9), 225: Gomoku(15)}
+SEED_GAMES = {7: ConnectFour(), 49: Hex(), 65: Othello(), 81: Gomoku(9), 225: Gomoku(15),
+              529: Gomoku(23), 729: Gomoku(27)}
 
 
 def _seed_entry(name: str, A: int) -> str:
     return f"az_{name}_dense" if A > hybrid.UNROLLED_MAX_A else f"az_{name}"
 
 
-@pytest.mark.parametrize("A", [7, 49, 65, 81, 225])
+@pytest.mark.parametrize("A", [7, 49, 65, 81, 225, 529, 729])
 def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
     """The refresh, a fresh search's seed, at Connect-Four's A (the A <= 8
-    seed) and the dense A of Hex (and Gomoku 7), Othello, Gomoku 9 and
-    Gomoku 15, on fresh planes (``_init_planes``) whose roots carry the
+    seed) and the dense A of Hex (and Gomoku 7), Othello, Gomoku 9,
+    Gomoku 15 and Gomoku 23 and 27 (24 actions a lane), on fresh planes (``_init_planes``) whose roots carry the
     scenarios (``seed_priors``): exact ties (uniform priors), illegal
     edges, an all-illegal root and a root whose one legal edge is the last:
     bit-equal to the plain version, whose first-max picks action 0 at the
@@ -162,7 +163,7 @@ def test_emulated_dense_refresh_ties_and_illegal_nodes(emulated, A):
     assert legal.sum() > 1 and (p_masked[0, legal] == p_masked[0, 1]).all()   # exact ties
 
 
-@pytest.mark.parametrize("A", [16, 65, 225, 361])
+@pytest.mark.parametrize("A", [16, 65, 225, 361, 729])
 @pytest.mark.parametrize("case", MERGE_CASES[:-1])
 def test_emulated_merge_dense_cases(emulated, case, A):
     """``az_merge_dense`` on synthetic planes and records of each case
@@ -204,9 +205,10 @@ def test_emulated_merge_round_dense_cases(emulated, case, A):
 
 @pytest.mark.parametrize("K", [1, 4])
 def test_emulated_dense_merges_refuse_above_512_actions(emulated, K):
-    """The dense merges keep 16 actions a lane in registers: at A=513 the
-    entry returns an error and writes nothing."""
-    args = merge_case(513, K, "root_only", seed=K)
+    """The dense merges keep up to 24 actions a lane in registers (16 up
+    to A=512, 24 above): at A=769 the entry returns an error and writes
+    nothing."""
+    args = merge_case(769, K, "root_only", seed=K)
     planes = [t.clone() for t in args[:-2]]
     entry = "az_merge_dense" if K == 1 else "az_merge_round_dense"
     B, A, C = args[0].shape
@@ -215,7 +217,7 @@ def test_emulated_dense_merges_refuse_above_512_actions(emulated, K):
                                       args[-1], None)
     assert rc != 0
     assert all(torch.equal(bits(t), bits(u)) for t, u in zip(args[:-2], planes))
-    assert kernels.DENSE_MERGE_MAX_A == 512
+    assert kernels.DENSE_MERGE_MAX_A == 768
 
 
 def _mlp_apply(hidden, seed):
@@ -496,12 +498,14 @@ def _checked_round_kernels(lib, calls):
         (Gomoku(9), 20, MCTSConfig(num_sims=16, max_depth=48, parallel_sims=4), "resnet"),
         (Gomoku(4, 4), 5, MCTSConfig(num_sims=16, max_depth=48, parallel_sims=4), "uniform"),
         (Gomoku(19), 40, MCTSConfig(num_sims=12, max_depth=64, parallel_sims=4), "uniform"),
+        (Gomoku(23), 40, MCTSConfig(num_sims=12, max_depth=64, parallel_sims=4), "uniform"),
+        (Gomoku(27), 60, MCTSConfig(num_sims=12, max_depth=64, parallel_sims=4), "uniform"),
         (Hex(), 30, MCTSConfig(num_sims=16, max_depth=56, parallel_sims=4), "resnet"),
         (Hex(), 12, MCTSConfig(num_sims=16, max_depth=56, max_nodes=10, parallel_sims=2), "uniform"),
     ],
     ids=["c4_K4", "c4_K2_resnet_max_nodes10", "othello_K4_resnet", "othello_K2_max_depth3",
          "gomoku7_K2", "gomoku15_K4", "gomoku9_K4_resnet", "gomoku4_K4", "gomoku19_K4",
-         "hex_K4_resnet", "hex_K2_max_nodes10"],
+         "gomoku23_K4", "gomoku27_K4", "hex_K4_resnet", "hex_K2_max_nodes10"],
 )
 def test_emulated_round_kernels_bit_equal_plain(emulated, game, moves, cfg, model):
     """Whole K>1 searches (40 games: ten descend blocks of four warps, a
@@ -534,10 +538,11 @@ def test_emulated_round_kernels_bit_equal_plain(emulated, game, moves, cfg, mode
     assert (counts.sum(1)[live] == cfg.num_sims).all() and (counts.sum(1)[~live] == 0).all()
 
 
-@pytest.mark.parametrize("A", [7, 49, 65, 225])
+@pytest.mark.parametrize("A", [7, 49, 65, 225, 529, 729])
 def test_emulated_refresh2_ties_illegal_and_lone_nodes(emulated, A):
     """The top-2 refresh, a fresh round search's seed, at Connect-Four's A
-    (the A <= 8 seed) and the dense A of Hex, Othello and Gomoku 15, on
+    (the A <= 8 seed) and the dense A of Hex, Othello, Gomoku 15 and Gomoku
+    23 and 27, on
     fresh planes whose roots carry exact score ties, illegal edges, an
     all-illegal root and a root with one legal edge, the last
     (``seed_priors``): bit-equal to the plain version, with no runner-up

@@ -173,7 +173,7 @@ def test_descend_round_routes_by_the_flat_ops_type(ops, entry):
     for other in set(kernels._DESCEND_ROUND_ENTRIES.values()) - {entry}:
         with pytest.raises(ValueError, match="does not step"):
             kernels._descend_round(other, *planes, boards, 8, ops, 4)
-    with pytest.raises(ValueError, match="descents"):
+    with pytest.raises(NotImplementedError, match="Round kernels for K above 16"):
         kernels._descend_round(entry, *planes, boards, 8, ops, kernels.MAX_ROUND_K + 1)
 
 

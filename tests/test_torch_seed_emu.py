@@ -6,9 +6,9 @@ against the plain ``refresh`` / ``refresh2`` on fresh planes
 (``hybrid._init_planes``: the roots' priors at node 0, the empty node
 everywhere else), the planes a search seeds them with and their
 precondition. One warp a game reads only the roots' priors, lane l the
-actions l, l + 32, ... (J = 1 at A <= 8, 4, 8 or 16 of them above), and
-writes every other node's rows as the empty node's constant: so the cases
-cover each J (A = 1 to 484: Connect-Four's 7 and synthetic fresh planes at
+actions l, l + 32, ... (J = 1 at A <= 8, 4, 8, 16 or 24 of them above),
+and writes every other node's rows as the empty node's constant: so the
+cases cover each J (A = 1 to 729: Connect-Four's 7 and synthetic fresh planes at
 A = 1, 2 and 8, the unrolled refresh's ends), one node (C = 1: no empty
 node), two and a search's 101, a partial block (B = 5 and 9 games at four a
 block), and the roots' own scenarios: Dirichlet-noised priors, the uniform
@@ -42,9 +42,9 @@ from tests.torch_parity import (  # noqa: F401  (emulated: a fixture)
     torch_state,
 )
 
-# a game of each A: every J of the kernel (A <= 8, 128, 256, 512)
+# a game of each A: every J of the kernel (A <= 8, 128, 256, 512, 768)
 GAMES = {7: ConnectFour(), 9: Gomoku(3, 3), 49: Hex(), 65: Othello(), 81: Gomoku(9),
-         225: Gomoku(15), 361: Gomoku(19), 484: Gomoku(22)}
+         225: Gomoku(15), 361: Gomoku(19), 484: Gomoku(22), 529: Gomoku(23), 729: Gomoku(27)}
 SHAPES = ((5, 1), (9, 2), (5, 101), (9, 101))   # (B, C): partial blocks, no / one / 100 empty nodes
 CPUCT = 1.25
 KINDS = ("dirichlet", "ties", "round_equal", "terminal")
@@ -181,10 +181,11 @@ def test_emulated_small_seeds_bit_equal_plain_on_synthetic_fresh_planes(emulated
 
 
 @pytest.mark.parametrize("entry", ["az_refresh_dense", "az_refresh2_dense"])
-@pytest.mark.parametrize("A", [1, 513])
+@pytest.mark.parametrize("A", [1, 769])
 def test_emulated_seeds_refuse_outside_2_to_512_actions(emulated, entry, A):
-    """16 actions a lane in registers bound A at 512, and the dense path
-    takes A >= 2: the dense entries return an error and write nothing."""
+    """24 actions a lane in registers bound A at 768 (512 before the J = 24
+    instance), and the dense path takes A >= 2: the dense entries return an
+    error and write nothing."""
     B, C = 3, 5
     planes = [torch.zeros(B, A, C) for _ in range(4)]
     best = [torch.full((B, C), 7.0) for _ in range(2 if entry == "az_refresh_dense" else 4)]
@@ -194,11 +195,11 @@ def test_emulated_seeds_refuse_outside_2_to_512_actions(emulated, entry, A):
 
 
 @pytest.mark.parametrize("entry", ["az_refresh", "az_refresh2"])
-@pytest.mark.parametrize("A", [0, 513])
+@pytest.mark.parametrize("A", [0, 769])
 def test_emulated_small_seeds_refuse_outside_1_to_512_actions(emulated, entry, A):
     """The A <= 8 entries take what they took before, A = 1 included,
-    up to the seed's 512: outside, they return an error and write
-    nothing."""
+    up to the seed's 768 (512 before the J = 24 instance): outside, they
+    return an error and write nothing."""
     B, C = 3, 5
     planes = [torch.zeros(B, max(A, 1), C) for _ in range(4)]
     best = [torch.full((B, C), 7.0) for _ in range(2 if entry == "az_refresh" else 4)]
@@ -207,9 +208,9 @@ def test_emulated_small_seeds_refuse_outside_1_to_512_actions(emulated, entry, A
     assert all((t == 7.0).all() for t in best)
 
 
-@pytest.mark.parametrize("edge", range(3, 23))
+@pytest.mark.parametrize("edge", range(3, 28))
 def test_plain_refreshes_of_fresh_planes_are_constant_off_the_root(edge):
-    """What the seeds rest on, for every A the games use (Gomoku 3-22,
+    """What the seeds rest on, for every A the games use (Gomoku 3-27,
     Hex, Othello, Connect-Four): on ``_init_planes``' planes every node
     but the root refreshes to (0, -1) and (0, -1, 1, -1), whatever the
     roots' priors, and the root's codes are -1."""

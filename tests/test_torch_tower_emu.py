@@ -43,9 +43,8 @@ TMA_SWIZZLE = {"none": 0, "32B": 1, "64B": 2, "128B": 3}   # CUtensorMapSwizzle
 
 
 @pytest.fixture(scope="module")
-def emulated_tower(tmp_path_factory):
-    lib = build_emulated(tmp_path_factory.mktemp("emu_tower"), sources=(kernels._CSRC / "int8_tower.cu",),
-                         probes=("wgmma_probe.cpp",))
+def emulated_tower():
+    lib = build_emulated(sources=(kernels._CSRC / "int8_tower.cu",), probes=("wgmma_probe.cpp",))
     lib.lib.emu_probe_smem_window.restype = _U32
     lib.lib.emu_probe_tma_2d.argtypes = [_P, _U64, _U64, _U64, _U32, _U32, _I, _I, _I, _U32, _U32, _P,
                                          _U32, _P]

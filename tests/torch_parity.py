@@ -7,7 +7,8 @@ TPU goldens were frozen from), the conversions of a batch of boards
 into each package's state, and MLPNet weights on a dyadic grid whose
 forward is the same in every order of the adds; synthetic merge records
 (``merge_case``). Also the ``emulated`` fixture: the CUDA kernel library
-built with g++ against the CPU stand-in of tests/cuda_emu/, which
+built with g++ against the CPU stand-in of tests/cuda_emu/ (once per hash
+of what it compiles, shared by the test processes), which
 tests/test_torch_kernels.py, tests/test_torch_fused_emu.py,
 tests/test_torch_merge_emu.py, tests/test_torch_descend_emu.py and
 tests/test_torch_games_emu.py share (``build_emulated`` builds a subset,
@@ -20,10 +21,14 @@ planes the dense seeds take (``fresh_planes``, ``seed_priors``).
 """
 
 import ctypes
+import fcntl
+import hashlib
 import os
+import pathlib
 import re
 import shutil
 import subprocess
+import tempfile
 import types
 
 import jax
@@ -269,31 +274,48 @@ _LAUNCHES = {"hybrid.cu": 7, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launc
 _DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
 
-def build_emulated(build_dir, sources=kernels.SOURCES, probes=("mma_tile.cpp",)):
+def build_emulated(sources=kernels.SOURCES, probes=("mma_tile.cpp",)):
     """The kernel library built for the host with g++ from ``sources``, as
     ``kernels.library`` links them for the card, plus the probes of
-    tests/cuda_emu/ (skips without g++)."""
+    tests/cuda_emu/ (skips without g++). A build is kept under the temporary
+    directory, named by the hash of everything it compiles, and shared by
+    every test process (a file lock makes the first build it and the
+    others wait)."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++ to build the emulated kernels")
-    cpps = []
+    emu_dir = os.path.join(_HERE, "cuda_emu")
+    flags = ["-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared", "-Wno-unknown-pragmas",
+             "-I", emu_dir, "-I", str(kernels.SOURCES[0].parent)]
+    rewritten = {}
     for src in sources:
         out = _LAUNCH.sub(r"emu_launch(\2, \3, \4, [&] { \1(\5); });", src.read_text())
         out = _DYNAMIC_SMEM.sub(r"\1* \2 = (\1*)emu_dynamic_smem;", out)
         assert out.count("emu_launch(") == _LAUNCHES[src.name], "every kernel launch must be rewritten"
-        cpp = build_dir / f"{src.stem}_emu.cpp"
-        cpp.write_text(out)
-        cpps.append(str(cpp))
-    cpps += [os.path.join(_HERE, "cuda_emu", probe) for probe in probes]
+        rewritten[f"{src.stem}_emu.cpp"] = out
+    digest = hashlib.sha256(" ".join([gxx, *flags, *probes]).encode())
+    for name, text in sorted(rewritten.items()):
+        digest.update(name.encode() + text.encode())
+    headers = sorted(kernels.SOURCES[0].parent.glob("*.cuh")) + sorted(
+        pathlib.Path(emu_dir).glob("*"))
+    for path in headers:
+        digest.update(path.name.encode() + path.read_bytes())
+    build_dir = pathlib.Path(tempfile.gettempdir()) / "az_emu" / digest.hexdigest()[:20]
+    build_dir.mkdir(parents=True, exist_ok=True)
     so = build_dir / "libaz_emu.so"
-    proc = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
-         "-Wno-unknown-pragmas", "-I", os.path.join(_HERE, "cuda_emu"),
-         "-I", str(kernels.SOURCES[0].parent),
-         "-o", str(so), *cpps, "-lpthread"],
-        capture_output=True, text=True,
-    )
-    assert proc.returncode == 0, f"g++ failed:\n{proc.stderr[-4000:]}"
+    with open(build_dir / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not so.exists():
+            cpps = []
+            for name, text in rewritten.items():
+                (build_dir / name).write_text(text)
+                cpps.append(str(build_dir / name))
+            cpps += [os.path.join(emu_dir, probe) for probe in probes]
+            part = build_dir / f"libaz_emu.{os.getpid()}.so"
+            proc = subprocess.run([gxx, *flags, "-o", str(part), *cpps, "-lpthread"],
+                                  capture_output=True, text=True)
+            assert proc.returncode == 0, f"g++ failed:\n{proc.stderr[-4000:]}"
+            os.replace(part, so)
     lib = ctypes.CDLL(str(so))
     if tuple(sources) == kernels.SOURCES:
         return kernels._Library(lib, so, 0.0, "")
@@ -304,10 +326,10 @@ def build_emulated(build_dir, sources=kernels.SOURCES, probes=("mma_tile.cpp",))
 
 
 @pytest.fixture(scope="module")
-def emulated(tmp_path_factory):
+def emulated():
     """The kernel library built for the host from every source (with the
     bf16 tile probe), as ``kernels.library`` links it for the card."""
-    return build_emulated(tmp_path_factory.mktemp("emu"))
+    return build_emulated()
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
