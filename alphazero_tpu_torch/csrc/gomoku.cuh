@@ -7,7 +7,9 @@
 // A board of up to W * 64 cells is W 64-bit words a side, `mine` (+1, the
 // player to move) and `theirs` (-1): bit i % 64 of word i / 64 is flat cell
 // i (row-major, r * size + c). The descend kernels instantiate W = 8 (up to
-// 512 cells: edges up to 22) and W = 12 (up to 768 cells: edges 23 to 27).
+// 512 cells: edges up to 22) and W = 12 (up to 768 cells: edges 23 to 27);
+// a larger board stays in the descent's leaf row instead (hybrid.cu,
+// GomokuRowGame), where the same step is one stone written.
 // The step needs no geometry, so one instance serves every edge it holds:
 // it sets the move's bit in `mine` (an occupied cell is overwritten, as in
 // the reference), clears it in `theirs` and swaps the sides. The words are

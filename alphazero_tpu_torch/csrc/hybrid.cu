@@ -7,8 +7,8 @@
 //                  (FlatOps.step, games/connect_four.py:201-217) from c4.cuh,
 //                  the Othello step (OthelloFlatOps.step, games/othello.py
 //                  :228-265) from othello.cuh, the Gomoku step of every edge
-//                  up to 27 (GomokuFlatOps.step, games/gomoku.py:191-200)
-//                  from gomoku.cuh, the canonical Hex step (HexFlatOps.step,
+//                  (GomokuFlatOps.step, games/gomoku.py:191-200) from
+//                  gomoku.cuh, the canonical Hex step (HexFlatOps.step,
 //                  games/hex.py:214-232, without its parity lane) from
 //                  hex.cuh;
 //   az_merge    <- merge_kernel (hybrid.py:363-422) with the A<=8 PUCT
@@ -61,20 +61,22 @@
 //   presets spread over all 132 SMs, and Connect-Four's 4096 fill them in
 //   one wave) with real indexing (the TPU kernel's one-hot lane reductions
 //   are layout, not semantics), and carries the board in registers as
-//   bitboards of Game::kWords 64-bit words a side (one for Connect-Four,
-//   Othello and Hex; eight for Gomoku up to 512 cells, twelve up to 768),
-//   so a Connect-Four
-//   step is a popcount and two bit ops, an Othello step a register-only
-//   walk of the 8 rays, a Gomoku step two bit ops per word and a Hex step
-//   two 7x7 transposes of 12 masked shifts each. The board row comes in
-//   coalesced: lane l loads cells l, l + 32, ..., all in flight with the
-//   root's cells, and a ballot of each 32-cell chunk gives 32 bits of a
-//   side at once; it goes out the same way. The walk is warp-uniform:
-//   every lane loads the same cell (one transaction) and steps its own copy
-//   of the board, so no branch of a step diverges, and the next node's
-//   loads are issued before the step. What is left is the chain itself: a
-//   trip for the row and the root, one per edge of the path, one for the
-//   stores, and the launch.
+//   bitboards of 64-bit words a side: every lane the whole board (one word
+//   for Connect-Four, Othello and Hex; eight for Gomoku up to 512 cells,
+//   twelve up to 768), so a Connect-Four step is a popcount and two bit
+//   ops, an Othello step a register-only walk of the 8 rays, a Gomoku step
+//   two bit ops per word and a Hex step two 7x7 transposes of 12 masked
+//   shifts each. A Gomoku board above 768 cells stays in the leaf row
+//   (RowBoard): the warp copies the root's row there, lane 0 writes each
+//   step's stone, and an odd path flips the row's signs at the end, so no
+//   register grows with the board. The board row comes in coalesced: lane
+//   l loads cells l, l + 32, ..., all in flight with the root's cells, and
+//   a ballot of each 32-cell chunk gives 32 bits of a side at once; it
+//   goes out the same way. The walk is warp-uniform: every lane loads the
+//   same cell (one transaction) and steps its own copy of the board, so no
+//   branch of a step diverges, and the next node's loads are issued before
+//   the step. What is left is the chain itself: a trip for the row and the
+//   root, one per edge of the path, one for the stores, and the launch.
 // * merge (A <= 8) works only on the columns the merge writes (the path
 //   nodes, the install slot, the expanded parent: ~2.6 of C=101 a game on
 //   the Connect-Four ResNet path), where the JAX kernel refreshes every
@@ -98,9 +100,10 @@
 //   each, lane l takes actions l, l + 32, ...: it loads its cells of the
 //   four planes together (one trip to memory), applies the install, backup
 //   and link terms of merge_kernel, and keeps them in registers (J = 4, 8,
-//   16 or 24 a lane by A, so A <= 768: the entries refuse more, which no
-//   ported game the kernels take has; Gomoku stops at 729, edge 27). The
-//   visit sum is a
+//   16 or 24 a lane by A, up to A = 768; above, the streamed instance J = 0
+//   walks the column in chunks of 32 x 16 actions, in increasing order,
+//   after a first pass that sums the column's counts, and carries each
+//   lane's first maximum across the chunks). The visit sum is a
 //   butterfly of shuffles (integer counts below 2^24: exact in any order),
 //   the argmax a butterfly on (score descending, action ascending), the
 //   sequential strict-> scan's order, and the winning lane hands over the
@@ -139,15 +142,21 @@
 // the descents before it: two bytes per node and game (takes of the best
 // action and of the runner-up) in the warp's slice of shared memory, [2][C]
 // (C <= 29056 at 4 games a block; above 48 KB the launch opts in), zeroed
-// by the warp. Every lane reads them; lane 0 alone adds a take, after a
-// __syncwarp, and a __syncwarp ends each descent. A step's four best cells
+// by the warp; for K > 255 or more nodes, two 32-bit counters in a global
+// scratch [B][2][C] that the caller allocates and the warp zeroes as it
+// zeroes the shared ones (32 bits: no K that a search takes wraps them, and
+// the few a descent touches stay in L1 and L2). Every
+// lane reads them; lane 0 alone adds a take, after a __syncwarp, and a
+// __syncwarp ends each descent. A step's four best cells
 // travel together. The records are K-major: bd[K, B, L], patha/psgn[K, B,
 // C], meta[K, B, 8] with dup in lane 7. Its bound is the same dependent-load
 // chain as the K=1 descend, K times as long, for K times the path bytes.
 // The A <= 8 round merge is merge's
 // design for K records: one warp per game stages the K meta2 records in
-// shared memory, merges every node's done/tval cells (two coalesced rows:
-// the reference rewrites them all) and finds the columns any record writes;
+// shared memory (above K = 16 it reads them where they lie in meta2, one
+// broadcast load each), merges every node's done/tval cells (two coalesced
+// rows: the reference rewrites them all) and finds the columns any record
+// writes;
 // lane l merges the l-th of them alone: it sums what each of the K records
 // does to each cell (a path edge, an install, a link) in k order, then
 // rewrites the cell as x * keep + (that sum), the JAX kernel's arithmetic
@@ -164,7 +173,11 @@
 // column cell by cell as above, then reduces a top-2: each lane pushes its
 // own actions in order, the lanes' pairs merge in a butterfly under the
 // same order, and the owners of the two winners hand over their codes.
-// Its precondition is the same, for the four top-2 planes.
+// Above A = 768 or K = 16 the streamed instance reads the records where
+// they lie, stages a column's terms 16 descents at a time, and walks the
+// column in chunks of 32 x 8 actions, each cell's terms summed in k order
+// across the record chunks. Its precondition is the same, for the four
+// top-2 planes.
 //
 // Warp intrinsics run on the CPU emulator of tests/cuda_emu (a barrier and
 // an exchange slot per lane of each warp), so the reductions are held bit
@@ -178,6 +191,7 @@
 // the dense branch's smallest action among the exact maxima.
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #include "c4.cuh"       // c4_step, refresh_node, Top2 and the constants
@@ -189,50 +203,14 @@ namespace {
 
 constexpr int kDescendWarps = 4;             // games (warps) per block of a descend
 constexpr int kDescendThreads = 32 * kDescendWarps;
-constexpr int kMaxRoundK = 16;    // descents per round (kernels.MAX_ROUND_K)
+constexpr int kMaxRoundK = 16;    // records a round merge stages at once (kernels.MAX_ROUND_K)
 constexpr int kMaxSharedBytes = 232448;   // a block's dynamic shared memory on sm_90
+// the round descend's byte counters: K <= 255, and 4 games' [2][C] bytes in
+// shared memory (kernels.ROUND_MAX_NODES); past either, 32-bit counters in a
+// global scratch
+constexpr int kMaxByteK = 255;
+constexpr int kMaxByteNodes = kMaxSharedBytes / (2 * kDescendWarps);
 constexpr unsigned kFullMask = 0xffffffffu;
-
-// The games descend_kernel is instantiated for: the 64-bit words of a
-// side's bitboard, the board cells (0: the `cells` argument, at run time)
-// and the step.
-struct ConnectFourGame {
-  static constexpr int kWords = 1;
-  static constexpr int kBoardCells = kCells;
-  static __device__ __forceinline__ void step(uint64_t (&mine)[1], uint64_t (&theirs)[1], int a) {
-    c4_step(mine[0], theirs[0], a);
-  }
-};
-
-struct OthelloGame {
-  static constexpr int kWords = 1;
-  static constexpr int kBoardCells = kOthCells;
-  static __device__ __forceinline__ void step(uint64_t (&mine)[1], uint64_t (&theirs)[1], int a) {
-    othello_step(mine[0], theirs[0], a);
-  }
-};
-
-// Gomoku boards of up to 64 * W cells, any edge: the cells come at run time.
-// Instantiated for W = 8 (up to 512 cells, edges up to 22) and W = 12 (up to
-// 768 cells, edges 23 to 27, which only those boards take): on the H100 a
-// 4-word instance descends Gomoku 15 in the same time, the path's loads
-// and not the words' bit operations setting it.
-template <int W>
-struct GomokuGame {
-  static constexpr int kWords = W;
-  static constexpr int kBoardCells = 0;
-  static __device__ __forceinline__ void step(uint64_t (&mine)[W], uint64_t (&theirs)[W], int a) {
-    gomoku_step(mine, theirs, a);
-  }
-};
-
-struct HexGame {
-  static constexpr int kWords = 1;
-  static constexpr int kBoardCells = kHexCells;
-  static __device__ __forceinline__ void step(uint64_t (&mine)[1], uint64_t (&theirs)[1], int a) {
-    hex_step(mine[0], theirs[0], a);
-  }
-};
 
 // Flat f32[L] board (+1 / -1 / 0) -> bitboards, by the calling warp: lane l
 // loads cells l, l + 32, ... (each load instruction one coalesced run of
@@ -279,16 +257,132 @@ __device__ __forceinline__ void warp_store_board(float* out, int L, int lane,
   }
 }
 
+// The board a descent steps, by the calling warp, in one of two forms,
+// each with board_load (the root's row into the root's board), board_begin
+// (a descent's board from the root's; its leaf row is `out`) and
+// board_store (the leaf board into `out`, +0 in empty cells):
+// * WordBoard<W>: every lane holds the whole board as W 64-bit words a side
+//   (cell 64k + j is bit j of word k) and steps its own copy;
+// * RowBoard: a board too wide for the registers stays in the
+//   leaf row: the root's row is copied there (coalesced), each step's stone
+//   is written there by lane 0 as seen by the root's player to move (+1 for
+//   that player's stones, -1 for the other's), and at the end an odd path
+//   flips the row's signs (coalesced) to the leaf's player to move.
+template <int W>
+struct WordBoard {
+  uint64_t mine[W], theirs[W];
+};
+
+template <int W>
+__device__ __forceinline__ void board_load(WordBoard<W>& root, const float* row, int L, int lane) {
+  warp_load_board(row, L, lane, root.mine, root.theirs);
+}
+template <int W>
+__device__ __forceinline__ void board_begin(WordBoard<W>& board, const WordBoard<W>& root, float*,
+                                            int, int) {
+  board = root;
+}
+template <int W>
+__device__ __forceinline__ void board_store(const WordBoard<W>& board, float* out, int L,
+                                            int lane) {
+  warp_store_board(out, L, lane, board.mine, board.theirs);
+}
+
+struct RowBoard {
+  const float* root;  // the root's row
+  float* out;         // the descent's leaf row
+  float sign;         // the next stone as the root's player sees it: +1 after an even path
+};
+
+__device__ __forceinline__ void board_load(RowBoard& root, const float* row, int, int) {
+  root.root = row;
+  root.out = nullptr;
+  root.sign = 1.f;
+}
+__device__ __forceinline__ void board_begin(RowBoard& board, const RowBoard& root, float* out,
+                                            int L, int lane) {
+  for (int c = lane; c < L; c += 32) {
+    const float v = root.root[c];
+    out[c] = v > 0.5f ? 1.f : (v < -0.5f ? -1.f : 0.f);
+  }
+  __syncwarp();  // every lane's cells before lane 0's stones
+  board.root = root.root;
+  board.out = out;
+  board.sign = 1.f;
+}
+__device__ __forceinline__ void board_store(const RowBoard& board, float* out, int L, int lane) {
+  __syncwarp();  // lane 0's stones before the row is read
+  if (board.sign < 0.f) {  // an odd path: the leaf's player to move is the root's opponent
+    for (int c = lane; c < L; c += 32) {
+      const float v = out[c];
+      if (v != 0.f) out[c] = -v;
+    }
+  }
+}
+
+// The games descend_kernel is instantiated for: the board's form, the board
+// cells (0: the `cells` argument, at run time) and the step on that form
+// (the calling lane's part of it).
+struct ConnectFourGame {
+  static constexpr int kBoardCells = kCells;
+  using Board = WordBoard<1>;
+  static __device__ __forceinline__ void step(Board& d, int a, int) {
+    c4_step(d.mine[0], d.theirs[0], a);
+  }
+};
+
+struct OthelloGame {
+  static constexpr int kBoardCells = kOthCells;
+  using Board = WordBoard<1>;
+  static __device__ __forceinline__ void step(Board& d, int a, int) {
+    othello_step(d.mine[0], d.theirs[0], a);
+  }
+};
+
+// Gomoku boards of up to 64 * W cells, any edge: the cells come at run time.
+// Instantiated for W = 8 (up to 512 cells, edges up to 22) and W = 12 (up to
+// 768 cells, edges 23 to 27, which only those boards take): on the H100 a
+// 4-word instance descends Gomoku 15 in the same time, the path's loads
+// and not the words' bit operations setting it.
+template <int W>
+struct GomokuGame {
+  static constexpr int kBoardCells = 0;
+  using Board = WordBoard<W>;
+  static __device__ __forceinline__ void step(Board& d, int a, int) {
+    gomoku_step(d.mine, d.theirs, a);
+  }
+};
+
+// Gomoku boards above 768 cells (edges 28 and up): the board stays in the
+// leaf row (RowBoard). The step is GomokuFlatOps.step seen from the root's
+// player: the mover's stone, +1 or -1 by the path's parity, overwrites the
+// cell.
+struct GomokuRowGame {
+  static constexpr int kBoardCells = 0;
+  using Board = RowBoard;
+  static __device__ __forceinline__ void step(Board& d, int a, int lane) {
+    if (lane == 0) d.out[a] = d.sign;
+    d.sign = -d.sign;
+  }
+};
+
+struct HexGame {
+  static constexpr int kBoardCells = kHexCells;
+  using Board = WordBoard<1>;
+  static __device__ __forceinline__ void step(Board& d, int a, int) {
+    hex_step(d.mine[0], d.theirs[0], a);
+  }
+};
+
 // The end of one descent, by the calling warp: the leaf board (lanes
 // strided over its cells) and the 8 meta floats (lanes 0-7) = (exp, term,
 // psign, v_term, cut, exp_node, exp_action, dup).
-template <int W>
+template <class Board>
 __device__ __forceinline__ void warp_store_leaf(float* bd, float* m, int L, int lane,
-                                                const uint64_t (&mine)[W],
-                                                const uint64_t (&theirs)[W], float exp, float term,
+                                                const Board& board, float exp, float term,
                                                 float psign, float v_term, float cut,
                                                 float exp_node, float exp_action, float dup) {
-  warp_store_board(bd, L, lane, mine, theirs);
+  board_store(board, bd, L, lane);
   if (lane < 8) {
     m[lane] = lane == 0 ? exp
             : lane == 1 ? term
@@ -302,13 +396,14 @@ __device__ __forceinline__ void warp_store_leaf(float* bd, float* m, int L, int 
 }
 
 // One descent per game, one warp per game. The warp zeroes its game's
-// patha/psgn row (coalesced), loads the root board by ballots, and then
-// walks the path uniformly: every lane loads the same besta/bestc cell
-// (one transaction) and applies the game's step to its own copy of the
-// bitboards, so the step's branches (the Othello rays) never diverge. Lane
-// 0 writes the path cells, after a __syncwarp that orders them behind the
-// other lanes' zeros. The next node's loads are issued before the step, so
-// the step's instructions overlap their trip.
+// patha/psgn row (coalesced), loads the root board (by ballots, or into the
+// leaf row: the board's form), and then walks the path
+// uniformly: every lane loads the same besta/bestc cell (one transaction)
+// and applies its part of the game's step (a bitboard lane its own copy
+// of the bitboards, so the step's branches, the Othello rays, never
+// diverge). Lane 0 writes the path cells, after a __syncwarp that orders
+// them behind the other lanes' zeros. The next node's loads are issued
+// before the step, so the step's instructions overlap their trip.
 template <class Game>
 __global__ void __launch_bounds__(kDescendThreads)
     descend_kernel(const float* __restrict__ besta, const float* __restrict__ bestc,
@@ -316,7 +411,6 @@ __global__ void __launch_bounds__(kDescendThreads)
                    const float* __restrict__ boards, float* __restrict__ bd,
                    float* __restrict__ patha, float* __restrict__ psgn,
                    float* __restrict__ meta, int B, int C, int max_depth, int cells) {
-  constexpr int W = Game::kWords;
   const int L = Game::kBoardCells > 0 ? Game::kBoardCells : cells;
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.x * kDescendWarps + (threadIdx.x >> 5);
@@ -325,8 +419,12 @@ __global__ void __launch_bounds__(kDescendThreads)
   // the root's cells travel with the board's
   bool act = done[row] < 0.5f;  // a terminal root is not descended
   float af = besta[row], code = bestc[row];
-  uint64_t mine[W], theirs[W];
-  warp_load_board(boards + (size_t)b * L, L, lane, mine, theirs);
+  typename Game::Board board;
+  {
+    typename Game::Board root;
+    board_load(root, boards + (size_t)b * L, L, lane);
+    board_begin(board, root, bd + (size_t)b * L, L, lane);
+  }
   for (int c = lane; c < C; c += 32) {
     patha[row + c] = 0.f;
     psgn[row + c] = 0.f;
@@ -352,7 +450,7 @@ __global__ void __launch_bounds__(kDescendThreads)
       next_af = besta[row + (int)child];
       next_code = bestc[row + (int)child];
     }
-    Game::step(mine, theirs, (int)af);
+    Game::step(board, (int)af, lane);
     if (unexp) {
       exp = 1.f;
       exp_node = (float)node;
@@ -370,7 +468,7 @@ __global__ void __launch_bounds__(kDescendThreads)
   }
 
   const float v_term = leaf >= 0 ? tval[row + leaf] : 0.f;
-  warp_store_leaf(bd + (size_t)b * L, meta + (size_t)b * 8, L, lane, mine, theirs, exp, term,
+  warp_store_leaf(bd + (size_t)b * L, meta + (size_t)b * 8, L, lane, board, exp, term,
                   psign, v_term, cut, exp_node, exp_action, 0.f);
 }
 
@@ -380,7 +478,11 @@ __global__ void __launch_bounds__(kDescendThreads)
 
 constexpr int kMergeWarps = 4;              // games (warps) per block of a dense merge
 constexpr int kMergeWarpThreads = 32 * kMergeWarps;
-constexpr int kMaxDenseA = 32 * 24;         // a dense merge's actions: 24 a lane in registers
+constexpr int kMaxDenseA = 32 * 24;         // the widest instance that keeps a column in registers
+constexpr int kStream = 0;                  // the J of the streamed instances, for any A: ...
+constexpr int kStreamJ = 16;                // ... chunks of 32 * kStreamJ actions (K=1 merge) ...
+constexpr int kStreamSmallJ = 8;            // ... or 32 * 8 (the round merge, beside its k-ordered
+                                            // sums; the seeds, which spill at 16)
 constexpr float kNoEdge = -3.0e38f;         // a lane's empty slot: below every score, -1e30 too
 constexpr float kNoAction = 1.0e9f;
 
@@ -562,6 +664,88 @@ __device__ __forceinline__ void merge_column_warp(float* n, float* w, float* p, 
   }
 }
 
+// merge_column_warp for any A (the instance J = kStream): the lanes walk the
+// column in chunks of 32 * kStreamJ actions, in increasing order, so their
+// registers do not grow with A. The visit sum comes first: the counts are
+// integers, so the sum after the merge is the entry counts' (none at an
+// install slot, which is written anew) plus the path edge's backup, exact
+// in any order. Then each chunk is loaded together, merged and written as
+// merge_column_warp does it, and scored: a lane keeps its first maximum
+// over the chunks (strict >, its actions in increasing order), so an equal
+// score in a later chunk never displaces an earlier action, and the warp
+// reduces once, in the first-max order.
+__device__ __forceinline__ void merge_column_stream(float* n, float* w, float* p, float* code,
+                                                    const float* pm_row, size_t base, int A, int C,
+                                                    const ColumnEdits& e, float cpuct, int lane,
+                                                    float* best_a, float* best_code) {
+  float total = 0.f;
+  if (!e.install) {
+    for (int a0 = 0; a0 < A; a0 += 32 * kStreamJ) {
+      float nv[kStreamJ];
+#pragma unroll
+      for (int j = 0; j < kStreamJ; ++j) {
+        const int a = a0 + 32 * j + lane;
+        nv[j] = a < A ? n[base + (size_t)a * C] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kStreamJ; ++j) total = __fadd_rn(total, nv[j]);
+    }
+  }
+  total = warp_visit_sum(total);
+  if (e.path_a >= 0) total = __fadd_rn(total, 1.f);
+  const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
+  float best = kNoEdge, ba = kNoAction, bc = 0.f;
+  for (int a0 = 0; a0 < A; a0 += 32 * kStreamJ) {
+    float nv[kStreamJ], wv[kStreamJ], pv[kStreamJ], cv[kStreamJ];
+#pragma unroll
+    for (int j = 0; j < kStreamJ; ++j) {
+      const int a = a0 + 32 * j + lane;
+      if (a < A) {
+        const size_t off = base + (size_t)a * C;
+        nv[j] = e.install ? 0.f : n[off];
+        wv[j] = e.install ? 0.f : w[off];
+        pv[j] = e.install ? pm_row[a] : p[off];
+        cv[j] = e.install ? -1.f : code[off];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kStreamJ; ++j) {
+      const int a = a0 + 32 * j + lane;
+      if (a < A) {
+        const size_t off = base + (size_t)a * C;
+        if (e.install) {  // fresh row at the lockstep slot
+          n[off] = nv[j];
+          w[off] = wv[j];
+          p[off] = pv[j];
+          code[off] = cv[j];
+        }
+        if (a == e.path_a) {  // backup along the path
+          nv[j] = __fadd_rn(nv[j], 1.f);
+          wv[j] = __fadd_rn(wv[j], e.path_v);
+          n[off] = nv[j];
+          w[off] = wv[j];
+        }
+        if (a == e.link_a) {  // parent -> new child
+          cv[j] = e.link_code;
+          code[off] = cv[j];
+        }
+        const float sc = puct_score(nv[j], wv[j], pv[j], sq, cpuct);
+        if (sc > best) {
+          best = sc;
+          ba = (float)a;
+          bc = cv[j];
+        }
+      }
+    }
+  }
+  warp_first_max(best, ba);
+  const float c_best = warp_code(bc, ba);
+  if (lane == 0) {
+    *best_a = ba;
+    *best_code = c_best;
+  }
+}
+
 // The dense K=1 merge: one warp per game. The warp finds, 32 nodes at a
 // time, the columns the merge writes (the path nodes, the install slot, the
 // expanded parent) with a ballot and merges and refreshes each of them; no
@@ -616,8 +800,13 @@ __global__ void merge_dense_kernel(float* __restrict__ n, float* __restrict__ w,
       e.path_v = __fmul_rn(mval, sg);
       e.link_a = col == link_node ? link_a : -1;
       e.link_code = link_code;
-      merge_column_warp<J>(n, w, p, code, pm + (size_t)b * A, (size_t)b * A * C + col, A, C, e,
-                           cpuct, lane, besta + row + col, bestc + row + col);
+      if constexpr (J == kStream) {
+        merge_column_stream(n, w, p, code, pm + (size_t)b * A, (size_t)b * A * C + col, A, C, e,
+                            cpuct, lane, besta + row + col, bestc + row + col);
+      } else {
+        merge_column_warp<J>(n, w, p, code, pm + (size_t)b * A, (size_t)b * A * C + col, A, C, e,
+                             cpuct, lane, besta + row + col, bestc + row + col);
+      }
     }
   }
 }
@@ -759,39 +948,32 @@ __global__ void merge_kernel(float* __restrict__ n, float* __restrict__ w,
 
 // One round's K descents per game, one warp per game, each descent walked
 // as descend_kernel walks its one. The warp loads the root board once and
-// starts each descent from a register copy of it; the root's four best
-// cells are loaded once too. Every node's in-round counters (how often this
-// round took its best action there, and its runner-up) are bytes in the
-// warp's own slice of shared memory, [2][C], zeroed by the warp: every lane
-// reads them, then, after a __syncwarp, lane 0 alone adds this descent's
-// take; a descent never meets a node twice, and a __syncwarp ends each
-// descent, so every read sees the takes of the descents before it. Outputs
-// are K-major: bd[k, b, :], patha/psgn[k, b, :], meta[k, b, :] = (exp,
-// term, psign, v_term, cut, exp_node, exp_action, dup).
-template <class Game>
-__global__ void __launch_bounds__(kDescendThreads)
-    descend_round_kernel(const float* __restrict__ besta, const float* __restrict__ bestc,
-                         const float* __restrict__ seca, const float* __restrict__ secc,
-                         const float* __restrict__ done, const float* __restrict__ tval,
-                         const float* __restrict__ boards, float* __restrict__ bd,
-                         float* __restrict__ patha, float* __restrict__ psgn,
-                         float* __restrict__ meta, int B, int C, int K, int max_depth,
-                         int cells) {
-  constexpr int W = Game::kWords;
+// starts each descent from it (a register copy; a RowBoard copies the
+// root's row into the descent's leaf row); the root's four best cells are
+// loaded once too. Every node's in-round counters (how often this round
+// took its best action there, and its runner-up) are the warp's own
+// `taken_best` [2][C], zeroed by the warp: every lane reads them, then,
+// after a __syncwarp, lane 0 alone adds this descent's take; a descent
+// never meets a node twice, and a __syncwarp ends each descent, so every
+// read sees the takes of the descents before it. Outputs are K-major:
+// bd[k, b, :], patha/psgn[k, b, :], meta[k, b, :] = (exp, term, psign,
+// v_term, cut, exp_node, exp_action, dup).
+template <class Game, class Count>
+__device__ __forceinline__ void descend_round_walk(
+    const float* __restrict__ besta, const float* __restrict__ bestc,
+    const float* __restrict__ seca, const float* __restrict__ secc,
+    const float* __restrict__ done, const float* __restrict__ tval,
+    const float* __restrict__ boards, float* __restrict__ bd, float* __restrict__ patha,
+    float* __restrict__ psgn, float* __restrict__ meta, int B, int C, int K, int max_depth,
+    int cells, int b, int lane, Count* taken_best) {
   const int L = Game::kBoardCells > 0 ? Game::kBoardCells : cells;
-  extern __shared__ unsigned char round_counts[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int b = blockIdx.x * kDescendWarps + warp;
-  if (b >= B) return;  // the whole warp
-  unsigned char* taken_best = round_counts + (size_t)warp * 2 * C;   // [C]
-  unsigned char* taken_second = taken_best + C;                      // [C]
+  Count* taken_second = taken_best + C;   // [C] each
   const size_t row = (size_t)b * C;
   const bool root_live = done[row] < 0.5f;  // a terminal root is not descended
   const float root_ba = besta[row], root_bc = bestc[row];
   const float root_sa = seca[row], root_sc = secc[row];
-  uint64_t root_mine[W], root_theirs[W];
-  warp_load_board(boards + (size_t)b * L, L, lane, root_mine, root_theirs);
+  typename Game::Board root;
+  board_load(root, boards + (size_t)b * L, L, lane);
   // zero the counters and the game's rows of the K path records
   for (int i = lane; i < 2 * C; i += 32) taken_best[i] = 0;
   for (int k = 0; k < K; ++k) {
@@ -804,12 +986,9 @@ __global__ void __launch_bounds__(kDescendThreads)
   __syncwarp();  // every lane's zeros before the counters are read and the path written
 
   for (int k = 0; k < K; ++k) {
-    uint64_t mine[W], theirs[W];
-#pragma unroll
-    for (int j = 0; j < W; ++j) {
-      mine[j] = root_mine[j];
-      theirs[j] = root_theirs[j];
-    }
+    float* leaf_row = bd + ((size_t)k * B + b) * L;
+    typename Game::Board board;
+    board_begin(board, root, leaf_row, L, lane);
     const size_t prow = ((size_t)k * B + b) * C;
     int node = 0, depth = 0, leaf = -1;
     float psign = 1.f;
@@ -819,8 +998,8 @@ __global__ void __launch_bounds__(kDescendThreads)
     while (act) {
       // the runner-up when there is one and this round took it less often
       // than the best action here
-      const unsigned char n_best = taken_best[node];
-      const unsigned char n_second = taken_second[node];
+      const Count n_best = taken_best[node];
+      const Count n_second = taken_second[node];
       const bool use2 = sa > -0.5f && n_second < n_best;
       const float af = use2 ? sa : ba;
       const float code = use2 ? sc : bc;
@@ -849,7 +1028,7 @@ __global__ void __launch_bounds__(kDescendThreads)
         sa = seca[at];
         sc = secc[at];
       }
-      Game::step(mine, theirs, (int)af);
+      Game::step(board, (int)af, lane);
       if (unexp) {
         exp = 1.f;
         exp_node = (float)node;
@@ -867,9 +1046,49 @@ __global__ void __launch_bounds__(kDescendThreads)
     __syncwarp();  // this descent's takes before the next descent's reads
 
     const float v_term = leaf >= 0 ? tval[row + leaf] : 0.f;
-    warp_store_leaf(bd + ((size_t)k * B + b) * L, meta + ((size_t)k * B + b) * 8, L, lane, mine,
-                    theirs, exp, term, psign, v_term, cut, exp_node, exp_action, dup);
+    warp_store_leaf(leaf_row, meta + ((size_t)k * B + b) * 8, L, lane, board, exp, term, psign,
+                    v_term, cut, exp_node, exp_action, dup);
   }
+}
+
+// The round descend of K <= 255 descents and C <= kMaxByteNodes nodes: the
+// counters are bytes in the warp's slice of the block's dynamic shared
+// memory, [2][C] a warp (above 48 KB the launch opts in).
+template <class Game>
+__global__ void __launch_bounds__(kDescendThreads)
+    descend_round_kernel(const float* __restrict__ besta, const float* __restrict__ bestc,
+                         const float* __restrict__ seca, const float* __restrict__ secc,
+                         const float* __restrict__ done, const float* __restrict__ tval,
+                         const float* __restrict__ boards, float* __restrict__ bd,
+                         float* __restrict__ patha, float* __restrict__ psgn,
+                         float* __restrict__ meta, int B, int C, int K, int max_depth,
+                         int cells) {
+  extern __shared__ unsigned char round_counts[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * kDescendWarps + warp;
+  if (b >= B) return;  // the whole warp
+  descend_round_walk<Game>(besta, bestc, seca, secc, done, tval, boards, bd, patha, psgn, meta, B,
+                           C, K, max_depth, cells, b, lane, round_counts + (size_t)warp * 2 * C);
+}
+
+// The round descend of any K and C: 32-bit counters in `scratch` [B][2][C]
+// in global memory, the game's rows zeroed by its warp as the byte
+// kernel's shared ones are.
+template <class Game>
+__global__ void __launch_bounds__(kDescendThreads)
+    descend_round_wide_kernel(const float* __restrict__ besta, const float* __restrict__ bestc,
+                              const float* __restrict__ seca, const float* __restrict__ secc,
+                              const float* __restrict__ done, const float* __restrict__ tval,
+                              const float* __restrict__ boards, float* __restrict__ bd,
+                              float* __restrict__ patha, float* __restrict__ psgn,
+                              float* __restrict__ meta, unsigned* __restrict__ scratch, int B,
+                              int C, int K, int max_depth, int cells) {
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * kDescendWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // the whole warp
+  descend_round_walk<Game>(besta, bestc, seca, secc, done, tval, boards, bd, patha, psgn, meta, B,
+                           C, K, max_depth, cells, b, lane, scratch + (size_t)b * 2 * C);
 }
 
 // Store a node's top-2 at idx: sec_a = -1 where no legal runner-up exists;
@@ -946,8 +1165,10 @@ __device__ __forceinline__ void round_node_cells(float* done, float* tval, const
   round_node_update(done, tval, done[idx], tval[idx], meta2_b, kstride, b, c, C, K, slot0);
 }
 
-// What the round merge's scan reads of a node: its done/tval cells, and
-// bit k set where descent k's path passes through it.
+// What the round merge's scan reads of a node: its done/tval cells, and 1
+// where any descent's path passes through it: an integer OR of each
+// descent's bit (with a bool, which the compiler may settle at the first
+// hit, the K = 256 merge ran 1.4x slower on an H100).
 struct RoundNodeScan {
   float done, tval;
   unsigned on_path;
@@ -1003,7 +1224,10 @@ __device__ __forceinline__ void round_cell(const RoundTerm* terms, int K, float 
 // is never -0. No other column is read, and every other node's top-2
 // planes are left as they are: the precondition is that on entry they are
 // the refresh2 of the entry planes (the search's seed refresh makes it so,
-// every merge keeps it).
+// every merge keeps it). kWide (K > kMaxRoundK): the records are read where
+// they lie in meta2 (every lane the same address: one broadcast
+// transaction) instead of being staged.
+template <bool kWide>
 __global__ void merge_round_kernel(float* __restrict__ n, float* __restrict__ w,
                                    float* __restrict__ p, float* __restrict__ code,
                                    float* __restrict__ done, float* __restrict__ tval,
@@ -1013,28 +1237,36 @@ __global__ void merge_round_kernel(float* __restrict__ n, float* __restrict__ w,
                                    float* __restrict__ bestc, float* __restrict__ seca,
                                    float* __restrict__ secc, int B, int A, int C, int K,
                                    int slot0, float cpuct) {
-  __shared__ float block_meta2[kMergeWarps][kMaxRoundK * 8];
+  __shared__ float block_meta2[kMergeWarps][kWide ? 1 : kMaxRoundK * 8];
   __shared__ int block_cols[kMergeWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = (int)(threadIdx.x >> 5);
   const int b = blockIdx.x * kMergeWarps + warp;
   if (b >= B) return;  // the whole warp
-  float* m2s = block_meta2[warp];
-  for (int i = lane; i < K * 8; i += 32) m2s[i] = meta2[((size_t)(i / 8) * B + b) * 8 + i % 8];
-  __syncwarp();
+  // the game's K meta2 records, descent k's at m2s + k * mstride
+  const float* m2s = meta2 + (size_t)b * 8;
+  const std::conditional_t<kWide, size_t, int> mstride = kWide ? (size_t)B * 8 : 8;
+  if constexpr (!kWide) {
+    float* staged = block_meta2[warp];
+    for (int i = lane; i < K * 8; i += 32) {
+      staged[i] = meta2[((size_t)(i / 8) * B + b) * 8 + i % 8];
+    }
+    __syncwarp();
+    m2s = staged;
+  }
   const size_t row = (size_t)b * C;
   const size_t kstride = (size_t)B * C;  // descent k's path record at + k * kstride
   auto load = [&](int c) {
     RoundNodeScan v{done[row + c], tval[row + c], 0u};
 #pragma unroll 4
-    for (int k = 0; k < K; ++k) v.on_path |= (patha[k * kstride + row + c] > 0.5f ? 1u : 0u) << k;
+    for (int k = 0; k < K; ++k) v.on_path |= patha[k * kstride + row + c] > 0.5f ? 1u : 0u;
     return v;
   };
   auto visit = [&](int c, const RoundNodeScan& v) {
-    round_node_update(done, tval, v.done, v.tval, m2s, 8, b, c, C, K, slot0);
+    round_node_update(done, tval, v.done, v.tval, m2s, mstride, b, c, C, K, slot0);
     bool writes = v.on_path != 0u;
     for (int k = 0; k < K; ++k) {
-      const float* m2 = m2s + k * 8;
+      const float* m2 = m2s + k * mstride;
       writes |= m2[1] != 0.f & (c == slot0 + k | (int)m2[5] == c);
     }
     return writes;
@@ -1044,7 +1276,7 @@ __global__ void merge_round_kernel(float* __restrict__ n, float* __restrict__ w,
     float keep = 1.f;
     int inst = -1;
     for (int k = 0; k < K; ++k) {
-      const float nm = __fmul_rn(m2s[k * 8 + 1], col == slot0 + k ? 1.f : 0.f);
+      const float nm = __fmul_rn(m2s[k * mstride + 1], col == slot0 + k ? 1.f : 0.f);
       keep = __fmul_rn(keep, __fsub_rn(1.f, nm));
       if (nm != 0.f) inst = k;
     }
@@ -1057,7 +1289,7 @@ __global__ void merge_round_kernel(float* __restrict__ n, float* __restrict__ w,
     }
 #pragma unroll 4
     for (int k = 0; k < K; ++k) {  // descent k's terms at this column (round_term)
-      const float* m2 = m2s + k * 8;
+      const float* m2 = m2s + k * mstride;
       const size_t kidx = k * kstride + row + col;
       const float pa = patha[kidx];  // action+1, or 0 off the path
       const int path_a = pa > 0.5f ? (int)pa - 1 : -1;
@@ -1171,6 +1403,140 @@ __device__ __forceinline__ void merge_round_column_warp(float* n, float* w, floa
   t.sec_code = warp_code(own.best_a == t.sec_a ? own.best_code : own.sec_code, t.sec_a);
 }
 
+// The dense round merge for any A and K (the instance J = kStream): as
+// merge_round_dense_kernel, with neither the column nor the round held
+// whole. The K records are read where they lie in meta2 (every lane the
+// same address: one broadcast transaction); a column's terms are staged
+// kMaxRoundK descents at a time in the warp's shared RoundTerms, and the
+// lanes walk the column's actions in chunks of 32 * kStreamSmallJ, in
+// increasing order. The visit sum comes first: the counts are integers and
+// keep is 0 or 1, so the sum after the merge is the entry counts' (none
+// where a descent installs, keep = 0) plus one for each descent whose path
+// passes here, exact in any order. Then each chunk sums the K descents'
+// terms of each of its cells in k order, chunk of records after chunk (the
+// keep product and the installing descent run in k order too, as
+// round_keep), rewrites the cells as x * keep + that sum, storing only the
+// cells whose bits change, and pushes their scores into the lane's own
+// top-2 (strict >, in increasing action order, so an equal score in a later
+// chunk never displaces an earlier action); the warp reduces once a column.
+__device__ __forceinline__ void merge_round_dense_stream(
+    float* __restrict__ n, float* __restrict__ w, float* __restrict__ p, float* __restrict__ code,
+    float* __restrict__ done, float* __restrict__ tval, const float* __restrict__ pm,
+    const float* __restrict__ patha, const float* __restrict__ psgn,
+    const float* __restrict__ meta2, float* __restrict__ besta, float* __restrict__ bestc,
+    float* __restrict__ seca, float* __restrict__ secc, int B, int A, int C, int K, int slot0,
+    float cpuct) {
+  constexpr int J = kStreamSmallJ;
+  __shared__ RoundTerm block_terms[kMergeWarps][kMaxRoundK];
+  const int lane = threadIdx.x & 31;
+  const int warp = (int)(threadIdx.x >> 5);
+  const int b = blockIdx.x * kMergeWarps + warp;
+  if (b >= B) return;  // the whole warp
+  RoundTerm* terms = block_terms[warp];
+  const float* m2b = meta2 + (size_t)b * 8;   // descent k's record at m2b + k * mstride
+  const size_t mstride = (size_t)B * 8;
+  const size_t kstride = (size_t)B * C;       // descent k's path record at + k * kstride
+  const size_t row = (size_t)b * C;
+  for (int c0 = 0; c0 < C; c0 += 32) {
+    const int c = c0 + lane;
+    bool writes = false;
+    if (c < C) {
+      round_node_cells(done, tval, m2b, mstride, b, c, C, K, slot0);
+      for (int k = 0; k < K; ++k) {
+        const float* m2 = m2b + k * mstride;
+        const bool on_path = patha[k * kstride + row + c] > 0.5f;
+        writes |= on_path | (m2[1] != 0.f & (c == slot0 + k | (int)m2[5] == c));
+      }
+    }
+    unsigned touched = __ballot_sync(kFullMask, writes);
+    while (touched) {
+      const int col = c0 + __ffs(touched) - 1;
+      touched &= touched - 1;
+      float keep = 1.f;
+      int inst = -1;
+      for (int k = 0; k < K; ++k) {
+        const float nm = __fmul_rn(m2b[k * mstride + 1], col == slot0 + k ? 1.f : 0.f);
+        keep = __fmul_rn(keep, __fsub_rn(1.f, nm));
+        if (nm != 0.f) inst = k;
+      }
+      float paths = 0.f;  // the descents whose path passes here
+      for (int k = lane; k < K; k += 32) {
+        if (patha[k * kstride + row + col] > 0.5f) paths = __fadd_rn(paths, 1.f);
+      }
+      const size_t base = (size_t)b * A * C + col;
+      float total = 0.f;
+      if (keep != 0.f) {
+        for (int a0 = 0; a0 < A; a0 += 32 * kStreamJ) {
+          float nv[kStreamJ];
+#pragma unroll
+          for (int j = 0; j < kStreamJ; ++j) {
+            const int a = a0 + 32 * j + lane;
+            nv[j] = a < A ? n[base + (size_t)a * C] : 0.f;
+          }
+#pragma unroll
+          for (int j = 0; j < kStreamJ; ++j) total = __fadd_rn(total, nv[j]);
+        }
+      }
+      total = __fadd_rn(warp_visit_sum(total), warp_visit_sum(paths));
+      const float sq = __fsqrt_rn(__fadd_rn(total, kPuctEps));
+      const float* pm_row = pm + ((size_t)(inst >= 0 ? inst : 0) * B + b) * A;
+      Top2 t{kNoEdge, kNoEdge, kNoAction, 0.f, kNoAction, 0.f};
+      for (int a0 = 0; a0 < A; a0 += 32 * J) {
+        float n_add[J], w_add[J], code_delta[J];
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          n_add[j] = 0.f;
+          w_add[j] = 0.f;
+          code_delta[j] = inst >= 0 ? -1.f : 0.f;
+        }
+        for (int k0 = 0; k0 < K; k0 += kMaxRoundK) {
+          const int kn = min(kMaxRoundK, K - k0);
+          if (lane < kn) {
+            terms[lane] = round_term(patha, psgn, m2b, mstride, b, col, k0 + lane, B, C, slot0);
+          }
+          __syncwarp();
+          for (int i = 0; i < kn; ++i) {
+            const RoundTerm tk = terms[i];
+#pragma unroll
+            for (int j = 0; j < J; ++j) {
+              const int a = a0 + 32 * j + lane;
+              if (tk.path_a == a) {
+                n_add[j] = __fadd_rn(n_add[j], 1.f);
+                w_add[j] = __fadd_rn(w_add[j], tk.path_v);
+              }
+              if (tk.link_a == a) code_delta[j] = __fadd_rn(code_delta[j], tk.link_v);
+            }
+          }
+          __syncwarp();  // every lane has read the terms before the next chunk's
+        }
+#pragma unroll
+        for (int j = 0; j < J; ++j) {
+          const int a = a0 + 32 * j + lane;
+          if (a < A) {
+            const size_t off = base + (size_t)a * C;
+            const float n0 = n[off], w0 = w[off], p0 = p[off], c0_ = code[off];
+            const float p_inst = inst >= 0 ? __fadd_rn(0.f, pm_row[a]) : 0.f;
+            const float nn = __fadd_rn(__fmul_rn(n0, keep), n_add[j]);
+            const float wn = __fadd_rn(__fmul_rn(w0, keep), w_add[j]);
+            const float pn = __fadd_rn(__fmul_rn(p0, keep), p_inst);
+            const float cn = __fadd_rn(__fmul_rn(c0_, keep), code_delta[j]);
+            store_if_changed(n + off, n0, nn);
+            store_if_changed(w + off, w0, wn);
+            store_if_changed(p + off, p0, pn);
+            store_if_changed(code + off, c0_, cn);
+            lane_top2_push(t, (float)a, puct_score(nn, wn, pn, sq, cpuct), cn);
+          }
+        }
+      }
+      const Top2 own = t;
+      warp_top2(t);
+      t.best_code = warp_code(own.best_a == t.best_a ? own.best_code : own.sec_code, t.best_a);
+      t.sec_code = warp_code(own.best_a == t.sec_a ? own.best_code : own.sec_code, t.sec_a);
+      if (lane == 0) top2_store(t, true, row + col, besta, bestc, seca, secc);
+    }
+  }
+}
+
 // The dense round merge: one warp per game. The warp walks its game's nodes
 // 32 at a time: it merges every node's done/tval cells (two coalesced rows)
 // and finds with a ballot the columns the K records write (the path nodes
@@ -1179,7 +1545,8 @@ __device__ __forceinline__ void merge_round_column_warp(float* n, float* w, floa
 // the warp merges and refreshes the column. No other stat column is read,
 // and every other node's top-2 planes are left as they are: the
 // precondition is that on entry they are the refresh2 of the entry planes
-// (the search's seed refresh makes it so, every merge keeps it).
+// (the search's seed refresh makes it so, every merge keeps it). J =
+// kStream: merge_round_dense_stream, for any A and K.
 template <int J>
 __global__ void merge_round_dense_kernel(float* __restrict__ n, float* __restrict__ w,
                                          float* __restrict__ p, float* __restrict__ code,
@@ -1191,44 +1558,49 @@ __global__ void merge_round_dense_kernel(float* __restrict__ n, float* __restric
                                          float* __restrict__ besta, float* __restrict__ bestc,
                                          float* __restrict__ seca, float* __restrict__ secc,
                                          int B, int A, int C, int K, int slot0, float cpuct) {
-  __shared__ RoundTerm block_terms[kMergeWarps][kMaxRoundK];
-  __shared__ float block_meta2[kMergeWarps][kMaxRoundK * 8];
-  const int lane = threadIdx.x & 31;
-  const int warp = (int)(threadIdx.x >> 5);
-  const int b = blockIdx.x * kMergeWarps + warp;
-  if (b >= B) return;  // the whole warp
-  RoundTerm* terms = block_terms[warp];
-  // the game's K meta2 records, read by every lane at every node: staged
-  // once in shared memory
-  float* m2s = block_meta2[warp];
-  for (int i = lane; i < K * 8; i += 32) m2s[i] = meta2[((size_t)(i / 8) * B + b) * 8 + i % 8];
-  __syncwarp();
-  const size_t row = (size_t)b * C;
-  for (int c0 = 0; c0 < C; c0 += 32) {
-    const int c = c0 + lane;
-    bool writes = false;
-    if (c < C) {
-      round_node_cells(done, tval, m2s, 8, b, c, C, K, slot0);
-      for (int k = 0; k < K; ++k) {
-        const float* m2 = m2s + k * 8;
-        const bool on_path = patha[(size_t)k * B * C + row + c] > 0.5f;
-        writes |= on_path | (m2[1] != 0.f & (c == slot0 + k | (int)m2[5] == c));
+  if constexpr (J == kStream) {
+    merge_round_dense_stream(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca,
+                             secc, B, A, C, K, slot0, cpuct);
+  } else {
+    __shared__ RoundTerm block_terms[kMergeWarps][kMaxRoundK];
+    __shared__ float block_meta2[kMergeWarps][kMaxRoundK * 8];
+    const int lane = threadIdx.x & 31;
+    const int warp = (int)(threadIdx.x >> 5);
+    const int b = blockIdx.x * kMergeWarps + warp;
+    if (b >= B) return;  // the whole warp
+    RoundTerm* terms = block_terms[warp];
+    // the game's K meta2 records, read by every lane at every node: staged
+    // once in shared memory
+    float* m2s = block_meta2[warp];
+    for (int i = lane; i < K * 8; i += 32) m2s[i] = meta2[((size_t)(i / 8) * B + b) * 8 + i % 8];
+    __syncwarp();
+    const size_t row = (size_t)b * C;
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      const int c = c0 + lane;
+      bool writes = false;
+      if (c < C) {
+        round_node_cells(done, tval, m2s, 8, b, c, C, K, slot0);
+        for (int k = 0; k < K; ++k) {
+          const float* m2 = m2s + k * 8;
+          const bool on_path = patha[(size_t)k * B * C + row + c] > 0.5f;
+          writes |= on_path | (m2[1] != 0.f & (c == slot0 + k | (int)m2[5] == c));
+        }
       }
-    }
-    unsigned touched = __ballot_sync(kFullMask, writes);
-    while (touched) {
-      const int col = c0 + __ffs(touched) - 1;
-      touched &= touched - 1;
-      if (lane < K) terms[lane] = round_term(patha, psgn, m2s, 8, b, col, lane, B, C, slot0);
-      __syncwarp();
-      int inst;
-      const float keep = round_keep(terms, K, inst);
-      const float* pm_row = pm + ((size_t)(inst >= 0 ? inst : 0) * B + b) * A;
-      Top2 t;
-      merge_round_column_warp<J>(n, w, p, code, pm_row, terms, K, keep, inst >= 0,
-                                 (size_t)b * A * C + col, A, C, cpuct, lane, t);
-      if (lane == 0) top2_store(t, true, row + col, besta, bestc, seca, secc);
-      __syncwarp();  // every lane has read the terms before the next column's
+      unsigned touched = __ballot_sync(kFullMask, writes);
+      while (touched) {
+        const int col = c0 + __ffs(touched) - 1;
+        touched &= touched - 1;
+        if (lane < K) terms[lane] = round_term(patha, psgn, m2s, 8, b, col, lane, B, C, slot0);
+        __syncwarp();
+        int inst;
+        const float keep = round_keep(terms, K, inst);
+        const float* pm_row = pm + ((size_t)(inst >= 0 ? inst : 0) * B + b) * A;
+        Top2 t;
+        merge_round_column_warp<J>(n, w, p, code, pm_row, terms, K, keep, inst >= 0,
+                                   (size_t)b * A * C + col, A, C, cpuct, lane, t);
+        if (lane == 0) top2_store(t, true, row + col, besta, bestc, seca, secc);
+        __syncwarp();  // every lane has read the terms before the next column's
+      }
     }
   }
 }
@@ -1255,6 +1627,37 @@ __global__ void merge_round_dense_kernel(float* __restrict__ n, float* __restric
 // no runner-up), codes -1. The warp writes the game's rows lane-strided
 // (coalesced): the root's values at column 0, those constants elsewhere;
 // all are +0 or exact integers.
+// One chunk of a seed's root edges: lane l's actions a0 + l, a0 + l + 32,
+// ... (J of them, loaded together), scored at n = w = 0 and pushed in
+// increasing order into the lane's running top-2 (kTop2) or first maximum.
+template <int J, bool kTop2>
+__device__ __forceinline__ void seed_chunk(const float* p_root, int a0, int A, int C, int lane,
+                                           float sq, float cpuct, Top2& t, float& best,
+                                           float& ba) {
+  float pv[J];
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int a = a0 + lane + 32 * j;
+    pv[j] = a < A ? p_root[(size_t)a * C] : 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < J; ++j) {
+    const int a = a0 + lane + 32 * j;
+    if (a < A) {
+      const float sc = puct_score(0.f, 0.f, pv[j], sq, cpuct);
+      if constexpr (kTop2) {
+        lane_top2_push(t, (float)a, sc, -1.f);
+      } else if (sc > best) {
+        best = sc;
+        ba = (float)a;
+      }
+    }
+  }
+}
+
+// J = kStream: the instance for any A, the root's edges in chunks of 32 *
+// kStreamSmallJ (a lane's running best carried across them, so an equal
+// score in a later chunk never displaces an earlier action).
 template <int J, bool kTop2>
 __global__ void __launch_bounds__(kMergeWarpThreads)
     seed_dense_kernel(const float* __restrict__ p, float* __restrict__ besta,
@@ -1264,37 +1667,22 @@ __global__ void __launch_bounds__(kMergeWarpThreads)
   const int b = blockIdx.x * kMergeWarps + (int)(threadIdx.x >> 5);
   if (b >= B) return;  // the whole warp
   const float* p_root = p + (size_t)b * A * C;  // p[b, a, 0] at a * C
-  float pv[J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int a = lane + 32 * j;
-    pv[j] = a < A ? p_root[(size_t)a * C] : 0.f;
-  }
   const float sq = __fsqrt_rn(__fadd_rn(0.f, kPuctEps));  // the root's visit sum is 0
+  Top2 t{kNoEdge, kNoEdge, kNoAction, -1.f, kNoAction, -1.f};
+  float best = kNoEdge, ba = kNoAction;
+  if constexpr (J == kStream) {
+    for (int a0 = 0; a0 < A; a0 += 32 * kStreamSmallJ) {
+      seed_chunk<kStreamSmallJ, kTop2>(p_root, a0, A, C, lane, sq, cpuct, t, best, ba);
+    }
+  } else {
+    seed_chunk<J, kTop2>(p_root, 0, A, C, lane, sq, cpuct, t, best, ba);
+  }
   float root_a, root_sa = -1.f;
   if constexpr (kTop2) {
-    Top2 t{kNoEdge, kNoEdge, kNoAction, -1.f, kNoAction, -1.f};
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int a = lane + 32 * j;
-      if (a < A) lane_top2_push(t, (float)a, puct_score(0.f, 0.f, pv[j], sq, cpuct), -1.f);
-    }
     warp_top2(t);
     root_a = t.best_a;
     if (t.second > -1e29f) root_sa = t.sec_a;  // a legal runner-up
   } else {
-    float best = kNoEdge, ba = kNoAction;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int a = lane + 32 * j;
-      if (a < A) {
-        const float sc = puct_score(0.f, 0.f, pv[j], sq, cpuct);
-        if (sc > best) {
-          best = sc;
-          ba = (float)a;
-        }
-      }
-    }
     warp_first_max(best, ba);
     root_a = ba;
   }
@@ -1326,30 +1714,45 @@ int launch_descend(const float* besta, const float* bestc, const float* done,
   return (int)cudaGetLastError();
 }
 
-// The K descents of a round: two byte counters per node and game of the
-// block in dynamic shared memory (above 48 KB only after opting in).
+// Whether a round descend counts in bytes in shared memory (K <= 255, C <=
+// kMaxByteNodes); else its 32-bit counters are in the caller's scratch.
+bool round_counts_in_bytes(int C, int K) { return K <= kMaxByteK && C <= kMaxByteNodes; }
+
+// The K descents of a round, kDescendWarps games (warps) a block: byte
+// counters in dynamic shared memory (above 48 KB only after opting in), or
+// 32-bit ones in the global scratch [B][2][C].
 template <class Game>
 int launch_descend_round(const float* besta, const float* bestc, const float* seca,
                          const float* secc, const float* done, const float* tval,
                          const float* boards, float* bd, float* patha, float* psgn, float* meta,
-                         int B, int C, int K, int max_depth, int cells, void* stream) {
-  const size_t smem = 2 * (size_t)C * kDescendWarps;
-  if (K < 1 || K > 255 || smem > (size_t)kMaxSharedBytes) return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        descend_round_kernel<Game>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+                         unsigned* scratch, int B, int C, int K, int max_depth, int cells,
+                         void* stream) {
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  if (round_counts_in_bytes(C, K)) {
+    const size_t smem = 2 * (size_t)C * kDescendWarps;
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          descend_round_kernel<Game>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return (int)err;
+    }
+    descend_round_kernel<Game><<<blocks_for(B, kDescendWarps), kDescendThreads, smem,
+                                 (cudaStream_t)stream>>>(
+        besta, bestc, seca, secc, done, tval, boards, bd, patha, psgn, meta, B, C, K, max_depth,
+        cells);
+    return (int)cudaGetLastError();
   }
-  descend_round_kernel<Game><<<blocks_for(B, kDescendWarps), kDescendThreads, smem,
-                               (cudaStream_t)stream>>>(
-      besta, bestc, seca, secc, done, tval, boards, bd, patha, psgn, meta, B, C, K, max_depth,
-      cells);
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  descend_round_wide_kernel<Game><<<blocks_for(B, kDescendWarps), kDescendThreads, 0,
+                                    (cudaStream_t)stream>>>(
+      besta, bestc, seca, secc, done, tval, boards, bd, patha, psgn, meta, scratch, B, C, K,
+      max_depth, cells);
   return (int)cudaGetLastError();
 }
 
 // The dense merges: kMergeWarps games (warps) a block, in the kernel
 // instance whose lanes keep J actions each in registers: J = 4 up to A =
-// 128, 8 up to 256, 16 up to 512, 24 up to kMaxDenseA = 768.
+// 128, 8 up to 256, 16 up to 512, 24 up to kMaxDenseA = 768; above, the
+// streamed instance (J = kStream).
 template <int J>
 int launch_merge_dense(float* n, float* w, float* p, float* code, float* done, float* tval,
                        const float* pm, const float* patha, const float* psgn, const float* meta2,
@@ -1362,7 +1765,7 @@ int launch_merge_dense(float* n, float* w, float* p, float* code, float* done, f
 }
 
 // The seeds: kMergeWarps games (warps) a block, J actions a lane as the
-// dense merges keep them, one at A <= kMaxA.
+// dense merges keep them, one at A <= kMaxA, streamed above kMaxDenseA.
 template <int J, bool kTop2>
 int launch_seed(const float* p, float* besta, float* bestc, float* seca, float* secc, int B, int A,
                 int C, float cpuct, void* stream) {
@@ -1375,7 +1778,7 @@ int launch_seed(const float* p, float* besta, float* bestc, float* seca, float* 
 template <bool kTop2>
 int seed(const float* p, float* besta, float* bestc, float* seca, float* secc, int B, int A, int C,
          float cpuct, void* stream) {
-  if (A < 1 || A > kMaxDenseA) return (int)cudaErrorInvalidValue;
+  if (A < 1) return (int)cudaErrorInvalidValue;
   if (A <= kMaxA) return launch_seed<1, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
   if (A <= 32 * 4) {
     return launch_seed<4, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
@@ -1386,7 +1789,10 @@ int seed(const float* p, float* besta, float* bestc, float* seca, float* secc, i
   if (A <= 32 * 16) {
     return launch_seed<16, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
   }
-  return launch_seed<24, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+  if (A <= kMaxDenseA) {
+    return launch_seed<24, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
+  }
+  return launch_seed<kStream, kTop2>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
 template <int J>
@@ -1411,8 +1817,9 @@ const char* az_error_string(int code) {
 }
 
 // The descend entries: boards f32[B, cells], cells being the game's own
-// (42, 64, 49) or, for Gomoku, its edge squared (at most 768: the 8-word
-// instance up to 512, the 12-word one above).
+// (42, 64, 49) or, for Gomoku, its edge squared, any edge: the 8-word
+// instance up to 512 cells, the 12-word one up to 768, the leaf-row one
+// above.
 int az_descend(const float* besta, const float* bestc, const float* done,
                const float* tval, const float* boards, float* bd, float* patha,
                float* psgn, float* meta, int B, int C, int max_depth, int cells,
@@ -1433,13 +1840,16 @@ int az_descend_gomoku(const float* besta, const float* bestc, const float* done,
                       const float* tval, const float* boards, float* bd,
                       float* patha, float* psgn, float* meta, int B, int C,
                       int max_depth, int cells, void* stream) {
-  if (cells > 64 * 12) return (int)cudaErrorInvalidValue;
   if (cells <= 64 * 8) {
     return launch_descend<GomokuGame<8>>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
                                          B, C, max_depth, cells, stream);
   }
-  return launch_descend<GomokuGame<12>>(besta, bestc, done, tval, boards, bd, patha, psgn, meta,
-                                        B, C, max_depth, cells, stream);
+  if (cells <= 64 * 12) {
+    return launch_descend<GomokuGame<12>>(besta, bestc, done, tval, boards, bd, patha, psgn,
+                                          meta, B, C, max_depth, cells, stream);
+  }
+  return launch_descend<GomokuRowGame>(besta, bestc, done, tval, boards, bd, patha, psgn, meta, B,
+                                       C, max_depth, cells, stream);
 }
 
 int az_descend_hex(const float* besta, const float* bestc, const float* done,
@@ -1465,15 +1875,14 @@ int az_merge(float* n, float* w, float* p, float* code, float* done,
   return (int)cudaGetLastError();
 }
 
-// The dense K=1 merge (A <= 768): updates besta/bestc in place at the
-// columns it writes, and relies on them being the refresh of the entry
-// planes.
+// The dense K=1 merge, any A (streamed above 768): updates besta/bestc in
+// place at the columns it writes, and relies on them being the refresh of
+// the entry planes.
 int az_merge_dense(float* n, float* w, float* p, float* code, float* done,
                    float* tval, const float* pm, const float* patha,
                    const float* psgn, const float* meta2, float* besta,
                    float* bestc, int B, int A, int C, int slot, float cpuct,
                    void* stream) {
-  if (A > kMaxDenseA) return (int)cudaErrorInvalidValue;
   if (A <= 32 * 4) {
     return launch_merge_dense<4>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
                                  B, A, C, slot, cpuct, stream);
@@ -1486,11 +1895,15 @@ int az_merge_dense(float* n, float* w, float* p, float* code, float* done,
     return launch_merge_dense<16>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
                                   B, A, C, slot, cpuct, stream);
   }
-  return launch_merge_dense<24>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
-                                B, A, C, slot, cpuct, stream);
+  if (A <= kMaxDenseA) {
+    return launch_merge_dense<24>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
+                                  B, A, C, slot, cpuct, stream);
+  }
+  return launch_merge_dense<kStream>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
+                                     bestc, B, A, C, slot, cpuct, stream);
 }
 
-// The seed of a fresh search (1 <= A <= 768; the wrappers send it A <= 8):
+// The seed of a fresh search (A >= 1; the wrappers send it A <= 8):
 // n, w and code are not read; the planes must be as _init_planes leaves
 // them (see seed_dense_kernel).
 int az_refresh(const float* n, const float* w, const float* p,
@@ -1499,7 +1912,7 @@ int az_refresh(const float* n, const float* w, const float* p,
   return seed<false>(p, besta, bestc, nullptr, nullptr, B, A, C, cpuct, stream);
 }
 
-// The same seed for the dense path (2 <= A <= 768).
+// The same seed for the dense path (A >= 2).
 int az_refresh_dense(const float* n, const float* w, const float* p,
                      const float* code, float* besta, float* bestc, int B,
                      int A, int C, float cpuct, void* stream) {
@@ -1507,75 +1920,102 @@ int az_refresh_dense(const float* n, const float* w, const float* p,
   return seed<false>(p, besta, bestc, nullptr, nullptr, B, A, C, cpuct, stream);
 }
 
-// The round entries: K descents per game (1 <= K <= 255, C <= 29056 nodes),
-// outputs K-major.
+// The round entries: K >= 1 descents per game, outputs K-major. `scratch`
+// holds az_descend_round_scratch(B, C, K) 32-bit counters (none: nullptr).
 int az_descend_round(const float* besta, const float* bestc, const float* seca,
                      const float* secc, const float* done, const float* tval,
                      const float* boards, float* bd, float* patha, float* psgn, float* meta,
-                     int B, int C, int K, int max_depth, int cells, void* stream) {
+                     unsigned* scratch, int B, int C, int K, int max_depth, int cells,
+                     void* stream) {
   return launch_descend_round<ConnectFourGame>(besta, bestc, seca, secc, done, tval, boards, bd,
-                                               patha, psgn, meta, B, C, K, max_depth, cells,
-                                               stream);
+                                               patha, psgn, meta, scratch, B, C, K, max_depth,
+                                               cells, stream);
 }
 
 int az_descend_round_othello(const float* besta, const float* bestc, const float* seca,
                              const float* secc, const float* done, const float* tval,
                              const float* boards, float* bd, float* patha, float* psgn,
-                             float* meta, int B, int C, int K, int max_depth, int cells,
-                             void* stream) {
+                             float* meta, unsigned* scratch, int B, int C, int K, int max_depth,
+                             int cells, void* stream) {
   return launch_descend_round<OthelloGame>(besta, bestc, seca, secc, done, tval, boards, bd,
-                                           patha, psgn, meta, B, C, K, max_depth, cells, stream);
+                                           patha, psgn, meta, scratch, B, C, K, max_depth, cells,
+                                           stream);
 }
 
 int az_descend_round_gomoku(const float* besta, const float* bestc, const float* seca,
                             const float* secc, const float* done, const float* tval,
                             const float* boards, float* bd, float* patha, float* psgn,
-                            float* meta, int B, int C, int K, int max_depth, int cells,
-                            void* stream) {
-  if (cells > 64 * 12) return (int)cudaErrorInvalidValue;
+                            float* meta, unsigned* scratch, int B, int C, int K, int max_depth,
+                            int cells, void* stream) {
   if (cells <= 64 * 8) {
     return launch_descend_round<GomokuGame<8>>(besta, bestc, seca, secc, done, tval, boards, bd,
-                                               patha, psgn, meta, B, C, K, max_depth, cells,
-                                               stream);
+                                               patha, psgn, meta, scratch, B, C, K, max_depth,
+                                               cells, stream);
   }
-  return launch_descend_round<GomokuGame<12>>(besta, bestc, seca, secc, done, tval, boards, bd,
-                                              patha, psgn, meta, B, C, K, max_depth, cells,
-                                              stream);
+  if (cells <= 64 * 12) {
+    return launch_descend_round<GomokuGame<12>>(besta, bestc, seca, secc, done, tval, boards, bd,
+                                                patha, psgn, meta, scratch, B, C, K, max_depth,
+                                                cells, stream);
+  }
+  return launch_descend_round<GomokuRowGame>(besta, bestc, seca, secc, done, tval, boards, bd,
+                                             patha, psgn, meta, scratch, B, C, K, max_depth,
+                                             cells, stream);
 }
 
 int az_descend_round_hex(const float* besta, const float* bestc, const float* seca,
                          const float* secc, const float* done, const float* tval,
                          const float* boards, float* bd, float* patha, float* psgn, float* meta,
-                         int B, int C, int K, int max_depth, int cells, void* stream) {
+                         unsigned* scratch, int B, int C, int K, int max_depth, int cells,
+                         void* stream) {
   return launch_descend_round<HexGame>(besta, bestc, seca, secc, done, tval, boards, bd, patha,
-                                       psgn, meta, B, C, K, max_depth, cells, stream);
+                                       psgn, meta, scratch, B, C, K, max_depth, cells, stream);
+}
+
+// The 32-bit counters [B][2][C] a round descend of B games, C nodes and K
+// descents keeps in global memory: 0 where its byte counters fit in shared
+// memory (K <= 255 and C <= 29056).
+long long az_descend_round_scratch(int B, int C, int K) {
+  return round_counts_in_bytes(C, K) ? 0LL : 2LL * B * C;
 }
 
 // The round merges: pm f32[K, B, A], patha/psgn f32[K, B, C], meta2
-// f32[K, B, 8]; descent k installs at slot slot0 + k. 1 <= K <= 16. The
+// f32[K, B, 8]; descent k installs at slot slot0 + k, K >= 1 (the records
+// staged in shared memory up to K = 16, read where they lie above). The
 // A <= 8 one updates the four top-2 planes in place at the columns it
 // writes, and relies on them being the refresh2 of the entry planes.
 int az_merge_round(float* n, float* w, float* p, float* code, float* done, float* tval,
                    const float* pm, const float* patha, const float* psgn, const float* meta2,
                    float* besta, float* bestc, float* seca, float* secc, int B, int A, int C,
                    int K, int slot0, float cpuct, void* stream) {
-  if (K < 1 || K > kMaxRoundK || A > kMaxA) return (int)cudaErrorInvalidValue;
-  merge_round_kernel<<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
-                       (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha, psgn,
-                                               meta2, besta, bestc, seca, secc, B, A, C, K,
-                                               slot0, cpuct);
+  if (K < 1 || A > kMaxA) return (int)cudaErrorInvalidValue;
+  if (K <= kMaxRoundK) {
+    merge_round_kernel<false><<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
+                                (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha, psgn,
+                                                        meta2, besta, bestc, seca, secc, B, A, C,
+                                                        K, slot0, cpuct);
+  } else {
+    merge_round_kernel<true><<<blocks_for(B, kMergeWarps), kMergeWarpThreads, 0,
+                               (cudaStream_t)stream>>>(n, w, p, code, done, tval, pm, patha, psgn,
+                                                       meta2, besta, bestc, seca, secc, B, A, C,
+                                                       K, slot0, cpuct);
+  }
   return (int)cudaGetLastError();
 }
 
-// The dense round merge (A <= 768): updates the four top-2 planes in place
-// at the columns it writes, and relies on them being the refresh2 of the
-// entry planes.
+// The dense round merge, any A and K (streamed above A = 768 or K = 16):
+// updates the four top-2 planes in place at the columns it writes, and
+// relies on them being the refresh2 of the entry planes.
 int az_merge_round_dense(float* n, float* w, float* p, float* code, float* done, float* tval,
                          const float* pm, const float* patha, const float* psgn,
                          const float* meta2, float* besta, float* bestc, float* seca,
                          float* secc, int B, int A, int C, int K, int slot0, float cpuct,
                          void* stream) {
-  if (K < 1 || K > kMaxRoundK || A > kMaxDenseA) return (int)cudaErrorInvalidValue;
+  if (K < 1) return (int)cudaErrorInvalidValue;
+  if (K > kMaxRoundK || A > kMaxDenseA) {
+    return launch_merge_round_dense<kStream>(n, w, p, code, done, tval, pm, patha, psgn, meta2,
+                                             besta, bestc, seca, secc, B, A, C, K, slot0, cpuct,
+                                             stream);
+  }
   if (A <= 32 * 4) {
     return launch_merge_round_dense<4>(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
                                        bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
@@ -1592,15 +2032,15 @@ int az_merge_round_dense(float* n, float* w, float* p, float* code, float* done,
                                       bestc, seca, secc, B, A, C, K, slot0, cpuct, stream);
 }
 
-// The top-2 seed of a fresh round search (1 <= A <= 768; the wrappers send
-// it A <= 8), as az_refresh.
+// The top-2 seed of a fresh round search (A >= 1; the wrappers send it
+// A <= 8), as az_refresh.
 int az_refresh2(const float* n, const float* w, const float* p, const float* code, float* besta,
                 float* bestc, float* seca, float* secc, int B, int A, int C, float cpuct,
                 void* stream) {
   return seed<true>(p, besta, bestc, seca, secc, B, A, C, cpuct, stream);
 }
 
-// The same top-2 seed for the dense path (2 <= A <= 768).
+// The same top-2 seed for the dense path (A >= 2).
 int az_refresh2_dense(const float* n, const float* w, const float* p, const float* code,
                       float* besta, float* bestc, float* seca, float* secc, int B, int A, int C,
                       float cpuct, void* stream) {

@@ -12,8 +12,7 @@ Usage:
   python -m alphazero_tpu_torch.examples.train_gomoku --preset full \\
       --checkpoint-dir runs/gomoku9_full                                # AZResNet-64x5
 
-The card's Gomoku descends take boards of up to 768 cells (edges up to
-27): a larger ``--size`` is refused, citing its ROADMAP item.
+The card's hybrid kernels take any ``--size``, as the JAX CLI does.
 ``--gumbel SIMS`` and ``--reanalyze BATCH`` apply the JAX CLI's overrides
 (``cli.with_economy``). The model's initial weights are torch's default
 initialisation under ``torch.manual_seed(seed + 1)``.
@@ -36,7 +35,6 @@ from alphazero_tpu_torch.config import (
 )
 from alphazero_tpu_torch.examples import cli
 from alphazero_tpu_torch.games import Gomoku
-from alphazero_tpu_torch.kernels import GOMOKU_MAX_CELLS
 
 PRESETS = ("smoke", "mlp", "full")
 
@@ -46,11 +44,6 @@ def preset(name: str, seed: int = 0, checkpoint_dir=None, size: int = 9):
     built under ``torch.manual_seed(seed + 1)``."""
     from alphazero_tpu_torch.models import AZResNet, MLPNet
 
-    if size * size > GOMOKU_MAX_CELLS:
-        raise NotImplementedError(
-            f"Gomoku {size}x{size} has {size * size} cells; the card's descend takes up to "
-            f"{GOMOKU_MAX_CELLS} (ROADMAP queue 2, \"Gomoku boards above 768 cells\")"
-        )
     game = Gomoku(size)
     A, cells = game.num_actions, size * size
     torch.manual_seed(seed + 1)
@@ -95,8 +88,8 @@ def preset(name: str, seed: int = 0, checkpoint_dir=None, size: int = 9):
 def main(argv=None) -> int:
     ap = cli.parser(__doc__, PRESETS)
     ap.add_argument("--size", type=int, default=9,
-                    help="board edge: 9 (the default), 15 (the standard board, A=225), any edge "
-                         "up to 27 (A=729)")
+                    help="board edge: 9 (the default), 15 (the standard board, A=225), or any "
+                         "other")
     args = ap.parse_args(argv)
     model, cfg = preset(args.preset, args.seed, args.checkpoint_dir, args.size)
     game = Gomoku(args.size)

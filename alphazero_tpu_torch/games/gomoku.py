@@ -17,6 +17,7 @@ the kernel's helper ``gomoku_step`` (``csrc/gomoku.cuh``), and its
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -116,10 +117,12 @@ class Gomoku:
         return GomokuFlatOps(self.size, self.win)
 
 
+@functools.lru_cache(maxsize=None)
 def _win_line_matrix(size: int, win: int) -> np.ndarray:
     """f32[size^2, n_lines] incidence matrix of every win-in-a-row window
     (9x9: rows 45 + columns 45 + diagonals 25 + anti-diagonals 25 = 140;
-    15x15: 572), in the JAX ``_win_line_matrix``'s window order."""
+    15x15: 572), in the JAX ``_win_line_matrix``'s window order. Built once
+    per board (every search asks for it) and read-only."""
     M = size - win + 1
     lines = []
     for r in range(size):
@@ -138,6 +141,7 @@ def _win_line_matrix(size: int, win: int) -> np.ndarray:
     for j, cells in enumerate(lines):
         for r, c in cells:
             m[r * size + c, j] = 1.0
+    m.flags.writeable = False
     return m
 
 

@@ -29,22 +29,26 @@ Each wrapper takes tensors on ONE device:
 ``descend``, ``merge`` and ``refresh`` route a CUDA call to the kernel
 instance that takes it: ``descend`` by the type of the game's flat ops
 (``descend_entry``: Connect-Four's ``FlatOps`` its own kernel, then
-``descend_othello``, ``descend_gomoku`` (boards of up to 768 cells: the
-8-word instance up to 512, the 12-word one above; beyond, it raises) and
-``descend_hex``; any other type raises), ``merge`` and
+``descend_othello``, ``descend_gomoku`` (boards of any edge: the 8-word
+instance up to 512 cells, the 12-word one up to 768, the leaf-row one
+above) and ``descend_hex``; any other type raises), ``merge`` and
 ``refresh`` by action count (A <= 8 their own kernels; above,
-``merge_dense`` and ``refresh_dense``). ``descend_round``,
-``merge_round`` and ``refresh2`` route the same way (to
+``merge_dense`` and ``refresh_dense``, whose instances keep a column in
+registers up to ``DENSE_MERGE_MAX_A`` actions and stream it above).
+``descend_round``, ``merge_round`` and ``refresh2`` route the same way (to
 ``descend_round_othello`` etc., ``merge_round_dense``,
-``refresh2_dense``); they take 1 <= K <= ``MAX_ROUND_K`` descents per
-round. The merges update the search's best planes (``besta, bestc``, and
-``seca, secc`` in rounds) in place and rewrite only the columns the merge
-touched, so they need those planes to be the refresh of the planes they
-are given, as the seed ``refresh``/``refresh2`` and every merge leave
-them. The seeds ``refresh``/``refresh2`` (and ``refresh_dense``/
-``refresh2_dense``, where they route A > 8) take only a fresh search's
-planes (``mcts.hybrid._init_planes``), where every node but the root is
-empty: they read the roots' priors alone, at every A. ``fused`` and ``fused_mlp`` run a whole Connect-Four
+``refresh2_dense``); they take any K >= 1 descents per round (the merges
+stage the records in shared memory up to ``MAX_ROUND_K``; the descend
+counts in shared-memory bytes up to K = 255 and ``ROUND_MAX_NODES`` nodes,
+above in 32-bit counters in a global scratch that the wrapper allocates).
+The merges update the search's best planes (``besta, bestc``, and ``seca,
+secc`` in rounds) in place and rewrite only the columns the merge touched,
+so they need those planes to be the refresh of the planes they are given,
+as the seed ``refresh``/``refresh2`` and every merge leave them. The seeds
+``refresh``/``refresh2`` (and ``refresh_dense``/``refresh2_dense``, where
+they route A > 8) take only a fresh search's planes
+(``mcts.hybrid._init_planes``), where every node but the root is empty:
+they read the roots' priors alone, at every A. ``fused`` and ``fused_mlp`` run a whole Connect-Four
 search in one launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the
 same in rounds of 1 <= K <= ``FUSED_MAX_K`` descents; their MLP
 evaluator runs on the bf16 tensor cores from weights in shared memory
@@ -106,10 +110,11 @@ _SIGNATURES = {
     "az_merge_dense": ([_VP] * 12 + [_I32] * 4 + [_F32, _VP], _I32),
     "az_refresh": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
     "az_refresh_dense": ([_VP] * 6 + [_I32] * 3 + [_F32, _VP], _I32),
-    "az_descend_round": ([_VP] * 11 + [_I32] * 5 + [_VP], _I32),
-    "az_descend_round_othello": ([_VP] * 11 + [_I32] * 5 + [_VP], _I32),
-    "az_descend_round_gomoku": ([_VP] * 11 + [_I32] * 5 + [_VP], _I32),
-    "az_descend_round_hex": ([_VP] * 11 + [_I32] * 5 + [_VP], _I32),
+    "az_descend_round": ([_VP] * 12 + [_I32] * 5 + [_VP], _I32),
+    "az_descend_round_othello": ([_VP] * 12 + [_I32] * 5 + [_VP], _I32),
+    "az_descend_round_gomoku": ([_VP] * 12 + [_I32] * 5 + [_VP], _I32),
+    "az_descend_round_hex": ([_VP] * 12 + [_I32] * 5 + [_VP], _I32),
+    "az_descend_round_scratch": ([_I32] * 3, ctypes.c_longlong),
     "az_merge_round": ([_VP] * 14 + [_I32] * 5 + [_F32, _VP], _I32),
     "az_merge_round_dense": ([_VP] * 14 + [_I32] * 5 + [_F32, _VP], _I32),
     "az_refresh2": ([_VP] * 8 + [_I32] * 3 + [_F32, _VP], _I32),
@@ -236,26 +241,19 @@ _DESCEND_ENTRIES = {
     GomokuFlatOps: "az_descend_gomoku",
     HexFlatOps: "az_descend_hex",
 }
-GOMOKU_MAX_CELLS = 768      # az_descend_gomoku: 8-word bitboards to 512 cells, 12-word to 768
-DENSE_MERGE_MAX_A = 768     # the dense merges: up to 24 actions a lane of a warp in registers
+DENSE_MERGE_MAX_A = 768     # the dense merges' widest in-register instance (24 actions a lane);
+                            # above, the streamed one
 
 
 def descend_entry(ops) -> str:
     """The entry of the descend kernel instance that steps boards as
     ``ops.step`` does, by the exact type of the flat ops (a subclass may
-    step otherwise). Raises for any other type and for a Gomoku board
-    above 768 cells (edges above 27)."""
+    step otherwise). Raises for any other type."""
     entry = _DESCEND_ENTRIES.get(type(ops))
     if entry is None:
         raise NotImplementedError(
             f"no descend kernel steps {type(ops).__name__} boards: the ported games' flat "
             f"ops are {', '.join(t.__name__ for t in _DESCEND_ENTRIES)}"
-        )
-    if entry == "az_descend_gomoku" and ops.size > GOMOKU_MAX_CELLS:
-        raise NotImplementedError(
-            f"the Gomoku descend kernels take boards of at most {GOMOKU_MAX_CELLS} cells "
-            f"(edge 27), got {ops.size}: wider bitboards are later work (ROADMAP queue 2, "
-            "\"Gomoku boards above 768 cells\")"
         )
     return entry
 
@@ -309,7 +307,7 @@ descend_othello = _descend_instance(
     "``mcts.hybrid.descend`` for Othello boards f32[B, 64].")
 descend_gomoku = _descend_instance(
     "descend_gomoku", "az_descend_gomoku",
-    "``mcts.hybrid.descend`` for Gomoku boards f32[B, S*S], any edge S up to 27.")
+    "``mcts.hybrid.descend`` for Gomoku boards f32[B, S*S], any edge S.")
 descend_hex = _descend_instance(
     "descend_hex", "az_descend_hex",
     "``mcts.hybrid.descend`` for canonical Hex boards f32[B, 49].")
@@ -355,16 +353,11 @@ def _merge(entry: str, n, w, p, code, done, tval, pm, patha, psgn, meta2, besta,
     return besta, bestc
 
 
-def _check_dense_actions(name: str, A: int) -> None:
-    if A > DENSE_MERGE_MAX_A:
-        raise ValueError(f"{name} takes at most {DENSE_MERGE_MAX_A} actions, got {A}")
-
-
 def _check_seed_actions(name: str, A: int) -> None:
-    """The dense seeds keep the dense merges' registers, and the empty
-    node's constant row needs a runner-up edge."""
-    if not 2 <= A <= DENSE_MERGE_MAX_A:
-        raise ValueError(f"{name} takes 2 to {DENSE_MERGE_MAX_A} actions, got {A}")
+    """The dense seeds take what the dense refresh takes: the engines send
+    it A > 8, and the empty node's constant row needs a runner-up edge."""
+    if A < 2:
+        raise ValueError(f"{name} takes A >= 2 actions, got {A}")
 
 
 def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int, cpuct: float):
@@ -386,9 +379,9 @@ def merge(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot:
 
 def merge_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, slot: int,
                 cpuct: float):
-    """``mcts.hybrid.merge`` with the dense refresh, for A up to 768 (the
-    main path sends it A > 8; the widest board it takes is Gomoku 27's 729
-    actions). The kernel reads and refreshes only the columns
+    """``mcts.hybrid.merge`` with the dense refresh, for any A (the main
+    path sends it A > 8; above ``DENSE_MERGE_MAX_A`` the kernel streams a
+    column in chunks). The kernel reads and refreshes only the columns
     the merge writes (path nodes, the install slot, the expanded parent)
     and leaves every other node's best planes as they are: on entry
     ``besta, bestc`` must be the refresh of the entry planes, as the
@@ -396,7 +389,6 @@ def merge_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
     args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc)
     if _on_cpu(*args):
         return _plain.merge(*args, slot, cpuct)
-    _check_dense_actions("merge_dense", n.shape[1])
     out = _merge("az_merge_dense", *args, slot, cpuct)
     merge_dense.launches += 1
     return out
@@ -442,8 +434,8 @@ def refresh(n, w, p, code, cpuct: float):
 
 
 def refresh_dense(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh``'s dense branch as a kernel, 2 <= A <= 768
-    (the main path sends it A > 8), for the seed of a fresh search: the
+    """``mcts.hybrid.refresh``'s dense branch as a kernel, A >= 2 (the
+    main path sends it A > 8), for the seed of a fresh search: the
     planes must be as ``mcts.hybrid._init_planes`` leaves them, the roots'
     priors in ``p[:, :, 0]`` and ``n = w = p = 0``, ``code = -1``
     everywhere else. There the kernel's planes are bit-equal to the plain
@@ -458,18 +450,15 @@ def refresh_dense(n, w, p, code, cpuct: float):
     return out
 
 
-MAX_ROUND_K = 16          # csrc/hybrid.cu kMaxRoundK: descents per round the merge takes
-ROUND_MAX_NODES = 29056   # the round descend: 2 x C counter bytes a game, 4 games a block, 227 KB
+MAX_ROUND_K = 16          # csrc/hybrid.cu kMaxRoundK: round records a merge stages at once
+ROUND_MAX_NODES = 29056   # the byte-counter round descend: 2 x C bytes a game, 4 games a block
 
 
 def _check_round_k(K: int) -> None:
+    """A round takes K >= 1 descents; that K divides ``num_sims`` is the
+    engine's check (``mcts.hybrid.make_hybrid_root_fn``), as in JAX."""
     if K < 1:
-        raise ValueError(f"the round kernels take 1 <= K <= {MAX_ROUND_K} descents, got {K}")
-    if K > MAX_ROUND_K:
-        raise NotImplementedError(
-            f"the round kernels take at most {MAX_ROUND_K} descents a round, got K={K}: staging "
-            "the records in chunks is later work "
-            "(ROADMAP queue 2, \"Round kernels for K above 16\")")
+        raise ValueError(f"the round kernels take K >= 1 descents, got {K}")
 
 
 def _descend_round(entry: str, besta, bestc, seca, secc, done, tval, boards, max_depth: int, ops,
@@ -483,8 +472,6 @@ def _descend_round(entry: str, besta, bestc, seca, secc, done, tval, boards, max
     if B == 0:
         raise ValueError("descend_round kernel needs B > 0")
     _check_round_k(K)
-    if C > ROUND_MAX_NODES:
-        raise ValueError(f"the round descend kernel takes at most {ROUND_MAX_NODES} nodes, got {C}")
     lib = library()
     ptrs = [
         _check("besta", besta, (B, C)), _check("bestc", bestc, (B, C)),
@@ -497,8 +484,12 @@ def _descend_round(entry: str, besta, bestc, seca, secc, done, tval, boards, max
     patha = torch.empty((K, B, C), device=dev)
     psgn = torch.empty((K, B, C), device=dev)
     meta = torch.empty((K, B, 8), device=dev)
+    # the 32-bit counters past the byte ones (zeroed by the kernel)
+    counters = lib.lib.az_descend_round_scratch(B, C, int(K))
+    scratch = torch.empty(counters, dtype=torch.int32, device=dev) if counters else None
     rc = getattr(lib.lib, entry)(
         *ptrs, bd.data_ptr(), patha.data_ptr(), psgn.data_ptr(), meta.data_ptr(),
+        scratch.data_ptr() if scratch is not None else None,
         B, C, int(K), int(max_depth), L, _stream(dev),
     )
     lib.check(rc, entry)
@@ -531,7 +522,7 @@ descend_round_othello = _descend_round_instance(
     "``mcts.hybrid.descend_round`` for Othello boards f32[B, 64].")
 descend_round_gomoku = _descend_round_instance(
     "descend_round_gomoku", "az_descend_round_gomoku",
-    "``mcts.hybrid.descend_round`` for Gomoku boards f32[B, S*S], any edge S up to 27.")
+    "``mcts.hybrid.descend_round`` for Gomoku boards f32[B, S*S], any edge S.")
 descend_round_hex = _descend_round_instance(
     "descend_round_hex", "az_descend_round_hex",
     "``mcts.hybrid.descend_round`` for canonical Hex boards f32[B, 49].")
@@ -602,14 +593,14 @@ def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc,
 
 def merge_round_dense(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc,
                       slot0: int, cpuct: float):
-    """``mcts.hybrid.merge_round`` with the dense top-2 refresh, for A up
-    to 768 (the main path sends it A > 8). Like ``merge_dense`` it reads and
+    """``mcts.hybrid.merge_round`` with the dense top-2 refresh, for any A
+    and K (the main path sends it A > 8; above ``DENSE_MERGE_MAX_A`` or
+    ``MAX_ROUND_K`` the kernel streams). Like ``merge_dense`` it reads and
     refreshes only the columns the K records write: on entry the top-2
     planes must be the ``refresh2`` of the entry planes."""
     args = (n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc)
     if _on_cpu(*args):
         return _plain.merge_round(*args, slot0, cpuct)
-    _check_dense_actions("merge_round_dense", n.shape[1])
     out = _merge_round("az_merge_round_dense", *args, slot0, cpuct)
     merge_round_dense.launches += 1
     return out
@@ -651,8 +642,8 @@ def refresh2(n, w, p, code, cpuct: float):
 
 
 def refresh2_dense(n, w, p, code, cpuct: float):
-    """``mcts.hybrid.refresh2``'s dense branch as a kernel, 2 <= A <= 768
-    (the main path sends it A > 8), for the seed of a fresh round search:
+    """``mcts.hybrid.refresh2``'s dense branch as a kernel, A >= 2 (the
+    main path sends it A > 8), for the seed of a fresh round search:
     the precondition of ``refresh_dense``, under which its four planes are
     bit-equal to the plain full refresh2's (every node but the root: ``(0,
     -1, 1, -1)``)."""

@@ -6,7 +6,7 @@ memory; each simulation is
 
 1. **descend** (one instance of the CUDA kernel per game, routed by the
    flat ops: ``az_descend`` for Connect-Four, ``az_descend_othello``,
-   ``az_descend_gomoku`` for every Gomoku edge up to 22x22,
+   ``az_descend_gomoku`` for every Gomoku edge,
    ``az_descend_hex``): the whole descent along the per-node PUCT argmax
    planes ``besta/bestc [B, C]``, carrying the board through the game's
    step, writing the path record and the leaf board;
@@ -68,8 +68,7 @@ kernels on each shard, and any per-batch choice is made on that batch.
 
 Not ported (ROADMAP queue 1 / queue 2): depth-sorted blocking
 (``run_search_sorted``, whose 8192-game threshold was measured on another
-device), and Gomoku boards above 768 cells on the card (their plain
-version runs; the CUDA descends raise).
+device).
 """
 
 from __future__ import annotations

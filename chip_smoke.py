@@ -18,7 +18,9 @@ playouts in the fixed scan, and the play and analyze CLIs; then the
 training economy (Gumbel search, the ``economy`` preset, playout-cap
 randomization, reanalyze); then the transposition-DAG engine through its
 routes; then the data-parallel path; then Gomoku boards above 512 cells on
-the kernels' wider instances — on one CUDA card, in phases:
+the kernels' wider instances; then Gomoku boards above 768 cells and round
+searches above K = 16 on the leaf-row, streamed and wide instances — on one
+CUDA card, in phases:
 
 1. card:   the card's name and power limit (``nvidia-smi``);
 2. build:  the hand-written kernels (``csrc/hybrid.cu``, ``csrc/fused.cu``,
@@ -31,7 +33,8 @@ the kernels' wider instances — on one CUDA card, in phases:
            instances of the seed (these twenty must have no stack frame and
            no spill), and of the dense merges' instances (J = 4, 8, 16 and
            24 actions a lane; phase 23 prints the 12-word descends' and the
-           J = 24 seeds', none of these gated: a spill is printed);
+           J = 24 seeds', none of these gated: a spill is printed; phase 24
+           prints and gates the leaf-row, streamed and wide instances');
 3. kernels vs plain: each kernel against its plain PyTorch version at the
            main path's shapes (B=4096, C=101, A=7), on tree planes taken
            from a few simulations of the plain search on random positions
@@ -430,6 +433,30 @@ the kernels' wider instances — on one CUDA card, in phases:
            exiting 0 with the wider kernels launched and ``0.examples``
            written. Its entries ``*_w12``/``*_j24`` in the kernels line
            are (a)-(c)'s at A=529, with (c)'s launches.
+24. wider: Gomoku boards above 768 cells and round searches above K = 16
+           (``wider_phase``): the ptxas lines of the leaf-row Gomoku
+           descends, the round descend's 32-bit-counter instances, the
+           streamed dense merges and seeds (J = 0) and the wide A <= 8 round
+           merge, gated (no stack, no spill); (a) phase 23(a)-(c) on Gomoku
+           32 (A=1024: the board in the leaf row; the streamed merges and
+           seeds) with the ``full`` preset's model at B=1024; (b) 23(a)-(b)
+           at A=2025 (edge 45) at B=WIDER_B, the kernels against their plain
+           versions; (c)
+           ``train_gomoku --size 32 --preset smoke`` (1 iteration of 2); (d)
+           the Othello ``full`` preset (AZResNet-128x5, B=1024, 100 sims) at
+           K = 20, 50 and 100 (past the 16 records a round merge stages, and
+           past 32): the streamed round merge bit-equal to plain on the last
+           round of a plain search, timed, and one search through the kernels
+           and the plain versions, equal root counts; (e) the Connect-Four
+           ``full`` preset's AZResNet-64x5 (B=1024) at K=256, 512 sims (the
+           round descend's 32-bit counters in the wrapper's global scratch,
+           the A <= 8 merge's records read in place) and (f) at K=4, 100
+           sims and C = 29 057 nodes (the same counters), the same. Each part's seconds print. Its entries
+           ``*_row``/``*_stream`` in the kernels line are (a)'s at
+           A=1024 with its searches' launches, ``merge_round_dense_stream_k100``
+           (d)'s at K=100, ``descend_round_wide``/``merge_round_wide`` (e)'s
+           and ``descend_round_wide_global`` (f)'s, with their searches'
+           launches.
 
 Each kernel's line in the JSON carries its bound: the larger of the bytes
 the function must move (each input read once, each output written once; a
@@ -461,8 +488,9 @@ alone; ``python3 chip_smoke.py --coach`` runs phase 17 alone, uncut;
 alone; ``python3 chip_smoke.py --parallel-cards``, for a machine of
 several cards, runs the one-process MLPNet iteration of 22(a) and then
 22(c) and (d) alone; ``python3 chip_smoke.py --gomoku23`` builds the
-kernels and runs phase 23 alone. Each phase's seconds print as it ends
-(``[time]``).
+kernels and runs phase 23 alone; ``python3 chip_smoke.py --wide`` builds
+the kernels, prints phase 2's report and runs phase 24 alone. Each phase's
+seconds print as it ends (``[time]``).
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -562,7 +590,9 @@ HYBRID_STEPS = 3       # uniform actor steps through the hybrid route
 FUSED_REPS = 5
 SWEEP_BS = (8192, 16384, 32768, 65536)   # the uniform fused kernels' batch sweep (phase 6)
 FUSED_KERNELS = ("fused_kernel", "fused_rounds_kernel")   # the uniform fused kernels' ptxas names
-MERGE_KERNELS = ("merge_kernel", "merge_round_kernel")    # the A <= 8 merges' ptxas names
+# the A <= 8 merges' ptxas names (the round merge's instance of K <= 16;
+# phase 24 prints the wide one's)
+MERGE_KERNELS = ("merge_kernel", "merge_round_kernelILb0E")
 MERGE_REPS = 3            # --merges: device-time readings of each A <= 8 merge
 DESCEND_REPS = 3          # --descends: device-time readings of each descend
 # the hybrid descends' ptxas names: each template's instance of each game
@@ -619,8 +649,8 @@ COACH_SUBSET = 2          # phase 17(b): roots of the 1600-sim rung search held 
                           # (its plain search takes ~1.5 s a root)
 MLP_RING, MLP_BATCH, MLP_TRAIN_STEPS = 1 << 17, 512, 8   # the mlp preset's ring and batch
 GAMES_CUT_STEPS = 64      # phases 17-18, the default run: train steps an iteration of each preset
-GAMES_CUT_SIMS = 25       # ... self-play sims ...
-GAMES_CUT_GATE_SIMS = 25  # ... and the arenas' sims (the gate and the anchored pass's net side)
+GAMES_CUT_SIMS = 16       # ... self-play sims ...
+GAMES_CUT_GATE_SIMS = 16  # ... and the arenas' sims (the gate and the anchored pass's net side)
 CONVNET_F32_ATOL = 1e-3   # phase 18: AZConvNet folded vs unfolded on the card, f32 ...
 CONVNET_BF16_ATOL = 0.1   # ... and bf16 (tests/test_torch_convnet.py's bf16 bound)
 
@@ -683,6 +713,36 @@ WIDE_ENTRIES = {
     "refresh_dense_j24": "refresh_dense", "descend_round_gomoku_w12": "descend_round_gomoku",
     "merge_round_dense_j24": "merge_round_dense", "refresh2_dense_j24": "refresh2_dense",
 }
+WIDER_SIZE, WIDER_CHECK_SIZE = 32, 45   # phase 24: Gomoku past 768 cells (1024; 2025)
+WIDER_B = 128             # phase 24(b): games of the A=2025 checks
+WIDE_KS = (20, 50, 100)   # phase 24(d): the Othello full preset's K past 16 records and 32 bits
+COUNTS_K = 256            # phase 24(e): the round descend's first K past byte counters ...
+COUNTS_C = 29057          # ... (f) and its first C past their shared memory
+COUNTS_B = 1024           # (e)-(f): Connect-Four games
+# phase 24: the ptxas names of the instances the configurations past the
+# older ones take (gated: none may spill): the leaf-row Gomoku descends,
+# the round descend's 32-bit-counter instance of every game, the streamed
+# dense merges and seeds (J = 0) and the A <= 8 round merge of K > 16
+WIDER_KERNELS = (
+    *(f"{d}_kernelINS_13GomokuRowGame" for d in ("descend", "descend_round")),
+    *(f"descend_round_wide_kernelINS_{g}" for g in (
+        "15ConnectFourGame", "11OthelloGame", "10GomokuGameILi8E", "10GomokuGameILi12E",
+        "13GomokuRowGame", "7HexGame")),
+    "merge_dense_kernelILi0E", "merge_round_dense_kernelILi0E", "seed_dense_kernelILi0ELb0EE",
+    "seed_dense_kernelILi0ELb1EE", "merge_round_kernelILb1E",
+)
+# the kernels line's entries of those instances, each its wrapper's kernel:
+# Gomoku 32 at full width (K=1 and K=4), the Othello full preset at K=100,
+# Connect-Four's full preset at K=256 and at C=29057
+WIDER_ENTRIES = {
+    "descend_gomoku_row": "descend_gomoku", "merge_dense_stream": "merge_dense",
+    "refresh_dense_stream": "refresh_dense", "descend_round_gomoku_row": "descend_round_gomoku",
+    "merge_round_dense_stream": "merge_round_dense", "refresh2_dense_stream": "refresh2_dense",
+}
+COUNTS_ENTRIES = {
+    "merge_round_dense_stream_k100": "merge_round_dense", "descend_round_wide": "descend_round",
+    "merge_round_wide": "merge_round", "descend_round_wide_global": "descend_round",
+}
 
 SOURCE = {
     "descend": "alphazero_tpu_torch/csrc/hybrid.cu",
@@ -708,8 +768,11 @@ SOURCE = {
     "fused_mlp_rounds": "alphazero_tpu_torch/csrc/fused.cu",   # with its evaluator, csrc/mlp.cuh
     "int8_tower": "alphazero_tpu_torch/csrc/int8_tower.cu",
     # phase 23: descend_kernel / descend_round_kernel<GomokuGame<12>> and the
-    # J = 24 instances of the dense merges and seeds
-    **{name: "alphazero_tpu_torch/csrc/hybrid.cu" for name in WIDE_ENTRIES},
+    # J = 24 instances of the dense merges and seeds; phase 24: the leaf-row
+    # Gomoku descends, the streamed dense merges and seeds, the wide round
+    # merge and descend
+    **{name: "alphazero_tpu_torch/csrc/hybrid.cu"
+       for name in (*WIDE_ENTRIES, *WIDER_ENTRIES, *COUNTS_ENTRIES)},
 }
 REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
@@ -737,7 +800,9 @@ REPLACES = {
     "fused_mlp_rounds": "alphazero_tpu/mcts/fused.py:428 + alphazero_tpu/models/nets.py:129",
     "int8_tower": "experiments/int8_fused_tower.py:46",   # tower_kernel, pallas_call :112
 }
-REPLACES.update({name: REPLACES[base] for name, base in WIDE_ENTRIES.items()})
+REPLACES.update({name: REPLACES[base]
+                 for name, base in (*WIDE_ENTRIES.items(), *WIDER_ENTRIES.items(),
+                                    *COUNTS_ENTRIES.items())})
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 on the tensor cores
@@ -1121,11 +1186,12 @@ def dense_vs_plain(kernels, m_args, r_args) -> tuple:
     return results, F32 * 4 * B * A * C, fns
 
 
-def time_in_turns(results: dict, fns: dict, tag: str, card: str, label: str = "") -> None:
-    """Each kernel and its plain version timed in turns; the means go into
-    the kernel's result entry."""
+def time_in_turns(results: dict, fns: dict, tag: str, card: str, label: str = "",
+                  **reps) -> None:
+    """Each kernel and its plain version timed in turns (``reps``:
+    ``in_turns``' counts); the means go into the kernel's result entry."""
     for name, (k_fn, p_fn) in fns.items():
-        k1, k2, p1, p2 = in_turns(k_fn, p_fn)
+        k1, k2, p1, p2 = in_turns(k_fn, p_fn, **reps)
         dev = device_ms(k_fn)
         results[name].update({"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, "library_ms": None})
         print(f"[{tag}] {name}{label}: kernel {k1:.4f}/{k2:.4f} ms per call ({dev:.4f} ms of device "
@@ -4610,16 +4676,20 @@ def par_cards(card: str, want: dict, t_phase: float) -> dict:
     return per_rank
 
 
-def wide_gomoku_checks(tag: str, game, apply_fn, batch: int, card: str, dev) -> tuple:
-    """Phase 23(a)-(c) on ``game`` (a board above 512 cells): the 12-word
-    ``descend_gomoku`` and the J = 24 ``merge_dense`` and ``refresh_dense``,
-    then their round variants at K=ROUND_K, bit-equal to plain on planes of
-    a plain search of ``batch`` random roots (the seeds on its fresh
-    planes) and timed in turns; then one K=1 and one K=ROUND_K search of
-    the roots through the kernels and through the plain versions: equal
-    root counts, and exactly one launch of each kernel a simulation (a
-    round) and one seed. Returns ``(result entries, launches)`` keyed by
-    ``WIDE_ENTRIES``' names."""
+def wide_gomoku_checks(tag: str, game, apply_fn, batch: int, card: str, dev,
+                       entries: dict = WIDE_ENTRIES,
+                       what: str = "12-word boards; 24 actions a lane",
+                       searches: bool = True) -> tuple:
+    """Phase 23(a)-(c) (and 24(a)-(b)) on ``game`` (a board above 512
+    cells): ``descend_gomoku`` and ``merge_dense`` and ``refresh_dense`` at
+    the game's instances (``what``), then their round variants at
+    K=ROUND_K, bit-equal to plain on planes of a plain search of ``batch``
+    random roots (the seeds on its fresh planes) and timed in turns; then,
+    with ``searches``, one K=1 and one K=ROUND_K search of the roots through
+    the kernels and through the plain versions: equal root counts, and
+    exactly one launch of each kernel a simulation (a round) and one seed.
+    Returns ``(result entries, launches)`` keyed by ``entries``' names
+    (no launches without ``searches``)."""
     import dataclasses
 
     from alphazero_tpu_torch import kernels
@@ -4640,9 +4710,9 @@ def wide_gomoku_checks(tag: str, game, apply_fn, batch: int, card: str, dev) -> 
                                                            d_args)
     dense, planes_bytes, dense_fns = dense_vs_plain(kernels, m_args, r_args)
     results.update(dense)
-    print(f"[{tag}] B={batch} C={cfg.nodes} A={A}: descend_gomoku (12-word boards), merge_dense "
-          f"and refresh_dense (24 actions a lane) bit-equal to plain ({edges / batch:.2f} path "
-          f"edges per game; stat planes {planes_bytes / 1e6:.1f} MB)", flush=True)
+    print(f"[{tag}] B={batch} C={cfg.nodes} A={A}: descend_gomoku, merge_dense and refresh_dense "
+          f"({what}) bit-equal to plain ({edges / batch:.2f} path edges per game; stat planes "
+          f"{planes_bytes / 1e6:.1f} MB)", flush=True)
     time_in_turns(results, {"descend_gomoku": (lambda: kernels.descend_gomoku(*d_args),
                                                lambda: hybrid.descend(*d_args)), **dense_fns},
                   tag, card, f" at A={A}")
@@ -4651,6 +4721,9 @@ def wide_gomoku_checks(tag: str, game, apply_fn, batch: int, card: str, dev) -> 
     cfg4 = dataclasses.replace(cfg, parallel_sims=ROUND_K)
     results.update(rounds_vs_plain(game, *capture_round_args(game, apply_fn, cfg4, roots, noise),
                                    card))
+
+    if not searches:
+        return {name: results[base] for name, base in entries.items()}, {}
 
     # (c) whole searches through the kernels and the plain versions
     rounds = SIMS // ROUND_K
@@ -4661,10 +4734,47 @@ def wide_gomoku_checks(tag: str, game, apply_fn, batch: int, card: str, dev) -> 
         tag, game, apply_fn, cfg4, roots, noise,
         {"descend_round_gomoku": rounds, "merge_round_dense": rounds, "refresh2_dense": 1})
     got.update({k: v for k, v in got4.items() if v})
-    launches = {name: got[base] for name, base in WIDE_ENTRIES.items()}
+    launches = {name: got[base] for name, base in entries.items()}
     print(f"[{tag}] launches of the K=1 and K={ROUND_K} searches (B={batch}, A={A}): "
           f"{launches} | {card}", flush=True)
-    return {name: results[base] for name, base in WIDE_ENTRIES.items()}, launches
+    return {name: results[base] for name, base in entries.items()}, launches
+
+
+def gomoku_full_net(game, dev):
+    """The Gomoku ``full`` preset's AZResNet-64x5 for ``game``, bf16,
+    seeded random weights."""
+    from alphazero_tpu_torch.models import convert_az_resnet, make_apply_fn, random_az_resnet_variables
+
+    A = game.num_actions
+    return make_apply_fn(convert_az_resnet(random_az_resnet_variables(
+        A, GMK_CHANNELS, GMK_BLOCKS, cells=A, seed=SEED), dtype=torch.bfloat16).to(dev))
+
+
+def gomoku_cli_iteration(tag: str, size: int, card: str, dev) -> None:
+    """``train_gomoku --size SIZE --preset smoke`` in this process, cut to
+    WIDE_CLI_ITERATIONS iterations: exit 0, the Gomoku descend and the
+    dense merge and seed launched, ``0.examples`` written."""
+    import tempfile
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.examples import train_gomoku
+
+    argv = ["--size", str(size), "--preset", "smoke", "--seed", str(SEED),
+            "--iterations", str(WIDE_CLI_ITERATIONS), *(["--cpu"] if dev.type == "cpu" else [])]
+    print(f"[{tag}] train_gomoku {' '.join(argv)}: iterations cut 2 -> "
+          f"{WIDE_CLI_ITERATIONS} (the preset's own first)", flush=True)
+    with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{tag}_") as ckdir:
+        kernels.reset_launch_counts()
+        rc, sec = timed_sync(lambda: train_gomoku.main([*argv, "--checkpoint-dir", ckdir]))
+        got = dict(kernels.launch_counts())
+        if rc != 0:
+            fail(f"{tag}: train_gomoku {' '.join(argv)} exited {rc}")
+        if any(got[k] == 0 for k in ("descend_gomoku", "merge_dense", "refresh_dense")):
+            fail(f"{tag}: the CLI's iteration launched {got}")
+        if not os.path.exists(os.path.join(ckdir, "0.examples")):
+            fail(f"{tag}: the CLI wrote no 0.examples: {sorted(os.listdir(ckdir))}")
+    print(f"[{tag}] the CLI exited 0 in {sec:.3f} s | launches {launched(got)} | {card}",
+          flush=True)
 
 
 def gomoku23_phase(card: str, dev=None) -> tuple:
@@ -4672,44 +4782,165 @@ def gomoku23_phase(card: str, dev=None) -> tuple:
     instances (see the module docstring), on ``dev`` (the card). Returns
     the kernels line's entries of those instances (Gomoku 23 at full
     width) and their launches."""
-    import tempfile
-
     from alphazero_tpu_torch import kernels
-    from alphazero_tpu_torch.examples import train_gomoku
     from alphazero_tpu_torch.games import Gomoku
-    from alphazero_tpu_torch.models import convert_az_resnet, make_apply_fn, random_az_resnet_variables
 
     dev = dev or torch.device("cuda", 0)
     ptxas_lines(kernels.library(), WIDE_KERNELS, gate=False)
-
-    def full_net(game):   # the full preset's AZResNet-64x5, bf16, seeded random weights
-        A = game.num_actions
-        return make_apply_fn(convert_az_resnet(random_az_resnet_variables(
-            A, GMK_CHANNELS, GMK_BLOCKS, cells=A, seed=SEED), dtype=torch.bfloat16).to(dev))
-
     g23, g27 = Gomoku(WIDE_SIZE), Gomoku(WIDEST_SIZE)
-    entries, launches = wide_gomoku_checks("gomoku23", g23, full_net(g23), GMK_B, card, dev)
+    entries, launches = wide_gomoku_checks("gomoku23", g23, gomoku_full_net(g23, dev), GMK_B, card,
+                                           dev)
     # (d) the same at A=729, edge 27, the instances' widest board, at a small batch
-    wide_gomoku_checks("gomoku27", g27, full_net(g27), WIDEST_B, card, dev)
-
+    wide_gomoku_checks("gomoku27", g27, gomoku_full_net(g27, dev), WIDEST_B, card, dev)
     # (e) the training CLI at --size 23, the smoke preset
-    argv = ["--size", str(WIDE_SIZE), "--preset", "smoke", "--seed", str(SEED),
-            "--iterations", str(WIDE_CLI_ITERATIONS), *(["--cpu"] if dev.type == "cpu" else [])]
-    print(f"[gomoku23] train_gomoku {' '.join(argv)}: iterations cut 2 -> "
-          f"{WIDE_CLI_ITERATIONS} (the preset's own first)", flush=True)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_gomoku23_") as ckdir:
-        kernels.reset_launch_counts()
-        rc, sec = timed_sync(lambda: train_gomoku.main([*argv, "--checkpoint-dir", ckdir]))
-        got = dict(kernels.launch_counts())
-        if rc != 0:
-            fail(f"gomoku23: train_gomoku {' '.join(argv)} exited {rc}")
-        if any(got[k] == 0 for k in ("descend_gomoku", "merge_dense", "refresh_dense")):
-            fail(f"gomoku23: the CLI's iteration launched {got}")
-        if not os.path.exists(os.path.join(ckdir, "0.examples")):
-            fail(f"gomoku23: the CLI wrote no 0.examples: {sorted(os.listdir(ckdir))}")
-    print(f"[gomoku23] the CLI exited 0 in {sec:.3f} s | launches {launched(got)} | {card}",
-          flush=True)
+    gomoku_cli_iteration("gomoku23", WIDE_SIZE, card, dev)
     return entries, launches
+
+
+def counts_round_checks(tag: str, game, apply_fn, cfg, roots, noise, checks: dict, card: str,
+                        dev) -> tuple:
+    """Phase 24(d)-(f): the round kernels of ``checks`` ({entry name:
+    "descend" or "merge"}) bit-equal to plain on the last round of a plain
+    search at ``cfg`` (``cfg.num_sims // cfg.parallel_sims`` rounds of
+    ``cfg.parallel_sims``), timed in turns (the plain versions, Python loops
+    over the K descents, 3 times a turn); then one search through the
+    kernels and the plain versions: equal root counts and one launch of
+    each round kernel a round. Returns ``(result entries, launches)``,
+    an entry's launches its wrapper's in that search."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.mcts import hybrid
+
+    K = cfg.parallel_sims
+    rounds = cfg.num_sims // K
+    B, A = roots.shape[0], game.num_actions
+    d_args, m_args, _ = capture_round_args(game, apply_fn, cfg, roots, noise, rounds=rounds)
+    C = d_args[0].shape[1]
+    scratch = kernels.library().lib.az_descend_round_scratch(B, C, K)
+    results, fns, bases = {}, {}, {}
+    dense = "_dense" if A > hybrid.UNROLLED_MAX_A else ""
+    for name, which in checks.items():
+        if which == "descend":
+            bases[name], kernel, results[name], second, dups = descend_round_vs_plain(d_args)
+            fns[name] = (lambda k=kernel: k(*d_args), lambda: hybrid.descend_round(*d_args))
+            counts = (f"32-bit counters in a global scratch of {scratch}" if scratch
+                      else "byte counters in shared memory")
+            print(f"[{tag}] {bases[name]} bit-equal to plain at K={K}, C={C} ({second:.0f} runner-up "
+                  f"takes, {dups:.0f} duplicates; {counts})", flush=True)
+        else:
+            bases[name] = f"merge_round{dense}"
+            results[name], fns[name] = merge_vs_plain(bases[name], getattr(kernels, bases[name]),
+                                                      hybrid.merge_round, m_args)
+            print(f"[{tag}] {bases[name]} bit-equal to plain at K={K}, A={A}, C={C}", flush=True)
+    time_in_turns(results, fns, tag, card, f" at K={K}, C={C}", p_reps=3)
+    d_name = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(game.flat_ops())][3:]
+    got = same_counts_through_kernels_and_plain(
+        tag, game, apply_fn, cfg, roots, noise,
+        {d_name: rounds, f"merge_round{dense}": rounds, f"refresh2{dense}": 1})
+    return results, {name: got[base] for name, base in bases.items()}
+
+
+def wider_phase(card: str, dev=None) -> tuple:
+    """Phase 24: the configurations past the hybrid kernels' older
+    instances (see the module docstring), on ``dev`` (the card). Returns
+    the kernels line's entries of the instances they take and their
+    launches."""
+    import dataclasses
+
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour, Gomoku, Othello
+    from alphazero_tpu_torch.models import convert_az_resnet, make_apply_fn, random_az_resnet_variables
+    from alphazero_tpu_torch.ops import sample_draws
+
+    dev = dev or torch.device("cuda", 0)
+    ptxas_lines(kernels.library(), WIDER_KERNELS)
+    t_part = time.perf_counter()
+
+    def part(label: str) -> None:   # each part's seconds
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[wider] {label}: {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    what = "the board in the leaf row; streamed merges and seeds"
+    g32, g45 = Gomoku(WIDER_SIZE), Gomoku(WIDER_CHECK_SIZE)
+    # (a) Gomoku 32 at the full preset's width
+    entries, launches = wide_gomoku_checks("gomoku32", g32, gomoku_full_net(g32, dev), GMK_B, card,
+                                           dev, WIDER_ENTRIES, what)
+    part("(a) gomoku32")
+    # (b) Gomoku 45 at a small batch: the kernels against their plain versions
+    wide_gomoku_checks("gomoku45", g45, gomoku_full_net(g45, dev), WIDER_B, card, dev,
+                       WIDER_ENTRIES, what, searches=False)
+    part("(b) gomoku45")
+    # (c) the training CLI at --size 32, the smoke preset
+    gomoku_cli_iteration("gomoku32", WIDER_SIZE, card, dev)
+    part("(c) train_gomoku --size 32")
+
+    # (d) the Othello full preset (AZResNet-128x5) at K past 16 and past 32
+    oth = Othello()
+    oth_net = make_apply_fn(convert_az_resnet(random_az_resnet_variables(
+        oth.num_actions, OTH_CHANNELS, OTH_BLOCKS, cells=64, seed=SEED),
+        dtype=torch.bfloat16).to(dev))
+    roots = random_positions(oth, OTH_B, 20, SEED, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    noise = sample_draws(gen, OTH_B, oth.num_actions, OTH_DIRICHLET, dev).dirichlet
+    for K in WIDE_KS:
+        cfg = MCTSConfig(num_sims=SIMS, max_depth=OTH_MAX_DEPTH, dirichlet_alpha=OTH_DIRICHLET,
+                         parallel_sims=K)
+        got, got_launches = counts_round_checks(f"othello K={K}", oth, oth_net, cfg, roots, noise,
+                                                {"merge_round_dense_stream_k100": "merge"}, card, dev)
+        if K == WIDE_KS[-1]:
+            entries.update(got)
+            launches.update(got_launches)
+    part(f"(d) othello K={WIDE_KS}")
+
+    # (e)-(f) Connect-Four's full preset (AZResNet-64x5): K=256, C=29057
+    c4 = ConnectFour()
+    c4_net = make_apply_fn(convert_az_resnet(random_az_resnet_variables(
+        c4.num_actions, channels=64, blocks=5, seed=SEED), dtype=torch.bfloat16).to(dev))
+    roots = random_positions(c4, COUNTS_B, 30, SEED, dev)
+    noise = sample_draws(gen, COUNTS_B, c4.num_actions, 1.0, dev).dirichlet
+    cfg = MCTSConfig(num_sims=2 * COUNTS_K, max_depth=MAX_DEPTH, dirichlet_alpha=1.0,
+                     parallel_sims=COUNTS_K)
+    for cfg_, checks in (
+            (cfg, {"descend_round_wide": "descend", "merge_round_wide": "merge"}),
+            (dataclasses.replace(cfg, num_sims=SIMS, max_nodes=COUNTS_C, parallel_sims=ROUND_K),
+             {"descend_round_wide_global": "descend"})):
+        got, got_launches = counts_round_checks(f"c4 K={cfg_.parallel_sims}", c4, c4_net, cfg_,
+                                                roots, noise, checks, card, dev)
+        entries.update(got)
+        launches.update(got_launches)
+        part(f"(e)-(f) c4 K={cfg_.parallel_sims}, C={cfg_.nodes}")
+    print(f"[wider] launches of the searches behind the kernels line's entries: {launches} | "
+          f"{card}", flush=True)
+    return entries, launches
+
+
+def build_report(lib) -> None:
+    """Phase 2's lines: the build, ptxas's register report, and the
+    registers, stack and static shared bytes of the kernels it names (the
+    fused, A <= 8 merge, descend, seed and tower kernels gated: none may
+    have a stack frame or spill)."""
+    from alphazero_tpu_torch import kernels
+
+    print(f"[build] nvcc {' '.join(kernels.NVCC_FLAGS[:2])} -> {os.path.relpath(lib.path)} "
+          f"({len(kernels.SOURCES)} sources compiled in parallel, linked into one library; "
+          f"{lib.build_seconds:.3f} s)", flush=True)
+    for ln in lib.build_log.splitlines():
+        if ln.startswith("[") or "entry function" in ln or "registers" in ln or "spill" in ln:
+            print(f"[build] {ln.strip()}", flush=True)
+    mlp_kernels = ("fused_mlp_kernel", "fused_mlp_rounds_kernel", "mlp_eval_kernel")
+    # the dense merges' instances (J actions a lane), by a piece of their
+    # mangled names
+    instances = {f"merge{r}_dense_kernel<{j}>": f"merge{r}_dense_kernelILi{j}E"
+                 for r in ("", "_round") for j in (4, 8, 16, 24)}
+    report = ptxas_report(lib.build_log, (*mlp_kernels, *instances.values()))
+    for name in (*mlp_kernels, *instances):
+        print(f"[build] ptxas -v {name}: "
+              f"{report.get(instances.get(name, name), 'not in the build log (a cached build)')}",
+              flush=True)
+    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS, *DESCEND_KERNELS, *SEED_KERNELS,
+                      *TOWER_KERNELS))
 
 
 def actors(card: str) -> None:
@@ -4833,6 +5064,10 @@ def main() -> int:
     if sys.argv[1:] == ["--gomoku23"]:
         gomoku23_phase(card)
         return 0
+    if sys.argv[1:] == ["--wide"]:
+        build_report(kernels.library())
+        wider_phase(card)
+        return 0
 
     # each phase's seconds, printed as it ends
     t_start = t_last = time.perf_counter()
@@ -4845,24 +5080,7 @@ def main() -> int:
 
     # ---- 2. build ------------------------------------------------------
     lib = kernels.library()
-    print(f"[build] nvcc {' '.join(kernels.NVCC_FLAGS[:2])} -> {os.path.relpath(lib.path)} "
-          f"({len(kernels.SOURCES)} sources compiled in parallel, linked into one library; "
-          f"{lib.build_seconds:.3f} s)", flush=True)
-    for ln in lib.build_log.splitlines():
-        if ln.startswith("[") or "entry function" in ln or "registers" in ln or "spill" in ln:
-            print(f"[build] {ln.strip()}", flush=True)
-    mlp_kernels = ("fused_mlp_kernel", "fused_mlp_rounds_kernel", "mlp_eval_kernel")
-    # the dense merges' instances (J actions a lane), by a piece of their
-    # mangled names
-    instances = {f"merge{r}_dense_kernel<{j}>": f"merge{r}_dense_kernelILi{j}E"
-                 for r in ("", "_round") for j in (4, 8, 16, 24)}
-    report = ptxas_report(lib.build_log, (*mlp_kernels, *instances.values()))
-    for name in (*mlp_kernels, *instances):
-        print(f"[build] ptxas -v {name}: "
-              f"{report.get(instances.get(name, name), 'not in the build log (a cached build)')}",
-              flush=True)
-    ptxas_lines(lib, (*FUSED_KERNELS, *MERGE_KERNELS, *DESCEND_KERNELS, *SEED_KERNELS,
-                      *TOWER_KERNELS))
+    build_report(lib)
 
     tick("phases 1-2")
 
@@ -5228,6 +5446,15 @@ def main() -> int:
     launches.update(phase_launches)
     tick("phase 23")
 
+    # ---- 24. Gomoku above 768 cells, rounds above K = 16 --------------------
+    # the leaf-row, streamed and wide instances' entries: Gomoku 32 at full
+    # width, the Othello full preset at K=100, Connect-Four at K=256 and
+    # C=29057
+    phase_results, phase_launches = wider_phase(card)
+    results.update(phase_results)
+    launches.update(phase_launches)
+    tick("phase 24")
+
     print(card)
     print(json.dumps({"kernels": [
         {
@@ -5258,7 +5485,8 @@ def main() -> int:
                      "descend_hex", "descend_round", "descend_round_othello",
                      "descend_round_gomoku", "descend_round_hex", "merge_round",
                      "merge_round_dense", "refresh2", "refresh2_dense", "fused_rounds",
-                     "fused_mlp_rounds", "int8_tower", *WIDE_ENTRIES)
+                     "fused_mlp_rounds", "int8_tower", *WIDE_ENTRIES, *WIDER_ENTRIES,
+                     *COUNTS_ENTRIES)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

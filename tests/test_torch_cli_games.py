@@ -183,18 +183,19 @@ def test_smoke_run_trains_saves_and_resumes(tmp_path, capsys, monkeypatch, game)
     for a in (["--gumbel", "8"], ["--reanalyze", "64"])
 ] + [("gomoku", ["--size", "28"], "Gomoku boards above 768 cells")])
 def test_unported_options_raise(monkeypatch, game, argv, item):
-    """Gomoku boards past the card's descend raise. ``--gumbel`` and
-    ``--reanalyze``, once refused with the opt-in engines' item, are ported:
-    the config they make equals the JAX CLI's."""
-    if "--size" in argv:
-        with pytest.raises(NotImplementedError, match=item):
-            PORT[game].main(argv + ["--cpu"])
-        return
+    """Options once refused with their ROADMAP item (``item``) are ported:
+    ``--gumbel`` and ``--reanalyze`` (the opt-in engines), and Gomoku
+    ``--size 28`` (784 cells, "Gomoku boards above 768 cells"), which the
+    card's leaf-row descends and streamed merges take. The config they
+    make equals the JAX CLI's, and the model's actions are the board's."""
     want = _jax_cli(monkeypatch, f"train_{game}", argv)
     got = _port_cli(monkeypatch, game, argv)
     assert got["cfg"] == port_az_config(want["cfg"])
     assert got["cfg"].mcts.gumbel == ("--gumbel" in argv)
     assert (got["cfg"].reanalyze is not None) == ("--reanalyze" in argv)
+    assert got["model"].num_actions == want["model"].num_actions
+    if "--size" in argv:
+        assert got["game"].num_actions == 28 * 28
 
 
 RESULTS = [(3, 1, 0), (0, 4, 0), (2, 2, 4), (8, 0, 0), (0, 0, 0), (5, 0, 3)]

@@ -226,3 +226,50 @@ def test_emulated_round_descend_duplicates_and_lone_nodes(emulated, K, C):
         assert meta[..., hybrid.M_DUP].sum() > 0
         assert ((patha[:, 1::3, 0] - 1) == planes[0][1::3, 0]).all()
         assert ((patha - 1 == planes[2]) & (patha > 0)).any()
+
+
+def _lane_marks(cells: int) -> list:
+    """Each lane's first and last cell of every 2048 cells of a row that
+    the warp copies and flips lane-strided (lane l: the cells c = l (mod
+    32))."""
+    marks = set()
+    for w0 in range(0, cells, 2048):
+        last = min(w0 + 2047, cells - 1)
+        for lane in range(min(32, cells - w0)):
+            marks |= {w0 + lane, last - (last - lane) % 32}
+    return sorted(marks)
+
+
+@pytest.mark.parametrize("cells", [769, 784, 1024, 2025, 2048, 2049, 4096, 4225],
+                         ids=["cells769", "gomoku28", "gomoku32", "gomoku45", "cells2048",
+                              "cells2049", "gomoku64", "gomoku65"])
+def test_emulated_gomoku_sliced_descend_every_owned_word(emulated, cells):
+    """The Gomoku descends above 768 cells: the leaf-row instance (the
+    root's row copied into the leaf row lane-strided, lane 0's stones, an
+    odd path's sign flip lane-strided), through flat ops whose cell count
+    is set where it is not a square's (the Gomoku step needs no geometry).
+    Stones on each lane's first and last cell of every 2048 cells (each
+    lane's last cell among them), and paths whose edges land on those
+    cells, on an empty cell and on an occupied one: K=1 and K=4 bit-equal
+    to plain, every marked cell reaching the leaf boards."""
+    edge = int(np.ceil(np.sqrt(cells)))
+    ops = Gomoku(edge).flat_ops()
+    ops.size = ops.num_actions = cells
+    marks = _lane_marks(cells)
+    B, C = 2 * len(marks), 5
+    boards = torch.zeros(B, cells)
+    signs = torch.tensor([1.0, -1.0]).repeat(len(marks))[:len(marks)]
+    boards[:, marks] = signs
+    for i, m in enumerate(marks):
+        boards[i, m] = 0.0
+        boards[len(marks) + i, m] = -1.0        # an occupied cell, overwritten by the step
+    acts = torch.tensor(marks * 2, dtype=torch.float32)
+    besta = torch.stack([acts, acts.roll(1), acts.roll(2), torch.zeros(B), torch.zeros(B)], dim=1)
+    bestc = torch.tensor([1.0, 2.0, -1.0, -1.0, -1.0]).expand(B, C).contiguous()
+    seca = torch.stack([acts.roll(3), acts.roll(4), acts.roll(5), torch.zeros(B), torch.zeros(B)], dim=1)
+    secc = torch.tensor([3.0, -1.0, -1.0, -1.0, -1.0]).expand(B, C).contiguous()
+    planes = (besta, bestc, seca, secc, torch.zeros(B, C), torch.zeros(B, C), boards)
+    one, rounds = _both(emulated, planes, 48, ops, 4)
+    for bd in (one[0], rounds[0][0]):       # descent 0 of the round walks the K=1 path
+        assert (bd[:, marks] != 0).all()
+    assert ((one[1] > 0).sum(dim=1) == 3).all()   # three steps: an odd path and its flip

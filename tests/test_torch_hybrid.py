@@ -286,12 +286,14 @@ def test_descend_route_refuses_unknown_flat_ops():
     for ops in (SubclassedFlatOps(), OtherOps()):
         with pytest.raises(NotImplementedError, match="no descend kernel"):
             kernels.descend_entry(ops)
-    with pytest.raises(NotImplementedError, match="768 cells"):
-        kernels._descend("az_descend_gomoku", *[torch.zeros(2, 3)] * 4, torch.zeros(2, 784), 8,
+    # Gomoku boards of every edge route to the Gomoku entry (above 768 cells,
+    # once refused, its leaf-row instance); the other
+    # games' instances refuse them before they launch
+    for edge in (27, 28, 45, 64, 65):
+        assert kernels.descend_entry(GomokuFlatOps(edge)) == "az_descend_gomoku"
+    with pytest.raises(ValueError, match="does not step"):
+        kernels._descend("az_descend_othello", *[torch.zeros(2, 3)] * 4, torch.zeros(2, 784), 8,
                          GomokuFlatOps(28))
-    with pytest.raises(NotImplementedError, match="768 cells"):
-        kernels.descend_entry(GomokuFlatOps(28))
-    assert kernels.descend_entry(GomokuFlatOps(27)) == "az_descend_gomoku"
 
 
 def test_zero_heuristic_game_backs_up_zero_at_cutoffs():

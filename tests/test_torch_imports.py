@@ -224,18 +224,15 @@ def test_the_scan_covers_the_data_parallel_path():
 def test_the_scan_covers_the_archive_and_the_trace():
     """The host example store and ``profiler_trace`` are in the import scan
     (so neither needs JAX or the JAX package); no raise or docstring cites
-    their ROADMAP items, nor "Gomoku boards above 512 cells", any more; the
-    refusals that remain cite their items by name: Gomoku boards above 768
-    cells (the descend route, the Gomoku CLI, the hybrid engine's
-    docstring) and round kernels for K above 16."""
+    their ROADMAP items any more, nor the hybrid kernels' configuration
+    items, all closed: "Gomoku boards above 512 cells", "Gomoku boards above
+    768 cells" (once the descend route, the Gomoku CLI and the hybrid
+    engine's docstring) and "Round kernels for K above 16" (once
+    ``kernels._check_round_k``)."""
     names = {f.relative_to(PORT).as_posix() for f in _port_sources()}
     assert {"native.py", "utils/timing.py"} <= names
     for gone in ("The host example archive", "Tracing: `profiler_trace`",
-                 "Gomoku boards above 512 cells"):
+                 "Gomoku boards above 512 cells", "Gomoku boards above 768 cells",
+                 "Round kernels for K above 16"):
         hits = [f.relative_to(PORT).as_posix() for f in _port_sources() if gone in f.read_text()]
         assert hits == [], gone
-    for item, where in (("Gomoku boards above 768 cells",
-                         ["examples/train_gomoku.py", "kernels.py", "mcts/hybrid.py"]),
-                        ("Round kernels for K above 16", ["kernels.py"])):
-        hits = sorted(f.relative_to(PORT).as_posix() for f in _port_sources() if item in f.read_text())
-        assert hits == where, item

@@ -69,6 +69,7 @@ from tests.torch_parity import (  # noqa: F401  (emulated: a fixture)
     bits,
     boards_from_seqs,
     checked_kernels,
+    checked_round_kernels,
     descend_round_through_kernel,
     emulated,
     emulated_refresh,
@@ -193,7 +194,7 @@ def test_emulated_merge_round_dense_cases(emulated, case, A):
     bit-equal to the plain round merge's full refresh2."""
     args = merge_case(A, 4, case, seed=A + 1)
     calls = {"past_capacity": 0}
-    merge_round = _checked_round_kernels(emulated, calls).merge_round
+    merge_round = checked_round_kernels(emulated, calls).merge_round
     merge_round(*args)
     assert calls["az_merge_round_dense"] == 1
     inst = args[9][..., hybrid.M2_EXPOK]
@@ -203,20 +204,42 @@ def test_emulated_merge_round_dense_cases(emulated, case, A):
         assert calls["past_capacity"] == 1 and (inst[1:] == 0).all()
 
 
+@pytest.mark.parametrize("A", [784, 1024, 2025])
+@pytest.mark.parametrize("case", ["chunk_ties", "terminal_link", "lone_legal"])
+def test_emulated_streamed_dense_merges(emulated, case, A):
+    """The streamed instances of ``az_merge_dense`` and
+    ``az_merge_round_dense`` (J = 0: A > 768, a column in chunks of 512
+    and 256 actions) at Gomoku 28's, 32's and 45's A, K=1 and K=4, on
+    synthetic planes and records: planes, done/tval and best planes
+    bit-equal to the plain merges' full refresh, ties that straddle the
+    chunks (``chunk_ties``) kept on the first action."""
+    for K in (1, 4):
+        args = merge_case(A, K, case, seed=A + K)
+        if K == 1:
+            calls = {}
+            checked_kernels(emulated, calls).merge(*args)
+            assert calls == {"az_merge_dense": 1}
+        else:
+            calls = {"past_capacity": 0}
+            checked_round_kernels(emulated, calls).merge_round(*args)
+            assert calls["az_merge_round_dense"] == 1
+
+
 @pytest.mark.parametrize("K", [1, 4])
 def test_emulated_dense_merges_refuse_above_512_actions(emulated, K):
-    """The dense merges keep up to 24 actions a lane in registers (16 up
-    to A=512, 24 above): at A=769 the entry returns an error and writes
-    nothing."""
+    """The dense merges keep up to 24 actions a lane in registers up to
+    ``DENSE_MERGE_MAX_A`` = 768 actions, where they once refused more; at
+    A=769 the entry now streams the column (the instance J = 0) and its
+    planes are bit-equal to the plain merge's."""
     args = merge_case(769, K, "root_only", seed=K)
-    planes = [t.clone() for t in args[:-2]]
-    entry = "az_merge_dense" if K == 1 else "az_merge_round_dense"
-    B, A, C = args[0].shape
-    dims = (B, A, C) if K == 1 else (B, A, C, K)
-    rc = getattr(emulated.lib, entry)(*(t.data_ptr() for t in args[:-2]), *dims, args[-2],
-                                      args[-1], None)
-    assert rc != 0
-    assert all(torch.equal(bits(t), bits(u)) for t, u in zip(args[:-2], planes))
+    if K == 1:
+        calls = {}
+        checked_kernels(emulated, calls).merge(*args)
+        assert calls == {"az_merge_dense": 1}
+    else:
+        calls = {"past_capacity": 0}
+        checked_round_kernels(emulated, calls).merge_round(*args)
+        assert calls["az_merge_round_dense"] == 1
     assert kernels.DENSE_MERGE_MAX_A == 768
 
 
@@ -440,52 +463,6 @@ def test_emulated_mlp_search_matches_plain(emulated, cfg, moves, freeze, dirichl
     assert calls["same"] >= need, f"{calls['same']} of {calls['games']} games equal"
 
 
-def _checked_round_kernels(lib, calls):
-    """SearchKernels whose round entry points run the emulated round
-    kernels AND the plain versions on every call, asserting bit-equal
-    outputs; each call goes to the kernel instance ``kernels`` routes it to
-    on the card. ``calls`` counts the launches by entry and what the
-    rounds exercised: runner-up takes, duplicate expansions, edges that
-    two descents of a round share, and rounds with slots past the
-    capacity."""
-
-    def descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K):
-        outs, entry = descend_round_through_kernel(lib, besta, bestc, seca, secc, done, tval, boards,
-                                                   max_depth, ops, K)
-        patha, meta = outs[1], outs[3]
-        calls[entry] = calls.get(entry, 0) + 1
-        calls["second"] += int(((patha - 1 == seca) & (patha > 0)).sum())
-        calls["dup"] += int(meta[..., hybrid.M_DUP].sum())
-        on = patha > 0
-        calls["shared"] += int(((patha[:, None] == patha[None]) & on[:, None] & on[None]).sum() - on.sum())
-        return tuple(outs)
-
-    def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc,
-                    slot0, cpuct):
-        B, A, C = n.shape
-        K = patha.shape[0]
-        entry = "az_merge_round_dense" if A > hybrid.UNROLLED_MAX_A else "az_merge_round"
-        best4 = (besta, bestc, seca, secc)
-        ref = [t.clone() for t in (n, w, p, code, done, tval, *best4)]
-        planes = (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best4)
-        rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in planes), B, A, C, K, slot0, cpuct, None)
-        assert rc == 0
-        hybrid.merge_round(*ref[:6], pm, patha, psgn, meta2, *ref[6:], slot0, cpuct)
-        names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc", "seca", "secc")
-        for nm, got, want in zip(names, (n, w, p, code, done, tval, *best4), ref):
-            assert torch.equal(bits(got), bits(want)), f"{entry} {nm} at slots {slot0}+"
-        calls[entry] = calls.get(entry, 0) + 1
-        calls["past_capacity"] += int(slot0 + K - 1 >= C)
-        return best4
-
-    def refresh2(n, w, p, code, cpuct):
-        best, entry = emulated_refresh2(lib, n, w, p, code, cpuct)
-        calls[entry] = calls.get(entry, 0) + 1
-        return best
-
-    return SearchKernels(hybrid.descend, hybrid.merge, hybrid.refresh, descend_round, merge_round, refresh2)
-
-
 @pytest.mark.parametrize(
     "game,moves,cfg,model",
     [
@@ -524,7 +501,7 @@ def test_emulated_round_kernels_bit_equal_plain(emulated, game, moves, cfg, mode
             random_az_resnet_variables(A, 4, 1, cells=cells, seed=moves), dtype=torch.float32))
     boards = torch_state(random_play_boards(game, 40, moves, seed=moves, freeze_done=False))
     calls = {"second": 0, "dup": 0, "shared": 0, "past_capacity": 0}
-    counts = make_hybrid_root_fn(game, apply_fn, cfg, kernels=_checked_round_kernels(emulated, calls))(boards)
+    counts = make_hybrid_root_fn(game, apply_fn, cfg, kernels=checked_round_kernels(emulated, calls))(boards)
     rounds = cfg.num_sims // cfg.parallel_sims
     entry = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(game.flat_ops())]
     dense = "_dense" if A > hybrid.UNROLLED_MAX_A else ""

@@ -44,7 +44,14 @@ from alphazero_tpu_torch.models import (
 )
 from alphazero_tpu_torch.ops import sample_draws
 from alphazero_tpu_torch.selfplay import _make_root_counts_fn, make_actor_step_fn
-from tests.torch_parity import boards_from_seqs, jax_state, random_boards, torch_state
+from tests.torch_parity import (
+    boards_from_seqs,
+    build_emulated,
+    descend_round_through_kernel,
+    jax_state,
+    random_boards,
+    torch_state,
+)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 with open(os.path.join(HERE, "torch_round_goldens.json")) as f:
@@ -165,7 +172,10 @@ def test_round_wrappers_route_cpu_to_plain_and_refuse_other_devices():
 def test_descend_round_routes_by_the_flat_ops_type(ops, entry):
     """The round descend instance is the K=1 descend's game, picked by the
     flat ops' type; every other instance refuses the boards before it
-    launches, and K past the merge's limit is refused."""
+    launches. K past the 16 records the round merges stage at once (once
+    refused) takes the same instance: emulated here, bit-equal to the
+    plain version on synthetic planes (every root edge unexpanded, a
+    runner-up at each root: the 17 descents alternate between the two)."""
     assert kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(ops)] == entry
     B, C = 2, 3
     planes = [torch.zeros(B, C) for _ in range(6)]
@@ -173,8 +183,12 @@ def test_descend_round_routes_by_the_flat_ops_type(ops, entry):
     for other in set(kernels._DESCEND_ROUND_ENTRIES.values()) - {entry}:
         with pytest.raises(ValueError, match="does not step"):
             kernels._descend_round(other, *planes, boards, 8, ops, 4)
-    with pytest.raises(NotImplementedError, match="Round kernels for K above 16"):
-        kernels._descend_round(entry, *planes, boards, 8, ops, kernels.MAX_ROUND_K + 1)
+    K = kernels.MAX_ROUND_K + 1
+    best = [torch.zeros(B, C), torch.full((B, C), -1.0), torch.ones(B, C), torch.full((B, C), -1.0)]
+    outs, got = descend_round_through_kernel(build_emulated(), *best, torch.zeros(B, C),
+                                             torch.zeros(B, C), boards, 8, ops, K)
+    assert got == entry
+    assert (outs[1][:, :, 0] == torch.tensor([1.0, 2.0]).repeat(K)[:K, None]).all()
 
 
 def test_rounds_need_round_kernels_and_divisible_sims():

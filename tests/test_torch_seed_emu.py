@@ -180,32 +180,79 @@ def test_emulated_small_seeds_bit_equal_plain_on_synthetic_fresh_planes(emulated
             assert best_a[2, 0] == A - 1 and best4[2][2, 0] == -1    # one legal edge, the last
 
 
+@pytest.mark.parametrize("A", [784, 1024, 2025])
+def test_emulated_streamed_seeds_keep_the_first_of_ties_across_chunks(emulated, A):
+    """The seeds' streamed instance (A > 768: the root's priors in chunks
+    of 256 actions, 8 a lane) at Gomoku 28's, 32's and 45's A, on fresh
+    planes whose roots tie across the chunks: game 0 at actions 40, 552,
+    1064 and 1576 (one lane, two chunks apart; the first best, the second
+    runner-up), game 1 at 511 and 512 (chunk 1's last lane, chunk 2's
+    first), game 2 with its first two chunks illegal and a tie at 520 and 1032
+    (at A = 784 its best, 520, alone: the runner-up 512), game 3 the last
+    action alone legal; the others ``seed_priors``' mix. Both seeds
+    bit-equal to the plain refresh and refresh2."""
+    B, C = 6, 9
+    game = {784: Gomoku(28), 1024: Gomoku(32), 2025: Gomoku(45)}[A]
+    p_masked = seed_priors(A, B, seed=A)
+    p_masked[:4] = 1.0 / A
+    ties = {0: [40, 552, 1064, 1576], 1: [511, 512], 2: [520, 1032]}
+    for b, tied in ties.items():
+        p_masked[b, [a for a in tied if a < A]] = 2.0 / A
+    p_masked[2, :512] = INVALID_P
+    p_masked[3, :A - 1] = INVALID_P
+    planes = fresh_planes(game, p_masked, C)
+    (best_a, _), entry = emulated_refresh(emulated, *planes, CPUCT)
+    (best_a2, _, sec_a, _), entry2 = emulated_refresh2(emulated, *planes, CPUCT)
+    assert (entry, entry2) == ("az_refresh_dense", "az_refresh2_dense")
+    assert torch.equal(best_a, best_a2)
+    assert best_a[:4, 0].tolist() == [40, 511, 520, A - 1]
+    assert sec_a[:4, 0].tolist() == [552, 512, 1032 if A > 1032 else 512, -1]
+
+
+def _seed_at(lib, entry: str, A: int, B: int = 4, C: int = 5):
+    """``entry`` on fresh planes of A actions (``seed_priors`` at the root,
+    the empty node elsewhere), its outputs filled with 7 first: ``(rc,
+    outputs, the plain refresh's)``."""
+    p = torch.zeros(B, max(A, 1), C)
+    if A >= 2:
+        p[:, :, 0] = seed_priors(A, B, seed=A)
+    planes = [torch.zeros_like(p), torch.zeros_like(p), p, torch.full_like(p, -1.0)]
+    top2 = entry.startswith("az_refresh2")
+    best = [torch.full((B, C), 7.0) for _ in range(4 if top2 else 2)]
+    rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in (*planes, *best)), B, A, C, CPUCT, None)
+    return rc, best, (hybrid.refresh2 if top2 else hybrid.refresh)(*planes, CPUCT) if A >= 2 else None
+
+
 @pytest.mark.parametrize("entry", ["az_refresh_dense", "az_refresh2_dense"])
 @pytest.mark.parametrize("A", [1, 769])
 def test_emulated_seeds_refuse_outside_2_to_512_actions(emulated, entry, A):
-    """24 actions a lane in registers bound A at 768 (512 before the J = 24
-    instance), and the dense path takes A >= 2: the dense entries return an
-    error and write nothing."""
-    B, C = 3, 5
-    planes = [torch.zeros(B, A, C) for _ in range(4)]
-    best = [torch.full((B, C), 7.0) for _ in range(2 if entry == "az_refresh_dense" else 4)]
-    rc = getattr(emulated.lib, entry)(*(t.data_ptr() for t in (*planes, *best)), B, A, C, CPUCT, None)
-    assert rc != 0
-    assert all((t == 7.0).all() for t in best)
+    """The dense path takes A >= 2: at A = 1 the dense entries return an
+    error and write nothing. Above the 24-actions-a-lane instance's 768,
+    where they once refused, they stream the root's actions: at A = 769
+    bit-equal to the plain refresh."""
+    rc, best, want = _seed_at(emulated, entry, A)
+    if A == 1:
+        assert rc != 0
+        assert all((t == 7.0).all() for t in best)
+        return
+    assert rc == 0
+    assert all(torch.equal(bits(t), bits(u)) for t, u in zip(best, want))
 
 
 @pytest.mark.parametrize("entry", ["az_refresh", "az_refresh2"])
 @pytest.mark.parametrize("A", [0, 769])
 def test_emulated_small_seeds_refuse_outside_1_to_512_actions(emulated, entry, A):
-    """The A <= 8 entries take what they took before, A = 1 included,
-    up to the seed's 768 (512 before the J = 24 instance): outside, they
-    return an error and write nothing."""
-    B, C = 3, 5
-    planes = [torch.zeros(B, max(A, 1), C) for _ in range(4)]
-    best = [torch.full((B, C), 7.0) for _ in range(2 if entry == "az_refresh" else 4)]
-    rc = getattr(emulated.lib, entry)(*(t.data_ptr() for t in (*planes, *best)), B, A, C, CPUCT, None)
-    assert rc != 0
-    assert all((t == 7.0).all() for t in best)
+    """The A <= 8 entries take what they took before, A = 1 included: at
+    A = 0 they return an error and write nothing. Above 768, where they once
+    refused, they take the streamed instance: at A = 769 bit-equal to the
+    plain refresh."""
+    rc, best, want = _seed_at(emulated, entry, A)
+    if A == 0:
+        assert rc != 0
+        assert all((t == 7.0).all() for t in best)
+        return
+    assert rc == 0
+    assert all(torch.equal(bits(t), bits(u)) for t, u in zip(best, want))
 
 
 @pytest.mark.parametrize("edge", range(3, 28))

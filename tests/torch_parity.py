@@ -269,7 +269,7 @@ def assert_order_free(boards: torch.Tensor, weights) -> None:
 _HERE = os.path.dirname(os.path.abspath(__file__))
 # kernel<<<grid, threads, smem, stream>>>(args), the kernel maybe a template instance
 _LAUNCH = re.compile(r"(\w+(?:<[\w, ]+>)?)<<<(.*?),\s*(\w+),\s*(\w+),\s*\(cudaStream_t\)stream>>>\((.*?)\);", re.S)
-_LAUNCHES = {"hybrid.cu": 7, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
+_LAUNCHES = {"hybrid.cu": 9, "fused.cu": 5, "int8_tower.cu": 1}   # kernel launches in each source
 # a kernel's dynamic shared memory: the emulated launch's buffer
 _DYNAMIC_SMEM = re.compile(r"extern __shared__ ([\w ]+?) (\w+)\[\];")
 
@@ -369,9 +369,11 @@ def descend_round_through_kernel(lib, besta, bestc, seca, secc, done, tval, boar
     assert L == ops.size
     entry = kernels._DESCEND_ROUND_ENTRIES[kernels.descend_entry(ops)]
     outs = [torch.empty(K, B, L), torch.empty(K, B, C), torch.empty(K, B, C), torch.empty(K, B, 8)]
+    counters = lib.lib.az_descend_round_scratch(B, C, K)   # global counters past shared memory
+    scratch = torch.full((counters,), -1, dtype=torch.int32) if counters else None
     rc = getattr(lib.lib, entry)(
         *(t.data_ptr() for t in (besta, bestc, seca, secc, done, tval, boards, *outs)),
-        B, C, K, max_depth, L, None,
+        scratch.data_ptr() if scratch is not None else None, B, C, K, max_depth, L, None,
     )
     assert rc == 0
     want = hybrid.descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K)
@@ -412,6 +414,52 @@ def checked_kernels(lib, calls):
         return best
 
     return SearchKernels(descend, merge, refresh)
+
+
+def checked_round_kernels(lib, calls):
+    """SearchKernels whose round entry points run the emulated round
+    kernels AND the plain versions on every call, asserting bit-equal
+    outputs; each call goes to the kernel instance ``kernels`` routes it to
+    on the card. ``calls`` counts the launches by entry and what the
+    rounds exercised: runner-up takes, duplicate expansions, edges that
+    two descents of a round share, and rounds with slots past the
+    capacity."""
+
+    def descend_round(besta, bestc, seca, secc, done, tval, boards, max_depth, ops, K):
+        outs, entry = descend_round_through_kernel(lib, besta, bestc, seca, secc, done, tval, boards,
+                                                   max_depth, ops, K)
+        patha, meta = outs[1], outs[3]
+        calls[entry] = calls.get(entry, 0) + 1
+        calls["second"] += int(((patha - 1 == seca) & (patha > 0)).sum())
+        calls["dup"] += int(meta[..., hybrid.M_DUP].sum())
+        on = patha > 0
+        calls["shared"] += int(((patha[:, None] == patha[None]) & on[:, None] & on[None]).sum() - on.sum())
+        return tuple(outs)
+
+    def merge_round(n, w, p, code, done, tval, pm, patha, psgn, meta2, besta, bestc, seca, secc,
+                    slot0, cpuct):
+        B, A, C = n.shape
+        K = patha.shape[0]
+        entry = "az_merge_round_dense" if A > hybrid.UNROLLED_MAX_A else "az_merge_round"
+        best4 = (besta, bestc, seca, secc)
+        ref = [t.clone() for t in (n, w, p, code, done, tval, *best4)]
+        planes = (n, w, p, code, done, tval, pm, patha, psgn, meta2, *best4)
+        rc = getattr(lib.lib, entry)(*(t.data_ptr() for t in planes), B, A, C, K, slot0, cpuct, None)
+        assert rc == 0
+        hybrid.merge_round(*ref[:6], pm, patha, psgn, meta2, *ref[6:], slot0, cpuct)
+        names = ("n", "w", "p", "code", "done", "tval", "besta", "bestc", "seca", "secc")
+        for nm, got, want in zip(names, (n, w, p, code, done, tval, *best4), ref):
+            assert torch.equal(bits(got), bits(want)), f"{entry} {nm} at slots {slot0}+"
+        calls[entry] = calls.get(entry, 0) + 1
+        calls["past_capacity"] += int(slot0 + K - 1 >= C)
+        return best4
+
+    def refresh2(n, w, p, code, cpuct):
+        best, entry = emulated_refresh2(lib, n, w, p, code, cpuct)
+        calls[entry] = calls.get(entry, 0) + 1
+        return best
+
+    return SearchKernels(hybrid.descend, hybrid.merge, hybrid.refresh, descend_round, merge_round, refresh2)
 
 
 def emulated_refresh(lib, n, w, p, code, cpuct):
@@ -510,7 +558,12 @@ def merge_case(A: int, K: int, case: str, seed: int, C: int = 37, path_len: int 
       descent always expands at a node of its own path; the merges still
       take any record, as their plain versions do);
     * duplicate (rounds): descent 1 expands the edge descent 0 expanded,
-      installs nothing and still backs up its value."""
+      installs nothing and still backs up its value;
+    * chunk_ties: ties_illegal's planes, the tied pair replaced by ties
+      that the streamed dense merges (A > 768) meet across their chunks of
+      actions: in even games actions 40, 296, 552 and 808 (one lane, a
+      chunk of 256 or 512 actions apart), in odd games 255/256 and 511/512
+      (a chunk's last lane and the next chunk's first)."""
     rng = np.random.default_rng(seed)
     B = 6
     n = torch.as_tensor(rng.integers(0, 3, (B, A, C)).astype(np.float32))
@@ -519,12 +572,17 @@ def merge_case(A: int, K: int, case: str, seed: int, C: int = 37, path_len: int 
     p = torch.full((B, A, C), 1.0 / A)
     p[:, 3::5] = -1e30
     code = torch.as_tensor(rng.integers(-3, C, (B, A, C)).astype(np.float32))
-    if case == "ties_illegal":
+    if case in ("ties_illegal", "chunk_ties"):
         n.zero_()
         w.zero_()
+    if case == "ties_illegal":
         lo, hi = (33, 40) if A > 40 else (5, 12) if A > 12 else (2, 5) if A > 5 else (0, 1)
         p[:, lo] = p[:, hi] = 2.0 / A
-    if case in ("ties_illegal", "lone_legal"):
+    if case == "chunk_ties":
+        for b in range(B):
+            tied = [a for a in ((40, 296, 552, 808) if b % 2 == 0 else (255, 256, 511, 512)) if a < A]
+            p[b, tied] = 2.0 / A
+    if case in ("ties_illegal", "chunk_ties", "lone_legal"):
         p[1, :, 0] = -1e30                     # an all-illegal root on every path of game 1
     if case == "lone_legal":
         p[2, :A - 1, 0] = -1e30                # game 2's root: its last edge alone is legal
