@@ -48,12 +48,17 @@ as the seed ``refresh``/``refresh2`` and every merge leave them. The seeds
 ``refresh``/``refresh2`` (and ``refresh_dense``/``refresh2_dense``, where
 they route A > 8) take only a fresh search's planes
 (``mcts.hybrid._init_planes``), where every node but the root is empty:
-they read the roots' priors alone, at every A. ``fused`` and ``fused_mlp`` run a whole Connect-Four
-search in one launch, and ``fused_rounds`` and ``fused_mlp_rounds`` the
-same in rounds of 1 <= K <= ``FUSED_MAX_K`` descents; their MLP
-evaluator runs on the bf16 tensor cores from weights in shared memory
-(``mlp_plan`` says whether they stay there for the launch or are staged a
-layer at a time), so its sums add in another order than the plain
+they read the roots' priors alone, at every A. ``fused`` and
+``fused_mlp`` run a whole search in one launch, and ``fused_rounds`` and
+``fused_mlp_rounds`` the same in rounds of K descents ((K+1)^A < 2^24,
+the JAX package's rule), on Connect-Four and, routed by the type of the
+flat ops (``ops=``), on Gomoku boards of at most 16 cells
+(``fused_gomoku``, ``fused_rounds_gomoku``); their MLP evaluator runs on
+the bf16 tensor cores from weights in shared memory (``mlp_plan``:
+resident for the launch or staged a layer at a time for Connect-Four's 1-4
+layers of at most 256 units; streamed through a ring for every other
+width, depth and board, ``fused_mlp_stream``, ``fused_mlp_stream_rounds``,
+``mlp_eval_stream``), so its sums add in another order than the plain
 version's k loop: bit-equal for weights whose sums are exact
 (``models.order_free_mlp_variables``), within a bf16 rounding step of a
 hidden unit otherwise. ``int8_tower`` runs the whole 11-conv int8 tower of
@@ -72,7 +77,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -125,6 +130,17 @@ _SIGNATURES = {
     "az_fused_mlp_rounds": ([_VP] * 7 + [_I32] * 10 + [_F32, _VP], _I32),
     "az_mlp_eval": ([_VP] * 5 + [_I32] * 6 + [_VP], _I32),
     "az_mlp_plan": ([_I32] * 5 + [ctypes.POINTER(ctypes.c_int)], _I32),
+    "az_fused_leaf_bytes": ([], _I32),
+    "az_fused_gomoku": ([_VP] * 3 + [_I32] + [_VP] * 3 + [_I32] * 5 + [_F32] * 2 + [_VP], _I32),
+    "az_fused_gomoku_rounds": ([_VP] * 3 + [_I32] + [_VP] * 5 + [_I32] * 6 + [_F32] * 2 + [_VP],
+                               _I32),
+    "az_mlp_stream_plan": ([_I32] * 2 + [_VP, _I32, ctypes.POINTER(ctypes.c_longlong)], _I32),
+    "az_fused_mlp_stream": ([_VP] * 4 + [_I32] + [_VP] * 4 + [_I32] + [_VP] * 3 + [_I32] * 5
+                            + [_F32, _VP], _I32),
+    "az_fused_mlp_stream_rounds": ([_VP] * 4 + [_I32] + [_VP] * 4 + [_I32] + [_VP] * 5
+                                   + [_I32] * 6 + [_F32, _VP], _I32),
+    "az_mlp_eval_stream": ([_VP] * 3 + [_I32] + [_VP] * 4 + [_I32] + [_VP] * 3 + [_I32] * 2 + [_VP],
+                           _I32),
     "az_int8_tower": ([_VP] * 3 + [_I32, _VP], _I32),
 }
 
@@ -656,30 +672,81 @@ def refresh2_dense(n, w, p, code, cpuct: float):
 
 
 FUSED_MAX_K = 9   # csrc/fused.cu kMaxRoundK: (K+1)^7 < 2^24, the JAX package's limit at A=7
+SMALL_GOMOKU_CELLS = 16    # csrc/fused.cu kMaxSmallCells: the Gomoku boards the fused kernels take
+RESIDENT_MAX_HIDDEN = 4    # the resident/staged evaluator plan (csrc/mlp.cuh kMaxHidden) ...
+RESIDENT_MAX_WIDTH = 256   # ... and its widest layer (kMaxWidth); other MLPs stream
 
 
-def _fused_buffers(name: str, boards, priors, nodes: int, rounds: bool) -> tuple:
-    """The checked addresses of Connect-Four boards f32[B, 42] and masked
-    root priors f32[B, 7], and a fused launch's fresh scratch and outputs:
-    ``(B, ptrs, scratch, counts, rootw)``, ``scratch`` the tree f32[B, C,
-    32] and, for rounds, the round records f32[B, C, 16]."""
+def _fused_game(ops) -> Tuple[int, int, bool]:
+    """``(A, L, gomoku)`` of the fused kernels' game of the flat ops
+    ``ops`` (None: Connect-Four), by the exact type of the flat ops, as
+    ``descend_entry`` routes: Connect-Four's ``FlatOps`` and
+    ``GomokuFlatOps`` boards of at most ``SMALL_GOMOKU_CELLS`` cells. Raises
+    for anything else."""
+    if ops is None or type(ops) is FlatOps:
+        return 7, 42, False
+    if type(ops) is GomokuFlatOps and ops.size <= SMALL_GOMOKU_CELLS:
+        return ops.num_actions, ops.size, True
+    raise NotImplementedError(
+        f"no fused kernel steps {type(ops).__name__} boards of {getattr(ops, 'size', '?')} "
+        f"cells: the fused kernels take Connect-Four's FlatOps and GomokuFlatOps of at most "
+        f"{SMALL_GOMOKU_CELLS} cells (the JAX fused kernel's A <= 16)"
+    )
+
+
+def _to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """A small host tensor on ``device``; a CUDA copy goes through pinned
+    memory, so that it does not wait for the work queued before it."""
+    device = torch.device(device)
+    return t.pin_memory().to(device, non_blocking=True) if device.type == "cuda" else t
+
+
+def _gomoku_lines(ops, device) -> torch.Tensor:
+    """The win lines of a small Gomoku board as cell masks, int32[n_lines]
+    on ``device`` (bit i: cell i), from the flat ops' win-line matrix (its
+    zero padding columns dropped)."""
+    m = ops.aux("cpu")
+    m = m[:, m.sum(dim=0) > 0].t().to(torch.int64)
+    return _to_device((m << torch.arange(ops.size)).sum(dim=1).to(torch.int32), device)
+
+
+def _fused_buffers(name: str, boards, priors, nodes: int, rounds: bool, ops=None) -> tuple:
+    """The checked addresses of flat boards f32[B, L] and masked root
+    priors f32[B, A] of the game of ``ops`` (``_fused_game``), and a fused
+    launch's fresh scratch and outputs: ``(B, ptrs, scratch, counts,
+    rootw)``, ``scratch`` the tree f32[B, C, 4 R] (R = 8 record cells for
+    Connect-Four, A + 1 for Gomoku) and, for rounds, the round records
+    f32[B, C, 2 R]."""
+    A, L, gomoku = _fused_game(ops)
+    rec = A + 1 if gomoku else 8
     B = boards.shape[0]
-    A = 7   # Connect-Four's actions, the kernels' helpers' game
     if B == 0:
         raise ValueError(f"{name} kernel needs B > 0")
     if nodes < 1:
         raise ValueError(f"{name} kernel needs nodes >= 1, got {nodes}")
-    ptrs = [_check("boards", boards, (B, 42)), _check("priors", priors, (B, A))]
+    ptrs = [_check("boards", boards, (B, L)), _check("priors", priors, (B, A))]
     dev = boards.device
-    scratch = [torch.empty((B, nodes, 32), device=dev)]
+    scratch = [torch.empty((B, nodes, 4 * rec), device=dev)]
     if rounds:
-        scratch.append(torch.empty((B, nodes, 16), device=dev))
+        scratch.append(torch.empty((B, nodes, 2 * rec), device=dev))
     return B, ptrs, scratch, torch.empty((B, A), device=dev), torch.empty((B, A), device=dev)
 
 
-def _check_rounds(name: str, num_sims: int, K: int) -> None:
-    if not 1 <= K <= FUSED_MAX_K:
-        raise ValueError(f"{name} takes 1 <= K <= {FUSED_MAX_K} descents per round, got {K}")
+def _leaf_scratch(lib: _Library, B: int, K: int, device) -> torch.Tensor:
+    """The rounds' leaf scratch of the Gomoku and streamed kernels: K
+    leaves a game for every game of the grid (B rounded up to a block of
+    32)."""
+    games = -(-B // 32) * 32
+    return torch.empty(games * K * lib.lib.az_fused_leaf_bytes(), dtype=torch.uint8, device=device)
+
+
+def _check_rounds(name: str, num_sims: int, K: int, A: int = 7) -> None:
+    """The JAX package's rules for K > 1 rounds: ``num_sims`` divisible by
+    K, and ``(K+1)**A < 2**24`` (K <= ``FUSED_MAX_K`` at Connect-Four's A =
+    7)."""
+    if K < 1 or (K + 1) ** A >= 1 << 24:
+        raise ValueError(f"{name} takes 1 <= K with (K+1)^A < 2^24 descents per round "
+                         f"(K <= {FUSED_MAX_K} at A=7), got K={K} at A={A}")
     if num_sims % K != 0:
         raise ValueError(f"{name}: num_sims={num_sims} must be divisible by K={K}")
 
@@ -689,10 +756,15 @@ def _search_cfg(num_sims: int, nodes: int, max_depth: int, cpuct: float, K: int 
                       parallel_sims=K)
 
 
-def fused(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float, uval: float):
-    """``mcts.fused.fused_search``: a whole uniform-prior search of
-    Connect-Four boards f32[B, 42] from masked root priors f32[B, 7] in
-    one launch. Returns ``(counts, rootw) f32[B, 7]``."""
+def fused(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float, uval: float,
+          ops=None):
+    """``mcts.fused.fused_search``: a whole uniform-prior search of flat
+    boards f32[B, L] from masked root priors f32[B, A] in one launch, on
+    the game of ``ops`` (None: Connect-Four; Gomoku boards of at most 16
+    cells route to ``fused_gomoku``). Returns ``(counts, rootw) f32[B,
+    A]``."""
+    if _fused_game(ops)[2]:
+        return fused_gomoku(boards, priors, num_sims, nodes, max_depth, cpuct, uval, ops)
     if _on_cpu(boards, priors):
         return _plain_fused.fused_search(boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct),
                                          uval)
@@ -708,11 +780,37 @@ def fused(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: floa
     return counts, rootw
 
 
+def fused_gomoku(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float,
+                 uval: float, ops):
+    """``fused`` on a Gomoku board of at most 16 cells (``ops``, its
+    ``GomokuFlatOps``): ``az_fused_gomoku``, G lanes a game."""
+    A, _, gomoku = _fused_game(ops)
+    if not gomoku:
+        raise ValueError("fused_gomoku takes GomokuFlatOps")
+    if _on_cpu(boards, priors):
+        return _plain_fused.fused_search(
+            boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct), uval, ops)
+    lib = library()
+    B, ptrs, scratch, counts, rootw = _fused_buffers("fused_gomoku", boards, priors, nodes, False, ops)
+    lines = _gomoku_lines(ops, boards.device)
+    rc = lib.lib.az_fused_gomoku(
+        *ptrs, lines.data_ptr(), lines.numel(), *(t.data_ptr() for t in (*scratch, counts, rootw)),
+        B, int(nodes), A, int(num_sims), int(max_depth), float(cpuct), float(uval),
+        _stream(boards.device),
+    )
+    lib.check(rc, "fused_gomoku")
+    fused_gomoku.launches += 1
+    return counts, rootw
+
+
 def fused_rounds(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float,
-                 uval: float, K: int):
+                 uval: float, K: int, ops=None):
     """``mcts.fused.fused_rounds_search``: ``fused`` in ``num_sims // K``
-    rounds of K leaf-parallel descents, 1 <= K <= ``FUSED_MAX_K``, in one
-    launch. Returns ``(counts, rootw) f32[B, 7]``."""
+    rounds of K leaf-parallel descents, (K+1)^A < 2^24, in one launch
+    (Gomoku routes to ``fused_rounds_gomoku``). Returns ``(counts, rootw)
+    f32[B, A]``."""
+    if _fused_game(ops)[2]:
+        return fused_rounds_gomoku(boards, priors, num_sims, nodes, max_depth, cpuct, uval, K, ops)
     _check_rounds("fused_rounds", num_sims, K)
     if _on_cpu(boards, priors):
         return _plain_fused.fused_rounds_search(
@@ -729,47 +827,154 @@ def fused_rounds(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuc
     return counts, rootw
 
 
-def _mlp_args(weights) -> list:
-    """The kernel's ``sections, n_hidden, h0..h3`` for ``MLPKernelWeights``
-    (``sections``: a host array of each section's device address), after
-    checking every section's dtype, shape and contiguity."""
+def fused_rounds_gomoku(boards, priors, num_sims: int, nodes: int, max_depth: int, cpuct: float,
+                        uval: float, K: int, ops):
+    """``fused_rounds`` on a Gomoku board of at most 16 cells:
+    ``az_fused_gomoku_rounds`` (leaves past K = 9 in a device scratch)."""
+    A, _, gomoku = _fused_game(ops)
+    if not gomoku:
+        raise ValueError("fused_rounds_gomoku takes GomokuFlatOps")
+    _check_rounds("fused_rounds_gomoku", num_sims, K, A)
+    if _on_cpu(boards, priors):
+        return _plain_fused.fused_rounds_search(
+            boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct, K), uval, ops)
+    lib = library()
+    B, ptrs, scratch, counts, rootw = _fused_buffers("fused_rounds_gomoku", boards, priors, nodes,
+                                                     True, ops)
+    lines = _gomoku_lines(ops, boards.device)
+    leaves = _leaf_scratch(lib, B, K, boards.device) if K > FUSED_MAX_K else None
+    rc = lib.lib.az_fused_gomoku_rounds(
+        *ptrs, lines.data_ptr(), lines.numel(), *(t.data_ptr() for t in scratch),
+        leaves.data_ptr() if leaves is not None else None, counts.data_ptr(), rootw.data_ptr(),
+        B, int(nodes), A, int(K), int(num_sims), int(max_depth), float(cpuct), float(uval),
+        _stream(boards.device),
+    )
+    lib.check(rc, "fused_rounds_gomoku")
+    fused_rounds_gomoku.launches += 1
+    return counts, rootw
+
+
+def _check_sections(weights, A: int, L: int) -> list:
+    """Every section's address after checking its dtype, shape and
+    contiguity: the hidden layers' bf16 [in, out] and [out] (in = 2 L for
+    the first), the head f32 [last, A + 1] and [A + 1]."""
     hidden = tuple(weights.hidden)
-    _plain_fused.check_mlp_widths(hidden)
-    widths = (84, *hidden)   # the [+plane | -plane] input of a 42-cell board
+    widths = (2 * L, *hidden)
     shapes = [s for k, h in zip(widths, hidden) for s in ((k, h), (h,))]
     dtypes = [torch.bfloat16] * len(shapes) + [torch.float32] * 2
-    shapes += [(hidden[-1], 8), (8,)]   # the head: 7 logits | the value
+    shapes += [(widths[-1], A + 1), (A + 1,)]   # the head: A logits | the value
     sections = weights.sections()
     if len(sections) != len(shapes):
         raise ValueError(f"expected {len(shapes)} weight sections, got {len(sections)}")
-    ptrs = [_check(f"weight section {i}", t, shape, dtype)
+    return [_check(f"weight section {i}", t, shape, dtype)
             for i, (t, shape, dtype) in enumerate(zip(sections, shapes, dtypes))]
-    return [(_VP * len(ptrs))(*ptrs), len(hidden), *hidden,
-            *[0] * (_plain_fused.MLP_MAX_HIDDEN - len(hidden))]
 
 
-def mlp_plan(hidden, lib: Optional[_Library] = None) -> Tuple[int, bool]:
-    """The in-kernel evaluator's shared-memory plan for an MLP of hidden
-    widths ``hidden`` (``csrc/mlp.cuh`` ``mlp_weights``): ``(dynamic
-    shared bytes of a launch, resident)``, resident when every layer's
-    weights stay in shared memory for the launch; otherwise each layer is
-    staged through one buffer at every evaluation. ``lib``: the kernel
-    library to ask (default ``library()``)."""
+def _resident_takes(hidden, cells: int = 42, actions: int = 7) -> bool:
+    """Whether the resident/staged evaluator plan takes an MLP of hidden
+    widths ``hidden`` on boards of ``cells`` cells and ``actions`` actions:
+    Connect-Four's, 1 to ``RESIDENT_MAX_HIDDEN`` hidden layers of 1 to
+    ``RESIDENT_MAX_WIDTH`` units. Every other MLP streams."""
     hidden = tuple(hidden)
-    _plain_fused.check_mlp_widths(hidden)
+    return ((cells, actions) == (42, 7) and 1 <= len(hidden) <= RESIDENT_MAX_HIDDEN
+            and all(1 <= h <= RESIDENT_MAX_WIDTH for h in hidden))
+
+
+def _resident(weights, ops=None) -> bool:
+    """``_resident_takes`` for ``MLPKernelWeights`` on the game of ``ops``."""
+    A, L, _ = _fused_game(ops)
+    return _resident_takes(weights.hidden, L, A)
+
+
+def _mlp_args(weights) -> list:
+    """The resident/staged kernels' ``sections, n_hidden, h0..h3`` for
+    ``MLPKernelWeights`` of a Connect-Four MLP the plan takes
+    (``sections``: a host array of each section's device address), after
+    checking every section's dtype, shape and contiguity."""
+    hidden = tuple(weights.hidden)
+    if not _resident(weights):
+        raise ValueError(f"the resident/staged evaluator takes 1 to {RESIDENT_MAX_HIDDEN} hidden "
+                         f"layers of 1 to {RESIDENT_MAX_WIDTH} units, got {hidden}: it streams")
+    ptrs = _check_sections(weights, 7, 42)
+    return [(_VP * len(ptrs))(*ptrs), len(hidden), *hidden,
+            *[0] * (RESIDENT_MAX_HIDDEN - len(hidden))]
+
+
+class MlpPlan(NamedTuple):
+    """The in-kernel evaluator's plan of an MLP (``csrc/mlp.cuh``):
+    ``kind`` "resident" (every layer's weights in shared memory for the
+    launch), "staged" (a layer at a time through one buffer at every
+    evaluation) or "streamed" (any widths and depth: passes of 256 columns,
+    the weights through a two-slot ring); the dynamic shared bytes of a
+    launch; and the activation scratch a block of 32 games needs in device
+    memory (0: the activations stay in shared memory)."""
+
+    kind: str
+    smem_bytes: int
+    act_block_bytes: int
+
+
+def mlp_plan(hidden, lib: Optional[_Library] = None, cells: int = 42,
+             actions: int = 7) -> MlpPlan:
+    """The in-kernel evaluator's plan for an MLP of hidden widths
+    ``hidden`` on boards of ``cells`` cells and ``actions`` actions
+    (Connect-Four's by default; another board streams). ``lib``: the
+    kernel library to ask (default ``library()``)."""
+    hidden = tuple(int(h) for h in hidden)
     lib = lib or library()
-    resident = ctypes.c_int()
-    nbytes = lib.lib.az_mlp_plan(len(hidden), *hidden,
-                                 *[0] * (_plain_fused.MLP_MAX_HIDDEN - len(hidden)),
-                                 ctypes.byref(resident))
-    return nbytes, bool(resident.value)
+    if _resident_takes(hidden, cells, actions):
+        resident = ctypes.c_int()
+        nbytes = lib.lib.az_mlp_plan(len(hidden), *hidden,
+                                     *[0] * (RESIDENT_MAX_HIDDEN - len(hidden)),
+                                     ctypes.byref(resident))
+        return MlpPlan("resident" if resident.value else "staged", nbytes, 0)
+    return _stream_plan(lib, hidden, cells, actions)
 
 
-def fused_mlp(boards, priors, weights, num_sims: int, nodes: int, max_depth: int, cpuct: float):
-    """``mcts.fused.fused_mlp_search``: a whole search of Connect-Four
-    boards f32[B, 42] from masked root priors f32[B, 7] with the MLP of
-    ``weights`` (``MLPKernelWeights``) evaluated inside the kernel, in one
-    launch. Returns ``(counts, rootw) f32[B, 7]``."""
+def _stream_plan(lib: _Library, hidden: Tuple[int, ...], cells: int, actions: int) -> MlpPlan:
+    act = ctypes.c_longlong()
+    hid = (_I32 * max(len(hidden), 1))(*hidden)
+    nbytes = lib.lib.az_mlp_stream_plan(cells, actions + 1, hid, len(hidden), ctypes.byref(act))
+    return MlpPlan("streamed", nbytes, act.value)
+
+
+def _stream_args(lib: _Library, weights, ops, B: int) -> tuple:
+    """The streamed kernels' ``layers, hidden, n_hidden, wh, bh, act,
+    lines, n_lines`` for ``MLPKernelWeights`` on the game of ``ops``, and
+    the device tensors behind them (kept alive through the launch): the
+    hidden layers' descriptors (int64 [n_hidden, 3]: w, b, k | n << 32), the
+    activation scratch where the plan needs one, the win lines (Gomoku)."""
+    A, L, gomoku = _fused_game(ops)
+    ptrs = _check_sections(weights, A, L)
+    hidden = tuple(weights.hidden)
+    dev = weights.wh.device
+    widths = (2 * L, *hidden)
+    rows = [[ptrs[2 * i], ptrs[2 * i + 1], widths[i] | h << 32] for i, h in enumerate(hidden)]
+    layers = _to_device(torch.tensor(rows or [[0, 0, 0]], dtype=torch.int64), dev)
+    hid = (_I32 * max(len(hidden), 1))(*hidden)
+    plan = _stream_plan(lib, hidden, L, A)
+    act = None
+    if plan.act_block_bytes:
+        act = torch.empty(-(-B // 32) * plan.act_block_bytes, dtype=torch.uint8, device=dev)
+    lines = _gomoku_lines(ops, dev) if gomoku else None
+    args = [layers.data_ptr(), hid, len(hidden), ptrs[-2], ptrs[-1],
+            act.data_ptr() if act is not None else None,
+            lines.data_ptr() if lines is not None else None,
+            lines.numel() if lines is not None else 0]
+    return args, (layers, act, lines)
+
+
+def fused_mlp(boards, priors, weights, num_sims: int, nodes: int, max_depth: int, cpuct: float,
+              ops=None):
+    """``mcts.fused.fused_mlp_search``: a whole search of flat boards
+    f32[B, L] from masked root priors f32[B, A] with the MLP of ``weights``
+    (``MLPKernelWeights``) evaluated inside the kernel, in one launch, on
+    the game of ``ops`` (None: Connect-Four). A Connect-Four MLP of 1 to 4
+    hidden layers of at most 256 units runs ``az_fused_mlp`` (the resident
+    or staged plan); every other, Gomoku's too, ``fused_mlp_stream``.
+    Returns ``(counts, rootw) f32[B, A]``."""
+    if not _resident(weights, ops):
+        return fused_mlp_stream(boards, priors, weights, num_sims, nodes, max_depth, cpuct, ops)
     on_cpu = _on_cpu(boards, priors, *weights.sections())
     sections, *widths = _mlp_args(weights)
     if on_cpu:
@@ -787,11 +992,39 @@ def fused_mlp(boards, priors, weights, num_sims: int, nodes: int, max_depth: int
     return counts, rootw
 
 
+def fused_mlp_stream(boards, priors, weights, num_sims: int, nodes: int, max_depth: int,
+                     cpuct: float, ops=None):
+    """``fused_mlp`` with the streamed evaluator (any widths and depth, no
+    hidden layer too), on Connect-Four (``ops`` None) or a Gomoku board of
+    at most 16 cells: ``az_fused_mlp_stream``."""
+    A, L, _ = _fused_game(ops)
+    on_cpu = _on_cpu(boards, priors, *weights.sections())
+    if on_cpu:
+        _check_sections(weights, A, L)
+        return _plain_fused.fused_mlp_search(
+            boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct), weights, ops)
+    lib = library()
+    B, ptrs, scratch, counts, rootw = _fused_buffers("fused_mlp_stream", boards, priors, nodes,
+                                                     False, ops)
+    args, _keep = _stream_args(lib, weights, ops, B)
+    rc = lib.lib.az_fused_mlp_stream(
+        *ptrs, *args, *(t.data_ptr() for t in (*scratch, counts, rootw)),
+        B, int(nodes), A, int(num_sims), int(max_depth), float(cpuct), _stream(boards.device),
+    )
+    lib.check(rc, "fused_mlp_stream")
+    fused_mlp_stream.launches += 1
+    return counts, rootw
+
+
 def fused_mlp_rounds(boards, priors, weights, num_sims: int, nodes: int, max_depth: int,
-                     cpuct: float, K: int):
+                     cpuct: float, K: int, ops=None):
     """``mcts.fused.fused_mlp_rounds_search``: ``fused_mlp`` in
-    ``num_sims // K`` rounds of K leaf-parallel descents, 1 <= K <=
-    ``FUSED_MAX_K``, in one launch. Returns ``(counts, rootw) f32[B, 7]``."""
+    ``num_sims // K`` rounds of K leaf-parallel descents, (K+1)^A < 2^24,
+    in one launch (every MLP but the resident/staged plan's routes to
+    ``fused_mlp_stream_rounds``). Returns ``(counts, rootw) f32[B, A]``."""
+    if not _resident(weights, ops):
+        return fused_mlp_stream_rounds(boards, priors, weights, num_sims, nodes, max_depth, cpuct,
+                                       K, ops)
     _check_rounds("fused_mlp_rounds", num_sims, K)
     on_cpu = _on_cpu(boards, priors, *weights.sections())
     sections, *widths = _mlp_args(weights)
@@ -810,12 +1043,44 @@ def fused_mlp_rounds(boards, priors, weights, num_sims: int, nodes: int, max_dep
     return counts, rootw
 
 
-def mlp_eval(boards, weights):
-    """The fused kernel's MLP evaluator alone, on Connect-Four boards
-    f32[B, 42]: ``(pm f32[B, 7], value f32[B], logits f32[B, 7])``, the
-    masked prior (INVALID_P on illegal moves), the value and the logits —
-    for checking the evaluator against its plain version
-    (``mcts.fused.mlp_forward`` and ``mlp_prior``)."""
+def fused_mlp_stream_rounds(boards, priors, weights, num_sims: int, nodes: int, max_depth: int,
+                            cpuct: float, K: int, ops=None):
+    """``fused_mlp_rounds`` with the streamed evaluator:
+    ``az_fused_mlp_stream_rounds`` (on Gomoku the leaves in a device
+    scratch)."""
+    A, L, gomoku = _fused_game(ops)
+    _check_rounds("fused_mlp_stream_rounds", num_sims, K, A)
+    on_cpu = _on_cpu(boards, priors, *weights.sections())
+    if on_cpu:
+        _check_sections(weights, A, L)
+        return _plain_fused.fused_mlp_rounds_search(
+            boards, priors, _search_cfg(num_sims, nodes, max_depth, cpuct, K), weights, ops)
+    lib = library()
+    B, ptrs, scratch, counts, rootw = _fused_buffers("fused_mlp_stream_rounds", boards, priors,
+                                                     nodes, True, ops)
+    args, _keep = _stream_args(lib, weights, ops, B)
+    leaves = _leaf_scratch(lib, B, K, boards.device) if gomoku else None
+    rc = lib.lib.az_fused_mlp_stream_rounds(
+        *ptrs, *args, *(t.data_ptr() for t in scratch),
+        leaves.data_ptr() if leaves is not None else None, counts.data_ptr(), rootw.data_ptr(),
+        B, int(nodes), A, int(K), int(num_sims), int(max_depth), float(cpuct),
+        _stream(boards.device),
+    )
+    lib.check(rc, "fused_mlp_stream_rounds")
+    fused_mlp_stream_rounds.launches += 1
+    return counts, rootw
+
+
+def mlp_eval(boards, weights, ops=None):
+    """The fused kernel's MLP evaluator alone, on flat boards f32[B, L] of
+    the game of ``ops`` (None: Connect-Four): ``(pm f32[B, A], value
+    f32[B], logits f32[B, A])``, the masked prior (INVALID_P on illegal
+    moves), the value and the logits — for checking the evaluator against
+    its plain version (``mcts.fused.mlp_forward`` and ``mlp_prior``). The
+    resident/staged plan's MLPs run ``az_mlp_eval``, every other
+    ``mlp_eval_stream``."""
+    if not _resident(weights, ops):
+        return mlp_eval_stream(boards, weights, ops)
     on_cpu = _on_cpu(boards, *weights.sections())
     mlp_args = _mlp_args(weights)
     if on_cpu:
@@ -836,6 +1101,33 @@ def mlp_eval(boards, weights):
     )
     lib.check(rc, "mlp_eval")
     mlp_eval.launches += 1
+    return pm, value, logits
+
+
+def mlp_eval_stream(boards, weights, ops=None):
+    """``mlp_eval`` with the streamed evaluator: ``az_mlp_eval_stream``."""
+    A, L, _ = _fused_game(ops)
+    on_cpu = _on_cpu(boards, *weights.sections())
+    if on_cpu:
+        _check_sections(weights, A, L)
+        logits, value = _plain_fused.mlp_forward(boards, weights)
+        valid = (ops or FlatOps()).valid(boards)
+        return _plain_fused.mlp_prior(logits, valid), value, logits
+    lib = library()
+    B = boards.shape[0]
+    if B == 0:
+        raise ValueError("mlp_eval_stream kernel needs B > 0")
+    ptr = _check("boards", boards, (B, L))
+    dev = boards.device
+    logits = torch.empty((B, A), device=dev)
+    pm = torch.empty((B, A), device=dev)
+    value = torch.empty((B,), device=dev)
+    args, _keep = _stream_args(lib, weights, ops, B)
+    rc = lib.lib.az_mlp_eval_stream(
+        ptr, *args, logits.data_ptr(), pm.data_ptr(), value.data_ptr(), B, A, _stream(dev),
+    )
+    lib.check(rc, "mlp_eval_stream")
+    mlp_eval_stream.launches += 1
     return pm, value, logits
 
 
@@ -866,7 +1158,8 @@ KERNELS = _plain.SearchKernels(descend, merge, refresh, descend_round, merge_rou
 _ALL = (descend, descend_othello, descend_gomoku, descend_hex, merge, merge_dense, refresh,
         refresh_dense, fused, fused_mlp, mlp_eval, descend_round, descend_round_othello,
         descend_round_gomoku, descend_round_hex, merge_round, merge_round_dense, refresh2,
-        refresh2_dense, fused_rounds, fused_mlp_rounds, int8_tower)
+        refresh2_dense, fused_rounds, fused_mlp_rounds, int8_tower, fused_gomoku,
+        fused_rounds_gomoku, fused_mlp_stream, fused_mlp_stream_rounds, mlp_eval_stream)
 
 
 def launch_counts() -> dict:

@@ -10,15 +10,26 @@ CUDA kernel (``csrc/fused.cu``):
   ``alphazero_tpu_torch.kernels.fused``;
 * ``MLPNet`` (``apply_fn.kernel_eval_factory``, the packed weights of
   ``models.nets.pack_mlp_weights``): the network runs inside the kernel
-  (K3, ``csrc/mlp.cuh``) — ``az_fused_mlp``, launched by
+  (K3, ``csrc/mlp.cuh``) at any width and depth, with no hidden layer too
+  (which the JAX kernel refuses: its ``extract`` reads ``Dense_0``) —
+  ``az_fused_mlp`` (Connect-Four MLPs of 1 to 4 hidden layers of at most
+  256 units, whose weights stay in shared memory) or ``az_fused_mlp_stream``
+  (every other: the weights streamed through shared memory), launched by
   ``kernels.fused_mlp``.
+
+The games are the JAX kernel's: every flat-ops game with a zero heuristic
+and A <= 16, which among the ported games are Connect-Four and Gomoku
+boards of at most 16 cells (``Gomoku(3, 3)``, tic-tac-toe; ``Gomoku(4,
+4)``): the wrappers route by the type of the game's flat ops
+(``kernels.fused_gomoku`` and the streamed kernels for Gomoku).
 
 With ``parallel_sims = K > 1`` the search runs ``num_sims // K`` rounds of
 K leaf-parallel descents (K2, the JAX kernel's ``round_body``):
-``az_fused_rounds`` and ``az_fused_mlp_rounds``, launched by
-``kernels.fused_rounds`` and ``kernels.fused_mlp_rounds``. The JAX
-package's limits hold: ``num_sims`` divisible by K, and ``(K+1)**A <
-2**24`` (K <= 9 at Connect-Four's 7 actions).
+``az_fused_rounds`` and ``az_fused_mlp_rounds`` (and their Gomoku and
+streamed instances), launched by ``kernels.fused_rounds`` and
+``kernels.fused_mlp_rounds``. The JAX package's limits hold: ``num_sims``
+divisible by K, and ``(K+1)**A < 2**24`` (K <= 9 at Connect-Four's 7
+actions, K <= 5 at tic-tac-toe's 9, K = 1 only at ``Gomoku(4, 4)``).
 
 The masked root prior (with optional injected Dirichlet noise) is computed
 outside the kernel with the model's ``apply_fn``, as the JAX package does.
@@ -44,15 +55,12 @@ that calls the engine on its own games, as JAX's ``shard_map`` calls the
 kernel on each shard, and any per-batch choice is made on that batch.
 
 Not ported (ROADMAP): depth-sorted blocking (``run_kernel_sorted``, whose
-8192-game threshold was measured on another device), MLPs beyond the
-kernel's widths, and games other than Connect-Four; for the last two
-``make_fused_root_fn`` returns None and the self-play ladder runs the
-hybrid engine, as the JAX ladder does where its fused kernel declines.
+8192-game threshold was measured on another device).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -62,33 +70,33 @@ from alphazero_tpu_torch.mcts import hybrid
 from alphazero_tpu_torch.mcts.tree import INVALID_P
 from alphazero_tpu_torch.ops import root_prior
 
-MLP_MAX_HIDDEN = 4    # hidden layers the MLP kernel takes (csrc/mlp.cuh kMaxHidden)
-MLP_MAX_WIDTH = 256   # units per hidden layer it takes (kMaxWidth)
-
 
 def fused_search(
-    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, uval: float
+    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, uval: float, ops=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``az_fused``: the search of Connect-Four boards
-    f32[B, 42] from masked root priors f32[B, 7] with the uniform prior
+    """Plain version of ``az_fused`` (and ``az_fused_gomoku``): the search
+    of flat boards f32[B, L] of the game of ``ops`` (None: Connect-Four's
+    ``FlatOps``) from masked root priors f32[B, A] with the uniform prior
     ``vm / max(n_valid, 1)`` and the value ``uval`` at every expansion.
-    Returns ``(counts, rootw) f32[B, 7]``, the root's N and W."""
+    Returns ``(counts, rootw) f32[B, A]``, the root's N and W."""
     n, w = hybrid.run_search(
-        FlatOps(), boards, p_masked, cfg, uniform_evaluator(boards.shape[0], uval, boards.device),
-        hybrid.PLAIN,
+        ops or FlatOps(), boards, p_masked, cfg,
+        uniform_evaluator(boards.shape[0], uval, boards.device), hybrid.PLAIN,
     )
     return n[:, :, 0], w[:, :, 0]
 
 
 def fused_rounds_search(
-    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, uval: float
+    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, uval: float, ops=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``az_fused_rounds``: ``fused_search`` in
-    ``cfg.parallel_sims = K`` leaf-parallel rounds (``hybrid.run_rounds``,
-    which evaluates the K leaf boards of every game at once)."""
+    """Plain version of ``az_fused_rounds`` (and ``az_fused_gomoku_rounds``):
+    ``fused_search`` in ``cfg.parallel_sims = K`` leaf-parallel rounds
+    (``hybrid.run_rounds``, which evaluates the K leaf boards of every game
+    at once)."""
     batch = cfg.parallel_sims * boards.shape[0]
     n, w = hybrid.run_rounds(
-        FlatOps(), boards, p_masked, cfg, uniform_evaluator(batch, uval, boards.device), hybrid.PLAIN
+        ops or FlatOps(), boards, p_masked, cfg, uniform_evaluator(batch, uval, boards.device),
+        hybrid.PLAIN,
     )
     return n[:, :, 0], w[:, :, 0]
 
@@ -120,15 +128,17 @@ def _ordered_dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def mlp_forward(boards: torch.Tensor, weights) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel's network (K3, the JAX ``eval_fn`` of
-    ``attach_mlp_kernel_eval``): ``(logits f32[B, 7], value f32[B])`` of
-    Connect-Four boards f32[B, 42] from the ``MLPKernelWeights``.
+    ``attach_mlp_kernel_eval``): ``(logits f32[B, A], value f32[B])`` of
+    flat boards f32[B, L] from the ``MLPKernelWeights`` (L and A from
+    their shapes: the input 2 L, the head A + 1).
 
     The input is the ``[+plane | -plane]`` 0/1 vector. Each hidden layer
     sums ``x_k * W[k, j]`` over k in order (bf16 x bf16 products are exact
     in f32, so only the order of the adds matters: the kernel's tensor
     cores add in their own), rounds the sum to bf16, adds the bias in bf16
-    and applies ReLU; the f32 head sums in order, then adds its bias; the
-    value goes through tanh."""
+    and applies ReLU; the f32 head sums in order, then adds its bias (on
+    the input itself when there is no hidden layer); the value goes
+    through tanh."""
     x = torch.cat([boards == 1, boards == -1], dim=1).float()
     for w, b in zip(weights.w, weights.b):
         h = _ordered_dot(x, w.float()).to(torch.bfloat16).float()
@@ -157,49 +167,38 @@ def mlp_prior(logits: torch.Tensor, vm: torch.Tensor) -> torch.Tensor:
 
 def mlp_eval(boards: torch.Tensor, vm: torch.Tensor, weights) -> Tuple[torch.Tensor, torch.Tensor]:
     """``evaluate`` of ``hybrid.run_search`` for the MLP: the masked prior
-    f32[B, 7] (INVALID_P on illegal edges) and the value f32[B] of the
+    f32[B, A] (INVALID_P on illegal edges) and the value f32[B] of the
     leaf boards, as the kernel computes them."""
     logits, value = mlp_forward(boards, weights)
     return mlp_prior(logits, vm), value
 
 
 def fused_mlp_search(
-    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, weights
+    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, weights, ops=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``az_fused_mlp``: the search of Connect-Four boards
-    f32[B, 42] from masked root priors f32[B, 7] with ``mlp_eval`` at every
-    expansion. Returns ``(counts, rootw) f32[B, 7]``, the root's N and W."""
+    """Plain version of ``az_fused_mlp`` (and ``az_fused_mlp_stream``): the
+    search of flat boards f32[B, L] of the game of ``ops`` (None:
+    Connect-Four) from masked root priors f32[B, A] with ``mlp_eval`` at
+    every expansion. Returns ``(counts, rootw) f32[B, A]``, the root's N
+    and W."""
     n, w = hybrid.run_search(
-        FlatOps(), boards, p_masked, cfg, lambda bd, vm: mlp_eval(bd, vm, weights), hybrid.PLAIN
+        ops or FlatOps(), boards, p_masked, cfg, lambda bd, vm: mlp_eval(bd, vm, weights),
+        hybrid.PLAIN,
     )
     return n[:, :, 0], w[:, :, 0]
 
 
 def fused_mlp_rounds_search(
-    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, weights
+    boards: torch.Tensor, p_masked: torch.Tensor, cfg: MCTSConfig, weights, ops=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of ``az_fused_mlp_rounds``: ``fused_mlp_search`` in
+    """Plain version of ``az_fused_mlp_rounds`` (and
+    ``az_fused_mlp_stream_rounds``): ``fused_mlp_search`` in
     ``cfg.parallel_sims`` leaf-parallel rounds (``hybrid.run_rounds``)."""
     n, w = hybrid.run_rounds(
-        FlatOps(), boards, p_masked, cfg, lambda bd, vm: mlp_eval(bd, vm, weights), hybrid.PLAIN
+        ops or FlatOps(), boards, p_masked, cfg, lambda bd, vm: mlp_eval(bd, vm, weights),
+        hybrid.PLAIN,
     )
     return n[:, :, 0], w[:, :, 0]
-
-
-def mlp_widths_fit(hidden: Sequence[int]) -> bool:
-    """Whether the in-kernel MLP evaluator takes these hidden widths."""
-    return 1 <= len(hidden) <= MLP_MAX_HIDDEN and all(1 <= h <= MLP_MAX_WIDTH for h in hidden)
-
-
-def check_mlp_widths(hidden: Sequence[int]) -> None:
-    """Raise for an MLP the kernel does not take."""
-    if not mlp_widths_fit(hidden):
-        raise NotImplementedError(
-            f"the in-kernel MLP evaluator takes 1 to {MLP_MAX_HIDDEN} hidden layers of "
-            f"1 to {MLP_MAX_WIDTH} units, got {tuple(hidden)}: wider or deeper MLPs need "
-            "tiled activations (ROADMAP queue 2, \"K3 for MLPs wider than 256 units\"); "
-            "the self-play ladder runs them on the hybrid engine"
-        )
 
 
 def make_fused_root_fn(
@@ -209,19 +208,18 @@ def make_fused_root_fn(
     fused kernel, or return None when the configuration needs the hybrid
     engine: a model with neither ``uniform_value`` nor a
     ``kernel_eval_factory``, a nonzero cutoff heuristic, A > 16 or no flat
-    ops (the JAX package's grounds); and where the port's kernels lack
-    what the JAX one has: a game other than Connect-Four (the kernels step
-    only its boards) or an MLP wider than ``MLP_MAX_WIDTH`` or deeper than
-    ``MLP_MAX_HIDDEN`` (``mlp_widths_fit``). A model with both takes its
-    in-kernel evaluator, as in the JAX package. ``parallel_sims = K > 1`` raises
-    ``ValueError`` where the JAX package does: ``num_sims`` not divisible
-    by K, or ``(K+1)**A >= 2**24``.
+    ops — the JAX package's grounds, and only those. A model with both
+    takes its in-kernel evaluator, as in the JAX package. ``parallel_sims =
+    K > 1`` raises ``ValueError`` where the JAX package does: ``num_sims``
+    not divisible by K, or ``(K+1)**A >= 2**24``.
 
     ``kernel`` defaults to ``alphazero_tpu_torch.kernels.fused_mlp`` for a
     model with a ``kernel_eval_factory`` and to ``kernels.fused`` for the
     uniform model, and at K > 1 to ``kernels.fused_mlp_rounds`` and
-    ``kernels.fused_rounds``, which take K as their last argument (the
-    CUDA kernels for CUDA tensors, the plain versions for CPU tensors)."""
+    ``kernels.fused_rounds``, which take K after the search's arguments;
+    every kernel is passed the game's flat ops as ``ops=`` (the CUDA
+    kernels for CUDA tensors, routed by the flat ops' type; the plain
+    versions for CPU tensors)."""
     uval = getattr(apply_fn, "uniform_value", None)
     eval_factory = getattr(apply_fn, "kernel_eval_factory", None)
     if uval is None and eval_factory is None:
@@ -242,22 +240,18 @@ def make_fused_root_fn(
                 f"parallel_sims={K} too large for {game.num_actions} actions "
                 "(needs (K+1)^A < 2^24)"
             )
-    if game.name != "connect_four":
-        return None   # the kernels step Connect-Four boards only
     ops = flat_ops_factory()
     sims, nodes, depth, cpuct = cfg.num_sims, cfg.nodes, cfg.max_depth, float(cfg.cpuct)
     rounds = (K,) if K > 1 else ()
     if eval_factory is not None:
         weights = eval_factory(ops)
-        if not mlp_widths_fit(weights.hidden):
-            return None
         if kernel is None:
             from alphazero_tpu_torch import kernels
 
             kernel = kernels.fused_mlp_rounds if rounds else kernels.fused_mlp
 
         def search(boards, p_masked):
-            return kernel(boards, p_masked, weights, sims, nodes, depth, cpuct, *rounds)
+            return kernel(boards, p_masked, weights, sims, nodes, depth, cpuct, *rounds, ops=ops)
     else:
         if kernel is None:
             from alphazero_tpu_torch import kernels
@@ -266,7 +260,7 @@ def make_fused_root_fn(
         uval = float(uval)
 
         def search(boards, p_masked):
-            return kernel(boards, p_masked, sims, nodes, depth, cpuct, uval, *rounds)
+            return kernel(boards, p_masked, sims, nodes, depth, cpuct, uval, *rounds, ops=ops)
 
     def root_counts(root_state, dirichlet: Optional[torch.Tensor] = None) -> torch.Tensor:
         boards = ops.from_state(root_state)

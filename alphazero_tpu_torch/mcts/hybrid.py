@@ -66,7 +66,7 @@ A ``mesh`` needs no code here: under ``parallel/`` each rank is a process
 that calls the engine on its own games, as JAX's ``shard_map`` calls the
 kernels on each shard, and any per-batch choice is made on that batch.
 
-Not ported (ROADMAP queue 1 / queue 2): depth-sorted blocking
+Not ported (ROADMAP queue 1, step 3): depth-sorted blocking
 (``run_search_sorted``, whose 8192-game threshold was measured on another
 device).
 """

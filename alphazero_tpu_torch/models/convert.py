@@ -122,10 +122,12 @@ def convert_mlp(variables: Any, dtype: torch.dtype = torch.bfloat16) -> MLPNet:
     ``dtype``) holding the weights of a flax ``MLPNet`` tree; widths are
     read from the tree."""
     p = variables["params"]
+    hidden = _mlp_hidden_names(p)
     model = MLPNet(
         num_actions=int(np.shape(p["policy"]["kernel"])[1]),
-        hidden=[int(np.shape(p[n]["kernel"])[1]) for n in _mlp_hidden_names(p)],
-        cells=int(np.shape(p["Dense_0"]["kernel"])[0]) // 2,
+        hidden=[int(np.shape(p[n]["kernel"])[1]) for n in hidden],
+        # the input's width: the first layer's rows, or the heads' without one
+        cells=int(np.shape(p[hidden[0] if hidden else "policy"]["kernel"])[0]) // 2,
         dtype=dtype,
     )
     model.load_state_dict(mlp_state_dict(variables))

@@ -389,7 +389,8 @@ def _mlp_forward(feats, hidden, heads) -> Tuple[torch.Tensor, torch.Tensor]:
     """The MLP on NHWC features: ``hidden`` is ``[(W [out, in], b [out]),
     ...]`` in the hidden layers' dtype, ``heads`` the f32 ``(policy W,
     policy b, value W, value b)``."""
-    x = feats.reshape(feats.shape[0], -1).to(hidden[0][0].dtype)
+    x = feats.reshape(feats.shape[0], -1)
+    x = x.to(hidden[0][0].dtype) if hidden else x   # no hidden layer: the f32 heads on the input
     for w, b in hidden:
         # the product rounded to the dtype, then the bias add rounded again:
         # the rounding points of the flax Dense (F.linear(x, w, b) rounds once)
@@ -486,17 +487,20 @@ def mlp_feature_perm(cells: int) -> List[int]:
 @torch.no_grad()
 def pack_mlp_weights(model: MLPNet) -> MLPKernelWeights:
     """The kernel's weights of ``model`` on its device (the JAX
-    ``extract``): W_0's rows permuted from the NHWC-flat order to
-    ``[+plane | -plane]``, the hidden layers in bf16, the policy and value
-    heads fused into one f32 ``[H_last, A + 1]`` head."""
+    ``extract``): the rows of the first matrix that reads the input (W_0,
+    or the head when there is no hidden layer) permuted from the NHWC-flat
+    order to ``[+plane | -plane]``, the hidden layers in bf16, the policy
+    and value heads fused into one f32 ``[H_last, A + 1]`` head."""
     dev = model.policy.weight.device
+    perm = torch.as_tensor(mlp_feature_perm(model.cells), device=dev)
     tensors = []
     for i, d in enumerate(model.dense_layers()):
         w = d.weight.t()
         if i == 0:
-            w = w[torch.as_tensor(mlp_feature_perm(model.cells), device=dev)]
+            w = w[perm]
         tensors += [w.to(torch.bfloat16), d.bias.to(torch.bfloat16)]
-    tensors.append(torch.cat([model.policy.weight, model.value.weight]).t().float())
+    wh = torch.cat([model.policy.weight, model.value.weight]).t().float()
+    tensors.append(wh if model.hidden else wh[perm])
     tensors.append(torch.cat([model.policy.bias, model.value.bias]).float())
     sections, nbytes = mlp_sections(model.hidden, model.num_actions, model.cells)
     packed = torch.zeros(nbytes, dtype=torch.uint8, device=dev)

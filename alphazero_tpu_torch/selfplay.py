@@ -111,8 +111,9 @@ def _make_root_counts_fn(game, apply_fn, mcts_cfg: MCTSConfig) -> Callable[..., 
     The port's engine ladder, as in the JAX package: the transposition
     engine (``mcts/tt.py``) first when ``mcts_cfg.transposition`` opts in;
     else the fused kernel for a model it can evaluate inside the kernel
-    (the uniform prior, or an ``MLPNet`` of the widths its evaluator
-    takes, through its ``kernel_eval_factory``) on Connect-Four, on any
+    (the uniform prior, or an ``MLPNet`` of any widths through its
+    ``kernel_eval_factory``) on a flat-ops game of at most 16 actions with
+    a zero heuristic (Connect-Four, Gomoku of at most 16 cells), on any
     device; then the hybrid engine for any model on a flat-ops game, which
     also takes what the fused kernel declines; then the dense engine
     (``mcts/search.py``) for what both decline."""

@@ -7,10 +7,10 @@ uniform model, and on the fused kernel with an MLPNet (256, 256) evaluated
 inside it; then Othello, Gomoku and Hex on the hybrid engine, the hybrid
 engine's K=4 leaf-parallel rounds, and the fused engine's K>1 rounds for
 the uniform model and the MLP; then the fused int8 ResNet tower of the
-experiment ``int8_fused_tower``; then what the fused engine declines
-(an MLPNet wider than its evaluator, ``Gomoku(4, 4)``) through the ladder
-on the hybrid engine, and Gomoku 19; then the learner loop (recycling
-self-play, the replay ring, the learner step and back); then the coach
+experiment ``int8_fused_tower``; then the fused engine at any MLP width
+and on Gomoku boards of at most 16 cells, and Gomoku 19; then the learner
+loop (recycling self-play, the replay ring, the learner step and back);
+then the coach
 (gate arena, anchored rating pass, whole-state checkpoint and resume); then
 the coach on Othello, Gomoku, Hex and the Connect-Four ``AZConvNet``; then
 the dense engine (plain PyTorch, the engine ladder's last rung), forced
@@ -193,12 +193,33 @@ CUDA card, in phases:
            cuDNN conv tower of ``FoldedAZResNet._conv`` on the same input,
            finite; both yardsticks timed by the main; (d) TOPS of each, and
            the kernel's share of its bound;
-14. fall-through: MLPNet (512, 512) on Connect-Four (wider than the
-           in-kernel evaluator; seeded random weights) and the uniform
-           ``Gomoku(4, 4)`` (a step the fused kernels lack): the fused
-           engine declines both, and actor steps (B=512, 50 sims, 3 timed)
-           through the ladder launch exactly the hybrid kernels and no
-           fused one;
+14. fused_wide: the configurations the JAX fused kernel takes and the
+           port's fused kernels once declined, on the fused route: (a)
+           MLPNet (512, 512) on Connect-Four (the streamed evaluator; seeded
+           random and order-free weights), its evaluator alone against its
+           plain version on B=4096 boards, then at the mlp preset's B=512,
+           50 sims and at B=4096, 100 sims: the kernel bit-equal to its
+           plain version with order-free weights, within the gate (>= 75%
+           of games identical, max |dpi| <= 0.25) with random ones, timed in
+           turns, with the bound, the leaves' library forwards and the
+           weights' L2 re-reads; the ladder's fused route (one
+           fused_mlp_stream launch and no other) against the hybrid route
+           it replaces (whole searches, within the gate, both timed); and
+           actor steps at B=512 through the ladder; (b) ``Gomoku(4, 4)``
+           (a warp a game) and ``Gomoku(3, 3)`` (16 lanes a game, and K=4
+           rounds), B=4096, 100 sims, uniform and MLPNet (256, 256): the
+           same checks, uniform counts identical to the hybrid route's;
+           ptxas's registers of the new instances (the small-Gomoku uniform
+           ones gated for stack and spills, the streamed ones for spills)
+           and of the unchanged Connect-Four ones; (c) MLPNet (2048,) on
+           Connect-Four, its activations in the device scratch: the
+           evaluator alone, order-free weights, bit-equal, one
+           mlp_eval_stream launch; (d) ``Gomoku(2, 2)`` at K=20 (the
+           leaves past K = 9 in the device scratch), B=4096, 100 sims,
+           uniform and MLPNet (32,): the checks of (b); (e) the resident
+           and the streamed plan on MLPNet (256, 256) (``fused_mlp``,
+           ``fused_mlp_stream``) at B=4096, 100 sims and B=512, 50 sims:
+           counts within the gate, device times in turns;
 15. gomoku19: Gomoku 19 (361 cells) on the hybrid engine, uniform model,
            B=1024, 100 sims, max_depth 64: (a) ``descend_gomoku`` (6 of its
            8 board words) and the dense merge and refresh at A=361 against
@@ -489,8 +510,9 @@ alone; ``python3 chip_smoke.py --parallel-cards``, for a machine of
 several cards, runs the one-process MLPNet iteration of 22(a) and then
 22(c) and (d) alone; ``python3 chip_smoke.py --gomoku23`` builds the
 kernels and runs phase 23 alone; ``python3 chip_smoke.py --wide`` builds
-the kernels, prints phase 2's report and runs phase 24 alone. Each phase's
-seconds print as it ends (``[time]``).
+the kernels, prints phase 2's report and runs phase 24 alone;
+``python3 chip_smoke.py --fused-wide`` does the same for phase 14. Each
+phase's seconds print as it ends (``[time]``).
 
 ``python3 chip_smoke.py --actors`` runs only the two actors whose steps
 the dense merges set, the Gomoku 15 uniform actor (phase 9d) and the
@@ -589,7 +611,8 @@ ROUTE_MAX_DPI = 0.25      # ... the JAX package's Mosaic-vs-XLA bound (tests/tes
 HYBRID_STEPS = 3       # uniform actor steps through the hybrid route
 FUSED_REPS = 5
 SWEEP_BS = (8192, 16384, 32768, 65536)   # the uniform fused kernels' batch sweep (phase 6)
-FUSED_KERNELS = ("fused_kernel", "fused_rounds_kernel")   # the uniform fused kernels' ptxas names
+# the uniform fused kernels' ptxas names (their Connect-Four instances)
+FUSED_KERNELS = ("fused_kernelINS_6C4GameELi8E", "fused_rounds_kernelINS_6C4GameELi8E")
 # the A <= 8 merges' ptxas names (the round merge's instance of K <= 16;
 # phase 24 prints the wide one's)
 MERGE_KERNELS = ("merge_kernel", "merge_round_kernelILb0E")
@@ -638,7 +661,37 @@ FUSED_ROUND_KS = (2, 4, 9)    # phase 12(a): K of the fused rounds held against 
 FUSED_ROUND_VALUES = (0.0, 0.3)   # ... at the uniform value 0 (integer W) and 0.3
 BENCH_K_GAMES, BENCH_K_SIMS, BENCH_K_SEEDS, BENCH_K_TEMP_MOVES = 1024, 100, 2, 8   # bench_k.py defaults
 BENCH_K_KS = (2, 4)
-WIDE_MLP_HIDDEN = (512, 512)   # phase 14: wider than the in-kernel evaluator takes
+WIDE_MLP_HIDDEN = (512, 512)   # phase 14: train_multihost --net mlp --hidden 512, the streamed plan
+SMALL_MLP_HIDDEN = MLP_HIDDEN  # phase 14: the Gomoku boards' MLPNet, the mlp preset's widths
+SCRATCH_MLP_HIDDEN = (2048,)   # phase 14(c): activations past shared memory, in the device scratch
+TINY_K, TINY_MLP_HIDDEN = 20, (32,)   # phase 14(d): Gomoku(2, 2) rounds, leaves in the device scratch
+# phase 14: Gomoku(size, size) boards of at most 16 cells, K, and the kernels
+# line's entries of their uniform and MLP searches
+SMALL_CELLS = ((4, 1, "fused_gomoku", "fused_mlp_stream_gomoku"),
+               (3, 1, "fused_gomoku_3x3", "fused_mlp_stream_gomoku_3x3"),
+               (3, ROUND_K, "fused_rounds_gomoku", "fused_mlp_stream_rounds"))
+# the kernels line's entries of the fused kernels' new instances (phase 14),
+# each its wrapper's kernel
+FUSED_WIDE_ENTRIES = {"fused_mlp_stream": "fused_mlp_stream", "fused_gomoku": "fused_gomoku",
+                      "fused_mlp_stream_gomoku": "fused_mlp_stream",
+                      "fused_gomoku_3x3": "fused_gomoku",
+                      "fused_mlp_stream_gomoku_3x3": "fused_mlp_stream",
+                      "fused_rounds_gomoku": "fused_rounds_gomoku",
+                      "fused_mlp_stream_rounds": "fused_mlp_stream_rounds",
+                      "fused_rounds_gomoku_2x2": "fused_rounds_gomoku",
+                      "fused_mlp_stream_rounds_2x2": "fused_mlp_stream_rounds"}
+# the fused kernels' ptxas names, by a piece of their mangled names: the
+# Connect-Four instances of the resident/staged plan (no spill; the rounds
+# kernel keeps its leaves in a stack frame), the small-Gomoku uniform
+# instances of each group width (no stack, no spill) and the streamed MLP
+# instances of both games (no spill)
+FUSED_C4_KERNELS = tuple(f"{k}INS_6C4GameENS_12ResidentPlan"
+                         for k in ("fused_mlp_kernel", "fused_mlp_rounds_kernel", "mlp_eval_kernel"))
+SMALL_UNIFORM_KERNELS = tuple(f"{k}INS_11SmallGomokuELi{g}E"
+                              for k in ("fused_kernel", "fused_rounds_kernel") for g in (8, 16, 32))
+STREAM_KERNELS = tuple(f"{k}INS_{g}ENS_10StreamPlan"
+                       for k in ("fused_mlp_kernel", "fused_mlp_rounds_kernel", "mlp_eval_kernel")
+                       for g in ("6C4Game", "11SmallGomoku"))
 TOWER_RAGGED_B = 4093     # phase 13(a): a tail tile of 5 games (the kernel's tiles hold 8)
 TOWER_REPS = 3            # --tower: device-time readings at each B
 TOWER_KERNELS = ("int8_tower_kernel",)   # the tower's ptxas name
@@ -773,6 +826,9 @@ SOURCE = {
     # merge and descend
     **{name: "alphazero_tpu_torch/csrc/hybrid.cu"
        for name in (*WIDE_ENTRIES, *WIDER_ENTRIES, *COUNTS_ENTRIES)},
+    # phase 14: the Gomoku game policy's and the streamed evaluator's
+    # instances (the evaluator in csrc/mlp.cuh)
+    **{name: "alphazero_tpu_torch/csrc/fused.cu" for name in FUSED_WIDE_ENTRIES},
 }
 REPLACES = {
     "descend": "alphazero_tpu/mcts/hybrid.py:242",   # descend_kernel
@@ -803,6 +859,20 @@ REPLACES = {
 REPLACES.update({name: REPLACES[base]
                  for name, base in (*WIDE_ENTRIES.items(), *WIDER_ENTRIES.items(),
                                     *COUNTS_ENTRIES.items())})
+# the fused kernel with GomokuFlatOps.step/terminal traced in (gomoku.py:191, :213), and with
+# the in-kernel MLP
+_GOMOKU = " + alphazero_tpu/games/gomoku.py:191"
+REPLACES.update({
+    "fused_mlp_stream": REPLACES["fused_mlp"],
+    "fused_gomoku": REPLACES["fused"] + _GOMOKU,
+    "fused_gomoku_3x3": REPLACES["fused"] + _GOMOKU,
+    "fused_mlp_stream_gomoku": REPLACES["fused_mlp"] + _GOMOKU,
+    "fused_mlp_stream_gomoku_3x3": REPLACES["fused_mlp"] + _GOMOKU,
+    "fused_rounds_gomoku": REPLACES["fused_rounds"] + _GOMOKU,
+    "fused_mlp_stream_rounds": REPLACES["fused_mlp_rounds"] + _GOMOKU,
+    "fused_rounds_gomoku_2x2": REPLACES["fused_rounds"] + _GOMOKU,
+    "fused_mlp_stream_rounds_2x2": REPLACES["fused_mlp_rounds"] + _GOMOKU,
+})
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_OPS_PER_S = 67e12       # H100 SXM data sheet, f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense bf16 on the tensor cores
@@ -1596,36 +1666,309 @@ def hex_phase(card: str) -> tuple:
     return results, {k: launches[k] for k in results}
 
 
-def fallthrough_phase(card: str) -> None:
-    """Phase 14: configurations the fused kernel declines run on the hybrid
-    engine through the ladder (see the module docstring)."""
+def plain_planes(ops, bds, prior, cfg, evaluate) -> tuple:
+    """The fused kernels' plain version through its body (``hybrid.run_search``
+    or, at K > 1, ``hybrid.run_rounds`` on the plain kernels) with
+    ``evaluate`` at its leaves: the ``(N, W, done)`` planes of the whole
+    tree, for the bound's count of the work the data needs."""
+    from alphazero_tpu_torch.mcts import SearchKernels, hybrid
+
+    planes = {}
+
+    def keeping_done(merge):
+        def run(*args):
+            planes["done"] = args[4]   # the done plane, which the merges update in place
+            return merge(*args)
+        return run
+
+    if cfg.parallel_sims == 1:
+        n, w = hybrid.run_search(ops, bds, prior, cfg, evaluate, SearchKernels(
+            hybrid.descend, keeping_done(hybrid.merge), hybrid.refresh))
+    else:
+        n, w = hybrid.run_rounds(ops, bds, prior, cfg, evaluate, SearchKernels(
+            hybrid.descend, hybrid.merge, hybrid.refresh, hybrid.descend_round,
+            keeping_done(hybrid.merge_round), hybrid.refresh2))
+    return n, w, planes["done"]
+
+
+def fused_route_checks(tag: str, name: str, game, apply_fn, free_apply, roots: torch.Tensor, cfg,
+                       card: str) -> tuple:
+    """One configuration of phase 14 on the fused route: ``apply_fn`` the
+    uniform model or an MLPNet with random weights (``free_apply``: the
+    same widths with order-free weights, or None). Checks the kernel
+    against its plain version (bit-equal counts and root W: uniform, and
+    order-free weights; random weights within ``search_agreement``'s
+    gate), the ladder's fused route against the hybrid route it replaces
+    (uniform: identical counts; MLP: the gate) with only ``name``'s wrapper
+    launching, once, in the fused route's search; times the kernel in turns
+    with its plain version, both routes' whole searches, and for an MLP
+    the leaves' library forwards (one per simulation, as the K3 rows).
+    Returns the kernels line's entry and the route's launches."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts import fused, make_hybrid_root_fn
+    from alphazero_tpu_torch.mcts.tree import INVALID_P
+    from alphazero_tpu_torch.ops import root_prior
+    from alphazero_tpu_torch.selfplay import _make_root_counts_fn
+
+    c4 = game.name == "connect_four"
+    ops = FlatOps() if c4 else game.flat_ops()
+    gops = None if c4 else ops
+    A, L, K, sims = game.num_actions, ops.size, cfg.parallel_sims, cfg.num_sims
+    batch = roots.shape[0]
+    uval = getattr(apply_fn, "uniform_value", None)
+    mlp = uval is None
+    label = (f"{game.name} {'MLPNet ' + str(apply_fn.kernel_eval_factory(ops).hidden) if mlp else 'uniform'}"
+             f", K={K}, B={batch}, {sims} sims, max_depth {cfg.max_depth}")
+    rounds = (K,) if K > 1 else ()
+    bds = ops.from_state(roots).contiguous()
+
+    def searches(fn):
+        prior, valid = root_prior(game, fn, cfg, roots, None)
+        prior = torch.where(valid, prior, INVALID_P)
+        if not mlp:
+            wrap = kernels.fused_rounds if K > 1 else kernels.fused
+            k_fn = lambda: wrap(bds, prior, sims, cfg.nodes, cfg.max_depth, float(cfg.cpuct),  # noqa: E731
+                                float(uval), *rounds, ops=gops)
+            evaluate = fused.uniform_evaluator(K * batch, float(uval), roots.device)
+            return k_fn, prior, evaluate
+        weights = fn.kernel_eval_factory(ops)
+        wrap = kernels.fused_mlp_rounds if K > 1 else kernels.fused_mlp
+        k_fn = lambda: wrap(bds, prior, weights, sims, cfg.nodes, cfg.max_depth,  # noqa: E731
+                            float(cfg.cpuct), *rounds, ops=gops)
+        return k_fn, prior, lambda bd, vm: fused.mlp_eval(bd, vm, weights)
+
+    # (1) bit-equal to the plain version: the uniform model, order-free weights
+    k_fn, prior, evaluate = searches(free_apply if mlp else apply_fn)
+    ck, wk = k_fn()
+    (n_all, w_p, done), p1 = timed_once(lambda: plain_planes(ops, bds, prior, cfg, evaluate))
+    conserved(f"{tag} {label}", game, roots, ck, sims)
+    if not (bit_equal(ck, n_all[:, :, 0]) and bit_equal(wk, w_p[:, :, 0])):
+        diff = int(((ck != n_all[:, :, 0]) | (wk != w_p[:, :, 0])).any(dim=1).sum())
+        fail(f"{tag} {label}{', order-free weights' if mlp else ''}: the kernel differs from its "
+             f"plain version on {diff} of {batch} games (counts or root W)")
+    err = max(float((ck - n_all[:, :, 0]).abs().max()), float((wk - w_p[:, :, 0]).abs().max()))
+    # (2) random weights: the kernel against its plain version within the
+    # gate; this plain run is the first of the timed pair
+    if mlp:
+        k_fn, prior, evaluate = searches(apply_fn)
+        ck, wk = k_fn()
+        (n_all, _, done), p1 = timed_once(lambda: plain_planes(ops, bds, prior, cfg, evaluate))
+        same, dpi = search_agreement(f"{tag} {label} (random weights)", ck, n_all[:, :, 0])
+    # (3) timed in turns (plain, kernel, kernel, plain), and the bound of
+    # the work this run's data needs
+    k1, k2 = time_ms(k_fn, FUSED_REPS), time_ms(k_fn, FUSED_REPS)
+    dev_ms = device_ms(k_fn, reps=FUSED_REPS)
+    _, p2 = timed_once(lambda: plain_planes(ops, bds, prior, cfg, evaluate))
+    steps, installs = float(n_all.sum()), float((n_all > 0).sum())
+    expansions = installs - float(done[:, 1:].sum())
+    f32_ops = steps * (puct_ops(1, A) + 3) + expansions * 2 * A
+    nbytes = F32 * batch * (L + 3 * A)
+    bf16_ops, library_ms, lib_text = 0.0, None, ""
+    if mlp:
+        weights = apply_fn.kernel_eval_factory(ops)
+        hidden = weights.hidden
+        widths = (2 * L, *hidden)
+        bf16_ops = expansions * 2 * sum(a * b for a, b in zip(widths, widths[1:]))
+        f32_ops += expansions * (2 * sum(hidden) + 2 * widths[-1] * (A + 1) + (A + 1) + 5 * A + 1)
+        wbytes = sum(t.numel() * t.element_size() for t in weights.sections())
+        nbytes += wbytes
+        feats = game.to_features(roots).contiguous()
+        fwd = time_ms(lambda: apply_fn(feats), 20)
+        library_ms = fwd * sims
+        blocks = -(-batch // 32)
+        lib_text = (f"; weights {wbytes} bytes counted once, re-read from L2 by {blocks} blocks x "
+                    f"{sims} simulations ({blocks * sims * wbytes / 1e9:.2f} GB); library forward "
+                    f"{fwd:.4f} ms a call, {library_ms:.4f} ms for {sims}")
+    entry = {"max_abs_err": err, "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+             **bound(nbytes, f32_ops, bf16_ops), "library_ms": library_ms}
+    # (4) the ladder's fused route (only this wrapper launches) against the
+    # hybrid route it replaces, whole searches
+    route = _make_root_counts_fn(game, apply_fn, cfg)
+    if not route.__qualname__.startswith("make_fused_root_fn."):
+        fail(f"{tag} {label}: the ladder did not pick the fused engine")
+    route(roots)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    c_fused, f_ms = timed_once(lambda: route(roots))
+    got = dict(kernels.launch_counts())
+    if got != launches_of(kernels, **{name: 1}):
+        fail(f"{tag} {label}: the fused route launched {launched(got)}, want one {name}")
+
+    def library_only(feats):   # the model without its in-kernel evaluator: the hybrid route
+        return apply_fn(feats)
+
+    library_only.needs_features = True
+    hybrid_route = make_hybrid_root_fn(game, library_only if mlp else apply_fn, cfg)
+    hybrid_route(roots)
+    c_hybrid, h_ms = timed_once(lambda: hybrid_route(roots))
+    if mlp:
+        same_r, dpi_r = search_agreement(f"{tag} {label}: fused and hybrid routes", c_fused, c_hybrid)
+        route_text = f"{same_r:.4f} of games identical, max |dpi| {dpi_r:.4f}"
+    else:
+        if not torch.equal(c_fused, c_hybrid):
+            fail(f"{tag} {label}: fused and hybrid routes differ on "
+                 f"{int((c_fused != c_hybrid).any(dim=1).sum())} of {batch} games")
+        route_text = "identical counts on every game"
+    print(f"[{tag}] {label}: {name} bit-equal to its plain version "
+          f"{'(order-free weights) ' if mlp else ''}on all {batch} games"
+          + (f"; random weights {same:.4f} identical, max |dpi| {dpi:.4f}" if mlp else "")
+          + f"; kernel {k1:.4f}/{k2:.4f} ms ({dev_ms:.4f} ms of device time), plain "
+          f"{p1:.4f}/{p2:.4f} ms, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}; "
+          f"{steps / batch:.2f} descent steps, {expansions / batch:.2f} evaluations a game){lib_text}; "
+          f"fused route {f_ms:.4f} ms a search ({launched(got)}), hybrid route {h_ms:.4f} ms: "
+          f"{route_text} | {card}", flush=True)
+    return entry, got
+
+
+def fused_wide_phase(card: str) -> tuple:
+    """Phase 14: the configurations the JAX fused kernel takes and the
+    port's once declined, on the fused route (see the module docstring).
+    Returns the kernels line's entries of the new instances and their
+    launches."""
+    from alphazero_tpu_torch import kernels
     from alphazero_tpu_torch.config import MCTSConfig
     from alphazero_tpu_torch.games import ConnectFour, Gomoku
-    from alphazero_tpu_torch.mcts import make_fused_root_fn
+    from alphazero_tpu_torch.games.connect_four import FlatOps
     from alphazero_tpu_torch.models import (
         convert_mlp,
         make_apply_fn,
         make_uniform_model,
+        order_free_mlp_variables,
         random_mlp_variables,
     )
 
     dev = torch.device("cuda", 0)
+    lib = kernels.library()
+    ptxas_lines(lib, FUSED_KERNELS)
+    ptxas_lines(lib, FUSED_C4_KERNELS, gate="spills")
+    ptxas_lines(lib, SMALL_UNIFORM_KERNELS)
+    ptxas_lines(lib, STREAM_KERNELS, gate="spills")
+    entries, launches = {}, {}
+
+    def mlp_pair(game, hidden):
+        cells = game.flat_ops().size if game.name != "connect_four" else 42
+        return tuple(make_apply_fn(convert_mlp(make(game.num_actions, hidden, cells=cells,
+                                                    seed=SEED)).to(dev))
+                     for make in (random_mlp_variables, order_free_mlp_variables))
+
+    # (a) MLPNet (512, 512) on Connect-Four: the evaluator alone, the mlp
+    # preset's size through the ladder, then the engine bench's size
     c4 = ConnectFour()
-    wide = make_apply_fn(convert_mlp(random_mlp_variables(
-        c4.num_actions, WIDE_MLP_HIDDEN, seed=SEED)).to(dev))
-    cfg = MCTSConfig(num_sims=MLP_PRESET_SIMS, max_depth=MAX_DEPTH)
-    if make_fused_root_fn(c4, wide, cfg) is not None:
-        fail(f"the fused engine took MLPNet {WIDE_MLP_HIDDEN}, wider than its evaluator")
-    run_actor("fallthrough", c4, wide, cfg, MLP_PRESET_B, 3, TEMP_THRESHOLD,
-              {"descend": MLP_PRESET_SIMS, "merge": MLP_PRESET_SIMS, "refresh": 1}, card,
-              f"Connect-Four MLPNet {WIDE_MLP_HIDDEN} through the ladder (hybrid route)")
-    g4 = Gomoku(4, 4)
-    uni = make_uniform_model(g4).apply_fn
-    if make_fused_root_fn(g4, uni, cfg) is not None:
-        fail("the fused engine took Gomoku(4, 4), whose step it lacks")
-    run_actor("fallthrough", g4, uni, cfg, MLP_PRESET_B, 3, 4,
-              {"descend_gomoku": MLP_PRESET_SIMS, "merge_dense": MLP_PRESET_SIMS,
-               "refresh_dense": 1}, card, "Gomoku(4, 4) uniform through the ladder (hybrid route)")
+    wide, wide_free = mlp_pair(c4, WIDE_MLP_HIDDEN)
+    plan = kernels.mlp_plan(WIDE_MLP_HIDDEN)
+    print(f"[fused_wide] MLPNet {WIDE_MLP_HIDDEN}: the {plan.kind} plan, {plan.smem_bytes} bytes "
+          f"of dynamic shared memory a block, {plan.act_block_bytes} bytes of activation "
+          f"scratch a block", flush=True)
+    roots = random_positions(c4, B, 30, SEED, dev)
+    bds = FlatOps().from_state(roots).contiguous()
+    evaluator_vs_plain("fused_wide", bds, wide_free.kernel_eval_factory(FlatOps()), "order-free", card)
+    evaluator_vs_plain("fused_wide", bds, wide.kernel_eval_factory(FlatOps()), "random", card)
+    cfg_preset = MCTSConfig(num_sims=MLP_PRESET_SIMS, max_depth=MAX_DEPTH)
+    fused_route_checks("fused_wide", "fused_mlp_stream", c4, wide, wide_free, roots[:MLP_PRESET_B],
+                       cfg_preset, card)
+    run_actor("fused_wide", c4, wide, cfg_preset, MLP_PRESET_B, 3, TEMP_THRESHOLD,
+              {"fused_mlp_stream": 1}, card, f"Connect-Four MLPNet {WIDE_MLP_HIDDEN} through the "
+              "ladder (fused route), the mlp preset's size")
+    entries["fused_mlp_stream"], got = fused_route_checks(
+        "fused_wide", "fused_mlp_stream", c4, wide, wide_free, roots,
+        MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH), card)
+    launches["fused_mlp_stream"] = got["fused_mlp_stream"]
+
+    # (b) Gomoku boards of at most 16 cells, uniform and MLP, K=4 at 3x3
+    for size, K, uni_name, mlp_name in SMALL_CELLS:
+        game = Gomoku(size, size)
+        small = random_positions(game, B, size * size // 2, SEED, dev)
+        cfg = MCTSConfig(num_sims=SIMS, max_depth=GMK_MAX_DEPTH, parallel_sims=K)
+        uni = make_uniform_model(game).apply_fn
+        wrappers = ("fused_rounds_gomoku", "fused_mlp_stream_rounds") if K > 1 else (
+            "fused_gomoku", "fused_mlp_stream")
+        entries[uni_name], got = fused_route_checks("fused_wide", wrappers[0], game, uni, None,
+                                                    small, cfg, card)
+        launches[uni_name] = got[wrappers[0]]
+        rnd, free = mlp_pair(game, SMALL_MLP_HIDDEN)
+        entries[mlp_name], got = fused_route_checks("fused_wide", wrappers[1], game, rnd, free,
+                                                    small, cfg, card)
+        launches[mlp_name] = got[wrappers[1]]
+
+    # (c) the activations past shared memory: MLPNet (2048,) on
+    # Connect-Four, the evaluator alone, order-free weights, one launch
+    free_scratch = mlp_pair(c4, SCRATCH_MLP_HIDDEN)[1]
+    plan = kernels.mlp_plan(SCRATCH_MLP_HIDDEN)
+    if plan.act_block_bytes == 0:
+        fail(f"fused_wide: MLPNet {SCRATCH_MLP_HIDDEN} keeps its activations in shared memory")
+    kernels.reset_launch_counts()
+    evaluator_vs_plain("fused_wide", bds, free_scratch.kernel_eval_factory(FlatOps()), "order-free",
+                       card)
+    got = dict(kernels.launch_counts())
+    if got != launches_of(kernels, mlp_eval_stream=1):
+        fail(f"fused_wide: the (2048,) evaluator launched {launched(got)}, want one mlp_eval_stream")
+    print(f"[fused_wide] MLPNet {SCRATCH_MLP_HIDDEN}: the {plan.kind} plan, its activations in a "
+          f"device scratch of {plan.act_block_bytes} bytes a block; one mlp_eval_stream launch",
+          flush=True)
+
+    # (d) Gomoku(2, 2) rounds at K = 20: the leaves past K = 9 in the
+    # device scratch, uniform and MLPNet (32,)
+    game = Gomoku(2, 2)
+    tiny = random_positions(game, B, 1, SEED, dev)
+    cfg = MCTSConfig(num_sims=SIMS, max_depth=GMK_MAX_DEPTH, parallel_sims=TINY_K)
+    entries["fused_rounds_gomoku_2x2"], got = fused_route_checks(
+        "fused_wide", "fused_rounds_gomoku", game, make_uniform_model(game).apply_fn, None, tiny,
+        cfg, card)
+    launches["fused_rounds_gomoku_2x2"] = got["fused_rounds_gomoku"]
+    rnd, free = mlp_pair(game, TINY_MLP_HIDDEN)
+    entries["fused_mlp_stream_rounds_2x2"], got = fused_route_checks(
+        "fused_wide", "fused_mlp_stream_rounds", game, rnd, free, tiny, cfg, card)
+    launches["fused_mlp_stream_rounds_2x2"] = got["fused_mlp_stream_rounds"]
+
+    # (e) the two evaluator plans on the one MLP both take: MLPNet
+    # (256, 256) on Connect-Four, timed in turns
+    plans_in_turns(card, dev)
+    return entries, launches
+
+
+def plans_in_turns(card: str, dev) -> None:
+    """Phase 14(e): ``fused_mlp`` (the resident plan) and
+    ``fused_mlp_stream`` (the streamed plan) on MLPNet (256, 256) at the
+    full preset's B=4096, 100 sims and the mlp preset's B=512, 50 sims, on
+    the same roots and priors: the same counts (random weights within the
+    gate), device times in turns (resident, streamed, streamed,
+    resident)."""
+    from alphazero_tpu_torch import kernels
+    from alphazero_tpu_torch.config import MCTSConfig
+    from alphazero_tpu_torch.games import ConnectFour
+    from alphazero_tpu_torch.games.connect_four import FlatOps
+    from alphazero_tpu_torch.mcts.tree import INVALID_P
+    from alphazero_tpu_torch.models import convert_mlp, make_apply_fn, random_mlp_variables
+    from alphazero_tpu_torch.ops import root_prior
+
+    game, flat = ConnectFour(), FlatOps()
+    apply_fn = make_apply_fn(convert_mlp(random_mlp_variables(7, MLP_HIDDEN, seed=SEED)).to(dev))
+    weights = apply_fn.kernel_eval_factory(flat)
+    if kernels.mlp_plan(MLP_HIDDEN).kind == "streamed":
+        fail(f"fused_wide: MLPNet {MLP_HIDDEN} is not on the resident/staged plan")
+    for batch, sims in ((B, SIMS), (MLP_PRESET_B, MLP_PRESET_SIMS)):
+        cfg = MCTSConfig(num_sims=sims, max_depth=MAX_DEPTH)
+        roots = random_positions(game, batch, 30, SEED, dev)
+        prior, valid = root_prior(game, apply_fn, cfg, roots, None)
+        prior = torch.where(valid, prior, INVALID_P)
+        bds = flat.from_state(roots).contiguous()
+        run = {name: (lambda fn=fn: fn(bds, prior, weights, sims, cfg.nodes, cfg.max_depth,
+                                       float(cfg.cpuct)))
+               for name, fn in (("resident", kernels.fused_mlp),
+                                ("streamed", kernels.fused_mlp_stream))}
+        kernels.reset_launch_counts()
+        c_res, c_str = run["resident"]()[0], run["streamed"]()[0]
+        if dict(kernels.launch_counts()) != launches_of(kernels, fused_mlp=1, fused_mlp_stream=1):
+            fail("fused_wide: the plans' searches did not launch one fused_mlp and one "
+                 "fused_mlp_stream")
+        same, dpi = search_agreement(f"fused_wide: the two plans at B={batch}", c_str, c_res)
+        r1, s1 = device_ms(run["resident"]), device_ms(run["streamed"])
+        s2, r2 = device_ms(run["streamed"]), device_ms(run["resident"])
+        print(f"[fused_wide] MLPNet {MLP_HIDDEN}, B={batch}, {sims} sims, in turns: fused_mlp "
+              f"(resident) [{r1:.4f}/{r2:.4f}] ms, fused_mlp_stream (streamed) [{s1:.4f}/{s2:.4f}] "
+              f"ms of device time; streamed/resident {(s1 + s2) / (r1 + r2):.4f}; {same:.4f} of "
+              f"games identical, max |dpi| {dpi:.4f} | {card}", flush=True)
 
 
 def gomoku19_phase(card: str) -> None:
@@ -2465,9 +2808,9 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
     free_w = free_apply.kernel_eval_factory(flat)
     cfg_mlp = MCTSConfig(num_sims=SIMS, max_depth=MAX_DEPTH)
     bds = flat.from_state(roots).contiguous()
-    nbytes, resident = kernels.mlp_plan(MLP_HIDDEN)
-    print(f"[mlp] MLPNet {MLP_HIDDEN}: {'resident' if resident else 'staged'} weights, "
-          f"{nbytes} bytes of dynamic shared memory a block", flush=True)
+    plan = kernels.mlp_plan(MLP_HIDDEN)
+    print(f"[mlp] MLPNet {MLP_HIDDEN}: {plan.kind} weights, "
+          f"{plan.smem_bytes} bytes of dynamic shared memory a block", flush=True)
 
     # (a) the evaluator alone against its plain version
     evaluator_vs_plain("mlp", bds, free_w, "order-free", card)
@@ -2491,17 +2834,17 @@ def mlp_phase(card: str, roots: torch.Tensor) -> tuple:
     staged_apply = make_apply_fn(
         convert_mlp(order_free_mlp_variables(A, MLP_STAGED_HIDDEN, seed=SEED)).to(dev))
     staged_w = staged_apply.kernel_eval_factory(flat)
-    nbytes_s, resident_s = kernels.mlp_plan(MLP_STAGED_HIDDEN)
-    if resident_s:
-        fail(f"MLPNet {MLP_STAGED_HIDDEN} planned resident: the staged path would not run")
+    plan_s = kernels.mlp_plan(MLP_STAGED_HIDDEN)
+    if plan_s.kind != "staged":
+        fail(f"MLPNet {MLP_STAGED_HIDDEN} planned {plan_s.kind}: the staged path would not run")
     s_args = fused_mlp_args(game, staged_apply, staged_w, roots, cfg_mlp)
     n_s, w_s, _ = plain_fused_mlp(s_args, cfg_mlp)()
     (cs_, ws_), ks = timed_once(lambda: kernels.fused_mlp(*s_args))
     conserved(f"fused_mlp {MLP_STAGED_HIDDEN}", game, roots, cs_, SIMS)
     if not (bit_equal(cs_, n_s[:, :, 0]) and bit_equal(ws_, w_s[:, :, 0])):
         fail(f"staged fused_mlp {MLP_STAGED_HIDDEN} differs from its plain version")
-    print(f"[mlp] MLPNet {MLP_STAGED_HIDDEN}, order-free weights: staged ({nbytes_s} bytes of "
-          f"dynamic shared memory), fused_mlp bit-equal to fused_mlp_search on all {B} games; "
+    print(f"[mlp] MLPNet {MLP_STAGED_HIDDEN}, order-free weights: staged ({plan_s.smem_bytes} "
+          f"bytes of dynamic shared memory), fused_mlp bit-equal to fused_mlp_search on all {B} games; "
           f"kernel {ks:.4f} ms (first call) | {card}", flush=True)
 
     # (c) the MLP actor through the ladder, at the engine bench's size and
@@ -2598,16 +2941,17 @@ def fused_sweep(card: str, roots: torch.Tensor) -> None:
                   f"{1e6 * ms / nb:.3f} ns a game | {card}", flush=True)
 
 
-def ptxas_lines(lib, names, gate: bool = True) -> None:
+def ptxas_lines(lib, names, gate=True) -> None:
     """ptxas's report of the named kernels: registers, stack, spills and
     static shared bytes. With ``gate``, fails on a stack frame or a
-    spill."""
+    spill; with ``gate="spills"``, on a spill only."""
     report = ptxas_report(lib.build_log, names)
     for name in names:
         got = report.get(name)
         print(f"[build] ptxas -v {name}: {got or 'not in the build log (a cached build)'}",
               flush=True)
-        if gate and got and (got.get("stack") or got.get("spill_st") or got.get("spill_ld")):
+        stack = gate is True and got and got.get("stack")
+        if gate and got and (stack or got.get("spill_st") or got.get("spill_ld")):
             fail(f"{name} has a stack frame or spills: {got}")
 
 
@@ -4929,7 +5273,7 @@ def build_report(lib) -> None:
     for ln in lib.build_log.splitlines():
         if ln.startswith("[") or "entry function" in ln or "registers" in ln or "spill" in ln:
             print(f"[build] {ln.strip()}", flush=True)
-    mlp_kernels = ("fused_mlp_kernel", "fused_mlp_rounds_kernel", "mlp_eval_kernel")
+    mlp_kernels = FUSED_C4_KERNELS
     # the dense merges' instances (J actions a lane), by a piece of their
     # mangled names
     instances = {f"merge{r}_dense_kernel<{j}>": f"merge{r}_dense_kernelILi{j}E"
@@ -5067,6 +5411,10 @@ def main() -> int:
     if sys.argv[1:] == ["--wide"]:
         build_report(kernels.library())
         wider_phase(card)
+        return 0
+    if sys.argv[1:] == ["--fused-wide"]:
+        build_report(kernels.library())
+        fused_wide_phase(card)
         return 0
 
     # each phase's seconds, printed as it ends
@@ -5384,8 +5732,10 @@ def main() -> int:
     launches.update(phase_launches)
     tick("phase 13")
 
-    # ---- 14. what the fused engine declines runs on the hybrid one -------
-    fallthrough_phase(card)
+    # ---- 14. the fused engine at any MLP width, on Gomoku of <= 16 cells -
+    phase_results, phase_launches = fused_wide_phase(card)
+    results.update(phase_results)
+    launches.update(phase_launches)
     tick("phase 14")
 
     # ---- 15. Gomoku 19 --------------------------------------------------
@@ -5486,7 +5836,7 @@ def main() -> int:
                      "descend_round_gomoku", "descend_round_hex", "merge_round",
                      "merge_round_dense", "refresh2", "refresh2_dense", "fused_rounds",
                      "fused_mlp_rounds", "int8_tower", *WIDE_ENTRIES, *WIDER_ENTRIES,
-                     *COUNTS_ENTRIES)
+                     *COUNTS_ENTRIES, *FUSED_WIDE_ENTRIES)
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

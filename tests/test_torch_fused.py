@@ -21,7 +21,7 @@ from alphazero_tpu.mcts.fused import make_fused_root_fn as jax_fused_root_fn
 from alphazero_tpu.models import make_uniform_model as jax_uniform
 from alphazero_tpu_torch import kernels
 from alphazero_tpu_torch.config import MCTSConfig
-from alphazero_tpu_torch.games import ConnectFour
+from alphazero_tpu_torch.games import ConnectFour, Gomoku
 from alphazero_tpu_torch.mcts import fused_search, make_fused_root_fn, make_hybrid_root_fn
 from alphazero_tpu_torch.models import (
     convert_az_resnet,
@@ -156,12 +156,20 @@ def test_declines_and_raises_as_the_reference():
     class Other(ConnectFour):
         name = "other"
 
-    # a game whose step the port's fused kernels lack: declined, so the
-    # ladder runs the hybrid engine, as the JAX ladder does past its fused
-    # kernel
-    assert make_fused_root_fn(Other(), uni, MCTSConfig()) is None
-    assert _make_root_counts_fn(Other(), uni, MCTSConfig()).__qualname__.startswith(
-        "make_hybrid_root_fn.")
+    # no ground but the reference's: a game of another name with
+    # Connect-Four's flat ops, and Gomoku boards of at most 16 cells, take
+    # the fused engine (the wrappers route by the flat ops' type); Gomoku 5x5
+    # (A = 25) does not, as in the JAX package
+    for game in (Other(), Gomoku(4, 4), Gomoku(3, 3)):
+        game_uni = make_uniform_model(game).apply_fn
+        assert make_fused_root_fn(game, game_uni, MCTSConfig()) is not None
+        assert _make_root_counts_fn(game, game_uni, MCTSConfig()).__qualname__.startswith(
+            "make_fused_root_fn.")
+    g5 = Gomoku(5, 4)
+    assert make_fused_root_fn(g5, make_uniform_model(g5).apply_fn, MCTSConfig()) is None
+    with pytest.raises(ValueError, match="too large"):
+        make_fused_root_fn(Gomoku(4, 4), make_uniform_model(Gomoku(4, 4)).apply_fn,
+                           MCTSConfig(num_sims=8, parallel_sims=2))
 
 
 def test_wrapper_routes_cpu_to_plain_and_refuses_other_devices():

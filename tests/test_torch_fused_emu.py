@@ -48,7 +48,7 @@ def _checked_fused(lib, calls):
     the plain ``fused_search`` on every call, asserting bit-equal counts
     and root W."""
 
-    def fused(boards, priors, num_sims, nodes, max_depth, cpuct, uval):
+    def fused(boards, priors, num_sims, nodes, max_depth, cpuct, uval, ops=None):
         B = boards.shape[0]
         tree = torch.empty(B, nodes, 32)
         counts, rootw = torch.empty(B, 7), torch.empty(B, 7)
@@ -117,7 +117,7 @@ def _checked_fused_rounds(lib, calls):
     ``az_fused_rounds`` AND the plain ``fused_rounds_search`` on every call,
     asserting bit-equal counts and root W."""
 
-    def fused_rounds(boards, priors, num_sims, nodes, max_depth, cpuct, uval, K):
+    def fused_rounds(boards, priors, num_sims, nodes, max_depth, cpuct, uval, K, ops=None):
         B = boards.shape[0]
         tree, rnd = torch.empty(B, nodes, 32), torch.empty(B, nodes, 16)
         counts, rootw = torch.empty(B, 7), torch.empty(B, 7)

@@ -225,7 +225,9 @@ NO_LAUNCHES = {"descend": 0, "descend_othello": 0, "descend_gomoku": 0, "descend
                "merge": 0, "merge_dense": 0, "refresh": 0, "refresh_dense": 0,
                "fused": 0, "fused_mlp": 0, "mlp_eval": 0, "descend_round": 0,
                "descend_round_othello": 0, "descend_round_gomoku": 0, "descend_round_hex": 0, "merge_round": 0, "merge_round_dense": 0, "refresh2": 0,
-               "refresh2_dense": 0, "fused_rounds": 0, "fused_mlp_rounds": 0, "int8_tower": 0}
+               "refresh2_dense": 0, "fused_rounds": 0, "fused_mlp_rounds": 0, "int8_tower": 0,
+               "fused_gomoku": 0, "fused_rounds_gomoku": 0, "fused_mlp_stream": 0,
+               "fused_mlp_stream_rounds": 0, "mlp_eval_stream": 0}
 
 
 def test_wrappers_route_cpu_to_plain_and_refuse_other_devices():

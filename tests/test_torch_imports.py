@@ -228,11 +228,14 @@ def test_the_scan_covers_the_archive_and_the_trace():
     items, all closed: "Gomoku boards above 512 cells", "Gomoku boards above
     768 cells" (once the descend route, the Gomoku CLI and the hybrid
     engine's docstring) and "Round kernels for K above 16" (once
-    ``kernels._check_round_k``)."""
+    ``kernels._check_round_k``); nor the fused kernels' items, closed too:
+    "K3 for MLPs wider than 256 units" (once ``mcts.fused.check_mlp_widths``)
+    and "K1/K2 with a step other than Connect-Four's"."""
     names = {f.relative_to(PORT).as_posix() for f in _port_sources()}
     assert {"native.py", "utils/timing.py"} <= names
     for gone in ("The host example archive", "Tracing: `profiler_trace`",
                  "Gomoku boards above 512 cells", "Gomoku boards above 768 cells",
-                 "Round kernels for K above 16"):
+                 "Round kernels for K above 16", "K3 for MLPs wider than 256 units",
+                 "K1/K2 with a step other than Connect-Four's"):
         hits = [f.relative_to(PORT).as_posix() for f in _port_sources() if gone in f.read_text()]
         assert hits == [], gone

@@ -374,14 +374,17 @@ def test_emulated_mlp_eval_bit_equal_plain_logits(emulated, hidden, kind, batch)
 def test_emulated_mlp_plan_resident_or_staged(emulated):
     """The evaluator's shared-memory plan: the mlp preset's (256, 256)
     stays resident in 222,720 bytes; 3 and 4 layers of 256 are staged; and
-    every stack ``check_mlp_widths`` takes fits a block's 232,448 bytes."""
-    assert kernels.mlp_plan((256, 256), emulated) == (222_720, True)
-    assert kernels.mlp_plan((256, 256, 256), emulated)[1] is False
-    assert kernels.mlp_plan((256, 256, 256, 256), emulated)[1] is False
+    every Connect-Four stack of 1 to 4 layers of at most 256 units takes
+    one of the two and fits a block's 232,448 bytes (every other MLP
+    streams: tests/test_torch_fused_wide_emu.py)."""
+    assert kernels.mlp_plan((256, 256), emulated) == ("resident", 222_720, 0)
+    assert kernels.mlp_plan((256, 256, 256), emulated).kind == "staged"
+    assert kernels.mlp_plan((256, 256, 256, 256), emulated).kind == "staged"
     for n in range(1, 5):
         for width in (1, 8, 100, 255, 256):
-            nbytes, _ = kernels.mlp_plan((width,) * n, emulated)
-            assert nbytes <= 232_448, ((width,) * n, nbytes)
+            plan = kernels.mlp_plan((width,) * n, emulated)
+            assert plan.kind in ("resident", "staged") and plan.act_block_bytes == 0, plan
+            assert plan.smem_bytes <= 232_448, ((width,) * n, plan)
 
 
 def _checked_fused_mlp(lib, calls):
@@ -392,7 +395,7 @@ def _checked_fused_mlp(lib, calls):
     its last bits (glibc's tanhf against torch's tanh), and W sums up to
     num_sims of them."""
 
-    def fused_mlp(boards, priors, weights, num_sims, nodes, max_depth, cpuct):
+    def fused_mlp(boards, priors, weights, num_sims, nodes, max_depth, cpuct, ops=None):
         B = boards.shape[0]
         tree = torch.empty(B, nodes, 32)
         counts, rootw = torch.empty(B, 7), torch.empty(B, 7)
@@ -545,7 +548,7 @@ def _checked_fused_mlp_rounds(lib, calls):
     ``az_fused_mlp_rounds`` AND the plain ``fused_mlp_rounds_search``, with
     the bookkeeping and W bound of ``_checked_fused_mlp``."""
 
-    def fused_mlp_rounds(boards, priors, weights, num_sims, nodes, max_depth, cpuct, K):
+    def fused_mlp_rounds(boards, priors, weights, num_sims, nodes, max_depth, cpuct, K, ops=None):
         B = boards.shape[0]
         tree, rnd = torch.empty(B, nodes, 32), torch.empty(B, nodes, 16)
         counts, rootw = torch.empty(B, 7), torch.empty(B, 7)

@@ -84,7 +84,8 @@ def _port(hidden, seed):
 
 
 @pytest.mark.parametrize(
-    "hidden,batch", [((32, 32), 16), ((256, 256), 256), ((64,), 16)], ids=["32x32", "256x256", "smoke64"]
+    "hidden,batch", [((32, 32), 16), ((256, 256), 256), ((64,), 16), ((), 16)],
+    ids=["32x32", "256x256", "smoke64", "no_hidden"],
 )
 def test_forward_matches_flax(hidden, batch):
     """The search apply_fn and the training-shaped module forward against
@@ -208,8 +209,18 @@ def test_fused_search_close_to_jax_fused_kernel():
 def test_fused_route_close_to_hybrid_route():
     """The in-kernel evaluator's route and the hybrid engine's (the
     library forward of ``apply_fn`` and ``masked_policy``)."""
+    _assert_fused_close_to_hybrid((32, 32))
+
+
+def test_no_hidden_fused_route_close_to_hybrid_route():
+    """The same with no hidden layer, where the head is the matrix that
+    reads the input, so its rows must take W_0's permutation."""
+    _assert_fused_close_to_hybrid(())
+
+
+def _assert_fused_close_to_hybrid(hidden) -> None:
     cfg = MCTSConfig(num_sims=24, max_depth=48)
-    _, apply_fn = _port((32, 32), seed=1)
+    _, apply_fn = _port(hidden, seed=1)
     state = torch_state(random_boards(16, 8, seed=3))
     fused = make_fused_root_fn(TG, apply_fn, cfg)(state).numpy()
     hybrid = make_hybrid_root_fn(TG, apply_fn, cfg)(state).numpy()
@@ -238,22 +249,32 @@ def test_ladder_routes_each_model():
                        "resnet": "make_hybrid_root_fn"}
 
 
-@pytest.mark.parametrize("hidden", [(300,), (32,) * 5], ids=["wide", "deep"])
+@pytest.mark.parametrize("hidden", [(300,), (32,) * 5, (512, 512), ()],
+                         ids=["wide", "deep", "wide512", "no_hidden"])
 def test_widths_the_kernel_does_not_take_raise(hidden):
-    """The in-kernel evaluator's wrappers raise for widths it does not
-    take; the engine ladder declines the fused kernel for them and runs
-    the hybrid engine instead."""
+    """MLPs past the resident/staged evaluator plan (wider than 256 units,
+    deeper than 4 hidden layers, no hidden layer) no longer raise (the test
+    keeps the name it had while they did): the wrappers route them to the
+    streamed evaluator (``fused_mlp_stream``, ``mlp_eval_stream``; on CPU
+    tensors the plain versions, which they equal, launching nothing), and
+    the engine ladder runs them on the fused engine, as the JAX ladder
+    does."""
     _, apply_fn = _port(hidden, seed=0)
     weights = apply_fn.kernel_eval_factory(FLAT)
     boards = _flat(random_boards(4, 6, seed=1))
     p = torch.where(FLAT.valid(boards), 1.0 / 7, -1e30)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.fused_mlp(boards, p, weights, 8, 9, 48, 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        kernels.mlp_eval(boards, weights)
-    assert make_fused_root_fn(TG, apply_fn, MCTSConfig(num_sims=8)) is None
+    kernels.reset_launch_counts()
+    got = kernels.fused_mlp(boards, p, weights, 8, 9, 48, 1.0)
+    want = fused_mlp_search(boards, p, MCTSConfig(num_sims=8, max_depth=48), weights)
+    assert all(torch.equal(g, r) for g, r in zip(got, want))
+    pm, value, logits = kernels.mlp_eval(boards, weights)
+    ref_logits, ref_value = mlp_forward(boards, weights)
+    assert torch.equal(logits, ref_logits) and torch.equal(value, ref_value)
+    assert torch.equal(pm, mlp_prior(ref_logits, FLAT.valid(boards)))
+    assert all(v == 0 for v in kernels.launch_counts().values())
+    assert make_fused_root_fn(TG, apply_fn, MCTSConfig(num_sims=8)) is not None
     root_counts = _make_root_counts_fn(TG, apply_fn, MCTSConfig(num_sims=8))
-    assert root_counts.__qualname__.startswith("make_hybrid_root_fn.")
+    assert root_counts.__qualname__.startswith("make_fused_root_fn.")
     counts = root_counts(torch_state(random_boards(4, 6, seed=1)))
     assert (counts.sum(dim=1) == 8).all()
 
@@ -284,5 +305,5 @@ def test_wrappers_route_cpu_to_plain_and_check_the_weights():
         kernels.fused_mlp(boards, p, w._replace(b=(w.b[0][:16], w.b[1])), 8, 9, 48, 1.0)
     with pytest.raises(ValueError, match="weight section 4: expected a contiguous"):
         kernels.mlp_eval(boards, w._replace(wh=w.wh.t().contiguous().t()))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="weight section 2: expected shape"):
         kernels.mlp_eval(boards, w._replace(hidden=(32, 300)))
